@@ -1,0 +1,78 @@
+"""Convolution-family modules (NCHW) of the port.
+
+Counterparts of spectrogram_yolov11_tpu/nn/modules/conv.py: autopad, Conv
+(:190), DWConv (:255), Concat, Upsample. Attribute names (`conv`, `bn`) match
+the JAX modules so the weight bridge maps names mechanically. BN eps is 1e-3,
+as in the JAX package, not torch's default 1e-5.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-3
+
+
+def autopad(k, p=None, d=1):
+    """'same'-shape padding for odd kernels."""
+    if d > 1:
+        k = d * (k - 1) + 1 if isinstance(k, int) else [d * (x - 1) + 1 for x in k]
+    if p is None:
+        p = k // 2 if isinstance(k, int) else [x // 2 for x in k]
+    return p
+
+
+class Conv(nn.Module):
+    """conv2d (no bias) + BatchNorm (eps 1e-3) + SiLU (or identity with act=False)."""
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, p: Optional[int] = None, g: int = 1, d: int = 1, act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS)
+        self.act = nn.SiLU() if act is True else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.bn(self.conv(x)))
+
+    def folded(self):
+        """(weight OIHW, bias) with the eval-mode BN folded into the conv."""
+        bn = self.bn
+        scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+        w = self.conv.weight * scale[:, None, None, None]
+        return w, bn.bias - bn.running_mean * scale
+
+
+class DWConv(Conv):
+    """Depthwise Conv: groups = gcd(c1, c2)."""
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, d: int = 1, act: bool = True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
+
+
+class Concat(nn.Module):
+    """Concatenate a list of NCHW tensors along `dimension` (channels)."""
+
+    def __init__(self, dimension: int = 1):
+        super().__init__()
+        self.d = dimension
+
+    def forward(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        return torch.cat(xs, self.d)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour upsampling by an integer factor (nn.Upsample in the yamls)."""
+
+    def __init__(self, size=None, scale_factor: float = 2.0, mode: str = "nearest"):
+        super().__init__()
+        if size is not None or mode != "nearest" or scale_factor != int(scale_factor):
+            raise NotImplementedError("only nearest upsampling by an integer factor is ported")
+        self.scale = int(scale_factor)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.interpolate(x, scale_factor=self.scale, mode="nearest")

@@ -1,0 +1,160 @@
+"""Model dict -> network graph, and the detection model of the port.
+
+Counterpart of spectrogram_yolov11_tpu/nn/tasks.py: parse_model (:232), the
+YOLOGraph routing (:379), DetectionModel and build_model, restricted to the
+modules the trained spectrogram detector and the stock YOLO11 detect models
+use. Scaling matches the JAX parse_model: channels make_divisible(min(c,
+max_channels) * width, 8), repeats max(round(n * depth), 1). Any other module
+name raises KeyError.
+
+The model is built from a dict (a checkpoint's `model_yaml`), so the port
+needs no YAML parser.
+"""
+
+from __future__ import annotations
+
+import ast
+import contextlib
+import copy
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..utils import make_divisible
+from ..utils.jax_compat import variables_to_state_dict
+from . import modules as M
+
+MODULE_REGISTRY: Dict[str, type] = {
+    "Conv": M.Conv,
+    "DWConv": M.DWConv,
+    "Bottleneck": M.Bottleneck,
+    "C3k": M.C3k,
+    "C3k2": M.C3k2,
+    "SPPF": M.SPPF,
+    "C2PSA": M.C2PSA,
+    "HCoordAtt": M.HCoordAtt,
+    "Concat": M.Concat,
+    "nn.Upsample": M.Upsample,
+    "Detect": M.Detect,
+}
+BASE_MODULES = {M.Conv, M.DWConv, M.Bottleneck, M.C3k, M.C3k2, M.SPPF, M.C2PSA, M.HCoordAtt}
+REPEAT_MODULES = {M.C3k, M.C3k2, M.C2PSA}
+SCALE_SENSITIVE = {M.C3k2}  # args[3] (c3k) flips on m/l/x scales
+
+
+def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]]:
+    """Returns (layers, their `from` routes, sorted save list)."""
+    legacy = True
+    max_channels = float("inf")
+    nc, scales = d.get("nc"), d.get("scales")
+    depth, width = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0)
+    scale = d.get("scale")
+    if scales:
+        scale = scale or tuple(scales.keys())[0]
+        depth, width, max_channels = scales[scale]
+
+    eval_ctx = {"nc": nc}
+    ch_list = [ch]
+    layers: List[nn.Module] = []
+    routes: List[Any] = []
+    save: List[int] = []
+    for i, (f, n, m, args) in enumerate(d["backbone"] + d["head"]):
+        if m not in MODULE_REGISTRY:
+            raise KeyError(f"Unknown module '{m}' in model dict (layer {i}). Known: {sorted(MODULE_REGISTRY)}")
+        cls = MODULE_REGISTRY[m]
+        args = list(args)
+        for j, a in enumerate(args):
+            if isinstance(a, str):
+                if a in eval_ctx:
+                    args[j] = eval_ctx[a]
+                else:
+                    with contextlib.suppress(ValueError, SyntaxError):
+                        args[j] = ast.literal_eval(a)
+        n = max(round(n * depth), 1) if n > 1 else n
+        kwargs: Dict[str, Any] = {}
+        if cls in BASE_MODULES:
+            c1, c2 = ch_list[f], args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c1, c2, *args[1:]]
+            if cls in REPEAT_MODULES:
+                args.insert(2, n)
+                n = 1
+            if cls in SCALE_SENSITIVE:
+                legacy = False
+                if scale in "mlx":
+                    if len(args) > 3:
+                        args[3] = True
+                    else:
+                        args.append(True)
+        elif cls is M.Concat:
+            c2 = sum(ch_list[x] for x in f)
+        elif cls is M.Detect:
+            args.append(tuple(ch_list[x] for x in f))
+            kwargs["legacy"] = legacy
+            c2 = None
+        else:  # Upsample
+            c2 = ch_list[f]
+
+        layer = nn.Sequential(*(cls(*args, **kwargs) for _ in range(n))) if n > 1 else cls(*args, **kwargs)
+        layers.append(layer)
+        routes.append(f)
+        save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
+        if i == 0:
+            ch_list = []
+        ch_list.append(c2)
+    return layers, routes, sorted(set(save))
+
+
+class DetectionModel(nn.Module):
+    """The detection network built from a model dict. Inference only: it is
+    built in eval mode, and `load_state_dict` folds the BN of every fused
+    bottleneck once, right after the weights land.
+
+    forward(x (B, 3, H, W) float) -> per-level (box, cls) logits, NCHW."""
+
+    def __init__(self, cfg: dict, ch: int = 3, nc: Optional[int] = None):
+        super().__init__()
+        self.yaml = copy.deepcopy(cfg)
+        if nc and nc != self.yaml.get("nc"):
+            self.yaml["nc"] = nc
+        self.nc = self.yaml["nc"]
+        layers, self.routes, self.save = parse_model(self.yaml, ch)
+        self.model = nn.ModuleList(layers)
+        self.eval()
+        self.fold()
+        s = 256  # dummy forward for the strides, as the JAX BaseModel does
+        with torch.no_grad():
+            feats = self.forward(torch.zeros(1, ch, s, s))
+        self.stride = tuple(s / box.shape[-2] for box, _ in feats)
+
+    def forward(self, x: torch.Tensor):
+        y: List[Optional[torch.Tensor]] = []
+        for i, (m, f) in enumerate(zip(self.model, self.routes)):
+            if f != -1:
+                x = y[f] if isinstance(f, int) else [x if j == -1 else y[j] for j in f]
+            x = m(x)
+            y.append(x if i in self.save else None)
+        return x
+
+    def fold(self) -> None:
+        """Fold BN into the weights of every fused bottleneck."""
+        for m in self.modules():
+            if isinstance(m, M.Bottleneck) and m.fusable:
+                m.fold()
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        result = super().load_state_dict(state_dict, strict=strict, assign=assign)
+        self.fold()
+        return result
+
+
+def build_model(cfg: dict, nc: Optional[int] = None, variables: Optional[dict] = None) -> DetectionModel:
+    """DetectionModel from a model dict; with `variables` (flax {params,
+    batch_stats} numpy trees) the weights are carried across by the bridge and
+    loaded with strict=True."""
+    model = DetectionModel(cfg, nc=nc)
+    if variables is not None:
+        model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    return model

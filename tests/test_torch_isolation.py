@@ -1,0 +1,53 @@
+"""The port stands alone, and runs on the card unless asked for the CPU.
+
+An AST scan shows that no file of spectrogram_yolov11_torch/ nor chip_smoke.py
+imports jax, flax, msgpack, yaml, cv2 or the JAX package; with no card, the
+entry points raise for the default device instead of running on the CPU.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from spectrogram_yolov11_torch.engine.pipeline import build_pipeline
+from spectrogram_yolov11_torch.utils import resolve_device
+
+ROOT = Path(__file__).resolve().parent.parent
+CKPT = ROOT / "runs_artifacts" / "spectrogram_yolo11n.ckpt"
+FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "yaml", "cv2", "spectrogram_yolov11_tpu"}
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def _port_files():
+    files = sorted((ROOT / "spectrogram_yolov11_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15 and all(f.exists() for f in files)
+    return files
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    bad = set(_imported_roots(path)) & FORBIDDEN
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_default_device_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build_pipeline(CKPT)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("meta")
