@@ -7,8 +7,8 @@ C2PSA (:264-357).
 
 C3k's inner bottlenecks are same-width 3x3 -> 3x3 residual blocks. In the
 inference forward they run as one fused CUDA kernel
-(ops/fused_conv.py:fused_bottleneck) on weights with BN folded in once, by
-`fold()` after the weights are loaded. C3k2's own Bottleneck keeps e=0.5, so
+(ops/fused_conv.py:fused_bottleneck) on weights with BN folded in and packed
+for the kernel once, by `fold()` after the weights are loaded. C3k2's own Bottleneck keeps e=0.5, so
 its two convs differ in width and it stays on the plain path.
 """
 
@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.fused_conv import fused_bottleneck
+from ...ops.fused_conv import fused_bottleneck, pack_bottleneck_weights
 from .conv import Conv
 
 
@@ -61,12 +61,13 @@ class Bottleneck(nn.Module):
 
     @torch.no_grad()
     def fold(self) -> None:
-        """Fold both BNs into the kernel's weights: HWIO flattened to (9, C, C)
-        (3-D, so a channels_last conversion of the model leaves them alone)."""
+        """Fold both BNs into the weights and pack them for the kernel
+        (ops/fused_conv.py:pack_bottleneck_weights), stored (18, C, C): 3-D, so
+        a channels_last conversion of the model leaves them alone."""
         (w1, b1), (w2, b2) = self.cv1.folded(), self.cv2.folded()
         c = w1.shape[0]
-        self.w1, self.b1 = w1.permute(2, 3, 1, 0).reshape(9, c, c).contiguous(), b1.contiguous()
-        self.w2, self.b2 = w2.permute(2, 3, 1, 0).reshape(9, c, c).contiguous(), b2.contiguous()
+        self.w1, self.b1 = pack_bottleneck_weights(w1.permute(2, 3, 1, 0)).view(18, c, c), b1.contiguous()
+        self.w2, self.b2 = pack_bottleneck_weights(w2.permute(2, 3, 1, 0)).view(18, c, c), b2.contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.fusable:
@@ -79,8 +80,8 @@ class Bottleneck(nn.Module):
         # NCHW -> NHWC: a view when the network runs channels_last (the pipeline
         # on the card), else one copy of x in and one of y out
         c = x.shape[1]
-        y = fused_bottleneck(x.permute(0, 2, 3, 1).contiguous(), self.w1.view(3, 3, c, c), self.b1,
-                             self.w2.view(3, 3, c, c), self.b2)
+        y = fused_bottleneck(x.permute(0, 2, 3, 1).contiguous(), self.w1.view(2, 9, c, c), self.b1,
+                             self.w2.view(2, 9, c, c), self.b2)
         return y.permute(0, 3, 1, 2)
 
 

@@ -5,16 +5,20 @@ Replaces spectrogram_yolov11_tpu/ops/pallas_nms.py:70 pallas_greedy_keep
 (kernel body `_nms_kernel`, :30) and is the suppression step of the port's
 NMS, in the place of the Jacobi fixpoint ops/nms.py:32 `_greedy_keep`.
 
-What bounds it on the H100: the greedy scan is a chain of k dependent steps,
-each of which decides whether candidate i survives before it may suppress
+What bounds it on the H100: the greedy scan is a chain of dependent steps,
+each of which decides whether a candidate survives before it may suppress
 later ones, so its time is latency, not bytes (k*(4*4+2) bytes in and out) or
 operations (k^2/2 pair tests). The design splits the work accordingly:
-  (a) mask: all k^2/2 IoU tests in parallel, grid (k/64 column blocks, k/64
-      row blocks, b), 64 threads; thread i sets bit j of one uint64 word when
-      j > i and IoU(i, j) > thres, into a (b, k, k/64) scratch;
-  (b) scan: one warp per image holds the k/64 <= 32 words of `removed` in
-      registers, one word a lane; step i reads bit i from its owner lane with a
-      shuffle and, if i is valid and not removed, ORs row i into `removed`.
+  (a) mask: the IoU tests of valid rows in parallel, grid (k/64 column blocks,
+      k/64 row blocks, b), 64 threads; thread i sets bit j of one uint64 word
+      when j > i is valid and IoU(i, j) > thres, into a (b, k, k/64) scratch.
+      Blocks left of the diagonal, or whose rows or columns are all invalid,
+      return at once;
+  (b) scan: one warp per image holds the k/64 <= 32 words of `valid` and of
+      `removed` in registers, one word a lane; a step jumps to the next
+      candidate that is valid and not removed (ballot and find-first-set),
+      keeps it and ORs its mask row into `removed`. The chain has one step
+      per kept box; `valid` need not be a prefix.
 The IoU repeats ops/iou.py:box_iou's operation order and the file is built
 with -fmad=false, so the mask equals the plain version's bit for bit even with
 the 7680-px class offsets on the boxes.
@@ -70,9 +74,10 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> t
     if b == 0:
         return keep
     lib = kernels.load("greedy_nms")
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = lib.greedy_nms_keep(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
-                              b, k, float(iou_thres), stream)
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        err = lib.greedy_nms_keep(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
+                                  b, k, float(iou_thres), stream)
     kernels.check(err, "greedy_nms_keep")
     greedy_keep.launches += 1
     return keep

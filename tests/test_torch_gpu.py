@@ -6,17 +6,23 @@ JAX), so on a machine with a card and without JAX it runs on its own:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: the bottleneck 1e-4 abs/rel (f32 FMAs summed in another order
-than cuDNN's, TF32 off); the keep mask and the pipeline's counts exactly.
+Tolerances: the bottleneck 1e-4 abs/rel (3xTF32 on the tensor cores summed in
+another order than cuDNN's f32, TF32 off); the keep mask and the pipeline's
+counts exactly; a whole network 1e-3 abs/rel, as the CPU model tests.
 """
 
+import copy
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from spectrogram_yolov11_torch.ops.fused_conv import bottleneck_reference, fused_bottleneck
+from spectrogram_yolov11_torch.ops.fused_conv import (
+    bottleneck_reference,
+    fused_bottleneck,
+    pack_bottleneck_weights,
+)
 from spectrogram_yolov11_torch.ops.nms_kernel import greedy_keep, greedy_keep_reference
 
 CKPT = Path(__file__).resolve().parent.parent / "runs_artifacts" / "spectrogram_yolo11n.ckpt"
@@ -30,24 +36,81 @@ def _card():
     return torch.device("cuda")
 
 
+def nms_edge_case(name: str, b: int, k: int, seed: int = 0):
+    """Score-sorted (b, k, 4) boxes with the 7680-px class offset and a (b, k)
+    valid mask for the keep-mask edge cases; numpy f32 / bool."""
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 2, (b, k, 1)) * 7680.0
+    if name == "no_overlap":  # disjoint 10-px boxes on a grid: every valid box kept
+        i = np.arange(k)
+        xy = np.stack([(i % 64) * 20.0, (i // 64) * 20.0], -1)[None].repeat(b, 0)
+        boxes = np.concatenate([xy, xy + 10.0], -1) + cls
+    elif name == "chain":  # IoU 0.79 with a neighbour, 0.61 two apart: A removes B, so C survives
+        x0 = np.arange(k) * 1.2
+        boxes = np.stack([x0, np.zeros(k), x0 + 10.0, np.full(k, 10.0)], -1)[None].repeat(b, 0)
+    else:  # clustered boxes, many overlaps
+        centers = rng.uniform(50, 600, (b, 16, 2))
+        cxy = np.take_along_axis(centers, rng.integers(0, 16, (b, k))[..., None], 1) + rng.normal(0, 4, (b, k, 2))
+        wh = rng.uniform(40, 60, (b, k, 2))
+        boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1) + cls
+    if name == "all_invalid":
+        valid = np.zeros((b, k), bool)
+    elif name in ("no_overlap", "chain"):
+        valid = np.ones((b, k), bool)
+    elif name == "prefix":
+        valid = np.arange(k)[None] < rng.integers(0, k + 1, (b, 1))
+    else:  # random holes: `valid` is not a prefix
+        valid = rng.uniform(size=(b, k)) > 0.3
+    return boxes.astype(np.float32), valid
+
+
+NMS_CASES = ("all_invalid", "no_overlap", "chain", "prefix", "holes")
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("c,h,w,b", [(32, 40, 40, 4), (64, 20, 20, 4), (32, 11, 13, 2), (64, 7, 9, 3), (32, 1, 1, 1)])
+@pytest.mark.parametrize("c,h,w,b", [
+    (32, 40, 40, 4), (32, 11, 13, 2), (32, 1, 1, 1), (32, 40, 40, 32),
+    (64, 20, 20, 4), (64, 7, 9, 3), (64, 1, 1, 1), (64, 20, 20, 40),
+    (128, 40, 40, 2), (128, 11, 13, 2), (128, 1, 1, 1), (128, 20, 20, 40),
+])
 def test_fused_bottleneck_kernel(c, h, w, b):
+    """Ragged tiles, 1x1, and batches whose tiles outnumber the resident CTAs
+    (the persistent grid wraps), through the HWIO form and the fold pack."""
     dev = _card()
-    rng = np.random.default_rng(c + h + w)
-    args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+    rng = np.random.default_rng(c + h + w + b)
+    x, w1, b1, w2, b2 = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
         rng.normal(0, 1, (b, h, w, c)), rng.normal(0, 0.05, (3, 3, c, c)), rng.normal(0, 0.1, c),
         rng.normal(0, 0.05, (3, 3, c, c)), rng.normal(0, 0.1, c))]
+    ref = bottleneck_reference(x, w1, b1, w2, b2)
     n0 = fused_bottleneck.launches
-    got = fused_bottleneck(*args)
+    got_hwio = fused_bottleneck(x, w1, b1, w2, b2)
+    got_pack = fused_bottleneck(x, pack_bottleneck_weights(w1), b1, pack_bottleneck_weights(w2), b2)
     torch.cuda.synchronize()
-    assert fused_bottleneck.launches == n0 + 1
-    torch.testing.assert_close(got, bottleneck_reference(*args), atol=1e-4, rtol=1e-4)
+    assert fused_bottleneck.launches == n0 + 2
+    torch.testing.assert_close(got_hwio, ref, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got_pack, got_hwio)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 512, 2048])
+@pytest.mark.parametrize("case", NMS_CASES)
+def test_greedy_keep_kernel(case, k):
+    dev = _card()
+    boxes, valid = nms_edge_case(case, 64, k, seed=k)
+    bt, vt = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+    n0 = greedy_keep.launches
+    got = greedy_keep(bt, vt, 0.7)
+    torch.cuda.synchronize()
+    assert greedy_keep.launches == n0 + 1
+    ref = greedy_keep_reference(bt, vt, 0.7)
+    assert torch.equal(got, ref)
+    if case in ("all_invalid", "no_overlap"):
+        assert torch.equal(got, vt)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 100, 512, 1024, 2048])
-def test_greedy_keep_kernel(k):
+def test_greedy_keep_kernel_stress(k):
     dev = _card()
     rng = np.random.default_rng(k)
     b = 3
@@ -70,9 +133,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         greedy_keep(torch.zeros(1, 2049, 4, device=dev), torch.zeros(1, 2049, dtype=torch.bool, device=dev), 0.7)
     with pytest.raises(ValueError):
         greedy_keep(torch.zeros(1, 8, 4, device=dev, dtype=torch.float64), torch.zeros(1, 8, dtype=torch.bool, device=dev), 0.7)
-    w, bias = torch.zeros(3, 3, 48, 48, device=dev), torch.zeros(48, device=dev)
-    with pytest.raises(ValueError):
-        fused_bottleneck(torch.zeros(1, 4, 4, 48, device=dev), w, bias, w, bias)
+    for c in (48, 96, 192):  # the scale-x widths
+        w, bias = torch.zeros(3, 3, c, c, device=dev), torch.zeros(c, device=dev)
+        with pytest.raises(ValueError, match=f"C={c}"):
+            fused_bottleneck(torch.zeros(1, 4, 4, c, device=dev), w, bias, w, bias)
     x = torch.zeros(1, 4, 4, 32, device=dev).permute(0, 2, 1, 3)  # not contiguous
     w, bias = torch.zeros(3, 3, 32, 32, device=dev), torch.zeros(32, device=dev)
     with pytest.raises(ValueError):
@@ -96,3 +160,30 @@ def test_pipeline_on_card_matches_cpu():
     assert torch.equal(n_g.cpu(), n_c) and int(n_c.sum()) > 0
     assert torch.equal(out_g[..., 5].cpu(), out_c[..., 5])
     torch.testing.assert_close(out_g[..., :5].cpu(), out_c[..., :5], atol=1e-2, rtol=0)
+
+
+@pytest.mark.gpu
+def test_scale_s_forward_on_card_matches_cpu():
+    """The trained checkpoint's model dict at scale s (C3k widths 64 and 128),
+    default init, folded: the card's forward runs the kernel 6 times and
+    matches the CPU forward."""
+    dev = _card()
+    from spectrogram_yolov11_torch.engine.checkpoint import load_checkpoint
+    from spectrogram_yolov11_torch.nn.tasks import build_model
+
+    _, meta = load_checkpoint(CKPT)
+    torch.manual_seed(0)
+    model = build_model(dict(meta["model_yaml"], scale="s"), nc=meta["nc"])
+    widths = sorted({m.b1.numel() for m in model.modules() if getattr(m, "fusable", False)})
+    assert widths == [64, 128]
+    model_g = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+    x = torch.from_numpy(np.random.default_rng(7).uniform(0, 1, (2, 3, 320, 320)).astype(np.float32))
+    n0 = fused_bottleneck.launches
+    with torch.inference_mode():
+        got = model_g(x.to(dev).contiguous(memory_format=torch.channels_last))
+        torch.cuda.synchronize()
+        ref = model(x)
+    assert fused_bottleneck.launches - n0 == 6
+    for (gb, gc), (rb, rc) in zip(got, ref):
+        torch.testing.assert_close(gb.cpu(), rb, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(gc.cpu(), rc, atol=1e-3, rtol=1e-3)

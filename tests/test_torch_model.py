@@ -59,7 +59,7 @@ def test_trained_model_structure(trained):
     assert tm.stride == (8.0, 16.0, 32.0) == tuple(float(s) for s in jm.stride)
     fused = [m for m in tm.modules() if getattr(m, "fusable", False)]
     # layers 6, 8 and 25: one C3k each, two same-width bottlenecks per C3k
-    assert [m.w1.shape for m in fused] == [(9, 32, 32)] * 2 + [(9, 64, 64)] * 4
+    assert [m.w1.shape for m in fused] == [(18, 32, 32)] * 2 + [(18, 64, 64)] * 4  # hi|lo x 9 taps
     assert sum(p.numel() for p in tm.parameters()) == sum(
         int(np.prod(p.shape)) for p in jax.tree_util.tree_leaves(trained[2]["params"]))
 
