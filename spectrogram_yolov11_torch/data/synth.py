@@ -1,8 +1,7 @@
 """Seeded synthetic LTE/RF spectrogram frames.
 
-Copies of spectrogram_yolov11_tpu/data/synth.py:207 _synth_iq and
-spectrogram_yolov11_tpu/ops/stft.py:127 spectrogram_numpy (numpy only), and a
-frame maker in the place of the JAX package's cv2 resize: the (F, T)
+A copy of spectrogram_yolov11_tpu/data/synth.py:207 _synth_iq (numpy only),
+and a frame maker in the place of the JAX package's cv2 resize: the (F, T)
 spectrogram is resized with F.interpolate(bilinear, align_corners=False).
 """
 
@@ -11,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops.stft import spectrogram_numpy
 
 
 def synth_iq(rng: np.random.Generator, n_samples: int):
@@ -45,17 +46,6 @@ def synth_iq(rng: np.random.Generator, n_samples: int):
         f0, f1 = max(f_center - bw / 2 - 0.005, 0.0), min(f_center + bw / 2 + 0.005, 1.0)
         events.append((cls, t0, t1, f0, f1))
     return iq, events
-
-
-def spectrogram_numpy(iq: np.ndarray, n_fft: int = 512, hop: int = 256) -> np.ndarray:
-    """(N,) complex -> (F, T) log-power spectrogram, fftshifted, min-max to [0, 1]."""
-    frames = 1 + (len(iq) - n_fft) // hop
-    idx = np.arange(frames)[:, None] * hop + np.arange(n_fft)[None, :]
-    win = np.hanning(n_fft).astype(np.float32)
-    power = np.log10(np.abs(np.fft.fft(iq[idx] * win, axis=-1)) ** 2 + 1e-10)
-    img = np.fft.fftshift(power, axes=-1).T
-    img = (img - img.min()) / (img.max() - img.min() + 1e-6)
-    return img.astype(np.float32)
 
 
 def synth_frames(n: int, height: int, width: int, seed: int = 0, n_fft: int = 256, hop: int = 128) -> np.ndarray:

@@ -6,8 +6,14 @@ request runs once per batch):
   2. broadcast gray to 3 channels, flip BGR -> RGB, divide by 255;
   3. forward (the fused bottleneck kernel runs inside C3k);
   4. DFL decode;
-  5. class-offset greedy NMS (the NMS kernel), conf 0.25, iou 0.7,
-     max_det 300, pre_nms_topk 512.
+  5. class-offset greedy NMS (the NMS kernel); build_pipeline runs it at
+     conf 0.25, iou 0.7, max_det 300, pre_nms_topk 512, the predictor at its
+     arguments (pre_nms_topk 1024 by default).
+
+`build_device_fn` is steps 2-5 for frames already letterboxed to S x S; the
+predictor (engine/predictor.py) letterboxes any frame sizes on the card
+(data/augment.py) and calls it, and `build_pipeline` pads frames of one known
+size and calls it.
 
 On the card the network runs channels_last: the NHWC input is viewed as NCHW
 for free, and so is every C3k activation handed to the fused bottleneck.
@@ -16,41 +22,60 @@ for free, and so is every C3k activation handed to the fused bottleneck.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..data.augment import letterbox_geometry
 from ..nn.tasks import DetectionModel, build_model
 from ..ops.decode import decode_detections
 from ..ops.nms import non_max_suppression
-from ..utils import resolve_device
+from ..utils import full_f32, resolve_device
 from .checkpoint import load_checkpoint
 
 CONF_THRES, IOU_THRES, MAX_DET, PRE_NMS_TOPK = 0.25, 0.7, 300, 512
 
 
-def letterbox_geometry(imgsz: int, src_hw: Tuple[int, int]) -> Tuple[int, int, int, int]:
-    """(nh, nw, top, left) of a src_hw frame letterboxed into imgsz x imgsz."""
-    src_h, src_w = src_hw
-    r = min(imgsz / src_h, imgsz / src_w)
-    nh, nw = int(round(src_h * r)), int(round(src_w * r))
-    top = int(round((imgsz - nh) / 2 - 0.1))
-    left = int(round((imgsz - nw) / 2 - 0.1))
-    return nh, nw, top, left
+def load_model(ckpt: str | Path) -> Tuple[DetectionModel, dict]:
+    """A checkpoint's detection model on the host (EMA weights before the raw
+    ones, BN folded for the bottleneck kernel) and its metadata."""
+    tree, meta = load_checkpoint(ckpt)
+    return build_model(meta["model_yaml"], nc=meta.get("nc"), variables=tree.get("ema") or tree["variables"]), meta
+
+
+def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
+                    classes: Optional[Sequence[int]] = None, agnostic: bool = False,
+                    pre_nms_topk: int = PRE_NMS_TOPK) -> Callable:
+    """The device function of a predict or serve batch: fn(uint8 (B, S, S, 1|3)
+    letterboxed frames on the model's device) -> (out (B, max_det, 6), n (B,)),
+    rows [x1, y1, x2, y2, conf, cls] in the JAX layout. Steps 2-5 above, in
+    full f32 (utils.full_f32: the DFL decode is a matmul)."""
+    classes = None if classes is None else [classes] if isinstance(classes, int) else list(classes)
+
+    @torch.inference_mode()
+    @full_f32()
+    def fn(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        rgb = frames.expand(-1, -1, -1, 3).flip(-1).float() / 255.0  # gray broadcast, BGR -> RGB
+        feats = model(rgb.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
+        preds = decode_detections(feats, model.nc, model.stride)
+        return non_max_suppression(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, max_det=max_det,
+                                   pre_nms_topk=pre_nms_topk, classes=classes, agnostic=agnostic)
+
+    return fn
 
 
 def build_pipeline(
     ckpt: str | Path, device: str | torch.device = "cuda", imgsz: int = 640, src_hw: Tuple[int, int] = (720, 1280)
 ) -> Tuple[Callable, DetectionModel, int, int]:
     """Returns (fn, model, nh, nw); fn(uint8 (B, nh, nw, 1|3)) -> (out (B, 300, 6), n (B,)),
-    rows [x1, y1, x2, y2, conf, cls] in the JAX layout. Raises without a card
-    unless device='cpu'."""
+    rows [x1, y1, x2, y2, conf, cls] in the JAX layout, at the settings of
+    step 5. Raises without a card unless device='cpu'."""
     dev = resolve_device(device)
-    tree, meta = load_checkpoint(ckpt)
-    model = build_model(meta["model_yaml"], nc=meta.get("nc"), variables=tree.get("ema") or tree["variables"])
+    model, _ = load_model(ckpt)
     model = model.to(dev, memory_format=torch.channels_last) if dev.type == "cuda" else model
     nh, nw, top, left = letterbox_geometry(imgsz, src_hw)
+    device_fn = build_device_fn(model)
 
     @torch.inference_mode()
     def fn(frames) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,10 +84,6 @@ def build_pipeline(
             raise ValueError(f"expected uint8 frames (B, {nh}, {nw}, 1|3), got {x.dtype} {tuple(x.shape)}")
         full = torch.full((x.shape[0], imgsz, imgsz, x.shape[3]), 114, dtype=torch.uint8, device=dev)
         full[:, top : top + nh, left : left + nw] = x
-        rgb = full.expand(-1, -1, -1, 3).flip(-1).float() / 255.0  # gray broadcast, BGR -> RGB
-        feats = model(rgb.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
-        preds = decode_detections(feats, model.nc, model.stride)
-        return non_max_suppression(preds, conf_thres=CONF_THRES, iou_thres=IOU_THRES, nc=model.nc,
-                                   max_det=MAX_DET, pre_nms_topk=PRE_NMS_TOPK)
+        return device_fn(full)
 
     return fn, model, nh, nw

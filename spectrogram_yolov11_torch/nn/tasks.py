@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..utils import make_divisible
+from ..utils import full_f32, make_divisible
 from ..utils.jax_compat import variables_to_state_dict
 from . import modules as M
 
@@ -129,6 +129,7 @@ class DetectionModel(nn.Module):
             feats = self.forward(torch.zeros(1, ch, s, s))
         self.stride = tuple(s / box.shape[-2] for box, _ in feats)
 
+    @full_f32()
     def forward(self, x: torch.Tensor):
         y: List[Optional[torch.Tensor]] = []
         for i, (m, f) in enumerate(zip(self.model, self.routes)):

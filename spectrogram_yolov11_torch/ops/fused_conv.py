@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..utils import kernels
+from ..utils import full_f32, kernels
 
 CHANNELS = (32, 64, 128)
 
@@ -54,8 +54,10 @@ def unpack_bottleneck_weights(p: torch.Tensor) -> torch.Tensor:
     return (p[0] + p[1]).reshape(3, 3, c_out, c_in).permute(0, 1, 3, 2).contiguous()
 
 
+@full_f32()
 def bottleneck_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Plain version: two conv2d(padding=1) + bias + SiLU, then the residual."""
+    """Plain version: two conv2d(padding=1) + bias + SiLU, then the residual,
+    in full f32."""
     xc = x.permute(0, 3, 1, 2)
     y = F.silu(F.conv2d(xc, w1.permute(3, 2, 0, 1), b1, padding=1))
     y = F.silu(F.conv2d(y, w2.permute(3, 2, 0, 1), b2, padding=1)) + xc

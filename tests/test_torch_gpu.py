@@ -7,8 +7,11 @@ JAX), so on a machine with a card and without JAX it runs on its own:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: the bottleneck 1e-4 abs/rel (3xTF32 on the tensor cores summed in
-another order than cuDNN's f32, TF32 off); the keep mask and the pipeline's
-counts exactly; a whole network 1e-3 abs/rel, as the CPU model tests.
+another order than cuDNN's f32); the keep mask and the pipeline's counts
+exactly; a whole network 1e-3 abs/rel, as the CPU model tests. The tests leave
+torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
+plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
+TF32 on for cuDNN and matmul before it runs predict.
 """
 
 import copy
@@ -31,8 +34,6 @@ CKPT = Path(__file__).resolve().parent.parent / "runs_artifacts" / "spectrogram_
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -187,3 +188,128 @@ def test_scale_s_forward_on_card_matches_cpu():
     for (gb, gc), (rb, rc) in zip(got, ref):
         torch.testing.assert_close(gb.cpu(), rb, atol=1e-3, rtol=1e-3)
         torch.testing.assert_close(gc.cpu(), rc, atol=1e-3, rtol=1e-3)
+
+
+def _seeded_captures(n: int, seed: int) -> np.ndarray:
+    from spectrogram_yolov11_torch.data.synth import synth_iq
+
+    rng = np.random.default_rng(seed)
+    return np.stack([synth_iq(rng, 256 + 128 * 639)[0] for _ in range(n)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [4.0, 1e-10], ids=["eps4", "eps1e-10"])
+def test_stft_on_card_matches_cpu(eps):
+    """The predict configuration (n_fft 256, hop 128, 640 frames -> 640 x 640)
+    and a downsampling, colormapped one, at the default eps and a floored one:
+    the DFT runs in float64 on both, so they agree to 1e-5."""
+    dev = _card()
+    from spectrogram_yolov11_torch.ops.stft import iq_to_spectrogram
+
+    iq = _seeded_captures(4, seed=3)
+    for n_fft, hop, out_hw, cmap in ((256, 128, (640, 640), False), (256, 128, (200, 300), True)):
+        got = iq_to_spectrogram(iq, n_fft, hop, out_hw, cmap, eps=eps, device=dev)
+        ref = iq_to_spectrogram(iq, n_fft, hop, out_hw, cmap, eps=eps, device="cpu")
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_letterbox_on_card_equals_cpu():
+    dev = _card()
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+
+    rng = np.random.default_rng(0)
+    sizes = [(360, 640, 1), (720, 1280, 3), (720, 1280, 3), (500, 333, 3), (37, 53, 3), (640, 640, 3), (2000, 17, 3)]
+    frames = [rng.integers(0, 256, s, dtype=np.uint8) for s in sizes]
+    for imgsz in (96, 640):
+        got = letterbox_batch(frames, imgsz, dev)
+        assert got.device.type == "cuda" and got.shape == (len(frames), imgsz, imgsz, 3)
+        assert torch.equal(got.cpu(), letterbox_batch(frames, imgsz, torch.device("cpu")))
+    gray = [np.repeat(f[..., :1], 3, -1) for f in frames]
+    got = letterbox_batch(gray, 640, dev)
+    assert got.shape[-1] == 1 and torch.equal(got.cpu(), letterbox_batch(gray, 640, torch.device("cpu")))
+
+
+def _clear_of_thresholds(model, frames, imgsz: int, conf: float = 0.25, margin: float = 1e-3) -> bool:
+    """No class score within `margin` of conf and no IoU within `margin` of 0.7
+    among boxes that could pass conf, on the CPU model."""
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.iou import box_iou
+
+    x = letterbox_batch(frames, imgsz, torch.device("cpu"))
+    with torch.inference_mode():
+        preds = decode_detections(model(x.expand(-1, -1, -1, 3).flip(-1).float().div(255).permute(0, 3, 1, 2)),
+                                  model.nc, model.stride)
+    if (preds[..., 4:] - conf).abs().min() <= margin:
+        return False
+    for p in preds:
+        p = p[p[:, 4:].max(-1).values > conf - margin]
+        xyxy = torch.cat([p[:, :2] - p[:, 2:4] / 2, p[:, :2] + p[:, 2:4] / 2], -1)
+        if len(p) and (box_iou(xyxy, xyxy) - 0.7).abs().min() <= margin:
+            return False
+    return True
+
+
+@pytest.mark.gpu
+def test_predict_on_card_matches_cpu(tmp_path):
+    """YOLO(ckpt).predict on a .npy capture and on mixed-size arrays at 320 px:
+    the card runs 6 bottleneck and 1 NMS launches per batch and agrees with the
+    CPU run in counts and classes, conf to 1e-4 and boxes to 1e-2 px of the
+    letterboxed frame, on inputs with no score or IoU within 1e-3 of its
+    threshold (the card and the CPU give the same uint8 capture frames)."""
+    _card()
+    _predict_on_card_against_cpu(tmp_path)
+
+
+@pytest.mark.gpu
+def test_predict_runs_f32_with_tf32_turned_on(tmp_path):
+    """TF32 on for cuDNN and matmul in the process: predict still runs the
+    network in f32 and agrees with the CPU as above, and the process's
+    settings are as the caller set them after."""
+    _card()
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _predict_on_card_against_cpu(tmp_path)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _predict_on_card_against_cpu(tmp_path):
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.loaders import load_inference_source
+    from spectrogram_yolov11_torch.data.synth import synth_frames
+
+    imgsz = 320
+    gpu, cpu = YOLO(CKPT), YOLO(CKPT, device="cpu")
+    for seed in range(50):
+        np.save(tmp_path / "capture.npy", _seeded_captures(1, seed)[0])
+        [(_, frame, _)] = list(load_inference_source(str(tmp_path / "capture.npy"), device="cpu"))
+        if _clear_of_thresholds(cpu.model, [frame], imgsz):
+            break
+    else:
+        raise AssertionError("no capture seed in 0..49 is clear of the thresholds")
+    for seed in range(50):
+        arrays = [np.repeat(synth_frames(1, h, w, seed=4 * seed + i)[0], 3, -1) for i, (h, w) in
+                  enumerate([(360, 640), (720, 1280), (500, 333), (360, 640)])]
+        if _clear_of_thresholds(cpu.model, arrays, imgsz):
+            break
+    else:
+        raise AssertionError("no array seed in 0..49 is clear of the thresholds")
+    for source, batch in ((str(tmp_path / "capture.npy"), 1), (arrays, 4)):
+        fb, gk = fused_bottleneck.launches, greedy_keep.launches
+        got = gpu.predict(source, imgsz=imgsz, batch=batch)
+        assert (fused_bottleneck.launches - fb, greedy_keep.launches - gk) == (6, 1)
+        ref = cpu.predict(source, imgsz=imgsz, batch=batch)
+        assert gpu.device.startswith("cuda") and len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert len(g) == len(r)
+            np.testing.assert_array_equal(g.boxes.cls, r.boxes.cls)
+            np.testing.assert_allclose(g.boxes.conf, r.boxes.conf, atol=1e-4, rtol=0)
+            gain = min(imgsz / g.orig_shape[0], imgsz / g.orig_shape[1])
+            np.testing.assert_allclose(g.boxes.xyxy, r.boxes.xyxy, atol=1e-2 / gain, rtol=0)
+            np.testing.assert_array_equal(g.orig_img, r.orig_img)
+    assert sum(len(r) for r in got) > 0

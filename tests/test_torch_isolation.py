@@ -8,9 +8,11 @@ entry points raise for the default device instead of running on the CPU.
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from spectrogram_yolov11_torch import YOLO
 from spectrogram_yolov11_torch.engine.pipeline import build_pipeline
 from spectrogram_yolov11_torch.utils import resolve_device
 
@@ -46,6 +48,12 @@ def test_default_device_raises_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         build_pipeline(CKPT)
+    frame = np.zeros((32, 32, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        YOLO(CKPT).predict(frame)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        YOLO(CKPT, device="cuda").predict(frame, device="cuda:0")
+    assert len(YOLO(CKPT).predict(frame, device="cpu", imgsz=64)) == 1
     with pytest.raises(RuntimeError, match="no CUDA card"):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"

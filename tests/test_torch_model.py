@@ -82,3 +82,72 @@ def test_unknown_module_raises():
     cfg = {"nc": 2, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "RepC3", [16]]], "head": []}
     with pytest.raises(KeyError, match="RepC3"):
         build_model(cfg)
+
+
+def test_forward_and_plain_bottleneck_run_in_full_f32(trained, monkeypatch):
+    """The port's f32 policy (utils.full_f32): with TF32 turned on for cuDNN
+    and matmul, the network's forward and the plain bottleneck run with both
+    off, and the caller's settings come back after, also on an exception."""
+    from spectrogram_yolov11_torch.ops import fused_conv
+    from spectrogram_yolov11_torch.utils import full_f32
+
+    def flags():
+        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    tm, seen, silu = trained[0], [], torch.nn.functional.silu
+    monkeypatch.setattr(fused_conv.F, "silu", lambda *a, **k: (seen.append(("plain", flags())), silu(*a, **k))[1])
+    saved = flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        hook = tm.model[6].register_forward_pre_hook(lambda *_: seen.append(("forward", flags())))
+        with torch.inference_mode():
+            tm(torch.zeros(1, 3, 64, 64))
+        hook.remove()
+        assert ("forward", (False, False)) in seen and all(f == (False, False) for _, f in seen)
+        seen.clear()
+        w, b = torch.zeros(3, 3, 32, 32), torch.zeros(32)
+        fused_conv.bottleneck_reference(torch.zeros(1, 4, 4, 32), w, b, w, b)
+        assert seen == [("plain", (False, False))] * 2
+        assert flags() == (True, True)
+        with pytest.raises(RuntimeError, match="inside"):
+            with full_f32():
+                raise RuntimeError("inside")
+        assert flags() == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_full_f32_holds_for_concurrent_callers():
+    """Sixteen threads in and out of full_f32 at once, switching every
+    microsecond: each sees TF32 off inside, and the settings the process had
+    come back once the last one leaves."""
+    import sys
+    import threading
+
+    from spectrogram_yolov11_torch.utils import full_f32
+
+    def flags():
+        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    seen_on = []
+
+    def work():
+        for _ in range(300):
+            with full_f32():
+                if flags() != (False, False):
+                    seen_on.append(flags())
+
+    saved, interval = flags(), sys.getswitchinterval()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    threads = [threading.Thread(target=work) for _ in range(16)]
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert not seen_on and flags() == (True, True)
+    finally:
+        sys.setswitchinterval(interval)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
