@@ -44,6 +44,20 @@ Phases, each printing one JSON line, each fatal when it fails:
                the device function back to back at B = 1 and 32; last, how
                far the head's outputs move when the first capture's forward
                runs with TF32 on (what the f32 policy holds off)
+  8. half      the bf16 path (half=True): build_pipeline(ckpt, half=True); the
+               bf16 kernel against its plain version on the inputs that
+               pipeline hands the first bottleneck of layers 6 and 8 at B = 32,
+               and at 32x40x40x128 on seeded weights; the bf16 pipeline at
+               B = 1, 8, 32 with the counts set to 0 just before and read just
+               after (6 bf16 bottleneck and 1 NMS launches per call, no f32
+               bottleneck launch); times: each bf16 pipeline beside the f32 one
+               in turns, the kernel in turns with the cuDNN bf16 chain, its
+               plain version and its bound, and the profile at B = 32; then
+               YOLO(ckpt).predict(..., half=True) on the 4 captures at B = 1 and
+               the 32 arrays at batch 32, counted the same way, timed and split
+               by stage; the kernel at predict's B = 1 shapes; and on 2
+               captures the card's bf16 against the CPU's bf16 and the card's
+               f32 (decoded predictions of every anchor, and the detections)
 Then the `kernels` line and, last, {"ok": true, "device": {...}}. It exits
 non-zero, with no result line, when there is no card or the port is missing.
 """
@@ -62,6 +76,7 @@ CKPT = ROOT / "runs_artifacts" / "spectrogram_yolo11n.ckpt"
 # tensor cores (dense), HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 TF32_PASSES = 3  # the bottleneck runs 3xTF32: three tensor-core products per f32 product
 IOU_OPS = 14  # 4 min/max, 4 sub, 2 clamp, 1 mul, 2 add/sub, 1 div; the areas are per box
@@ -139,30 +154,116 @@ def keep_nhwc_input(captured: dict):
 
 def bottleneck_check(name: str, args) -> dict:
     """The fused bottleneck against its plain version on (x, w1 pack, b1, w2
-    pack, b2), at 1e-4 abs/rel."""
+    pack, b2), in x's dtype: f32 at 1e-4 abs/rel; bf16 with every element
+    within max|ref| * 2^-7 (two bf16 steps of the largest magnitude) and at
+    most 1 % of them unequal (a sum in another order flips the rounding of a
+    few intermediates)."""
     import torch
 
     from spectrogram_yolov11_torch.ops.fused_conv import (
         bottleneck_reference,
+        bottleneck_reference_bf16,
         fused_bottleneck,
         unpack_bottleneck_weights,
+        unpack_bottleneck_weights_bf16,
     )
 
     x, p1, b1, p2, b2 = args
-    plain_args = (x, unpack_bottleneck_weights(p1), b1, unpack_bottleneck_weights(p2), b2)
-    got, ref = fused_bottleneck(*args), bottleneck_reference(*plain_args)
+    bf16 = x.dtype == torch.bfloat16
+    unpack, plain = ((unpack_bottleneck_weights_bf16, bottleneck_reference_bf16) if bf16
+                     else (unpack_bottleneck_weights, bottleneck_reference))
+    plain_args = (x, unpack(p1), b1, unpack(p2), b2)
+    got, ref = fused_bottleneck(*args), plain(*plain_args)
     torch.cuda.synchronize()
+    ok = got.dtype == x.dtype
+    got, ref = got.float(), ref.float()
     err = (got - ref).abs()
-    ok = bool((err <= 1e-4 + 1e-4 * ref.abs()).all())
-    require(ok, f"fused bottleneck {name} disagrees with its plain version: max abs {float(err.max())}")
-    return dict(shape=list(x.shape), max_abs_err=float(err.max()),
-                max_rel_err=float((err / ref.abs().clamp_min(1e-3)).max()), ok=ok, args=args, plain_args=plain_args)
+    d = dict(shape=list(x.shape), max_abs_err=float(err.max()))
+    if bf16:
+        d.update(tolerance=float(ref.abs().max()) * 2.0**-7, unequal_share=float((err > 0).double().mean()))
+        ok = ok and d["max_abs_err"] <= d["tolerance"] and d["unequal_share"] <= 0.01
+    else:
+        d["max_rel_err"] = float((err / ref.abs().clamp_min(1e-3)).max())
+        ok = ok and bool((err <= 1e-4 + 1e-4 * ref.abs()).all())
+    require(ok, f"fused bottleneck {name} ({x.dtype}) disagrees with its plain version: {d}")
+    return dict(d, ok=ok, args=args, plain_args=plain_args)
+
+
+def bottleneck_times(name: str, d: dict) -> dict:
+    """The fused bottleneck (its form for x's dtype) on a check's inputs, in
+    turns with the cuDNN chain in the same dtype (conv + bias + SiLU twice,
+    + x, on the channels_last view the network holds); its plain version; and
+    its bound: 3xTF32 (f32) or bf16 on the tensor cores, against each input
+    read and each output written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from spectrogram_yolov11_torch.ops.fused_conv import (
+        bottleneck_reference,
+        bottleneck_reference_bf16,
+        fused_bottleneck,
+    )
+    from spectrogram_yolov11_torch.utils import full_f32
+
+    x, w1, b1, w2, b2 = d["plain_args"]
+    bf16 = x.dtype == torch.bfloat16
+    bsz, h, w, c = x.shape
+    xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view, as the network holds it
+    w1o, w2o = w1.permute(3, 2, 0, 1).contiguous(), w2.permute(3, 2, 0, 1).contiguous()
+    b1c, b2c = b1.to(x.dtype), b2.to(x.dtype)  # cuDNN takes the bias in x's dtype
+
+    @full_f32()
+    def cudnn_chain():
+        y = F.silu(F.conv2d(xc, w1o, b1c, padding=1))
+        return F.silu(F.conv2d(y, w2o, b2c, padding=1)) + xc
+
+    def kernel():
+        return fused_bottleneck(*d["args"])
+
+    plain = bottleneck_reference_bf16 if bf16 else bottleneck_reference
+    # the kernel and cuDNN in turns (cuDNN's algorithm choice varies between calls)
+    turns = [cuda_ms(f, iters=50) for f in (kernel, cudnn_chain, cudnn_chain, kernel)]
+    flops = 2 * 2 * 9 * bsz * h * w * c * c
+    nbytes = x.element_size() * (2 * x.numel() + w1.numel() + w2.numel()) + 4 * (b1.numel() + b2.numel())
+    tc_s = flops / PEAK_BF16_FLOPS if bf16 else TF32_PASSES * flops / PEAK_TF32_FLOPS
+    bytes_s = nbytes / PEAK_HBM_BYTES
+    ms = (turns[0] + turns[3]) / 2
+    out = dict(shape=[bsz, h, w, c], launches_per_forward={"layer6": 2, "layer8": 4, "c128": 0}[name],
+               ms=ms, library_ms=(turns[1] + turns[2]) / 2, turns_kernel_lib_lib_kernel=turns,
+               plain_ms=cuda_ms(lambda: plain(*d["plain_args"]), iters=50), flops=flops, bytes=nbytes,
+               bound_ms=max(tc_s, bytes_s) * 1e3,
+               bound_by=f"operations, {'bf16' if bf16 else '3xTF32'} on the tensor cores" if tc_s >= bytes_s else "bytes")
+    out["share_of_bound"] = out["bound_ms"] / ms
+    if not bf16:  # f32 could run on the CUDA cores too
+        f32_s = max(flops / PEAK_F32_FLOPS, bytes_s)
+        out.update(bound_f32_cuda_cores_ms=f32_s * 1e3, share_of_f32_cuda_core_bound=f32_s * 1e3 / ms)
+    if name == "c128":
+        out["note"] = "the C3k width of scales s, m and l; not on the main path"
+    return out
 
 
 def layer_case(mod, x):
-    """(x, w1 pack, b1, w2 pack, b2) of a folded bottleneck at input x."""
+    """(x, w1 pack, b1, w2 pack, b2) of a folded bottleneck at input x; the
+    f32 pack is stored (18, C, C), the bf16 one (9, C, C)."""
+    import torch
+
     c = x.shape[-1]
-    return x, mod.w1.view(2, 9, c, c), mod.b1, mod.w2.view(2, 9, c, c), mod.b2
+    w1, w2 = (w.view(2, 9, c, c) if w.dtype == torch.float32 else w for w in (mod.w1, mod.w2))
+    return x, w1, mod.b1, w2, mod.b2
+
+
+def c128_case(dtype):
+    """(x, w1 pack, b1, w2 pack, b2) at 32x40x40x128 (the C3k width of scales
+    s, m and l) on seeded weights, x and the packs for the kernel of `dtype`."""
+    import torch
+
+    from spectrogram_yolov11_torch.ops.fused_conv import pack_bottleneck_weights, pack_bottleneck_weights_bf16
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x, w1, b1, w2, b2 = (torch.randn(shape, generator=g, device="cuda") * scale for shape, scale in (
+        ((32, 40, 40, 128), 1.0), ((3, 3, 128, 128), 0.05), ((128,), 0.1), ((3, 3, 128, 128), 0.05), ((128,), 0.1)))
+    pack = pack_bottleneck_weights_bf16 if dtype == torch.bfloat16 else pack_bottleneck_weights
+    return x.to(dtype), pack(w1), b1, pack(w2), b2
 
 
 def phase_kernels(fn, model, frames_dev):
@@ -170,7 +271,6 @@ def phase_kernels(fn, model, frames_dev):
     import torch
 
     from spectrogram_yolov11_torch.ops.decode import decode_detections
-    from spectrogram_yolov11_torch.ops.fused_conv import pack_bottleneck_weights
     from spectrogram_yolov11_torch.ops.nms import nms_candidates
     from spectrogram_yolov11_torch.ops.nms_kernel import greedy_keep, greedy_keep_reference
 
@@ -190,10 +290,7 @@ def phase_kernels(fn, model, frames_dev):
     # (x, w1 pack, b1, w2 pack, b2): the layers' folded packs, and C = 128
     # (the scale s/m/l width) on seeded weights
     cases = {f"layer{layer}": layer_case(mod, captured[mod]) for layer, mod in firsts.items()}
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x, w1, b1, w2, b2 = (torch.randn(shape, generator=g, device="cuda") * scale for shape, scale in (
-        ((32, 40, 40, 128), 1.0), ((3, 3, 128, 128), 0.05), ((128,), 0.1), ((3, 3, 128, 128), 0.05), ((128,), 0.1)))
-    cases["c128"] = (x, pack_bottleneck_weights(w1), b1, pack_bottleneck_weights(w2), b2)
+    cases["c128"] = c128_case(torch.float32)
     bottleneck = {name: bottleneck_check(name, args) for name, args in cases.items()}
     require([bottleneck[n]["shape"] for n in ("layer6", "layer8", "c128")]
             == [[32, 40, 40, 32], [32, 20, 20, 64], [32, 40, 40, 128]],
@@ -228,13 +325,14 @@ def phase_pipeline(fn, model, frames_dev, frames_np):
     import torch
 
     from spectrogram_yolov11_torch.engine.pipeline import build_pipeline
-    from spectrogram_yolov11_torch.ops.fused_conv import fused_bottleneck
+    from spectrogram_yolov11_torch.ops.fused_conv import fused_bottleneck, fused_bottleneck_bf16
     from spectrogram_yolov11_torch.ops.nms_kernel import greedy_keep
 
-    fused_bottleneck.launches = greedy_keep.launches = 0
+    fused_bottleneck.launches = fused_bottleneck_bf16.launches = greedy_keep.launches = 0
     results = {bs: fn(frames_dev[:bs]) for bs in BATCHES}
     torch.cuda.synchronize()
     launches = {"fused_bottleneck": fused_bottleneck.launches, "greedy_keep": greedy_keep.launches}
+    require(fused_bottleneck_bf16.launches == 0, "the f32 pipeline launched the bf16 bottleneck kernel")
     per_image = {bs: n.tolist() for bs, (out, n) in results.items()}
     out_max, n_max = results[BATCHES[-1]]
     require(out_max.shape == (BATCHES[-1], 300, 6) and bool(torch.isfinite(out_max).all()), "pipeline output malformed")
@@ -257,12 +355,7 @@ def phase_pipeline(fn, model, frames_dev, frames_np):
 
 
 def phase_times(fn, frames_dev, bottleneck, nms_trained):
-    import torch
-    import torch.nn.functional as F
-
-    from spectrogram_yolov11_torch.ops.fused_conv import bottleneck_reference, fused_bottleneck
     from spectrogram_yolov11_torch.ops.nms_kernel import greedy_keep
-    from spectrogram_yolov11_torch.utils import full_f32
 
     pipeline = {}
     for bs in BATCHES:
@@ -270,41 +363,8 @@ def phase_times(fn, frames_dev, bottleneck, nms_trained):
         ms = cuda_ms(lambda: fn(x), iters=20)
         pipeline[bs] = {"ms_per_batch": ms, "img_per_s": bs / ms * 1e3}
 
-    shapes = {}
-    for name, d in bottleneck.items():
-        x, w1, b1, w2, b2 = d["plain_args"]
-        bsz, h, w, c = x.shape
-        xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view, as the network holds it
-        w1o, w2o = w1.permute(3, 2, 0, 1).contiguous(), w2.permute(3, 2, 0, 1).contiguous()
-
-        @full_f32()
-        def cudnn_chain():
-            y = F.silu(F.conv2d(xc, w1o, b1, padding=1))
-            return F.silu(F.conv2d(y, w2o, b2, padding=1)) + xc
-
-        def kernel():
-            return fused_bottleneck(*d["args"])
-
-        # the kernel and cuDNN in turns (cuDNN's algorithm choice varies between calls)
-        turns = [cuda_ms(f, iters=50) for f in (kernel, cudnn_chain, cudnn_chain, kernel)]
-        flops = 2 * 2 * 9 * bsz * h * w * c * c
-        nbytes = 4 * (2 * x.numel() + w1.numel() + w2.numel() + b1.numel() + b2.numel())
-        tc_s, f32_s, bytes_s = TF32_PASSES * flops / PEAK_TF32_FLOPS, flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-        shapes[name] = dict(
-            shape=[bsz, h, w, c],
-            launches_per_forward={"layer6": 2, "layer8": 4, "c128": 0}[name],
-            ms=(turns[0] + turns[3]) / 2, library_ms=(turns[1] + turns[2]) / 2, turns_kernel_lib_lib_kernel=turns,
-            plain_ms=cuda_ms(lambda: bottleneck_reference(*d["plain_args"]), iters=50),
-            flops=flops, bytes=nbytes,
-            bound_ms=max(tc_s, bytes_s) * 1e3,
-            bound_by="operations, 3xTF32 on the tensor cores" if tc_s >= bytes_s else "bytes",
-            bound_f32_cuda_cores_ms=max(f32_s, bytes_s) * 1e3,
-        )
+    shapes = {name: bottleneck_times(name, d) for name, d in bottleneck.items()}
     shapes["layer8"]["note"] = "layers 8 and 25 both run two bottlenecks at this shape"
-    shapes["c128"]["note"] = "the C3k width of scales s, m and l; not on the main path"
-    for d in shapes.values():
-        d["share_of_bound"] = d["bound_ms"] / d["ms"]
-        d["share_of_f32_cuda_core_bound"] = d["bound_f32_cuda_cores_ms"] / d["ms"]
 
     bx, vd = nms_trained
     nms = dict(nms_check(bx, vd), launches_per_call=1,
@@ -314,7 +374,7 @@ def phase_times(fn, frames_dev, bottleneck, nms_trained):
     return shapes, nms
 
 
-def phase_profile(fn, frames_dev, calls: int = 5):
+def phase_profile(fn, frames_dev, calls: int = 5, name: str = "profile"):
     """Where the device time goes in `calls` pipeline calls at the largest batch:
     torch.profiler's CUDA kernel events, summed by kernel name; busy share =
     kernel time over the span from the first kernel's start to the last's end."""
@@ -338,14 +398,14 @@ def phase_profile(fn, frames_dev, calls: int = 5):
     span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3 if kernels else 0.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     port = {}  # the port's own kernels, device time per pipeline call
-    for name, ms in by_name.items():
+    for kname, ms in by_name.items():
         for key in ("fused_bottleneck_kernel", "nms_mask_kernel", "nms_scan_kernel"):
-            if key in name:
+            if key in kname:
                 port[key] = port.get(key, 0.0) + ms / calls
-    emit("profile", batch=BATCHES[-1], calls=calls, kernel_launches=len(kernels), host_ms_under_profiler=host_ms,
+    emit(name, batch=BATCHES[-1], calls=calls, kernel_launches=len(kernels), host_ms_under_profiler=host_ms,
          device_kernel_ms_per_call=busy / calls, device_span_ms_per_call=span / calls,
          busy_share=busy / span if span else None, port_kernels_device_ms_per_call=port,
-         top_kernels_ms_per_call=[[name[:90], ms / calls] for name, ms in top])
+         top_kernels_ms_per_call=[[kname[:90], ms / calls] for kname, ms in top])
 
 
 def _mixed_arrays(n: int, seed: int):
@@ -388,6 +448,30 @@ def nms_check(bx, vd):
     return d
 
 
+def launch_counters() -> dict:
+    """Every kernel wrapper of the port, by the name the kernels line gives it."""
+    from spectrogram_yolov11_torch.ops.fused_conv import fused_bottleneck, fused_bottleneck_bf16
+    from spectrogram_yolov11_torch.ops.nms_kernel import greedy_keep
+
+    return {"fused_bottleneck": fused_bottleneck, "fused_bottleneck_bf16": fused_bottleneck_bf16,
+            "greedy_keep": greedy_keep}
+
+
+def run_counted(fn, expect: dict, what: str):
+    """fn() with every launch count set to 0 just before and read just after;
+    fails unless the counts are `expect`. Returns (fn's result, the counts)."""
+    import torch
+
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    require(got == expect, f"{what} launched {got}, expected {expect}")
+    return out, got
+
+
 def _split_ms(stages, reps: int) -> dict:
     """Mean ms of each (name, fn) stage, run in turn `reps` times, each handed
     the previous one's result: CUDA events around the stages that queue device
@@ -410,6 +494,67 @@ def _split_ms(stages, reps: int) -> dict:
     return {name: t / reps for name, t in totals.items()}
 
 
+def predict_inputs():
+    """The predict phases' inputs: PREDICT_BATCH seeded IQ captures (complex64)
+    and as many seeded mixed-size uint8 arrays."""
+    import numpy as np
+
+    from spectrogram_yolov11_torch.data.synth import synth_iq
+
+    rng = np.random.default_rng(0)
+    return np.stack([synth_iq(rng, IQ_SAMPLES)[0] for _ in range(PREDICT_BATCH)]), _mixed_arrays(PREDICT_BATCH, seed=100)
+
+
+def host_ms_per_call(fn, reps: int) -> float:
+    """Mean host-clock ms of fn() after one warm call (fn ends in a D2H copy)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def predict_stage_times(predictor, iq, arrays):
+    """The predictor's stages composed from the ported functions as it runs
+    them: ms per capture at B = 1 and per image at batch len(iq) from IQ and
+    from the arrays (_split_ms), and its device function back to back (the
+    queue stays full, as the pipeline is timed)."""
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+    from spectrogram_yolov11_torch.data.loaders import iq_frame
+
+    dev, nb = torch.device("cuda"), len(iq)
+    dev_fn = predictor._device_fn
+    x1 = torch.from_numpy(np.stack([iq[0].real, iq[0].imag], -1)).to(dev)
+    xb = torch.from_numpy(np.stack([iq.real, iq.imag], -1)).to(dev)
+
+    def host_post(out_nv, frames):
+        out, nv = out_nv
+        return predictor.postprocess(out.cpu().numpy(), nv.cpu().numpy(), frames, ["x"] * len(frames), {})
+
+    def stages(x):
+        return [("iq_to_frame", lambda _: iq_frame(x)),
+                ("letterbox", lambda f: (list(f), letterbox_batch(list(f), 640, dev))),
+                ("device_fn", lambda fl: (fl[0], dev_fn(fl[1]))),
+                ("host_postprocess", lambda fo: host_post(fo[1], fo[0]))]
+
+    split_capture = _split_ms(stages(x1[None]), reps=10)
+    split_iq = {k: v / nb for k, v in _split_ms(stages(xb), reps=5).items()}
+    arr_stages = [("letterbox", lambda _: letterbox_batch(arrays, 640, dev)),
+                  ("device_fn", lambda b: dev_fn(b)),
+                  ("host_postprocess", lambda o: host_post(o, arrays))]
+    split_arrays = {k: v / nb for k, v in _split_ms(arr_stages, reps=5).items()}
+    frames1, lb = letterbox_batch(list(iq_frame(x1[None])), 640, dev), letterbox_batch(arrays, 640, dev)
+    back_to_back = {"capture_b1_ms": cuda_ms(lambda: dev_fn(frames1), iters=20),
+                    "arrays_batch32_ms_per_image": cuda_ms(lambda: dev_fn(lb), iters=20) / nb}
+    return split_capture, split_iq, split_arrays, back_to_back
+
+
 def phase_predict():
     """YOLO(ckpt).predict on .npy captures and on uint8 arrays, on the card."""
     import tempfile
@@ -420,29 +565,20 @@ def phase_predict():
     from spectrogram_yolov11_torch import YOLO
     from spectrogram_yolov11_torch.data.augment import letterbox_batch
     from spectrogram_yolov11_torch.data.loaders import iq_frame
-    from spectrogram_yolov11_torch.data.synth import synth_iq
     from spectrogram_yolov11_torch.ops.decode import decode_detections
-    from spectrogram_yolov11_torch.ops.fused_conv import fused_bottleneck
     from spectrogram_yolov11_torch.ops.nms import nms_candidates
-    from spectrogram_yolov11_torch.ops.nms_kernel import greedy_keep
 
     model = YOLO(CKPT)  # predict runs on the card by default
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
     nb = PREDICT_BATCH
-    iq = np.stack([synth_iq(rng, IQ_SAMPLES)[0] for _ in range(nb)])
-    arrays = _mixed_arrays(nb, seed=100)
+    iq, arrays = predict_inputs()
     launches = {"fused_bottleneck": 0, "greedy_keep": 0}
 
     def counted(fn):
-        fused_bottleneck.launches = greedy_keep.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = (fused_bottleneck.launches, greedy_keep.launches)
-        launches["fused_bottleneck"] += got[0]
-        launches["greedy_keep"] += got[1]
-        require(got == (6, 1), f"predict launched fused_bottleneck {got[0]} and greedy_keep {got[1]} times in one "
-                               "batch, expected 6 and 1")
+        out, got = run_counted(fn, {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1},
+                               "one f32 predict batch")
+        launches["fused_bottleneck"] += got["fused_bottleneck"]
+        launches["greedy_keep"] += got["greedy_keep"]
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -498,43 +634,11 @@ def phase_predict():
                 "the letterbox on the card differs from the CPU's")
 
         # times: whole predict calls, host clock
-        def per_call_ms(fn, reps):
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            return (time.perf_counter() - t0) * 1e3 / reps
+        predict_capture_ms = host_ms_per_call(lambda: [model.predict(p) for p in paths], 5) / len(paths)
+        predict_array_ms = host_ms_per_call(lambda: model.predict(arrays, batch=nb), 5) / nb
 
-        predict_capture_ms = per_call_ms(lambda: [model.predict(p) for p in paths], 5) / len(paths)
-        predict_array_ms = per_call_ms(lambda: model.predict(arrays, batch=nb), 5) / nb
-
-    # the stages, composed from the ported functions as the predictor runs them
-    predictor = model.predictor
-    dev_fn = predictor._device_fn
-    x1 = torch.from_numpy(np.stack([iq[0].real, iq[0].imag], -1)).to(dev)
+    split_capture, split_iq32, split_arrays, device_fn_back_to_back = predict_stage_times(model.predictor, iq, arrays)
     x32 = torch.from_numpy(np.stack([iq.real, iq.imag], -1)).to(dev)
-
-    def host_post(out_nv, frames):
-        out, nv = out_nv
-        return predictor.postprocess(out.cpu().numpy(), nv.cpu().numpy(), frames, ["x"] * len(frames), {})
-
-    def stages(x):
-        return [("iq_to_frame", lambda _: iq_frame(x)),
-                ("letterbox", lambda f: (list(f), letterbox_batch(list(f), 640, dev))),
-                ("device_fn", lambda fl: (fl[0], dev_fn(fl[1]))),
-                ("host_postprocess", lambda fo: host_post(fo[1], fo[0]))]
-
-    split_capture = _split_ms(stages(x1[None]), reps=10)
-    split_iq32 = {k: v / nb for k, v in _split_ms(stages(x32), reps=5).items()}
-    arr_stages = [("letterbox", lambda _: letterbox_batch(arrays, 640, dev)),
-                  ("device_fn", lambda b: dev_fn(b)),
-                  ("host_postprocess", lambda o: host_post(o, arrays))]
-    split_arrays = {k: v / nb for k, v in _split_ms(arr_stages, reps=5).items()}
-    # the device function back to back (the queue stays full), as the pipeline is timed
-    frames1, lb32 = letterbox_batch(list(iq_frame(x1[None])), 640, dev), letterbox_batch(arrays, 640, dev)
-    device_fn_back_to_back = {"capture_b1_ms": cuda_ms(lambda: dev_fn(frames1), iters=20),
-                              "arrays_batch32_ms_per_image": cuda_ms(lambda: dev_fn(lb32), iters=20) / nb}
 
     # what the f32 policy holds off: the first capture's forward with TF32 on for cuDNN and matmul
     with torch.inference_mode():
@@ -571,6 +675,157 @@ def phase_predict():
     return launches, nms_k1024, b1_bottleneck
 
 
+def phase_half(fn_f32, frames_dev):
+    """The bf16 pipeline (build_pipeline(half=True)) at 640 px: the kernel
+    against its plain version on the inputs the pipeline hands it, the launch
+    counts of B = 1, 8, 32, then times beside the f32 pipeline and cuDNN."""
+    import torch
+
+    from spectrogram_yolov11_torch.engine.pipeline import build_pipeline
+
+    fn, model, _, _ = build_pipeline(CKPT, device="cuda", half=True)
+    require(model.dtype == torch.bfloat16, f"build_pipeline(half=True) gave a {model.dtype} model")
+    # the inputs the bf16 pipeline hands the first bottleneck of layers 6 and 8, at B = 32
+    captured = {}
+    firsts = first_bottlenecks(model)
+    hooks = [m.register_forward_pre_hook(keep_nhwc_input(captured)) for m in firsts.values()]
+    fn(frames_dev)
+    for h in hooks:
+        h.remove()
+    cases = {f"layer{layer}": layer_case(mod, captured[mod]) for layer, mod in firsts.items()}
+    cases["c128"] = c128_case(torch.bfloat16)
+    checks = {name: bottleneck_check(name, args) for name, args in cases.items()}
+    require([checks[n]["shape"] for n in ("layer6", "layer8", "c128")]
+            == [[32, 40, 40, 32], [32, 20, 20, 64], [32, 40, 40, 128]],
+            f"unexpected bf16 bottleneck shapes {[c['shape'] for c in checks.values()]}")
+
+    # the main path: the bf16 pipeline at every batch, counts set to 0 just before
+    results, launches = run_counted(lambda: {bs: fn(frames_dev[:bs]) for bs in BATCHES},
+                                    {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6 * len(BATCHES),
+                                     "greedy_keep": len(BATCHES)}, "the bf16 pipeline")
+    out_max, n_max = results[BATCHES[-1]]
+    require(out_max.shape == (BATCHES[-1], 300, 6) and out_max.dtype == torch.float32
+            and bool(torch.isfinite(out_max).all()), "bf16 pipeline output malformed")
+    require(int(n_max.sum()) > 0, f"no bf16 detections on {BATCHES[-1]} seeded frames")
+    n_f32 = fn_f32(frames_dev)[1]
+
+    # times: each pipeline beside the f32 one, in turns
+    pipeline = {}
+    for bs in BATCHES:
+        xb = frames_dev[:bs]
+        turns = [cuda_ms(lambda f=f: f(xb), iters=10) for f in (fn_f32, fn, fn, fn_f32)]
+        bf16_ms, f32_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        pipeline[bs] = {"bf16_ms_per_batch": bf16_ms, "f32_ms_per_batch": f32_ms, "bf16_img_per_s": bs / bf16_ms * 1e3,
+                        "turns_f32_bf16_bf16_f32": turns}
+
+    shapes = {name: bottleneck_times(name, d) for name, d in checks.items()}
+    emit("half", launches=launches, detections_per_image_b32=n_max.tolist(), f32_detections_per_image_b32=n_f32.tolist(),
+         kernel_checks={k: {n: v for n, v in d.items() if "args" not in n} for k, d in checks.items()},
+         pipeline=pipeline, fused_bottleneck_bf16=shapes,
+         method="CUDA events over repeated calls after 3 warm-up calls; the pipelines and the kernel against cuDNN "
+                "in turns (f32, bf16, bf16, f32 and kernel, cuDNN, cuDNN, kernel); bound: bf16 at 989 TFLOP/s "
+                "against each input read and each output written once at 3.35 TB/s")
+    phase_profile(fn, frames_dev, name="profile_half")
+    return launches, checks, shapes
+
+
+def phase_predict_half():
+    """YOLO(ckpt).predict(..., half=True) on the predict phase's captures and
+    arrays: launch counts, the kernel at B = 1, times and the stage split, and
+    on 2 captures the card's bf16 against the CPU's bf16 and the card's f32."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+    from spectrogram_yolov11_torch.data.loaders import iq_frame
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+
+    yolo, yolo_f32, cpu = YOLO(CKPT), YOLO(CKPT), YOLO(CKPT, device="cpu")
+    dev, nb = torch.device("cuda"), PREDICT_BATCH
+    iq, arrays = predict_inputs()
+    launches = {"fused_bottleneck_bf16": 0, "greedy_keep": 0}
+
+    def counted(fn):
+        out, got = run_counted(fn, {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6, "greedy_keep": 1},
+                               "one bf16 predict batch")
+        launches["fused_bottleneck_bf16"] += got["fused_bottleneck_bf16"]
+        launches["greedy_keep"] += got["greedy_keep"]
+        return out
+
+    def decoded(net, frames):
+        with torch.inference_mode():
+            rgb = frames.expand(-1, -1, -1, 3).flip(-1).float() / 255.0
+            return decode_detections(net(rgb.permute(0, 3, 1, 2)), net.nc, net.stride)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [str(Path(tmp) / f"capture{i}.npy") for i in range(4)]
+        for p, capture in zip(paths, iq):
+            np.save(p, capture)
+        captures = [counted(lambda p=p: yolo.predict(p, half=True))[0] for p in paths]
+        net = yolo.predictor.model
+        require(net.dtype == torch.bfloat16 and yolo.model.dtype == torch.float32,
+                "predict(half=True) did not run a bf16 copy of the model")
+        require(all(r.boxes.data.dtype == np.float32 and np.isfinite(r.boxes.data).all() for r in captures)
+                and sum(map(len, captures)) > 0, "bf16 capture results malformed or empty")
+        # the kernel at predict's B = 1 shapes, on the inputs the first capture's call hands it
+        seen = {}
+        firsts = first_bottlenecks(net)
+        hooks = [m.register_forward_pre_hook(keep_nhwc_input(seen)) for m in firsts.values()]
+        counted(lambda: yolo.predict(paths[0], half=True))
+        for h in hooks:
+            h.remove()
+        with torch.inference_mode():
+            b1_checks = {f"layer{layer}": bottleneck_check(f"layer{layer} at B = 1", layer_case(mod, seen[mod]))
+                         for layer, mod in firsts.items()}
+        require([d["shape"] for d in b1_checks.values()] == [[1, 40, 40, 32], [1, 20, 20, 64]],
+                f"unexpected B = 1 bf16 bottleneck shapes {[d['shape'] for d in b1_checks.values()]}")
+
+        # 2 captures: the card's bf16 against the CPU's bf16 and the card's f32, over every anchor
+        # (decoded predictions) and in the detections
+        compare = []
+        for p, x in zip(paths[:2], iq[:2]):
+            frame = letterbox_batch(list(iq_frame(torch.from_numpy(np.stack([x.real, x.imag], -1))[None].to(dev))),
+                                    640, dev)
+            g, c, f = yolo.predict(p, half=True)[0], cpu.predict(p, half=True)[0], yolo_f32.predict(p)[0]
+            pg = decoded(net, frame).cpu()
+            pc = decoded(cpu.predictor.model, frame.cpu())
+            pf = decoded(yolo_f32.predictor.model, frame).cpu()
+            d_cpu = {k: float((pg[..., s] - pc[..., s]).abs().max()) for k, s in (("box_px", slice(0, 4)), ("score", slice(4, None)))}
+            d_f32 = {k: float((pg[..., s] - pf[..., s]).abs().max()) for k, s in (("box_px", slice(0, 4)), ("score", slice(4, None)))}
+            margin = float((pc[..., 4:].max(-1).values - 0.25).abs().min())
+            require(all(d_cpu[k] <= 2 * d_f32[k] for k in d_cpu),
+                    f"the card's bf16 lies {d_cpu} from the CPU's, more than twice its distance {d_f32} from the card's f32")
+            if margin >= 3e-2:
+                require(len(g) == len(c) and np.array_equal(g.boxes.cls, c.boxes.cls),
+                        f"the card's and the CPU's bf16 predict disagree on {p}: {g.boxes.cls.tolist()} vs {c.boxes.cls.tolist()}")
+            compare.append(dict(n_card_bf16=len(g), n_cpu_bf16=len(c), n_card_f32=len(f),
+                                classes_card_bf16=g.boxes.cls.tolist(), classes_cpu_bf16=c.boxes.cls.tolist(),
+                                classes_card_f32=f.boxes.cls.tolist(), best_score_margin_to_conf=margin,
+                                counts_required_equal=margin >= 3e-2, max_diff_to_cpu_bf16=d_cpu,
+                                max_diff_to_card_f32=d_f32))
+
+        batch32 = counted(lambda: yolo.predict(arrays, batch=nb, half=True))
+        require(len(batch32) == nb and all(r.orig_shape == a.shape[:2] for r, a in zip(batch32, arrays))
+                and all(np.isfinite(r.boxes.data).all() for r in batch32), "bf16 array results malformed")
+        predict_capture_ms = host_ms_per_call(lambda: [yolo.predict(p, half=True) for p in paths], 5) / len(paths)
+        predict_array_ms = host_ms_per_call(lambda: yolo.predict(arrays, batch=nb, half=True), 5) / nb
+
+    split_capture, split_iq32, split_arrays, back_to_back = predict_stage_times(yolo.predictor, iq, arrays)
+    emit("predict_half", launches=launches, detections_per_capture=[len(r) for r in captures],
+         detections_arrays_batch32=sum(map(len, batch32)), card_bf16_vs_cpu_bf16_and_card_f32=compare,
+         predict_ms_per_capture_b1=predict_capture_ms, predict_ms_per_image_batch32=predict_array_ms,
+         split_ms_per_capture_b1=split_capture, split_ms_per_image_iq_batch32=split_iq32,
+         split_ms_per_image_arrays_batch32=split_arrays, device_fn_back_to_back=back_to_back,
+         b1_kernel_checks={k: {n: v for n, v in d.items() if "args" not in n} for k, d in b1_checks.items()},
+         method="as the predict phase; the card's bf16 held within twice its distance from the card's f32 of the "
+                "CPU's bf16 (decoded predictions of every anchor), detections equal where every best score is "
+                "3e-2 or more from conf")
+    return launches, b1_checks
+
+
 def main() -> int:
     import torch
 
@@ -597,11 +852,12 @@ def main() -> int:
         shapes, nms = phase_times(fn, frames_dev, bottleneck, nms_trained)
         phase_profile(fn, frames_dev)
     predict_launches, nms_k1024, b1_bottleneck = phase_predict()
+    with torch.inference_mode():
+        half_launches, half_checks, half_shapes = phase_half(fn, frames_dev)
+    predict_half_launches, b1_half = phase_predict_half()
 
-    fb = [shapes["layer6"], shapes["layer8"]]
-
-    def per_forward(key):
-        return sum(d[key] * d["launches_per_forward"] for d in fb)
+    def per_forward(key, shapes=shapes):
+        return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
 
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
@@ -616,10 +872,29 @@ def main() -> int:
              design="implicit GEMM, 3xTF32 wgmma (A in registers), TMA weight ring, persistent grid",
              note="times are per forward at B=32: 2 launches at 32x40x40x32 + 4 at 32x20x20x64; "
                   "bound_ms is 3xTF32 on the tensor cores"),
+        dict(name="fused_bottleneck_bf16", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
+             replaces="spectrogram_yolov11_tpu/ops/pallas_fused_conv.py:67",
+             launches=half_launches["fused_bottleneck_bf16"],
+             launches_by_path={"pipeline_half": half_launches["fused_bottleneck_bf16"],
+                               "predict_half": predict_half_launches["fused_bottleneck_bf16"]},
+             max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values())),
+             unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values())),
+             ms=per_forward("ms", half_shapes), plain_ms=per_forward("plain_ms", half_shapes),
+             bound_ms=per_forward("bound_ms", half_shapes),
+             bound_by="operations" if per_forward("flops", half_shapes) / PEAK_BF16_FLOPS
+             >= per_forward("bytes", half_shapes) / PEAK_HBM_BYTES else "bytes",
+             library_ms=per_forward("library_ms", half_shapes),
+             design="the f32 kernel's tiles and schedule; bf16 wgmma m64nCk16 (A in registers) summed in its f32 "
+                    "accumulator; intermediate and output rounded to bf16 as Pallas",
+             note="times are per forward at B=32 of the bf16 pipeline: 2 launches at 32x40x40x32 + 4 at "
+                  "32x20x20x64; bound_ms is bf16 on the tensor cores or HBM; library_ms is the cuDNN bf16 chain; "
+                  "max_abs_err is in bf16 steps of up to 2^-7 max|ref|"),
         dict(name="greedy_keep", route="cuda", source="spectrogram_yolov11_torch/csrc/greedy_nms.cu",
              replaces="spectrogram_yolov11_tpu/ops/pallas_nms.py:70",
              launches=launches["greedy_keep"],
-             launches_by_path={"pipeline": launches["greedy_keep"], "predict": predict_launches["greedy_keep"]},
+             launches_by_path={"pipeline": launches["greedy_keep"], "predict": predict_launches["greedy_keep"],
+                               "pipeline_half": half_launches["greedy_keep"],
+                               "predict_half": predict_half_launches["greedy_keep"]},
              max_abs_err=0.0,
              ms=nms["ms"], plain_ms=nms["plain_ms"], bound_ms=nms["bound_ms"], bound_by=nms["bound_by"],
              library_ms=None, design="IoU bitmask of valid rows + one-warp scan from survivor to survivor",

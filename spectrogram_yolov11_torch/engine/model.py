@@ -8,8 +8,10 @@ The weights (EMA before the raw variables) are read on the host, carried
 across by the weight bridge and folded for the bottleneck kernel; predict
 moves the model to its device, the card unless the caller passes
 device="cpu", and raises without a card. Predictors are cached on their
-sorted overrides, as in the JAX facade. Other model sources and modes raise
-NotImplementedError naming the ROADMAP.md item that ports them.
+sorted overrides, as in the JAX facade, `half` among them: predict(half=True)
+runs a bf16 copy of the model and leaves the f32 model to half=False calls.
+Other model sources and modes raise NotImplementedError naming the
+ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations

@@ -17,6 +17,13 @@ size and calls it.
 
 On the card the network runs channels_last: the NHWC input is viewed as NCHW
 for free, and so is every C3k activation handed to the fused bottleneck.
+
+half=True runs the network in bf16 (DetectionModel.set_dtype), as
+bench.py:_build_pipeline builds the JAX model with dtype=bfloat16: the f32
+input (frames / 255) is rounded to bf16 by the network, the six C3k
+bottlenecks run the bf16 kernel, the head's logits come out bf16, the decode
+takes its exp and sigmoid in bf16 and gives f32 boxes and scores, and NMS runs
+in f32 as before.
 """
 
 from __future__ import annotations
@@ -46,12 +53,15 @@ def load_model(ckpt: str | Path) -> Tuple[DetectionModel, dict]:
 
 def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
                     classes: Optional[Sequence[int]] = None, agnostic: bool = False,
-                    pre_nms_topk: int = PRE_NMS_TOPK) -> Callable:
+                    pre_nms_topk: int = PRE_NMS_TOPK, half: bool = False) -> Callable:
     """The device function of a predict or serve batch: fn(uint8 (B, S, S, 1|3)
     letterboxed frames on the model's device) -> (out (B, max_det, 6), n (B,)),
-    rows [x1, y1, x2, y2, conf, cls] in the JAX layout. Steps 2-5 above, in
-    full f32 (utils.full_f32: the DFL decode is a matmul)."""
+    rows [x1, y1, x2, y2, conf, cls] in the JAX layout. Steps 2-5 above; the
+    network in bf16 with `half` (an f32 model is converted by set_dtype,
+    which leaves it as it is) and in f32 otherwise, everything else in full
+    f32 (utils.full_f32: the DFL decode is a matmul)."""
     classes = None if classes is None else [classes] if isinstance(classes, int) else list(classes)
+    model = model.set_dtype(torch.bfloat16 if half else torch.float32)
 
     @torch.inference_mode()
     @full_f32()
@@ -66,16 +76,19 @@ def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float 
 
 
 def build_pipeline(
-    ckpt: str | Path, device: str | torch.device = "cuda", imgsz: int = 640, src_hw: Tuple[int, int] = (720, 1280)
+    ckpt: str | Path, device: str | torch.device = "cuda", imgsz: int = 640, src_hw: Tuple[int, int] = (720, 1280),
+    half: bool = False,
 ) -> Tuple[Callable, DetectionModel, int, int]:
     """Returns (fn, model, nh, nw); fn(uint8 (B, nh, nw, 1|3)) -> (out (B, 300, 6), n (B,)),
     rows [x1, y1, x2, y2, conf, cls] in the JAX layout, at the settings of
-    step 5. Raises without a card unless device='cpu'."""
+    step 5; the network in bf16 with half=True. Raises without a card unless
+    device='cpu'."""
     dev = resolve_device(device)
     model, _ = load_model(ckpt)
+    model = model.set_dtype(torch.bfloat16 if half else torch.float32)
     model = model.to(dev, memory_format=torch.channels_last) if dev.type == "cuda" else model
     nh, nw, top, left = letterbox_geometry(imgsz, src_hw)
-    device_fn = build_device_fn(model)
+    device_fn = build_device_fn(model, half=half)
 
     @torch.inference_mode()
     def fn(frames) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,8 +8,10 @@ decode, NMS with the greedy keep kernel), then on the host scale_boxes per
 image and Results. The last batch is padded with copies of its last frame, as
 in the JAX predictor, and only the real frames are yielded.
 
-half=True (bf16) raises NotImplementedError (ROADMAP.md §1 item 3): the port
-runs f32 only and does not fall back to it silently.
+half=True runs the network in bf16, as the JAX predictor maps half=True to
+bf16 (spectrogram_yolov11_tpu/engine/predictor.py:89): the predictor holds its
+own bf16 copy of the model (DetectionModel.set_dtype), so the caller's f32
+model, and a later half=False predictor on it, stay f32.
 """
 
 from __future__ import annotations
@@ -45,16 +47,13 @@ class BasePredictor:
         args = get_cfg(DEFAULT_CFG_DICT, overrides or {})
         if args.conf is None:
             args.conf = 0.25
-        if args.half:
-            raise NotImplementedError("half=True (bf16 inference) needs a bf16 network and a bf16 form of the "
-                                      "fused bottleneck kernel; queued in ROADMAP.md §1 item 3. The port runs f32")
         if args.save or args.save_crop:
             raise NotImplementedError("save=True and save_crop=True write images with cv2, which the port does not "
                                       "have; queued in ROADMAP.md §1 item 5. save_txt=True works")
         self.args = args
         self.device = resolve_device(args.device or "cuda")
         fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
-        self.model = model.to(self.device, memory_format=fmt)
+        self.model = model.set_dtype(torch.bfloat16 if args.half else torch.float32).to(self.device, memory_format=fmt)
         self.imgsz = int(args.imgsz if isinstance(args.imgsz, int) else args.imgsz[0])
         self.batch_size = 1
         self.names = names if names is not None else {i: f"{i}" for i in range(model.nc)}
@@ -66,7 +65,7 @@ class BasePredictor:
         a = self.args
         return build_device_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
                                classes=a.classes, agnostic=bool(a.agnostic_nms),
-                               pre_nms_topk=int(a.pre_nms_topk or 0) or 1024)
+                               pre_nms_topk=int(a.pre_nms_topk or 0) or 1024, half=bool(a.half))
 
     def preprocess(self, imgs: list, gray_state: Optional[list] = None) -> torch.Tensor:
         """Letterbox the frames on the device: (B, imgsz, imgsz, 1|3) uint8 BGR."""

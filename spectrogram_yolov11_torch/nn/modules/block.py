@@ -8,8 +8,13 @@ C2PSA (:264-357).
 C3k's inner bottlenecks are same-width 3x3 -> 3x3 residual blocks. In the
 inference forward they run as one fused CUDA kernel
 (ops/fused_conv.py:fused_bottleneck) on weights with BN folded in and packed
-for the kernel once, by `fold()` after the weights are loaded. C3k2's own Bottleneck keeps e=0.5, so
-its two convs differ in width and it stays on the plain path.
+for the kernel once, by `fold()` after the weights are loaded, in the dtype
+the network runs in (f32 or bf16). C3k2's own Bottleneck keeps e=0.5, so its
+two convs differ in width and it stays on the plain path.
+
+In bf16 the rounding points are the JAX package's: the DFL decode's exp runs
+in the logits' dtype with an f32 projection, and attention takes QK^T and AV
+with f32 results, cast to v's dtype after the softmax and after AV.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.fused_conv import fused_bottleneck, pack_bottleneck_weights
+from ...ops.fused_conv import fused_bottleneck, pack_bottleneck_weights, pack_bottleneck_weights_bf16
 from .conv import Conv
 
 
@@ -38,10 +43,13 @@ def dfl_decode(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     """DFL integral decode: (..., 4*reg_max) logits -> (..., 4) LTRB distances.
 
     A copy of the JAX form: exp of the logits clamped to +-80 (no max
-    subtraction), then one (4*reg_max -> 8) projection whose first four columns
-    are the bin-weighted sums and last four the normalisers."""
-    z = torch.exp(box_logits.float().clamp(-80.0, 80.0))
-    s = z @ _dfl_proj(reg_max, z.device)
+    subtraction) in the logits' dtype, then one (4*reg_max -> 8) projection in
+    f32 whose first four columns are the bin-weighted sums and last four the
+    normalisers. The projection's entries are small integers, so projecting
+    bf16 exps in f32 is what JAX's bf16 matmul with an f32 result gives; the
+    distances are f32 either way."""
+    z = torch.exp(box_logits.clamp(-80.0, 80.0))
+    s = z.float() @ _dfl_proj(reg_max, z.device)
     return s[..., :4] / s[..., 4:]
 
 
@@ -60,14 +68,24 @@ class Bottleneck(nn.Module):
             self.register_buffer(name, None, persistent=False)
 
     @torch.no_grad()
-    def fold(self) -> None:
-        """Fold both BNs into the weights and pack them for the kernel
-        (ops/fused_conv.py:pack_bottleneck_weights), stored (18, C, C): 3-D, so
-        a channels_last conversion of the model leaves them alone."""
+    def fold(self, dtype: torch.dtype = torch.float32) -> None:
+        """Fold both BNs into the weights in f32 and pack them for the kernel
+        of `dtype`: f32 (ops/fused_conv.py:pack_bottleneck_weights) stored
+        (18, C, C), bf16 (pack_bottleneck_weights_bf16) stored (9, C, C); 3-D,
+        so a channels_last conversion of the model leaves them alone. The
+        biases stay f32, as the kernel takes them. The convs' weights must
+        still be f32."""
         (w1, b1), (w2, b2) = self.cv1.folded(), self.cv2.folded()
+        if w1.dtype != torch.float32:
+            raise ValueError(f"fold() folds the f32 weights, got {w1.dtype}")
         c = w1.shape[0]
-        self.w1, self.b1 = pack_bottleneck_weights(w1.permute(2, 3, 1, 0)).view(18, c, c), b1.contiguous()
-        self.w2, self.b2 = pack_bottleneck_weights(w2.permute(2, 3, 1, 0)).view(18, c, c), b2.contiguous()
+        if dtype == torch.bfloat16:
+            self.w1, self.w2 = (pack_bottleneck_weights_bf16(w.permute(2, 3, 1, 0)) for w in (w1, w2))
+        elif dtype == torch.float32:
+            self.w1, self.w2 = (pack_bottleneck_weights(w.permute(2, 3, 1, 0)).view(18, c, c) for w in (w1, w2))
+        else:
+            raise ValueError(f"the fused bottleneck runs in float32 or bfloat16, not {dtype}")
+        self.b1, self.b2 = b1.contiguous(), b2.contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.fusable:
@@ -78,10 +96,11 @@ class Bottleneck(nn.Module):
         if self.w1 is None:
             raise RuntimeError("fused bottleneck weights are not folded: call model.fold() after loading weights")
         # NCHW -> NHWC: a view when the network runs channels_last (the pipeline
-        # on the card), else one copy of x in and one of y out
+        # on the card), else one copy of x in and one of y out. The f32 pack is
+        # stored (18, C, C), the bf16 one is its own shape (9, C, C)
         c = x.shape[1]
-        y = fused_bottleneck(x.permute(0, 2, 3, 1).contiguous(), self.w1.view(2, 9, c, c), self.b1,
-                             self.w2.view(2, 9, c, c), self.b2)
+        w1, w2 = (w.view(2, 9, c, c) if w.dtype == torch.float32 else w for w in (self.w1, self.w2))
+        y = fused_bottleneck(x.permute(0, 2, 3, 1).contiguous(), w1, self.b1, w2, self.b2)
         return y.permute(0, 3, 1, 2)
 
 
@@ -160,9 +179,11 @@ class Attention(nn.Module):
         kd = self.key_dim
         qkv = self.qkv(x).flatten(2).transpose(1, 2).reshape(B, N, self.num_heads, 2 * kd + self.head_dim)
         q, k, v = qkv[..., :kd], qkv[..., kd : 2 * kd], qkv[..., 2 * kd :]
-        attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * self.scale
-        attn = attn.softmax(dim=-1)
-        out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+        # f32 results of both products, cast to v's dtype after the softmax and
+        # after AV, as the JAX module's preferred_element_type (no-ops in f32)
+        attn = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * self.scale
+        attn = attn.softmax(dim=-1).to(v.dtype)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn.float(), v.float()).to(v.dtype)
 
         def to_nchw(t):
             return t.reshape(B, N, C).transpose(1, 2).reshape(B, C, H, W)

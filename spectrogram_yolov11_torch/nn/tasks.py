@@ -110,9 +110,11 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
 class DetectionModel(nn.Module):
     """The detection network built from a model dict. Inference only: it is
     built in eval mode, and `load_state_dict` folds the BN of every fused
-    bottleneck once, right after the weights land.
+    bottleneck once, right after the weights land. It runs in f32; a bf16
+    copy comes from `set_dtype`.
 
-    forward(x (B, 3, H, W) float) -> per-level (box, cls) logits, NCHW."""
+    forward(x (B, 3, H, W) float) -> per-level (box, cls) logits, NCHW, in the
+    model's dtype."""
 
     def __init__(self, cfg: dict, ch: int = 3, nc: Optional[int] = None):
         super().__init__()
@@ -120,6 +122,7 @@ class DetectionModel(nn.Module):
         if nc and nc != self.yaml.get("nc"):
             self.yaml["nc"] = nc
         self.nc = self.yaml["nc"]
+        self.dtype = torch.float32  # the activations' dtype; parameters too, except BN's, which stay f32
         layers, self.routes, self.save = parse_model(self.yaml, ch)
         self.model = nn.ModuleList(layers)
         self.eval()
@@ -131,6 +134,7 @@ class DetectionModel(nn.Module):
 
     @full_f32()
     def forward(self, x: torch.Tensor):
+        x = x.to(self.dtype)  # a bf16 network rounds its input to bf16, as the JAX model's first conv does
         y: List[Optional[torch.Tensor]] = []
         for i, (m, f) in enumerate(zip(self.model, self.routes)):
             if f != -1:
@@ -140,10 +144,34 @@ class DetectionModel(nn.Module):
         return x
 
     def fold(self) -> None:
-        """Fold BN into the weights of every fused bottleneck."""
+        """Fold BN into the weights of every fused bottleneck, packed for the
+        kernel of the model's dtype."""
         for m in self.modules():
             if isinstance(m, M.Bottleneck) and m.fusable:
-                m.fold()
+                m.fold(self.dtype)
+
+    def set_dtype(self, dtype: torch.dtype) -> "DetectionModel":
+        """The network at activation dtype `dtype` (float32 or bfloat16): this
+        model when it already runs in it, else a copy, and this model stays as
+        it is. Counterpart of spectrogram_yolov11_tpu/nn/tasks.py:517
+        BaseModel.set_dtype, whose parameters stay f32 while the compute
+        changes. The copy holds its conv weights and biases in `dtype`; BN keeps
+        its f32 scale, shift and running statistics, so each Conv normalises its
+        bf16 conv output in f32 and rounds once, as the JAX eval BN does; the
+        fused bottlenecks are folded again from the f32 weights and packed for
+        the kernel of `dtype`. Only an f32 model is converted: a bf16 one no
+        longer holds the f32 weights."""
+        if dtype == self.dtype:
+            return self
+        if self.dtype != torch.float32 or dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"set_dtype converts an f32 model to float32 or bfloat16, not {self.dtype} to {dtype}")
+        model = copy.deepcopy(self)
+        model.dtype = dtype
+        model.fold()
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                m.to(dtype)
+        return model
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         result = super().load_state_dict(state_dict, strict=strict, assign=assign)

@@ -41,13 +41,14 @@ def decode_detections(
     feats: List[Tuple[torch.Tensor, torch.Tensor]], nc: int, strides: Sequence[float], reg_max: int = 16
 ) -> torch.Tensor:
     """Per-level (box (B, 4*reg_max, H, W), cls (B, nc, H, W)) logits, as the
-    port's Detect returns them -> (B, A, 4+nc): xywh boxes in input pixels and
-    sigmoid class scores, anchors in the JAX (level, h, w) order."""
+    port's Detect returns them -> (B, A, 4+nc) f32: xywh boxes in input pixels
+    and sigmoid class scores, anchors in the JAX (level, h, w) order. On bf16
+    logits the exp and the sigmoid run in bf16, so the scores are bf16 values."""
     device = feats[0][0].device
     anchors, stride_t = make_anchors([tuple(b.shape[-2:]) for b, _ in feats], strides, device)
     dists, scores = [], []
     for b, c in feats:
         dists.append(dfl_decode(b.flatten(2).transpose(1, 2), reg_max))
-        scores.append(torch.sigmoid(c.flatten(2).transpose(1, 2).float()))
+        scores.append(torch.sigmoid(c.flatten(2).transpose(1, 2)).float())  # in the logits' dtype, as JAX
     boxes = dist2bbox(torch.cat(dists, 1), anchors[None], xywh=True) * stride_t[None]
     return torch.cat([boxes, torch.cat(scores, 1)], -1)

@@ -32,7 +32,7 @@ BUILD = PKG / "build"
 KERNELS: Dict[str, Tuple[List[str], Dict[str, str]]] = {
     # no fused multiply-add: the IoU must round exactly as the plain version's
     "greedy_nms": (["-fmad=false"], {"greedy_nms_keep": "ppppiifp"}),
-    "fused_bottleneck": ([], {"fused_bottleneck_f32": "ppppppiiiip"}),
+    "fused_bottleneck": ([], {"fused_bottleneck_f32": "ppppppiiiip", "fused_bottleneck_bf16": "ppppppiiiip"}),
 }
 
 _LOCK = threading.Lock()

@@ -7,8 +7,11 @@ JAX), so on a machine with a card and without JAX it runs on its own:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: the bottleneck 1e-4 abs/rel (3xTF32 on the tensor cores summed in
-another order than cuDNN's f32); the keep mask and the pipeline's counts
-exactly; a whole network 1e-3 abs/rel, as the CPU model tests. The tests leave
+another order than cuDNN's f32); its bf16 form within max|ref| * 2^-7 (two
+bf16 steps of the largest magnitude) with at most 1 % of elements unequal,
+since a sum in another order flips the rounding of a few intermediates; the
+keep mask and the pipeline's counts exactly; a whole network 1e-3 abs/rel, as
+the CPU model tests. The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict.
@@ -23,8 +26,11 @@ import torch
 
 from spectrogram_yolov11_torch.ops.fused_conv import (
     bottleneck_reference,
+    bottleneck_reference_bf16,
     fused_bottleneck,
+    fused_bottleneck_bf16,
     pack_bottleneck_weights,
+    pack_bottleneck_weights_bf16,
 )
 from spectrogram_yolov11_torch.ops.nms_kernel import greedy_keep, greedy_keep_reference
 
@@ -35,6 +41,17 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+def assert_bf16_close(got: torch.Tensor, ref: torch.Tensor, max_unequal: float = 0.01) -> None:
+    """The bf16 bottleneck's tolerance: every element within max|ref| * 2^-7
+    of the reference, and at most `max_unequal` of the elements unequal."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    tol = float(ref.abs().max()) * 2.0**-7
+    unequal = float((err > 0).double().mean())
+    assert float(err.max()) <= tol, f"max abs err {float(err.max())} > {tol}"
+    assert unequal <= max_unequal, f"{unequal:.4%} of elements unequal"
 
 
 def nms_edge_case(name: str, b: int, k: int, seed: int = 0):
@@ -68,12 +85,15 @@ def nms_edge_case(name: str, b: int, k: int, seed: int = 0):
 NMS_CASES = ("all_invalid", "no_overlap", "chain", "prefix", "holes")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("c,h,w,b", [
+BOTTLENECK_SHAPES = [
     (32, 40, 40, 4), (32, 11, 13, 2), (32, 1, 1, 1), (32, 40, 40, 32),
     (64, 20, 20, 4), (64, 7, 9, 3), (64, 1, 1, 1), (64, 20, 20, 40),
     (128, 40, 40, 2), (128, 11, 13, 2), (128, 1, 1, 1), (128, 20, 20, 40),
-])
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,h,w,b", BOTTLENECK_SHAPES)
 def test_fused_bottleneck_kernel(c, h, w, b):
     """Ragged tiles, 1x1, and batches whose tiles outnumber the resident CTAs
     (the persistent grid wraps), through the HWIO form and the fold pack."""
@@ -89,6 +109,27 @@ def test_fused_bottleneck_kernel(c, h, w, b):
     torch.cuda.synchronize()
     assert fused_bottleneck.launches == n0 + 2
     torch.testing.assert_close(got_hwio, ref, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got_pack, got_hwio)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,h,w,b", BOTTLENECK_SHAPES)
+def test_fused_bottleneck_bf16_kernel(c, h, w, b):
+    """The bf16 form on the same cases, through the dtype dispatch with HWIO
+    weights and through its own wrapper with the fold's pack."""
+    dev = _card()
+    rng = np.random.default_rng(c + h + w + b)
+    x = torch.from_numpy(rng.normal(0, 1, (b, h, w, c)).astype(np.float32)).to(dev, torch.bfloat16)
+    w1, b1, w2, b2 = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.normal(0, 0.05, (3, 3, c, c)), rng.normal(0, 0.1, c), rng.normal(0, 0.05, (3, 3, c, c)), rng.normal(0, 0.1, c))]
+    ref = bottleneck_reference_bf16(x, w1, b1, w2, b2)
+    n0, f0 = fused_bottleneck_bf16.launches, fused_bottleneck.launches
+    got_hwio = fused_bottleneck(x, w1, b1, w2, b2)
+    got_pack = fused_bottleneck_bf16(x, pack_bottleneck_weights_bf16(w1), b1, pack_bottleneck_weights_bf16(w2), b2)
+    torch.cuda.synchronize()
+    assert (fused_bottleneck_bf16.launches, fused_bottleneck.launches) == (n0 + 2, f0)
+    assert got_hwio.dtype == torch.bfloat16 and got_hwio.shape == x.shape
+    assert_bf16_close(got_hwio, ref)
     assert torch.equal(got_pack, got_hwio)
 
 
@@ -142,6 +183,23 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     w, bias = torch.zeros(3, 3, 32, 32, device=dev), torch.zeros(32, device=dev)
     with pytest.raises(ValueError):
         fused_bottleneck(x, w, bias, w, bias)
+    # the bf16 form: scale-x widths, layouts, packs, biases and dtypes it does not take
+    for c in (48, 96, 192):
+        w, bias = torch.zeros(3, 3, c, c, device=dev), torch.zeros(c, device=dev)
+        with pytest.raises(ValueError, match=f"C={c}"):
+            fused_bottleneck(torch.zeros(1, 4, 4, c, device=dev, dtype=torch.bfloat16), w, bias, w, bias)
+    xb, w, bias = torch.zeros(1, 4, 4, 32, device=dev, dtype=torch.bfloat16), torch.zeros(3, 3, 32, 32, device=dev), \
+        torch.zeros(32, device=dev)
+    pack = pack_bottleneck_weights_bf16(w)
+    for args in ((xb.permute(0, 2, 1, 3), pack, bias, pack, bias),  # not contiguous
+                 (xb, pack_bottleneck_weights(w), bias, pack, bias),  # the f32 pack
+                 (xb, pack.float(), bias, pack, bias),  # an f32 tensor of the bf16 pack's shape
+                 (xb, pack, bias.bfloat16(), pack, bias)):  # a bf16 bias
+        with pytest.raises(ValueError, match="fused_bottleneck_bf16"):
+            fused_bottleneck_bf16(*args)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fused_bottleneck(xb.to(dtype), w, bias, w, bias)
 
 
 @pytest.mark.gpu
@@ -231,17 +289,23 @@ def test_letterbox_on_card_equals_cpu():
     assert got.shape[-1] == 1 and torch.equal(got.cpu(), letterbox_batch(gray, 640, torch.device("cpu")))
 
 
-def _clear_of_thresholds(model, frames, imgsz: int, conf: float = 0.25, margin: float = 1e-3) -> bool:
-    """No class score within `margin` of conf and no IoU within `margin` of 0.7
-    among boxes that could pass conf, on the CPU model."""
+def _decoded(model, frames, imgsz: int) -> torch.Tensor:
+    """The CPU model's decoded predictions (B, A, 4 + nc) on the letterboxed frames."""
     from spectrogram_yolov11_torch.data.augment import letterbox_batch
     from spectrogram_yolov11_torch.ops.decode import decode_detections
-    from spectrogram_yolov11_torch.ops.iou import box_iou
 
     x = letterbox_batch(frames, imgsz, torch.device("cpu"))
     with torch.inference_mode():
-        preds = decode_detections(model(x.expand(-1, -1, -1, 3).flip(-1).float().div(255).permute(0, 3, 1, 2)),
-                                  model.nc, model.stride)
+        return decode_detections(model(x.expand(-1, -1, -1, 3).flip(-1).float().div(255).permute(0, 3, 1, 2)),
+                                 model.nc, model.stride)
+
+
+def _clear_of_thresholds(model, frames, imgsz: int, conf: float = 0.25, margin: float = 1e-3) -> bool:
+    """No class score within `margin` of conf and no IoU within `margin` of 0.7
+    among boxes that could pass conf, on the CPU model."""
+    from spectrogram_yolov11_torch.ops.iou import box_iou
+
+    preds = _decoded(model, frames, imgsz)
     if (preds[..., 4:] - conf).abs().min() <= margin:
         return False
     for p in preds:
@@ -263,53 +327,90 @@ def test_predict_on_card_matches_cpu(tmp_path):
     _predict_on_card_against_cpu(tmp_path)
 
 
+def _with_tf32_on(fn) -> None:
+    """fn() with TF32 on for cuDNN and matmul in the process; the settings are
+    as the caller set them after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fn()
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 @pytest.mark.gpu
 def test_predict_runs_f32_with_tf32_turned_on(tmp_path):
     """TF32 on for cuDNN and matmul in the process: predict still runs the
     network in f32 and agrees with the CPU as above, and the process's
     settings are as the caller set them after."""
     _card()
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        _predict_on_card_against_cpu(tmp_path)
-        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    _with_tf32_on(lambda: _predict_on_card_against_cpu(tmp_path))
 
 
-def _predict_on_card_against_cpu(tmp_path):
+@pytest.mark.gpu
+def test_predict_half_runs_with_tf32_turned_on(tmp_path):
+    """The same for half=True: the bf16 network's f32 products (attention's
+    QK^T and AV, the DFL projection) stay in full f32, and the card agrees
+    with the CPU as in test_predict_half_on_card_matches_cpu."""
+    _card()
+    _with_tf32_on(lambda: _predict_on_card_against_cpu(tmp_path, half=True))
+
+
+@pytest.mark.gpu
+def test_predict_half_on_card_matches_cpu(tmp_path):
+    """predict(half=True) at 96 px: the card runs the bf16 kernel 6 times and
+    NMS once per batch, and agrees with the CPU's half=True run in counts and
+    classes on inputs whose bf16 scores and IoUs stay 3e-2 from conf and 0.7;
+    conf and boxes within twice the port's own bf16-to-f32 distance on the same
+    frames (the CPU's bf16 and the card's round in other places: oneDNN against
+    cuDNN convolutions, the plain bottleneck against the kernel)."""
+    _card()
+    _predict_on_card_against_cpu(tmp_path, half=True)
+
+
+def _predict_on_card_against_cpu(tmp_path, half: bool = False):
     from spectrogram_yolov11_torch import YOLO
     from spectrogram_yolov11_torch.data.loaders import load_inference_source
     from spectrogram_yolov11_torch.data.synth import synth_frames
 
-    imgsz = 320
+    # bf16 at 96 px, as the CPU tests hold it to JAX: at 320 px some score of 4 frames always lies within 3e-2 of conf
+    imgsz = 96 if half else 320
     gpu, cpu = YOLO(CKPT), YOLO(CKPT, device="cpu")
+    model = cpu.model.set_dtype(torch.bfloat16 if half else torch.float32)
+    margin = 3e-2 if half else 1e-3
     for seed in range(50):
         np.save(tmp_path / "capture.npy", _seeded_captures(1, seed)[0])
         [(_, frame, _)] = list(load_inference_source(str(tmp_path / "capture.npy"), device="cpu"))
-        if _clear_of_thresholds(cpu.model, [frame], imgsz):
+        if _clear_of_thresholds(model, [frame], imgsz, margin=margin):
             break
     else:
         raise AssertionError("no capture seed in 0..49 is clear of the thresholds")
     for seed in range(50):
         arrays = [np.repeat(synth_frames(1, h, w, seed=4 * seed + i)[0], 3, -1) for i, (h, w) in
                   enumerate([(360, 640), (720, 1280), (500, 333), (360, 640)])]
-        if _clear_of_thresholds(cpu.model, arrays, imgsz):
+        if _clear_of_thresholds(model, arrays, imgsz, margin=margin):
             break
     else:
         raise AssertionError("no array seed in 0..49 is clear of the thresholds")
-    for source, batch in ((str(tmp_path / "capture.npy"), 1), (arrays, 4)):
-        fb, gk = fused_bottleneck.launches, greedy_keep.launches
-        got = gpu.predict(source, imgsz=imgsz, batch=batch)
-        assert (fused_bottleneck.launches - fb, greedy_keep.launches - gk) == (6, 1)
-        ref = cpu.predict(source, imgsz=imgsz, batch=batch)
-        assert gpu.device.startswith("cuda") and len(got) == len(ref)
+    for source, frames, batch in ((str(tmp_path / "capture.npy"), [frame], 1), (arrays, arrays, 4)):
+        counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
+        got = gpu.predict(source, imgsz=imgsz, batch=batch, half=half)
+        moved = tuple(n - n0 for n, n0 in zip((fused_bottleneck.launches, fused_bottleneck_bf16.launches,
+                                               greedy_keep.launches), counts))
+        assert moved == ((0, 6, 1) if half else (6, 0, 1))
+        ref = cpu.predict(source, imgsz=imgsz, batch=batch, half=half)
+        assert next(gpu.predictor.model.parameters()).device.type == "cuda" and len(got) == len(ref)
+        if half:  # the port's own bf16-to-f32 distance over every anchor of these frames
+            d = (_decoded(model, frames, imgsz) - _decoded(cpu.model, frames, imgsz)).abs()
+            conf_tol, px_tol = 2 * float(d[..., 4:].max()), 2 * float(d[..., :4].max())
+        else:
+            conf_tol, px_tol = 1e-4, 1e-2
         for g, r in zip(got, ref):
             assert len(g) == len(r)
             np.testing.assert_array_equal(g.boxes.cls, r.boxes.cls)
-            np.testing.assert_allclose(g.boxes.conf, r.boxes.conf, atol=1e-4, rtol=0)
+            np.testing.assert_allclose(g.boxes.conf, r.boxes.conf, atol=conf_tol, rtol=0)
             gain = min(imgsz / g.orig_shape[0], imgsz / g.orig_shape[1])
-            np.testing.assert_allclose(g.boxes.xyxy, r.boxes.xyxy, atol=1e-2 / gain, rtol=0)
+            np.testing.assert_allclose(g.boxes.xyxy, r.boxes.xyxy, atol=px_tol / gain, rtol=0)
             np.testing.assert_array_equal(g.orig_img, r.orig_img)
     assert sum(len(r) for r in got) > 0
