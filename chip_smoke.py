@@ -58,8 +58,24 @@ Phases, each printing one JSON line, each fatal when it fails:
                by stage; the kernel at predict's B = 1 shapes; and on 2
                captures the card's bf16 against the CPU's bf16 and the card's
                f32 (decoded predictions of every anchor, and the detections)
-Then the `kernels` line and, last, {"ok": true, "device": {...}}. It exits
-non-zero, with no result line, when there is no card or the port is missing.
+  9. val       the port's generator writes the spectrogram_synth val split (32
+               PNG at 640 px, the packaged YAML's settings) into a temporary
+               directory; YOLO(ckpt).val(data=..., batch=32) on the card in f32
+               and with half=True, each with the counts set to 0 just before and
+               read just after (6 + 1 launches per batch; 6 bf16 + 1 with
+               half=True), P, R, mAP50 and mAP50-95 of each; the card's f32
+               results_dict against the CPU's on the first 4 images (within
+               1e-4); the bf16 mAP50-95 beside the CPU's bf16 and the card's
+               bf16 with the plain bottleneck, and the card's f32, bf16 and
+               bf16 with the plain bottleneck on 256 images; the keep kernel
+               against its plain version on the first batch's (32, 2048)
+               multi-label candidates, with the valid candidates, kept boxes
+               (scan steps) per image, its time, device time and bound; the val
+               call's time per image, split into host read and decode,
+               letterbox and H2D, device function and host stats
+Then the total time, the `kernels` line and, last, {"ok": true, "device":
+{...}}. It exits non-zero, with no result line, when there is no card or the
+port is missing.
 """
 
 from __future__ import annotations
@@ -84,6 +100,8 @@ BATCHES = (1, 8, 32)
 IQ_SAMPLES = 256 + 128 * 639  # one capture of 640 STFT frames at the IQ loader's n_fft 256, hop 128
 ARRAY_SHAPES = ((360, 640, 1), (720, 1280, 3), (500, 333, 3))
 PREDICT_BATCH = 32
+VAL_BATCH = 32
+VAL_TOL = 1e-4  # the card's results_dict against the CPU's, per key
 
 
 def emit(phase: str, **kw) -> None:
@@ -826,6 +844,134 @@ def phase_predict_half():
     return launches, b1_checks
 
 
+def nms_device_ms(bx, vd, calls: int = 10) -> dict:
+    """Device ms of one greedy keep call, its mask and scan kernels apart, by torch.profiler over `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spectrogram_yolov11_torch.ops.nms_kernel import greedy_keep
+
+    greedy_keep(bx, vd, 0.7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            greedy_keep(bx, vd, 0.7)
+        torch.cuda.synchronize()
+    ms = {"mask": 0.0, "scan": 0.0}
+    for e in prof.events():
+        for part in ms:
+            if e.device_type == torch.autograd.DeviceType.CUDA and f"nms_{part}_kernel" in e.name:
+                ms[part] += e.time_range.elapsed_us() / 1e3 / calls
+    return dict(ms, total=ms["mask"] + ms["scan"])
+
+
+def phase_val():
+    """YOLO(ckpt).val on the card on the spectrogram_synth val split: counted
+    f32 and bf16 runs, the CPU on 4 images, the keep kernel at (32, 2048) on
+    the first batch's candidates, and the time per image by stage."""
+    import tempfile
+
+    import torch
+
+    import spectrogram_yolov11_torch.nn.modules.block as block
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+    from spectrogram_yolov11_torch.data.dataset import YOLODataset, check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.fused_conv import bottleneck_reference_bf16, unpack_bottleneck_weights_bf16
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+    from spectrogram_yolov11_torch.ops.nms_kernel import greedy_keep
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    yolo, dev = YOLO(CKPT), torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the packaged dataset's val split (its train split is not needed here)
+        t0 = time.perf_counter()
+        data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp, n_train=0))
+        generate_s = time.perf_counter() - t0
+        ds = YOLODataset(data["val"], imgsz=640)
+        require(len(ds) == VAL_BATCH, f"the val split has {len(ds)} images, expected {VAL_BATCH}")
+
+        # the main path: one batch of 32 in f32, then with half=True, counts set to 0 just before each
+        results, launches, speed = {}, {}, {}
+        for name, half, expect in (("f32", False, {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1}),
+                                   ("bf16", True, {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6, "greedy_keep": 1})):
+            results[name], launches[name] = run_counted(lambda h=half: yolo.val(data=data, batch=VAL_BATCH, half=h),
+                                                        expect, f"{name} val of one batch of {VAL_BATCH}")
+            speed[name] = dict(yolo.validator.speed)
+            require(list(results[name]) == ["metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+                                            "metrics/mAP50-95(B)", "fitness"]
+                    and all(0.0 <= v <= 1.0 for v in results[name].values()), f"{name} val results malformed")
+        require(results["f32"]["metrics/mAP50-95(B)"] > 0.5, f"f32 mAP50-95 {results['f32']} on the trained model")
+        require(yolo.model.dtype == torch.float32, "val(half=True) changed the caller's f32 model")
+
+        # the card's f32 against the CPU's on the first 4 images
+        (Path(tmp) / "val4.txt").write_text("\n".join(ds.im_files[:4]))
+        sub = dict(data, val=str(Path(tmp) / "val4.txt"))
+        card4, cpu4 = yolo.val(data=sub, batch=4), YOLO(CKPT, device="cpu").val(data=sub, batch=4)
+        diff4 = {k: abs(card4[k] - cpu4[k]) for k in card4}
+        require(max(diff4.values()) <= VAL_TOL, f"the card's val on 4 images lies {diff4} from the CPU's")
+
+        # where the card's bf16 mAP50-95 stands: beside the CPU's bf16 on the same 32 images and the card's bf16
+        # with the plain bf16 bottleneck in the kernel's place (the module's name patched for those calls); then
+        # f32, bf16 and bf16 with the plain bottleneck on 256 images of the same settings (the first 32 are the
+        # split above), where a near-tie in one image weighs less
+        key = "metrics/mAP50-95(B)"
+
+        def plain_bottleneck_map(d) -> float:
+            kernel = block.fused_bottleneck
+            block.fused_bottleneck = lambda x, w1, b1, w2, b2: bottleneck_reference_bf16(
+                x, unpack_bottleneck_weights_bf16(w1), b1, unpack_bottleneck_weights_bf16(w2), b2)
+            try:
+                return yolo.val(data=d, batch=VAL_BATCH, half=True)[key]
+            finally:
+                block.fused_bottleneck = kernel
+
+        bf16_readings = {"card": results["bf16"][key], "card_plain_bottleneck": plain_bottleneck_map(data),
+                         "cpu": YOLO(CKPT, device="cpu").val(data=data, batch=VAL_BATCH, half=True)[key]}
+        wide = check_det_dataset(dict(data, path=Path(tmp) / "n256", train="images/train", val="images/val",
+                                      n_val=8 * VAL_BATCH))
+        map_256 = {"f32": yolo.val(data=wide, batch=VAL_BATCH)[key],
+                   "bf16": yolo.val(data=wide, batch=VAL_BATCH, half=True)[key],
+                   "bf16_plain_bottleneck": plain_bottleneck_map(wide)}
+
+        # the keep kernel at (32, 2048) on the first batch's multi-label candidates
+        with torch.inference_mode():
+            frames = letterbox_batch([ds.load_image(i) for i in range(VAL_BATCH)], 640, dev, scaleup=False)
+            rgb = frames.expand(-1, -1, -1, 3).flip(-1).float() / 255.0
+            preds = decode_detections(yolo.model(rgb.permute(0, 3, 1, 2)), yolo.model.nc, yolo.model.stride)
+            _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, yolo.model.nc, multi_label=True,
+                                                          pre_nms_topk=2048)
+            require(valid.shape == (VAL_BATCH, 2048), f"val candidates {tuple(valid.shape)}, expected ({VAL_BATCH}, 2048)")
+            nms = nms_check(offset_boxes, valid)
+            kept = greedy_keep(offset_boxes, valid, 0.7).sum(1).tolist()  # one scan step per kept box
+            nms.update(valid_per_image=valid.sum(1).tolist(), kept_per_image=kept, scan_steps_per_image=kept,
+                       device_ms_by_kernel=nms_device_ms(offset_boxes, valid))
+            nms["device_ms"] = nms["device_ms_by_kernel"]["total"]
+
+        # times: whole val calls (host clock) and the stages; host read and decode timed serially per image
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds.get_item(i)
+        read_decode_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+        times = {}
+        for name, half in (("f32", False), ("bf16", True), ("bf16", True), ("f32", False)):
+            t0 = time.perf_counter()
+            yolo.val(data=data, batch=VAL_BATCH, half=half)
+            times.setdefault(name, []).append({"val_call_ms_per_image": (time.perf_counter() - t0) * 1e3 / len(ds),
+                                               **{f"{k}_ms_per_image": v for k, v in yolo.validator.speed.items()}})
+    emit("val", images=len(ds), generate_s=generate_s, results=results, launches=launches,
+         first_call_speed_ms_per_image=speed, card_vs_cpu_4_images={"card": card4, "cpu": cpu4, "abs_diff": diff4},
+         bf16_map50_95=bf16_readings, map50_95_256_images=map_256,
+         greedy_keep_k2048=nms, host_read_decode_ms_per_image=read_decode_ms, times_f32_bf16_bf16_f32=times,
+         method="whole val calls on the host clock (validator built, loader threads, letterbox, device function, "
+                "stats), f32 and bf16 in turns; the validator's stages by the host clock with the card synchronised "
+                "after the letterbox (preprocess: letterbox and H2D; inference: device function and D2H; "
+                "postprocess: un-letterbox and TP matching); host read and decode: YOLODataset.get_item per image, "
+                "serially; the keep kernel as the other phases, and its device time by torch.profiler")
+    return launches, nms
+
+
 def main() -> int:
     import torch
 
@@ -840,6 +986,7 @@ def main() -> int:
         print(f"chip_smoke: the port is missing beside this script ({e})", file=sys.stderr)
         return 2
     require(CKPT.exists(), f"missing checkpoint {CKPT}")
+    t_start = time.perf_counter()
 
     smi = phase_card()
     phase_build()
@@ -855,6 +1002,7 @@ def main() -> int:
     with torch.inference_mode():
         half_launches, half_checks, half_shapes = phase_half(fn, frames_dev)
     predict_half_launches, b1_half = phase_predict_half()
+    val_launches, nms_val = phase_val()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -864,7 +1012,8 @@ def main() -> int:
         dict(name="fused_bottleneck", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
              replaces="spectrogram_yolov11_tpu/ops/pallas_fused_conv.py:67",
              launches=launches["fused_bottleneck"],
-             launches_by_path={"pipeline": launches["fused_bottleneck"], "predict": predict_launches["fused_bottleneck"]},
+             launches_by_path={"pipeline": launches["fused_bottleneck"], "predict": predict_launches["fused_bottleneck"],
+                               "val": val_launches["f32"]["fused_bottleneck"]},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values())),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
@@ -876,7 +1025,8 @@ def main() -> int:
              replaces="spectrogram_yolov11_tpu/ops/pallas_fused_conv.py:67",
              launches=half_launches["fused_bottleneck_bf16"],
              launches_by_path={"pipeline_half": half_launches["fused_bottleneck_bf16"],
-                               "predict_half": predict_half_launches["fused_bottleneck_bf16"]},
+                               "predict_half": predict_half_launches["fused_bottleneck_bf16"],
+                               "val_half": val_launches["bf16"]["fused_bottleneck_bf16"]},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values())),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values())),
              ms=per_forward("ms", half_shapes), plain_ms=per_forward("plain_ms", half_shapes),
@@ -894,16 +1044,21 @@ def main() -> int:
              launches=launches["greedy_keep"],
              launches_by_path={"pipeline": launches["greedy_keep"], "predict": predict_launches["greedy_keep"],
                                "pipeline_half": half_launches["greedy_keep"],
-                               "predict_half": predict_half_launches["greedy_keep"]},
+                               "predict_half": predict_half_launches["greedy_keep"],
+                               "val": val_launches["f32"]["greedy_keep"], "val_half": val_launches["bf16"]["greedy_keep"]},
              max_abs_err=0.0,
              ms=nms["ms"], plain_ms=nms["plain_ms"], bound_ms=nms["bound_ms"], bound_by=nms["bound_by"],
              library_ms=None, design="IoU bitmask of valid rows + one-warp scan from survivor to survivor",
              scan_steps_mean=nms["scan_steps_mean"],
              predict_k1024={k: nms_k1024[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                       "scan_steps_mean", "mismatches")},
-             note="one launch per pipeline or predict batch; times at B=32, k=512 on the trained model's "
-                  "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates)"),
+             val_k2048={k: nms_val[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "scan_steps_mean", "mismatches")},
+             note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
+                  "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
+                  "validator's multi-label k on the val split's first batch)"),
     ]
+    emit("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
-"""Predict configuration. Counterpart of spectrogram_yolov11_tpu/cfg/__init__.py
-(get_cfg :125, check_dict_alignment :79, check_cfg :92, get_save_dir :151)
-over the predict keys of its cfg/default.yaml, held here as a dict because the
-port reads no YAML.
+"""Predict and val configuration. Counterpart of
+spectrogram_yolov11_tpu/cfg/__init__.py (get_cfg :125, check_dict_alignment
+:79, check_cfg :92, get_save_dir :151) over the predict and val keys of its
+cfg/default.yaml, held here as a dict because the port reads no config YAML.
 
-Two defaults differ from the JAX package's: `save` is False (True writes
-annotated JPEGs with cv2, which the port does not use), and `mode` is
-"predict", so `save_txt` writes under runs/detect/predict*.
+Defaults that differ from the JAX package's: `save` and `plots` are False
+(True would write annotated JPEGs or plots with cv2 and matplotlib, which the
+port does not use; val raises for plots=True), and `mode` is "predict", so
+`save_txt` writes under runs/detect/predict*. `conf` None is 0.25 in predict
+and 0.001 in val, `pre_nms_topk` 0 is 1024 in predict and 2048 in val, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -20,13 +23,20 @@ from ..utils import RUNS_DIR, increment_path
 DEFAULT_CFG_DICT: Dict[str, Any] = {
     "task": "detect",
     "mode": "predict",
+    "data": None,  # val: a dataset YAML (path or packaged name) or dict
     "imgsz": 640,
     "batch": 16,
+    "workers": 8,  # val: host threads that read and decode the images
+    "seed": 0,  # accepted as in the JAX package; val draws no random numbers
     "device": None,  # None -> "cuda"; "cpu" runs the plain versions on the host
-    "conf": None,  # None -> 0.25
+    "single_cls": False,
+    "split": "val",  # val: the dataset split to score
+    "save_json": False,  # val: COCO-protocol JSON, not ported (raises)
+    "plots": False,  # val: PR curves and confusion matrix plots, not ported (raises)
+    "conf": None,  # None -> 0.25 predict / 0.001 val
     "iou": 0.7,
     "max_det": 300,
-    "pre_nms_topk": 0,  # 0 -> 1024, the predict default
+    "pre_nms_topk": 0,  # 0 -> 1024 predict / 2048 val
     "classes": None,
     "agnostic_nms": False,
     "half": False,
@@ -41,8 +51,9 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
 }
 
 FRACTION_KEYS = {"conf", "iou"}
-INT_KEYS = {"max_det", "pre_nms_topk"}
-BOOL_KEYS = {"agnostic_nms", "half", "save", "save_txt", "save_conf", "save_crop", "exist_ok", "verbose"}
+INT_KEYS = {"max_det", "pre_nms_topk", "workers", "seed"}
+BOOL_KEYS = {"agnostic_nms", "half", "save", "save_txt", "save_conf", "save_crop", "exist_ok", "verbose",
+             "single_cls", "save_json", "plots"}
 
 
 class IterableSimpleNamespace(SimpleNamespace):

@@ -1,17 +1,24 @@
-"""Seeded synthetic LTE/RF spectrogram frames.
+"""Seeded synthetic LTE/RF spectrograms: frames, and the `spectrogram_synth` dataset.
 
-A copy of spectrogram_yolov11_tpu/data/synth.py:207 _synth_iq (numpy only),
-and a frame maker in the place of the JAX package's cv2 resize: the (F, T)
-spectrogram is resized with F.interpolate(bilinear, align_corners=False).
+A copy of spectrogram_yolov11_tpu/data/synth.py:207 _synth_iq (numpy only);
+a frame maker in the place of the JAX package's cv2 resize: the (F, T)
+spectrogram is resized with F.interpolate(bilinear, align_corners=False); and
+`maybe_generate` (JAX :25) with `_gen_spectrogram` (JAX :243), which write the
+synthetic split as PNG through data/imageio.py where the JAX package writes
+JPEG through cv2. The rng stream is JAX's, so the labels are equal; a frame
+lies from the JAX package's pre-JPEG frame by the two resizes' rounding (a
+grey level at about 15 % of pixels, tests/test_torch_dataset.py).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.stft import spectrogram_numpy
+from .imageio import imwrite_png
 
 
 def synth_iq(rng: np.random.Generator, n_samples: int):
@@ -48,14 +55,57 @@ def synth_iq(rng: np.random.Generator, n_samples: int):
     return iq, events
 
 
+def synth_frame(rng: np.random.Generator, height: int, width: int, n_fft: int = 256, hop: int = 128):
+    """One IQ capture with `width` STFT time frames drawn from rng, as a
+    (height, width) uint8 gray frame resized bilinearly, and its events."""
+    iq, events = synth_iq(rng, n_fft + hop * (width - 1))
+    img = torch.from_numpy((spectrogram_numpy(iq, n_fft=n_fft, hop=hop) * 255).astype(np.uint8))
+    small = F.interpolate(img[None, None].float(), size=(height, width), mode="bilinear", align_corners=False)
+    return small[0, 0].round().clamp(0, 255).to(torch.uint8).numpy(), events
+
+
 def synth_frames(n: int, height: int, width: int, seed: int = 0, n_fft: int = 256, hop: int = 128) -> np.ndarray:
     """(n, height, width, 1) uint8 gray spectrogram frames, one IQ capture each
     with `width` STFT time frames, resized to (height, width) bilinearly."""
     rng = np.random.default_rng(seed)
-    out = np.empty((n, height, width, 1), np.uint8)
+    return np.stack([synth_frame(rng, height, width, n_fft, hop)[0] for _ in range(n)])[..., None]
+
+
+def maybe_generate(data: dict) -> bool:
+    """Materialise the synthetic dataset a dataset YAML describes (key
+    `synthetic`) when its val split is missing: n_train images into each
+    `train` dir with seed + j and n_val into each `val` dir with seed + 10000,
+    as the JAX package does. Returns False for a YAML with no `synthetic` key.
+    Only the `spectrogram` kind is ported; the shapes kinds raise."""
+    kind = data.get("synthetic")
+    if not kind:
+        return False
+    if kind != "spectrogram":
+        raise NotImplementedError(f"synthetic dataset kind {kind!r} is not ported yet: queued in ROADMAP.md §1 "
+                                  f"item 7 (training data)")
+    n_train, n_val = int(data.get("n_train", 64)), int(data.get("n_val", 16))
+    imgsz, seed = int(data.get("gen_imgsz", 640)), int(data.get("seed", 0))
+    vals = data["val"] if isinstance(data["val"], list) else [data["val"]]
+    if Path(vals[0]).exists():
+        return True
+    trains = data["train"] if isinstance(data["train"], list) else [data["train"]]
+    jobs = [(d, n_train, seed + j) for j, d in enumerate(trains)] + [(d, n_val, seed + 10_000) for d in vals]
+    for d, n, s in jobs:  # <root>/images/<split> -> <root>/labels/<split>
+        _gen_spectrogram(Path(d).parent.parent, Path(d).name, n, imgsz, s)
+    return True
+
+
+def _gen_spectrogram(root: Path, split: str, n: int, imgsz: int, seed: int) -> None:
+    """n images of imgsz x imgsz (imgsz STFT time frames, 256 frequency bins
+    resized to imgsz rows) as gray PNG under root/images/split and their YOLO
+    labels (cls cx cy w h, time along x, frequency along y) under
+    root/labels/split."""
+    rng = np.random.default_rng(seed)
+    (root / "images" / split).mkdir(parents=True, exist_ok=True)
+    (root / "labels" / split).mkdir(parents=True, exist_ok=True)
     for i in range(n):
-        iq, _ = synth_iq(rng, n_fft + hop * (width - 1))
-        img = torch.from_numpy((spectrogram_numpy(iq, n_fft=n_fft, hop=hop) * 255).astype(np.uint8))
-        small = F.interpolate(img[None, None].float(), size=(height, width), mode="bilinear", align_corners=False)
-        out[i, ..., 0] = small[0, 0].round().clamp(0, 255).to(torch.uint8).numpy()
-    return out
+        img, events = synth_frame(rng, imgsz, imgsz)
+        imwrite_png(root / "images" / split / f"{i:05d}.png", img)
+        lines = [f"{c} {(t0 + t1) / 2:.6f} {(f0 + f1) / 2:.6f} {t1 - t0:.6f} {f1 - f0:.6f}"
+                 for c, t0, t1, f0, f1 in events]
+        (root / "labels" / split / f"{i:05d}.txt").write_text("\n".join(lines))

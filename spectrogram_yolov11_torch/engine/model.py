@@ -3,6 +3,7 @@ spectrogram_yolov11_tpu/engine/model.py:40 YOLO for the detect task on the JAX
 package's `.ckpt` checkpoints:
 
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").predict("capture.npy")
+    YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").val(data="spectrogram_synth.yaml", batch=32)
 
 The weights (EMA before the raw variables) are read on the host, carried
 across by the weight bridge and folded for the bottleneck kernel; predict
@@ -10,6 +11,8 @@ moves the model to its device, the card unless the caller passes
 device="cpu", and raises without a card. Predictors are cached on their
 sorted overrides, as in the JAX facade, `half` among them: predict(half=True)
 runs a bf16 copy of the model and leaves the f32 model to half=False calls.
+val builds a DetectionValidator per call (engine/validator.py), kept as
+`self.validator`, with the same defaults and callbacks.
 Other model sources and modes raise NotImplementedError naming the
 ROADMAP.md item that ports them.
 """
@@ -19,17 +22,15 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+from ..utils import not_ported as _not_ported
 from ..utils.callbacks import default_callbacks
 from .pipeline import load_model
 from .predictor import BasePredictor
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: queued in ROADMAP.md §1 {item}")
+from .validator import DetectionValidator
 
 
 class YOLO:
-    """`YOLO('best.ckpt')` on the PyTorch port; `device` sets predict's default device."""
+    """`YOLO('best.ckpt')` on the PyTorch port; `device` sets the default device of predict and val."""
 
     def __init__(self, model: str | Path = "yolo11n.yaml", task: Optional[str] = None, verbose: bool = False,
                  device: Optional[str] = None):
@@ -39,6 +40,7 @@ class YOLO:
         self.overrides: Dict[str, Any] = {} if device is None else {"device": str(device)}
         self.predictor = None
         self._predictor_key = None
+        self.validator = None
         if task not in (None, "detect"):
             raise _not_ported(f"task {task!r}", "item 10 (other heads)")
         self.task = "detect"
@@ -109,8 +111,18 @@ class YOLO:
     def train(self, **kwargs):
         raise _not_ported("training", "items 6-8 (training step, data, trainer loop)")
 
-    def val(self, **kwargs):
-        raise _not_ported("validation", "item 8 (trainer loop + validator)")
+    def val(self, **kwargs) -> Dict[str, float]:
+        """mAP of the model over a dataset: val(data="spectrogram_synth.yaml",
+        batch=32) -> results_dict; `data` is a dataset YAML (path or the name of
+        one of the port's packaged copies) or a dict, and is required."""
+        overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"model", "task", "mode"}}
+        data = overrides.pop("data", None)
+        if data is None:
+            raise TypeError("val() needs data=: a dataset YAML or dict (the checkpoint names none)")
+        validator = DetectionValidator(self.model, overrides=overrides)
+        validator.callbacks = self.callbacks  # shared, as in the JAX facade
+        self.validator = validator
+        return validator(data=data)
 
     def track(self, *args, **kwargs):
         raise _not_ported("tracking", "item 12 (host-side remainder: trackers)")

@@ -53,10 +53,12 @@ def load_model(ckpt: str | Path) -> Tuple[DetectionModel, dict]:
 
 def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
                     classes: Optional[Sequence[int]] = None, agnostic: bool = False,
-                    pre_nms_topk: int = PRE_NMS_TOPK, half: bool = False) -> Callable:
-    """The device function of a predict or serve batch: fn(uint8 (B, S, S, 1|3)
-    letterboxed frames on the model's device) -> (out (B, max_det, 6), n (B,)),
-    rows [x1, y1, x2, y2, conf, cls] in the JAX layout. Steps 2-5 above; the
+                    pre_nms_topk: int = PRE_NMS_TOPK, half: bool = False, multi_label: bool = False) -> Callable:
+    """The device function of a predict, serve or val batch: fn(uint8 (B, S, S,
+    1|3) letterboxed frames on the model's device) -> (out (B, max_det, 6), n
+    (B,)), rows [x1, y1, x2, y2, conf, cls] in the JAX layout. Steps 2-5
+    above, NMS over every (anchor, class) pair with `multi_label` (the
+    validator's setting) and over each anchor's best class otherwise; the
     network in bf16 with `half` (an f32 model is converted by set_dtype,
     which leaves it as it is) and in f32 otherwise, everything else in full
     f32 (utils.full_f32: the DFL decode is a matmul)."""
@@ -69,8 +71,8 @@ def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float 
         rgb = frames.expand(-1, -1, -1, 3).flip(-1).float() / 255.0  # gray broadcast, BGR -> RGB
         feats = model(rgb.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
         preds = decode_detections(feats, model.nc, model.stride)
-        return non_max_suppression(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, max_det=max_det,
-                                   pre_nms_topk=pre_nms_topk, classes=classes, agnostic=agnostic)
+        return non_max_suppression(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, multi_label=multi_label,
+                                   agnostic=agnostic, max_det=max_det, pre_nms_topk=pre_nms_topk, classes=classes)
 
     return fn
 

@@ -5,8 +5,10 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import re
 import threading
 from pathlib import Path
+from typing import Any, Dict, List
 
 import torch
 
@@ -31,6 +33,11 @@ class SimpleClass:
     def __getattr__(self, attr):
         raise AttributeError(f"'{self.__class__.__name__}' object has no attribute '{attr}'. "
                              f"See valid attributes below.\n{self.__doc__}")
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a feature the port does not have yet, naming its ROADMAP.md item."""
+    return NotImplementedError(f"{what} is not ported yet: queued in ROADMAP.md §1 {item}")
 
 
 def increment_path(path: str | Path, exist_ok: bool = False, sep: str = "", mkdir: bool = False) -> Path:
@@ -89,3 +96,98 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+_YAML_NULL = {"", "~", "null", "Null", "NULL"}
+_YAML_BOOL = {**dict.fromkeys(("true", "True", "TRUE", "yes", "Yes", "YES", "on", "On", "ON"), True),
+              **dict.fromkeys(("false", "False", "FALSE", "no", "No", "NO", "off", "Off", "OFF"), False)}
+_YAML_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
+_YAML_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+_YAML_KEY = re.compile(r"([A-Za-z0-9_][A-Za-z0-9_.\-]*)\s*:(\s+(.*))?$")
+
+
+def _yaml_scalar(text: str, where: str) -> Any:
+    """One plain or quoted YAML scalar, resolved as yaml.safe_load resolves it."""
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    if t[:1] in "[]{}&*!|>'\"%@`" and t:
+        raise ValueError(f"unsupported YAML value at {where}: {text!r}")
+    if t in _YAML_NULL:
+        return None
+    if t in _YAML_BOOL:
+        return _YAML_BOOL[t]
+    if _YAML_INT.match(t):
+        return int(t.replace("_", ""))
+    if _YAML_FLOAT.match(t) and any(c.isdigit() for c in t):
+        return float(t.replace("_", ""))
+    if t.lower() in {".inf", "+.inf", "-.inf", ".nan"}:
+        return float(t.replace(".", "", 1))
+    return t
+
+
+def _yaml_value(text: str, where: str) -> Any:
+    """A scalar, or a one-line flow list [a, b, ...] of scalars."""
+    t = text.strip()
+    if t.startswith("["):
+        if not t.endswith("]") or any(c in t[1:-1] for c in "[]{}"):
+            raise ValueError(f"unsupported YAML flow list at {where}: {text!r}")
+        body = t[1:-1].strip()
+        return [_yaml_scalar(item, where) for item in body.split(",")] if body else []
+    return _yaml_scalar(t, where)
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a trailing comment (a # at its start or after a space, outside quotes)."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "'\"":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def yaml_load(file: str | Path, append_filename: bool = False) -> Dict[str, Any]:
+    """Read a dataset YAML: the subset the dataset configs use, as
+    yaml.safe_load reads it (the port reads no YAML library). It takes
+    comments, top-level `key: value` with a scalar (str, int, float, bool,
+    null) or a one-line flow list `[a, b]`, and a key with an empty value
+    followed by an indented block of `key: scalar` lines (`names:` with
+    `0: LTE` under it). Anything else raises a ValueError naming the line."""
+    path = Path(file)
+    data: Dict[str, Any] = {}
+    block: Dict[Any, Any] | None = None
+    block_indent = 0
+    for n, raw in enumerate(path.read_text(encoding="utf-8").splitlines(), 1):
+        where = f"{path}:{n}"
+        line = _strip_comment(raw)
+        if not line.strip() or line.strip() == "---":
+            continue
+        if line[0] == "\t":
+            raise ValueError(f"tab indentation at {where}")
+        indent = len(line) - len(line.lstrip(" "))
+        m = _YAML_KEY.match(line.strip())
+        if not m:
+            raise ValueError(f"unsupported YAML at {where}: {raw!r}")
+        key, value = m.group(1), m.group(3)
+        if indent:
+            block_indent = block_indent or indent
+            if block is None or indent != block_indent:
+                raise ValueError(f"unexpected indentation at {where}: {raw!r}")
+            block[_yaml_scalar(key, where) if _YAML_INT.match(key) else key] = _yaml_value(value or "", where)
+            continue
+        if key in data:
+            raise ValueError(f"duplicate key {key!r} at {where}")
+        if value is None:  # a block of `key: scalar` lines follows, or the value is null
+            block, block_indent = {}, 0
+            data[key] = block
+        else:
+            block = None
+            data[key] = _yaml_value(value, where)
+    data = {k: (None if v == {} else v) for k, v in data.items()}
+    if append_filename:
+        data["yaml_file"] = str(file)
+    return data

@@ -1,13 +1,17 @@
-"""Callback bus for the predictor. Counterpart of
+"""Callback bus for the validator and the predictor. Counterpart of
 spectrogram_yolov11_tpu/utils/callbacks.py (default_callbacks :28,
-run_callbacks :34) for the events BasePredictor.stream_inference fires, in
-the order it fires them."""
+run_callbacks :34) for the events DetectionValidator.__call__ and
+BasePredictor.stream_inference fire, in the order they fire them."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List
 
 EVENTS = [
+    "on_val_start",
+    "on_val_batch_start",
+    "on_val_batch_end",
+    "on_val_end",
     "on_predict_start",
     "on_predict_batch_start",
     "on_predict_postprocess_end",

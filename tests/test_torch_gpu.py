@@ -11,10 +11,11 @@ another order than cuDNN's f32); its bf16 form within max|ref| * 2^-7 (two
 bf16 steps of the largest magnitude) with at most 1 % of elements unequal,
 since a sum in another order flips the rounding of a few intermediates; the
 keep mask and the pipeline's counts exactly; a whole network 1e-3 abs/rel, as
-the CPU model tests. The tests leave
+the CPU model tests; val on the card against val on the CPU, results_dict
+within 1e-4 and the detections above a score margin equal. The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
-TF32 on for cuDNN and matmul before it runs predict.
+TF32 on for cuDNN and matmul before it runs predict, and one before val.
 """
 
 import copy
@@ -414,3 +415,117 @@ def _predict_on_card_against_cpu(tmp_path, half: bool = False):
             np.testing.assert_allclose(g.boxes.xyxy, r.boxes.xyxy, atol=px_tol / gain, rtol=0)
             np.testing.assert_array_equal(g.orig_img, r.orig_img)
     assert sum(len(r) for r in got) > 0
+
+
+@pytest.fixture(scope="module")
+def val_split(tmp_path_factory):
+    """A 4-image PNG split of the synthetic spectrogram dataset at 640 px (val
+    seed 10000) and the CPU validator's results on it: results_dict and each
+    image's detections in its own pixels."""
+    _card()
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset
+
+    root = tmp_path_factory.mktemp("synth4")
+    data = {"path": str(root), "train": "images/train", "val": "images/val", "synthetic": "spectrogram",
+            "n_train": 0, "n_val": 4, "gen_imgsz": 640, "seed": 0, "names": {0: "LTE", 1: "RF"}}
+    check_det_dataset(data)
+    return data, _val_recording(YOLO(CKPT, device="cpu"), data)
+
+
+def _val_recording(model, data, **kw):
+    """model.val(data, batch=4, **kw) -> (results_dict, each image's detections in its own pixels)."""
+    import spectrogram_yolov11_torch.engine.validator as V
+
+    dets, inner = [], V._unletterbox_boxes
+    mp = pytest.MonkeyPatch()
+    mp.setattr(V, "_unletterbox_boxes", lambda *a: dets.append(inner(*a).copy()) or dets[-1])
+    try:
+        return model.val(data=data, batch=4, **kw), dets
+    finally:
+        mp.undo()
+
+
+def _assert_val_matches(got, ref, tol: float = 1e-4) -> None:
+    """results_dict within tol; per image, the detections above a score
+    threshold (the first of 0.1, 0.15, ... with no reference score within 1e-3
+    of it) equal in count and class, boxes within 1e-2 px."""
+    (res, dets), (res_ref, dets_ref) = got, ref
+    assert list(res) == list(res_ref) and all(abs(res[k] - res_ref[k]) <= tol for k in res), (res, res_ref)
+    assert len(dets) == len(dets_ref)
+    for a, b in zip(dets, dets_ref):
+        t = next(t for t in np.arange(0.1, 0.9, 0.05) if np.abs(b[:, 4] - t).min(initial=1.0) > 1e-3)
+        a, b = a[a[:, 4] >= t], b[b[:, 4] >= t]
+        assert len(a) == len(b) and np.array_equal(a[:, 5], b[:, 5])
+        assert float(np.abs(a[:, :4] - b[:, :4]).max(initial=0.0)) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_val_on_card_matches_cpu(val_split):
+    """YOLO(ckpt).val on the card (the default device) against the CPU's on the
+    same 4 PNG images at 640 px, batch 4: 6 bottleneck and 1 NMS launches per
+    batch; results_dict within 1e-4 and the detections as _assert_val_matches."""
+    from spectrogram_yolov11_torch import YOLO
+
+    data, cpu = val_split
+    counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
+    got = _val_recording(YOLO(CKPT), data)
+    moved = tuple(n - n0 for n, n0 in zip((fused_bottleneck.launches, fused_bottleneck_bf16.launches,
+                                           greedy_keep.launches), counts))
+    assert moved == (6, 0, 1)
+    _assert_val_matches(got, cpu)
+
+
+@pytest.mark.gpu
+def test_val_runs_f32_with_tf32_turned_on(val_split):
+    """TF32 on for cuDNN and matmul in the process: val still matches the CPU."""
+    from spectrogram_yolov11_torch import YOLO
+
+    data, cpu = val_split
+    _with_tf32_on(lambda: _assert_val_matches(_val_recording(YOLO(CKPT), data), cpu))
+
+
+@pytest.mark.gpu
+def test_val_half_launches_the_bf16_kernel():
+    """val(half=True) at batch 2 on 4 images: 6 bf16 bottleneck and 1 NMS
+    launches per batch, no f32 bottleneck launch; finite results."""
+    import tempfile
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset
+
+    _card()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = check_det_dataset({"path": tmp, "train": "images/train", "val": "images/val", "synthetic": "spectrogram",
+                                  "n_train": 0, "n_val": 4, "gen_imgsz": 640, "names": ["LTE", "RF"]})
+        counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
+        yolo = YOLO(CKPT)
+        res = yolo.val(data=data, batch=2, half=True)
+        moved = tuple(n - n0 for n, n0 in zip((fused_bottleneck.launches, fused_bottleneck_bf16.launches,
+                                               greedy_keep.launches), counts))
+    assert moved == (0, 12, 2) and all(np.isfinite(v) for v in res.values())
+    assert yolo.model.dtype == torch.float32 and yolo.validator.model.dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+def test_greedy_keep_kernel_on_val_candidates(val_split):
+    """The keep kernel against its plain version on the val split's
+    multi-label candidates at k = 2048, conf 0.001 (the validator's NMS)."""
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+    from spectrogram_yolov11_torch.data.dataset import YOLODataset, check_det_dataset
+    from spectrogram_yolov11_torch.engine.pipeline import load_model
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+
+    dev = _card()
+    data, _ = val_split
+    ds = YOLODataset(check_det_dataset(data)["val"], imgsz=640)
+    model = load_model(CKPT)[0].to(dev, memory_format=torch.channels_last)
+    frames = letterbox_batch([ds.load_image(i) for i in range(len(ds))], 640, dev, scaleup=False)
+    with torch.inference_mode():
+        rgb = frames.expand(-1, -1, -1, 3).flip(-1).float() / 255.0
+        preds = decode_detections(model(rgb.permute(0, 3, 1, 2)), model.nc, model.stride)
+        _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, model.nc, multi_label=True, pre_nms_topk=2048)
+        assert valid.shape == (4, 2048) and int(valid.sum()) > 0
+        got, ref = greedy_keep(offset_boxes, valid, 0.7), greedy_keep_reference(offset_boxes, valid, 0.7)
+    assert torch.equal(got, ref)

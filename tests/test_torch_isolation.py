@@ -55,6 +55,8 @@ def test_default_device_raises_without_card(monkeypatch):
         YOLO(CKPT, device="cuda").predict(frame, device="cuda:0")
     assert len(YOLO(CKPT).predict(frame, device="cpu", imgsz=64)) == 1
     with pytest.raises(RuntimeError, match="no CUDA card"):
+        YOLO(CKPT).val(data={"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]})
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):

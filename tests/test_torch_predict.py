@@ -15,6 +15,7 @@ classes and conf set.
 
 from pathlib import Path
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -178,7 +179,17 @@ def test_predict_refuses_what_the_port_does_not_do(models, tmp_path):
     for model in ("yolo11n.yaml", "yolo11n.pt", "best.onnx", "http://host:8000/model"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             YOLO(model)
-    for mode in (port.train, port.val, port.track, port.export):
+    for mode in (port.train, port.track, port.export):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mode()
+    # val runs now (held to JAX's validator in tests/test_torch_validator.py): without data it raises as the
+    # JAX facade does, and a split of JPEG images raises, naming the ROADMAP item that ports the decoder
+    jax_model = models[1]
+    for model in (port, jax_model):
+        with pytest.raises(TypeError):
+            model.val()
+    (tmp_path / "images" / "val").mkdir(parents=True)
+    assert cv2.imwrite(str(tmp_path / "images" / "val" / "frame.jpg"), frame)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.val(data={"path": str(tmp_path), "val": "images/val", "names": ["LTE", "RF"]}, imgsz=IMGSZ)
     assert port.names == {0: "LTE", 1: "RF"} and port.stride == (8.0, 16.0, 32.0) and port.device == "cpu"
