@@ -73,6 +73,31 @@ Phases, each printing one JSON line, each fatal when it fails:
                (scan steps) per image, its time, device time and bound; the val
                call's time per image, split into host read and decode,
                letterbox and H2D, device function and host stats
+  10. train    the detect training step: the port's generator writes the
+               synthetic split (128 train + 32 val PNG at 640 px) into a
+               temporary directory; the trained model at 640 px, B = 16,
+               amp=False, optimizer auto (AdamW) takes 20 steps
+               (DetectionTrainer.train_step, do_step from the warmup ramp) on
+               the train images through the val loader (a stand-in with no
+               augmentation), counted (no kernel launches: training runs the
+               bottlenecks unfused); then validate() of the EMA counted (6 +
+               1 launches per val batch, no bf16 launch); each kernel on the
+               inputs the first val batch gave it, against its plain version
+               (the six bottlenecks at 16x40x40x32 and 16x20x20x64, also
+               against BN folded from the EMA's weights now, so a stale fold
+               fails; the keep kernel at (16, 2048)); and the card's val of
+               the EMA against the CPU's on 4 images (within 1e-4).
+               Readings: ms per step by CUDA events; train_step on 6 later
+               steps, timed one by one with the split it records (forward,
+               assigner + loss, backward, clip + update + EMA); the profile
+               of 3 steps (busy share, top kernels,
+               launches per step); peak memory; loss items per step; the same
+               steps at B = 32 (or why not). Last, one accumulation step and
+               one AdamW step at 160 px, B = 4, full width and depth, on the
+               card with TF32 turned on for the process and on the CPU from the
+               same weights and batch: loss items, grads, first moments,
+               params, BN statistics and the EMA within the tolerances of
+               tests/test_torch_train_step.py
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -102,6 +127,8 @@ ARRAY_SHAPES = ((360, 640, 1), (720, 1280, 3), (500, 333, 3))
 PREDICT_BATCH = 32
 VAL_BATCH = 32
 VAL_TOL = 1e-4  # the card's results_dict against the CPU's, per key
+TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_STEPS = 640, 16, 20  # JAX's default imgsz and batch
+TRAIN_CHECK, TRAIN_CHECK_BATCH = 160, 4  # the card's step against the CPU's
 
 
 def emit(phase: str, **kw) -> None:
@@ -972,6 +999,296 @@ def phase_val():
     return launches, nms
 
 
+def train_max_gt(ds) -> int:
+    """The GT pad the JAX train loader sizes for a split (its data/dataset.py:157-165 with augment=True)."""
+    most = max((len(lab["cls"]) for lab in ds.labels), default=0)
+    return int(min(128, max(32, -(-int(most * 4 * 1.1) // 8) * 8)))
+
+
+def train_batches(img_dir: str, imgsz: int, batch: int, device):
+    """The train split as train batches (JAX's layout: img (B, S, S, 3) uint8 RGB,
+    cls, bboxes normalised xywh, mask_gt) on `device`, through the port's val
+    loader and the val letterbox: a stand-in with no augmentation until the
+    train loader is ported."""
+    import torch
+
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+    from spectrogram_yolov11_torch.data.build import DataLoader
+    from spectrogram_yolov11_torch.data.dataset import YOLODataset
+
+    ds = YOLODataset(img_dir, imgsz=imgsz)
+    ds = YOLODataset(img_dir, imgsz=imgsz, max_gt=train_max_gt(ds))
+    out = []
+    for b in DataLoader(ds, batch_size=batch, workers=8):
+        if int(b["n_valid"]) < batch:  # drop_last, as the train loader
+            break
+        frames = letterbox_batch(b["img"], imgsz, device, scaleup=False)
+        out.append({"img": frames.expand(-1, -1, -1, 3).flip(-1).contiguous(),
+                    **{k: torch.from_numpy(b[k]).to(device) for k in ("cls", "bboxes", "mask_gt")}})
+    return out
+
+
+def timed_steps(trainer, batches, nis) -> dict:
+    """train_step itself on `batches` at iterations `nis`, one by one: its ms
+    by CUDA events around each call, and its split from the CUDA events
+    train_step records between its parts (DetectionTrainer.split_events)."""
+    import torch
+
+    steps, split = [], {}
+    for ni in nis:
+        trainer.split_events = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(batches[ni % len(batches)], ni, trainer.step_due(ni))
+        end.record()
+        torch.cuda.synchronize()
+        steps.append(start.elapsed_time(end))
+        marks, trainer.split_events = trainer.split_events, None
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            split.setdefault(name, []).append(a.elapsed_time(b))
+    return {"ms_per_step": steps, "split_ms_by_step": split}
+
+
+def new_trainer(data: dict, imgsz: int, batch: int, device: str):
+    from spectrogram_yolov11_torch.engine.pipeline import load_model
+    from spectrogram_yolov11_torch.engine.trainer import DetectionTrainer
+
+    t = DetectionTrainer(load_model(CKPT)[0], {"data": data, "imgsz": imgsz, "batch": batch, "amp": False,
+                                               "optimizer": "auto", "device": device, "workers": 8})
+    t.setup_model()
+    t.setup_optimizer()
+    return t
+
+
+def train_card_vs_cpu(data: dict) -> dict:
+    """One accumulation step and one AdamW step (ni 3 without, 4 with do_step;
+    lr != 0 in the warmup) of the trained model at TRAIN_CHECK px, B =
+    TRAIN_CHECK_BATCH, full width and depth, on the card with TF32 turned on for
+    the process and on this machine's CPU, from the same weights and batch: the
+    tolerances of tests/test_torch_train_step.py, which holds the CPU to JAX."""
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch.engine.optim import lr_at
+
+    batch = train_batches(data["train"], TRAIN_CHECK, TRAIN_CHECK_BATCH, torch.device("cpu"))[0]
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    runs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            t = new_trainer(dict(data), TRAIN_CHECK, TRAIN_CHECK_BATCH, dev)
+            init = [p.detach().cpu().clone() for p in t.params]
+            items, grads = [], None
+            for ni, do_step in ((3, False), (4, True)):
+                items.append(t.train_step(batch, ni, do_step)[1].cpu())
+                if not do_step:
+                    grads = [g.cpu().clone() for g in t.state["grad_buf"]]
+            runs[dev] = (t, items, grads, init)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (tc, items_c, grads_c, init), (tp, items_p, grads_p, _) = runs["cuda"], runs["cpu"]
+    items_err = max(float(((a - b).abs() / b.abs()).max()) for a, b in zip(items_c, items_p))
+    require(items_err <= 1e-4, f"loss items on the card lie {items_err} (relative) from the CPU's")
+
+    def leaf_errors(got, ref):
+        top = max(float(r.abs().max()) for r in ref)
+        worst = 0.0
+        for g, r in zip(got, ref):
+            scale, err = float(r.abs().max()), float((g.cpu() - r).abs().max())
+            require(err <= (5e-4 * scale if scale >= 1e-6 * top else 1e-6 * top), f"leaf off by {err} (max {scale})")
+            worst = max(worst, err / scale) if scale >= 1e-6 * top else worst
+        return worst
+
+    grads_err, mu_err = leaf_errors(grads_c, grads_p), leaf_errors(tc.state["opt"]["mu"], tp.state["opt"]["mu"])
+    lr_main, lr_bias, _ = lr_at(tp.opt, 4)
+    loose = total = 0
+    for got, ref in ((tc.params, tp.params), (tc.state["ema"]["params"], tp.state["ema"]["params"])):
+        for name, g, r, p0 in zip(tp.param_names, got, ref, init):
+            r = r.detach()
+            err = (g.detach().cpu() - r).abs()
+            ulps = 4 * float(np.spacing(np.float32(r.abs().max())))
+            lr = lr_bias if name.endswith("bias") else lr_main
+            require(float(err.max()) <= 2 * lr + ulps, f"{name} on the card lies {float(err.max())} from the CPU's")
+            loose += int((err > 1e-3 * float((r - p0).abs().max()) + ulps).sum())
+            total += r.numel()
+    require(loose <= 0.01 * total, f"{loose} of {total} parameter elements past the tight bound")
+    stats_err = max(float((g.cpu() - r).abs().max() / r.abs().max()) for got, ref in (
+        (tc.stats, tp.stats), (tc.state["ema"]["batch_stats"], tp.state["ema"]["batch_stats"])) for g, r in zip(got, ref))
+    require(stats_err <= 1e-5, f"BN statistics on the card lie {stats_err} of their max from the CPU's")
+    return dict(imgsz=TRAIN_CHECK, batch=TRAIN_CHECK_BATCH, process_tf32=True, items_card=[i.tolist() for i in items_c],
+                items_cpu=[i.tolist() for i in items_p], items_max_rel_err=items_err,
+                grads_worst_share_of_leaf_max=grads_err, mu_worst_share_of_leaf_max=mu_err,
+                param_elements_past_tight_bound=loose, param_elements=total, bn_stats_worst_share_of_max=stats_err)
+
+
+def phase_train():
+    """The detect training step on the card: the trained model at TRAIN_IMGSZ px,
+    B = TRAIN_BATCH, amp=False, optimizer auto (AdamW), on the synthetic
+    split's train images; TRAIN_STEPS steps with do_step from the warmup ramp,
+    counted (no kernel runs in training), then validate() of the EMA counted
+    (6 + 1 launches per val batch); each kernel on the inputs the first val
+    batch gave it, against its plain version (the bottlenecks also against BN
+    folded from the EMA's weights now), and the card's val against the CPU's
+    on 4 images; 6 later steps timed with their split, the profile of 3
+    steps, B = 32; last the card's step against the CPU's at TRAIN_CHECK px
+    with TF32 on."""
+    import copy
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK, DetectionValidator
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.fused_conv import bottleneck_reference
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    dev = torch.device("cuda")
+    zero = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp))
+        generate_s = time.perf_counter() - t0
+        batches = train_batches(data["train"], TRAIN_IMGSZ, TRAIN_BATCH, dev)
+        trainer = new_trainer(data, TRAIN_IMGSZ, TRAIN_BATCH, "cuda")
+        opt = trainer.opt._asdict()
+        require(opt["kind"] == "adamw" and len(batches) == opt["nb"] == 128 // TRAIN_BATCH,
+                f"optimizer {opt}, {len(batches)} batches")
+
+        # the main path: TRAIN_STEPS steps, counts set to 0 just before and read just after
+        torch.cuda.reset_peak_memory_stats()
+
+        def steps():
+            out, start, end = [], torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for ni in range(TRAIN_STEPS):
+                do_step = trainer.step_due(ni)
+                out.append((ni, do_step, trainer.train_step(batches[ni % len(batches)], ni, do_step)))
+            end.record()
+            return out, start, end
+
+        (done, start, end), launches = run_counted(steps, zero, f"{TRAIN_STEPS} train steps")
+        steps_ms = start.elapsed_time(end)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        losses = [[ni, do_step, float(loss), items.tolist()] for ni, do_step, (loss, items) in done]
+        require(all(torch.isfinite(torch.tensor(r[3])).all() and r[2] > 0 for r in losses), f"losses {losses}")
+        n_updates = trainer.state["ema_updates"]
+        require(n_updates == sum(r[1] for r in losses) and n_updates >= 10, f"{n_updates} optimizer steps")
+
+        # the EMA validated: 32 val images at batch TRAIN_BATCH, counted; hooks (which launch nothing) keep
+        # what the first val batch hands each fused bottleneck and the head's output, the keep kernel's source
+        n_val = len(list(Path(data["val"]).iterdir()))
+        require(n_val % TRAIN_BATCH == 0, f"{n_val} val images")
+        expect = {"fused_bottleneck": 6 * (n_val // TRAIN_BATCH), "fused_bottleneck_bf16": 0,
+                  "greedy_keep": n_val // TRAIN_BATCH}
+        model = trainer.ema_eval_model()  # the model validate() scores, made here so it can be hooked
+        fused = {name: m for name, m in model.named_modules() if isinstance(m, Bottleneck) and m.fusable}
+        captured = {}
+
+        def keep_feats(mod, args, out):
+            captured.setdefault("feats", out)
+
+        hooks = [m.register_forward_pre_hook(keep_nhwc_input(captured)) for m in fused.values()]
+        hooks.append(model.model[-1].register_forward_hook(keep_feats))
+        t0 = time.perf_counter()
+        results, val_launches = run_counted(trainer.validate, expect, "validate() of the EMA")
+        val_s = time.perf_counter() - t0
+        for h in hooks:
+            h.remove()
+        require(trainer.ema_model is model, "validate() scored another model than the hooked EMA model")
+        require(all(0.0 <= v <= 1.0 for v in results.values()), f"EMA val results {results}")
+
+        # each fused bottleneck at the input the EMA's val gave it: the kernel against its plain version on
+        # the module's packs, and the module against the plain bottleneck on BN folded from the EMA's weights
+        # now (a stale fold fails here)
+        checks, fold_err = {}, 0.0
+        with torch.inference_mode():
+            for name, m in fused.items():
+                nhwc = captured[m]
+                checks[name] = {k: v for k, v in bottleneck_check(f"EMA {name}", layer_case(m, nhwc)).items()
+                                if "args" not in k}
+                (w1, b1), (w2, b2) = m.cv1.folded(), m.cv2.folded()
+                ref = bottleneck_reference(nhwc, w1.permute(2, 3, 1, 0), b1, w2.permute(2, 3, 1, 0), b2)
+                err = (m(nhwc.permute(0, 3, 1, 2)).permute(0, 2, 3, 1) - ref).abs()
+                require(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()), f"EMA bottleneck {name} runs stale weights")
+                fold_err = max(fold_err, float(err.max()))
+            shapes = sorted(c["shape"] for c in checks.values())
+            require(shapes == [[TRAIN_BATCH, 20, 20, 64]] * 4 + [[TRAIN_BATCH, 40, 40, 32]] * 2,
+                    f"EMA val bottleneck inputs {shapes}")
+
+            # the keep kernel on the first val batch's candidates at the validator's settings
+            preds = decode_detections(captured["feats"], model.nc, model.stride)
+            _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, model.nc, multi_label=True,
+                                                          pre_nms_topk=VAL_PRE_NMS_TOPK)
+            require(valid.shape == (TRAIN_BATCH, VAL_PRE_NMS_TOPK), f"EMA val candidates {tuple(valid.shape)}")
+            nms = nms_check(offset_boxes, valid)
+
+        # the card's val of the EMA against the CPU's on the first 4 images
+        (Path(tmp) / "val4.txt").write_text("\n".join(sorted(str(p) for p in Path(data["val"]).iterdir())[:4]))
+        sub = dict(data, val=str(Path(tmp) / "val4.txt"))
+        kw = {"data": sub, "imgsz": TRAIN_IMGSZ, "batch": 4}
+        card4 = DetectionValidator(model, dict(kw, device="cuda"))()
+        cpu4 = DetectionValidator(copy.deepcopy(model).cpu(), dict(kw, device="cpu"))()
+        diff4 = {k: abs(card4[k] - cpu4[k]) for k in card4}
+        require(max(diff4.values()) <= VAL_TOL, f"the EMA's val on 4 images: card {card4}, CPU {cpu4}")
+
+        # train_step on 6 further steps, timed with its split
+        later = timed_steps(trainer, batches, range(TRAIN_STEPS, TRAIN_STEPS + 6))
+
+        # the profile of 3 steps: busy share, top kernels, launches per step
+        ni0 = TRAIN_STEPS + 6
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for ni in range(ni0, ni0 + 3):
+                trainer.train_step(batches[ni % len(batches)], ni, trainer.step_due(ni))
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy = sum(by_name.values())
+        span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+
+        # B = 32 if it fits
+        b32 = {}
+        del batches, trainer, model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t32 = new_trainer(data, TRAIN_IMGSZ, 2 * TRAIN_BATCH, "cuda")
+            batches32 = train_batches(data["train"], TRAIN_IMGSZ, 2 * TRAIN_BATCH, dev)
+            steps32 = timed_steps(t32, batches32, range(6))
+            b32 = dict(ms_per_step=steps32["ms_per_step"][2:],
+                       peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+            del t32, batches32
+        except torch.cuda.OutOfMemoryError as e:
+            b32 = {"not_run": f"out of device memory at B = {2 * TRAIN_BATCH}: {str(e)[:200]}"}
+        torch.cuda.empty_cache()
+        check = train_card_vs_cpu(data)
+    emit("train", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, steps=TRAIN_STEPS, generate_s=generate_s,
+         optimizer=opt, launches=launches, ms_per_step=steps_ms / TRAIN_STEPS, later_steps=later,
+         later_split_ms_mean={n: sum(v) / len(v) for n, v in later["split_ms_by_step"].items()},
+         profile={"steps": 3, "kernel_launches_per_step": len(kernels) / 3, "device_kernel_ms_per_step": busy / 3,
+                  "device_span_ms_per_step": span / 3, "busy_share": busy / span,
+                  "top_kernels_ms_per_step": [[k[:90], ms / 3] for k, ms in top]},
+         peak_memory_gib=peak_gb, loss_items_per_step=losses, optimizer_steps=n_updates,
+         ema_val={"results": results, "launches": val_launches, "seconds": val_s,
+                  "fused_bottleneck_checks": checks, "fold_max_abs_err": fold_err, "greedy_keep_k2048": nms,
+                  "card_vs_cpu_4_images": {"card": card4, "cpu": cpu4, "abs_diff": diff4}},
+         batch32=b32, card_vs_cpu=check,
+         method="the main path's steps through DetectionTrainer.train_step, CUDA events around all of them; 6 "
+                "later steps one by one, CUDA events around each train_step call and its split from the events "
+                "train_step records between its parts; the profile over 3 steps by torch.profiler; batches from "
+                "the val loader over the train split (no augmentation); the kernels checked on the inputs the "
+                "EMA's first val batch gave them")
+    return val_launches, checks, nms
+
+
 def main() -> int:
     import torch
 
@@ -1003,6 +1320,7 @@ def main() -> int:
         half_launches, half_checks, half_shapes = phase_half(fn, frames_dev)
     predict_half_launches, b1_half = phase_predict_half()
     val_launches, nms_val = phase_val()
+    train_val_launches, train_bottleneck, nms_train = phase_train()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -1013,8 +1331,10 @@ def main() -> int:
              replaces="spectrogram_yolov11_tpu/ops/pallas_fused_conv.py:67",
              launches=launches["fused_bottleneck"],
              launches_by_path={"pipeline": launches["fused_bottleneck"], "predict": predict_launches["fused_bottleneck"],
-                               "val": val_launches["f32"]["fused_bottleneck"]},
-             max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values())),
+                               "val": val_launches["f32"]["fused_bottleneck"],
+                               "train_ema_val": train_val_launches["fused_bottleneck"]},
+             max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
+                                                         *train_bottleneck.values())),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -1045,7 +1365,8 @@ def main() -> int:
              launches_by_path={"pipeline": launches["greedy_keep"], "predict": predict_launches["greedy_keep"],
                                "pipeline_half": half_launches["greedy_keep"],
                                "predict_half": predict_half_launches["greedy_keep"],
-                               "val": val_launches["f32"]["greedy_keep"], "val_half": val_launches["bf16"]["greedy_keep"]},
+                               "val": val_launches["f32"]["greedy_keep"], "val_half": val_launches["bf16"]["greedy_keep"],
+                               "train_ema_val": train_val_launches["greedy_keep"]},
              max_abs_err=0.0,
              ms=nms["ms"], plain_ms=nms["plain_ms"], bound_ms=nms["bound_ms"], bound_by=nms["bound_by"],
              library_ms=None, design="IoU bitmask of valid rows + one-warp scan from survivor to survivor",
@@ -1054,6 +1375,8 @@ def main() -> int:
                                                       "scan_steps_mean", "mismatches")},
              val_k2048={k: nms_val[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                                  "scan_steps_mean", "mismatches")},
+             train_ema_val_k2048={k: nms_train[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                           "scan_steps_mean", "mismatches")},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

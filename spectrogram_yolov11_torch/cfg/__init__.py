@@ -1,7 +1,8 @@
-"""Predict and val configuration. Counterpart of
+"""Predict, val and train-step configuration. Counterpart of
 spectrogram_yolov11_tpu/cfg/__init__.py (get_cfg :125, check_dict_alignment
 :79, check_cfg :92, get_save_dir :151) over the predict and val keys of its
-cfg/default.yaml, held here as a dict because the port reads no config YAML.
+cfg/default.yaml and the keys the detect training step reads, held here as a
+dict because the port reads no config YAML.
 
 Defaults that differ from the JAX package's: `save` and `plots` are False
 (True would write annotated JPEGs or plots with cv2 and matplotlib, which the
@@ -48,12 +49,30 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "name": None,
     "exist_ok": False,
     "verbose": True,
+    # the training step (engine/trainer.py), with the JAX package's defaults
+    "epochs": 100,
+    "optimizer": "auto",  # SGD | Adam | AdamW | NAdam | RAdam | RMSProp | auto
+    "lr0": 0.01,
+    "lrf": 0.01,
+    "momentum": 0.937,
+    "weight_decay": 0.0005,
+    "warmup_epochs": 3.0,
+    "warmup_momentum": 0.8,
+    "warmup_bias_lr": 0.1,
+    "box": 7.5,
+    "cls": 0.5,
+    "dfl": 1.5,
+    "nbs": 64,
+    "cos_lr": False,
+    "amp": True,  # bf16 training is not ported yet: the trainer raises unless amp=False
 }
 
 FRACTION_KEYS = {"conf", "iou"}
-INT_KEYS = {"max_det", "pre_nms_topk", "workers", "seed"}
+FLOAT_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs", "warmup_momentum", "warmup_bias_lr", "box",
+              "cls", "dfl"}
+INT_KEYS = {"max_det", "pre_nms_topk", "workers", "seed", "epochs", "nbs"}
 BOOL_KEYS = {"agnostic_nms", "half", "save", "save_txt", "save_conf", "save_crop", "exist_ok", "verbose",
-             "single_cls", "save_json", "plots"}
+             "single_cls", "save_json", "plots", "cos_lr", "amp"}
 
 
 class IterableSimpleNamespace(SimpleNamespace):
@@ -84,7 +103,7 @@ def check_cfg(cfg: dict) -> None:
     for k, v in cfg.items():
         if v is None:
             continue
-        if k in FRACTION_KEYS and not isinstance(v, (int, float)):
+        if k in FRACTION_KEYS | FLOAT_KEYS and not isinstance(v, (int, float)):
             raise TypeError(f"'{k}={v}' must be a number")
         if k in INT_KEYS and not isinstance(v, int):
             raise TypeError(f"'{k}={v}' must be an int")

@@ -23,10 +23,22 @@ spectrogram_yolov11_tpu/data/augment.py:25 letterbox (`letterbox_params`:
 Python's round, r capped at 1), which ValTransform (JAX :682) records as
 ratio_pad for un-letterboxing at metric time and by which it moves the labels
 (format_sample :394 and _pad_labels :488, detect fields). Its pixels go
-through the same card resize: at r = 1 a copy and pad, equal to JAX's cv2
-path bit for bit; at r < 1 the fixed point above, which differs from
-cv2.resize(INTER_LINEAR) by a grey level at some pixels
-(tests/test_torch_dataset.py).
+through `resize_linear_u8`, which is cv2.resize(INTER_LINEAR) on uint8 bit
+for bit, as JAX's letterbox resizes (:59):
+
+  at an exact 2x downscale in both axes cv2 averages each 2x2 block,
+      (sum + 2) >> 2;
+  otherwise, per output column x: fx = float32((x + 0.5) * (1 / (nw / w)) - 0.5),
+      sx = floor(fx), fx -= sx; sx < 0 -> (0, fx = 0), sx >= w - 1 ->
+      (w - 1, fx = 0); 11-bit coefficients rint((1 - fx) * 2048) and
+      rint(fx * 2048); the horizontal pass p[sx] * c0 + p[sx + 1] * c1 in int32;
+      rows likewise, but clamped by index only (their coefficients stay);
+      the vertical pass as cv2's 8-bit one, ((b0 * (h0 >> 4)) >> 16) +
+      ((b1 * (h1 >> 4)) >> 16) + 2) >> 2.
+
+The coefficients are computed on the host in float32 as cv2 computes them;
+the passes are integer tensor ops, so the card and the CPU give the same
+bytes (tests/test_torch_dataset.py holds them to cv2 on the CPU).
 """
 
 from __future__ import annotations
@@ -92,6 +104,47 @@ def resize_u8(frames: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     return ((top.long() * (65536 - wy) + bot.long() * wy) >> 32).to(torch.uint8)
 
 
+def _cv2_taps(n_src: int, n_dst: int, clamp_coefficients: bool):
+    """Source indices i0, i1 and 11-bit coefficients c0, c1 (int32 numpy) of
+    cv2's INTER_LINEAR along one axis. Columns move a clamped tap's weight to
+    its edge pixel (clamp_coefficients); rows clamp the indices only."""
+    f = ((np.arange(n_dst, dtype=np.float64) + 0.5) * (1.0 / (n_dst / n_src)) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp_coefficients:
+        edge = (s < 0) | (s >= n_src - 1)
+        f[edge] = 0
+        s = np.where(s < 0, 0, np.minimum(s, n_src - 1))
+    one = np.float32(1)
+    c0 = np.rint((one - f) * np.float32(2048)).astype(np.int32)
+    c1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    return np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1), c0, c1
+
+
+def resize_linear_u8(frames: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """(G, h, w, C) uint8 -> (G, nh, nw, C) uint8, equal to
+    cv2.resize(INTER_LINEAR) of each frame (the module docstring gives the
+    arithmetic); the same size is returned as it is."""
+    g, h, w, c = frames.shape
+    if (h, w) == (nh, nw):
+        return frames
+    if (h, w) == (2 * nh, 2 * nw):
+        f = frames.int()
+        return ((f[:, 0::2, 0::2] + f[:, 0::2, 1::2] + f[:, 1::2, 0::2] + f[:, 1::2, 1::2] + 2) >> 2).to(torch.uint8)
+    dev = frames.device
+    x0, x1, a0, a1 = (torch.from_numpy(t).to(dev) for t in _cv2_taps(w, nw, True))
+    y0, y1, b0, b1 = (torch.from_numpy(t).to(dev) for t in _cv2_taps(h, nh, False))
+    a0, a1 = a0.view(1, 1, nw, 1), a1.view(1, 1, nw, 1)
+
+    def horizontal(rows: torch.Tensor) -> torch.Tensor:  # (G, nh, w, C) uint8 -> (G, nh, nw, C) int32
+        rows = rows.int()
+        return rows[:, :, x0] * a0 + rows[:, :, x1] * a1
+
+    h0, h1 = horizontal(frames[:, y0]), horizontal(frames[:, y1])
+    b0, b1 = b0.view(1, nh, 1, 1), b1.view(1, nh, 1, 1)
+    return ((((b0 * (h0 >> 4)) >> 16) + ((b1 * (h1 >> 4)) >> 16) + 2) >> 2).to(torch.uint8)
+
+
 def is_gray(frame, state: Optional[list] = None) -> bool:
     """True when a frame's channels are equal: one channel, a tensor broadcast
     over its last axis, or a numpy BGR frame whose planes match. A cheap
@@ -131,7 +184,7 @@ def letterbox_batch(frames: Sequence, imgsz: int, device: torch.device, gray_sta
     """uint8 HWC frames (numpy on the host or tensors on the device, any sizes)
     -> (B, imgsz, imgsz, C) uint8 on `device`, filled with `pad_value`; C is 1
     when every frame is gray, else 3. scaleup=False is the val letterbox
-    (letterbox_params): no frame is enlarged."""
+    (letterbox_params, resize_linear_u8): no frame is enlarged."""
     channels = 1 if all(is_gray(f, gray_state) for f in frames) else 3
     out = torch.full((len(frames), imgsz, imgsz, channels), pad_value, dtype=torch.uint8, device=device)
     groups: dict = {}
@@ -143,7 +196,7 @@ def letterbox_batch(frames: Sequence, imgsz: int, device: torch.device, gray_sta
         else:
             _, nh, nw, _, _, top, left = letterbox_params(imgsz, (h, w))
         stack = torch.stack([_upload(frames[i], channels, device) for i in idx])
-        resized = resize_u8(stack, nh, nw)
+        resized = resize_u8(stack, nh, nw) if scaleup else resize_linear_u8(stack, nh, nw)
         if len(idx) == 1:
             out[idx[0], top : top + nh, left : left + nw] = resized[0]
         else:

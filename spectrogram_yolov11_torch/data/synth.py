@@ -1,13 +1,13 @@
 """Seeded synthetic LTE/RF spectrograms: frames, and the `spectrogram_synth` dataset.
 
 A copy of spectrogram_yolov11_tpu/data/synth.py:207 _synth_iq (numpy only);
-a frame maker in the place of the JAX package's cv2 resize: the (F, T)
-spectrogram is resized with F.interpolate(bilinear, align_corners=False); and
-`maybe_generate` (JAX :25) with `_gen_spectrogram` (JAX :243), which write the
-synthetic split as PNG through data/imageio.py where the JAX package writes
-JPEG through cv2. The rng stream is JAX's, so the labels are equal; a frame
-lies from the JAX package's pre-JPEG frame by the two resizes' rounding (a
-grey level at about 15 % of pixels, tests/test_torch_dataset.py).
+a frame maker that resizes the (F, T) spectrogram as the JAX package's
+cv2.resize(INTER_LINEAR) (:252) does, through data/augment.py's
+resize_linear_u8; and `maybe_generate` (JAX :25) with `_gen_spectrogram` (JAX
+:243), which write the synthetic split as PNG through data/imageio.py where
+the JAX package writes JPEG through cv2. The rng stream is JAX's, so the
+labels are equal, and a frame equals the JAX package's pre-JPEG frame
+(tests/test_torch_dataset.py).
 """
 
 from __future__ import annotations
@@ -15,9 +15,9 @@ from __future__ import annotations
 from pathlib import Path
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..ops.stft import spectrogram_numpy
+from .augment import resize_linear_u8
 from .imageio import imwrite_png
 
 
@@ -57,16 +57,15 @@ def synth_iq(rng: np.random.Generator, n_samples: int):
 
 def synth_frame(rng: np.random.Generator, height: int, width: int, n_fft: int = 256, hop: int = 128):
     """One IQ capture with `width` STFT time frames drawn from rng, as a
-    (height, width) uint8 gray frame resized bilinearly, and its events."""
+    (height, width) uint8 gray frame resized as cv2's INTER_LINEAR, and its events."""
     iq, events = synth_iq(rng, n_fft + hop * (width - 1))
     img = torch.from_numpy((spectrogram_numpy(iq, n_fft=n_fft, hop=hop) * 255).astype(np.uint8))
-    small = F.interpolate(img[None, None].float(), size=(height, width), mode="bilinear", align_corners=False)
-    return small[0, 0].round().clamp(0, 255).to(torch.uint8).numpy(), events
+    return resize_linear_u8(img[None, ..., None], height, width)[0, ..., 0].numpy(), events
 
 
 def synth_frames(n: int, height: int, width: int, seed: int = 0, n_fft: int = 256, hop: int = 128) -> np.ndarray:
     """(n, height, width, 1) uint8 gray spectrogram frames, one IQ capture each
-    with `width` STFT time frames, resized to (height, width) bilinearly."""
+    with `width` STFT time frames, resized to (height, width) as synth_frame."""
     rng = np.random.default_rng(seed)
     return np.stack([synth_frame(rng, height, width, n_fft, hop)[0] for _ in range(n)])[..., None]
 

@@ -41,6 +41,7 @@ class YOLO:
         self.predictor = None
         self._predictor_key = None
         self.validator = None
+        self.ckpt_data = None  # the dataset the checkpoint was trained on, val's default
         if task not in (None, "detect"):
             raise _not_ported(f"task {task!r}", "item 10 (other heads)")
         self.task = "detect"
@@ -54,13 +55,14 @@ class YOLO:
         elif suffix in {".stablehlo", ".tflite", ".onnx"} or (Path(self.model_path) / "saved_model.pb").exists():
             raise _not_ported(f"exported model {self.model_path!r}", "item 9 (export + serving)")
         else:  # .yaml, or a bare name that the JAX facade reads as one
-            raise _not_ported(f"building a model from YAML ({self.model_path})", "items 6-8 (training)")
+            raise _not_ported(f"building a model from YAML ({self.model_path})", "item 8 (trainer loop: from-scratch init)")
 
     def _load_ckpt(self, path: str) -> None:
         self.model, meta = load_model(path)
         self.model.names = meta.get("names") or {i: f"{i}" for i in range(self.model.nc)}
         self.ckpt_meta = meta
         self.overrides["model"] = path
+        self.ckpt_data = (meta.get("train_args") or {}).get("data") or None
 
     # -- callbacks ---------------------------------------------------------
     def add_callback(self, event: str, func) -> None:
@@ -109,14 +111,18 @@ class YOLO:
         return self.predict(source, **kwargs)
 
     def train(self, **kwargs):
-        raise _not_ported("training", "items 6-8 (training step, data, trainer loop)")
+        # the training step is ported (engine/trainer.py: DetectionTrainer); the loop around it is not
+        raise _not_ported("YOLO.train (the epoch loop, the augmenting train loader, checkpoints)",
+                          "items 7-8 (training data, trainer loop)")
 
     def val(self, **kwargs) -> Dict[str, float]:
         """mAP of the model over a dataset: val(data="spectrogram_synth.yaml",
         batch=32) -> results_dict; `data` is a dataset YAML (path or the name of
-        one of the port's packaged copies) or a dict, and is required."""
+        one of the port's packaged copies) or a dict. Without it, the data the
+        checkpoint was trained on (its train_args), as the JAX facade does; a
+        TypeError when the checkpoint names none either."""
         overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"model", "task", "mode"}}
-        data = overrides.pop("data", None)
+        data = overrides.pop("data", None) or self.ckpt_data
         if data is None:
             raise TypeError("val() needs data=: a dataset YAML or dict (the checkpoint names none)")
         validator = DetectionValidator(self.model, overrides=overrides)

@@ -51,6 +51,20 @@ def load_model(ckpt: str | Path) -> Tuple[DetectionModel, dict]:
     return build_model(meta["model_yaml"], nc=meta.get("nc"), variables=tree.get("ema") or tree["variables"]), meta
 
 
+def eval_network(model: DetectionModel, half: bool, device: torch.device) -> DetectionModel:
+    """The network a predictor or validator runs for `model`, on `device`
+    (channels_last on the card): the model itself in f32, its bf16 copy with
+    `half` (set_dtype). A model left in training mode is put in eval mode
+    first, which folds its fused bottlenecks from the weights it holds now:
+    it runs BN on its running statistics and the kernels on its current
+    weights, as the JAX predictor and validator apply a model with
+    train=False."""
+    if model.training:
+        model.eval()
+    fmt = torch.channels_last if device.type == "cuda" else torch.contiguous_format
+    return model.set_dtype(torch.bfloat16 if half else torch.float32).to(device, memory_format=fmt)
+
+
 def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
                     classes: Optional[Sequence[int]] = None, agnostic: bool = False,
                     pre_nms_topk: int = PRE_NMS_TOPK, half: bool = False, multi_label: bool = False) -> Callable:

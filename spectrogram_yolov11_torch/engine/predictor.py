@@ -30,7 +30,7 @@ from ..nn.tasks import DetectionModel
 from ..ops.boxes import scale_boxes
 from ..utils import resolve_device
 from ..utils.callbacks import run_callbacks
-from .pipeline import build_device_fn
+from .pipeline import build_device_fn, eval_network
 from .results import Results
 
 
@@ -52,8 +52,8 @@ class BasePredictor:
                                       "have; queued in ROADMAP.md §1 item 5. save_txt=True works")
         self.args = args
         self.device = resolve_device(args.device or "cuda")
-        fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
-        self.model = model.set_dtype(torch.bfloat16 if args.half else torch.float32).to(self.device, memory_format=fmt)
+        self.source = model
+        self.model = eval_network(model, bool(args.half), self.device)
         self.imgsz = int(args.imgsz if isinstance(args.imgsz, int) else args.imgsz[0])
         self.batch_size = 1
         self.names = names if names is not None else {i: f"{i}" for i in range(model.nc)}
@@ -88,6 +88,8 @@ class BasePredictor:
             torch.cuda.synchronize(self.device)
 
     def stream_inference(self, source, batch_size: int = 1) -> Iterator[Results]:
+        if self.source.training:  # trained since this predictor was built: run its weights as they are now
+            self.model, self._device_fn = eval_network(self.source, bool(self.args.half), self.device), None
         if self._device_fn is None or batch_size != self.batch_size:
             self._device_fn = self._build_device_fn()
             self.batch_size = batch_size

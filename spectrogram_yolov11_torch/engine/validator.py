@@ -42,7 +42,7 @@ from ..nn.tasks import DetectionModel
 from ..ops.metrics import DetMetrics, box_iou_np, match_predictions
 from ..utils import not_ported, resolve_device
 from ..utils.callbacks import run_callbacks
-from .pipeline import build_device_fn
+from .pipeline import build_device_fn, eval_network
 
 VAL_PRE_NMS_TOPK = 2048
 
@@ -86,8 +86,8 @@ class DetectionValidator:
                               "item 8 (validator: save_json)")
         self.args = args
         self.device = resolve_device(args.device or "cuda")
-        fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
-        self.model = model.set_dtype(torch.bfloat16 if args.half else torch.float32).to(self.device, memory_format=fmt)
+        self.source = model
+        self.model = eval_network(model, bool(args.half), self.device)
         self.imgsz = int(args.imgsz if isinstance(args.imgsz, int) else args.imgsz[0])
         self.dataloader: Optional[DataLoader] = None
         self.iouv = np.linspace(0.5, 0.95, 10)
@@ -156,6 +156,8 @@ class DetectionValidator:
         if not self.data.get(args.split):
             raise KeyError(f"dataset has no '{args.split}' split")
         self.dataloader = self.get_dataloader(self.data[args.split], int(args.batch))
+        if self.source.training:  # trained since this validator was built: score its weights as they are now
+            self.model, self._device_fn = eval_network(self.source, bool(args.half), self.device), None
         if self._device_fn is None:
             self._device_fn = self._build_device_fn()
         self.init_metrics()

@@ -8,8 +8,10 @@ C2PSA (:264-357).
 C3k's inner bottlenecks are same-width 3x3 -> 3x3 residual blocks. In the
 inference forward they run as one fused CUDA kernel
 (ops/fused_conv.py:fused_bottleneck) on weights with BN folded in and packed
-for the kernel once, by `fold()` after the weights are loaded, in the dtype
-the network runs in (f32 or bf16). C3k2's own Bottleneck keeps e=0.5, so its
+for the kernel once, by `fold()` after the weights are loaded or the model is
+put in eval mode, in the dtype the network runs in (f32 or bf16). In training
+BN uses batch statistics, so nothing can be folded: they run their two Convs
+(cuDNN), as the JAX trainer does. C3k2's own Bottleneck keeps e=0.5, so its
 two convs differ in width and it stays on the plain path.
 
 In bf16 the rounding points are the JAX package's: the DFL decode's exp runs
@@ -55,7 +57,8 @@ def dfl_decode(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
 
 class Bottleneck(nn.Module):
     """cv1 -> cv2 (+ residual). Same-width 3x3 residual instances are `fusable`:
-    in eval they run the fused kernel on BN-folded weights set by `fold()`."""
+    in eval they run the fused kernel on BN-folded weights set by `fold()`, in
+    training their two Convs."""
 
     def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k: Tuple[int, int] = (3, 3), e: float = 0.5):
         super().__init__()
@@ -88,11 +91,9 @@ class Bottleneck(nn.Module):
         self.b1, self.b2 = b1.contiguous(), b2.contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.fusable:
+        if not self.fusable or self.training:
             y = self.cv2(self.cv1(x))
             return x + y if self.add else y
-        if self.training:
-            raise RuntimeError("the port is inference-only: fused bottlenecks run in eval mode")
         if self.w1 is None:
             raise RuntimeError("fused bottleneck weights are not folded: call model.fold() after loading weights")
         # NCHW -> NHWC: a view when the network runs channels_last (the pipeline

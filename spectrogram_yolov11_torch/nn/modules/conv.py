@@ -1,9 +1,10 @@
 """Convolution-family modules (NCHW) of the port.
 
-Counterparts of spectrogram_yolov11_tpu/nn/modules/conv.py: autopad, Conv
-(:190), DWConv (:255), Concat, Upsample. Attribute names (`conv`, `bn`) match
-the JAX modules so the weight bridge maps names mechanically. BN eps is 1e-3,
-as in the JAX package, not torch's default 1e-5.
+Counterparts of spectrogram_yolov11_tpu/nn/modules/conv.py: autopad,
+batch_norm (:169), Conv (:190), DWConv (:255), Concat, Upsample. Attribute
+names (`conv`, `bn`) match the JAX modules so the weight bridge maps names
+mechanically. BN eps is 1e-3, as in the JAX package, not torch's default
+1e-5, and in training BN follows flax (BatchNorm below).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch (torch's momentum 0.03)
 
 
 def autopad(k, p=None, d=1):
@@ -27,13 +29,34 @@ def autopad(k, p=None, d=1):
     return p
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch's BatchNorm2d (eps 1e-3) with flax's training semantics, as the
+    JAX package's batch_norm(train=True) in f32: the input is normalised with
+    its biased batch variance, and the running statistics move as
+    ra = 0.97 * ra + 0.03 * batch with the biased variance too (torch's own
+    training update takes momentum 0.1 and the unbiased variance). Eval
+    normalises with the running statistics, as torch does."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class Conv(nn.Module):
     """conv2d (no bias) + BatchNorm (eps 1e-3) + SiLU (or identity with act=False)."""
 
     def __init__(self, c1: int, c2: int, k=1, s=1, p: Optional[int] = None, g: int = 1, d: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS)
+        self.bn = BatchNorm2d(c2)
         self.act = nn.SiLU() if act is True else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -108,10 +108,13 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
 
 
 class DetectionModel(nn.Module):
-    """The detection network built from a model dict. Inference only: it is
-    built in eval mode, and `load_state_dict` folds the BN of every fused
-    bottleneck once, right after the weights land. It runs in f32; a bf16
-    copy comes from `set_dtype`.
+    """The detection network built from a model dict. It is built in eval
+    mode; `eval()` and `load_state_dict` fold the BN of every fused bottleneck
+    into its kernel's weights, so a model whose weights moved in training runs
+    the kernel on its current weights once it is back in eval mode. In
+    training mode BN uses batch statistics (flax's semantics) and the
+    bottlenecks run unfused. It runs in f32; a bf16 copy comes from
+    `set_dtype`.
 
     forward(x (B, 3, H, W) float) -> per-level (box, cls) logits, NCHW, in the
     model's dtype."""
@@ -126,7 +129,6 @@ class DetectionModel(nn.Module):
         layers, self.routes, self.save = parse_model(self.yaml, ch)
         self.model = nn.ModuleList(layers)
         self.eval()
-        self.fold()
         s = 256  # dummy forward for the strides, as the JAX BaseModel does
         with torch.no_grad():
             feats = self.forward(torch.zeros(1, ch, s, s))
@@ -142,6 +144,15 @@ class DetectionModel(nn.Module):
             x = m(x)
             y.append(x if i in self.save else None)
         return x
+
+    def train(self, mode: bool = True) -> "DetectionModel":
+        """Training or eval mode; eval folds the fused bottlenecks again from the
+        current weights. A bf16 copy keeps the packs set_dtype made: it holds no
+        f32 weights to fold, and it does not train."""
+        super().train(mode)
+        if not mode and self.dtype == torch.float32:
+            self.fold()
+        return self
 
     def fold(self) -> None:
         """Fold BN into the weights of every fused bottleneck, packed for the

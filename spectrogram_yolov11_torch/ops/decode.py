@@ -1,7 +1,8 @@
 """Head decode: anchors + DFL integral + dist2bbox + sigmoid class scores.
 
 Counterpart of spectrogram_yolov11_tpu/ops/decode.py: make_anchors (:21),
-dist2bbox (:37), decode_detections (:99). DFL and sigmoid run per level, then
+dist2bbox (:37), bbox2dist (:49, the loss's DFL targets), decode_detections
+(:99). DFL and sigmoid run per level, then
 the small results are concatenated, as in the JAX form.
 """
 
@@ -35,6 +36,12 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     if xywh:
         return torch.cat(((x1y1 + x2y2) / 2, x2y2 - x1y1), -1)
     return torch.cat((x1y1, x2y2), -1)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -> torch.Tensor:
+    """xyxy boxes -> LTRB distances from the anchor points, clamped to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    return torch.cat((anchor_points - x1y1, x2y2 - anchor_points), -1).clamp(0, reg_max - 0.01)
 
 
 def decode_detections(

@@ -1,9 +1,12 @@
-"""The weight bridge: flax {params, batch_stats} numpy trees -> a torch state dict.
+"""The weight bridge between flax {params, batch_stats} numpy trees and a torch
+state dict: `variables_to_state_dict` loads JAX weights into the port, and
+`state_dict_to_variables` turns the port's back into flax trees.
 
 This inverts spectrogram_yolov11_tpu/utils/torch_compat.py:translate_key. The
 JAX package names its submodules after the torch originals, with list indices
 merged into the name (`model_6/m_0/m_1/cv1/conv/kernel`); here each trailing
-run of `_<digits>` becomes dotted indices again (`model.6.m.0.m.1.cv1.conv`).
+run of `_<digits>` becomes dotted indices again (`model.6.m.0.m.1.cv1.conv`),
+and the reverse bridge merges them back as translate_key does.
 
 Leaves:
   conv `kernel` (kh, kw, cin/g, cout) HWIO -> `weight` (cout, cin/g, kh, kw) OIHW
@@ -61,3 +64,43 @@ def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
         key = ".".join(_torch_name(t) for t in path[:-1])
         out[f"{key}.{_STAT_LEAF[path[-1]]}"] = torch.tensor(np.asarray(leaf, np.float32))
     return out
+
+
+def _flax_path(torch_key: str) -> Tuple[str, ...]:
+    """'model.6.m.0.cv1.conv' -> ('model_6', 'm_0', 'cv1', 'conv'): numeric tokens merge into the name before them."""
+    out: list = []
+    for tok in torch_key.split("."):
+        if tok.isdigit() and out:
+            out[-1] = f"{out[-1]}_{tok}"
+        else:
+            out.append(tok)
+    return tuple(out)
+
+
+def state_dict_to_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """A state dict of the port's model (or any {name: tensor} keyed by its
+    parameter and BN buffer names: grads, optimizer moments) -> flax
+    {params, batch_stats} numpy trees, each leaf in its tensor's dtype. 4-D
+    `weight` -> `kernel` (HWIO), BN's 1-D `weight` -> `scale`, `bias` ->
+    `bias`, `running_mean` / `running_var` -> batch_stats `mean` / `var`;
+    `num_batches_tracked` has no flax counterpart and is left out."""
+    trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        key, leaf = name.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        arr = np.array(t.detach().cpu())  # a copy: the tree does not follow the tensor's later updates
+        if leaf == "weight":
+            tree, flax_leaf = "params", "kernel" if arr.ndim == 4 else "scale"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
+        elif leaf == "bias":
+            tree, flax_leaf = "params", "bias"
+        elif leaf in ("running_mean", "running_var"):
+            tree, flax_leaf = "batch_stats", {"running_mean": "mean", "running_var": "var"}[leaf]
+        else:
+            raise KeyError(f"unexpected state dict entry {name}")
+        node = trees[tree]
+        for tok in _flax_path(key):
+            node = node.setdefault(tok, {})
+        node[flax_leaf] = np.ascontiguousarray(arr)
+    return trees

@@ -12,7 +12,9 @@ bf16 steps of the largest magnitude) with at most 1 % of elements unequal,
 since a sum in another order flips the rounding of a few intermediates; the
 keep mask and the pipeline's counts exactly; a whole network 1e-3 abs/rel, as
 the CPU model tests; val on the card against val on the CPU, results_dict
-within 1e-4 and the detections above a score margin equal. The tests leave
+within 1e-4 and the detections above a score margin equal; the training step
+on the card against the CPU's with the tolerances tests/test_torch_train_step.py
+holds the CPU to JAX with (assert_train_step_close). The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -529,3 +531,144 @@ def test_greedy_keep_kernel_on_val_candidates(val_split):
         assert valid.shape == (4, 2048) and int(valid.sum()) > 0
         got, ref = greedy_keep(offset_boxes, valid, 0.7), greedy_keep_reference(offset_boxes, valid, 0.7)
     assert torch.equal(got, ref)
+
+
+# -- the detect training step -------------------------------------------------------------------------------
+
+TRAIN_STEPS = ((3, False), (4, True))  # an accumulation step, then an optimizer step with lr != 0 in the warmup
+
+
+@pytest.fixture(scope="module")
+def train_split(tmp_path_factory):
+    """A 4-image PNG val split of the synthetic spectrogram dataset at 128 px, for the trainer's data and val."""
+    _card()
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset
+
+    root = tmp_path_factory.mktemp("synth128")
+    return check_det_dataset({"path": str(root), "train": "images/train", "val": "images/val",
+                              "synthetic": "spectrogram", "n_train": 0, "n_val": 4, "gen_imgsz": 128,
+                              "names": {0: "LTE", 1: "RF"}})
+
+
+def _train_batch(seed: int = 2, b: int = 2, imgsz: int = 64, g: int = 6) -> dict:
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 2, (b, g)).astype(np.int32)
+    xy, wh = rng.uniform(0.2, 0.8, (b, g, 2)), rng.uniform(0.05, 0.4, (b, g, 2))
+    bboxes = np.concatenate([xy, wh], -1).astype(np.float32)
+    mask = np.arange(g)[None] < rng.integers(1, g, (b, 1))
+    bboxes[~mask], cls[~mask] = 0, 0
+    return {"img": rng.integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8), "cls": cls, "bboxes": bboxes,
+            "mask_gt": mask}
+
+
+def _trained_steps(device: str, data: dict, batch: dict):
+    """The trained model through TRAIN_STEPS on `device` (optimizer auto -> AdamW):
+    (trainer, per-step loss items, the grad buffer after the accumulation step, the initial params)."""
+    from spectrogram_yolov11_torch.engine.pipeline import load_model
+    from spectrogram_yolov11_torch.engine.trainer import DetectionTrainer
+
+    t = DetectionTrainer(load_model(CKPT)[0], {"data": data, "imgsz": int(batch["img"].shape[1]),
+                                               "batch": len(batch["img"]), "amp": False, "device": device,
+                                               "workers": 2})
+    t.setup_model()
+    t.setup_optimizer(nb=50)
+    init = [p.detach().cpu().clone() for p in t.params]
+    items, grads = [], None
+    for ni, do_step in TRAIN_STEPS:
+        items.append(t.train_step(batch, ni, do_step)[1].cpu())
+        if not do_step:
+            grads = [g.cpu().clone() for g in t.state["grad_buf"]]
+    return t, items, grads, init
+
+
+def assert_train_step_close(card, cpu) -> None:
+    """The card's step against the CPU's, the tolerances of tests/test_torch_train_step.py
+    (which holds the CPU to JAX): items 1e-4 relative; grads and first moments within 5e-4
+    of each leaf's max (1e-6 of the largest leaf's for leaves that cancel analytically);
+    params and their EMA within 1e-3 of the leaf's change plus four f32 steps, else within
+    2 lr (AdamW's first step on a noise-level grad) for at most 1 % of elements; BN
+    statistics and their EMA within 1e-5 of the leaf's max."""
+    (tc, items_c, grads_c, init), (tp, items_p, grads_p, _) = card, cpu
+    for a, b in zip(items_c, items_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+
+    def leafwise(got, ref, frac):
+        top = max(float(r.abs().max()) for r in ref)
+        for g, r in zip(got, ref):
+            scale = float(r.abs().max())
+            assert float((g.cpu() - r).abs().max()) <= (frac * scale if scale >= 1e-6 * top else 1e-6 * top)
+
+    leafwise(grads_c, grads_p, 5e-4)
+    leafwise(tc.state["opt"]["mu"], tp.state["opt"]["mu"], 5e-4)
+    from spectrogram_yolov11_torch.engine.optim import lr_at
+
+    lr_main, lr_bias, _ = lr_at(tp.opt, TRAIN_STEPS[-1][0])
+    loose = total = 0
+    for got, ref in ((tc.params, tp.params), (tc.state["ema"]["params"], tp.state["ema"]["params"])):
+        for name, g, r, p0 in zip(tp.param_names, got, ref, init):
+            r = r.detach()
+            err = (g.detach().cpu() - r).abs()
+            tight = 1e-3 * float((r - p0).abs().max()) + 4 * float(np.spacing(np.float32(r.abs().max())))
+            lr = lr_bias if name.endswith("bias") else lr_main
+            assert float(err.max()) <= 2 * lr + 4 * float(np.spacing(np.float32(r.abs().max()))), name
+            loose += int((err > tight).sum())
+            total += r.numel()
+    assert loose <= 0.01 * total, f"{loose} of {total} elements past the tight bound"
+    for got, ref in ((tc.stats, tp.stats), (tc.state["ema"]["batch_stats"], tp.state["ema"]["batch_stats"])):
+        for g, r in zip(got, ref):
+            assert float((g.cpu() - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    assert tc.state["ema_updates"] == tp.state["ema_updates"] == 1
+    assert all(float(b.abs().max()) == 0.0 for b in tc.state["grad_buf"])
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(train_split):
+    """The trained spectrogram_yolo11n at 64 px, B = 2: an accumulation step and
+    an AdamW step on the card against the same on the CPU; no kernel launches
+    (training runs the bottlenecks unfused)."""
+    batch = _train_batch()
+    counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
+    card = _trained_steps("cuda", train_split, batch)
+    assert (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches) == counts
+    assert_train_step_close(card, _trained_steps("cpu", train_split, batch))
+
+
+@pytest.mark.gpu
+def test_train_step_runs_f32_with_tf32_turned_on(train_split):
+    """TF32 on for cuDNN and matmul in the process: the step, backward and
+    update included, still runs in f32 and matches the CPU."""
+    batch = _train_batch(seed=5)
+    _with_tf32_on(lambda: assert_train_step_close(_trained_steps("cuda", train_split, batch),
+                                                  _trained_steps("cpu", train_split, batch)))
+
+
+@pytest.mark.gpu
+def test_ema_validate_launches_the_kernels_and_refolds(train_split):
+    """After the steps the EMA's eval model runs its fused bottlenecks on
+    weights folded from the EMA (the kernel within 1e-4 of the plain
+    bottleneck on the EMA's own weights, which moved), and validate() scores
+    it with 6 bottleneck + 1 NMS launches per val batch, no bf16 launch."""
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+
+    t = _trained_steps("cuda", train_split, _train_batch(imgsz=128))[0]
+    model = t.ema_eval_model()
+    fused = [m for m in model.modules() if isinstance(m, Bottleneck) and m.fusable]
+    assert len(fused) == 6 and not model.training
+    from spectrogram_yolov11_torch.engine.pipeline import load_model
+
+    trained_fold = [m.w1 for m in load_model(CKPT)[0].modules() if getattr(m, "fusable", False)]
+    moved = 0
+    for m, w1_before in zip(fused, trained_fold):
+        (w1, b1), (w2, b2) = m.cv1.folded(), m.cv2.folded()
+        moved += int(not torch.equal(m.w1.cpu(), w1_before))
+        x = torch.randn(2, w1.shape[0], 20, 20, device="cuda").contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            got = m(x)
+            ref = bottleneck_reference(x.permute(0, 2, 3, 1), w1.permute(2, 3, 1, 0), b1, w2.permute(2, 3, 1, 0), b2)
+        torch.testing.assert_close(got.permute(0, 2, 3, 1), ref, atol=1e-4, rtol=1e-4)
+    assert moved == len(fused)  # the EMA moved every bottleneck's weights, and eval() folded them again
+    counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
+    res = t.validate()
+    moved = tuple(n - n0 for n, n0 in zip((fused_bottleneck.launches, fused_bottleneck_bf16.launches,
+                                           greedy_keep.launches), counts))
+    assert moved == (12, 0, 2) and all(np.isfinite(v) for v in res.values())  # 4 images at batch 2

@@ -2,7 +2,8 @@
 
 An AST scan shows that no file of spectrogram_yolov11_torch/ nor chip_smoke.py
 imports jax, flax, msgpack, yaml, cv2 or the JAX package; with no card, the
-entry points raise for the default device instead of running on the CPU.
+entry points (the pipeline, predict, val and the trainer) raise for the
+default device instead of running on the CPU.
 """
 
 import ast
@@ -14,6 +15,7 @@ import torch
 
 from spectrogram_yolov11_torch import YOLO
 from spectrogram_yolov11_torch.engine.pipeline import build_pipeline
+from spectrogram_yolov11_torch.engine.trainer import DetectionTrainer
 from spectrogram_yolov11_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -56,6 +58,9 @@ def test_default_device_raises_without_card(monkeypatch):
     assert len(YOLO(CKPT).predict(frame, device="cpu", imgsz=64)) == 1
     with pytest.raises(RuntimeError, match="no CUDA card"):
         YOLO(CKPT).val(data={"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]})
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        DetectionTrainer(YOLO(CKPT).model, {"data": {"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]},
+                                            "amp": False})
     with pytest.raises(RuntimeError, match="no CUDA card"):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"

@@ -20,6 +20,7 @@ as maybe_generate seeds val) through `spectrogram_yolov11_torch.YOLO(CKPT)
   does.
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -122,6 +123,27 @@ def test_val_refuses_plots_and_save_json(runs, data):
         port.val(data=data, confidence=0.3)
     with pytest.raises(KeyError, match="no 'test' split"):  # split picks data[split]; this dataset has no test
         port.val(data=data, split="test")
+
+
+def test_val_without_data_scores_the_checkpoints_train_data(runs, data, tmp_path):
+    """val() with no data scores the dataset the checkpoint's train_args name,
+    as the JAX facade does (its engine/model.py:107-109, :275): a copy of the
+    checkpoint whose JSON header carries train_args {"data": <yaml>}, the
+    msgpack body byte for byte, validates as val(data=<yaml>). The shipped
+    checkpoint names no data, so there val() raises TypeError."""
+    yaml_path = tmp_path / "synth4.yaml"
+    yaml_path.write_text(f"path: {data['path']}\ntrain: images/train\nval: images/val\nnames:\n  0: LTE\n  1: RF\n")
+    blob = CKPT.read_bytes()
+    n = int.from_bytes(blob[:8], "little")
+    meta = json.loads(blob[8 : 8 + n])
+    assert meta["train_args"] == {}
+    header = json.dumps({**meta, "train_args": {"data": str(yaml_path)}}).encode()
+    trained = tmp_path / "trained.ckpt"
+    trained.write_bytes(len(header).to_bytes(8, "little") + header + blob[8 + n :])
+    assert trained.read_bytes()[-(len(blob) - 8 - n) :] == blob[8 + n :]
+    assert YOLO(trained, device="cpu").val(batch=4) == runs["port"][0]
+    with pytest.raises(TypeError, match="data="):
+        YOLO(CKPT, device="cpu").val(batch=4)
 
 
 def test_nms_at_val_settings_equals_jax_on_trained_candidates(data, runs):
