@@ -98,6 +98,24 @@ Phases, each printing one JSON line, each fatal when it fails:
                same weights and batch: loss items, grads, first moments,
                params, BN statistics and the EMA within the tolerances of
                tests/test_torch_train_step.py
+  11. train_loop  YOLO(ckpt).train(data=<the synthetic split, 128 + 32 PNG at
+               640 px>, epochs=3, batch=16, imgsz=640, amp=False,
+               close_mosaic=1): the augmenting train loader (mosaic,
+               warp, HSV and flips, the image half on the card by
+               augment_batch), the epoch loop and each epoch's EMA val,
+               counted from 0 around the call (no launch in the steps, 6 + 1
+               per val batch) and per epoch by callbacks; augment_batch on the
+               card against the CPU on the loader's first batch, and a
+               sample's host cost serially; each kernel against its plain
+               version on the first val's inputs; YOLO(best.ckpt).val against
+               the metrics of the epoch best.ckpt was saved at (within 1e-4);
+               a resume from last.ckpt as the first 2 epochs left it (epoch 2,
+               the saved optimizer step and EMA updates). Readings: seconds per
+               epoch, ms per step with the loader's wait, the wait, the split
+               of train_step in epoch 1 (upload and augment among its parts, by
+               CUDA events), the busy share over steps 3-5 of epoch 1 (the
+               profiler's set-up lands in that epoch's time), val seconds, the
+               final EMA's metrics, peak memory
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -129,6 +147,7 @@ VAL_BATCH = 32
 VAL_TOL = 1e-4  # the card's results_dict against the CPU's, per key
 TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_STEPS = 640, 16, 20  # JAX's default imgsz and batch
 TRAIN_CHECK, TRAIN_CHECK_BATCH = 160, 4  # the card's step against the CPU's
+LOOP_EPOCHS = 3  # YOLO.train's epochs in phase train_loop, the last without mosaic
 
 
 def emit(phase: str, **kw) -> None:
@@ -1289,6 +1308,201 @@ def phase_train():
     return val_launches, checks, nms
 
 
+def phase_train_loop():
+    """YOLO(ckpt).train on the synthetic split (128 train + 32 val PNG at 640 px)
+    at TRAIN_BATCH, amp=False, close_mosaic=1, for LOOP_EPOCHS epochs: the
+    augmenting loader (mosaic, warp, HSV and flips; the image half on the
+    card), the epoch loop and each epoch's EMA val. Counted from 0 just
+    before the call and read just after (no launch in the steps, 6 + 1 per
+    val batch), per epoch by callbacks; each kernel against its plain version
+    on the first val's inputs; augment_batch on the card against the CPU on
+    the first batch; YOLO(best.ckpt).val against the metrics of the epoch
+    best.ckpt was saved at; a resume from last.ckpt as it stood after 2
+    epochs. Readings: seconds per epoch, ms per step with the loader's wait,
+    the wait, the split of train_step (upload and augment by CUDA events), the
+    busy share over 3 steps, val seconds, the final EMA's mAP50-95."""
+    import csv
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.cfg import DEFAULT_CFG_DICT, get_cfg
+    from spectrogram_yolov11_torch.data.build import DataLoader
+    from spectrogram_yolov11_torch.data.dataset import YOLODataset, check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.engine.checkpoint import load_checkpoint
+    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.device_augment import augment_batch
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    counters = launch_counters()
+    kw = dict(epochs=LOOP_EPOCHS, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, amp=False, close_mosaic=1, workers=8,
+              exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp))
+        generate_s = time.perf_counter() - t0
+        n_val = len(list(Path(data["val"]).iterdir()))
+        per_val = {"fused_bottleneck": 6 * (n_val // TRAIN_BATCH), "fused_bottleneck_bf16": 0,
+                   "greedy_keep": n_val // TRAIN_BATCH}
+
+        # the first batch the loader gives: augment_batch on the card against the CPU
+        ds = YOLODataset(data["train"], imgsz=TRAIN_IMGSZ, max_gt=0, augment=True,
+                         hyp=get_cfg(DEFAULT_CFG_DICT, {"mode": "train", **kw}))
+        first = next(iter(DataLoader(ds, TRAIN_BATCH, workers=8, shuffle=True, seed=0, drop_last=True)))
+        args = [torch.from_numpy(first[k]) for k in ("aug_src", "aug_regions", "aug_pads", "aug_inv", "aug_hsv")]
+        card_img = augment_batch(*(a.cuda() for a in args))
+        cpu_img = augment_batch(*args)
+        aug_unequal = int((card_img.cpu() != cpu_img).sum())
+        require(aug_unequal == 0, f"augment_batch on the card differs from the CPU's at {aug_unequal} values")
+        serial_ms = {}  # one thread, no training beside it: what a sample costs the host
+        for label in ("mosaic", "single_image"):
+            if label == "single_image":
+                ds.close_mosaic()
+            t0 = time.perf_counter()
+            for i in range(8):
+                ds.get_item(i, np.random.default_rng(i))
+            serial_ms[label] = (time.perf_counter() - t0) / 8 * 1e3
+        dev_args = [a.cuda() for a in args]
+        aug_check = dict(shape=list(card_img.shape), unequal=aug_unequal, host_ms_per_sample_serial=serial_ms,
+                         mosaic_samples=int(
+            (first["aug_regions"][:, 1:] != 0).any((1, 2)).sum()), ms=cuda_ms(lambda: augment_batch(*dev_args), iters=5))
+        del card_img, cpu_img, args, dev_args, first
+
+        # callbacks: per-epoch counts, the kernels' inputs on the first val, the split of epoch 1's steps,
+        # the profile of its steps 3-5, last.ckpt after 2 epochs
+        len_epoch = 128 // TRAIN_BATCH
+        profiled_steps = (3, 4, 5)
+        rec = {"counts": [], "split": [], "captured": {}, "hooks": [], "step": 0}
+        counts = lambda: {k: c.launches for k, c in counters.items()}  # noqa: E731
+
+        def keep_feats(mod, args, out) -> None:  # returns None: the head's output stays as it is
+            rec["captured"].setdefault("feats", out)
+
+        def on_start(t):
+            model = t.ema_eval_model()  # the model each validate() scores, made here so it can be hooked
+            rec["fused"] = {n: m for n, m in model.named_modules() if isinstance(m, Bottleneck) and m.fusable}
+            rec["model"] = model
+            rec["hooks"] = [m.register_forward_pre_hook(keep_nhwc_input(rec["captured"])) for m in rec["fused"].values()]
+            rec["hooks"].append(model.model[-1].register_forward_hook(keep_feats))
+
+        def on_epoch_start(t):
+            if t.epoch == 2:  # last.ckpt as the first 2 epochs left it
+                shutil.copy(t.last, Path(tmp) / "last_after_2_epochs.ckpt")
+            rec["counts"].append({"epoch": t.epoch, "start": counts()})
+            t.split_events = [] if t.epoch == 1 else None
+
+        def on_batch_end(t):
+            rec["step"] += 1
+            rec["counts"][-1]["steps"] = counts()
+            if t.epoch == 1 and rec["step"] - t.epoch * len_epoch == profiled_steps[0] - 1:
+                torch.cuda.synchronize()
+                rec["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                rec["prof"].start()
+            elif rec.get("prof") is not None and rec["step"] - t.epoch * len_epoch == profiled_steps[-1]:
+                torch.cuda.synchronize()
+                rec["prof"].stop()
+                rec["profiled"], rec["prof"] = rec["prof"], None
+
+        def on_fit_epoch_end(t):
+            rec["counts"][-1]["val"] = counts()
+            if t.split_events:
+                marks, t.split_events = t.split_events, None
+                steps = [marks[i : i + 7] for i in range(0, len(marks), 7)]
+                rec["split"] = [{name: a.elapsed_time(b) for (_, a), (name, b) in zip(s, s[1:])} for s in steps]
+
+        yolo = YOLO(CKPT)
+        for event, fn in (("on_train_start", on_start), ("on_train_epoch_start", on_epoch_start),
+                          ("on_train_batch_end", on_batch_end), ("on_fit_epoch_end", on_fit_epoch_end)):
+            yolo.add_callback(event, fn)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, launches = run_counted(lambda: yolo.train(data=data, project=tmp, name="loop", **kw),
+                                        {k: LOOP_EPOCHS * v for k, v in per_val.items()}, "YOLO.train")
+        train_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        for h in rec["hooks"]:
+            h.remove()
+        trainer = yolo.trainer
+        require(trainer.ema_model is rec["model"], "validate() scored another model than the hooked EMA model")
+        by_epoch = []
+        for c in rec["counts"]:
+            steps = {k: c["steps"][k] - c["start"][k] for k in c["start"]}
+            val = {k: c["val"][k] - c["steps"][k] for k in c["start"]}
+            require(not any(steps.values()) and val == per_val, f"epoch {c['epoch']}: steps {steps}, val {val}")
+            by_epoch.append({"epoch": c["epoch"], "steps": steps, "val": val})
+        rows = list(csv.DictReader(open(trainer.csv)))
+        require(len(rows) == LOOP_EPOCHS and all(np.isfinite([float(v) for v in r.values()]).all() for r in rows),
+                f"results.csv {rows}")
+        require(all(0.0 <= v <= 1.0 for v in metrics.values()), f"final EMA val {metrics}")
+
+        # each kernel on the first val's inputs, against its plain version
+        checks = {}
+        with torch.inference_mode():
+            for name, m in rec["fused"].items():
+                checks[name] = {k: v for k, v in bottleneck_check(f"loop EMA {name}",
+                                                                  layer_case(m, rec["captured"][m])).items()
+                                if "args" not in k}
+            model = rec["model"]
+            preds = decode_detections(rec["captured"]["feats"], model.nc, model.stride)
+            _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, model.nc, multi_label=True,
+                                                          pre_nms_topk=VAL_PRE_NMS_TOPK)
+            nms = nms_check(offset_boxes, valid)
+        shapes = sorted(c["shape"] for c in checks.values())
+        require(shapes == [[TRAIN_BATCH, 20, 20, 64]] * 4 + [[TRAIN_BATCH, 40, 40, 32]] * 2, f"val inputs {shapes}")
+
+        # best.ckpt (stripped) validates to the metrics of the epoch it was saved at
+        best_tree, best_meta = load_checkpoint(trainer.best)
+        require(best_tree["ema"] is None and best_tree["opt_state"] is None, "best.ckpt is not stripped")
+        best_row = {k: float(v) for k, v in rows[int(best_meta["epoch"])].items()}
+        best_val = YOLO(trainer.best).val(data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ)
+        best_diff = {k: abs(best_val[k] - best_row[k]) for k in best_val}
+        require(max(best_diff.values()) <= VAL_TOL, f"best.ckpt validates to {best_val}, its epoch {best_row}")
+
+        # a resume from last.ckpt as it stood after 2 epochs
+        saved_tree, saved_meta = load_checkpoint(Path(tmp) / "last_after_2_epochs.ckpt")
+        seen = {}
+        resumed = YOLO(CKPT)
+        resumed.add_callback("on_train_start", lambda t: seen.update(
+            start_epoch=t.start_epoch, step=t.state["opt"]["step"], ema_updates=t.state["ema_updates"]))
+        resumed_metrics = resumed.train(data=data, project=tmp, name="resumed",
+                                        resume=str(Path(tmp) / "last_after_2_epochs.ckpt"), **kw)
+        want = dict(start_epoch=2, step=int(saved_tree["opt_state"]["step"]), ema_updates=int(saved_meta["updates"]))
+        require(seen == want and saved_meta["epoch"] == 1, f"resume started at {seen}, the checkpoint holds {want}")
+        require(len(list(csv.DictReader(open(resumed.trainer.csv)))) == 1, "the resumed run trained another epoch count")
+
+        # readings
+        log = trainer.epoch_log
+        unprofiled = [s for i, s in enumerate(rec["split"], 1) if i not in profiled_steps]
+        split_mean = {k: float(np.mean([s[k] for s in unprofiled])) for k in unprofiled[0]}
+        kernels = [e for e in rec["profiled"].events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
+    emit("train_loop", epochs=LOOP_EPOCHS, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, generate_s=generate_s,
+         train_call_s=train_s, launches=launches, launches_by_epoch=by_epoch, peak_memory_gib=peak_gb,
+         epochs_log=log,
+         ms_per_step_with_wait=[(e["seconds"] - e["val_s"]) / e["steps"] * 1e3 for e in log],
+         loader_wait_ms_per_step=[e["loader_wait_s"] / e["steps"] * 1e3 for e in log],
+         val_s=[e["val_s"] for e in log],
+         train_step_split_ms_epoch1={"mean_outside_the_profile": split_mean, "by_step": rec["split"]},
+         profile_3_steps={"kernel_launches_per_step": len(kernels) / 3, "device_kernel_ms_per_step": busy / 3,
+                          "span_ms_per_step": span / 3, "busy_share": busy / span},
+         results_csv=rows, final_ema=metrics, augment_card_vs_cpu=aug_check,
+         ema_val_checks={"fused_bottleneck": checks, "greedy_keep_k2048": nms},
+         best_ckpt={"epoch": int(best_meta["epoch"]), "val": best_val, "abs_diff_to_its_epoch": best_diff},
+         resume={"started": seen, "metrics": resumed_metrics},
+         method="YOLO(ckpt).train through the augmenting loader; counts from 0 around the call and per epoch by "
+                "callbacks; the split from the CUDA events train_step records (epoch 1); the profile over steps "
+                "3-5 of epoch 1 (torch.profiler, loader waits included); epochs_log from the trainer's host clock")
+    return launches, checks, nms
+
+
 def main() -> int:
     import torch
 
@@ -1321,6 +1535,7 @@ def main() -> int:
     predict_half_launches, b1_half = phase_predict_half()
     val_launches, nms_val = phase_val()
     train_val_launches, train_bottleneck, nms_train = phase_train()
+    loop_launches, loop_bottleneck, nms_loop = phase_train_loop()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -1332,9 +1547,10 @@ def main() -> int:
              launches=launches["fused_bottleneck"],
              launches_by_path={"pipeline": launches["fused_bottleneck"], "predict": predict_launches["fused_bottleneck"],
                                "val": val_launches["f32"]["fused_bottleneck"],
-                               "train_ema_val": train_val_launches["fused_bottleneck"]},
+                               "train_ema_val": train_val_launches["fused_bottleneck"],
+                               "train_loop": loop_launches["fused_bottleneck"]},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
-                                                         *train_bottleneck.values())),
+                                                         *train_bottleneck.values(), *loop_bottleneck.values())),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -1366,7 +1582,8 @@ def main() -> int:
                                "pipeline_half": half_launches["greedy_keep"],
                                "predict_half": predict_half_launches["greedy_keep"],
                                "val": val_launches["f32"]["greedy_keep"], "val_half": val_launches["bf16"]["greedy_keep"],
-                               "train_ema_val": train_val_launches["greedy_keep"]},
+                               "train_ema_val": train_val_launches["greedy_keep"],
+                               "train_loop": loop_launches["greedy_keep"]},
              max_abs_err=0.0,
              ms=nms["ms"], plain_ms=nms["plain_ms"], bound_ms=nms["bound_ms"], bound_by=nms["bound_by"],
              library_ms=None, design="IoU bitmask of valid rows + one-warp scan from survivor to survivor",
@@ -1377,6 +1594,8 @@ def main() -> int:
                                                  "scan_steps_mean", "mismatches")},
              train_ema_val_k2048={k: nms_train[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                            "scan_steps_mean", "mismatches")},
+             train_loop_k2048={k: nms_loop[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "scan_steps_mean", "mismatches")},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

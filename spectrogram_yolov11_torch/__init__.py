@@ -5,7 +5,9 @@ The port runs the trained spectrogram detector on an NVIDIA H100:
 IQ captures or uint8 frames through the STFT front end, the on-card letterbox,
 the forward, DFL decode and class-offset greedy NMS to `Results`
 (`engine.model`, `engine.predictor`); `engine.pipeline.build_pipeline` is the
-serving path for frames of one known size. Plain tensor code is PyTorch in NCHW; the
+serving path for frames of one known size. `YOLO(ckpt).val` scores a model on
+a dataset and `YOLO(ckpt).train` trains it (`engine.validator`,
+`engine.trainer`), the train images augmented on the card. Plain tensor code is PyTorch in NCHW; the
 two kernels the JAX package wrote in Pallas are hand-written CUDA C++ under
 `csrc/`, built with nvcc at first use (`utils.kernels`).
 

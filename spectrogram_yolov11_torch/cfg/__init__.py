@@ -1,15 +1,16 @@
-"""Predict, val and train-step configuration. Counterpart of
+"""Predict, val and train configuration. Counterpart of
 spectrogram_yolov11_tpu/cfg/__init__.py (get_cfg :125, check_dict_alignment
 :79, check_cfg :92, get_save_dir :151) over the predict and val keys of its
-cfg/default.yaml and the keys the detect training step reads, held here as a
-dict because the port reads no config YAML.
+cfg/default.yaml and the keys the detect trainer and its augmenting loader
+read, held here as a dict because the port reads no config YAML.
 
-Defaults that differ from the JAX package's: `save` and `plots` are False
-(True would write annotated JPEGs or plots with cv2 and matplotlib, which the
-port does not use; val raises for plots=True), and `mode` is "predict", so
-`save_txt` writes under runs/detect/predict*. `conf` None is 0.25 in predict
-and 0.001 in val, `pre_nms_topk` 0 is 1024 in predict and 2048 in val, as in
-the JAX package.
+Defaults that differ from the JAX package's: `plots` is False (True would
+write plots with matplotlib, which the port does not use; val and train raise
+for plots=True); `save` is None, which is True in train (checkpoints, as
+JAX's default) and False in predict (annotated images with cv2, not ported);
+and `mode` is "predict", so `save_txt` writes under runs/detect/predict*.
+`conf` None is 0.25 in predict and 0.001 in val, `pre_nms_topk` 0 is 1024 in
+predict and 2048 in val, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "classes": None,
     "agnostic_nms": False,
     "half": False,
-    "save": False,
+    "save": None,  # None -> True in train (checkpoints), False in predict (annotated images)
     "save_txt": False,
     "save_conf": False,
     "save_crop": False,
@@ -65,14 +66,41 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "nbs": 64,
     "cos_lr": False,
     "amp": True,  # bf16 training is not ported yet: the trainer raises unless amp=False
+    # the epoch loop (engine/trainer.py: DetectionTrainer.train)
+    "time": None,  # wall-clock hours; training stops after the epoch that passes it
+    "patience": 100,  # epochs without a better fitness before training stops
+    "save_period": -1,  # also keep weights/epoch{n}.ckpt every this many epochs
+    "resume": False,  # True (the newest last*.ckpt under the runs dir) or a checkpoint path
+    "val": True,  # validate the EMA every epoch (the last epoch always)
+    "fraction": 1.0,  # the share of the train images used
+    "cache": False,  # False | "ram" (decoded images kept); "disk" is not ported
+    "profile": False,  # not ported (raises)
+    "multi_scale": False,  # not ported (host augmentation, raises)
+    "close_mosaic": 10,  # the last epochs without mosaic
+    # augmentation (data/augment.py: TrainTransform), JAX's defaults
+    "device_augment": "auto",  # auto | True: the image half on the card; False (host images) is not ported
+    "hsv_h": 0.015,
+    "hsv_s": 0.7,
+    "hsv_v": 0.4,
+    "degrees": 0.0,
+    "translate": 0.1,
+    "scale": 0.5,
+    "shear": 0.0,
+    "perspective": 0.0,
+    "flipud": 0.0,
+    "fliplr": 0.5,
+    "mosaic": 1.0,
+    "mixup": 0.0,  # > 0 is not ported (host augmentation, raises)
+    "copy_paste": 0.0,  # inert for detect, as in the JAX package (it needs segments)
 }
 
 FRACTION_KEYS = {"conf", "iou"}
 FLOAT_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs", "warmup_momentum", "warmup_bias_lr", "box",
-              "cls", "dfl"}
-INT_KEYS = {"max_det", "pre_nms_topk", "workers", "seed", "epochs", "nbs"}
+              "cls", "dfl", "time", "fraction", "hsv_h", "hsv_s", "hsv_v", "degrees", "translate", "scale", "shear",
+              "perspective", "flipud", "fliplr", "mosaic", "mixup", "copy_paste"}
+INT_KEYS = {"max_det", "pre_nms_topk", "workers", "seed", "epochs", "nbs", "patience", "save_period", "close_mosaic"}
 BOOL_KEYS = {"agnostic_nms", "half", "save", "save_txt", "save_conf", "save_crop", "exist_ok", "verbose",
-             "single_cls", "save_json", "plots", "cos_lr", "amp"}
+             "single_cls", "save_json", "plots", "cos_lr", "amp", "val", "profile", "multi_scale"}
 
 
 class IterableSimpleNamespace(SimpleNamespace):

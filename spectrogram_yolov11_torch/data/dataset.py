@@ -1,12 +1,20 @@
-"""Detection datasets for validation: YOLO-format images and label txts.
+"""Detection datasets: YOLO-format images and label txts, for validation and training.
 
-Counterpart of spectrogram_yolov11_tpu/data/dataset.py for the val mode of the
-detect task: IMG_FORMATS (:27), img2label_path (:30), check_det_dataset (:42)
-and YOLODataset (:126: _find_images, the detect label rows, single_cls,
-load_image, load_sample :344, get_item). Images are read by data/imageio.py
-(PNG; other formats raise NotImplementedError when an image is read) and the
-label txts are parsed directly: the JAX package's JSON label cache (:246) is
-a training-time saving the val path does not need.
+Counterpart of spectrogram_yolov11_tpu/data/dataset.py for the detect task:
+IMG_FORMATS (:27), img2label_path (:30), check_det_dataset (:42) and
+YOLODataset (:126: _find_images with `fraction`, the detect label rows,
+single_cls, the automatic max_gt :157-165, load_image with cache="ram",
+load_sample :344 with its long-side resize, get_item, close_mosaic :381-389).
+Images are read by data/imageio.py (PNG; other formats raise
+NotImplementedError when an image is read) and the label txts are parsed
+directly: the JAX package's JSON label cache (:246) is a saving the port does
+not have yet (ROADMAP.md item 8), and cache="disk" (.npy sidecars) raises.
+
+augment=False is the val dataset: get_item(i) is the letterbox geometry and
+labels of image i, the image left at its own size for the letterbox on the
+card (data/augment.py: ValTransform). augment=True is the train dataset in
+device-augment mode: get_item(i, rng) is a sample's labels and the
+parameters its image is assembled from on the card (TrainTransform).
 
 Dataset YAMLs given by name resolve among the port's own copies under
 cfg/datasets/, whose `path` points at datasets/torch/..., so the two packages
@@ -20,8 +28,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..utils import yaml_load
-from .augment import ValTransform
+import torch
+
+from ..utils import not_ported, yaml_load
+from .augment import TrainTransform, ValTransform, resize_linear_u8
 from .imageio import imread
 
 IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
@@ -88,20 +98,33 @@ def check_det_dataset(data: str | Path | dict) -> dict:
 
 class YOLODataset:
     """Detection dataset over an images dir (or a .txt list of images, or a
-    list of dirs) and YOLO label txts (`cls cx cy w h`, normalised), for
-    validation: get_item(i) is the letterbox geometry and formatted labels of
-    image i, with the image itself left at its own size for the letterbox on
-    the card (data/augment.py: ValTransform)."""
+    list of dirs) and YOLO label txts (`cls cx cy w h`, normalised). For
+    validation (augment=False) get_item(i) is the letterbox geometry and
+    formatted labels of image i, the image left at its own size for the
+    letterbox on the card; for training (augment=True, with the train args as
+    `hyp`) get_item(i, rng) is TrainTransform's sample. max_gt=0 sizes the GT
+    pad from the labels, as the JAX trainer asks: min(128, max(32,
+    ceil8(1.1 * most labels of an image * (4 with mosaic))))."""
 
-    def __init__(self, img_path, imgsz: int = 640, max_gt: int = 256, single_cls: bool = False):
+    def __init__(self, img_path, imgsz: int = 640, max_gt: int = 256, single_cls: bool = False,
+                 augment: bool = False, hyp=None, fraction: float = 1.0, cache=False):
         self.img_path = [Path(p) for p in img_path] if isinstance(img_path, (list, tuple)) else Path(img_path)
         self.single_cls = single_cls
-        self.im_files = self._find_images()
+        self.augment = augment
+        self.im_files = self._find_images(fraction)
         self.label_files = [img2label_path(f) for f in self.im_files]
         self.labels = [self._load_label(f) for f in self.label_files]
-        self.transform = ValTransform(imgsz, max_gt=max_gt)
+        if not max_gt:
+            most = max((len(lab["cls"]) for lab in self.labels), default=0) * (4 if augment else 1)
+            max_gt = int(min(128, max(32, -(-int(most * 1.1) // 8) * 8)))
+        self.max_gt = max_gt
+        if cache == "disk":
+            raise not_ported("cache='disk' (decoded .npy sidecars)", "item 7 (training data)")
+        self.cache_ram = cache in (True, "ram")
+        self._im_cache: Dict[int, np.ndarray] = {}
+        self.transform = TrainTransform(self, imgsz, hyp, max_gt=max_gt) if augment else ValTransform(imgsz, max_gt)
 
-    def _find_images(self) -> List[str]:
+    def _find_images(self, fraction: float = 1.0) -> List[str]:
         files: List[str] = []
         for p in self.img_path if isinstance(self.img_path, list) else [self.img_path]:
             if p.is_dir():
@@ -113,6 +136,8 @@ class YOLODataset:
                 raise FileNotFoundError(f"image path not found: {p}")
         if not files:
             raise FileNotFoundError(f"no images found in {self.img_path}")
+        if fraction < 1.0:
+            files = files[: max(1, round(len(files) * fraction))]
         return files
 
     @staticmethod
@@ -146,12 +171,26 @@ class YOLODataset:
         return len(self.im_files)
 
     def load_image(self, i: int) -> np.ndarray:
-        """Image i as BGR uint8 (H, W, 3)."""
-        return imread(self.im_files[i])
+        """Image i as BGR uint8 (H, W, 3), kept after its first read with cache="ram"."""
+        if self.cache_ram and i in self._im_cache:
+            return self._im_cache[i]
+        img = imread(self.im_files[i])
+        if self.cache_ram:
+            self._im_cache[i] = img
+        return img
 
-    def load_sample(self, i: int) -> Dict:
-        """Image i at its own size and its labels as xyxy pixels."""
+    def load_sample(self, i: int, square_to: Optional[int] = None) -> Dict:
+        """Image i and its labels as xyxy pixels; with square_to, the image
+        resized first so its long side is square_to (each side min(int(side *
+        r), square_to)), as cv2.resize(INTER_LINEAR) does it (resize_linear_u8):
+        the JAX package's train-time resize (:344-357)."""
         img = self.load_image(i)
+        if square_to:
+            h0, w0 = img.shape[:2]
+            r = square_to / max(h0, w0)
+            if r != 1:
+                nh, nw = min(int(h0 * r), square_to), min(int(w0 * r), square_to)
+                img = resize_linear_u8(torch.from_numpy(img)[None], nh, nw)[0].numpy()
         h, w = img.shape[:2]
         lab = self.labels[i]
         cls = np.zeros_like(lab["cls"]) if self.single_cls else lab["cls"].copy()
@@ -164,5 +203,11 @@ class YOLODataset:
             b[:, 3] = (xywhn[:, 1] + xywhn[:, 3] / 2) * h
         return {"img": img, "cls": cls, "bboxes": b}
 
-    def get_item(self, i: int) -> Dict[str, np.ndarray]:
-        return self.transform(self.load_sample(i))
+    def get_item(self, i: int, rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:
+        """Sample i: TrainTransform's with the sample's Generator `rng` when
+        augmenting, else the val transform's (which draws nothing)."""
+        return self.transform(i, rng) if self.augment else self.transform(self.load_sample(i))
+
+    def close_mosaic(self) -> None:
+        if self.augment:
+            self.transform.close_mosaic()

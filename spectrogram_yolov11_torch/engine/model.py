@@ -4,6 +4,7 @@ package's `.ckpt` checkpoints:
 
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").predict("capture.npy")
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").val(data="spectrogram_synth.yaml", batch=32)
+    YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").train(data="spectrogram_synth.yaml", epochs=3, amp=False)
 
 The weights (EMA before the raw variables) are read on the host, carried
 across by the weight bridge and folded for the bottleneck kernel; predict
@@ -12,7 +13,9 @@ device="cpu", and raises without a card. Predictors are cached on their
 sorted overrides, as in the JAX facade, `half` among them: predict(half=True)
 runs a bf16 copy of the model and leaves the f32 model to half=False calls.
 val builds a DetectionValidator per call (engine/validator.py), kept as
-`self.validator`, with the same defaults and callbacks.
+`self.validator`, with the same defaults and callbacks; train runs a
+DetectionTrainer (engine/trainer.py), kept as `self.trainer`, and leaves the
+EMA's weights on the model.
 Other model sources and modes raise NotImplementedError naming the
 ROADMAP.md item that ports them.
 """
@@ -26,6 +29,7 @@ from ..utils import not_ported as _not_ported
 from ..utils.callbacks import default_callbacks
 from .pipeline import load_model
 from .predictor import BasePredictor
+from .trainer import DetectionTrainer
 from .validator import DetectionValidator
 
 
@@ -41,6 +45,7 @@ class YOLO:
         self.predictor = None
         self._predictor_key = None
         self.validator = None
+        self.trainer = None
         self.ckpt_data = None  # the dataset the checkpoint was trained on, val's default
         if task not in (None, "detect"):
             raise _not_ported(f"task {task!r}", "item 10 (other heads)")
@@ -110,10 +115,20 @@ class YOLO:
     def __call__(self, source=None, **kwargs):
         return self.predict(source, **kwargs)
 
-    def train(self, **kwargs):
-        # the training step is ported (engine/trainer.py: DetectionTrainer); the loop around it is not
-        raise _not_ported("YOLO.train (the epoch loop, the augmenting train loader, checkpoints)",
-                          "items 7-8 (training data, trainer loop)")
+    def train(self, **kwargs) -> Dict[str, float]:
+        """Train the checkpoint's model on `data` (JAX facade :241-268):
+        train(data=..., epochs=N, amp=False, ...) -> the last validation's
+        results_dict. Afterwards the facade holds the EMA's weights, and the
+        next predict builds its predictor anew. amp=True, the default, raises
+        (ROADMAP.md item 6b); see engine/trainer.py for the other options
+        that raise."""
+        overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"model", "task", "mode"}}
+        trainer = DetectionTrainer(self.model, overrides)
+        self._merge_callbacks(trainer)
+        metrics = trainer.train()
+        self.model, self.trainer = trainer.model, trainer
+        self.predictor, self._predictor_key = None, None  # the weights changed: the next predict rebuilds
+        return metrics
 
     def val(self, **kwargs) -> Dict[str, float]:
         """mAP of the model over a dataset: val(data="spectrogram_synth.yaml",

@@ -191,3 +191,9 @@ def yaml_load(file: str | Path, append_filename: bool = False) -> Dict[str, Any]
     if append_filename:
         data["yaml_file"] = str(file)
     return data
+
+
+def get_latest_run(search_dir: str | Path | None = None) -> str:
+    """The newest last*.ckpt under the runs dir, for resume=True ("" when there is none)."""
+    ckpts = list(Path(search_dir or RUNS_DIR).rglob("last*.ckpt"))
+    return str(max(ckpts, key=lambda p: p.stat().st_mtime)) if ckpts else ""

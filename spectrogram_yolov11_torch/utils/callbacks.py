@@ -1,13 +1,19 @@
-"""Callback bus for the validator and the predictor. Counterpart of
-spectrogram_yolov11_tpu/utils/callbacks.py (default_callbacks :28,
-run_callbacks :34) for the events DetectionValidator.__call__ and
-BasePredictor.stream_inference fire, in the order they fire them."""
+"""Callback bus for the trainer, the validator and the predictor. Counterpart
+of spectrogram_yolov11_tpu/utils/callbacks.py (default_callbacks :28,
+run_callbacks :34) for the events DetectionTrainer.train,
+DetectionValidator.__call__ and BasePredictor.stream_inference fire, in the
+order they fire them."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List
 
 EVENTS = [
+    "on_train_start",
+    "on_train_epoch_start",
+    "on_train_batch_end",
+    "on_fit_epoch_end",
+    "on_train_end",
     "on_val_start",
     "on_val_batch_start",
     "on_val_batch_end",

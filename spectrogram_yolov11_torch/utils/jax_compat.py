@@ -15,11 +15,19 @@ Leaves:
   BN batch_stats `mean` / `var`               -> `running_mean` / `running_var`
 Every BN also gets torch's `num_batches_tracked` bookkeeping buffer (0), so the
 result loads with `strict=True`.
+
+The optimizer state crosses the same bridge: `opt_state_to_flax` writes the
+moments as params-shaped trees (the tree form of JAX's OptState, which its
+resume migrates with engine/optim.py:254 flat_opt_state), and
+`opt_state_from_flax` reads that form or the flat vectors JAX's trainer
+saves, split in the leaf order of engine/optim.py:214 make_flat_spec (the
+params tree's leaves with every dict's keys sorted, as jax.tree_util
+flattens them).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,7 +97,7 @@ def state_dict_to_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
         key, leaf = name.rsplit(".", 1)
         if leaf == "num_batches_tracked":
             continue
-        arr = np.array(t.detach().cpu())  # a copy: the tree does not follow the tensor's later updates
+        arr = t.detach().cpu().numpy().copy()  # a copy: the tree does not follow the tensor's later updates
         if leaf == "weight":
             tree, flax_leaf = "params", "kernel" if arr.ndim == 4 else "scale"
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
@@ -104,3 +112,52 @@ def state_dict_to_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
             node = node.setdefault(tok, {})
         node[flax_leaf] = np.ascontiguousarray(arr)
     return trees
+
+
+def sorted_leaves(tree: dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    """The tree's leaves in jax.tree_util's order: every dict's keys sorted."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from sorted_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _tree_from_leaves(leaves: Sequence[Tuple[Tuple[str, ...], np.ndarray]]) -> dict:
+    tree: dict = {}
+    for path, leaf in leaves:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def opt_state_to_flax(step: int, names: Sequence[str], mu: Sequence[torch.Tensor],
+                      nu: Sequence[torch.Tensor]) -> dict:
+    """The optimizer state of the parameters `names` as JAX's OptState in tree
+    form: {step int32, mu, nu}, the moments as flax params trees."""
+    return {"step": np.asarray(step, np.int32),
+            "mu": state_dict_to_variables(dict(zip(names, mu)))["params"],
+            "nu": state_dict_to_variables(dict(zip(names, nu)))["params"]}
+
+
+def opt_state_from_flax(opt_state: dict, names: Sequence[str],
+                        params: Sequence[torch.Tensor]) -> Tuple[int, List[torch.Tensor], List[torch.Tensor]]:
+    """(step, mu, nu) for the parameters `names` (with their tensors `params`,
+    whose shapes give the flat vectors' layout) from JAX's OptState in tree or
+    flat form; the moments as f32 tensors shaped as the parameters."""
+    template = list(sorted_leaves(state_dict_to_variables(dict(zip(names, params)))["params"]))
+
+    def moments(m) -> List[torch.Tensor]:
+        if isinstance(m, np.ndarray):  # flat: make_flat_spec's leaf order
+            sizes = [leaf.size for _, leaf in template]
+            if m.shape != (sum(sizes),):
+                raise ValueError(f"flat optimizer moments of shape {m.shape}, the model has {sum(sizes)} parameters")
+            parts = np.split(np.asarray(m, np.float32), np.cumsum(sizes)[:-1])
+            m = _tree_from_leaves([(path, p.reshape(leaf.shape)) for (path, leaf), p in zip(template, parts)])
+        sd = variables_to_state_dict({"params": m})
+        return [sd[n] for n in names]
+
+    return int(opt_state["step"]), moments(opt_state["mu"]), moments(opt_state["nu"])

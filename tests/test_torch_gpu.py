@@ -672,3 +672,108 @@ def test_ema_validate_launches_the_kernels_and_refolds(train_split):
     moved = tuple(n - n0 for n, n0 in zip((fused_bottleneck.launches, fused_bottleneck_bf16.launches,
                                            greedy_keep.launches), counts))
     assert moved == (12, 0, 2) and all(np.isfinite(v) for v in res.values())  # 4 images at batch 2
+
+
+# -- the training loop: the augmenting loader's images and an epoch ---------------------------------------
+
+class _ColourDS:
+    """An in-memory dataset of colour images of ragged sizes, for TrainTransform's parameters."""
+
+    def __init__(self, n: int = 4, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.items = []
+        for _ in range(n):
+            h, w = int(rng.integers(90, 200)), int(rng.integers(90, 200))
+            box = np.array([[0.2 * w, 0.3 * h, 0.7 * w, 0.8 * h]], np.float32)
+            self.items.append((rng.integers(0, 256, (h, w, 3), dtype=np.uint8), box, np.zeros(1, np.int32)))
+
+    def __len__(self):
+        return len(self.items)
+
+    def load_sample(self, i, square_to=None):
+        img, b, c = self.items[i]
+        h0, w0 = img.shape[:2]
+        r = square_to / max(h0, w0)
+        h, w = min(int(h0 * r), square_to), min(int(w0 * r), square_to)
+        img = img[(np.arange(h) * h0 // h)[:, None], np.arange(w) * w0 // w]
+        return {"img": img, "cls": c.copy(), "bboxes": b * np.float32(r)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hyp", [{}, {"device_augment": True, "degrees": 10.0, "shear": 3.0, "perspective": 5e-4,
+                                      "flipud": 0.5}], ids=["separable", "general"])
+def test_augment_batch_on_card_equals_cpu(hyp):
+    """The train images assembled on the card equal the CPU's, value for value,
+    on TrainTransform's parameters for 4 seeded samples at 160 px (mosaic on for
+    the first two, off after)."""
+    from spectrogram_yolov11_torch.cfg import DEFAULT_CFG_DICT, get_cfg
+    from spectrogram_yolov11_torch.data.augment import TrainTransform
+    from spectrogram_yolov11_torch.ops.device_augment import augment_batch
+
+    dev = _card()
+    t = TrainTransform(_ColourDS(), 160, get_cfg(DEFAULT_CFG_DICT, {"mode": "train", **hyp}), max_gt=32)
+    samples = []
+    for seed in range(4):
+        if seed == 2:
+            t.close_mosaic()
+        samples.append(t(seed, np.random.default_rng(seed)))
+    args = [torch.from_numpy(np.stack([s[k] for s in samples]))
+            for k in ("aug_src", "aug_regions", "aug_pads", "aug_inv", "aug_hsv")]
+    cpu = augment_batch(*args)
+    card = augment_batch(*(a.to(dev) for a in args))
+    assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
+
+
+@pytest.fixture(scope="module")
+def loop_split(tmp_path_factory):
+    """8 train and 4 val PNGs of the synthetic spectrogram dataset at 64 px."""
+    _card()
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset
+
+    root = tmp_path_factory.mktemp("synth_loop")
+    return check_det_dataset({"path": str(root), "train": "images/train", "val": "images/val",
+                              "synthetic": "spectrogram", "n_train": 8, "n_val": 4, "gen_imgsz": 64,
+                              "names": {0: "LTE", 1: "RF"}})
+
+
+@pytest.mark.gpu
+def test_train_epoch_on_card_matches_cpu(loop_split, tmp_path):
+    """YOLO(ckpt).train for one epoch of the trained model at 64 px, B = 2 (4
+    steps, SGD, mosaic on) on the card against the same on the CPU: the epoch's
+    loss items within 1e-4 relative, the final weights (the EMA) within 1e-3 of
+    each leaf's change plus four f32 steps, BN statistics within 1e-5 of the
+    leaf's max, the val metrics within 1e-4; the steps launch no kernel and the
+    EMA's val 6 + 1 per val batch."""
+    import csv
+
+    from spectrogram_yolov11_torch import YOLO
+
+    init = {k: v.clone() for k, v in YOLO(CKPT, device="cpu").model.state_dict().items()}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        yolo = YOLO(CKPT, device=dev)
+        counts = []
+        yolo.add_callback("on_train_start", lambda t: counts.append((fused_bottleneck.launches, greedy_keep.launches)))
+        yolo.add_callback("on_train_batch_end",
+                          lambda t: counts.append((fused_bottleneck.launches, greedy_keep.launches)))
+        yolo.add_callback("on_fit_epoch_end", lambda t: counts.append((fused_bottleneck.launches, greedy_keep.launches)))
+        metrics = yolo.train(data=loop_split, epochs=1, batch=2, imgsz=64, amp=False, optimizer="SGD", workers=2,
+                             project=str(tmp_path), name=dev)
+        with open(tmp_path / dev / "results.csv") as f:
+            row = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
+        runs[dev] = (yolo, metrics, row, counts)
+    (card, m_card, row_card, counts), (cpu, m_cpu, row_cpu, _) = runs["cuda"], runs["cpu"]
+    assert len(counts) == 6 and len(set(counts[:5])) == 1  # no launch in the 4 steps
+    assert (counts[5][0] - counts[4][0], counts[5][1] - counts[4][1]) == (12, 2)  # 4 val images at batch 2
+    for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss"):
+        assert abs(row_card[k] - row_cpu[k]) <= 1e-4 * abs(row_cpu[k]), k
+    assert all(abs(m_card[k] - m_cpu[k]) <= 1e-4 for k in m_cpu)
+    got, ref = card.model.state_dict(), cpu.model.state_dict()
+    for k, r in ref.items():
+        if not r.is_floating_point():
+            continue
+        err = float((got[k].cpu() - r).abs().max())
+        if k.endswith(("running_mean", "running_var")):
+            assert err <= 1e-5 * float(r.abs().max()), k
+        else:
+            assert err <= 1e-3 * float((r - init[k]).abs().max()) + 4 * float(np.spacing(np.float32(r.abs().max()))), k

@@ -2,8 +2,8 @@
 
 An AST scan shows that no file of spectrogram_yolov11_torch/ nor chip_smoke.py
 imports jax, flax, msgpack, yaml, cv2 or the JAX package; with no card, the
-entry points (the pipeline, predict, val and the trainer) raise for the
-default device instead of running on the CPU.
+entry points (the pipeline, predict, val, the trainer and YOLO.train) raise
+for the default device instead of running on the CPU.
 """
 
 import ast
@@ -61,6 +61,8 @@ def test_default_device_raises_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         DetectionTrainer(YOLO(CKPT).model, {"data": {"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]},
                                             "amp": False})
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        YOLO(CKPT).train(data={"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]}, amp=False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"
