@@ -116,6 +116,21 @@ Phases, each printing one JSON line, each fatal when it fails:
                CUDA events), the busy share over steps 3-5 of epoch 1 (the
                profiler's set-up lands in that epoch's time), val seconds, the
                final EMA's metrics, peak memory
+  12. train_amp   bf16 training at amp=True, JAX's default: 20 steps of the
+               trained model at 640 px, B = 16 on the val loader's batches
+               (as phase train), counted (no launch: the training convs are
+               cuDNN's); train_step's split on 6 later steps beside 6 of an
+               f32 trainer; the profile of 3 steps of each (launches, device
+               ms, busy share); peak memory; B = 32; the card's bf16 step
+               against the CPU's at 160 px, B = 4, TF32 on, per quantity
+               within 3 times the card's own bf16-to-f32 distance. Then
+               YOLO(ckpt).train(epochs=2, batch=16, imgsz=640,
+               close_mosaic=1) at the default amp, counted from 0 around the
+               call and per epoch (each EMA val runs a bf16 copy of the EMA: 6
+               bf16 bottleneck + 1 NMS launches per val batch, no f32
+               bottleneck); each kernel against its plain version on the first
+               val's inputs; last.ckpt's train_args.amp; the final EMA's bf16
+               mAP beside the f32 loop's
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -148,6 +163,8 @@ VAL_TOL = 1e-4  # the card's results_dict against the CPU's, per key
 TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_STEPS = 640, 16, 20  # JAX's default imgsz and batch
 TRAIN_CHECK, TRAIN_CHECK_BATCH = 160, 4  # the card's step against the CPU's
 LOOP_EPOCHS = 3  # YOLO.train's epochs in phase train_loop, the last without mosaic
+AMP_EPOCHS = 2  # YOLO.train's epochs at amp=True in phase train_amp, the last without mosaic
+AMP_MULTIPLE = 3  # the card's bf16 step within this many times its bf16-to-f32 distance of the CPU's
 
 
 def emit(phase: str, **kw) -> None:
@@ -1068,11 +1085,34 @@ def timed_steps(trainer, batches, nis) -> dict:
     return {"ms_per_step": steps, "split_ms_by_step": split}
 
 
-def new_trainer(data: dict, imgsz: int, batch: int, device: str):
+def profile_steps(trainer, batches, ni0: int, n: int = 3, top: int = 12) -> dict:
+    """n train steps under torch.profiler: kernel launches and device kernel
+    ms per step, the device span per step, the busy share, the `top` kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for ni in range(ni0, ni0 + n):
+            trainer.train_step(batches[ni % len(batches)], ni, trainer.step_due(ni))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
+    return {"steps": n, "kernel_launches_per_step": len(kernels) / n, "device_kernel_ms_per_step": busy / n,
+            "device_span_ms_per_step": span / n, "busy_share": busy / span,
+            "top_kernels_ms_per_step": [[k[:90], ms / n]
+                                        for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]]}
+
+
+def new_trainer(data: dict, imgsz: int, batch: int, device: str, amp: bool = False):
     from spectrogram_yolov11_torch.engine.pipeline import load_model
     from spectrogram_yolov11_torch.engine.trainer import DetectionTrainer
 
-    t = DetectionTrainer(load_model(CKPT)[0], {"data": data, "imgsz": imgsz, "batch": batch, "amp": False,
+    t = DetectionTrainer(load_model(CKPT)[0], {"data": data, "imgsz": imgsz, "batch": batch, "amp": amp,
                                                "optimizer": "auto", "device": device, "workers": 8})
     t.setup_model()
     t.setup_optimizer()
@@ -1156,7 +1196,6 @@ def phase_train():
     import tempfile
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
     from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK, DetectionValidator
@@ -1259,19 +1298,7 @@ def phase_train():
         later = timed_steps(trainer, batches, range(TRAIN_STEPS, TRAIN_STEPS + 6))
 
         # the profile of 3 steps: busy share, top kernels, launches per step
-        ni0 = TRAIN_STEPS + 6
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for ni in range(ni0, ni0 + 3):
-                trainer.train_step(batches[ni % len(batches)], ni, trainer.step_due(ni))
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        busy = sum(by_name.values())
-        span = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+        prof = profile_steps(trainer, batches, TRAIN_STEPS + 6, top=15)
 
         # B = 32 if it fits
         b32 = {}
@@ -1292,9 +1319,7 @@ def phase_train():
     emit("train", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, steps=TRAIN_STEPS, generate_s=generate_s,
          optimizer=opt, launches=launches, ms_per_step=steps_ms / TRAIN_STEPS, later_steps=later,
          later_split_ms_mean={n: sum(v) / len(v) for n, v in later["split_ms_by_step"].items()},
-         profile={"steps": 3, "kernel_launches_per_step": len(kernels) / 3, "device_kernel_ms_per_step": busy / 3,
-                  "device_span_ms_per_step": span / 3, "busy_share": busy / span,
-                  "top_kernels_ms_per_step": [[k[:90], ms / 3] for k, ms in top]},
+         profile=prof,
          peak_memory_gib=peak_gb, loss_items_per_step=losses, optimizer_steps=n_updates,
          ema_val={"results": results, "launches": val_launches, "seconds": val_s,
                   "fused_bottleneck_checks": checks, "fold_max_abs_err": fold_err, "greedy_keep_k2048": nms,
@@ -1500,7 +1525,232 @@ def phase_train_loop():
          method="YOLO(ckpt).train through the augmenting loader; counts from 0 around the call and per epoch by "
                 "callbacks; the split from the CUDA events train_step records (epoch 1); the profile over steps "
                 "3-5 of epoch 1 (torch.profiler, loader waits included); epochs_log from the trainer's host clock")
-    return launches, checks, nms
+    return launches, checks, nms, metrics
+
+
+def amp_card_vs_cpu(data: dict) -> dict:
+    """One accumulation step and one AdamW step (ni 3, 4) of the trained model
+    at TRAIN_CHECK px, B = TRAIN_CHECK_BATCH, amp=True, on the card with TF32
+    turned on for the process and on this machine's CPU, from the same weights
+    and batch, with the card's f32 step beside them: per quantity (loss items,
+    grads, params, both moments, BN statistics, their EMA) over all its
+    leaves, ||card bf16 - CPU bf16|| within AMP_MULTIPLE times the card's own
+    bf16-to-f32 distance ||card bf16 - card f32|| (tests/test_torch_train_amp.py
+    says why 3), every state tensor f32."""
+    import torch
+
+    batch = train_batches(data["train"], TRAIN_CHECK, TRAIN_CHECK_BATCH, torch.device("cpu"))[0]
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    runs = {}
+    try:
+        for name, dev, amp in (("card_bf16", "cuda", True), ("cpu_bf16", "cpu", True), ("card_f32", "cuda", False)):
+            t = new_trainer(dict(data), TRAIN_CHECK, TRAIN_CHECK_BATCH, dev, amp=amp)
+            items, grads = [], None
+            for ni, do_step in ((3, False), (4, True)):
+                items.append(t.train_step(batch, ni, do_step)[1].cpu())
+                if not do_step:
+                    grads = [g.cpu().clone() for g in t.state["grad_buf"]]
+            st = t.state
+            runs[name] = {"items": items, "grads": grads, "params": t.params, "mu": st["opt"]["mu"],
+                          "nu": st["opt"]["nu"], "batch_stats": t.stats, "ema_params": st["ema"]["params"],
+                          "ema_batch_stats": st["ema"]["batch_stats"]}
+            if amp:
+                require(t.model.compute_dtype == torch.bfloat16 and all(
+                    x.dtype == torch.float32 for k, v in runs[name].items() if k != "items" for x in v),
+                    f"{name}: a state tensor is not f32")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    vec = lambda ts: torch.cat([t.detach().float().cpu().flatten() for t in ts])  # noqa: E731
+    dist = {}
+    for k in runs["card_bf16"]:
+        a, b, f = (vec(runs[n][k]) for n in ("card_bf16", "cpu_bf16", "card_f32"))
+        n = float(b.norm())
+        err, yard = float((a - b).norm()) / n, float((a - f).norm()) / n
+        require(err <= AMP_MULTIPLE * yard + 1e-6, f"amp step {k}: card bf16 lies {err} from the CPU's, "
+                                                   f"the card's bf16-to-f32 distance is {yard}")
+        dist[k] = {"card_bf16_vs_cpu_bf16": err, "card_bf16_vs_card_f32": yard}
+    return dict(imgsz=TRAIN_CHECK, batch=TRAIN_CHECK_BATCH, process_tf32=True, multiple=AMP_MULTIPLE,
+                relative_l2=dist, items={n: [i.tolist() for i in r["items"]] for n, r in runs.items()})
+
+
+def phase_train_amp(f32_loop_final: dict):
+    """bf16 training, amp=True (JAX's default): the trained model at TRAIN_IMGSZ
+    px, B = TRAIN_BATCH, optimizer auto (AdamW), TRAIN_STEPS steps on the
+    synthetic split's train images through the val loader (as phase train),
+    counted (no kernel launches: the training convs are cuDNN's); 6 later
+    steps timed with train_step's split, the profile of 3 steps beside 3 f32
+    steps of an f32 trainer, peak memory, B = 32; the card's bf16 step
+    against the CPU's at TRAIN_CHECK px with TF32 on. Then
+    YOLO(ckpt).train(epochs=AMP_EPOCHS, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ,
+    close_mosaic=1) at the default amp, counted from 0 around the call and per
+    epoch (each EMA val runs a bf16 copy of the EMA: 6 bf16 bottleneck + 1
+    NMS launches per val batch, no f32 bottleneck); each kernel against its
+    plain version on the inputs the first val gave it (global module hooks,
+    which launch nothing); the final EMA's bf16 mAP beside the f32 loop's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.engine.checkpoint import load_checkpoint
+    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+    from spectrogram_yolov11_torch.nn.modules.head import Detect
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    zero = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": 0}
+    counters = launch_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp))
+        batches = train_batches(data["train"], TRAIN_IMGSZ, TRAIN_BATCH, dev)
+        trainer = new_trainer(data, TRAIN_IMGSZ, TRAIN_BATCH, "cuda", amp=True)
+        require(trainer.model.compute_dtype == bf16 and trainer.opt.kind == "adamw", "the amp trainer's set-up")
+
+        # the main path: TRAIN_STEPS steps, counts set to 0 just before and read just after
+        torch.cuda.reset_peak_memory_stats()
+
+        def steps():
+            out, start, end = [], torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for ni in range(TRAIN_STEPS):
+                do_step = trainer.step_due(ni)
+                out.append((ni, do_step, trainer.train_step(batches[ni % len(batches)], ni, do_step)))
+            end.record()
+            return out, start, end
+
+        (done, start, end), launches = run_counted(steps, zero, f"{TRAIN_STEPS} amp train steps")
+        steps_ms = start.elapsed_time(end)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        losses = [[ni, do_step, float(loss), items.tolist()] for ni, do_step, (loss, items) in done]
+        require(all(np.isfinite(r[3]).all() and r[2] > 0 for r in losses), f"amp losses {losses}")
+        st = trainer.state
+        state = (*trainer.params, *trainer.stats, *st["grad_buf"], *st["opt"]["mu"], *st["opt"]["nu"],
+                 *st["ema"]["params"], *st["ema"]["batch_stats"])
+        require(all(x.dtype == torch.float32 for x in state), "an amp state tensor is not f32")
+
+        # later steps timed with their split, the profile beside an f32 trainer's, in turns
+        later = timed_steps(trainer, batches, range(TRAIN_STEPS, TRAIN_STEPS + 6))
+        f32 = new_trainer(data, TRAIN_IMGSZ, TRAIN_BATCH, "cuda")
+        later_f32 = timed_steps(f32, batches, range(TRAIN_STEPS, TRAIN_STEPS + 6))  # its first steps warm it up
+        profile_steps(f32, batches, TRAIN_STEPS + 6, n=1)  # the profiler's own set-up lands here, not in a reading
+        prof = profile_steps(trainer, batches, TRAIN_STEPS + 6)
+        prof_f32 = profile_steps(f32, batches, TRAIN_STEPS + 7)
+        prof_again = profile_steps(trainer, batches, TRAIN_STEPS + 9)
+        del f32, batches, trainer
+        torch.cuda.empty_cache()
+
+        # B = 32 if it fits
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t32 = new_trainer(data, TRAIN_IMGSZ, 2 * TRAIN_BATCH, "cuda", amp=True)
+            batches32 = train_batches(data["train"], TRAIN_IMGSZ, 2 * TRAIN_BATCH, dev)
+            b32 = dict(ms_per_step=timed_steps(t32, batches32, range(6))["ms_per_step"][2:],
+                       peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+            del t32, batches32
+        except torch.cuda.OutOfMemoryError as e:
+            b32 = {"not_run": f"out of device memory at B = {2 * TRAIN_BATCH}: {str(e)[:200]}"}
+        torch.cuda.empty_cache()
+        check = amp_card_vs_cpu(data)
+
+        # YOLO.train at the default amp, counted; global hooks keep what the first val hands the bf16
+        # bottlenecks and the head's output
+        n_val = len(list(Path(data["val"]).iterdir()))
+        per_val = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6 * (n_val // TRAIN_BATCH),
+                   "greedy_keep": n_val // TRAIN_BATCH}
+        rec = {"counts": [], "captured": {}, "first_val": True}
+        counts = lambda: {k: c.launches for k, c in counters.items()}  # noqa: E731
+
+        def pre(mod, args):  # returns None: the input stays as it is
+            if (rec["first_val"] and isinstance(mod, Bottleneck) and mod.fusable and not mod.training
+                    and args[0].dtype == bf16):
+                rec["captured"].setdefault(mod, args[0].permute(0, 2, 3, 1).contiguous())
+
+        def post(mod, args, out):  # returns None: the output stays as it is
+            if rec["first_val"] and isinstance(mod, Detect) and not mod.training and out[0][0].dtype == bf16:
+                rec["captured"].setdefault("feats", out)
+
+        def on_epoch_start(t):
+            rec["counts"].append({"epoch": t.epoch, "start": counts()})
+
+        def on_batch_end(t):
+            rec["counts"][-1]["steps"] = counts()
+
+        def on_fit_epoch_end(t):
+            rec["counts"][-1]["val"] = counts()
+            rec["first_val"] = False
+
+        yolo = YOLO(CKPT)
+        for event, fn in (("on_train_epoch_start", on_epoch_start), ("on_train_batch_end", on_batch_end),
+                          ("on_fit_epoch_end", on_fit_epoch_end)):
+            yolo.add_callback(event, fn)
+        hooks = [torch.nn.modules.module.register_module_forward_pre_hook(pre),
+                 torch.nn.modules.module.register_module_forward_hook(post)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            metrics, loop_launches = run_counted(
+                lambda: yolo.train(data=data, project=tmp, name="amp", epochs=AMP_EPOCHS, batch=TRAIN_BATCH,
+                                   imgsz=TRAIN_IMGSZ, close_mosaic=1, workers=8, exist_ok=True),
+                {k: AMP_EPOCHS * v for k, v in per_val.items()}, "YOLO.train at amp=True")
+        finally:
+            for h in hooks:
+                h.remove()
+        train_s = time.perf_counter() - t0
+        loop_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        tr = yolo.trainer
+        require(tr.args.amp is True and yolo.model.compute_dtype == bf16, "YOLO.train did not run at amp=True")
+        require(tr.validator.model.dtype == bf16, "the EMA's val did not run a bf16 copy")
+        by_epoch = []
+        for c in rec["counts"]:
+            steps_c = {k: c["steps"][k] - c["start"][k] for k in c["start"]}
+            val_c = {k: c["val"][k] - c["steps"][k] for k in c["start"]}
+            require(not any(steps_c.values()) and val_c == per_val,
+                    f"epoch {c['epoch']}: steps {steps_c}, val {val_c}")
+            by_epoch.append({"epoch": c["epoch"], "steps": steps_c, "val": val_c})
+        require(all(0.0 <= v <= 1.0 for v in metrics.values()), f"final amp EMA val {metrics}")
+        ckpt_amp = load_checkpoint(tr.last)[1]["train_args"]["amp"]
+        require(ckpt_amp is True, f"last.ckpt's train_args.amp is {ckpt_amp}")
+
+        # each kernel on the first val's inputs, against its plain version
+        cap = rec["captured"]
+        checks = {}
+        with torch.inference_mode():
+            for i, m in enumerate(m for m in cap if m != "feats"):
+                d = bottleneck_check(f"amp EMA {i}", layer_case(m, cap[m]))
+                checks[f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
+            preds = decode_detections(cap["feats"], yolo.model.nc, yolo.model.stride)
+            _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, yolo.model.nc, multi_label=True,
+                                                          pre_nms_topk=VAL_PRE_NMS_TOPK)
+            nms = nms_check(offset_boxes, valid)
+        shapes = sorted(c["shape"] for c in checks.values())
+        require(shapes == [[TRAIN_BATCH, 20, 20, 64]] * 4 + [[TRAIN_BATCH, 40, 40, 32]] * 2,
+                f"amp val inputs {shapes}")
+        log = tr.epoch_log
+    emit("train_amp", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, steps=TRAIN_STEPS, launches=launches,
+         ms_per_step=steps_ms / TRAIN_STEPS, later_steps=later,
+         later_split_ms_mean={n: sum(v) / len(v) for n, v in later["split_ms_by_step"].items()},
+         f32_later_steps=later_f32,
+         f32_later_split_ms_mean={n: sum(v) / len(v) for n, v in later_f32["split_ms_by_step"].items()},
+         profile=prof, profile_f32=prof_f32, profile_again=prof_again, peak_memory_gib=peak_gb,
+         loss_items_per_step=losses, batch32=b32, card_vs_cpu=check,
+         loop={"epochs": AMP_EPOCHS, "train_call_s": train_s, "launches": loop_launches,
+               "launches_by_epoch": by_epoch, "epochs_log": log,
+               "ms_per_step_with_wait": [(e["seconds"] - e["val_s"]) / e["steps"] * 1e3 for e in log],
+               "loader_wait_ms_per_step": [e["loader_wait_s"] / e["steps"] * 1e3 for e in log],
+               "val_s": [e["val_s"] for e in log], "peak_memory_gib": loop_peak_gb, "final_ema_bf16": metrics,
+               "f32_loop_final_ema": f32_loop_final, "ckpt_train_args_amp": ckpt_amp,
+               "ema_val_checks": {"fused_bottleneck_bf16": checks, "greedy_keep_k2048": nms}},
+         method="train steps through DetectionTrainer.train_step at amp=True, CUDA events; 6 later steps one by one "
+                "with the split train_step records, then 6 of an f32 trainer; the profiles over 3 steps each "
+                "(torch.profiler, after a 1-step profile that takes its set-up), amp, f32, amp; YOLO(ckpt).train "
+                "at its defaults counted from 0 around the call and per epoch by callbacks; the kernels checked on the first val's inputs (global module hooks)")
+    return loop_launches, checks, nms
 
 
 def main() -> int:
@@ -1535,7 +1785,8 @@ def main() -> int:
     predict_half_launches, b1_half = phase_predict_half()
     val_launches, nms_val = phase_val()
     train_val_launches, train_bottleneck, nms_train = phase_train()
-    loop_launches, loop_bottleneck, nms_loop = phase_train_loop()
+    loop_launches, loop_bottleneck, nms_loop, loop_final = phase_train_loop()
+    amp_launches, amp_bottleneck, nms_amp = phase_train_amp(loop_final)
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -1548,7 +1799,8 @@ def main() -> int:
              launches_by_path={"pipeline": launches["fused_bottleneck"], "predict": predict_launches["fused_bottleneck"],
                                "val": val_launches["f32"]["fused_bottleneck"],
                                "train_ema_val": train_val_launches["fused_bottleneck"],
-                               "train_loop": loop_launches["fused_bottleneck"]},
+                               "train_loop": loop_launches["fused_bottleneck"],
+                               "train_amp": amp_launches["fused_bottleneck"]},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *train_bottleneck.values(), *loop_bottleneck.values())),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
@@ -1562,9 +1814,15 @@ def main() -> int:
              launches=half_launches["fused_bottleneck_bf16"],
              launches_by_path={"pipeline_half": half_launches["fused_bottleneck_bf16"],
                                "predict_half": predict_half_launches["fused_bottleneck_bf16"],
-                               "val_half": val_launches["bf16"]["fused_bottleneck_bf16"]},
-             max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values())),
-             unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values())),
+                               "val_half": val_launches["bf16"]["fused_bottleneck_bf16"],
+                               "train_amp": amp_launches["fused_bottleneck_bf16"]},
+             max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
+                                                         *amp_bottleneck.values())),
+             unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
+                                                                 *amp_bottleneck.values())),
+             train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
+                                "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
+                                "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
              ms=per_forward("ms", half_shapes), plain_ms=per_forward("plain_ms", half_shapes),
              bound_ms=per_forward("bound_ms", half_shapes),
              bound_by="operations" if per_forward("flops", half_shapes) / PEAK_BF16_FLOPS
@@ -1583,7 +1841,7 @@ def main() -> int:
                                "predict_half": predict_half_launches["greedy_keep"],
                                "val": val_launches["f32"]["greedy_keep"], "val_half": val_launches["bf16"]["greedy_keep"],
                                "train_ema_val": train_val_launches["greedy_keep"],
-                               "train_loop": loop_launches["greedy_keep"]},
+                               "train_loop": loop_launches["greedy_keep"], "train_amp": amp_launches["greedy_keep"]},
              max_abs_err=0.0,
              ms=nms["ms"], plain_ms=nms["plain_ms"], bound_ms=nms["bound_ms"], bound_by=nms["bound_by"],
              library_ms=None, design="IoU bitmask of valid rows + one-warp scan from survivor to survivor",
@@ -1596,6 +1854,8 @@ def main() -> int:
                                                            "scan_steps_mean", "mismatches")},
              train_loop_k2048={k: nms_loop[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                         "scan_steps_mean", "mismatches")},
+             train_amp_k2048={k: nms_amp[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "scan_steps_mean", "mismatches")},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

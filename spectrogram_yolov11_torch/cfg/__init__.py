@@ -65,7 +65,7 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "dfl": 1.5,
     "nbs": 64,
     "cos_lr": False,
-    "amp": True,  # bf16 training is not ported yet: the trainer raises unless amp=False
+    "amp": True,  # bf16 compute in training (parameters, optimizer, EMA and BN statistics f32); False: f32
     # the epoch loop (engine/trainer.py: DetectionTrainer.train)
     "time": None,  # wall-clock hours; training stops after the epoch that passes it
     "patience": 100,  # epochs without a better fitness before training stops

@@ -4,7 +4,7 @@ package's `.ckpt` checkpoints:
 
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").predict("capture.npy")
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").val(data="spectrogram_synth.yaml", batch=32)
-    YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").train(data="spectrogram_synth.yaml", epochs=3, amp=False)
+    YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").train(data="spectrogram_synth.yaml", epochs=3)
 
 The weights (EMA before the raw variables) are read on the host, carried
 across by the weight bridge and folded for the bottleneck kernel; predict
@@ -15,7 +15,11 @@ runs a bf16 copy of the model and leaves the f32 model to half=False calls.
 val builds a DetectionValidator per call (engine/validator.py), kept as
 `self.validator`, with the same defaults and callbacks; train runs a
 DetectionTrainer (engine/trainer.py), kept as `self.trainer`, and leaves the
-EMA's weights on the model.
+EMA's weights on the model, at the compute dtype the trainer set: after an
+amp=True run (the default) val() and predict() run the model's bf16 copy
+even at half=False, as the JAX facade keeps the model whose dtype its
+trainer's setup_model changed in place; a later train(amp=False) sets it
+back to f32.
 Other model sources and modes raise NotImplementedError naming the
 ROADMAP.md item that ports them.
 """
@@ -117,11 +121,12 @@ class YOLO:
 
     def train(self, **kwargs) -> Dict[str, float]:
         """Train the checkpoint's model on `data` (JAX facade :241-268):
-        train(data=..., epochs=N, amp=False, ...) -> the last validation's
-        results_dict. Afterwards the facade holds the EMA's weights, and the
-        next predict builds its predictor anew. amp=True, the default, raises
-        (ROADMAP.md item 6b); see engine/trainer.py for the other options
-        that raise."""
+        train(data=..., epochs=N, ...) -> the last validation's results_dict,
+        in bf16 with f32 parameters at the default amp=True, in f32 with
+        amp=False. Afterwards the facade holds the EMA's weights at the
+        trainer's compute dtype (bf16 after amp: val() and predict() then run
+        bf16), and the next predict builds its predictor anew; see
+        engine/trainer.py for the options that raise."""
         overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"model", "task", "mode"}}
         trainer = DetectionTrainer(self.model, overrides)
         self._merge_callbacks(trainer)

@@ -54,7 +54,9 @@ def load_model(ckpt: str | Path) -> Tuple[DetectionModel, dict]:
 def eval_network(model: DetectionModel, half: bool, device: torch.device) -> DetectionModel:
     """The network a predictor or validator runs for `model`, on `device`
     (channels_last on the card): the model itself in f32, its bf16 copy with
-    `half` (set_dtype). A model left in training mode is put in eval mode
+    `half` (set_dtype) or when the model was set to compute in bf16 (amp
+    training, set_compute_dtype), as the JAX model keeps the dtype its
+    trainer set. A model left in training mode is put in eval mode
     first, which folds its fused bottlenecks from the weights it holds now:
     it runs BN on its running statistics and the kernels on its current
     weights, as the JAX predictor and validator apply a model with
@@ -62,6 +64,7 @@ def eval_network(model: DetectionModel, half: bool, device: torch.device) -> Det
     if model.training:
         model.eval()
     fmt = torch.channels_last if device.type == "cuda" else torch.contiguous_format
+    half = half or model.compute_dtype == torch.bfloat16
     return model.set_dtype(torch.bfloat16 if half else torch.float32).to(device, memory_format=fmt)
 
 

@@ -65,7 +65,8 @@ class BasePredictor:
         a = self.args
         return build_device_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
                                classes=a.classes, agnostic=bool(a.agnostic_nms),
-                               pre_nms_topk=int(a.pre_nms_topk or 0) or 1024, half=bool(a.half))
+                               pre_nms_topk=int(a.pre_nms_topk or 0) or 1024,
+                               half=self.model.dtype == torch.bfloat16)
 
     def preprocess(self, imgs: list, gray_state: Optional[list] = None) -> torch.Tensor:
         """Letterbox the frames on the device: (B, imgsz, imgsz, 1|3) uint8 BGR."""

@@ -28,12 +28,21 @@ checkpoint layout, early stopping on fitness, the `time` budget, resume, and
 the EMA's weights left on the model at the end. The loss items stay on the
 card until the epoch ends, so a step needs no host sync.
 
+amp=True, the default as in JAX, trains in bf16 as JAX's compute_dtype
+(:171-181) does: the model computes in bf16 (set_compute_dtype: the input and
+each conv's f32 weights cast to bf16, BN in f32 on the conv output upcast,
+SiLU in f32, the result rounded to bf16), the loss upcasts the head's outputs
+to f32, and the gradients reach the f32 parameters through the casts. The
+parameters, the grad buffer, both moments, the EMA and the BN statistics stay
+f32, and there is no loss scaling (JAX has no grad scaler). The EMA's val runs
+a bf16 copy of the EMA (DetectionModel.set_dtype), made anew each epoch, as
+JAX's validator runs the bf16 graph. amp=False trains in f32.
+
 f32 work runs in full f32: the whole step, backward and update included,
 runs under utils.full_f32, so cuDNN's backward convolutions do not fall back
 to TF32 when the process has it on. Not ported, and raising with their
-ROADMAP.md item: amp=True (the JAX default, bf16 compute; item 6b),
-batch=-1 (AutoBatch), profile=True and plots=True (item 8), and host image
-augmentation (item 7b, data/augment.py).
+ROADMAP.md item: batch=-1 (AutoBatch), profile=True and plots=True (item 8),
+and host image augmentation (item 7b, data/augment.py).
 """
 
 from __future__ import annotations
@@ -109,9 +118,8 @@ class DetectionTrainer:
     def __init__(self, model: DetectionModel, overrides: Optional[dict] = None):
         self.args = get_cfg(DEFAULT_CFG_DICT, {"mode": "train", **(overrides or {})})
         a = self.args
-        if a.amp:
-            raise not_ported("amp=True (bf16 training with f32 parameters, BN and EMA); pass amp=False",
-                             "item 6b (bf16 training)")
+        if a.data is None:
+            raise TypeError("training needs data=: a dataset YAML or dict")
         if a.batch in (-1, None):
             raise not_ported("batch=-1 (AutoBatch)", "item 8 (trainer loop: AutoBatch)")
         if a.profile:
@@ -139,8 +147,15 @@ class DetectionTrainer:
         self.epoch_log: list = []  # per epoch: seconds, loader wait, val seconds (train())
         self.split_events: Optional[list] = None  # a list: train_step records its split there (see _mark)
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """bfloat16 with amp=True (parameters, optimizer, EMA and BN statistics stay f32), else float32."""
+        return torch.bfloat16 if self.args.amp else torch.float32
+
     def setup_model(self) -> None:
-        """The model on the trainer's device (channels_last on the card), in training mode."""
+        """The model on the trainer's device (channels_last on the card), in
+        training mode at the trainer's compute dtype, as JAX's setup_model
+        retraces the facade's model in place (:178-181)."""
         m = self.model
         if m.nc != self.data["nc"]:
             raise not_ported(f"training a model of nc={m.nc} on data of nc={self.data['nc']} (a rebuilt head)",
@@ -148,7 +163,7 @@ class DetectionTrainer:
         if m.dtype != torch.float32:
             raise ValueError(f"the trainer trains an f32 model, got {m.dtype}")
         fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
-        self.model = m.to(self.device, memory_format=fmt).train()
+        self.model = m.set_compute_dtype(self.compute_dtype).to(self.device, memory_format=fmt).train()
         self.model.names = self.data["names"]
 
     def setup_optimizer(self, nb: Optional[int] = None) -> None:
@@ -299,14 +314,18 @@ class DetectionTrainer:
 
     def validate(self) -> Dict[str, float]:
         """results_dict of the EMA on the data's val split, through one
-        DetectionValidator kept for the trainer's life (f32, the trainer's
-        device, imgsz and batch)."""
+        DetectionValidator kept for the trainer's life (the trainer's device,
+        imgsz and batch). With amp the EMA model computes in bf16, so the
+        validator scores a bf16 copy of it, made anew at each call
+        (set_model), as JAX's validator applies the bf16 graph."""
         model = self.ema_eval_model()
         if self.validator is None:
             a = self.args
             self.validator = DetectionValidator(model, overrides={
                 "data": a.data, "imgsz": self.imgsz, "batch": self.batch_size, "workers": a.workers,
                 "single_cls": a.single_cls, "device": str(self.device)})
+        else:
+            self.validator.set_model(model)
         self.metrics = self.validator()
         return self.metrics
 

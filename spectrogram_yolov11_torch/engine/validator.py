@@ -86,23 +86,28 @@ class DetectionValidator:
                               "item 8 (validator: save_json)")
         self.args = args
         self.device = resolve_device(args.device or "cuda")
-        self.source = model
-        self.model = eval_network(model, bool(args.half), self.device)
+        self.set_model(model)
         self.imgsz = int(args.imgsz if isinstance(args.imgsz, int) else args.imgsz[0])
         self.dataloader: Optional[DataLoader] = None
         self.iouv = np.linspace(0.5, 0.95, 10)
         self.names = dict(getattr(model, "names", None) or {})
-        self._device_fn = None
         self.data: Optional[dict] = None
         self.speed = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
         self.callbacks: dict = {}
+
+    def set_model(self, model: DetectionModel) -> None:
+        """Score `model` from the next call on (a trainer's EMA, each epoch):
+        its eval network is made now, a bf16 copy where the validator runs
+        bf16, so a copy made earlier never scores stale weights."""
+        self.source = model
+        self.model, self._device_fn = eval_network(model, bool(self.args.half), self.device), None
 
     def _build_device_fn(self):
         a = self.args
         return build_device_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
                                agnostic=bool(a.agnostic_nms or a.single_cls),
-                               pre_nms_topk=int(a.pre_nms_topk or 0) or VAL_PRE_NMS_TOPK, half=bool(a.half),
-                               multi_label=True)
+                               pre_nms_topk=int(a.pre_nms_topk or 0) or VAL_PRE_NMS_TOPK,
+                               half=self.model.dtype == torch.bfloat16, multi_label=True)
 
     def init_metrics(self) -> None:
         self.stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
@@ -157,7 +162,7 @@ class DetectionValidator:
             raise KeyError(f"dataset has no '{args.split}' split")
         self.dataloader = self.get_dataloader(self.data[args.split], int(args.batch))
         if self.source.training:  # trained since this validator was built: score its weights as they are now
-            self.model, self._device_fn = eval_network(self.source, bool(args.half), self.device), None
+            self.set_model(self.source)
         if self._device_fn is None:
             self._device_fn = self._build_device_fn()
         self.init_metrics()

@@ -16,7 +16,10 @@ two convs differ in width and it stays on the plain path.
 
 In bf16 the rounding points are the JAX package's: the DFL decode's exp runs
 in the logits' dtype with an f32 projection, and attention takes QK^T and AV
-with f32 results, cast to v's dtype after the softmax and after AV.
+with f32 results, cast to v's dtype after the softmax and after AV. This holds
+in amp training too: every block computes in its input's dtype (bf16), its
+Convs casting their f32 weights (conv.py), its residual adds, concats and max
+pools in bf16, as the JAX blocks at dtype=bfloat16 with train=True.
 """
 
 from __future__ import annotations

@@ -5,6 +5,13 @@ batch_norm (:169), Conv (:190), DWConv (:255), Concat, Upsample. Attribute
 names (`conv`, `bn`) match the JAX modules so the weight bridge maps names
 mechanically. BN eps is 1e-3, as in the JAX package, not torch's default
 1e-5, and in training BN follows flax (BatchNorm below).
+
+In training a Conv computes in its input's dtype (the model casts its input
+to its compute dtype, DetectionModel.set_compute_dtype) with f32 parameters,
+as flax's Conv with dtype=bfloat16 and param_dtype=float32: the weight is
+cast to that dtype for the conv, BN runs in f32 on the conv output upcast,
+SiLU on the f32 result, and the output is rounded to the input's dtype. The
+casts carry the gradients to the f32 weights. In f32 every cast is a no-op.
 """
 
 from __future__ import annotations
@@ -27,6 +34,17 @@ def autopad(k, p=None, d=1):
     if p is None:
         p = k // 2 if isinstance(k, int) else [x // 2 for x in k]
     return p
+
+
+class Conv2d(nn.Conv2d):
+    """torch's Conv2d that computes in its input's dtype: its weight and bias
+    are cast to it (no-ops when they already hold it), as flax's conv2d with
+    dtype=bfloat16 casts its f32 parameters: Conv's conv, and the bare convs
+    of HCoordAtt and the Detect head."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -55,12 +73,14 @@ class Conv(nn.Module):
 
     def __init__(self, c1: int, c2: int, k=1, s=1, p: Optional[int] = None, g: int = 1, d: int = 1, act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
         self.bn = BatchNorm2d(c2)
         self.act = nn.SiLU() if act is True else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.bn(self.conv(x)))
+        if not self.training:
+            return self.act(self.bn(self.conv(x)))
+        return self.act(self.bn(self.conv(x).float())).to(x.dtype)
 
     def folded(self):
         """(weight OIHW, bias) with the eval-mode BN folded into the conv."""

@@ -116,8 +116,14 @@ class DetectionModel(nn.Module):
     bottlenecks run unfused. It runs in f32; a bf16 copy comes from
     `set_dtype`.
 
+    `compute_dtype` is the dtype the f32 model computes in when it trains:
+    float32, or bfloat16 after `set_compute_dtype` (amp training). Its
+    parameters and BN statistics stay f32 either way. The predictor and the
+    validator run such a model's bf16 copy, as the JAX graph that
+    `set_dtype` retraced runs in bf16 in eval too.
+
     forward(x (B, 3, H, W) float) -> per-level (box, cls) logits, NCHW, in the
-    model's dtype."""
+    model's dtype (in training mode, in its compute dtype)."""
 
     def __init__(self, cfg: dict, ch: int = 3, nc: Optional[int] = None):
         super().__init__()
@@ -126,6 +132,7 @@ class DetectionModel(nn.Module):
             self.yaml["nc"] = nc
         self.nc = self.yaml["nc"]
         self.dtype = torch.float32  # the activations' dtype; parameters too, except BN's, which stay f32
+        self.compute_dtype = torch.float32  # the activations' dtype in training; parameters stay f32
         layers, self.routes, self.save = parse_model(self.yaml, ch)
         self.model = nn.ModuleList(layers)
         self.eval()
@@ -136,7 +143,8 @@ class DetectionModel(nn.Module):
 
     @full_f32()
     def forward(self, x: torch.Tensor):
-        x = x.to(self.dtype)  # a bf16 network rounds its input to bf16, as the JAX model's first conv does
+        # a bf16 network rounds its input to bf16, as the JAX model's first conv does
+        x = x.to(self.compute_dtype if self.training else self.dtype)
         y: List[Optional[torch.Tensor]] = []
         for i, (m, f) in enumerate(zip(self.model, self.routes)):
             if f != -1:
@@ -160,6 +168,18 @@ class DetectionModel(nn.Module):
         for m in self.modules():
             if isinstance(m, M.Bottleneck) and m.fusable:
                 m.fold(self.dtype)
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "DetectionModel":
+        """This f32 model, set to train at activation dtype `dtype` (float32 or
+        bfloat16): the counterpart, for training, of JAX's BaseModel.set_dtype
+        (spectrogram_yolov11_tpu/nn/tasks.py:517), which retraces the graph in
+        place while the parameters stay f32. Nothing is copied or cast here:
+        in training the forward casts the input, and each conv its weights,
+        to `dtype`. Unlike `set_dtype`'s copy, it holds no bf16 weights."""
+        if self.dtype != torch.float32 or dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"set_compute_dtype sets an f32 model to float32 or bfloat16, not {self.dtype} to {dtype}")
+        self.compute_dtype = dtype
+        return self
 
     def set_dtype(self, dtype: torch.dtype) -> "DetectionModel":
         """The network at activation dtype `dtype` (float32 or bfloat16): this

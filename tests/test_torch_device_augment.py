@@ -25,6 +25,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_torch.ops.device_augment import augment_batch
 from spectrogram_yolov11_tpu.data.augment import TrainTransform as JaxTrainTransform

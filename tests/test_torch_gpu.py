@@ -14,7 +14,10 @@ keep mask and the pipeline's counts exactly; a whole network 1e-3 abs/rel, as
 the CPU model tests; val on the card against val on the CPU, results_dict
 within 1e-4 and the detections above a score margin equal; the training step
 on the card against the CPU's with the tolerances tests/test_torch_train_step.py
-holds the CPU to JAX with (assert_train_step_close). The tests leave
+holds the CPU to JAX with (assert_train_step_close); the bf16 (amp) step on
+the card against the CPU's bf16 step, per quantity within 3 times the card's
+own bf16-to-f32 distance (assert_amp_step_close; tests/test_torch_train_amp.py
+says why 3). The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -561,14 +564,15 @@ def _train_batch(seed: int = 2, b: int = 2, imgsz: int = 64, g: int = 6) -> dict
             "mask_gt": mask}
 
 
-def _trained_steps(device: str, data: dict, batch: dict):
-    """The trained model through TRAIN_STEPS on `device` (optimizer auto -> AdamW):
-    (trainer, per-step loss items, the grad buffer after the accumulation step, the initial params)."""
+def _trained_steps(device: str, data: dict, batch: dict, amp: bool = False):
+    """The trained model through TRAIN_STEPS on `device` (optimizer auto -> AdamW), in f32 or
+    with amp in bf16: (trainer, per-step loss items, the grad buffer after the accumulation
+    step, the initial params)."""
     from spectrogram_yolov11_torch.engine.pipeline import load_model
     from spectrogram_yolov11_torch.engine.trainer import DetectionTrainer
 
     t = DetectionTrainer(load_model(CKPT)[0], {"data": data, "imgsz": int(batch["img"].shape[1]),
-                                               "batch": len(batch["img"]), "amp": False, "device": device,
+                                               "batch": len(batch["img"]), "amp": amp, "device": device,
                                                "workers": 2})
     t.setup_model()
     t.setup_optimizer(nb=50)
@@ -674,6 +678,64 @@ def test_ema_validate_launches_the_kernels_and_refolds(train_split):
     assert moved == (12, 0, 2) and all(np.isfinite(v) for v in res.values())  # 4 images at batch 2
 
 
+def amp_step_distances(card_bf16, cpu_bf16, card_f32) -> dict:
+    """Per quantity (loss items, the grad buffer after the accumulation step, params, both
+    moments, BN statistics, their EMA), over all its leaves: (||card bf16 - CPU bf16||,
+    ||card bf16 - card f32||), each relative to the CPU bf16's norm."""
+    def parts(run):
+        t, items, grads, _ = run
+        st = t.state
+        return {"items": items, "grads": grads, "params": t.params, "mu": st["opt"]["mu"], "nu": st["opt"]["nu"],
+                "batch_stats": t.stats, "ema_params": st["ema"]["params"],
+                "ema_batch_stats": st["ema"]["batch_stats"]}
+
+    vec = lambda ts: torch.cat([t.detach().float().cpu().flatten() for t in ts])  # noqa: E731
+    a, b, f = (parts(r) for r in (card_bf16, cpu_bf16, card_f32))
+    out = {}
+    for k in a:
+        va, vb, vf = vec(a[k]), vec(b[k]), vec(f[k])
+        n = float(vb.norm())
+        out[k] = (float((va - vb).norm()) / n, float((va - vf).norm()) / n)
+    return out
+
+
+def assert_amp_step_close(card_bf16, cpu_bf16, card_f32, multiple: float = 3.0) -> None:
+    """The card's bf16 step against the CPU's: per quantity within `multiple` times the
+    card's own bf16-to-f32 distance (tests/test_torch_train_amp.py says why 3: two bf16
+    evaluations of this step lie about as far apart as either lies from f32), plus 1e-6;
+    every state tensor f32."""
+    t = card_bf16[0]
+    assert t.model.compute_dtype == torch.bfloat16
+    assert all(x.dtype == torch.float32 for x in (*t.params, *t.stats, *t.state["grad_buf"], *t.state["opt"]["mu"],
+                                                   *t.state["opt"]["nu"], *t.state["ema"]["params"]))
+    for k, (err, yard) in amp_step_distances(card_bf16, cpu_bf16, card_f32).items():
+        assert err <= multiple * yard + 1e-6, (k, err, yard)
+
+
+@pytest.mark.gpu
+def test_amp_train_step_on_card_matches_cpu(train_split):
+    """amp=True: the trained model's bf16 step at 64 px, B = 2 on the card
+    against the CPU's bf16 step, by the card's own bf16-to-f32 distance; no
+    kernel launches in the steps."""
+    batch = _train_batch()
+    counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
+    card = _trained_steps("cuda", train_split, batch, amp=True)
+    assert (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches) == counts
+    assert_amp_step_close(card, _trained_steps("cpu", train_split, batch, amp=True),
+                          _trained_steps("cuda", train_split, batch))
+
+
+@pytest.mark.gpu
+def test_amp_train_step_runs_with_tf32_turned_on(train_split):
+    """TF32 on for cuDNN and matmul in the process: the bf16 step's f32 parts
+    (BN, loss, assigner, optimizer) stay f32 and the step matches the CPU's as
+    above."""
+    batch = _train_batch(seed=5)
+    _with_tf32_on(lambda: assert_amp_step_close(_trained_steps("cuda", train_split, batch, amp=True),
+                                                _trained_steps("cpu", train_split, batch, amp=True),
+                                                _trained_steps("cuda", train_split, batch)))
+
+
 # -- the training loop: the augmenting loader's images and an epoch ---------------------------------------
 
 class _ColourDS:
@@ -777,3 +839,23 @@ def test_train_epoch_on_card_matches_cpu(loop_split, tmp_path):
             assert err <= 1e-5 * float(r.abs().max()), k
         else:
             assert err <= 1e-3 * float((r - init[k]).abs().max()) + 4 * float(np.spacing(np.float32(r.abs().max()))), k
+
+
+@pytest.mark.gpu
+def test_amp_train_epoch_launches_the_bf16_kernels(loop_split, tmp_path):
+    """YOLO(ckpt).train at its default amp=True for one epoch at 64 px, B = 2 on
+    the card: no kernel in the 4 steps; the EMA's val runs its bf16 copy, 6
+    bf16 bottlenecks + 1 NMS per val batch (4 images at batch 2), no f32
+    bottleneck; the facade's model computes in bf16 after it."""
+    from spectrogram_yolov11_torch import YOLO
+
+    yolo, counts = YOLO(CKPT, device="cuda"), []
+    read = lambda t: counts.append((fused_bottleneck.launches, fused_bottleneck_bf16.launches,  # noqa: E731
+                                    greedy_keep.launches))
+    for event in ("on_train_start", "on_train_batch_end", "on_fit_epoch_end"):
+        yolo.add_callback(event, read)
+    metrics = yolo.train(data=loop_split, epochs=1, batch=2, imgsz=64, workers=2, project=str(tmp_path), name="amp")
+    assert yolo.trainer.args.amp is True and yolo.model.compute_dtype == torch.bfloat16
+    assert len(counts) == 6 and len(set(counts[:5])) == 1
+    assert tuple(b - a for a, b in zip(counts[4], counts[5])) == (0, 12, 2)
+    assert yolo.trainer.validator.model.dtype == torch.bfloat16 and all(np.isfinite(v) for v in metrics.values())

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_gpu import assert_bf16_close
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_tpu.engine.checkpoint import load_checkpoint as jax_load_checkpoint
 from spectrogram_yolov11_tpu.nn.modules.block import dfl_decode as jax_dfl_decode

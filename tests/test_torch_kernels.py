@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 import torch.nn.functional as F
 from test_torch_gpu import NMS_CASES, nms_edge_case
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_torch.ops.iou import bbox_iou
 from spectrogram_yolov11_torch.ops.losses import bce_logits, detection_loss, df_loss, preprocess_targets

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 import yaml
 
 from spectrogram_yolov11_tpu.engine.checkpoint import load_checkpoint as jax_load_checkpoint

@@ -19,6 +19,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_tpu import YOLO as JaxYOLO
 from spectrogram_yolov11_torch import YOLO
@@ -179,9 +180,13 @@ def test_predict_refuses_what_the_port_does_not_do(models, tmp_path):
     for model in ("yolo11n.yaml", "yolo11n.pt", "best.onnx", "http://host:8000/model"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             YOLO(model)
-    for mode in (port.train, port.track, port.export):
+    for mode in (port.track, port.export):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mode()
+    # train runs now, at the default amp=True too (tests/test_torch_train_amp.py); without data it raises a
+    # TypeError, as the JAX facade's dict(None) does
+    with pytest.raises(TypeError, match="data="):
+        port.train()
     # val runs now (held to JAX's validator in tests/test_torch_validator.py): without data it raises as the
     # JAX facade does, and a split of JPEG images raises, naming the ROADMAP item that ports the decoder
     jax_model = models[1]

@@ -37,6 +37,7 @@ at 0.003 % to 7.1 % of pixels (seed 7), the f32 witness's at 0.003 % to
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 from jax._src.image.scale import compute_weight_mat, _kernels, ResizeMethod
 
 from spectrogram_yolov11_tpu.data.loaders import LoadIQCaptures as JaxLoadIQCaptures

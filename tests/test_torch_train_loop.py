@@ -54,6 +54,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 import spectrogram_yolov11_tpu.ops.device_augment as jax_device_augment
 import spectrogram_yolov11_tpu.utils.callbacks as jax_callbacks
@@ -239,13 +240,13 @@ def test_resume_equals_a_straight_run(setup):
 
 
 @pytest.mark.parametrize("kw,what,item", [
-    ({"amp": True}, "amp=True", "item 6b"), ({"batch": -1}, "AutoBatch", "item 8"),
+    ({"degrees": 10.0}, "device_augment='auto' with degrees", "item 7b"), ({"batch": -1}, "AutoBatch", "item 8"),
     ({"profile": True}, "profile=True", "item 8"), ({"plots": True}, "plots=True", "item 8"),
     ({"device_augment": False}, "device_augment=False", "item 7b"), ({"mixup": 0.2}, "mixup", "item 7b"),
     ({"multi_scale": True}, "multi_scale", "item 7b"), ({"cache": "disk"}, "cache='disk'", "item 7 ")])
 def test_unported_options_raise(setup, kw, what, item):
     root, data, ckpt = setup
-    args = {k: v for k, v in TRAIN.items() if k != "amp"} if kw == {"amp": True} else {**TRAIN, **kw}
+    args = {**TRAIN, **kw}
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.*{item}"):
         YOLO(ckpt, device="cpu").train(data=data, project=str(root / "refused"), **args)
 

@@ -26,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 import spectrogram_yolov11_torch.engine.validator as port_validator
 import spectrogram_yolov11_tpu.engine.validator as jax_validator
