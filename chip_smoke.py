@@ -8,8 +8,10 @@ Phases, each printing one JSON line, each fatal when it fails:
                torch sets them: the port holds its own f32 policy
                (utils.full_f32 around the network's forward, the device
                function and the plain bottleneck)
-  2. build     both CUDA kernels built from csrc/ with nvcc (build seconds, ptxas
-               report); fails on any spill
+  2. build     both CUDA kernels built from csrc/ with nvcc and the host
+               library (the JPEG decoder's body, the PNG row filters) with the
+               host C++ compiler, all at once (build seconds, ptxas report);
+               fails on any spill
   3. kernels   each kernel against its plain version on the card: the fused
                bottleneck on the trained, BN-folded weights of layers 6 and 8 at
                the activations the pipeline hands it, and at 32x40x40x128 on
@@ -73,7 +75,24 @@ Phases, each printing one JSON line, each fatal when it fails:
                (scan steps) per image, its time, device time and bound; the val
                call's time per image, split into host read and decode,
                letterbox and H2D, device function and host stats
-  10. train    the detect training step: the port's generator writes the
+  10. images   JPEG frames: every committed fixture (tests/torch_data/jpeg/:
+               the JAX generator's Spectrogram.yaml val split and one
+               spectrogram_synth frame, small cv2 encodes of each decoder
+               branch) decoded on the host to the SHA-256 and shape of
+               cv2.imread's decode recorded beside them; YOLO(ckpt).predict on
+               the fixture directory at batch 8 and on a glob of the small
+               encodes (batch 1) at 320 px, and YOLO(ckpt).val on the fixture
+               split at batch 8 in f32 and with half=True, each with the counts
+               set to 0 just before and read just after (6 + 1 launches per
+               batch; 6 bf16 + 1 with half=True), predict's counts, classes
+               and frames equal to a CPU run's and boxes within 1e-2 px, the
+               f32 results_dict within 1e-4 of the CPU's; each kernel against
+               its plain version on the inputs the JPEG val handed it (global
+               module hooks); decode ms per image (320 px, 640 px, 641 x 359)
+               serially and in 8 threads, and predict ms per image from files
+               at batch 8, split into read and decode, letterbox, device
+               function and host postprocess
+  11. train    the detect training step: the port's generator writes the
                synthetic split (128 train + 32 val PNG at 640 px) into a
                temporary directory; the trained model at 640 px, B = 16,
                amp=False, optimizer auto (AdamW) takes 20 steps
@@ -98,7 +117,7 @@ Phases, each printing one JSON line, each fatal when it fails:
                same weights and batch: loss items, grads, first moments,
                params, BN statistics and the EMA within the tolerances of
                tests/test_torch_train_step.py
-  11. train_loop  YOLO(ckpt).train(data=<the synthetic split, 128 + 32 PNG at
+  12. train_loop  YOLO(ckpt).train(data=<the synthetic split, 128 + 32 PNG at
                640 px>, epochs=3, batch=16, imgsz=640, amp=False,
                close_mosaic=1): the augmenting train loader (mosaic,
                warp, HSV and flips, the image half on the card by
@@ -116,7 +135,7 @@ Phases, each printing one JSON line, each fatal when it fails:
                CUDA events), the busy share over steps 3-5 of epoch 1 (the
                profiler's set-up lands in that epoch's time), val seconds, the
                final EMA's metrics, peak memory
-  12. train_amp   bf16 training at amp=True, JAX's default: 20 steps of the
+  13. train_amp   bf16 training at amp=True, JAX's default: 20 steps of the
                trained model at 640 px, B = 16 on the val loader's batches
                (as phase train), counted (no launch: the training convs are
                cuDNN's); train_step's split on 6 later steps beside 6 of an
@@ -160,6 +179,9 @@ ARRAY_SHAPES = ((360, 640, 1), (720, 1280, 3), (500, 333, 3))
 PREDICT_BATCH = 32
 VAL_BATCH = 32
 VAL_TOL = 1e-4  # the card's results_dict against the CPU's, per key
+JPEG_FIXTURES = ROOT / "tests" / "torch_data" / "jpeg"  # JAX-written JPEGs and cv2 encodes, cv2's digests beside them
+IMAGES_IMGSZ = 320  # the fixture frames' own size: their scores lie 4e-4 or more from conf and iou there
+IMAGES_BATCH = 8
 TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_STEPS = 640, 16, 20  # JAX's default imgsz and batch
 TRAIN_CHECK, TRAIN_CHECK_BATCH = 160, 4  # the card's step against the CPU's
 LOOP_EPOCHS = 3  # YOLO.train's epochs in phase train_loop, the last without mosaic
@@ -214,7 +236,7 @@ def phase_build():
     keys = ("Compiling entry function", "Used", "spill")  # kernel name, registers and shared memory, spills
     report = {name: [ln.strip() for ln in log.splitlines() if any(k in ln for k in keys)]
               for name, log in kernels.BUILD_LOG.items()}
-    require(set(secs) == set(kernels.KERNELS), f"not every kernel was built: {sorted(secs)}")
+    require(set(secs) == {*kernels.KERNELS, *kernels.HOST_LIBS}, f"not every library was built: {sorted(secs)}")
     spills = [ln for lines in report.values() for ln in lines if "spill" in ln and " 0 bytes spill stores" not in ln]
     require(not spills, f"ptxas reports spills: {spills}")
     emit("build", seconds={k: round(v, 2) for k, v in secs.items()}, wall_s=round(time.perf_counter() - t0, 2),
@@ -556,8 +578,8 @@ def run_counted(fn, expect: dict, what: str):
 def _split_ms(stages, reps: int) -> dict:
     """Mean ms of each (name, fn) stage, run in turn `reps` times, each handed
     the previous one's result: CUDA events around the stages that queue device
-    work, the host clock around "host_postprocess"; the card is idle at the
-    start of every stage."""
+    work, the host clock around the stages named host_*; the card is idle at
+    the start of every stage."""
     import torch
 
     totals = {name: 0.0 for name, _ in stages}
@@ -571,7 +593,7 @@ def _split_ms(stages, reps: int) -> dict:
             value = fn(value)
             end.record()
             torch.cuda.synchronize()
-            totals[name] += (time.perf_counter() - t0) * 1e3 if name == "host_postprocess" else start.elapsed_time(end)
+            totals[name] += (time.perf_counter() - t0) * 1e3 if name.startswith("host_") else start.elapsed_time(end)
     return {name: t / reps for name, t in totals.items()}
 
 
@@ -1033,6 +1055,145 @@ def phase_val():
                 "postprocess: un-letterbox and TP matching); host read and decode: YOLODataset.get_item per image, "
                 "serially; the keep kernel as the other phases, and its device time by torch.profiler")
     return launches, nms
+
+
+def phase_images():
+    """JPEG frames: every committed fixture decoded to cv2's recorded digest;
+    YOLO(ckpt).predict from the fixture directory at batch 8 and from a glob,
+    and YOLO(ckpt).val on the fixture split in f32 and bf16, each counted and
+    held to the CPU; each kernel against its plain version on the inputs the
+    JPEG val handed it; decode and predict-from-files times."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+    from spectrogram_yolov11_torch.data.imageio import imread
+    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+    from spectrogram_yolov11_torch.nn.modules.head import Detect
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+
+    # every fixture decodes to the shape and SHA-256 of cv2.imread's decode, recorded beside it
+    recorded = json.loads((JPEG_FIXTURES / "cv2_decoded.json").read_text())["files"]
+    listed = sorted(str(f.relative_to(JPEG_FIXTURES)) for f in JPEG_FIXTURES.rglob("*.jpg"))
+    require(listed == sorted(recorded), f"fixtures {listed} are not those recorded {sorted(recorded)}")
+    for name, d in recorded.items():
+        img = imread(JPEG_FIXTURES / name)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        require(list(img.shape) == d["shape"] and digest == d["sha256"],
+                f"{name} decodes to {img.shape} {digest}, cv2 to {d['shape']} {d['sha256']}")
+
+    f32, bf16_expect = ({"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1},
+                        {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6, "greedy_keep": 1})
+    yolo, cpu = YOLO(CKPT), YOLO(CKPT, device="cpu")
+    val_dir = JPEG_FIXTURES / "spectrogram" / "images" / "val"
+    val_files = sorted(val_dir.glob("*.jpg"))
+    glob_src = str(JPEG_FIXTURES / "*.jpg")  # the small encodes: samplings, restarts, 1 x 1 to 641 x 359, EXIF
+    n_glob = len(list(JPEG_FIXTURES.glob("*.jpg")))
+    predict_calls = {"directory_batch8": (str(val_dir), IMAGES_BATCH, f32),
+                     "glob_batch1": (glob_src, 1, {k: n_glob * v for k, v in f32.items()})}
+    predict, launches, cpu_vs_gpu = {}, {}, {}
+    for key, (source, batch, expect) in predict_calls.items():
+        predict[key], launches[f"predict_{key}"] = run_counted(
+            lambda s=source, b=batch: yolo.predict(s, batch=b, imgsz=IMAGES_IMGSZ), expect, f"predict {key}")
+        ref = cpu.predict(source, batch=batch, imgsz=IMAGES_IMGSZ)
+        require(len(ref) == len(predict[key]) and [r.path for r in ref] == [g.path for g in predict[key]],
+                f"predict {key}: the card's and the CPU's results are for other files")
+        errs = []
+        for g, c in zip(predict[key], ref):
+            require(len(c) == len(g) and np.array_equal(c.boxes.cls, g.boxes.cls) and np.array_equal(c.orig_img, g.orig_img),
+                    f"predict {key}: CPU and card disagree on {g.path}: {c.boxes.cls.tolist()} vs {g.boxes.cls.tolist()}")
+            errs.append(float(np.abs(c.boxes.xyxy - g.boxes.xyxy).max(initial=0.0)))
+        require(max(errs) <= 1e-2, f"predict {key}: CPU and card boxes differ by {max(errs)} px")
+        cpu_vs_gpu[key] = {"images": len(ref), "detections": sum(map(len, ref)), "max_box_err_px": max(errs)}
+    require(cpu_vs_gpu["directory_batch8"]["detections"] > 0, "no detections on the fixture directory")
+
+    # val on the fixture split in f32 and bf16, counted; global hooks keep what each hands the kernels
+    data = {"path": str(JPEG_FIXTURES / "spectrogram"), "val": "images/val", "names": {0: "LTE", 1: "RF"}}
+    captured = {torch.float32: {}, torch.bfloat16: {}}
+
+    def pre(mod, args):  # returns None: the input stays as it is
+        if isinstance(mod, Bottleneck) and mod.fusable and not mod.training and args[0].dtype in captured:
+            captured[args[0].dtype].setdefault(mod, args[0].permute(0, 2, 3, 1).contiguous())
+
+    def post(mod, args, out):  # returns None: the output stays as it is
+        if isinstance(mod, Detect) and not mod.training and out[0][0].dtype == torch.float32:
+            captured[torch.float32].setdefault("feats", out)
+
+    results = {}
+    hooks = [torch.nn.modules.module.register_module_forward_pre_hook(pre),
+             torch.nn.modules.module.register_module_forward_hook(post)]
+    try:
+        for name, half, expect in (("f32", False, f32), ("bf16", True, bf16_expect)):
+            results[name], launches[f"val_{name}"] = run_counted(
+                lambda h=half: yolo.val(data=data, batch=IMAGES_BATCH, half=h), expect, f"{name} val of the JPEG split")
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu_val = cpu.val(data=data, batch=IMAGES_BATCH)
+    diff = {k: abs(results["f32"][k] - cpu_val[k]) for k in cpu_val}
+    require(max(diff.values()) <= VAL_TOL, f"the card's val of the JPEG split lies {diff} from the CPU's")
+    require(results["f32"]["metrics/mAP50(B)"] > 0.5, f"f32 val of the JPEG split {results['f32']}")
+
+    checks = {"fused_bottleneck": {}, "fused_bottleneck_bf16": {}}
+    with torch.inference_mode():
+        for dtype, key in ((torch.float32, "fused_bottleneck"), (torch.bfloat16, "fused_bottleneck_bf16")):
+            for i, m in enumerate(m for m in captured[dtype] if m != "feats"):
+                d = bottleneck_check(f"JPEG val {i}", layer_case(m, captured[dtype][m]))
+                checks[key][f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
+            shapes = sorted(c["shape"] for c in checks[key].values())
+            require(shapes == [[IMAGES_BATCH, 20, 20, 64]] * 4 + [[IMAGES_BATCH, 40, 40, 32]] * 2,
+                    f"{key}: JPEG val inputs {shapes}")
+        preds = decode_detections(captured[torch.float32]["feats"], yolo.model.nc, yolo.model.stride)
+        _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, yolo.model.nc, multi_label=True,
+                                                      pre_nms_topk=VAL_PRE_NMS_TOPK)
+        require(valid.shape == (IMAGES_BATCH, VAL_PRE_NMS_TOPK), f"JPEG val candidates {tuple(valid.shape)}")
+        nms = nms_check(offset_boxes, valid)
+
+    # readings: decode per image on the host, serially and in the loader's 8 threads; predict from files
+    frame640 = JPEG_FIXTURES / "spectrogram_synth" / "images" / "val" / "00000.jpg"
+    decode_ms = {}
+    for key, files in (("320px", val_files), ("640px", [frame640]), ("641x359", [JPEG_FIXTURES / "641x359.jpg"])):
+        reps = max(1, 64 // len(files))
+        imread(files[0])
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for f in files:
+                imread(f)
+        serial = (time.perf_counter() - t0) * 1e3 / (reps * len(files))
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(imread, files * (8 * reps)))
+            threads8 = (time.perf_counter() - t0) * 1e3 / (8 * reps * len(files))
+        decode_ms[key] = {"serial_ms_per_image": serial, "threads8_ms_per_image": threads8}
+    predict_ms = host_ms_per_call(lambda: yolo.predict(str(val_dir), batch=IMAGES_BATCH, imgsz=IMAGES_IMGSZ), 10)
+    predictor, dev = yolo.predictor, yolo.predictor.device
+
+    def host_post(out_nv, frames):
+        out, nv = out_nv
+        return predictor.postprocess(out.cpu().numpy(), nv.cpu().numpy(), frames, [str(f) for f in val_files], {})
+
+    stages = [("host_read_decode", lambda _: [imread(f) for f in val_files]),
+              ("letterbox", lambda fr: (fr, letterbox_batch(fr, IMAGES_IMGSZ, dev))),
+              ("device_fn", lambda fl: (fl[0], predictor._device_fn(fl[1]))),
+              ("host_postprocess", lambda fo: host_post(fo[1], fo[0]))]
+    split = {k: v / len(val_files) for k, v in _split_ms(stages, reps=10).items()}
+    emit("images", fixtures_decoded_to_cv2_digest=len(recorded), launches=launches, predict_card_vs_cpu=cpu_vs_gpu,
+         val_results=results, val_cpu_f32=cpu_val, val_abs_diff_f32=diff,
+         kernel_checks={"fused_bottleneck": checks["fused_bottleneck"],
+                        "fused_bottleneck_bf16": checks["fused_bottleneck_bf16"], "greedy_keep_k2048": nms},
+         decode=decode_ms, predict_ms_per_image_from_files_batch8=predict_ms / len(val_files),
+         split_ms_per_image_from_files_batch8=split, imgsz=IMAGES_IMGSZ,
+         method="decode: imread of the fixtures on the host clock, serially and mapped over 8 threads (the "
+                "loaders' pool), CPU readings of the card machine's host; predict: whole calls on the "
+                "directory at batch 8 on the host clock after one warm call; the split by _split_ms (read and "
+                "decode and host postprocess on the host clock, letterbox and device function by CUDA events)")
+    return launches, checks, nms
 
 
 def train_max_gt(ds) -> int:
@@ -1784,6 +1945,7 @@ def main() -> int:
         half_launches, half_checks, half_shapes = phase_half(fn, frames_dev)
     predict_half_launches, b1_half = phase_predict_half()
     val_launches, nms_val = phase_val()
+    images_launches, images_checks, nms_images = phase_images()
     train_val_launches, train_bottleneck, nms_train = phase_train()
     loop_launches, loop_bottleneck, nms_loop, loop_final = phase_train_loop()
     amp_launches, amp_bottleneck, nms_amp = phase_train_amp(loop_final)
@@ -1798,10 +1960,12 @@ def main() -> int:
              launches=launches["fused_bottleneck"],
              launches_by_path={"pipeline": launches["fused_bottleneck"], "predict": predict_launches["fused_bottleneck"],
                                "val": val_launches["f32"]["fused_bottleneck"],
+                               "images": sum(v["fused_bottleneck"] for v in images_launches.values()),
                                "train_ema_val": train_val_launches["fused_bottleneck"],
                                "train_loop": loop_launches["fused_bottleneck"],
                                "train_amp": amp_launches["fused_bottleneck"]},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
+                                                         *images_checks["fused_bottleneck"].values(),
                                                          *train_bottleneck.values(), *loop_bottleneck.values())),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
@@ -1815,10 +1979,13 @@ def main() -> int:
              launches_by_path={"pipeline_half": half_launches["fused_bottleneck_bf16"],
                                "predict_half": predict_half_launches["fused_bottleneck_bf16"],
                                "val_half": val_launches["bf16"]["fused_bottleneck_bf16"],
+                               "images_val_half": images_launches["val_bf16"]["fused_bottleneck_bf16"],
                                "train_amp": amp_launches["fused_bottleneck_bf16"]},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
+                                                         *images_checks["fused_bottleneck_bf16"].values(),
                                                          *amp_bottleneck.values())),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
+                                                                 *images_checks["fused_bottleneck_bf16"].values(),
                                                                  *amp_bottleneck.values())),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
@@ -1840,6 +2007,7 @@ def main() -> int:
                                "pipeline_half": half_launches["greedy_keep"],
                                "predict_half": predict_half_launches["greedy_keep"],
                                "val": val_launches["f32"]["greedy_keep"], "val_half": val_launches["bf16"]["greedy_keep"],
+                               "images": sum(v["greedy_keep"] for v in images_launches.values()),
                                "train_ema_val": train_val_launches["greedy_keep"],
                                "train_loop": loop_launches["greedy_keep"], "train_amp": amp_launches["greedy_keep"]},
              max_abs_err=0.0,
@@ -1850,6 +2018,8 @@ def main() -> int:
                                                       "scan_steps_mean", "mismatches")},
              val_k2048={k: nms_val[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                                  "scan_steps_mean", "mismatches")},
+             images_val_k2048={k: nms_images[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                         "scan_steps_mean", "mismatches")},
              train_ema_val_k2048={k: nms_train[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                            "scan_steps_mean", "mismatches")},
              train_loop_k2048={k: nms_loop[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",

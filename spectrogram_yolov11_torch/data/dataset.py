@@ -5,8 +5,8 @@ IMG_FORMATS (:27), img2label_path (:30), check_det_dataset (:42) and
 YOLODataset (:126: _find_images with `fraction`, the detect label rows,
 single_cls, the automatic max_gt :157-165, load_image with cache="ram",
 load_sample :344 with its long-side resize, get_item, close_mosaic :381-389).
-Images are read by data/imageio.py (PNG; other formats raise
-NotImplementedError when an image is read) and the label txts are parsed
+Images are read by data/imageio.py (JPEG and PNG, as cv2.imread reads them;
+other formats raise NotImplementedError when an image is read) and the label txts are parsed
 directly: the JAX package's JSON label cache (:246) is a saving the port does
 not have yet (ROADMAP.md item 8), and cache="disk" (.npy sidecars) raises.
 
@@ -17,8 +17,9 @@ device-augment mode: get_item(i, rng) is a sample's labels and the
 parameters its image is assembled from on the card (TrainTransform).
 
 Dataset YAMLs given by name resolve among the port's own copies under
-cfg/datasets/, whose `path` points at datasets/torch/..., so the two packages
-never read or overwrite each other's files.
+cfg/datasets/. The synthetic ones point at datasets/torch/..., so the two
+packages never read or overwrite each other's stand-ins; Spectrogram.yaml
+points at the user's datasets/spectrogram, as the JAX package's copy does.
 """
 
 from __future__ import annotations

@@ -1,18 +1,22 @@
-"""Image files on the host: a PNG reader and writer in numpy and zlib.
+"""Image files on the host: a PNG reader and writer in numpy and zlib, and
+the dispatch to the JPEG decoder (data/jpeg.py).
 
 The JAX package reads and writes images with cv2 (cv2.imread, cv2.imwrite);
 the port uses neither cv2 nor PIL. `imread` returns what
-cv2.imread(path, cv2.IMREAD_COLOR) returns for an 8-bit, non-interlaced PNG:
-BGR uint8 (H, W, 3), for gray, gray + alpha, RGB, RGBA and palette images
-(alpha dropped, gray repeated over the three channels, a palette looked up).
-It undoes all five PNG row filters (RFC 2083 §6): None, Sub and Up as whole-row
+cv2.imread(path, cv2.IMREAD_COLOR) returns, BGR uint8 (H, W, 3), choosing the
+decoder by the file's signature as cv2 does, whatever its suffix: JPEG
+(FF D8 FF) goes to data/jpeg.py; PNG to the reader here, for an 8-bit,
+non-interlaced PNG: gray, gray + alpha, RGB, RGBA and palette images (alpha
+dropped, gray repeated over the three channels, a palette looked up). It
+undoes all five PNG row filters (RFC 2083 §6): None, Sub and Up as whole-row
 numpy operations (Sub is a running sum modulo 256 along the row); Average and
 Paeth depend on the decoded left neighbour through a non-linear step, so they
-run as a Python loop over the bytes of the row.
+run in the host library's C loop (csrc/png_unfilter.cpp, built with the host
+C++ compiler at first use), with `_unfilter_loop` kept as its plain version.
 
 `imwrite_png` writes a gray or BGR(A) uint8 image with filter 0 on every row.
-Other formats raise NotImplementedError naming the ROADMAP.md item that ports
-their decoder; nothing falls back to another reader.
+Other formats (bmp, tif, webp, ...) raise NotImplementedError naming the
+ROADMAP.md item that ports their decoder; nothing falls back to another reader.
 """
 
 from __future__ import annotations
@@ -23,9 +27,18 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import kernels
+from .jpeg import decode_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
-_NO_DECODER = "queued in ROADMAP.md §1 item 5 (image decode); the port reads 8-bit PNG only"
+# the signatures of other formats cv2 reads, for a message that names the decoder missing
+_OTHER_FORMATS = ((b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"RIFF", "WebP"),
+                  (b"\0\0\0\x0cjP  ", "JPEG 2000"), (b"#?RADIANCE", "HDR"), (b"\x76\x2f\x31\x01", "OpenEXR"),
+                  *((b"P%d" % k, "PNM") for k in range(1, 8)))
+_NO_DECODER = ("queued in ROADMAP.md §1 item 5 (image decode); the port reads JPEG (8-bit Huffman sequential) "
+               "and 8-bit PNG")
+_NO_ENCODER = "queued in ROADMAP.md §1 item 5 (image encode); the port writes PNG only"
 
 
 def _chunks(data: bytes, path: str):
@@ -46,7 +59,8 @@ def _chunks(data: bytes, path: str):
 
 
 def _unfilter_loop(ftype: int, row: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
-    """Average (3) or Paeth (4) on one row, byte by byte."""
+    """Average (3) or Paeth (4) on one row, byte by byte: the plain version of
+    the host library's png_unfilter_row."""
     out = bytearray(row.tobytes())
     up = prior.tobytes()
     n = len(out)
@@ -81,6 +95,7 @@ def _unfilter(raw: bytes, height: int, width: int, bpp: int, path: str) -> np.nd
         return data
     out = np.empty((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
+    lib = kernels.load("image_decode") if (filters >= 3).any() else None
     for y in range(height):
         f, row = int(filters[y]), data[y]
         if f == 0:
@@ -89,23 +104,36 @@ def _unfilter(raw: bytes, height: int, width: int, bpp: int, path: str) -> np.nd
             out[y] = np.cumsum(row.reshape(width, bpp), axis=0, dtype=np.uint8).reshape(stride)
         elif f == 2:  # Up
             out[y] = row + prior
-        else:
-            out[y] = _unfilter_loop(f, row, prior, bpp)
+        else:  # the host library writes out[y] in place; row and prior are read-only views
+            lib.png_unfilter_row(f, row.ctypes.data, prior.ctypes.data, out[y].ctypes.data, stride, bpp)
         prior = out[y]
     return out
 
 
 def imread(path: str | Path) -> np.ndarray:
-    """An image file as cv2.imread(path) gives it: (H, W, 3) uint8 BGR.
-    PNG only (8 bits per sample, not interlaced); other formats raise
-    NotImplementedError, a missing file FileNotFoundError."""
+    """An image file as cv2.imread(path) gives it: (H, W, 3) uint8 BGR. The
+    decoder is chosen by the file's first bytes, as cv2 chooses it: JPEG
+    (data/jpeg.py) or PNG (8 bits per sample, not interlaced). Other formats
+    raise NotImplementedError, a missing file FileNotFoundError, a file no
+    decoder takes or a corrupt one ValueError (where cv2.imread returns None)."""
     path = str(path)
-    suffix = Path(path).suffix.lower()
-    if suffix != ".png":
-        raise NotImplementedError(f"cannot read {path}: no {suffix or 'extension'} decoder, {_NO_DECODER}")
+    if not Path(path).is_file():
+        raise FileNotFoundError(f"no image file {path}")
     data = Path(path).read_bytes()
+    if data.startswith(b"\xff\xd8\xff"):
+        try:
+            return decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     if not data.startswith(PNG_SIGNATURE):
-        raise ValueError(f"{path} is not a PNG file")
+        fmt = next((name for sig, name in _OTHER_FORMATS if data.startswith(sig)), None)
+        if fmt:
+            raise NotImplementedError(f"cannot read {path}: no {fmt} decoder, {_NO_DECODER}")
+        raise ValueError(f"{path} is neither a JPEG nor a PNG file")
+    return _read_png(data, path)
+
+
+def _read_png(data: bytes, path: str) -> np.ndarray:
     header, palette, idat = None, None, []
     for ctype, body in _chunks(data, path):
         if ctype == b"IHDR":
@@ -146,7 +174,7 @@ def imwrite_png(path: str | Path, img: np.ndarray) -> None:
     (H, W, 1) gray, (H, W, 3) BGR or (H, W, 4) BGRA; filter 0 on every row,
     zlib level 1 (cv2's default PNG compression)."""
     if Path(path).suffix.lower() != ".png":
-        raise NotImplementedError(f"cannot write {path}: no {Path(path).suffix or 'extension'} encoder, {_NO_DECODER}")
+        raise NotImplementedError(f"cannot write {path}: no {Path(path).suffix or 'extension'} encoder, {_NO_ENCODER}")
     a = np.asarray(img)
     if a.dtype != np.uint8 or a.ndim not in (2, 3) or (a.ndim == 3 and a.shape[2] not in (1, 3, 4)):
         raise ValueError(f"imwrite_png: expected uint8 (H, W) or (H, W, 1|3|4), got {a.dtype} {a.shape}")

@@ -1,16 +1,20 @@
 """Inference sources. Counterpart of spectrogram_yolov11_tpu/data/loaders.py:
-LoadPilAndNumpy (:63), LoadIQCaptures (:79), load_inference_source (:99) and
-LoadTensor (:251), with the same routing. Each loader yields (path, frame,
-info); a frame is uint8 HWC BGR, host numpy, or for an IQ capture a tensor on
-the card.
+LoadImagesAndVideos (:23), LoadPilAndNumpy (:63), LoadIQCaptures (:79),
+load_inference_source (:99) and LoadTensor (:251), with the same routing.
+Each loader yields (path, frame, info); a frame is uint8 HWC BGR, host numpy,
+or for an IQ capture a tensor on the card.
 
-Files, directories, globs, videos, streams and screenshots need an image or
-video decoder (cv2 in the JAX package), which the port does not have: those
-sources raise NotImplementedError (ROADMAP.md §1 item 5).
+Image files, directories and globs are listed as the JAX package lists them
+and read by data/imageio.py (JPEG and PNG, as cv2.imread reads them). Videos,
+streams and screenshots need a video decoder or a capture device (cv2 in the
+JAX package), which the port does not have: those sources raise
+NotImplementedError (ROADMAP.md §1 item 5), a listing that holds a video
+before any frame is read.
 """
 
 from __future__ import annotations
 
+import glob
 from pathlib import Path
 
 import numpy as np
@@ -18,9 +22,44 @@ import torch
 
 from ..ops.stft import spectrogram_gray
 from ..utils import resolve_device
+from .dataset import IMG_FORMATS
+from .imageio import imread
 
-_NO_DECODER = ("needs an image/video decoder (cv2 in the JAX package), which the port does not have; "
-               "queued in ROADMAP.md §1 item 5. Pass .npy IQ captures or uint8 arrays")
+VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "wmv", "webm"}
+_NO_DECODER = ("needs a video decoder or a capture device (cv2 in the JAX package), which the port does not have; "
+               "queued in ROADMAP.md §1 item 5. Pass image files, directories or globs (JPEG, PNG), .npy IQ "
+               "captures or uint8 arrays")
+
+
+class LoadImagesAndVideos:
+    """(path, BGR image, "") for each image file of a file, a directory
+    (sorted rglob of IMG_FORMATS and VID_FORMATS) or a glob (sorted, recursive);
+    a missing source raises FileNotFoundError, a video in the listing
+    NotImplementedError, an image no decoder takes FileNotFoundError as in
+    the JAX package (cv2.imread's None)."""
+
+    def __init__(self, source: str | Path):
+        p = str(source)
+        if "*" in p:
+            files = sorted(glob.glob(p, recursive=True))
+        elif Path(p).is_dir():
+            files = sorted(str(f) for f in Path(p).rglob("*") if f.suffix[1:].lower() in IMG_FORMATS | VID_FORMATS)
+        elif Path(p).is_file():
+            files = [p]
+        else:
+            raise FileNotFoundError(f"source not found: {source}")
+        videos = [f for f in files if Path(f).suffix[1:].lower() in VID_FORMATS]
+        if videos:
+            raise NotImplementedError(f"video source {videos[0]!r} {_NO_DECODER}")
+        self.files = files
+
+    def __iter__(self):
+        for f in self.files:
+            try:
+                img = imread(f)
+            except ValueError as e:
+                raise FileNotFoundError(f"unreadable image: {f} ({e})") from e
+            yield f, img, ""
 
 
 class LoadPilAndNumpy:
@@ -96,7 +135,7 @@ def load_inference_source(source, device: str | torch.device = "cuda"):
             raise NotImplementedError(f"screenshot source {s!r} {_NO_DECODER}")
         if s.isdigit() or s.endswith(".streams") or s.lower().startswith(("rtsp://", "rtmp://", "http://", "https://", "tcp://")):
             raise NotImplementedError(f"stream source {s!r} {_NO_DECODER}")
-        raise NotImplementedError(f"image/video file, directory or glob source {s!r} {_NO_DECODER}")
+        return LoadImagesAndVideos(source)
     if isinstance(source, int):
         raise NotImplementedError(f"stream source {source!r} {_NO_DECODER}")
     if isinstance(source, np.ndarray) and source.ndim == 4:

@@ -48,8 +48,9 @@ class BasePredictor:
         if args.conf is None:
             args.conf = 0.25
         if args.save or args.save_crop:
-            raise NotImplementedError("save=True and save_crop=True write images with cv2, which the port does not "
-                                      "have; queued in ROADMAP.md §1 item 5. save_txt=True works")
+            raise NotImplementedError("save=True and save_crop=True need a JPEG encoder and box drawing (cv2 in the "
+                                      "JAX package), which the port does not have; queued in ROADMAP.md §1 item 5. "
+                                      "save_txt=True works")
         self.args = args
         self.device = resolve_device(args.device or "cuda")
         self.source = model

@@ -3,8 +3,9 @@ spectrogram_yolov11_tpu/engine/results.py: Boxes (:46) and Results (:203) for
 the detect task. The predictor builds them after the fixed-shape NMS output
 has left the card, so device movement is the identity here too.
 
-plot, save, save_crop and show draw or write images with cv2 in the JAX
-package; the port does not use cv2, so they raise NotImplementedError.
+plot, save, save_crop and show draw, encode or show images with cv2 in the
+JAX package; the port has no drawing, no JPEG encoder and no window, so they
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import numpy as np
 from ..ops.boxes import xyxy2xywh
 from ..utils import SimpleClass
 
-_NO_CV2 = ("needs image drawing and encoding (cv2 in the JAX package), which the port does not have; "
-           "queued in ROADMAP.md §1 item 5")
+_NO_CV2 = ("needs box drawing and a JPEG encoder, or a window for show (cv2 in the JAX package), which the port "
+           "does not have; queued in ROADMAP.md §1 item 5")
 
 
 class _TensorCompat:

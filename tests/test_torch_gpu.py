@@ -17,7 +17,8 @@ on the card against the CPU's with the tolerances tests/test_torch_train_step.py
 holds the CPU to JAX with (assert_train_step_close); the bf16 (amp) step on
 the card against the CPU's bf16 step, per quantity within 3 times the card's
 own bf16-to-f32 distance (assert_amp_step_close; tests/test_torch_train_amp.py
-says why 3). The tests leave
+says why 3); predict from the JPEG fixture files and val on the fixture split
+against the CPU, as predict and val on arrays and PNG. The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -479,6 +480,54 @@ def test_val_on_card_matches_cpu(val_split):
                                            greedy_keep.launches), counts))
     assert moved == (6, 0, 1)
     _assert_val_matches(got, cpu)
+
+
+JPEG_FIXTURES = Path(__file__).resolve().parent / "torch_data" / "jpeg"
+
+
+@pytest.mark.gpu
+def test_predict_from_jpeg_files_on_card_matches_cpu():
+    """YOLO(ckpt).predict on the JPEG fixture directory (the JAX generator's 8
+    Spectrogram.yaml val frames) at batch 8 and on a glob of the small encodes
+    of the four colour samplings, at 320 px: 6 bottleneck and 1 NMS
+    launches per batch, the decoded frames equal, and counts and classes
+    equal to the CPU's, conf to 1e-4 and boxes to 1e-2 px of the letterboxed
+    frame (the directory's frames are clear of conf and iou by 4e-4 or more
+    at 320 px)."""
+    _card()
+    from spectrogram_yolov11_torch import YOLO
+
+    gpu, cpu = YOLO(CKPT), YOLO(CKPT, device="cpu")
+    detections = []
+    for source, batch in ((JPEG_FIXTURES / "spectrogram" / "images" / "val", 8), (JPEG_FIXTURES / "s4*.jpg", 1)):
+        n = len(list(source.glob("*.jpg")) if source.is_dir() else list(JPEG_FIXTURES.glob(source.name)))
+        counts = (fused_bottleneck.launches, greedy_keep.launches)
+        got = gpu.predict(str(source), imgsz=320, batch=batch)
+        torch.cuda.synchronize()
+        batches = -(-n // batch)
+        assert (fused_bottleneck.launches - counts[0], greedy_keep.launches - counts[1]) == (6 * batches, batches)
+        ref = cpu.predict(str(source), imgsz=320, batch=batch)
+        assert len(got) == len(ref) == n and [g.path for g in got] == [r.path for r in ref]
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.orig_img, r.orig_img)
+            assert len(g) == len(r)
+            np.testing.assert_array_equal(g.boxes.cls, r.boxes.cls)
+            np.testing.assert_allclose(g.boxes.conf, r.boxes.conf, atol=1e-4, rtol=0)
+            gain = min(320 / g.orig_shape[0], 320 / g.orig_shape[1])
+            np.testing.assert_allclose(g.boxes.xyxy, r.boxes.xyxy, atol=1e-2 / gain, rtol=0)
+        detections.append(sum(len(r) for r in got))
+    assert detections[0] > 0
+
+
+@pytest.mark.gpu
+def test_val_on_jpeg_fixtures_on_card_matches_cpu():
+    """YOLO(ckpt).val on the JPEG fixture split on the card against the CPU's:
+    results_dict within 1e-4, the detections above a score margin equal."""
+    _card()
+    from spectrogram_yolov11_torch import YOLO
+
+    data = {"path": str(JPEG_FIXTURES / "spectrogram"), "val": "images/val", "names": {0: "LTE", 1: "RF"}}
+    _assert_val_matches(_val_recording(YOLO(CKPT), data), _val_recording(YOLO(CKPT, device="cpu"), data))
 
 
 @pytest.mark.gpu

@@ -7,8 +7,10 @@ row filters on gray + alpha and RGB rows, and a palette image. The test reads
 the filter byte of every row of its files and asserts that all five filter
 types occur among them (libpng's adaptive filtering, which cv2 uses, picks
 among them row by row; the hand-built files use every filter on every kind of
-row). Run as a script, it prints the reader's time per 640 x 640 image for
-each filter.
+row). The host library's Average and Paeth rows equal the plain Python
+loop on seeded rows of every filter type, bpp 1-4; JPEG bytes decode
+whatever the file's suffix, and BMP, TIFF and WebP raise. Run as a script, it
+prints the reader's time per 640 x 640 image for each filter.
 """
 
 import struct
@@ -19,7 +21,7 @@ import cv2
 import numpy as np
 import pytest
 
-from spectrogram_yolov11_torch.data.imageio import PNG_SIGNATURE, imread, imwrite_png
+from spectrogram_yolov11_torch.data.imageio import PNG_SIGNATURE, _unfilter, _unfilter_loop, imread, imwrite_png
 
 
 def _texture(h, w, c, seed):
@@ -132,11 +134,19 @@ def test_imwrite_png_round_trips_through_cv2(tmp_path, shape):
 
 def test_other_formats_and_broken_files_raise(tmp_path):
     img = np.zeros((4, 4, 3), np.uint8)
-    for suffix in (".jpg", ".jpeg", ".bmp"):
+    for suffix in (".bmp", ".tiff", ".webp"):
         p = tmp_path / f"x{suffix}"
         cv2.imwrite(str(p), img)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             imread(p)
+    for suffix in (".jpg", ".jpeg"):  # JPEG decodes (data/jpeg.py; tests/test_torch_jpeg.py), whatever the suffix
+        p = tmp_path / f"x{suffix}"
+        cv2.imwrite(str(p), img)
+        ref = cv2.imread(str(p))
+        np.testing.assert_array_equal(imread(p), ref)
+        p.rename(tmp_path / "jpeg_bytes.png")
+        np.testing.assert_array_equal(imread(tmp_path / "jpeg_bytes.png"), ref)
+        (tmp_path / "jpeg_bytes.png").unlink()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         imwrite_png(tmp_path / "x.jpg", img)
     cv2.imwrite(str(tmp_path / "deep.png"), np.zeros((4, 4), np.uint16))
@@ -151,6 +161,40 @@ def test_other_formats_and_broken_files_raise(tmp_path):
     (tmp_path / "bad.png").write_bytes(bytes(data))
     with pytest.raises(ValueError, match="corrupt"):
         imread(tmp_path / "bad.png")
+
+
+def _unfilter_plain(raw: bytes, height: int, width: int, bpp: int) -> np.ndarray:
+    """Every row undone byte by byte in Python (RFC 2083 §6): _unfilter_loop for
+    Average and Paeth, the three others written out here."""
+    stride = width * bpp
+    lines = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
+    out, prior = np.empty((height, stride), np.uint8), np.zeros(stride, np.uint8)
+    for y in range(height):
+        f, row = int(lines[y, 0]), lines[y, 1:]
+        if f >= 3:
+            out[y] = _unfilter_loop(f, row, prior, bpp)
+        else:
+            for i in range(stride):
+                pred = (0, out[y, i - bpp] if i >= bpp else 0, prior[i])[f]
+                out[y, i] = (int(row[i]) + int(pred)) & 0xFF
+        prior = out[y]
+    return out
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_row_filters_equal_the_python_loop(bpp):
+    """The host library's Average and Paeth rows (csrc/png_unfilter.cpp), inside
+    _unfilter, against the plain Python loop: seeded rows of all five filter
+    types, every type on every row position of the cycle, with rows of wide
+    byte values so the sums wrap."""
+    rng = np.random.default_rng(bpp)
+    height, width = 25, 37
+    filters = np.arange(height) % 5
+    rng.shuffle(filters)
+    rows = rng.integers(0, 256, (height, width * bpp), dtype=np.uint8)
+    raw = np.concatenate([filters[:, None].astype(np.uint8), rows], axis=1).tobytes()
+    np.testing.assert_array_equal(_unfilter(raw, height, width, bpp, "seeded"),
+                                  _unfilter_plain(raw, height, width, bpp))
 
 
 if __name__ == "__main__":  # the reader's time per 640 x 640 image, by filter

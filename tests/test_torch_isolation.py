@@ -1,7 +1,8 @@
 """The port stands alone, and runs on the card unless asked for the CPU.
 
 An AST scan shows that no file of spectrogram_yolov11_torch/ nor chip_smoke.py
-imports jax, flax, msgpack, yaml, cv2 or the JAX package; with no card, the
+imports jax, flax, msgpack, yaml, cv2, PIL or the JAX package (the image
+readers, data/imageio.py and data/jpeg.py, among them); with no card, the
 entry points (the pipeline, predict, val, the trainer and YOLO.train) raise
 for the default device instead of running on the CPU.
 """
@@ -21,7 +22,7 @@ from spectrogram_yolov11_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "runs_artifacts" / "spectrogram_yolo11n.ckpt"
-FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "yaml", "cv2", "spectrogram_yolov11_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "yaml", "cv2", "PIL", "spectrogram_yolov11_tpu"}
 
 
 def _imported_roots(path: Path):
@@ -38,6 +39,7 @@ def _imported_roots(path: Path):
 def _port_files():
     files = sorted((ROOT / "spectrogram_yolov11_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15 and all(f.exists() for f in files)
+    assert {"jpeg.py", "imageio.py", "loaders.py"} <= {f.name for f in files}
     return files
 
 

@@ -172,9 +172,14 @@ def test_predict_refuses_what_the_port_does_not_do(models, tmp_path):
     assert len(half) == 1 and half[0].boxes.data.dtype == np.float32 and port.model.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="save=True"):
         port.predict(frame, imgsz=IMGSZ, save=True)
-    for source in (str(tmp_path / "frame.jpg"), str(tmp_path), "rtsp://camera/stream", 0, "screen 0"):
+    # image files, directories and globs run now (held to JAX's predictor in tests/test_torch_sources.py);
+    # videos, streams and screens raise, and a missing file raises FileNotFoundError as in the JAX loader
+    (tmp_path / "clip.mp4").write_bytes(b"")
+    for source in (str(tmp_path / "clip.mp4"), str(tmp_path), "rtsp://camera/stream", 0, "screen 0"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.predict(source, imgsz=IMGSZ)
+    with pytest.raises(FileNotFoundError):
+        port.predict(str(tmp_path / "frame.jpg"), imgsz=IMGSZ)
     with pytest.raises(SyntaxError, match="not a valid argument"):
         port.predict(frame, imgsz=IMGSZ, confidence=0.3)
     for model in ("yolo11n.yaml", "yolo11n.pt", "best.onnx", "http://host:8000/model"):
@@ -188,13 +193,18 @@ def test_predict_refuses_what_the_port_does_not_do(models, tmp_path):
     with pytest.raises(TypeError, match="data="):
         port.train()
     # val runs now (held to JAX's validator in tests/test_torch_validator.py): without data it raises as the
-    # JAX facade does, and a split of JPEG images raises, naming the ROADMAP item that ports the decoder
+    # JAX facade does; a split of JPEG images runs (held to JAX's in tests/test_torch_sources.py), and one of
+    # BMP images raises, naming the ROADMAP item that ports the decoder
     jax_model = models[1]
     for model in (port, jax_model):
         with pytest.raises(TypeError):
             model.val()
     (tmp_path / "images" / "val").mkdir(parents=True)
     assert cv2.imwrite(str(tmp_path / "images" / "val" / "frame.jpg"), frame)
+    res = port.val(data={"path": str(tmp_path), "val": "images/val", "names": ["LTE", "RF"]}, imgsz=IMGSZ)
+    assert "metrics/mAP50-95(B)" in res and all(np.isfinite(v) for v in res.values())
+    (tmp_path / "images" / "val" / "frame.jpg").unlink()
+    assert cv2.imwrite(str(tmp_path / "images" / "val" / "frame.bmp"), frame)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.val(data={"path": str(tmp_path), "val": "images/val", "names": ["LTE", "RF"]}, imgsz=IMGSZ)
     assert port.names == {0: "LTE", 1: "RF"} and port.stride == (8.0, 16.0, 32.0) and port.device == "cpu"
