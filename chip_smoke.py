@@ -92,7 +92,36 @@ Phases, each printing one JSON line, each fatal when it fails:
                serially and in 8 threads, and predict ms per image from files
                at batch 8, split into read and decode, letterbox, device
                function and host postprocess
-  11. train    the detect training step: the port's generator writes the
+  11. serve    the KServe-v2 server (serve.py) on the card: InferenceServer on
+               port 0 in f32 and with half=True; health, /v2 and the metadata
+               document (its 64 px probe forward counted: 6 launches); 640 px
+               letterboxed frames raw (UINT8, 3 channels) at B = 1, 3 (the
+               4-bucket) and 32, each against a local AutoBackend(ckpt)
+               forward of the same frames (boxes 1e-2 px, scores 1e-4); gray
+               (1 channel), BYTES PNG (the port's encoder) and BYTES JPEG (the
+               640 px fixture) each equal to the raw path on the pixels the
+               server sees; a truncated BYTES payload gets a 400 and the
+               server goes on; 32 client threads with one frame each, released
+               together, in fewer than 32 dispatches (bottleneck launches / 6),
+               each answer within the tolerance of its lone answer; one
+               request with TF32 on for the process equal to one with it off;
+               YOLO(url).predict(32 mixed-size arrays, batch=32) against
+               YOLO(ckpt).predict (classes equal, boxes within 1e-3 px);
+               YOLO(url).val on the 32-image synth split against YOLO(ckpt).val,
+               f32 and through the bf16 server against val(half=True), per key
+               within 1e-6; every call counted from 0 (6 bottleneck and 0 NMS
+               launches per dispatch, bf16 on the half server; 1 NMS launch
+               per client batch); each kernel on the server's own inputs (the
+               first bottleneck of layers 6 and 8 at 640 and 64 px, f32 and
+               bf16) and the keep kernel on the remote val's (32, 2048)
+               candidates. Readings: requests/s and p50/p99 latency at
+               concurrency 1, 8, 32 for raw UINT8 and BYTES JPEG (one 640 px
+               frame per request; bf16 raw at 32) with the dispatches, from
+               client threads in this process and from a client process of
+               its own; a request's split (parse and decode, H2D, device,
+               D2H, encode); the card's busy share over a concurrency-32 raw
+               run from each
+  12. train    the detect training step: the port's generator writes the
                synthetic split (128 train + 32 val PNG at 640 px) into a
                temporary directory; the trained model at 640 px, B = 16,
                amp=False, optimizer auto (AdamW) takes 20 steps
@@ -117,7 +146,7 @@ Phases, each printing one JSON line, each fatal when it fails:
                same weights and batch: loss items, grads, first moments,
                params, BN statistics and the EMA within the tolerances of
                tests/test_torch_train_step.py
-  12. train_loop  YOLO(ckpt).train(data=<the synthetic split, 128 + 32 PNG at
+  13. train_loop  YOLO(ckpt).train(data=<the synthetic split, 128 + 32 PNG at
                640 px>, epochs=3, batch=16, imgsz=640, amp=False,
                close_mosaic=1): the augmenting train loader (mosaic,
                warp, HSV and flips, the image half on the card by
@@ -135,7 +164,7 @@ Phases, each printing one JSON line, each fatal when it fails:
                CUDA events), the busy share over steps 3-5 of epoch 1 (the
                profiler's set-up lands in that epoch's time), val seconds, the
                final EMA's metrics, peak memory
-  13. train_amp   bf16 training at amp=True, JAX's default: 20 steps of the
+  14. train_amp   bf16 training at amp=True, JAX's default: 20 steps of the
                trained model at 640 px, B = 16 on the val loader's batches
                (as phase train), counted (no launch: the training convs are
                cuDNN's); train_step's split on 6 later steps beside 6 of an
@@ -187,6 +216,12 @@ TRAIN_CHECK, TRAIN_CHECK_BATCH = 160, 4  # the card's step against the CPU's
 LOOP_EPOCHS = 3  # YOLO.train's epochs in phase train_loop, the last without mosaic
 AMP_EPOCHS = 2  # YOLO.train's epochs at amp=True in phase train_amp, the last without mosaic
 AMP_MULTIPLE = 3  # the card's bf16 step within this many times its bf16-to-f32 distance of the CPU's
+SERVE_BATCHES = (1, 3, 32)  # raw requests' batches: 3 runs in the 4-bucket
+SERVE_CONCURRENCY, SERVE_REQUESTS = (1, 8, 32), (40, 16, 8)  # client threads, and requests each sends back to back
+# a served forward against the local one of the same frames at another batch (cuDNN picks its algorithm per
+# batch): the port's forward tolerance of the CPU tests (tests/test_torch_pipeline.py)
+SERVE_PX_TOL, SERVE_SCORE_TOL = 1e-2, 1e-4
+SERVE_VAL_TOL = 1e-6  # remote val against local val on the card, per key: the same pixels through the same network
 
 
 def emit(phase: str, **kw) -> None:
@@ -1196,6 +1231,400 @@ def phase_images():
     return launches, checks, nms
 
 
+def _post(url: str, head: dict, blob: bytes = b"") -> tuple:
+    """POST a KServe v2 infer request -> (HTTP status, JSON header document)."""
+    import urllib.error
+    import urllib.request
+
+    h = json.dumps(head).encode()
+    req = urllib.request.Request(url, data=h + blob, method="POST",
+                                 headers={"Content-Type": "application/json", "Inference-Header-Content-Length": str(len(h))})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            payload, jlen = r.read(), r.headers.get("Inference-Header-Content-Length")
+            return r.status, json.loads(payload[: int(jlen)] if jlen else payload)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _get_json(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def _forward_err(got, ref) -> dict:
+    """Largest distance of decoded predictions (B, A, 4 + nc): boxes in px, scores."""
+    import numpy as np
+
+    require(got.shape == ref.shape and got.dtype == np.float32, f"served {got.dtype} {got.shape}, local {ref.shape}")
+    return {"box_px": float(np.abs(got[..., :4] - ref[..., :4]).max()),
+            "score": float(np.abs(got[..., 4:] - ref[..., 4:]).max())}
+
+
+def _within_serve_tol(err: dict, what: str) -> dict:
+    require(err["box_px"] <= SERVE_PX_TOL and err["score"] <= SERVE_SCORE_TOL,
+            f"{what}: served predictions lie {err} from the local forward's")
+    return err
+
+
+def _load_run(send, clients: int, per_client: int) -> dict:
+    """`clients` threads, released together by a barrier, each sending
+    `per_client` requests back to back: requests/s over the wall time from the
+    first start to the last reply, latency per request (host clock)."""
+    import threading
+
+    import numpy as np
+
+    barrier, lat, errors, starts, ends = threading.Barrier(clients), [], [], [], []
+    lock = threading.Lock()
+
+    def client():
+        try:
+            barrier.wait()
+            mine = []
+            t_start = time.perf_counter()
+            for _ in range(per_client):
+                t0 = time.perf_counter()
+                send()
+                mine.append((time.perf_counter() - t0) * 1e3)
+            with lock:
+                lat.extend(mine)
+                starts.append(t_start)
+                ends.append(time.perf_counter())
+        except Exception as e:  # reported below: a failed request fails the phase
+            with lock:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    require(not errors and not any(t.is_alive() for t in threads), f"load run at concurrency {clients}: {errors[:3]}")
+    wall = max(ends) - min(starts)
+    return {"concurrency": clients, "requests": len(lat), "wall_s": wall, "requests_per_s": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "mean_ms": float(np.mean(lat))}
+
+
+def serve_clients(url: str, payload: str, clients: int, per_client: int) -> None:
+    """The client process of phase serve: `_load_run` of RemoteModel(url)
+    requests carrying `payload` (a .npy frame batch sent raw, or an encoded
+    image sent as BYTES); prints its result as one JSON line."""
+    import numpy as np
+
+    from spectrogram_yolov11_torch.serve import RemoteModel
+
+    cli = RemoteModel(url)
+    x = np.load(payload) if payload.endswith(".npy") else [Path(payload).read_bytes()]
+    print(json.dumps(_load_run(lambda: cli(x), clients, per_client)), flush=True)
+
+
+def _load_run_apart(url: str, payload: Path, clients: int, per_client: int) -> dict:
+    """`serve_clients` in a process of its own (its own interpreter lock), stopped at its end or its time limit."""
+    code = f"import chip_smoke as c; c.serve_clients({url!r}, {str(payload)!r}, {clients}, {per_client})"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    require(out.returncode == 0, f"the client process failed ({out.returncode}): {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _busy(fn) -> dict:
+    """The card's kernel time over fn() (torch.profiler, every thread's
+    launches): busy share = kernel time over the span from the first kernel's
+    start to the last's end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ks) / 1e3
+    span = (max(e.time_range.end for e in ks) - min(e.time_range.start for e in ks)) / 1e3 if ks else 0.0
+    return {"kernels": len(ks), "device_kernel_ms": busy, "device_span_ms": span,
+            "busy_share": busy / span if span else None, "run": out}
+
+
+def phase_serve():
+    """The KServe-v2 server on the card (f32 and half=True), its ingest paths,
+    dynamic batching and YOLO(url) predict and val through it, counted; each
+    kernel on the server's own inputs; request rates, latency, a request's
+    split and the card's busy share under load."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.data.imageio import imdecode
+    from spectrogram_yolov11_torch.nn.autobackend import AutoBackend
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+    from spectrogram_yolov11_torch.serve import (
+        InferenceServer,
+        RemoteModel,
+        _encode_infer_response,
+        _parse_infer_request,
+        encode_images,
+    )
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    f32_dispatch = {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 0}
+    bf16_dispatch = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6, "greedy_keep": 0}
+
+    launches = {"serve": {}, "serve_half": {}}
+
+    def counted(path: str, key: str, fn, expect: dict):
+        out, got = run_counted(fn, expect, f"{path} {key}")
+        launches[path][key] = got
+        return out
+
+    dev = torch.device("cuda")
+    frames = letterbox_batch(_mixed_arrays(SERVE_BATCHES[-1], seed=300), 640, torch.device("cpu")).numpy()
+    require(frames.shape == (SERVE_BATCHES[-1], 640, 640, 3), f"serve frames {frames.shape}")
+    jpeg = (JPEG_FIXTURES / "spectrogram_synth" / "images" / "val" / "00000.jpg").read_bytes()
+    jpeg_px = imdecode(jpeg)
+    require(jpeg_px.shape == (640, 640, 3), f"the 640 px JPEG fixture decodes to {jpeg_px.shape}")
+    local = AutoBackend(CKPT)  # the card, f32
+    local_half = AutoBackend(CKPT, half=True)
+
+    t0 = time.perf_counter()
+    srv = InferenceServer({"spec": CKPT}, port=0).start()
+    srv_half = InferenceServer({"spec": CKPT}, port=0, half=True).start()
+    start_s = time.perf_counter() - t0
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        require(_get_json(base + "/v2/health/ready") == {} and _get_json(base + "/v2")["name"] == "spectrogram_yolov11_torch",
+                "health or /v2 of the server")
+        cli = counted("serve", "metadata_probe", lambda: RemoteModel(srv.url), f32_dispatch)
+        cli_half = counted("serve_half", "metadata_probe", lambda: RemoteModel(srv_half.url), bf16_dispatch)
+        md = _get_json(base + "/v2/models/spec")
+        require(md["platform"] == "pytorch" and md["outputs"][0]["datatype"] == "FP32"
+                and json.loads(md["parameters"]["metadata"])["names"] == {"0": "LTE", "1": "RF"}, f"metadata {md}")
+
+        # raw UINT8 at B = 1, 3, 32 (3 runs in the 4-bucket), each against the local forward of the same frames
+        errs = {}
+        for b in SERVE_BATCHES:
+            got = counted("serve", f"raw_b{b}", lambda b=b: cli(frames[:b])[0], f32_dispatch)
+            errs[f"raw_b{b}"] = _within_serve_tol(_forward_err(got, local.forward(frames[:b]).cpu().numpy()), f"raw B={b}")
+        raw32 = cli(frames)[0]
+        # the other ingest paths, each against the raw path on the pixels the server sees
+        b = SERVE_BATCHES[1]
+        gray = np.ascontiguousarray(frames[:b, ..., :1])
+        got = counted("serve", "gray_b3", lambda: cli(gray)[0], f32_dispatch)
+        require(np.array_equal(got, cli(np.repeat(gray, 3, -1))[0]), "the gray upload differs from its 3-channel repeat")
+        got = counted("serve", "bytes_png_b3", lambda: cli(encode_images(frames[:b]))[0], f32_dispatch)
+        require(np.array_equal(got, cli(frames[:b])[0]), "BYTES PNG differs from the raw path")
+        got = counted("serve", "bytes_jpeg_b3", lambda: cli([jpeg] * b)[0], f32_dispatch)
+        require(np.array_equal(got, cli(np.stack([jpeg_px] * b))[0]), "BYTES JPEG differs from the raw path on its pixels")
+        got = counted("serve_half", f"raw_b{SERVE_BATCHES[-1]}", lambda: cli_half(frames)[0], bf16_dispatch)
+        errs[f"half_raw_b{SERVE_BATCHES[-1]}"] = _within_serve_tol(_forward_err(got, local_half.forward(frames).cpu().numpy()),
+                                                 "the bf16 server against the local bf16 forward")
+
+        # a truncated BYTES payload gets a 400, and the server goes on
+        pngs = encode_images(frames[:2])
+        blob = b"".join(len(x).to_bytes(4, "little") + x for x in pngs)
+        head = {"inputs": [{"name": "images", "shape": [2], "datatype": "BYTES",
+                            "parameters": {"binary_data_size": len(blob) - 100}}]}
+        code, doc = counted("serve", "truncated_bytes", lambda: _post(f"{base}/v2/models/spec/infer", head, blob[:-100]),
+                            {k: 0 for k in f32_dispatch})
+        require(code == 400 and "ValueError" in doc.get("error", ""), f"a truncated BYTES payload got {code} {doc}")
+        require(cli(encode_images(frames[:2]))[0].shape == (2, 8400, 6), "the server stopped serving after a 400")
+
+        # dynamic batching: 32 clients, one frame each, released together; fewer dispatches than requests
+        lone = [cli(frames[i : i + 1])[0] for i in range(SERVE_BATCHES[-1])]
+        barrier, answers = threading.Barrier(SERVE_BATCHES[-1]), [None] * SERVE_BATCHES[-1]
+
+        def one(i):
+            barrier.wait()
+            answers[i] = cli(frames[i : i + 1])[0]
+
+        def burst():
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(SERVE_BATCHES[-1])]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+
+        counters = launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        burst()
+        torch.cuda.synchronize()
+        dyn = {k: c.launches for k, c in counters.items()}
+        launches["serve"]["dynamic_32_clients"] = dyn
+        dispatches = dyn["fused_bottleneck"] / 6
+        require(dyn["fused_bottleneck_bf16"] == 0 and dyn["greedy_keep"] == 0 and dyn["fused_bottleneck"] % 6 == 0,
+                f"32 concurrent requests launched {dyn}")
+        require(dispatches < SERVE_BATCHES[-1], f"32 concurrent requests took {dispatches} dispatches")
+        dyn_err = {"box_px": 0.0, "score": 0.0}
+        for a, lo in zip(answers, lone):
+            e = _within_serve_tol(_forward_err(a, lo), "a request served in a group against itself alone")
+            dyn_err = {k: max(dyn_err[k], e[k]) for k in e}
+
+        # TF32 on for the process: a request still runs in f32 (the dispatcher thread keeps the policy)
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        try:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            tf32_on = cli(frames[:1])[0]
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            tf32_off = cli(frames[:1])[0]
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        require(np.array_equal(tf32_on, tf32_off), f"TF32 on moves a served f32 request by {_forward_err(tf32_on, tf32_off)}")
+
+        # YOLO(url).predict against YOLO(ckpt).predict on the card: 6 + 0 in the server, 1 NMS in the client
+        arrays = _mixed_arrays(PREDICT_BATCH, seed=100)
+        remote, yolo = YOLO(srv.url), YOLO(CKPT)
+        got, launches["remote_predict"] = run_counted(lambda: remote.predict(arrays, batch=PREDICT_BATCH),
+                                                      {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1},
+                                                      "remote predict of 32 arrays")
+        ref = yolo.predict(arrays, batch=PREDICT_BATCH)
+        predict_err = 0.0
+        for g, r in zip(got, ref):
+            require(len(g) == len(r) and np.array_equal(g.boxes.cls, r.boxes.cls),
+                    f"remote predict: {g.boxes.cls.tolist()} against local {r.boxes.cls.tolist()}")
+            predict_err = max(predict_err, float(np.abs(g.boxes.xyxy - r.boxes.xyxy).max(initial=0.0)))
+        require(predict_err <= 1e-3 and sum(map(len, ref)) > 0, f"remote predict boxes lie {predict_err} px from local")
+
+        # val through each server against local val, on the 32-image synth split; the first remote val keeps
+        # the decoded predictions its NMS takes
+        with tempfile.TemporaryDirectory() as tmp:
+            data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp, n_train=0))
+            seen, inner = [], remote.backend.forward
+            remote.backend.forward = lambda x: seen.append(inner(x)) or seen[-1]
+            try:
+                rval, launches["remote_val"] = run_counted(
+                    lambda: remote.val(data=data, batch=VAL_BATCH),
+                    {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1}, "remote val")
+            finally:
+                remote.backend.forward = inner
+            lval = yolo.val(data=data, batch=VAL_BATCH)
+            rval_half, launches["remote_val_half"] = run_counted(
+                lambda: YOLO(srv_half.url).val(data=data, batch=VAL_BATCH),
+                {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6, "greedy_keep": 1}, "remote val on the bf16 server")
+            lval_half = yolo.val(data=data, batch=VAL_BATCH, half=True)
+        val_diff = {k: abs(rval[k] - lval[k]) for k in lval}
+        half_diff = {k: abs(rval_half[k] - lval_half[k]) for k in lval_half}
+        require(max(val_diff.values()) <= SERVE_VAL_TOL and lval["metrics/mAP50-95(B)"] > 0.5,
+                f"remote val {rval} against local {lval}")
+        require(max(half_diff.values()) <= SERVE_VAL_TOL, f"bf16 remote val {rval_half} against local {lval_half}")
+
+        # each kernel against its plain version on the server's own inputs: the first bottleneck of layers 6 and 8
+        # in a 640 px dispatch of 32 and in a 64 px one (4x4 and 2x2 maps), f32 and bf16; the keep kernel on the
+        # remote val's (32, 2048) multi-label candidates
+        checks = {"fused_bottleneck": {}, "fused_bottleneck_bf16": {}}
+        for key, server, c in (("fused_bottleneck", srv, cli), ("fused_bottleneck_bf16", srv_half, cli_half)):
+            net = server.models["spec"].backend.model
+            for size, x in (("640", frames), ("64", np.zeros((1, 64, 64, 3), np.uint8) + 90)):
+                captured = {}
+                hooks = [m.register_forward_pre_hook(keep_nhwc_input(captured)) for m in first_bottlenecks(net).values()]
+                try:
+                    c(x)
+                finally:
+                    for h in hooks:
+                        h.remove()
+                with torch.inference_mode():
+                    for layer, mod in first_bottlenecks(net).items():
+                        d = bottleneck_check(f"serve {size} px layer{layer}", layer_case(mod, captured[mod]))
+                        checks[key][f"{size}px_layer{layer}"] = {k: v for k, v in d.items() if "args" not in k}
+        require([checks["fused_bottleneck"][k]["shape"] for k in ("64px_layer6", "64px_layer8")]
+                == [[1, 4, 4, 32], [1, 2, 2, 64]], f"64 px bottleneck inputs {checks['fused_bottleneck']}")
+        with torch.inference_mode():
+            preds = torch.tensor(seen[0], device=dev)
+            _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, 2, multi_label=True, pre_nms_topk=2048)
+            require(valid.shape == (VAL_BATCH, 2048), f"remote val candidates {tuple(valid.shape)}")
+            nms = nms_check(offset_boxes, valid)
+
+        # times: request rates and latency at concurrency 1, 8, 32 (raw UINT8 and BYTES JPEG, one 640 px frame
+        # per request), dispatches counted; the bf16 server raw at 32
+        one_raw, one_jpeg = frames[:1], [jpeg]
+        loads = {}
+        for name, c, payload in (("raw_uint8", cli, one_raw), ("bytes_jpeg", cli, one_jpeg), ("raw_uint8_half", cli_half, one_raw)):
+            for conc, per in zip(SERVE_CONCURRENCY, SERVE_REQUESTS):
+                if name == "raw_uint8_half" and conc != SERVE_CONCURRENCY[-1]:
+                    continue
+                for k in launch_counters().values():
+                    k.launches = 0
+                r = _load_run(lambda c=c, p=payload: c(p), conc, per)
+                torch.cuda.synchronize()
+                n = launch_counters()["fused_bottleneck"].launches + launch_counters()["fused_bottleneck_bf16"].launches
+                r["dispatches"] = n / 6
+                r["frames_per_dispatch"] = r["requests"] / max(n / 6, 1)
+                loads[f"{name}_c{conc}"] = r
+
+        # the split of one request (B = 1, 640 px) by stage, raw and JPEG: parse and decode, H2D, the device
+        # forward, D2H, encode; the server's own functions in the order it runs them
+        runner = srv.models["spec"]
+
+        def body_of(inputs):
+            specs, blobs = [], []
+            for a in inputs:
+                if isinstance(a, list):
+                    bl = b"".join(len(x).to_bytes(4, "little") + x for x in a)
+                    specs.append({"name": "images", "shape": [len(a)], "datatype": "BYTES", "parameters": {"binary_data_size": len(bl)}})
+                else:
+                    bl = a.tobytes()
+                    specs.append({"name": "images", "shape": list(a.shape), "datatype": "UINT8", "parameters": {"binary_data_size": len(bl)}})
+                blobs.append(bl)
+            h = json.dumps({"inputs": specs, "outputs": [{"name": "output0", "parameters": {"binary_data": True}}]}).encode()
+            return {"Inference-Header-Content-Length": str(len(h))}, h + b"".join(blobs)
+
+        split = {}
+        for name, payload in (("raw_uint8", one_raw), ("bytes_jpeg", one_jpeg)):
+            hdrs, body = body_of([payload])
+            stages = [("host_parse_decode", lambda _: runner._prep(_parse_infer_request(hdrs, bytearray(body))[1])),
+                      ("h2d", lambda imgs: torch.from_numpy(imgs).to(dev)),
+                      ("device", lambda x: runner.backend.forward(x.expand(-1, -1, -1, 3))),
+                      ("d2h", lambda o: [o[:1].cpu().numpy()]),
+                      ("host_encode", lambda outs: _encode_infer_response("spec", outs, True))]
+            split[name] = _split_ms(stages, reps=20)
+            split[name]["http_and_rest_ms"] = loads[f"{name}_c1"]["p50_ms"] - sum(split[name].values())
+        busy = {"clients_in_process": _busy(lambda: _load_run(lambda: cli(one_raw), SERVE_CONCURRENCY[-1],
+                                                                 SERVE_REQUESTS[-1]))}
+        loads["raw_uint8_c32_profiled"] = busy["clients_in_process"].pop("run")
+
+        # the same loads from a client process of its own: the server's capacity without the clients' Python work
+        # under its interpreter lock (raw at 1 and 32 clients, JPEG at 32, 32 requests each at 32; raw at 32 profiled)
+        with tempfile.TemporaryDirectory() as tmp:
+            raw_path = Path(tmp) / "frame.npy"
+            np.save(raw_path, one_raw)
+            jpeg_path = JPEG_FIXTURES / "spectrogram_synth" / "images" / "val" / "00000.jpg"
+            c_max, per_max = SERVE_CONCURRENCY[-1], 4 * SERVE_REQUESTS[-1]
+            for name, payload, conc, per in (("raw_uint8", raw_path, 1, SERVE_REQUESTS[0]),
+                                             ("raw_uint8", raw_path, c_max, per_max),
+                                             ("bytes_jpeg", jpeg_path, c_max, per_max)):
+                for k in launch_counters().values():
+                    k.launches = 0
+                r = _load_run_apart(srv.url, payload, conc, per)
+                torch.cuda.synchronize()
+                r["dispatches"] = launch_counters()["fused_bottleneck"].launches / 6
+                r["frames_per_dispatch"] = r["requests"] / max(r["dispatches"], 1)
+                loads[f"{name}_c{conc}_client_process"] = r
+            busy["client_process"] = _busy(lambda: _load_run_apart(srv.url, raw_path, c_max, per_max))
+            loads["raw_uint8_c32_client_process_profiled"] = busy["client_process"].pop("run")
+    finally:
+        srv.shutdown()
+        srv_half.shutdown()
+    emit("serve", server_start_s=start_s, launches=launches, dispatches_32_concurrent=dispatches,
+         served_vs_local=errs, group_vs_alone=dyn_err, remote_predict_max_box_err_px=predict_err,
+         remote_val=rval, local_val=lval, val_abs_diff=val_diff, remote_val_half=rval_half, local_val_half=lval_half,
+         val_half_abs_diff=half_diff, kernel_checks={**checks, "greedy_keep_k2048": nms}, load=loads,
+         split_ms_per_request=split, busy_c32=busy,
+         method="requests through RemoteModel (a new HTTP connection each) from threads of this process to "
+                "servers on 127.0.0.1; latency on the host clock per request; requests/s = requests over the "
+                "wall time from the first client's start to the last reply; dispatches = bottleneck launches / 6; "
+                "the split by _split_ms over the server's own functions (host_* on the host clock, H2D, device "
+                "and D2H by CUDA events); busy share by torch.profiler over a concurrency-32 raw run; *_client_process: "
+                "the clients in a process of their own (serve_clients), started after the server is up")
+    return launches, checks, nms
+
+
 def train_max_gt(ds) -> int:
     """The GT pad the JAX train loader sizes for a split (its data/dataset.py:157-165 with augment=True)."""
     most = max((len(lab["cls"]) for lab in ds.labels), default=0)
@@ -1946,12 +2375,18 @@ def main() -> int:
     predict_half_launches, b1_half = phase_predict_half()
     val_launches, nms_val = phase_val()
     images_launches, images_checks, nms_images = phase_images()
+    serve_launches, serve_checks, nms_serve = phase_serve()
     train_val_launches, train_bottleneck, nms_train = phase_train()
     loop_launches, loop_bottleneck, nms_loop, loop_final = phase_train_loop()
     amp_launches, amp_bottleneck, nms_amp = phase_train_amp(loop_final)
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
+
+    def serve_paths(kernel: str, remote_val: int) -> dict:
+        return {"serve": sum(v[kernel] for v in serve_launches["serve"].values()),
+                "serve_half": sum(v[kernel] for v in serve_launches["serve_half"].values()),
+                "remote_predict": serve_launches["remote_predict"][kernel], "remote_val": remote_val}
 
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
@@ -1963,9 +2398,11 @@ def main() -> int:
                                "images": sum(v["fused_bottleneck"] for v in images_launches.values()),
                                "train_ema_val": train_val_launches["fused_bottleneck"],
                                "train_loop": loop_launches["fused_bottleneck"],
-                               "train_amp": amp_launches["fused_bottleneck"]},
+                               "train_amp": amp_launches["fused_bottleneck"],
+                               **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
+                                                         *serve_checks["fused_bottleneck"].values(),
                                                          *train_bottleneck.values(), *loop_bottleneck.values())),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
@@ -1980,13 +2417,17 @@ def main() -> int:
                                "predict_half": predict_half_launches["fused_bottleneck_bf16"],
                                "val_half": val_launches["bf16"]["fused_bottleneck_bf16"],
                                "images_val_half": images_launches["val_bf16"]["fused_bottleneck_bf16"],
-                               "train_amp": amp_launches["fused_bottleneck_bf16"]},
+                               "train_amp": amp_launches["fused_bottleneck_bf16"],
+                               **serve_paths("fused_bottleneck_bf16",
+                                             serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
                                                          *images_checks["fused_bottleneck_bf16"].values(),
-                                                         *amp_bottleneck.values())),
+                                                         *amp_bottleneck.values(),
+                                                         *serve_checks["fused_bottleneck_bf16"].values())),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
                                                                  *images_checks["fused_bottleneck_bf16"].values(),
-                                                                 *amp_bottleneck.values())),
+                                                                 *amp_bottleneck.values(),
+                                                                 *serve_checks["fused_bottleneck_bf16"].values())),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -2009,7 +2450,9 @@ def main() -> int:
                                "val": val_launches["f32"]["greedy_keep"], "val_half": val_launches["bf16"]["greedy_keep"],
                                "images": sum(v["greedy_keep"] for v in images_launches.values()),
                                "train_ema_val": train_val_launches["greedy_keep"],
-                               "train_loop": loop_launches["greedy_keep"], "train_amp": amp_launches["greedy_keep"]},
+                               "train_loop": loop_launches["greedy_keep"], "train_amp": amp_launches["greedy_keep"],
+                               **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
+                                             + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
              ms=nms["ms"], plain_ms=nms["plain_ms"], bound_ms=nms["bound_ms"], bound_by=nms["bound_by"],
              library_ms=None, design="IoU bitmask of valid rows + one-warp scan from survivor to survivor",
@@ -2026,6 +2469,8 @@ def main() -> int:
                                                         "scan_steps_mean", "mismatches")},
              train_amp_k2048={k: nms_amp[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                       "scan_steps_mean", "mismatches")},
+             remote_val_k2048={k: nms_serve[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "scan_steps_mean", "mismatches")},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

@@ -7,7 +7,9 @@ the forward, DFL decode and class-offset greedy NMS to `Results`
 (`engine.model`, `engine.predictor`); `engine.pipeline.build_pipeline` is the
 serving path for frames of one known size. `YOLO(ckpt).val` scores a model on
 a dataset and `YOLO(ckpt).train` trains it (`engine.validator`,
-`engine.trainer`), the train images augmented on the card. Plain tensor code is PyTorch in NCHW; the
+`engine.trainer`), the train images augmented on the card. `serve.serve`
+runs the KServe-v2 server on the card, and `YOLO("http://host:port/name")`
+predicts and validates through it (`nn.autobackend`). Plain tensor code is PyTorch in NCHW; the
 two kernels the JAX package wrote in Pallas are hand-written CUDA C++ under
 `csrc/`, built with nvcc at first use (`utils.kernels`).
 

@@ -11,16 +11,22 @@ JAX's default) and False in predict (annotated images with cv2, not ported);
 and `mode` is "predict", so `save_txt` writes under runs/detect/predict*.
 `conf` None is 0.25 in predict and 0.001 in val, `pre_nms_topk` 0 is 1024 in
 predict and 2048 in val, as in the JAX package.
+
+`entrypoint` is the `yolo` command's parser (JAX :232) with one verb,
+`serve` (JAX :307-321), which also takes device=; every other verb or mode
+raises. The port installs no console script: `yolo` stays the JAX package's.
 """
 
 from __future__ import annotations
 
+import ast
 import difflib
+import sys
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Any, Dict, Optional
 
-from ..utils import RUNS_DIR, increment_path
+from ..utils import RUNS_DIR, increment_path, not_ported
 
 DEFAULT_CFG_DICT: Dict[str, Any] = {
     "task": "detect",
@@ -163,3 +169,42 @@ def get_save_dir(args: SimpleNamespace, name: Optional[str] = None) -> Path:
         return Path(args.save_dir)
     project = args.project or RUNS_DIR / args.task
     return increment_path(Path(project) / (name or args.name or f"{args.mode}"), exist_ok=getattr(args, "exist_ok", False))
+
+
+def parse_key_value_pairs(pairs: list) -> dict:
+    """['k=v', ...] command-line tokens -> a typed dict (none/true/false in any
+    case, Python literals, else the string), as JAX's :160."""
+    out = {}
+    for pair in pairs:
+        k, sep, v = pair.partition("=")
+        if not sep:
+            raise SyntaxError(f"'{pair}' is not a 'key=value' pair")
+        k, v = k.strip(), v.strip()
+        if v.lower() in ("none", "true", "false"):
+            out[k] = {"none": None, "true": True, "false": False}[v.lower()]
+        else:
+            try:
+                out[k] = ast.literal_eval(v)
+            except (ValueError, SyntaxError):
+                out[k] = v
+    return out
+
+
+def entrypoint(debug: str = "") -> Any:
+    """`yolo serve model=best.ckpt [port=8000 host=127.0.0.1 half=False
+    device=cuda block=True data_parallel=False model_parallel=1]`: the
+    KServe-v2 server of serve.py, returned (block=False: started, on its
+    thread). `debug` is a command line to parse instead of sys.argv."""
+    argv = (debug.split(" ") if debug else sys.argv)[1:]
+    verbs = [a for a in argv if "=" not in a]
+    if verbs != ["serve"]:
+        raise not_ported(f"`yolo {' '.join(argv)}`: the port's command line has the serve verb only",
+                         "item 12 (the cfg CLI)")
+    kv = parse_key_value_pairs([a for a in argv if "=" in a])
+    from ..serve import serve
+
+    return serve(kv.get("model") or "yolo11n.yaml", host=str(kv.get("host", "127.0.0.1")),
+                 port=int(kv.get("port", 8000)), block=bool(kv.get("block", True)),
+                 data_parallel=bool(kv.get("data_parallel", False)),
+                 half=bool(kv.get("half", False)), model_parallel=int(kv.get("model_parallel", 1)),
+                 device=kv.get("device", "cuda"))

@@ -14,7 +14,12 @@ Paeth depend on the decoded left neighbour through a non-linear step, so they
 run in the host library's C loop (csrc/png_unfilter.cpp, built with the host
 C++ compiler at first use), with `_unfilter_loop` kept as its plain version.
 
-`imwrite_png` writes a gray or BGR(A) uint8 image with filter 0 on every row.
+`imdecode` decodes bytes in memory as cv2.imdecode(buf, IMREAD_UNCHANGED)
+does for 8-bit JPEG and PNG: a gray image comes back (H, W), a colour one BGR
+(H, W, 3), and the EXIF orientation is not applied; an image cv2 would give 4
+channels (alpha, or a tRNS chunk on a palette or RGB PNG) or 16 bits raises
+ValueError. `imencode_png` encodes a gray or BGR(A) uint8 image as PNG bytes
+with filter 0 on every row, and `imwrite_png` writes them to a file.
 Other formats (bmp, tif, webp, ...) raise NotImplementedError naming the
 ROADMAP.md item that ports their decoder; nothing falls back to another reader.
 """
@@ -119,22 +124,36 @@ def imread(path: str | Path) -> np.ndarray:
     path = str(path)
     if not Path(path).is_file():
         raise FileNotFoundError(f"no image file {path}")
-    data = Path(path).read_bytes()
+    return _decode(Path(path).read_bytes(), path, color=True)
+
+
+def imdecode(buf) -> np.ndarray:
+    """Encoded image bytes as cv2.imdecode(buf, cv2.IMREAD_UNCHANGED) gives
+    them for an 8-bit JPEG or PNG: (H, W) uint8 for a gray image, (H, W, 3)
+    BGR for a colour one, the EXIF orientation not applied. What cv2 would
+    decode to 4 channels or 16 bits, bytes no decoder takes and corrupt bytes
+    raise ValueError (where cv2.imdecode returns None or those channels);
+    other formats NotImplementedError, as `imread`."""
+    return _decode(bytes(buf), "image bytes", color=False)
+
+
+def _decode(data: bytes, where: str, color: bool) -> np.ndarray:
+    """The decoder picked by the first bytes; color=True is IMREAD_COLOR, False IMREAD_UNCHANGED."""
     if data.startswith(b"\xff\xd8\xff"):
         try:
-            return decode_jpeg(data)
+            return decode_jpeg(data, color=color)
         except ValueError as e:
-            raise ValueError(f"{path}: {e}") from None
+            raise ValueError(f"{where}: {e}") from None
     if not data.startswith(PNG_SIGNATURE):
         fmt = next((name for sig, name in _OTHER_FORMATS if data.startswith(sig)), None)
         if fmt:
-            raise NotImplementedError(f"cannot read {path}: no {fmt} decoder, {_NO_DECODER}")
-        raise ValueError(f"{path} is neither a JPEG nor a PNG file")
-    return _read_png(data, path)
+            raise NotImplementedError(f"cannot read {where}: no {fmt} decoder, {_NO_DECODER}")
+        raise ValueError(f"{where} is neither a JPEG nor a PNG file")
+    return _read_png(data, where, color)
 
 
-def _read_png(data: bytes, path: str) -> np.ndarray:
-    header, palette, idat = None, None, []
+def _read_png(data: bytes, path: str, color: bool = True) -> np.ndarray:
+    header, palette, idat, trns = None, None, [], False
     for ctype, body in _chunks(data, path):
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
@@ -142,9 +161,14 @@ def _read_png(data: bytes, path: str) -> np.ndarray:
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
+        elif ctype == b"tRNS":
+            trns = True
     if header is None:
         raise ValueError(f"corrupt PNG {path}: no IHDR chunk")
     width, height, depth, ctype, compression, filter_method, interlace = header
+    if not color and (depth == 16 or ctype in (4, 6) or (ctype in (2, 3) and trns)):
+        raise ValueError(f"{path}: a {depth}-bit PNG of colour type {ctype}{' with tRNS' if trns else ''} decodes "
+                         "to 16 bits or 4 channels; only 8-bit gray and colour images are taken")
     if depth != 8 or interlace or ctype not in _CHANNELS:
         raise NotImplementedError(f"cannot read {path}: bit depth {depth}, colour type {ctype}, interlace "
                                   f"{interlace}; {_NO_DECODER}, non-interlaced")
@@ -159,6 +183,8 @@ def _read_png(data: bytes, path: str) -> np.ndarray:
             raise ValueError(f"corrupt PNG {path}: palette index past the {len(palette)} entries")
         px = palette[px[..., 0]]
     elif channels <= 2:  # gray, gray + alpha: the three channels equal
+        if not color:
+            return np.ascontiguousarray(px[..., 0])
         bgr = np.empty((height, width, 3), np.uint8)
         bgr[...] = px[..., :1]
         return bgr
@@ -170,14 +196,19 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def imwrite_png(path: str | Path, img: np.ndarray) -> None:
-    """Write a uint8 image as cv2.imwrite would read it back: (H, W) or
-    (H, W, 1) gray, (H, W, 3) BGR or (H, W, 4) BGRA; filter 0 on every row,
-    zlib level 1 (cv2's default PNG compression)."""
+    """Write a uint8 image as cv2.imwrite would read it back (imencode_png's bytes)."""
     if Path(path).suffix.lower() != ".png":
         raise NotImplementedError(f"cannot write {path}: no {Path(path).suffix or 'extension'} encoder, {_NO_ENCODER}")
+    Path(path).write_bytes(imencode_png(img))
+
+
+def imencode_png(img: np.ndarray) -> bytes:
+    """A uint8 image as PNG bytes that cv2 decodes back to it: (H, W) or
+    (H, W, 1) gray, (H, W, 3) BGR or (H, W, 4) BGRA; filter 0 on every row,
+    zlib level 1 (cv2's default PNG compression)."""
     a = np.asarray(img)
     if a.dtype != np.uint8 or a.ndim not in (2, 3) or (a.ndim == 3 and a.shape[2] not in (1, 3, 4)):
-        raise ValueError(f"imwrite_png: expected uint8 (H, W) or (H, W, 1|3|4), got {a.dtype} {a.shape}")
+        raise ValueError(f"imencode_png: expected uint8 (H, W) or (H, W, 1|3|4), got {a.dtype} {a.shape}")
     a = a.reshape(a.shape[0], a.shape[1], -1)
     c = a.shape[2]
     if c >= 3:
@@ -185,5 +216,5 @@ def imwrite_png(path: str | Path, img: np.ndarray) -> None:
     h, w = a.shape[:2]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, w * c)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[c], 0, 0, 0)
-    Path(path).write_bytes(PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
-                           + _chunk(b"IEND", b""))
+    return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + _chunk(b"IEND", b""))

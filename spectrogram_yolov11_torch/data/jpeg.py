@@ -149,8 +149,11 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(np.flip(img, flip) if flip else img)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """A baseline or extended-sequential Huffman JPEG -> (H, W, 3) uint8 BGR, as cv2.imread decodes it."""
+def decode_jpeg(data: bytes, color: bool = True) -> np.ndarray:
+    """A baseline or extended-sequential Huffman JPEG -> (H, W, 3) uint8 BGR,
+    as cv2.imread decodes it. color=False decodes as cv2's IMREAD_UNCHANGED:
+    a one-component (gray) frame comes back (H, W), and the EXIF orientation
+    is not applied."""
     data = bytes(data)
     if data[:2] != b"\xff\xd8":
         raise _refuse("no SOI marker")
@@ -272,6 +275,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         else:
             raise _refuse(f"unknown marker 0x{m:02X}")
     img = _render(lib, frame, latched)
+    if not color:  # the render repeats a gray frame over the three channels
+        return np.ascontiguousarray(img[..., 0]) if len(frame.ids) == 1 else img
     orientation = _exif_orientation(app1) if app1 is not None else 0
     return apply_orientation(img, orientation) if 2 <= orientation <= 8 else img
 

@@ -5,6 +5,7 @@ package's `.ckpt` checkpoints:
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").predict("capture.npy")
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").val(data="spectrogram_synth.yaml", batch=32)
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").train(data="spectrogram_synth.yaml", epochs=3)
+    YOLO("http://127.0.0.1:8000/spec").predict(frames)   # a served model (serve.py)
 
 The weights (EMA before the raw variables) are read on the host, carried
 across by the weight bridge and folded for the bottleneck kernel; predict
@@ -20,6 +21,11 @@ amp=True run (the default) val() and predict() run the model's bf16 copy
 even at half=False, as the JAX facade keeps the model whose dtype its
 trainer's setup_model changed in place; a later train(amp=False) sets it
 back to f32.
+A KServe-v2 URL (http:// or https://) makes an inference-only facade over the
+served model, as JAX's _load_remote (:130): predict runs
+serve.py:RemotePredictor and val validator.py:BackendValidator, each with its
+NMS on the client's device (the card unless device="cpu"); train raises
+ValueError; names and stride come from the server's metadata.
 Other model sources and modes raise NotImplementedError naming the
 ROADMAP.md item that ports them.
 """
@@ -29,12 +35,14 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from ..utils import not_ported as _not_ported
 from ..utils.callbacks import default_callbacks
 from .pipeline import load_model
 from .predictor import BasePredictor
 from .trainer import DetectionTrainer
-from .validator import DetectionValidator
+from .validator import BackendValidator, DetectionValidator
 
 
 class YOLO:
@@ -51,18 +59,25 @@ class YOLO:
         self.validator = None
         self.trainer = None
         self.ckpt_data = None  # the dataset the checkpoint was trained on, val's default
+        self.model = None
+        self.backend = None  # the AutoBackend of a served model
         if task not in (None, "detect"):
             raise _not_ported(f"task {task!r}", "item 10 (other heads)")
         self.task = "detect"
         if self.model_path.startswith(("http://", "https://", "grpc://")):
-            raise _not_ported(f"remote model {self.model_path!r}", "item 9 (export + serving)")
+            from ..nn.autobackend import AutoBackend
+
+            self.backend = AutoBackend(self.model_path)
+            if self.backend.task != "detect":
+                raise _not_ported(f"task {self.backend.task!r} of {self.model_path}", "item 10 (other heads)")
+            return
         suffix = Path(self.model_path).suffix
         if suffix == ".ckpt":
             self._load_ckpt(self.model_path)
         elif suffix == ".pt":
             raise _not_ported(f"reference .pt import ({self.model_path})", "item 11 (other model families)")
         elif suffix in {".stablehlo", ".tflite", ".onnx"} or (Path(self.model_path) / "saved_model.pb").exists():
-            raise _not_ported(f"exported model {self.model_path!r}", "item 9 (export + serving)")
+            raise _not_ported(f"exported model {self.model_path!r}", "item 9 (the Exporter and the artifact kinds)")
         else:  # .yaml, or a bare name that the JAX facade reads as one
             raise _not_ported(f"building a model from YAML ({self.model_path})", "item 8 (trainer loop: from-scratch init)")
 
@@ -96,14 +111,17 @@ class YOLO:
     # -- properties ----------------------------------------------------------
     @property
     def names(self) -> Dict[int, str]:
-        return self.model.names
+        return self.backend.names if self.backend is not None else self.model.names
 
     @property
     def stride(self):
-        return self.model.stride
+        return tuple(float(s) for s in self.backend.stride) if self.backend is not None else self.model.stride
 
     @property
     def device(self) -> str:
+        """The model's device; for a served model the client's, where its NMS runs."""
+        if self.backend is not None:
+            return str(torch.device(self.overrides.get("device") or "cuda"))
         return str(next(self.model.parameters()).device)
 
     # -- modes ---------------------------------------------------------------
@@ -111,7 +129,12 @@ class YOLO:
         overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"model", "task", "mode"}}
         key = tuple(sorted((k, repr(v)) for k, v in overrides.items()))
         if self.predictor is None or self._predictor_key != key:
-            self.predictor = BasePredictor(self.model, overrides=overrides, names=self.names)
+            if self.backend is not None:
+                from ..serve import RemotePredictor
+
+                self.predictor = RemotePredictor(self.backend, overrides=overrides)
+            else:
+                self.predictor = BasePredictor(self.model, overrides=overrides, names=self.names)
             self._predictor_key = key
         self.predictor.callbacks = self.callbacks  # shared, as in the JAX facade
         return self.predictor(source, stream=stream, batch_size=kwargs.get("batch", 1))
@@ -127,6 +150,8 @@ class YOLO:
         trainer's compute dtype (bf16 after amp: val() and predict() then run
         bf16), and the next predict builds its predictor anew; see
         engine/trainer.py for the options that raise."""
+        if self.backend is not None:
+            raise ValueError("remote (served) models are inference-only; train locally and re-serve")
         overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"model", "task", "mode"}}
         trainer = DetectionTrainer(self.model, overrides)
         self._merge_callbacks(trainer)
@@ -145,7 +170,10 @@ class YOLO:
         data = overrides.pop("data", None) or self.ckpt_data
         if data is None:
             raise TypeError("val() needs data=: a dataset YAML or dict (the checkpoint names none)")
-        validator = DetectionValidator(self.model, overrides=overrides)
+        if self.backend is not None:  # scored through the served graph, the val NMS here
+            validator = BackendValidator(self.backend, overrides=overrides)
+        else:
+            validator = DetectionValidator(self.model, overrides=overrides)
         validator.callbacks = self.callbacks  # shared, as in the JAX facade
         self.validator = validator
         return validator(data=data)
@@ -154,4 +182,4 @@ class YOLO:
         raise _not_ported("tracking", "item 12 (host-side remainder: trackers)")
 
     def export(self, **kwargs):
-        raise _not_ported("export", "item 9 (export + serving)")
+        raise _not_ported("export", "item 9 (the Exporter and the artifact kinds)")

@@ -68,6 +68,15 @@ def eval_network(model: DetectionModel, half: bool, device: torch.device) -> Det
     return model.set_dtype(torch.bfloat16 if half else torch.float32).to(device, memory_format=fmt)
 
 
+def forward_decode(model: DetectionModel, rgb: torch.Tensor) -> torch.Tensor:
+    """uint8 (B, S, S, 3) RGB frames on the model's device -> decoded
+    predictions (B, A, 4 + nc) f32: divide by 255, forward on the NCHW view of
+    the NHWC memory, DFL decode. The device function below and the serving
+    graph (engine/exporter.py) both run it."""
+    feats = model((rgb.float() / 255.0).permute(0, 3, 1, 2))
+    return decode_detections(feats, model.nc, model.stride)
+
+
 def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
                     classes: Optional[Sequence[int]] = None, agnostic: bool = False,
                     pre_nms_topk: int = PRE_NMS_TOPK, half: bool = False, multi_label: bool = False) -> Callable:
@@ -85,9 +94,7 @@ def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float 
     @torch.inference_mode()
     @full_f32()
     def fn(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        rgb = frames.expand(-1, -1, -1, 3).flip(-1).float() / 255.0  # gray broadcast, BGR -> RGB
-        feats = model(rgb.permute(0, 3, 1, 2))  # NCHW view of NHWC memory
-        preds = decode_detections(feats, model.nc, model.stride)
+        preds = forward_decode(model, frames.expand(-1, -1, -1, 3).flip(-1))  # gray broadcast, BGR -> RGB
         return non_max_suppression(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, multi_label=multi_label,
                                    agnostic=agnostic, max_det=max_det, pre_nms_topk=pre_nms_topk, classes=classes)
 

@@ -53,8 +53,8 @@ class BasePredictor:
                                       "save_txt=True works")
         self.args = args
         self.device = resolve_device(args.device or "cuda")
-        self.source = model
-        self.model = eval_network(model, bool(args.half), self.device)
+        self.source = model  # None for a predictor whose network runs elsewhere (serve.py:RemotePredictor)
+        self.model = eval_network(model, bool(args.half), self.device) if model is not None else None
         self.imgsz = int(args.imgsz if isinstance(args.imgsz, int) else args.imgsz[0])
         self.batch_size = 1
         self.names = names if names is not None else {i: f"{i}" for i in range(model.nc)}
@@ -90,7 +90,8 @@ class BasePredictor:
             torch.cuda.synchronize(self.device)
 
     def stream_inference(self, source, batch_size: int = 1) -> Iterator[Results]:
-        if self.source.training:  # trained since this predictor was built: run its weights as they are now
+        # trained since this predictor was built: run its weights as they are now
+        if self.source is not None and self.source.training:
             self.model, self._device_fn = eval_network(self.source, bool(self.args.half), self.device), None
         if self._device_fn is None or batch_size != self.batch_size:
             self._device_fn = self._build_device_fn()

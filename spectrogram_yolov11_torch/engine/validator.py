@@ -13,7 +13,9 @@ Per batch: worker threads read and decode the images and format the labels
 (data/build.py), the card letterboxes the frames (scaleup=False), the device
 function runs the forward with the fused bottleneck kernel, the DFL decode
 and NMS with the greedy keep kernel (engine/pipeline.py:build_device_fn), and
-the host un-letterboxes and accumulates the stats in numpy. The un-letterbox
+the host un-letterboxes and accumulates the stats in numpy. BackendValidator
+scores through an AutoBackend instead, a served model among them: the
+backend's graph, the val NMS on the validator's device. The un-letterbox
 keeps the JAX package's f32 arithmetic: the device output is f32, and the
 ratio and pads are Python floats of the f32 ratio_pad.
 
@@ -40,6 +42,7 @@ from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel
 from ..ops.metrics import DetMetrics, box_iou_np, match_predictions
+from ..ops.nms import non_max_suppression
 from ..utils import not_ported, resolve_device
 from ..utils.callbacks import run_callbacks
 from .pipeline import build_device_fn, eval_network
@@ -161,7 +164,8 @@ class DetectionValidator:
         if not self.data.get(args.split):
             raise KeyError(f"dataset has no '{args.split}' split")
         self.dataloader = self.get_dataloader(self.data[args.split], int(args.batch))
-        if self.source.training:  # trained since this validator was built: score its weights as they are now
+        # trained since this validator was built: score its weights as they are now
+        if self.source is not None and self.source.training:
             self.set_model(self.source)
         if self._device_fn is None:
             self._device_fn = self._build_device_fn()
@@ -190,3 +194,41 @@ class DetectionValidator:
         res_dict = self.metrics.results_dict
         run_callbacks(self.callbacks, "on_val_end", self)
         return res_dict
+
+
+class BackendValidator(DetectionValidator):
+    """Validate through an AutoBackend (nn/autobackend.py), a served model
+    among them. Counterpart of spectrogram_yolov11_tpu/engine/validator.py:364
+    BackendValidator: the backend's graph gives the decoded predictions
+    (B, A, 4 + nc); the val protocol's NMS runs on the validator's device
+    (every (anchor, class) pair, agnostic as the validator sets it,
+    pre_nms_topk 2048 unless set). The validator's frames are BGR (the
+    predictor's device function flips them, engine/pipeline.py) and the
+    serving graph takes RGB, so they are flipped before the backend's
+    forward; the JAX val batch is RGB already and goes as it is."""
+
+    def __init__(self, backend, overrides: Optional[dict] = None):
+        self.backend = backend
+        super().__init__(None, overrides=overrides)
+
+    def set_model(self, model) -> None:
+        """The backend holds the network: there is no model to score here."""
+        self.source, self.model, self._device_fn = None, None, None
+
+    def _build_device_fn(self):
+        a, backend, dev = self.args, self.backend, self.device
+        nc = getattr(backend, "nc", None) or len(backend.names)
+        if not nc:
+            raise ValueError(f"the backend {backend.weights!r} names no classes")
+
+        def fn(frames: torch.Tensor):
+            out = backend.forward(frames.flip(-1))  # BGR -> RGB
+            preds = out[0] if isinstance(out, (tuple, list)) else out
+            preds = preds if torch.is_tensor(preds) else torch.tensor(preds)
+            with torch.inference_mode():
+                return non_max_suppression(preds.to(dev), conf_thres=float(a.conf), iou_thres=float(a.iou), nc=nc,
+                                           multi_label=True, agnostic=bool(a.agnostic_nms or a.single_cls),
+                                           max_det=int(a.max_det),
+                                           pre_nms_topk=int(a.pre_nms_topk or 0) or VAL_PRE_NMS_TOPK)
+
+        return fn

@@ -150,7 +150,7 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: to
         return bottleneck_reference(x, w1, b1, w2, b2)
     w1, w2 = (pack_bottleneck_weights(w) if _is_hwio(w) else w for w in (w1, w2))
     out = _run_kernel("fused_bottleneck_f32", x, w1, b1, w2, b2, (2, 9, "C", "C"))
-    fused_bottleneck.launches += 1
+    kernels.count(fused_bottleneck)
     return out
 
 
@@ -167,7 +167,7 @@ def fused_bottleneck_bf16(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w
         return bottleneck_reference_bf16(x, w1, b1, w2, b2)
     w1, w2 = (pack_bottleneck_weights_bf16(w) if _is_hwio(w) else w for w in (w1, w2))
     out = _run_kernel("fused_bottleneck_bf16", x, w1, b1, w2, b2, (9, "C", "C"))
-    fused_bottleneck_bf16.launches += 1
+    kernels.count(fused_bottleneck_bf16)
     return out
 
 

@@ -79,7 +79,7 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> t
         err = lib.greedy_nms_keep(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
                                   b, k, float(iou_thres), stream)
     kernels.check(err, "greedy_nms_keep")
-    greedy_keep.launches += 1
+    kernels.count(greedy_keep)
     return keep
 
 

@@ -50,6 +50,7 @@ HOST_LIBS: Dict[str, Tuple[List[str], Dict[str, str]]] = {
 }
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: Dict[str, object] = {}
 BUILD_LOG: Dict[str, str] = {}  # name -> nvcc/ptxas output of the build made in this process
 
@@ -136,6 +137,14 @@ def load(name: str):
             f.restype = ctypes.c_int
         _LIBS[name] = lib
         return lib
+
+
+def count(wrapper) -> None:
+    """One more launch on a kernel wrapper's `launches`, under a lock: the
+    kernels launch from several threads (a server's dispatcher, its clients),
+    and `+=` on an attribute is a read, an add and a write."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(err: int, what: str) -> None:

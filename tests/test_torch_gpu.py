@@ -18,7 +18,10 @@ holds the CPU to JAX with (assert_train_step_close); the bf16 (amp) step on
 the card against the CPU's bf16 step, per quantity within 3 times the card's
 own bf16-to-f32 distance (assert_amp_step_close; tests/test_torch_train_amp.py
 says why 3); predict from the JPEG fixture files and val on the fixture split
-against the CPU, as predict and val on arrays and PNG. The tests leave
+against the CPU, as predict and val on arrays and PNG; the KServe-v2 server
+on the card against one on the CPU (the forward tolerance above: boxes 1e-2
+px, scores 1e-4), and YOLO(url) predict and val against local ones on the card
+(boxes 1e-3 px, val 1e-6 per key). The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -908,3 +911,88 @@ def test_amp_train_epoch_launches_the_bf16_kernels(loop_split, tmp_path):
     assert len(counts) == 6 and len(set(counts[:5])) == 1
     assert tuple(b - a for a, b in zip(counts[4], counts[5])) == (0, 12, 2)
     assert yolo.trainer.validator.model.dtype == torch.bfloat16 and all(np.isfinite(v) for v in metrics.values())
+
+
+# -- serving ------------------------------------------------------------------------------------------------
+
+
+def _counts() -> tuple:
+    return fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches
+
+
+def _moved(before: tuple) -> tuple:
+    torch.cuda.synchronize()
+    return tuple(b - a for a, b in zip(before, _counts()))
+
+
+@pytest.fixture(scope="module")
+def servers():
+    """The KServe-v2 server of the checkpoint on the card in f32 and in bf16
+    (half=True), and on the CPU, each on port 0 of 127.0.0.1."""
+    _card()
+    from spectrogram_yolov11_torch.serve import InferenceServer
+
+    card = InferenceServer({"spec": CKPT}, port=0).start()
+    half = InferenceServer({"spec": CKPT}, port=0, half=True).start()
+    cpu = InferenceServer({"spec": CKPT}, port=0, device="cpu").start()
+    yield card, half, cpu
+    for srv in (card, half, cpu):
+        srv.shutdown()
+
+
+@pytest.mark.gpu
+def test_server_on_card_matches_cpu_server(servers):
+    """The same colour frames (B = 3, run in the 4-bucket, 320 px) and their
+    gray planes through the card's server and the CPU's: boxes within 1e-2 px
+    and scores within 1e-4 (the CPU tests' forward tolerance); 6 bottleneck
+    and 0 NMS launches per dispatch, bf16 ones on the half=True server, which
+    answers FP32."""
+    from spectrogram_yolov11_torch.serve import RemoteModel
+
+    card, half, cpu = servers
+    x = np.random.default_rng(0).integers(0, 255, (3, 320, 320, 3), np.uint8)
+    cli_card, cli_half, cli_cpu = RemoteModel(card.url), RemoteModel(half.url), RemoteModel(cpu.url)
+    for batch in (x, np.ascontiguousarray(x[..., :1])):
+        before = _counts()
+        got = cli_card(batch)[0]
+        assert _moved(before) == (6, 0, 0)
+        ref = cli_cpu(batch)[0]
+        assert got.dtype == ref.dtype == np.float32 and got.shape == ref.shape == (3, 2100, 6)
+        np.testing.assert_allclose(got[..., :4], ref[..., :4], atol=1e-2, rtol=0)
+        np.testing.assert_allclose(got[..., 4:], ref[..., 4:], atol=1e-4, rtol=0)
+        before = _counts()
+        got_half = cli_half(batch)[0]
+        assert _moved(before) == (0, 6, 0) and got_half.dtype == np.float32 and np.isfinite(got_half).all()
+
+
+@pytest.mark.gpu
+def test_remote_predict_and_val_on_card_match_local_on_card(servers):
+    """YOLO(url).predict and .val with the client on the card against
+    YOLO(ckpt) on the card: each client batch launches 1 NMS in the client and
+    6 bottlenecks in the server (none through the CPU's server); at conf=0 on
+    a colour image classes equal and boxes within 1e-3 px; val on the JPEG
+    fixture split within 1e-6 per key (the same pixels through the same
+    network)."""
+    from spectrogram_yolov11_torch import YOLO
+
+    card, _, cpu = servers
+    remote, local = YOLO(card.url), YOLO(CKPT)
+    img = np.random.default_rng(2).integers(0, 255, (96, 128, 3), np.uint8)
+    kw = dict(imgsz=320, conf=0.0, max_det=8)
+    before = _counts()
+    got = remote.predict(img, **kw)[0]
+    assert _moved(before) == (6, 0, 1)
+    before = _counts()
+    via_cpu = YOLO(cpu.url).predict(img, **kw)[0]
+    assert _moved(before) == (0, 0, 1)
+    ref = local.predict(img, **kw)[0]
+    for g in (got, via_cpu):
+        assert len(g) == len(ref) == 8
+        np.testing.assert_array_equal(g.boxes.cls, ref.boxes.cls)
+    np.testing.assert_allclose(got.boxes.xyxy, ref.boxes.xyxy, atol=1e-3, rtol=0)
+    data = {"path": str(JPEG_FIXTURES / "spectrogram"), "val": "images/val", "names": {0: "LTE", 1: "RF"}}
+    before = _counts()
+    rv = remote.val(data=data, batch=8)
+    assert _moved(before) == (6, 0, 1)
+    lv = local.val(data=data, batch=8)
+    assert list(rv) == list(lv) and all(abs(rv[k] - lv[k]) <= 1e-6 for k in lv), (rv, lv)

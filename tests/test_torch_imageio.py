@@ -9,19 +9,33 @@ types occur among them (libpng's adaptive filtering, which cv2 uses, picks
 among them row by row; the hand-built files use every filter on every kind of
 row). The host library's Average and Paeth rows equal the plain Python
 loop on seeded rows of every filter type, bpp 1-4; JPEG bytes decode
-whatever the file's suffix, and BMP, TIFF and WebP raise. Run as a script, it
+whatever the file's suffix, and BMP, TIFF and WebP raise. `imdecode` (the
+server's BYTES ingest) gives what cv2.imdecode(buf, IMREAD_UNCHANGED) gives
+on all those PNGs, on PNGs with a tRNS chunk and 16-bit ones, and on the JPEG
+fixtures (a gray one comes back (H, W), EXIF not applied), and raises
+ValueError where cv2 gives 4 channels or 16 bits; `imencode_png`'s bytes
+decode to the image. Run as a script, it
 prints the reader's time per 640 x 640 image for each filter.
 """
 
 import struct
 import time
 import zlib
+from pathlib import Path
 
 import cv2
 import numpy as np
 import pytest
 
-from spectrogram_yolov11_torch.data.imageio import PNG_SIGNATURE, _unfilter, _unfilter_loop, imread, imwrite_png
+from spectrogram_yolov11_torch.data.imageio import (
+    PNG_SIGNATURE,
+    _unfilter,
+    _unfilter_loop,
+    imdecode,
+    imencode_png,
+    imread,
+    imwrite_png,
+)
 
 
 def _texture(h, w, c, seed):
@@ -130,6 +144,51 @@ def test_imwrite_png_round_trips_through_cv2(tmp_path, shape):
     assert row_filters(p) == {0}
     np.testing.assert_array_equal(cv2.imread(str(p), cv2.IMREAD_UNCHANGED).reshape(shape), img)
     np.testing.assert_array_equal(imread(p), cv2.imread(str(p)))
+
+
+def _with_trns(data: bytes, trns: bytes) -> bytes:
+    """PNG bytes with a tRNS chunk put before the first IDAT."""
+    at = data.index(b"IDAT") - 4
+    return data[:at] + _chunk(b"tRNS", trns) + data[at:]
+
+
+def test_imdecode_equals_cv2_unchanged(pngs, tmp_path):
+    rng = np.random.default_rng(3)
+    blobs = {p.name: p.read_bytes() for p in pngs}
+    p = tmp_path / "palette.png"
+    write_png_by_hand(p, rng.integers(0, 5, (9, 11, 1), dtype=np.uint8), 3, filters=[0, 1],
+                      palette=rng.integers(0, 256, (5, 3), dtype=np.uint8))
+    blobs["palette_trns"] = _with_trns(p.read_bytes(), b"\x00\x80")
+    p = tmp_path / "rgb.png"
+    write_png_by_hand(p, _texture(9, 11, 3, seed=1), 2, filters=[0])
+    blobs["rgb_trns"] = _with_trns(p.read_bytes(), b"\x00\x01\x00\x02\x00\x03")
+    p = tmp_path / "gray.png"
+    write_png_by_hand(p, _texture(9, 11, 1, seed=2), 0, filters=[2])
+    blobs["gray_trns"] = _with_trns(p.read_bytes(), b"\x00\x07")
+    blobs["gray16"] = cv2.imencode(".png", rng.integers(0, 65536, (5, 7), dtype=np.uint16))[1].tobytes()
+    jpeg_dir = Path(__file__).resolve().parent / "torch_data" / "jpeg"
+    blobs.update({f.name: f.read_bytes() for f in sorted(jpeg_dir.glob("*.jpg"))})
+    refused = set()
+    for name, data in blobs.items():
+        ref = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+        assert ref is not None, name
+        if ref.dtype != np.uint8 or (ref.ndim == 3 and ref.shape[2] == 4):
+            with pytest.raises(ValueError, match="16 bits or 4 channels"):
+                imdecode(data)
+            refused.add(name)
+        else:
+            np.testing.assert_array_equal(imdecode(data), ref, err_msg=name)
+    assert {"palette_trns", "rgb_trns", "gray16", "hand_ct4.png"} <= refused and "gray_trns" not in refused
+    assert imdecode(blobs["gray.jpg"]).ndim == 2 and imdecode(blobs["exif6.jpg"]).shape != imread(jpeg_dir / "exif6.jpg").shape
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (5, 7, 1), (6, 3, 3), (3, 6, 4), (1, 1, 3)])
+def test_imencode_png_decodes_to_the_image(shape):
+    img = np.random.default_rng(len(shape)).integers(0, 256, shape, dtype=np.uint8)
+    data = imencode_png(img)
+    np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED).reshape(shape), img)
+    if len(shape) == 2 or shape[2] != 4:
+        np.testing.assert_array_equal(imdecode(data).reshape(shape), img)
 
 
 def test_other_formats_and_broken_files_raise(tmp_path):

@@ -3,8 +3,9 @@
 An AST scan shows that no file of spectrogram_yolov11_torch/ nor chip_smoke.py
 imports jax, flax, msgpack, yaml, cv2, PIL or the JAX package (the image
 readers, data/imageio.py and data/jpeg.py, among them); with no card, the
-entry points (the pipeline, predict, val, the trainer and YOLO.train) raise
-for the default device instead of running on the CPU.
+entry points (the pipeline, predict, val, the trainer and YOLO.train, the
+server and the checkpoint AutoBackend) raise for the default device instead
+of running on the CPU.
 """
 
 import ast
@@ -18,6 +19,8 @@ from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one t
 from spectrogram_yolov11_torch import YOLO
 from spectrogram_yolov11_torch.engine.pipeline import build_pipeline
 from spectrogram_yolov11_torch.engine.trainer import DetectionTrainer
+from spectrogram_yolov11_torch.nn.autobackend import AutoBackend
+from spectrogram_yolov11_torch.serve import InferenceServer
 from spectrogram_yolov11_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -39,7 +42,7 @@ def _imported_roots(path: Path):
 def _port_files():
     files = sorted((ROOT / "spectrogram_yolov11_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15 and all(f.exists() for f in files)
-    assert {"jpeg.py", "imageio.py", "loaders.py"} <= {f.name for f in files}
+    assert {"jpeg.py", "imageio.py", "loaders.py", "serve.py", "autobackend.py", "exporter.py"} <= {f.name for f in files}
     return files
 
 
@@ -66,6 +69,11 @@ def test_default_device_raises_without_card(monkeypatch):
                                             "amp": False})
     with pytest.raises(RuntimeError, match="no CUDA card"):
         YOLO(CKPT).train(data={"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]}, amp=False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        InferenceServer(CKPT)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        AutoBackend(CKPT)
+    assert AutoBackend(CKPT, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA card"):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"

@@ -182,9 +182,13 @@ def test_predict_refuses_what_the_port_does_not_do(models, tmp_path):
         port.predict(str(tmp_path / "frame.jpg"), imgsz=IMGSZ)
     with pytest.raises(SyntaxError, match="not a valid argument"):
         port.predict(frame, imgsz=IMGSZ, confidence=0.3)
-    for model in ("yolo11n.yaml", "yolo11n.pt", "best.onnx", "http://host:8000/model"):
+    for model in ("yolo11n.yaml", "yolo11n.pt", "best.onnx"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             YOLO(model)
+    # an http(s):// URL is a served model now (tests/test_torch_serve.py); grpc:// raises before any connection,
+    # as the JAX client does
+    with pytest.raises(NotImplementedError, match="grpc"):
+        YOLO("grpc://127.0.0.1:8001/model")
     for mode in (port.track, port.export):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mode()
