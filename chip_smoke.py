@@ -179,6 +179,23 @@ Phases, each printing one JSON line, each fatal when it fails:
                bottleneck); each kernel against its plain version on the first
                val's inputs; last.ckpt's train_args.amp; the final EMA's bf16
                mAP beside the f32 loop's
+  15. scratch  models from YAML: YOLO("yolo11n.yaml").train(epochs=2,
+               batch=16, imgsz=640) at its defaults (amp, seed 0) on the
+               synthetic split: the head rebuilt for nc 80 -> 2 with 366
+               leaves grafted (JAX's count on the same pair), the loss
+               items per epoch finite, counted from 0 around the call and
+               per epoch (12 bf16 bottleneck + 2 NMS launches per EMA val, 0
+               f32, 0 in the steps), each kernel against its plain version
+               at the first EMA val's inputs; YOLO("spectrogram_yolo11n.yaml")
+               .load(ckpt) with all 421 leaves transferred, its f32 val on the
+               32-image split equal to YOLO(ckpt).val (6 + 1 launches, the
+               kernels at its inputs), save -> YOLO(saved).val equal again;
+               `python -m spectrogram_yolov11_torch detect val` in a
+               subprocess printing the same metrics, and `detect train` for
+               one epoch on a 16-image 320 px split exiting 0; info() of both
+               YAML models on the card. Readings: seconds per epoch, ms per
+               step with the loader's wait, val seconds, the subprocesses'
+               seconds
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -215,6 +232,10 @@ TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_STEPS = 640, 16, 20  # JAX's default imgsz and b
 TRAIN_CHECK, TRAIN_CHECK_BATCH = 160, 4  # the card's step against the CPU's
 LOOP_EPOCHS = 3  # YOLO.train's epochs in phase train_loop, the last without mosaic
 AMP_EPOCHS = 2  # YOLO.train's epochs at amp=True in phase train_amp, the last without mosaic
+SCRATCH_EPOCHS = 2  # YOLO("yolo11n.yaml").train's epochs in phase scratch, at its defaults (close_mosaic=10: no mosaic)
+SCRATCH_GRAFTED = 366  # leaves yolo11n (nc 80) grafts onto its nc = 2 rebuild: JAX's _intersect_variables on the
+#                        same pair (tests/test_torch_scratch.py reads it from JAX)
+LOAD_TRANSFERRED = 421  # every leaf of spectrogram_yolo11n: YOLO(yaml).load(ckpt) transfers them all
 AMP_MULTIPLE = 3  # the card's bf16 step within this many times its bf16-to-f32 distance of the CPU's
 SERVE_BATCHES = (1, 3, 32)  # raw requests' batches: 3 runs in the 4-bucket
 SERVE_CONCURRENCY, SERVE_REQUESTS = (1, 8, 32), (40, 16, 8)  # client threads, and requests each sends back to back
@@ -2186,11 +2207,6 @@ def phase_train_amp(f32_loop_final: dict):
     from spectrogram_yolov11_torch import YOLO
     from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
     from spectrogram_yolov11_torch.engine.checkpoint import load_checkpoint
-    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK
-    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
-    from spectrogram_yolov11_torch.nn.modules.head import Detect
-    from spectrogram_yolov11_torch.ops.decode import decode_detections
-    from spectrogram_yolov11_torch.ops.nms import nms_candidates
     from spectrogram_yolov11_torch.utils import yaml_load
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
@@ -2253,17 +2269,9 @@ def phase_train_amp(f32_loop_final: dict):
         n_val = len(list(Path(data["val"]).iterdir()))
         per_val = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6 * (n_val // TRAIN_BATCH),
                    "greedy_keep": n_val // TRAIN_BATCH}
-        rec = {"counts": [], "captured": {}, "first_val": True}
+        rec = {"counts": []}
         counts = lambda: {k: c.launches for k, c in counters.items()}  # noqa: E731
-
-        def pre(mod, args):  # returns None: the input stays as it is
-            if (rec["first_val"] and isinstance(mod, Bottleneck) and mod.fusable and not mod.training
-                    and args[0].dtype == bf16):
-                rec["captured"].setdefault(mod, args[0].permute(0, 2, 3, 1).contiguous())
-
-        def post(mod, args, out):  # returns None: the output stays as it is
-            if rec["first_val"] and isinstance(mod, Detect) and not mod.training and out[0][0].dtype == bf16:
-                rec["captured"].setdefault("feats", out)
+        cap, stop = capture_val_inputs(bf16)
 
         def on_epoch_start(t):
             rec["counts"].append({"epoch": t.epoch, "start": counts()})
@@ -2273,14 +2281,12 @@ def phase_train_amp(f32_loop_final: dict):
 
         def on_fit_epoch_end(t):
             rec["counts"][-1]["val"] = counts()
-            rec["first_val"] = False
+            stop()  # the first val's inputs only
 
         yolo = YOLO(CKPT)
         for event, fn in (("on_train_epoch_start", on_epoch_start), ("on_train_batch_end", on_batch_end),
                           ("on_fit_epoch_end", on_fit_epoch_end)):
             yolo.add_callback(event, fn)
-        hooks = [torch.nn.modules.module.register_module_forward_pre_hook(pre),
-                 torch.nn.modules.module.register_module_forward_hook(post)]
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
@@ -2289,8 +2295,7 @@ def phase_train_amp(f32_loop_final: dict):
                                    imgsz=TRAIN_IMGSZ, close_mosaic=1, workers=8, exist_ok=True),
                 {k: AMP_EPOCHS * v for k, v in per_val.items()}, "YOLO.train at amp=True")
         finally:
-            for h in hooks:
-                h.remove()
+            stop()
         train_s = time.perf_counter() - t0
         loop_peak_gb = torch.cuda.max_memory_allocated() / 2**30
         tr = yolo.trainer
@@ -2308,19 +2313,7 @@ def phase_train_amp(f32_loop_final: dict):
         require(ckpt_amp is True, f"last.ckpt's train_args.amp is {ckpt_amp}")
 
         # each kernel on the first val's inputs, against its plain version
-        cap = rec["captured"]
-        checks = {}
-        with torch.inference_mode():
-            for i, m in enumerate(m for m in cap if m != "feats"):
-                d = bottleneck_check(f"amp EMA {i}", layer_case(m, cap[m]))
-                checks[f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
-            preds = decode_detections(cap["feats"], yolo.model.nc, yolo.model.stride)
-            _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, yolo.model.nc, multi_label=True,
-                                                          pre_nms_topk=VAL_PRE_NMS_TOPK)
-            nms = nms_check(offset_boxes, valid)
-        shapes = sorted(c["shape"] for c in checks.values())
-        require(shapes == [[TRAIN_BATCH, 20, 20, 64]] * 4 + [[TRAIN_BATCH, 40, 40, 32]] * 2,
-                f"amp val inputs {shapes}")
+        checks, nms = kernels_at(cap, yolo.model.nc, yolo.model.stride, "amp EMA", TRAIN_BATCH, TRAIN_IMGSZ)
         log = tr.epoch_log
     emit("train_amp", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, steps=TRAIN_STEPS, launches=launches,
          ms_per_step=steps_ms / TRAIN_STEPS, later_steps=later,
@@ -2341,6 +2334,193 @@ def phase_train_amp(f32_loop_final: dict):
                 "(torch.profiler, after a 1-step profile that takes its set-up), amp, f32, amp; YOLO(ckpt).train "
                 "at its defaults counted from 0 around the call and per epoch by callbacks; the kernels checked on the first val's inputs (global module hooks)")
     return loop_launches, checks, nms
+
+
+def capture_val_inputs(dtype):
+    """Global module hooks that keep what the eval-mode forwards at `dtype`
+    hand the fused bottlenecks (NHWC) and what the Detect head gives, the
+    first of each; they launch nothing. Returns (captured, stop), stop()
+    removing the hooks."""
+    import torch
+
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+    from spectrogram_yolov11_torch.nn.modules.head import Detect
+
+    cap = {}
+
+    def pre(mod, args):  # returns None: the input stays as it is
+        if isinstance(mod, Bottleneck) and mod.fusable and not mod.training and args[0].dtype == dtype:
+            cap.setdefault(mod, args[0].permute(0, 2, 3, 1).contiguous())
+
+    def post(mod, args, out):  # returns None: the output stays as it is
+        if isinstance(mod, Detect) and not mod.training and out[0][0].dtype == dtype:
+            cap.setdefault("feats", out)
+
+    hooks = [torch.nn.modules.module.register_module_forward_pre_hook(pre),
+             torch.nn.modules.module.register_module_forward_hook(post)]
+
+    def stop():
+        for h in hooks:
+            h.remove()
+        hooks.clear()
+
+    return cap, stop
+
+
+def kernels_at(cap: dict, nc: int, stride, what: str, batch: int, imgsz: int):
+    """Each fused bottleneck and the keep kernel against their plain versions
+    on the inputs `cap` kept (capture_val_inputs): (bottleneck checks, NMS
+    check). Fails unless the six bottlenecks of a scale-n model at `batch`
+    and `imgsz` were seen."""
+    import torch
+
+    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+
+    checks = {}
+    with torch.inference_mode():
+        for i, m in enumerate(m for m in cap if m != "feats"):
+            d = bottleneck_check(f"{what} {i}", layer_case(m, cap[m]))
+            checks[f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
+        preds = decode_detections(cap["feats"], nc, stride)
+        _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, nc, multi_label=True,
+                                                      pre_nms_topk=VAL_PRE_NMS_TOPK)
+        nms = nms_check(offset_boxes, valid)
+    shapes = sorted(c["shape"] for c in checks.values())
+    p4, p3 = imgsz // 32, imgsz // 16
+    require(shapes == [[batch, p4, p4, 64]] * 4 + [[batch, p3, p3, 32]] * 2, f"{what} inputs {shapes}")
+    return checks, nms
+
+
+def phase_scratch():
+    """Models from YAML on the synthetic split (128 train + 32 val PNG at 640
+    px): YOLO("yolo11n.yaml").train(epochs=SCRATCH_EPOCHS, batch=TRAIN_BATCH,
+    imgsz=TRAIN_IMGSZ) at its defaults (amp, seed 0) with the nc 80 -> 2
+    rebuild, counted from 0 around the call and per epoch, the kernels at the
+    first EMA val's inputs; YOLO("spectrogram_yolo11n.yaml").load(ckpt) and
+    its f32 val against YOLO(ckpt).val, equal, counted, the kernels at its
+    inputs; save and its val; the command line's detect val and detect
+    train in subprocesses; info() of both YAML models on the card."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    bf16 = torch.bfloat16
+    counters = launch_counters()
+    counts = lambda: {k: c.launches for k, c in counters.items()}  # noqa: E731
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp))
+        n_val = len(list(Path(data["val"]).iterdir()))
+        per_val = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6 * (n_val // TRAIN_BATCH),
+                   "greedy_keep": n_val // TRAIN_BATCH}
+
+        # 1. from scratch: yolo11n (nc 80) on 2-class data, rebuilt, at the defaults
+        yolo = YOLO("yolo11n.yaml")
+        require(yolo.model.nc == 80 and yolo.model.yaml["scale"] == "n", "YOLO('yolo11n.yaml') is not yolo11 at n")
+        rec = {"counts": []}
+        cap, stop = capture_val_inputs(bf16)
+        yolo.add_callback("on_train_epoch_start", lambda t: rec["counts"].append({"epoch": t.epoch, "start": counts()}))
+        yolo.add_callback("on_train_batch_end", lambda t: rec["counts"][-1].update(steps=counts()))
+
+        def on_fit_epoch_end(t):
+            rec["counts"][-1]["val"] = counts()
+            stop()  # the first EMA val's inputs only
+
+        yolo.add_callback("on_fit_epoch_end", on_fit_epoch_end)
+        t0 = time.perf_counter()
+        try:
+            metrics, launches = run_counted(
+                lambda: yolo.train(data=data, project=tmp, name="scratch", epochs=SCRATCH_EPOCHS, batch=TRAIN_BATCH,
+                                   imgsz=TRAIN_IMGSZ, workers=8, exist_ok=True),
+                {k: SCRATCH_EPOCHS * v for k, v in per_val.items()}, "YOLO('yolo11n.yaml').train")
+        finally:
+            stop()
+        train_s = time.perf_counter() - t0
+        tr = yolo.trainer
+        require(tr.rebuilt == {"nc": (80, 2), "grafted": SCRATCH_GRAFTED}, f"the nc rebuild: {tr.rebuilt}")
+        require(tr.args.amp is True and yolo.model.nc == 2 and tr.validator.model.dtype == bf16,
+                "YOLO('yolo11n.yaml').train did not train the rebuilt model at amp=True")
+        by_epoch = []
+        for c in rec["counts"]:
+            steps_c = {k: c["steps"][k] - c["start"][k] for k in c["start"]}
+            val_c = {k: c["val"][k] - c["steps"][k] for k in c["start"]}
+            require(not any(steps_c.values()) and val_c == per_val, f"epoch {c['epoch']}: steps {steps_c}, val {val_c}")
+            by_epoch.append({"epoch": c["epoch"], "steps": steps_c, "val": val_c})
+        rows = list(csv.DictReader(open(tr.csv)))
+        losses = [[float(r[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")] for r in rows]
+        require(len(rows) == SCRATCH_EPOCHS and np.isfinite(losses).all(), f"results.csv {rows}")
+        require(all(0.0 <= v <= 1.0 for v in metrics.values()), f"the from-scratch EMA val {metrics}")
+        checks, nms = kernels_at(cap, 2, yolo.model.stride, "scratch EMA", TRAIN_BATCH, TRAIN_IMGSZ)
+        log = tr.epoch_log
+
+        # 2. transfer: every leaf of the trained checkpoint into the YAML's model; val equal to the checkpoint's
+        ref = YOLO(CKPT).val(data=data, batch=VAL_BATCH)
+        moved = YOLO("spectrogram_yolo11n.yaml").load(CKPT)
+        require(moved.transferred == LOAD_TRANSFERRED, f"load transferred {moved.transferred} leaves")
+        cap, stop = capture_val_inputs(torch.float32)
+        try:
+            loaded, load_launches = run_counted(
+                lambda: moved.val(data=data, batch=VAL_BATCH),
+                {"fused_bottleneck": 6 * (n_val // VAL_BATCH), "fused_bottleneck_bf16": 0,
+                 "greedy_keep": n_val // VAL_BATCH}, "YOLO(yaml).load(ckpt).val")
+        finally:
+            stop()
+        require(loaded == ref, f"YOLO(yaml).load(ckpt).val {loaded} differs from YOLO(ckpt).val {ref}")
+        load_checks, load_nms = kernels_at(cap, 2, moved.model.stride, "load val", VAL_BATCH, 640)
+        moved.save(Path(tmp) / "saved.ckpt")
+        resaved = YOLO(Path(tmp) / "saved.ckpt").val(data=data, batch=VAL_BATCH)
+        require(resaved == ref, f"YOLO(saved).val {resaved} differs from YOLO(ckpt).val {ref}")
+
+        # 3. the command line, in subprocesses on the card
+        yaml_path = Path(tmp) / "synth.yaml"
+        yaml_path.write_text(f"path: {data['path']}\ntrain: images/train\nval: images/val\nnames:\n  0: LTE\n  1: RF\n")
+        tiny = check_det_dataset({"path": str(Path(tmp) / "tiny"), "train": "images/train", "val": "images/val",
+                                  "synthetic": "spectrogram", "n_train": 16, "n_val": 4, "gen_imgsz": 320,
+                                  "seed": 1, "names": {0: "LTE", 1: "RF"}})
+        tiny_yaml = Path(tmp) / "tiny.yaml"
+        tiny_yaml.write_text(f"path: {tiny['path']}\ntrain: images/train\nval: images/val\nnames:\n  0: LTE\n  1: RF\n")
+        cli = {}
+        for verb, args in (("val", [f"model={CKPT}", f"data={yaml_path}", f"batch={VAL_BATCH}"]),
+                           ("train", ["model=spectrogram_yolo11.yaml", f"data={tiny_yaml}", "epochs=1", "batch=8",
+                                      "imgsz=320", "workers=4", f"project={tmp}", "name=cli", "exist_ok=True"])):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "spectrogram_yolov11_torch", "detect", verb, *args], cwd=ROOT,
+                               capture_output=True, text=True, timeout=300)
+            cli[verb] = {"rc": r.returncode, "seconds": time.perf_counter() - t0,
+                         "last_line": (r.stdout.strip().splitlines() or [""])[-1]}
+            require(r.returncode == 0, f"detect {verb} exited {r.returncode}: {r.stderr[-2000:]}")
+        cli_val = json.loads(cli["val"]["last_line"])
+        require(cli_val == ref, f"detect val printed {cli_val}, YOLO(ckpt).val gives {ref}")
+        require((Path(tmp) / "cli" / "weights" / "last.ckpt").exists(), "detect train wrote no last.ckpt")
+
+        # 4. info() on the card
+        info = {}
+        for name in ("yolo11n.yaml", "spectrogram_yolo11n.yaml"):
+            m = YOLO(name)
+            m.model.cuda()
+            info[name] = m.info()
+    emit("scratch", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, epochs=SCRATCH_EPOCHS, rebuilt=tr.rebuilt,
+         launches=launches, launches_by_epoch=by_epoch, loss_items_by_epoch=losses, final_ema_bf16=metrics,
+         epochs_log=log, train_call_s=train_s,
+         ms_per_step_with_wait=[(e["seconds"] - e["val_s"]) / e["steps"] * 1e3 for e in log],
+         loader_wait_ms_per_step=[e["loader_wait_s"] / e["steps"] * 1e3 for e in log],
+         val_s=[e["val_s"] for e in log],
+         ema_val_checks={"fused_bottleneck_bf16": checks, "greedy_keep_k2048": nms},
+         load={"transferred": moved.transferred, "val": loaded, "ckpt_val": ref, "saved_val": resaved,
+               "launches": load_launches, "checks": {"fused_bottleneck": load_checks, "greedy_keep_k2048": load_nms}},
+         cli=cli, info=info, phase_s=time.perf_counter() - t_phase,
+         method="YOLO('yolo11n.yaml').train at its defaults counted from 0 around the call and per epoch by "
+                "callbacks; the kernels checked on the inputs of the first EMA val and of the load val (global "
+                "module hooks); the command line in subprocesses (python -m spectrogram_yolov11_torch)")
+    return launches, checks, nms, load_launches, load_checks, load_nms
 
 
 def main() -> int:
@@ -2379,6 +2559,7 @@ def main() -> int:
     train_val_launches, train_bottleneck, nms_train = phase_train()
     loop_launches, loop_bottleneck, nms_loop, loop_final = phase_train_loop()
     amp_launches, amp_bottleneck, nms_amp = phase_train_amp(loop_final)
+    scratch_launches, scratch_bottleneck, nms_scratch, load_launches, load_bottleneck, nms_load = phase_scratch()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -2399,11 +2580,14 @@ def main() -> int:
                                "train_ema_val": train_val_launches["fused_bottleneck"],
                                "train_loop": loop_launches["fused_bottleneck"],
                                "train_amp": amp_launches["fused_bottleneck"],
+                               "scratch": scratch_launches["fused_bottleneck"],
+                               "load_val": load_launches["fused_bottleneck"],
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
                                                          *serve_checks["fused_bottleneck"].values(),
-                                                         *train_bottleneck.values(), *loop_bottleneck.values())),
+                                                         *train_bottleneck.values(), *loop_bottleneck.values(),
+                                                         *load_bottleneck.values())),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -2418,15 +2602,17 @@ def main() -> int:
                                "val_half": val_launches["bf16"]["fused_bottleneck_bf16"],
                                "images_val_half": images_launches["val_bf16"]["fused_bottleneck_bf16"],
                                "train_amp": amp_launches["fused_bottleneck_bf16"],
+                               "scratch": scratch_launches["fused_bottleneck_bf16"],
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
                                                          *images_checks["fused_bottleneck_bf16"].values(),
-                                                         *amp_bottleneck.values(),
+                                                         *amp_bottleneck.values(), *scratch_bottleneck.values(),
                                                          *serve_checks["fused_bottleneck_bf16"].values())),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
                                                                  *images_checks["fused_bottleneck_bf16"].values(),
                                                                  *amp_bottleneck.values(),
+                                                                 *scratch_bottleneck.values(),
                                                                  *serve_checks["fused_bottleneck_bf16"].values())),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
@@ -2451,6 +2637,7 @@ def main() -> int:
                                "images": sum(v["greedy_keep"] for v in images_launches.values()),
                                "train_ema_val": train_val_launches["greedy_keep"],
                                "train_loop": loop_launches["greedy_keep"], "train_amp": amp_launches["greedy_keep"],
+                               "scratch": scratch_launches["greedy_keep"], "load_val": load_launches["greedy_keep"],
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
@@ -2468,6 +2655,10 @@ def main() -> int:
              train_loop_k2048={k: nms_loop[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                         "scan_steps_mean", "mismatches")},
              train_amp_k2048={k: nms_amp[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "scan_steps_mean", "mismatches")},
+             scratch_k2048={k: nms_scratch[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "scan_steps_mean", "mismatches")},
+             load_val_k2048={k: nms_load[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                       "scan_steps_mean", "mismatches")},
              remote_val_k2048={k: nms_serve[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                        "scan_steps_mean", "mismatches")},

@@ -1,8 +1,7 @@
-"""Predict, val and train configuration. Counterpart of
-spectrogram_yolov11_tpu/cfg/__init__.py (get_cfg :125, check_dict_alignment
-:79, check_cfg :92, get_save_dir :151) over the predict and val keys of its
-cfg/default.yaml and the keys the detect trainer and its augmenting loader
-read, held here as a dict because the port reads no config YAML.
+"""Predict, val and train configuration, and the command line. Counterpart
+of spectrogram_yolov11_tpu/cfg/__init__.py (get_cfg :125, check_dict_alignment
+:79, check_cfg :92, get_save_dir :151, entrypoint :232) over every key of its
+cfg/default.yaml, held here as a dict with JAX's defaults.
 
 Defaults that differ from the JAX package's: `plots` is False (True would
 write plots with matplotlib, which the port does not use; val and train raise
@@ -12,9 +11,33 @@ and `mode` is "predict", so `save_txt` writes under runs/detect/predict*.
 `conf` None is 0.25 in predict and 0.001 in val, `pre_nms_topk` 0 is 1024 in
 predict and 2048 in val, as in the JAX package.
 
-`entrypoint` is the `yolo` command's parser (JAX :232) with one verb,
-`serve` (JAX :307-321), which also takes device=; every other verb or mode
-raises. The port installs no console script: `yolo` stays the JAX package's.
+The keys that JAX's detect path reads the port reads as JAX does. Of the
+rest (every one is accepted at its default, and `get_cfg` handles it so):
+
+| Keys | JAX | The port |
+| --- | --- | --- |
+| `model` | the trainer builds `args.model` when it has no model (engine/trainer.py:204-205); the CLI builds it | the same (engine/trainer.py:setup_model, `entrypoint`); YOLO.train hands it its model's path, as JAX's facade |
+| `source` | predict's source, from the CLI | the same (`entrypoint` hands it to YOLO.predict) |
+| `cfg` | the CLI's `cfg=<yaml>` of overrides | the same; inert in get_cfg, as in JAX |
+| `rect` | warns and is set False (cfg/__init__.py:139-146) | warns and is set False |
+| `pretrained`, `deterministic`, `freeze`, `bgr`, `dropout`, `save_hybrid`, `dnn` | read nowhere | inert |
+| `pose`, `kobj`, `overlap_mask`, `mask_ratio`, `retina_masks`, `copy_paste_mode`, `auto_augment`, `erasing`, `crop_fraction` | read by the pose, segment and classify paths only, or nowhere | inert (the detect task) |
+| `augment`, `visualize` | TTA and feature maps in predict | another value than the default raises: item 5 |
+| `show`, `show_labels`, `show_conf`, `show_boxes`, `line_width` | drawing in predict | the same: item 5 |
+| `save_frames`, `vid_stride`, `stream_buffer` | video and stream sources | the same: item 5 |
+| `embed` | YOLO.embed's layers | the same: item 8 |
+| `format`, `keras`, `int8`, `opset`, `simplify`, `dynamic`, `optimize`, `workspace`, `nms` | the Exporter | the same: item 9 |
+| `tracker` | YOLO.track | the same: item 12 |
+
+`entrypoint` is the `yolo` command's parser (JAX :232) for the verbs
+`train`, `val` and `predict` (the task word `detect` optional), with `k=v`
+and `cfg=<yaml>` overrides, and `serve` (JAX :307-321), which also takes
+device=; the other modes and verbs raise with their ROADMAP.md items. It
+defaults as JAX's: mode train, model yolo11n.yaml, data (train and val
+without it, and no checkpoint data) shapes128.yaml, which the port does not
+package (its synthetic shapes kinds are item 7), so that raises
+FileNotFoundError. `python -m spectrogram_yolov11_torch ...` runs it; the
+port installs no console script: `yolo` stays the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,7 +49,7 @@ from pathlib import Path
 from types import SimpleNamespace
 from typing import Any, Dict, Optional
 
-from ..utils import RUNS_DIR, increment_path, not_ported
+from ..utils import LOGGER, RUNS_DIR, increment_path, not_ported, yaml_load
 
 DEFAULT_CFG_DICT: Dict[str, Any] = {
     "task": "detect",
@@ -98,15 +121,72 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "mosaic": 1.0,
     "mixup": 0.0,  # > 0 is not ported (host augmentation, raises)
     "copy_paste": 0.0,  # inert for detect, as in the JAX package (it needs segments)
+    # the rest of JAX's cfg/default.yaml, at its defaults (the module's table says how each is read)
+    "model": None,  # the trainer builds it when it has no model; YOLO.train passes its model's path
+    "source": None,  # predict's source (the command line)
+    "cfg": None,  # the command line's cfg=<yaml> of overrides
+    "rect": False,  # True warns and is set False, as in JAX
+    "pretrained": True,
+    "deterministic": True,
+    "freeze": None,
+    "bgr": 0.0,
+    "dropout": 0.0,
+    "save_hybrid": False,
+    "dnn": False,
+    "pose": 12.0,
+    "kobj": 1.0,
+    "overlap_mask": True,
+    "mask_ratio": 4,
+    "retina_masks": False,
+    "copy_paste_mode": "flip",
+    "auto_augment": "randaugment",
+    "erasing": 0.4,
+    "crop_fraction": 1.0,
+    "augment": False,
+    "visualize": False,
+    "show": False,
+    "show_labels": True,
+    "show_conf": True,
+    "show_boxes": True,
+    "line_width": None,
+    "save_frames": False,
+    "vid_stride": 1,
+    "stream_buffer": False,
+    "embed": None,
+    "format": "stablehlo",
+    "keras": False,
+    "int8": False,
+    "opset": None,
+    "simplify": True,
+    "dynamic": False,
+    "optimize": False,
+    "workspace": None,
+    "nms": False,
+    "tracker": "botsort.yaml",
+}
+
+# keys of features the port does not have: another value than the default raises, naming the ROADMAP.md item
+_DRAWING, _VIDEO = "item 5 (image encoding and drawing)", "item 5 (video and streams)"
+NOT_PORTED_KEYS = {
+    "augment": "item 5 (TTA)", "visualize": "item 5 (visualize)", "show": _DRAWING, "show_labels": _DRAWING,
+    "show_conf": _DRAWING, "show_boxes": _DRAWING, "line_width": _DRAWING, "save_frames": _VIDEO,
+    "vid_stride": _VIDEO, "stream_buffer": _VIDEO, "embed": "item 8 (embed, profile)",
+    **dict.fromkeys(("format", "keras", "int8", "opset", "simplify", "dynamic", "optimize", "workspace", "nms"),
+                    "item 9 (the Exporter and the artifact kinds)"),
+    "tracker": "item 12 (host-side remainder: trackers)",
 }
 
 FRACTION_KEYS = {"conf", "iou"}
 FLOAT_KEYS = {"lr0", "lrf", "momentum", "weight_decay", "warmup_epochs", "warmup_momentum", "warmup_bias_lr", "box",
               "cls", "dfl", "time", "fraction", "hsv_h", "hsv_s", "hsv_v", "degrees", "translate", "scale", "shear",
-              "perspective", "flipud", "fliplr", "mosaic", "mixup", "copy_paste"}
-INT_KEYS = {"max_det", "pre_nms_topk", "workers", "seed", "epochs", "nbs", "patience", "save_period", "close_mosaic"}
+              "perspective", "flipud", "fliplr", "mosaic", "mixup", "copy_paste", "dropout", "bgr", "workspace"}
+INT_KEYS = {"max_det", "pre_nms_topk", "workers", "seed", "epochs", "nbs", "patience", "save_period", "close_mosaic",
+            "mask_ratio", "vid_stride", "line_width"}
 BOOL_KEYS = {"agnostic_nms", "half", "save", "save_txt", "save_conf", "save_crop", "exist_ok", "verbose",
-             "single_cls", "save_json", "plots", "cos_lr", "amp", "val", "profile", "multi_scale"}
+             "single_cls", "save_json", "plots", "cos_lr", "amp", "val", "profile", "multi_scale", "deterministic",
+             "rect", "overlap_mask", "save_hybrid", "dnn", "show", "save_frames", "show_labels", "show_conf",
+             "visualize", "augment", "retina_masks", "show_boxes", "keras", "optimize", "int8", "dynamic",
+             "simplify", "nms"}
 
 
 class IterableSimpleNamespace(SimpleNamespace):
@@ -159,7 +239,13 @@ def get_cfg(cfg: Optional[dict] = None, overrides: Optional[dict] = None) -> Ite
     for k in ("project", "name"):
         if isinstance(cfg.get(k), (int, float)):
             cfg[k] = str(cfg[k])
+    if cfg.get("rect"):
+        LOGGER.warning("rect=True is not supported (one static image shape per batch); using square letterbox")
+        cfg["rect"] = False
     check_cfg(cfg)
+    for k, item in NOT_PORTED_KEYS.items():
+        if k in cfg and cfg[k] != DEFAULT_CFG_DICT[k]:
+            raise not_ported(f"{k}={cfg[k]!r}", item)
     return IterableSimpleNamespace(**cfg)
 
 
@@ -190,16 +276,30 @@ def parse_key_value_pairs(pairs: list) -> dict:
     return out
 
 
-def entrypoint(debug: str = "") -> Any:
-    """`yolo serve model=best.ckpt [port=8000 host=127.0.0.1 half=False
-    device=cuda block=True data_parallel=False model_parallel=1]`: the
-    KServe-v2 server of serve.py, returned (block=False: started, on its
-    thread). `debug` is a command line to parse instead of sys.argv."""
-    argv = (debug.split(" ") if debug else sys.argv)[1:]
-    verbs = [a for a in argv if "=" not in a]
-    if verbs != ["serve"]:
-        raise not_ported(f"`yolo {' '.join(argv)}`: the port's command line has the serve verb only",
-                         "item 12 (the cfg CLI)")
+TASKS = {"detect", "segment", "classify", "pose", "obb"}
+MODES = {"train", "val", "predict", "export", "track", "benchmark"}
+TASK2DATA = {"detect": "shapes128.yaml"}  # JAX's default data and model for the detect task (cfg/__init__.py:32-45)
+TASK2MODEL = {"detect": "yolo11n.yaml"}
+
+CLI_HELP_MSG = """
+    Usage: python -m spectrogram_yolov11_torch [TASK] MODE [ARGS]
+
+        TASK (optional): detect
+        MODE (required): one of {train, val, predict}, or serve
+        ARGS (optional): 'key=value' overrides, e.g. imgsz=640 data=spectrogram_synth.yaml, and cfg=<yaml>
+
+    Examples:
+        python -m spectrogram_yolov11_torch detect train model=spectrogram_yolo11.yaml data=spectrogram_synth.yaml epochs=2
+        python -m spectrogram_yolov11_torch detect val model=runs/detect/train/weights/best.ckpt data=spectrogram_synth.yaml
+        python -m spectrogram_yolov11_torch predict model=runs/detect/train/weights/best.ckpt source=frames/
+        python -m spectrogram_yolov11_torch serve model=runs/detect/train/weights/best.ckpt port=8000
+"""
+
+
+def _serve(argv: list) -> Any:
+    extra = [a for a in argv if "=" not in a and a != "serve"]
+    if extra:
+        raise SyntaxError(f"`yolo serve` takes key=value arguments only, got {extra}")
     kv = parse_key_value_pairs([a for a in argv if "=" in a])
     from ..serve import serve
 
@@ -208,3 +308,47 @@ def entrypoint(debug: str = "") -> Any:
                  data_parallel=bool(kv.get("data_parallel", False)),
                  half=bool(kv.get("half", False)), model_parallel=int(kv.get("model_parallel", 1)),
                  device=kv.get("device", "cuda"))
+
+
+def entrypoint(debug: str = "") -> Any:
+    """The `yolo` command line (JAX :232): `[detect] train|val|predict k=v ...
+    [cfg=<yaml>]` builds YOLO(model, task=task) and calls the mode with the
+    overrides (the card unless device=cpu); `serve model=best.ckpt [port=8000
+    host=127.0.0.1 half=False device=cuda block=True data_parallel=False
+    model_parallel=1]` returns the KServe-v2 server of serve.py (block=False:
+    started, on its thread). `debug` is a command line to parse instead of
+    sys.argv. The other modes and verbs raise with their ROADMAP.md items."""
+    argv = (debug.split(" ") if debug else sys.argv)[1:]
+    if not argv or argv[0] in {"help", "-h", "--help"}:
+        print(CLI_HELP_MSG)
+        return None
+    overrides: dict = {}
+    task = mode = None
+    kv: list = []
+    for a in argv:
+        if a in TASKS:
+            task = a
+        elif a in MODES:
+            mode = a
+        elif a == "serve":
+            return _serve(argv)
+        elif a in {"settings", "cfg", "copy-cfg", "hub", "login", "logout", "solutions", "checks", "version"}:
+            raise not_ported(f"`yolo {a}`", "item 12 (host-side remainder: the CLI's other verbs)")
+        elif a.startswith("cfg="):
+            overrides.update(yaml_load(a.split("=", 1)[1]))
+        elif "=" in a:
+            kv.append(a)
+        else:
+            raise SyntaxError(f"'{a}' is not a valid argument.\n{CLI_HELP_MSG}")
+    overrides.update(parse_key_value_pairs(kv))
+    check_dict_alignment({**DEFAULT_CFG_DICT, "task": task, "mode": mode}, overrides)
+    mode = mode or overrides.pop("mode", None) or "train"
+    task = task or overrides.pop("task", None)
+    model = overrides.pop("model", None) or TASK2MODEL.get(task or "detect")
+    from .. import YOLO
+
+    m = YOLO(model, task=task)
+    if mode in {"train", "val"} and "data" not in overrides and not getattr(m, "ckpt_data", None):
+        overrides["data"] = TASK2DATA.get(m.task or "detect")
+        LOGGER.warning(f"'data' argument missing, using default {overrides['data']}")
+    return getattr(m, mode)(**overrides)  # export, track and benchmark raise with their items

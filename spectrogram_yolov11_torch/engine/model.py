@@ -1,22 +1,33 @@
 """The `YOLO` facade for the port. Counterpart of
-spectrogram_yolov11_tpu/engine/model.py:40 YOLO for the detect task on the JAX
-package's `.ckpt` checkpoints:
+spectrogram_yolov11_tpu/engine/model.py:40 YOLO for the detect task on model
+YAMLs and the JAX package's `.ckpt` checkpoints:
 
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").predict("capture.npy")
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").val(data="spectrogram_synth.yaml", batch=32)
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").train(data="spectrogram_synth.yaml", epochs=3)
+    YOLO("yolo11n.yaml").train(data="spectrogram_synth.yaml", epochs=2)   # from scratch, the head rebuilt for nc=2
+    YOLO("spectrogram_yolo11n.yaml").load("best.ckpt").val(data=...)    # transfer by path and shape
     YOLO("http://127.0.0.1:8000/spec").predict(frames)   # a served model (serve.py)
 
-The weights (EMA before the raw variables) are read on the host, carried
-across by the weight bridge and folded for the bottleneck kernel; predict
-moves the model to its device, the card unless the caller passes
-device="cpu", and raises without a card. Predictors are cached on their
-sorted overrides, as in the JAX facade, `half` among them: predict(half=True)
-runs a bf16 copy of the model and leaves the f32 model to half=False calls.
+A model YAML (a path, a packaged name such as `yolo11n.yaml`, or the bare
+name `yolo11n`, read as `yolo11n.yaml`) builds the network with fresh weights
+drawn from seed 0, as the JAX facade inits with PRNGKey(0) (_new :83-87,
+_ensure_variables); `load` transfers a checkpoint's weights by path and
+shape (:176), `reset_weights` draws them anew, `save` writes a checkpoint in
+the JAX layout with epoch -1 (:378), `info` gives layers, parameters and
+GFLOPs (:395), `fuse` is a no-op that logs, as JAX's (:428): the port folds
+each fused bottleneck whenever the model goes to eval mode. A checkpoint's
+weights (EMA before the raw variables) are read on the host, carried across
+by the weight bridge and folded for the bottleneck kernel; predict moves the
+model to its device, the card unless the caller passes device="cpu", and
+raises without a card. Predictors are cached on their sorted overrides, as
+in the JAX facade, `half` among them: predict(half=True) runs a bf16 copy of
+the model and leaves the f32 model to half=False calls.
 val builds a DetectionValidator per call (engine/validator.py), kept as
 `self.validator`, with the same defaults and callbacks; train runs a
-DetectionTrainer (engine/trainer.py), kept as `self.trainer`, and leaves the
-EMA's weights on the model, at the compute dtype the trainer set: after an
+DetectionTrainer (engine/trainer.py), kept as `self.trainer`, which rebuilds
+the head when the data's nc differs from the model's, and leaves the EMA's
+weights on the model, at the compute dtype the trainer set: after an
 amp=True run (the default) val() and predict() run the model's bf16 copy
 even at half=False, as the JAX facade keeps the model whose dtype its
 trainer's setup_model changed in place; a later train(amp=False) sets it
@@ -24,10 +35,12 @@ back to f32.
 A KServe-v2 URL (http:// or https://) makes an inference-only facade over the
 served model, as JAX's _load_remote (:130): predict runs
 serve.py:RemotePredictor and val validator.py:BackendValidator, each with its
-NMS on the client's device (the card unless device="cpu"); train raises
-ValueError; names and stride come from the server's metadata.
-Other model sources and modes raise NotImplementedError naming the
-ROADMAP.md item that ports them.
+NMS on the client's device (the card unless device="cpu"); train, load,
+save and the other weight methods raise ValueError; names and stride come
+from the server's metadata.
+Other model sources and modes (reference .pt files, exported artifacts,
+`embed`, `profile`) raise NotImplementedError naming the ROADMAP.md item
+that ports them.
 """
 
 from __future__ import annotations
@@ -37,8 +50,12 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..nn.tasks import build_model, intersect_state_dicts
+from ..utils import LOGGER
 from ..utils import not_ported as _not_ported
 from ..utils.callbacks import default_callbacks
+from ..utils.jax_compat import state_dict_to_variables, variables_to_state_dict
+from .checkpoint import load_checkpoint, save_checkpoint
 from .pipeline import load_model
 from .predictor import BasePredictor
 from .trainer import DetectionTrainer
@@ -46,7 +63,8 @@ from .validator import BackendValidator, DetectionValidator
 
 
 class YOLO:
-    """`YOLO('best.ckpt')` on the PyTorch port; `device` sets the default device of predict and val."""
+    """`YOLO('best.ckpt')` or `YOLO('yolo11n.yaml')` on the PyTorch port;
+    `device` sets the default device of predict, val and train."""
 
     def __init__(self, model: str | Path = "yolo11n.yaml", task: Optional[str] = None, verbose: bool = False,
                  device: Optional[str] = None):
@@ -72,14 +90,22 @@ class YOLO:
                 raise _not_ported(f"task {self.backend.task!r} of {self.model_path}", "item 10 (other heads)")
             return
         suffix = Path(self.model_path).suffix
-        if suffix == ".ckpt":
+        if suffix in {".yaml", ".yml"}:
+            self._new(self.model_path)
+        elif suffix == ".ckpt":
             self._load_ckpt(self.model_path)
         elif suffix == ".pt":
             raise _not_ported(f"reference .pt import ({self.model_path})", "item 11 (other model families)")
         elif suffix in {".stablehlo", ".tflite", ".onnx"} or (Path(self.model_path) / "saved_model.pb").exists():
             raise _not_ported(f"exported model {self.model_path!r}", "item 9 (the Exporter and the artifact kinds)")
-        else:  # .yaml, or a bare name that the JAX facade reads as one
-            raise _not_ported(f"building a model from YAML ({self.model_path})", "item 8 (trainer loop: from-scratch init)")
+        else:  # a bare name such as 'yolo11n', which the JAX facade reads as 'yolo11n.yaml'
+            self._new(self.model_path + ".yaml")
+
+    def _new(self, cfg_path: str) -> None:
+        """The model of a YAML, with fresh weights from seed 0 (JAX :83-87 and
+        _ensure_variables' PRNGKey(0)), on the host; another task's raises (item 10)."""
+        self.model = build_model(cfg_path).init(0)
+        self.overrides["model"] = cfg_path
 
     def _load_ckpt(self, path: str) -> None:
         self.model, meta = load_model(path)
@@ -87,6 +113,78 @@ class YOLO:
         self.ckpt_meta = meta
         self.overrides["model"] = path
         self.ckpt_data = (meta.get("train_args") or {}).get("data") or None
+
+    def _local(self, what: str) -> None:
+        if self.backend is not None:
+            raise ValueError(f"remote (served) models are inference-only: {what} needs a local model")
+
+    def _weights_changed(self) -> None:
+        self.predictor, self._predictor_key = None, None  # the next predict rebuilds
+
+    # -- weights -------------------------------------------------------------
+    def load(self, weights: str | Path = "yolo11n.pt") -> "YOLO":
+        """Transfer a checkpoint's weights (its EMA before its raw variables)
+        into this model, every leaf whose path and shape match; the rest keep
+        theirs (JAX :176, `YOLO('yolo11n.yaml').load('best.ckpt')`). The count
+        of transferred leaves is logged, as JAX logs it, and kept as
+        `self.transferred`. Reference .pt files raise (item 11)."""
+        self._local("load")
+        path = str(weights)
+        if Path(path).suffix == ".pt":
+            raise _not_ported(f"reference .pt import ({path})", "item 11 (other model families)")
+        tree, _ = load_checkpoint(path)
+        src = variables_to_state_dict(tree.get("ema") or tree["variables"])
+        merged, self.transferred = intersect_state_dicts(self.model.state_dict(), src)
+        self.model.load_state_dict(merged)
+        LOGGER.info(f"load({path}): transferred {self.transferred} matching weight leaves")
+        self._weights_changed()
+        return self
+
+    def reset_weights(self) -> "YOLO":
+        """Draw every weight anew from seed 0 (JAX :202)."""
+        self._local("reset_weights")
+        self.model.init(0)
+        self._weights_changed()
+        return self
+
+    def eval(self) -> "YOLO":
+        """A no-op, as JAX's (:209): predict and val put the model in eval mode themselves."""
+        return self
+
+    @property
+    def transforms(self):
+        """None: no checkpoint carries inference transforms (JAX :223)."""
+        return None
+
+    def save(self, path: str | Path) -> None:
+        """The model's weights as a checkpoint in the JAX layout (JAX :378):
+        epoch -1, no EMA and no optimizer state, the model dict, names and nc
+        in its header; YOLO(path) and JAX's facade read it back."""
+        from .. import __version__
+
+        self._local("save")
+        m = self.model
+        save_checkpoint(Path(path), variables=state_dict_to_variables(m.state_dict()), ema_variables=None,
+                        opt_state=None, epoch=-1, best_fitness=0.0, updates=0,
+                        model_yaml={k: v for k, v in m.yaml.items() if k != "yaml_file"}, names=m.names, nc=m.nc,
+                        version=__version__)
+
+    def info(self, imgsz: int = 640, flops: bool = True) -> str:
+        """'<name> summary: L layers, P parameters, G GFLOPs @ imgsz px' (JAX :395; nn/tasks.py:DetectionModel.info)."""
+        self._local("info")
+        return self.model.info(imgsz=imgsz, flops=flops)
+
+    def fuse(self) -> "YOLO":
+        """A no-op that logs, as JAX's (:428): the port folds BN into each fused
+        bottleneck's kernel weights whenever the model goes to eval mode."""
+        LOGGER.info("fuse(): the fused bottlenecks fold BN at eval; conv+BN pairs run unfolded (cuDNN)")
+        return self
+
+    def embed(self, *args, **kwargs):
+        raise _not_ported("embed (feature embeddings)", "item 8 (embed, profile)")
+
+    def profile(self, *args, **kwargs):
+        raise _not_ported("profile (per-layer times)", "item 8 (embed, profile)")
 
     # -- callbacks ---------------------------------------------------------
     def add_callback(self, event: str, func) -> None:
@@ -143,21 +241,24 @@ class YOLO:
         return self.predict(source, **kwargs)
 
     def train(self, **kwargs) -> Dict[str, float]:
-        """Train the checkpoint's model on `data` (JAX facade :241-268):
-        train(data=..., epochs=N, ...) -> the last validation's results_dict,
-        in bf16 with f32 parameters at the default amp=True, in f32 with
-        amp=False. Afterwards the facade holds the EMA's weights at the
-        trainer's compute dtype (bf16 after amp: val() and predict() then run
-        bf16), and the next predict builds its predictor anew; see
-        engine/trainer.py for the options that raise."""
+        """Train the model on `data` (JAX facade :241-268): train(data=...,
+        epochs=N, ...) -> the last validation's results_dict, in bf16 with f32
+        parameters at the default amp=True, in f32 with amp=False. A model
+        whose nc differs from the data's is rebuilt first, every matching leaf
+        grafted (engine/trainer.py:setup_model). Afterwards the facade holds
+        the trained model with the EMA's weights at the trainer's compute dtype
+        (bf16 after amp: val() and predict() then run bf16), and the next
+        predict builds its predictor anew; see engine/trainer.py for the
+        options that raise."""
         if self.backend is not None:
             raise ValueError("remote (served) models are inference-only; train locally and re-serve")
-        overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"model", "task", "mode"}}
+        overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"task", "mode"}}
+        overrides.setdefault("model", self.model_path)
         trainer = DetectionTrainer(self.model, overrides)
         self._merge_callbacks(trainer)
         metrics = trainer.train()
         self.model, self.trainer = trainer.model, trainer
-        self.predictor, self._predictor_key = None, None  # the weights changed: the next predict rebuilds
+        self._weights_changed()
         return metrics
 
     def val(self, **kwargs) -> Dict[str, float]:
@@ -183,3 +284,6 @@ class YOLO:
 
     def export(self, **kwargs):
         raise _not_ported("export", "item 9 (the Exporter and the artifact kinds)")
+
+    def benchmark(self, **kwargs):
+        raise _not_ported("benchmark", "item 12 (host-side remainder: benchmark)")

@@ -38,6 +38,15 @@ f32, and there is no loss scaling (JAX has no grad scaler). The EMA's val runs
 a bf16 copy of the EMA (DetectionModel.set_dtype), made anew each epoch, as
 JAX's validator runs the bf16 graph. amp=False trains in f32.
 
+The model: the caller's (the facade's), or, given None, one built from
+`args.model` (default yolo11n.yaml) with the data's nc and fresh weights
+from `args.seed` (JAX :204-216). A model whose nc differs from the data's is
+rebuilt with the data's nc, drawn from `args.seed`, and every leaf of the old
+model whose path and shape match is grafted onto it (JAX :191-203,
+nn/tasks.py:intersect_state_dicts); `rebuilt` records the nc change and the
+grafted count. So YOLO("yolo11n.yaml") (nc 80) trains on 2-class data with
+every leaf but the class branch's carried over.
+
 f32 work runs in full f32: the whole step, backward and update included,
 runs under utils.full_f32, so cuDNN's backward convolutions do not fall back
 to TF32 when the process has it on. Not ported, and raising with their
@@ -60,10 +69,10 @@ import torch
 from ..cfg import DEFAULT_CFG_DICT, get_cfg, get_save_dir
 from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
-from ..nn.tasks import DetectionModel
+from ..nn.tasks import DetectionModel, build_model, intersect_state_dicts
 from ..ops.device_augment import augment_batch
 from ..ops.losses import detection_loss
-from ..utils import RUNS_DIR, full_f32, get_latest_run, not_ported, resolve_device
+from ..utils import LOGGER, RUNS_DIR, full_f32, get_latest_run, not_ported, resolve_device
 from ..utils.callbacks import default_callbacks, run_callbacks
 from ..utils.jax_compat import (opt_state_from_flax, opt_state_to_flax, state_dict_to_variables,
                                 variables_to_state_dict)
@@ -109,13 +118,13 @@ class EarlyStopping:
 
 
 class DetectionTrainer:
-    """The detect trainer for `model` (a DetectionModel in f32) on the dataset
-    `overrides["data"]` names: train() runs the whole loop; a caller that
-    feeds its own batches runs setup_model(), setup_optimizer(nb), then
-    train_step(batch, ni, step_due(ni)) per batch, and validate() to score
-    the EMA."""
+    """The detect trainer for `model` (a DetectionModel in f32, or None: one
+    built from `overrides["model"]`) on the dataset `overrides["data"]`
+    names: train() runs the whole loop; a caller that feeds its own batches
+    runs setup_model(), setup_optimizer(nb), then train_step(batch, ni,
+    step_due(ni)) per batch, and validate() to score the EMA."""
 
-    def __init__(self, model: DetectionModel, overrides: Optional[dict] = None):
+    def __init__(self, model: Optional[DetectionModel], overrides: Optional[dict] = None):
         self.args = get_cfg(DEFAULT_CFG_DICT, {"mode": "train", **(overrides or {})})
         a = self.args
         if a.data is None:
@@ -146,6 +155,7 @@ class DetectionTrainer:
         self.metrics: Dict[str, float] = {}
         self.epoch_log: list = []  # per epoch: seconds, loader wait, val seconds (train())
         self.split_events: Optional[list] = None  # a list: train_step records its split there (see _mark)
+        self.rebuilt: Optional[dict] = None  # {"nc": (model's, data's), "grafted": leaves} after an nc rebuild
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -155,11 +165,19 @@ class DetectionTrainer:
     def setup_model(self) -> None:
         """The model on the trainer's device (channels_last on the card), in
         training mode at the trainer's compute dtype, as JAX's setup_model
-        retraces the facade's model in place (:178-181)."""
-        m = self.model
-        if m.nc != self.data["nc"]:
-            raise not_ported(f"training a model of nc={m.nc} on data of nc={self.data['nc']} (a rebuilt head)",
-                             "item 8 (trainer loop: from-scratch init)")
+        retraces the facade's model in place (:178-181): rebuilt for the
+        data's nc when it differs, or built from args.model when there is
+        none (JAX :191-216)."""
+        m, nc, seed = self.model, self.data["nc"], self.args.seed
+        if m is not None and m.nc != nc:
+            LOGGER.info(f"Overriding model nc={m.nc} with dataset nc={nc}")
+            new = build_model({k: v for k, v in m.yaml.items() if k != "yaml_file"}, nc=nc).init(seed)
+            merged, grafted = intersect_state_dicts(new.state_dict(), m.state_dict())
+            new.load_state_dict(merged)
+            self.rebuilt = {"nc": (m.nc, nc), "grafted": grafted}
+            m = new
+        if m is None:
+            m = build_model(str(self.args.model or "yolo11n.yaml"), nc=nc).init(seed)
         if m.dtype != torch.float32:
             raise ValueError(f"the trainer trains an f32 model, got {m.dtype}")
         fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format

@@ -1,17 +1,21 @@
 """AutoBackend: one forward() over the model sources the port serves.
-Counterpart of spectrogram_yolov11_tpu/nn/autobackend.py for two kinds:
+Counterpart of spectrogram_yolov11_tpu/nn/autobackend.py for three kinds:
 
   .ckpt          the JAX package's checkpoints: loaded by
                  engine/pipeline.py:load_model (BN folded), moved to `device`
                  by eval_network (channels_last on the card; with half=True
                  its bf16 copy), run by engine/exporter.py:build_inference_fn
+  .yaml          a model YAML (a path, a packaged name, or a bare name such
+                 as yolo11n, the default kind): the architecture with fresh
+                 weights from seed 0, as JAX's YOLO(yaml) (:7, :56), run as a
+                 checkpoint is
   http(s)://     a KServe-v2 server (serve.py:RemoteModel), ours or any other
 
 forward(uint8 (B, H, W, 3) RGB frames, numpy or tensor) -> the decoded
 predictions (B, A, 4 + nc) f32: a tensor on `device` for a checkpoint, a
-numpy array for a server. YAML models, reference .pt files and exported
-artifacts raise NotImplementedError naming the ROADMAP.md item that ports
-them; grpc:// raises as the JAX client does.
+numpy array for a server. Reference .pt files and exported artifacts raise
+NotImplementedError naming the ROADMAP.md item that ports them; grpc://
+raises as the JAX client does.
 
 SYT_WIRE_ENCODE=png sends each frame to a server as PNG bytes (the BYTES
 ingest, serve.py:encode_images) instead of the raw tensor; `jpg` raises (the
@@ -64,12 +68,16 @@ class AutoBackend:
         self.names: dict = {}
         self.stride = np.array([8.0, 16.0, 32.0])
         self.task = "detect"
-        if self.kind == "ckpt":
+        if self.kind in ("ckpt", "yaml"):
             from ..engine.exporter import build_inference_fn
             from ..engine.pipeline import eval_network, load_model
+            from .tasks import build_model
 
             self.device = resolve_device(device)
-            model, meta = load_model(self.weights)
+            if self.kind == "ckpt":
+                model, meta = load_model(self.weights)
+            else:
+                model, meta = build_model(self.weights).init(0), {}
             names = meta.get("names") or {i: f"{i}" for i in range(model.nc)}
             self.names = {int(k): str(v) for k, v in names.items()}
             self.model = eval_network(model, half, self.device)
@@ -88,8 +96,6 @@ class AutoBackend:
             if md.get("kpt_shape"):
                 self.kpt_shape = tuple(int(x) for x in md["kpt_shape"])
             self._wire = os.environ.get("SYT_WIRE_ENCODE", "")
-        elif self.kind == "yaml":
-            raise not_ported(f"building a model from YAML ({self.weights})", "item 8 (trainer loop: from-scratch init)")
         elif self.kind == "pt":
             raise not_ported(f"reference .pt import ({self.weights})", "item 11 (other model families)")
         else:

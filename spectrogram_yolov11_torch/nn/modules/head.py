@@ -9,6 +9,7 @@ dtype, as the JAX head's conv2d at the model's dtype.
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import torch
@@ -40,6 +41,14 @@ class Detect(nn.Module):
             )
             for x in ch
         )
+
+    @torch.no_grad()
+    def bias_init(self, strides: Sequence[float]) -> None:
+        """JAX's detect_bias_init (nn/modules/head.py:192): each level's box
+        branch ends in bias 1.0, its class branch in log(5 / nc / (640 / s)^2)."""
+        for box, cls, s in zip(self.cv2, self.cv3, strides):
+            box[-1].bias.fill_(1.0)
+            cls[-1].bias.fill_(math.log(5 / self.nc / (640 / float(s)) ** 2))
 
     def forward(self, xs: List[torch.Tensor]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         return [(self.cv2[i](x), self.cv3[i](x)) for i, x in enumerate(xs)]

@@ -1,14 +1,18 @@
-"""Model dict -> network graph, and the detection model of the port.
+"""Model YAML or dict -> network graph, and the detection model of the port.
 
 Counterpart of spectrogram_yolov11_tpu/nn/tasks.py: parse_model (:232), the
-YOLOGraph routing (:379), DetectionModel and build_model, restricted to the
-modules the trained spectrogram detector and the stock YOLO11 detect models
-use. Scaling matches the JAX parse_model: channels make_divisible(min(c,
-max_channels) * width, 8), repeats max(round(n * depth), 1). Any other module
-name raises KeyError.
+YOLOGraph routing (:379), yaml_model_load (:459), guess_model_task (:475),
+DetectionModel with init / _bias_init (:557, :575) and info (:589), and
+build_model (:848), restricted to the modules the trained spectrogram
+detector and the stock YOLO11 detect models use. Scaling matches the JAX
+parse_model: channels make_divisible(min(c, max_channels) * width, 8),
+repeats max(round(n * depth), 1). Any other module name raises KeyError.
 
-The model is built from a dict (a checkpoint's `model_yaml`), so the port
-needs no YAML parser.
+A model is built from a dict (a checkpoint's `model_yaml`) or from a model
+YAML: a path, or a name that find_model_yaml (JAX cfg/__init__.py:349)
+resolves under the port's cfg/models/ (yolo11.yaml, spectrogram_yolo11.yaml;
+`yolo11n.yaml` and the bare `yolo11n` are yolo11.yaml at scale n), read by
+utils.yaml_load. Heads other than Detect raise with their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -16,14 +20,20 @@ from __future__ import annotations
 import ast
 import contextlib
 import copy
-from typing import Any, Dict, List, Optional, Tuple
+import math
+import re
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.flop_counter import FlopCounterMode
 
-from ..utils import full_f32, make_divisible
+from ..utils import LOGGER, full_f32, make_divisible, not_ported, yaml_load
 from ..utils.jax_compat import variables_to_state_dict
 from . import modules as M
+
+MODELS_DIR = Path(__file__).resolve().parents[1] / "cfg" / "models"
 
 MODULE_REGISTRY: Dict[str, type] = {
     "Conv": M.Conv,
@@ -41,6 +51,64 @@ MODULE_REGISTRY: Dict[str, type] = {
 BASE_MODULES = {M.Conv, M.DWConv, M.Bottleneck, M.C3k, M.C3k2, M.SPPF, M.C2PSA, M.HCoordAtt}
 REPEAT_MODULES = {M.C3k, M.C3k2, M.C2PSA}
 SCALE_SENSITIVE = {M.C3k2}  # args[3] (c3k) flips on m/l/x scales
+
+
+def find_model_yaml(name: str | Path) -> Path:
+    """A model YAML by path or by name under the port's cfg/models/ (JAX
+    cfg/__init__.py:349): the name as given, then without its scale letter
+    (yolo11n -> yolo11). The other tasks' YAMLs of the JAX package (-seg,
+    -pose, -obb, -cls) raise with their ROADMAP.md item."""
+    p = Path(name)
+    if p.exists():
+        return p
+    stem = p.stem
+    unified = re.sub(r"(\d+)([nslmx])([-_]|$)", r"\1\3", stem)
+    for cand in (stem, unified):
+        hits = sorted(MODELS_DIR.rglob(f"{cand}.yaml"))
+        if hits:
+            return hits[0]
+    if re.search(r"-(seg|pose|obb|cls)\b", stem):
+        raise not_ported(f"the {stem} model (another task's head)", "item 10 (other heads)")
+    raise FileNotFoundError(f"Model yaml '{name}' not found under {MODELS_DIR}")
+
+
+def yaml_model_load(path: str | Path) -> dict:
+    """A model YAML as a dict, with its scale from the file name (yolo11n.yaml
+    -> n), else the YAML's `scale`, else its first scale; `yaml_file` and
+    `yaml_name` (the stem) added, as JAX's yaml_model_load."""
+    path = Path(str(path))
+    name = path.stem
+    m = re.match(r"^(.*?)(\d+)([nslmx])([-_].*)?$", name) or re.match(r"^(yolo\w*?)([nslmx])([-_].*)?$", name)
+    scale = None
+    if m:
+        groups = m.groups()
+        scale = groups[2] if len(groups) == 4 else groups[1]
+    d = yaml_load(find_model_yaml(path), append_filename=True)
+    d["scale"] = d.get("scale") or scale or (tuple(d["scales"].keys())[0] if d.get("scales") else None)
+    d["yaml_name"] = name
+    return d
+
+
+def guess_model_task(d: dict) -> str:
+    """The task of a model dict, from its last head module (JAX :475)."""
+    head = d["head"][-1][2]
+    return {"Detect": "detect", "Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify",
+            "RTDETRDecoder": "rtdetr", "v10Detect": "detect", "WorldDetect": "world"}.get(head.split(".")[-1], "detect")
+
+
+def intersect_state_dicts(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]) -> Tuple[dict, int]:
+    """`dst` with every entry of `src` whose name and shape match it: the port's
+    copy of JAX's _intersect_variables (engine/model.py:22), the transfer of
+    `YOLO(yaml).load(ckpt)` and of the trainer's nc rebuild. Returns the merged
+    state dict and the count of transferred leaves, counted as JAX counts
+    them: torch's BN bookkeeping (`num_batches_tracked`) has no flax leaf and
+    is left out of the count."""
+    out, n = dict(dst), 0
+    for k, v in dst.items():
+        if k in src and tuple(src[k].shape) == tuple(v.shape):
+            out[k] = src[k]
+            n += not k.endswith(".num_batches_tracked")
+    return out, n
 
 
 def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]]:
@@ -131,6 +199,8 @@ class DetectionModel(nn.Module):
         if nc and nc != self.yaml.get("nc"):
             self.yaml["nc"] = nc
         self.nc = self.yaml["nc"]
+        self.ch = ch
+        self.names = {i: f"{i}" for i in range(self.nc)}  # the data's or a checkpoint's names replace these
         self.dtype = torch.float32  # the activations' dtype; parameters too, except BN's, which stay f32
         self.compute_dtype = torch.float32  # the activations' dtype in training; parameters stay f32
         layers, self.routes, self.save = parse_model(self.yaml, ch)
@@ -209,12 +279,70 @@ class DetectionModel(nn.Module):
         self.fold()
         return result
 
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> "DetectionModel":
+        """Fresh weights in place, drawn from a torch.Generator seeded with
+        `seed` (JAX's init and _bias_init, nn/tasks.py:557, :575), and folded:
+        every conv weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with
+        fan_in = cin/groups * kh * kw (JAX's torch_kernel_init and
+        torch_bias_init, nn/modules/conv.py:90, :101), drawn in module order;
+        BN scale 1, bias 0, mean 0, variance 1; then Detect's bias init
+        (head.py). flax's threefry streams are not reproduced: the random
+        leaves follow JAX's distributions, the deterministic ones equal
+        JAX's. Returns the model."""
+        if self.dtype != torch.float32:
+            raise ValueError(f"init draws the weights of an f32 model, not of its {self.dtype} copy")
+        g = torch.Generator().manual_seed(int(seed))
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                bound = 1.0 / math.sqrt(max(m.weight[0].numel(), 1))
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+        for m in self.modules():  # after the draws: modules() visits the head before its convs
+            if isinstance(m, M.Detect):
+                m.bias_init(self.stride)
+        self.fold()
+        return self
 
-def build_model(cfg: dict, nc: Optional[int] = None, variables: Optional[dict] = None) -> DetectionModel:
-    """DetectionModel from a model dict; with `variables` (flax {params,
-    batch_stats} numpy trees) the weights are carried across by the bridge and
-    loaded with strict=True."""
-    model = DetectionModel(cfg, nc=nc)
+    def get_flops(self, imgsz: int = 640) -> float:
+        """GFLOPs of one forward of a (1, 3, imgsz, imgsz) image, counted from
+        the layer shapes as 2 x the multiply-adds of every convolution and
+        matrix product (torch.utils.flop_counter), on a copy on the meta
+        device (no arithmetic runs) in training mode, where the fused
+        bottlenecks run their two convs. JAX's get_flops asks XLA's cost
+        analysis, which also counts the elementwise work (BN, SiLU, adds,
+        pools, softmax)."""
+        meta = copy.deepcopy(self).to("meta").train()
+        with FlopCounterMode(display=False) as counter, torch.no_grad():
+            meta(torch.zeros(1, self.ch, int(imgsz), int(imgsz), device="meta"))
+        return counter.get_total_flops() / 1e9
+
+    def info(self, imgsz: int = 640, flops: bool = True) -> str:
+        """The summary line JAX's info (:589) logs and returns: layers (rows of
+        the YAML), parameters (BN's scale and bias among them, no statistics)
+        and GFLOPs at imgsz (get_flops)."""
+        n_params = sum(p.numel() for p in self.parameters())
+        msg = f"{self.yaml.get('yaml_name', 'model')} summary: {len(self.model)} layers, {n_params:,} parameters"
+        if flops:
+            msg += f", {self.get_flops(imgsz):.1f} GFLOPs @ {imgsz}px"
+        LOGGER.info(msg)
+        return msg
+
+
+def build_model(cfg: Union[str, Path, dict], nc: Optional[int] = None,
+                variables: Optional[dict] = None) -> DetectionModel:
+    """DetectionModel from a model dict or a model YAML (yaml_model_load); with
+    `variables` (flax {params, batch_stats} numpy trees) the weights are
+    carried across by the bridge and loaded with strict=True, else the model
+    holds torch's default init until `init(seed)` draws JAX's."""
+    d = cfg if isinstance(cfg, dict) else yaml_model_load(cfg)
+    task = guess_model_task(d) if d.get("head") else "detect"  # a headless dict fails in parse_model
+    if task != "detect":
+        raise not_ported(f"a {task} model ({d.get('yaml_name') or d['head'][-1][2]})", "item 10 (other heads)")
+    model = DetectionModel(d, nc=nc)
     if variables is not None:
         model.load_state_dict(variables_to_state_dict(variables), strict=True)
     return model

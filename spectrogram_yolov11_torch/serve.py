@@ -119,14 +119,14 @@ def _bucket(n: int) -> int:
 
 
 class _ModelRunner:
-    """One served checkpoint: its AutoBackend on the server's device, batch
+    """One served checkpoint or model YAML: its AutoBackend on the server's device, batch
     bucketing, and the dynamic-batching dispatcher thread."""
 
     def __init__(self, source, name: Optional[str] = None, data_parallel: bool = False, half: bool = False,
                  model_parallel: int = 1, dynamic_batch: bool = True, max_batch: int = 256,
                  device: str | torch.device = "cuda"):
         self.backend = source if isinstance(source, AutoBackend) else AutoBackend(str(source), half=half, device=device)
-        if self.backend.kind != "ckpt":
+        if self.backend.kind not in ("ckpt", "yaml"):
             raise not_ported(f"serving the {self.backend.kind} source {self.backend.weights!r}",
                              "item 9 (the Exporter and the artifact kinds)")
         self.device = self.backend.device
@@ -589,7 +589,7 @@ class RemotePredictor(BasePredictor):
 def serve(models, host: str = "127.0.0.1", port: int = 8000, block: bool = True, data_parallel: bool = False,
           half: bool = False, model_parallel: int = 1, dynamic_batch: bool = True, max_batch: int = 256,
           device: str | torch.device = "cuda") -> InferenceServer:
-    """Serve `models` (a checkpoint path, or {name: path}) on `device`, the
+    """Serve `models` (a checkpoint path or model YAML, or {name: path}) on `device`, the
     card unless the caller passes "cpu" (raises without one). block=False
     returns the started server; `yolo serve` (cfg/__init__.py) calls this."""
     srv = InferenceServer(models, host=host, port=port, data_parallel=data_parallel, half=half,

@@ -3,15 +3,17 @@
 from __future__ import annotations
 
 import contextlib
+import logging
 import math
 import os
 import re
 import threading
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
+LOGGER = logging.getLogger("spectrogram_yolov11_torch")
 REPO_ROOT = Path(__file__).resolve().parents[2]
 RUNS_DIR = Path(os.getenv("SYT_RUNS_DIR", REPO_ROOT / "runs"))
 
@@ -126,15 +128,45 @@ def _yaml_scalar(text: str, where: str) -> Any:
     return t
 
 
+def _flow_seq(t: str, i: int, where: str) -> Tuple[list, int]:
+    """The flow sequence that opens at t[i] == '[' (nested ones too, of plain
+    or quoted scalars) -> (its list, the index after its ']')."""
+    out: list = []
+    i += 1
+    while True:
+        while i < len(t) and t[i] == " ":
+            i += 1
+        if i < len(t) and t[i] == "]":
+            return out, i + 1
+        if i < len(t) and t[i] == "[":
+            item, i = _flow_seq(t, i, where)
+        else:
+            j = t.find(t[i], i + 1) + 1 if i < len(t) and t[i] in "'\"" else i
+            if j == 0:
+                raise ValueError(f"unterminated quote at {where}: {t!r}")
+            while j < len(t) and t[j] not in ",]":
+                j += 1
+            if not t[i:j].strip():
+                raise ValueError(f"empty or unterminated YAML flow list item at {where}: {t!r}")
+            item, i = _yaml_scalar(t[i:j], where), j
+        out.append(item)
+        while i < len(t) and t[i] == " ":
+            i += 1
+        if i < len(t) and t[i] == ",":
+            i += 1
+        elif i >= len(t) or t[i] != "]":
+            raise ValueError(f"unsupported YAML flow list at {where}: {t!r}")
+
+
 def _yaml_value(text: str, where: str) -> Any:
-    """A scalar, or a one-line flow list [a, b, ...] of scalars."""
+    """A scalar, or a one-line flow list [a, [b, c], ...] of scalars and flow lists."""
     t = text.strip()
-    if t.startswith("["):
-        if not t.endswith("]") or any(c in t[1:-1] for c in "[]{}"):
-            raise ValueError(f"unsupported YAML flow list at {where}: {text!r}")
-        body = t[1:-1].strip()
-        return [_yaml_scalar(item, where) for item in body.split(",")] if body else []
-    return _yaml_scalar(t, where)
+    if not t.startswith("["):
+        return _yaml_scalar(t, where)
+    value, end = _flow_seq(t, 0, where)
+    if end != len(t):
+        raise ValueError(f"text after a YAML flow list at {where}: {text!r}")
+    return value
 
 
 def _strip_comment(line: str) -> str:
@@ -151,16 +183,18 @@ def _strip_comment(line: str) -> str:
 
 
 def yaml_load(file: str | Path, append_filename: bool = False) -> Dict[str, Any]:
-    """Read a dataset YAML: the subset the dataset configs use, as
+    """Read a dataset or model YAML: the subset those configs use, as
     yaml.safe_load reads it (the port reads no YAML library). It takes
     comments, top-level `key: value` with a scalar (str, int, float, bool,
-    null) or a one-line flow list `[a, b]`, and a key with an empty value
-    followed by an indented block of `key: scalar` lines (`names:` with
-    `0: LTE` under it). Anything else raises a ValueError naming the line."""
+    null) or a one-line flow list `[a, [b, c]]` (nested, as a model's layer
+    rows), and a key with an empty value followed by a block: indented
+    `key: value` lines (`names:` with `0: LTE` under it, `scales:` with
+    `n: [0.50, 0.25, 1024]`) or `- value` lines (`backbone:` and `head:`).
+    Anything else raises a ValueError naming the line."""
     path = Path(file)
     data: Dict[str, Any] = {}
-    block: Dict[Any, Any] | None = None
-    block_indent = 0
+    block: Dict[Any, Any] | List[Any] | None = None
+    block_key, block_indent = "", 0
     for n, raw in enumerate(path.read_text(encoding="utf-8").splitlines(), 1):
         where = f"{path}:{n}"
         line = _strip_comment(raw)
@@ -169,20 +203,29 @@ def yaml_load(file: str | Path, append_filename: bool = False) -> Dict[str, Any]
         if line[0] == "\t":
             raise ValueError(f"tab indentation at {where}")
         indent = len(line) - len(line.lstrip(" "))
-        m = _YAML_KEY.match(line.strip())
+        text = line.strip()
+        if text == "-" or text.startswith("- "):  # an item of the block sequence under the last key
+            if block == {}:
+                block, block_indent = [], indent
+                data[block_key] = block
+            if not isinstance(block, list) or indent != block_indent:
+                raise ValueError(f"unexpected sequence item at {where}: {raw!r}")
+            block.append(_yaml_value(text[1:], where))
+            continue
+        m = _YAML_KEY.match(text)
         if not m:
             raise ValueError(f"unsupported YAML at {where}: {raw!r}")
         key, value = m.group(1), m.group(3)
         if indent:
             block_indent = block_indent or indent
-            if block is None or indent != block_indent:
+            if not isinstance(block, dict) or indent != block_indent:
                 raise ValueError(f"unexpected indentation at {where}: {raw!r}")
             block[_yaml_scalar(key, where) if _YAML_INT.match(key) else key] = _yaml_value(value or "", where)
             continue
         if key in data:
             raise ValueError(f"duplicate key {key!r} at {where}")
-        if value is None:  # a block of `key: scalar` lines follows, or the value is null
-            block, block_indent = {}, 0
+        if value is None:  # a block of `key: value` or `- value` lines follows, or the value is null
+            block, block_key, block_indent = {}, key, 0
             data[key] = block
         else:
             block = None

@@ -51,10 +51,12 @@ def test_yaml_load_equals_pyyaml(path):
 def test_yaml_load_reads_the_subset_and_raises_on_the_rest(tmp_path):
     p = tmp_path / "d.yaml"
     p.write_text("# c\npath: '../x y'  # trailing\nnc: 3\nr: 0.5\nf: 1.\nb: true\nn: ~\nl: [a, 'b c', 2]\n"
-                 "e: []\nempty:\nnames:\n  0: LTE\n  1: \"RF\"\ns: yes\n")
+                 "e: []\nempty:\nnames:\n  0: LTE\n  1: \"RF\"\ns: yes\nseq:\n  - LTE\n  - [-1, 1, Conv, [64, 3]]  # 0\n"
+                 "flat:\n- a\n- [[-1, 6], None, nearest, False, 0.25, []]\nnested: [b, [c, [d]]]\n")
     assert yaml_load(p) == yaml.safe_load(p.read_text())
-    for bad in ("names:\n  - LTE\n", "a: {b: 1}\n", "a: [b, [c]]\n", "a: |\n  text\n", "  a: 1\n", "a: 1\na: 2\n",
-                "names:\n  0:\n    x: 1\n"):
+    for bad in ("a: {b: 1}\n", "a: [b, {c: 1}]\n", "a: [b, [c]\n", "a: [b,, c]\n", "a: [b] c\n", "a: |\n  text\n",
+                "  a: 1\n", "a: 1\na: 2\n", "names:\n  0:\n    x: 1\n", "s:\n  - a\n  b: 1\n", "s:\n  - a\n    - b\n",
+                "- a\n"):
         p.write_text(bad)
         with pytest.raises(ValueError, match=r"d\.yaml:\d"):
             yaml_load(p)

@@ -913,6 +913,71 @@ def test_amp_train_epoch_launches_the_bf16_kernels(loop_split, tmp_path):
     assert yolo.trainer.validator.model.dtype == torch.bfloat16 and all(np.isfinite(v) for v in metrics.values())
 
 
+@pytest.mark.gpu
+def test_yaml_model_trains_and_its_ema_val_runs_the_kernels(loop_split, tmp_path):
+    """YOLO("yolo11n.yaml") (nc 80, fresh weights from seed 0) trains one epoch
+    at its defaults (amp) at 64 px, B = 2 on the card: the head rebuilt for the
+    data's nc = 2, no kernel in the 4 steps, the EMA's val 6 bf16 bottlenecks +
+    1 NMS per val batch and no f32 bottleneck; each bf16 bottleneck of the
+    first val against its plain version on the inputs it was handed (global
+    module hooks, which launch nothing), and the keep kernel on that val's
+    candidates exactly. Then YOLO("spectrogram_yolo11n.yaml").load(ckpt)
+    validates on the card equal to YOLO(ckpt), with 6 f32 bottleneck + 1 NMS
+    launches per val batch."""
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+    from spectrogram_yolov11_torch.nn.modules.head import Detect
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.fused_conv import unpack_bottleneck_weights_bf16
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+
+    cap, counts = {}, []
+    yolo = YOLO("yolo11n.yaml", device="cuda")
+
+    def pre(mod, args):  # returns None: the input stays as it is
+        if isinstance(mod, Bottleneck) and mod.fusable and not mod.training and args[0].dtype == torch.bfloat16:
+            cap.setdefault(mod, args[0].permute(0, 2, 3, 1).contiguous())
+
+    def post(mod, args, out):  # returns None: the output stays as it is
+        if isinstance(mod, Detect) and not mod.training and out[0][0].dtype == torch.bfloat16:
+            cap.setdefault("feats", out)
+
+    for event in ("on_train_start", "on_train_batch_end", "on_fit_epoch_end"):
+        yolo.add_callback(event, lambda t: counts.append(_counts()))
+    hooks = [torch.nn.modules.module.register_module_forward_pre_hook(pre),
+             torch.nn.modules.module.register_module_forward_hook(post)]
+    try:
+        metrics = yolo.train(data=loop_split, epochs=1, batch=2, imgsz=64, workers=2, project=str(tmp_path),
+                             name="scratch")
+    finally:
+        for h in hooks:
+            h.remove()
+    assert yolo.trainer.rebuilt["nc"] == (80, 2) and yolo.model.nc == 2 and yolo.trainer.args.amp is True
+    assert len(counts) == 6 and len(set(counts[:5])) == 1
+    assert tuple(b - a for a, b in zip(counts[4], counts[5])) == (0, 12, 2)
+    assert all(np.isfinite(v) for v in metrics.values())
+    fused = [m for m in cap if m != "feats"]
+    assert len(fused) == 6
+    with torch.inference_mode():
+        for m in fused:
+            x = cap[m]
+            got = fused_bottleneck(x, m.w1, m.b1, m.w2, m.b2)
+            ref = bottleneck_reference_bf16(x, unpack_bottleneck_weights_bf16(m.w1), m.b1,
+                                            unpack_bottleneck_weights_bf16(m.w2), m.b2)
+            assert got.dtype == torch.bfloat16
+            assert_bf16_close(got, ref)
+        preds = decode_detections(cap["feats"], 2, yolo.model.stride)
+        _, _, _, valid, boxes = nms_candidates(preds, 0.001, 2, multi_label=True, pre_nms_topk=VAL_PRE_NMS_TOPK)
+        assert torch.equal(greedy_keep(boxes, valid, 0.7), greedy_keep_reference(boxes, valid, 0.7))
+
+    kw = dict(data=loop_split, imgsz=64, batch=2)
+    ref = YOLO(CKPT, device="cuda").val(**kw)
+    moved = YOLO("spectrogram_yolo11n.yaml", device="cuda").load(CKPT)
+    before = _counts()
+    assert moved.val(**kw) == ref and _moved(before) == (12, 0, 2)
+
+
 # -- serving ------------------------------------------------------------------------------------------------
 
 

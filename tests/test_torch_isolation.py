@@ -2,10 +2,12 @@
 
 An AST scan shows that no file of spectrogram_yolov11_torch/ nor chip_smoke.py
 imports jax, flax, msgpack, yaml, cv2, PIL or the JAX package (the image
-readers, data/imageio.py and data/jpeg.py, among them); with no card, the
-entry points (the pipeline, predict, val, the trainer and YOLO.train, the
-server and the checkpoint AutoBackend) raise for the default device instead
-of running on the CPU.
+readers, data/imageio.py and data/jpeg.py, the model YAML reader in
+nn/tasks.py and the command line, cfg/__init__.py and __main__.py, among
+them); with no card, the entry points (the pipeline, predict, val, the
+trainer and YOLO.train, a model built from YAML and trained, the command
+line, the server and AutoBackend on a checkpoint or a YAML) raise for the
+default device instead of running on the CPU.
 """
 
 import ast
@@ -17,6 +19,7 @@ import torch
 from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_torch import YOLO
+from spectrogram_yolov11_torch.cfg import entrypoint
 from spectrogram_yolov11_torch.engine.pipeline import build_pipeline
 from spectrogram_yolov11_torch.engine.trainer import DetectionTrainer
 from spectrogram_yolov11_torch.nn.autobackend import AutoBackend
@@ -42,7 +45,8 @@ def _imported_roots(path: Path):
 def _port_files():
     files = sorted((ROOT / "spectrogram_yolov11_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15 and all(f.exists() for f in files)
-    assert {"jpeg.py", "imageio.py", "loaders.py", "serve.py", "autobackend.py", "exporter.py"} <= {f.name for f in files}
+    assert {"jpeg.py", "imageio.py", "loaders.py", "serve.py", "autobackend.py", "exporter.py", "tasks.py",
+            "__main__.py"} <= {f.name for f in files}
     return files
 
 
@@ -69,6 +73,12 @@ def test_default_device_raises_without_card(monkeypatch):
                                             "amp": False})
     with pytest.raises(RuntimeError, match="no CUDA card"):
         YOLO(CKPT).train(data={"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]}, amp=False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        YOLO("yolo11n.yaml").train(data={"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]}, amp=False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        entrypoint(f"yolo detect val model={CKPT} data=spectrogram_synth.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        AutoBackend("yolo11n.yaml")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         InferenceServer(CKPT)
     with pytest.raises(RuntimeError, match="no CUDA card"):

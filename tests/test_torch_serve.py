@@ -316,9 +316,12 @@ def test_entrypoint_serve_verb():
         assert RemoteModel(srv.url)(_frames(1, 0))[0].shape == (1, 84, 6)
     finally:
         srv.shutdown()
-    for line in (f"yolo predict model={CKPT}", "yolo detect val", f"yolo serve train model={CKPT}"):
+    # train, val and predict run now (tests/test_torch_cfg.py, tests/test_torch_scratch.py); these still raise
+    for line in (f"yolo track model={CKPT}", f"yolo benchmark model={CKPT}", "yolo settings"):
         with pytest.raises(NotImplementedError, match="item 12"):
             entrypoint(line)
+    with pytest.raises(SyntaxError, match="key=value"):
+        entrypoint(f"yolo serve train model={CKPT}")
 
 
 def test_wire_encoding(port_srv, monkeypatch):
@@ -423,7 +426,7 @@ def test_inference_fn_with_nms_is_the_port_nms_of_its_predictions():
     assert torch.equal(out, ref_out) and torch.equal(n, ref_n)
 
 
-@pytest.mark.parametrize("source,item", [("yolo11n.yaml", "item 8"), ("best.pt", "item 11"), ("best.onnx", "item 9"),
+@pytest.mark.parametrize("source,item", [("yolo11n-seg.yaml", "item 10"), ("best.pt", "item 11"), ("best.onnx", "item 9"),
                                          ("best.tflite", "item 9"), ("best.stablehlo", "item 9")])
 def test_sources_not_ported_raise(source, item):
     with pytest.raises(NotImplementedError, match=item):

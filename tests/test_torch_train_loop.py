@@ -62,6 +62,7 @@ from spectrogram_yolov11_torch import YOLO
 from spectrogram_yolov11_torch.data.dataset import check_det_dataset
 from spectrogram_yolov11_torch.engine.checkpoint import load_checkpoint as port_load_checkpoint
 from spectrogram_yolov11_torch.engine.checkpoint import msgpack_pack
+from spectrogram_yolov11_torch.engine.trainer import DetectionTrainer
 from spectrogram_yolov11_torch.ops.device_augment import augment_batch
 from spectrogram_yolov11_torch.utils.jax_compat import state_dict_to_variables
 from spectrogram_yolov11_tpu.engine import optim as jopt
@@ -251,10 +252,16 @@ def test_unported_options_raise(setup, kw, what, item):
         YOLO(ckpt, device="cpu").train(data=data, project=str(root / "refused"), **args)
 
 
-def test_other_nc_and_yaml_models_raise(setup):
+def test_other_nc_and_yaml_models_raise(setup, tmp_path):
+    """Another nc and model YAMLs train now (held to JAX in tests/test_torch_scratch.py): the trainer rebuilds
+    the head for the data's nc, grafting the rest. A YAML whose head is not Detect raises, naming item 10."""
     root, data, ckpt = setup
-    with pytest.raises(NotImplementedError, match="nc=2 on data of nc=3.*item 8"):
-        YOLO(ckpt, device="cpu").train(data=dict(data, names={0: "a", 1: "b", 2: "c"}), project=str(root / "nc"),
-                                       **{**TRAIN, "amp": False})
-    with pytest.raises(NotImplementedError, match="YAML.*item 8"):
-        YOLO("yolo11n.yaml")
+    trainer = DetectionTrainer(YOLO(ckpt, device="cpu").model, {**TRAIN, "data": dict(data, names={0: "a", 1: "b", 2: "c"}),
+                                                                "device": "cpu", "project": str(root / "nc")})
+    trainer.setup_model()
+    assert trainer.model.nc == 3 and trainer.rebuilt["nc"] == (2, 3) and trainer.rebuilt["grafted"] > 400
+    seg = tmp_path / "seg.yaml"
+    seg.write_text("nc: 2\nbackbone:\n  - [-1, 1, Conv, [16, 3, 2]]\nhead:\n  - [[0], 1, Segment, [nc, 32, 64]]\n")
+    for model in (str(seg), "yolo11n-pose.yaml"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+            YOLO(model)
