@@ -196,6 +196,26 @@ Phases, each printing one JSON line, each fatal when it fails:
                YAML models on the card. Readings: seconds per epoch, ms per
                step with the loader's wait, val seconds, the subprocesses'
                seconds
+  16. save     predict's saved output: the host JPEG encoder's bytes of frames
+               decoded from tests/torch_data/jpeg/ held to cv2's committed
+               encodes and their SHA-256 (tests/torch_data/jpeg_encode/);
+               YOLO(ckpt).predict at its defaults (save=True) on the 32 arrays
+               at batch 32 in f32 and with half=True, and on the JPEG fixture
+               directory at batch 8, each counted from 0 (6 bottleneck, or 6
+               bf16 with half=True, and 1 NMS launches per batch), every
+               written <stem>.jpg equal to imencode(".jpg", r.plot()) of its
+               Results and decoding by imread to imdecode of those bytes;
+               each kernel against its plain version on the inputs the array
+               predicts handed it (global module hooks); `python -m
+               spectrogram_yolov11_torch detect predict` in a process of its
+               own writing its image; one YOLO(url).predict over the BYTES
+               JPEG wire (SYT_WIRE_ENCODE=jpg: quality 90, 6 + 1 launches),
+               the server's answer to those bytes within the serve tolerance
+               of the local forward of their decoded pixels. Readings: predict
+               ms per image at batch 32 at its defaults (saved in 8 threads),
+               saving serially (workers=0) and with save=False, in turns, f32
+               and bf16; plot and encode ms per 640 x 360 frame, serially and
+               in 8 threads; JPEG bytes per frame
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -243,6 +263,8 @@ SERVE_CONCURRENCY, SERVE_REQUESTS = (1, 8, 32), (40, 16, 8)  # client threads, a
 # batch): the port's forward tolerance of the CPU tests (tests/test_torch_pipeline.py)
 SERVE_PX_TOL, SERVE_SCORE_TOL = 1e-2, 1e-4
 SERVE_VAL_TOL = 1e-6  # remote val against local val on the card, per key: the same pixels through the same network
+ENCODE_FIXTURES = ROOT / "tests" / "torch_data" / "jpeg_encode"  # cv2's encodes of decoded fixtures, and their SHA-256
+SAVE_REPS = 3  # timed predict calls per setting in phase save
 
 
 def emit(phase: str, **kw) -> None:
@@ -757,10 +779,10 @@ def phase_predict():
         hooks = [m.register_forward_pre_hook(keep_nhwc_input(seen)) for m in firsts.values()]
         hooks.append(net.model[-1].register_forward_hook(keep_feats))
         hooks.append(net.register_forward_pre_hook(lambda mod, args: seen.setdefault("x", args[0])))
-        captures = [counted(lambda: model.predict(paths[0]))[0]]
+        captures = [counted(lambda: model.predict(paths[0], save=False))[0]]
         for h in hooks:
             h.remove()
-        captures += [counted(lambda: model.predict(p))[0] for p in paths[1:]]
+        captures += [counted(lambda: model.predict(p, save=False))[0] for p in paths[1:]]
         with torch.inference_mode():
             b1_bottleneck = {f"layer{layer}": bottleneck_check(f"layer{layer} at B = 1", layer_case(mod, seen[mod]))
                              for layer, mod in firsts.items()}
@@ -777,7 +799,7 @@ def phase_predict():
         cpu = YOLO(CKPT, device="cpu")
         cpu_vs_gpu = []
         for p, g in zip(paths[:2], captures[:2]):
-            c = cpu.predict(p)[0]
+            c = cpu.predict(p, save=False)[0]
             require(len(c) == len(g) and np.array_equal(c.boxes.cls, g.boxes.cls),
                     f"CPU and GPU predict disagree on {p}: {c.boxes.cls.tolist()} vs {g.boxes.cls.tolist()}")
             err = float(np.abs(c.boxes.xyxy - g.boxes.xyxy).max(initial=0.0))
@@ -785,7 +807,7 @@ def phase_predict():
             cpu_vs_gpu.append(dict(n=len(g), classes=g.boxes.cls.tolist(), max_box_err_px=err,
                                    frame_pixels_differing=int((c.orig_img != g.orig_img).sum())))
 
-        batch32 = counted(lambda: model.predict(arrays, batch=nb))
+        batch32 = counted(lambda: model.predict(arrays, batch=nb, save=False))
         require(len(batch32) == nb and all(r.orig_shape == a.shape[:2] for r, a in zip(batch32, arrays))
                 and all(np.isfinite(r.boxes.data).all() for r in batch32), "array results malformed")
         lb_gpu = letterbox_batch(arrays, 640, dev)
@@ -793,8 +815,8 @@ def phase_predict():
                 "the letterbox on the card differs from the CPU's")
 
         # times: whole predict calls, host clock
-        predict_capture_ms = host_ms_per_call(lambda: [model.predict(p) for p in paths], 5) / len(paths)
-        predict_array_ms = host_ms_per_call(lambda: model.predict(arrays, batch=nb), 5) / nb
+        predict_capture_ms = host_ms_per_call(lambda: [model.predict(p, save=False) for p in paths], 5) / len(paths)
+        predict_array_ms = host_ms_per_call(lambda: model.predict(arrays, batch=nb, save=False), 5) / nb
 
     split_capture, split_iq32, split_arrays, device_fn_back_to_back = predict_stage_times(model.predictor, iq, arrays)
     x32 = torch.from_numpy(np.stack([iq.real, iq.imag], -1)).to(dev)
@@ -923,7 +945,7 @@ def phase_predict_half():
         paths = [str(Path(tmp) / f"capture{i}.npy") for i in range(4)]
         for p, capture in zip(paths, iq):
             np.save(p, capture)
-        captures = [counted(lambda p=p: yolo.predict(p, half=True))[0] for p in paths]
+        captures = [counted(lambda p=p: yolo.predict(p, half=True, save=False))[0] for p in paths]
         net = yolo.predictor.model
         require(net.dtype == torch.bfloat16 and yolo.model.dtype == torch.float32,
                 "predict(half=True) did not run a bf16 copy of the model")
@@ -933,7 +955,7 @@ def phase_predict_half():
         seen = {}
         firsts = first_bottlenecks(net)
         hooks = [m.register_forward_pre_hook(keep_nhwc_input(seen)) for m in firsts.values()]
-        counted(lambda: yolo.predict(paths[0], half=True))
+        counted(lambda: yolo.predict(paths[0], half=True, save=False))
         for h in hooks:
             h.remove()
         with torch.inference_mode():
@@ -948,7 +970,7 @@ def phase_predict_half():
         for p, x in zip(paths[:2], iq[:2]):
             frame = letterbox_batch(list(iq_frame(torch.from_numpy(np.stack([x.real, x.imag], -1))[None].to(dev))),
                                     640, dev)
-            g, c, f = yolo.predict(p, half=True)[0], cpu.predict(p, half=True)[0], yolo_f32.predict(p)[0]
+            g, c, f = (m.predict(p, half=h, save=False)[0] for m, h in ((yolo, True), (cpu, True), (yolo_f32, False)))
             pg = decoded(net, frame).cpu()
             pc = decoded(cpu.predictor.model, frame.cpu())
             pf = decoded(yolo_f32.predictor.model, frame).cpu()
@@ -966,11 +988,12 @@ def phase_predict_half():
                                 counts_required_equal=margin >= 3e-2, max_diff_to_cpu_bf16=d_cpu,
                                 max_diff_to_card_f32=d_f32))
 
-        batch32 = counted(lambda: yolo.predict(arrays, batch=nb, half=True))
+        batch32 = counted(lambda: yolo.predict(arrays, batch=nb, half=True, save=False))
         require(len(batch32) == nb and all(r.orig_shape == a.shape[:2] for r, a in zip(batch32, arrays))
                 and all(np.isfinite(r.boxes.data).all() for r in batch32), "bf16 array results malformed")
-        predict_capture_ms = host_ms_per_call(lambda: [yolo.predict(p, half=True) for p in paths], 5) / len(paths)
-        predict_array_ms = host_ms_per_call(lambda: yolo.predict(arrays, batch=nb, half=True), 5) / nb
+        predict_capture_ms = host_ms_per_call(lambda: [yolo.predict(p, half=True, save=False) for p in paths],
+                                              5) / len(paths)
+        predict_array_ms = host_ms_per_call(lambda: yolo.predict(arrays, batch=nb, half=True, save=False), 5) / nb
 
     split_capture, split_iq32, split_arrays, back_to_back = predict_stage_times(yolo.predictor, iq, arrays)
     emit("predict_half", launches=launches, detections_per_capture=[len(r) for r in captures],
@@ -1156,8 +1179,9 @@ def phase_images():
     predict, launches, cpu_vs_gpu = {}, {}, {}
     for key, (source, batch, expect) in predict_calls.items():
         predict[key], launches[f"predict_{key}"] = run_counted(
-            lambda s=source, b=batch: yolo.predict(s, batch=b, imgsz=IMAGES_IMGSZ), expect, f"predict {key}")
-        ref = cpu.predict(source, batch=batch, imgsz=IMAGES_IMGSZ)
+            lambda s=source, b=batch: yolo.predict(s, batch=b, imgsz=IMAGES_IMGSZ, save=False), expect,
+            f"predict {key}")
+        ref = cpu.predict(source, batch=batch, imgsz=IMAGES_IMGSZ, save=False)
         require(len(ref) == len(predict[key]) and [r.path for r in ref] == [g.path for g in predict[key]],
                 f"predict {key}: the card's and the CPU's results are for other files")
         errs = []
@@ -1227,7 +1251,8 @@ def phase_images():
             list(pool.map(imread, files * (8 * reps)))
             threads8 = (time.perf_counter() - t0) * 1e3 / (8 * reps * len(files))
         decode_ms[key] = {"serial_ms_per_image": serial, "threads8_ms_per_image": threads8}
-    predict_ms = host_ms_per_call(lambda: yolo.predict(str(val_dir), batch=IMAGES_BATCH, imgsz=IMAGES_IMGSZ), 10)
+    predict_ms = host_ms_per_call(
+        lambda: yolo.predict(str(val_dir), batch=IMAGES_BATCH, imgsz=IMAGES_IMGSZ, save=False), 10)
     predictor, dev = yolo.predictor, yolo.predictor.device
 
     def host_post(out_nv, frames):
@@ -1439,7 +1464,7 @@ def phase_serve():
         gray = np.ascontiguousarray(frames[:b, ..., :1])
         got = counted("serve", "gray_b3", lambda: cli(gray)[0], f32_dispatch)
         require(np.array_equal(got, cli(np.repeat(gray, 3, -1))[0]), "the gray upload differs from its 3-channel repeat")
-        got = counted("serve", "bytes_png_b3", lambda: cli(encode_images(frames[:b]))[0], f32_dispatch)
+        got = counted("serve", "bytes_png_b3", lambda: cli(encode_images(frames[:b], fmt=".png"))[0], f32_dispatch)
         require(np.array_equal(got, cli(frames[:b])[0]), "BYTES PNG differs from the raw path")
         got = counted("serve", "bytes_jpeg_b3", lambda: cli([jpeg] * b)[0], f32_dispatch)
         require(np.array_equal(got, cli(np.stack([jpeg_px] * b))[0]), "BYTES JPEG differs from the raw path on its pixels")
@@ -1448,14 +1473,15 @@ def phase_serve():
                                                  "the bf16 server against the local bf16 forward")
 
         # a truncated BYTES payload gets a 400, and the server goes on
-        pngs = encode_images(frames[:2])
+        pngs = encode_images(frames[:2], fmt=".png")
         blob = b"".join(len(x).to_bytes(4, "little") + x for x in pngs)
         head = {"inputs": [{"name": "images", "shape": [2], "datatype": "BYTES",
                             "parameters": {"binary_data_size": len(blob) - 100}}]}
         code, doc = counted("serve", "truncated_bytes", lambda: _post(f"{base}/v2/models/spec/infer", head, blob[:-100]),
                             {k: 0 for k in f32_dispatch})
         require(code == 400 and "ValueError" in doc.get("error", ""), f"a truncated BYTES payload got {code} {doc}")
-        require(cli(encode_images(frames[:2]))[0].shape == (2, 8400, 6), "the server stopped serving after a 400")
+        require(cli(encode_images(frames[:2], fmt=".png"))[0].shape == (2, 8400, 6),
+                "the server stopped serving after a 400")
 
         # dynamic batching: 32 clients, one frame each, released together; fewer dispatches than requests
         lone = [cli(frames[i : i + 1])[0] for i in range(SERVE_BATCHES[-1])]
@@ -1502,10 +1528,10 @@ def phase_serve():
         # YOLO(url).predict against YOLO(ckpt).predict on the card: 6 + 0 in the server, 1 NMS in the client
         arrays = _mixed_arrays(PREDICT_BATCH, seed=100)
         remote, yolo = YOLO(srv.url), YOLO(CKPT)
-        got, launches["remote_predict"] = run_counted(lambda: remote.predict(arrays, batch=PREDICT_BATCH),
+        got, launches["remote_predict"] = run_counted(lambda: remote.predict(arrays, batch=PREDICT_BATCH, save=False),
                                                       {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1},
                                                       "remote predict of 32 arrays")
-        ref = yolo.predict(arrays, batch=PREDICT_BATCH)
+        ref = yolo.predict(arrays, batch=PREDICT_BATCH, save=False)
         predict_err = 0.0
         for g, r in zip(got, ref):
             require(len(g) == len(r) and np.array_equal(g.boxes.cls, r.boxes.cls),
@@ -2523,6 +2549,202 @@ def phase_scratch():
     return launches, checks, nms, load_launches, load_checks, load_nms
 
 
+def phase_save():
+    """predict's saved output on the card: the host encoder against cv2's
+    committed bytes; YOLO(ckpt).predict at its defaults (save=True) on the 32
+    arrays in f32 and bf16 and on the JPEG fixture directory, counted, each
+    written <stem>.jpg equal to the port's JPEG of the returned plot, the
+    kernels at the arrays' inputs; `detect predict` in a process of its own;
+    a YOLO(url) predict over the BYTES JPEG wire (SYT_WIRE_ENCODE=jpg).
+    Readings: predict ms per image with save=True beside save=False, plot
+    and encode ms per frame, serially and in 8 threads, bytes per frame."""
+    import hashlib
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import spectrogram_yolov11_torch.serve as serve_module
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.imageio import imdecode, imencode, imread
+    from spectrogram_yolov11_torch.data.jpeg import encode_jpeg
+    from spectrogram_yolov11_torch.nn.autobackend import AutoBackend
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+
+    t_phase = time.perf_counter()
+    # 1. the host encoder's bytes: cv2's committed encodes of frames decoded from the decoder's fixtures
+    committed = json.loads((ENCODE_FIXTURES / "cv2_encoded.json").read_text())["files"]
+    encoder = {}
+    for name, d in committed.items():
+        img = imread(JPEG_FIXTURES / d["source"])
+        if d["crop"]:
+            y0, y1, x0, x1 = d["crop"]
+            img = img[y0:y1, x0:x1]
+        data = encode_jpeg(np.ascontiguousarray(img[..., 0] if d["gray"] else img), d["quality"])
+        digest = hashlib.sha256(data).hexdigest()
+        require(digest == d["sha256"] and data == (ENCODE_FIXTURES / name).read_bytes(),
+                f"{name}: the port's encode {digest} differs from cv2's {d['sha256']}")
+        encoder[name] = {"bytes": len(data), "sha256": digest}
+
+    def check_saved(results, save_dir: Path) -> int:
+        """Every result's <stem>.jpg, and nothing else, each decoding to the
+        port's JPEG of the result's plot; returns the files' bytes."""
+        names = sorted(p.name for p in save_dir.iterdir())
+        require(names == sorted(f"{Path(r.path).stem or 'image'}.jpg" for r in results),
+                f"{save_dir} holds {names[:5]}... for {len(results)} results")
+        total = 0
+        for r in results:
+            f = save_dir / f"{Path(r.path).stem or 'image'}.jpg"
+            data = f.read_bytes()
+            ref = imencode(".jpg", r.plot())
+            want = imdecode(ref)
+            want = np.repeat(want[..., None], 3, -1) if want.ndim == 2 else want
+            require(data == ref and np.array_equal(imread(f), want), f"{f} is not the JPEG of its Results' plot")
+            total += len(data)
+        return total
+
+    f32 = {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1}
+    bf16 = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6, "greedy_keep": 1}
+    arrays = _mixed_arrays(PREDICT_BATCH, seed=100)
+    yolo = YOLO(CKPT)
+    launches, checks, nms, saved_bytes, times = {}, {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 2. predict at its defaults on the 32 arrays, f32 and bf16, counted, the kernels at their inputs
+        for key, half, expect, dtype in (("arrays_f32", False, f32, torch.float32),
+                                         ("arrays_bf16", True, bf16, torch.bfloat16)):
+            cap, stop = capture_val_inputs(dtype)
+            try:
+                results, launches[key] = run_counted(
+                    lambda h=half, k=key: yolo.predict(arrays, batch=PREDICT_BATCH, half=h, project=tmp, name=k),
+                    expect, f"predict {key} at its defaults")
+            finally:
+                stop()
+            saved_bytes[key] = check_saved(results, Path(tmp) / key)
+            net = yolo.predictor.model
+            with torch.inference_mode():
+                checks[key] = {}
+                for i, m in enumerate(m for m in cap if m != "feats"):
+                    d = bottleneck_check(f"save {key} {i}", layer_case(m, cap[m]))
+                    checks[key][f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
+                preds = decode_detections(cap["feats"], net.nc, net.stride)
+                _, _, _, valid, offset_boxes = nms_candidates(preds, 0.25, net.nc, pre_nms_topk=1024)
+                nms[key] = nms_check(offset_boxes, valid)
+            shapes = sorted(c["shape"] for c in checks[key].values())
+            require(shapes == [[PREDICT_BATCH, 20, 20, 64]] * 4 + [[PREDICT_BATCH, 40, 40, 32]] * 2,
+                    f"save {key} bottleneck inputs {shapes}")
+            require(valid.shape == (PREDICT_BATCH, 1024), f"save {key} NMS candidates {tuple(valid.shape)}")
+            # predict ms per image in turns: save=True (the default, saved in `workers` = 8 threads), save=True
+            # saved serially (workers=0, as JAX's loop), save=False; a YOLO per setting keeps its predictor (and
+            # its bf16 copy), each warmed by one call
+            settings = {"save_true": {}, "save_true_serial": {"workers": 0}, "save_false": {"save": False}}
+            timed = {k: YOLO(CKPT) for k in settings}
+            t = {k: [] for k in settings}
+            for rep in range(SAVE_REPS + 1):
+                for k, kw in settings.items():
+                    t0 = time.perf_counter()
+                    timed[k].predict(arrays, batch=PREDICT_BATCH, half=half, project=tmp, name=f"t{key}",
+                                     exist_ok=True, **kw)
+                    if rep:
+                        t[k].append((time.perf_counter() - t0) * 1e3 / PREDICT_BATCH)
+            times[key] = {k: {"median": float(np.median(v)), "all": v} for k, v in t.items()}
+
+        # 3. the JPEG fixture directory at its defaults (batch 8)
+        val_dir = JPEG_FIXTURES / "spectrogram" / "images" / "val"
+        n_dir = len(list(val_dir.glob("*.jpg")))
+        results, launches["jpeg_directory"] = run_counted(
+            lambda: yolo.predict(str(val_dir), batch=IMAGES_BATCH, project=tmp, name="jpeg_directory"),
+            {k: v * -(-n_dir // IMAGES_BATCH) for k, v in f32.items()}, "predict of the JPEG directory")
+        saved_bytes["jpeg_directory"] = check_saved(results, Path(tmp) / "jpeg_directory")
+
+        # 4. the command line in a process of its own: detect predict at its defaults writes the image
+        source = JPEG_FIXTURES / "641x359.jpg"
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "spectrogram_yolov11_torch", "detect", "predict", f"model={CKPT}",
+                            f"source={source}", f"project={tmp}", "name=cli"], cwd=ROOT, capture_output=True,
+                           text=True, timeout=300)
+        cli = {"rc": r.returncode, "seconds": time.perf_counter() - t0,
+               "stdout": (r.stdout.strip().splitlines() or [""])[-1]}
+        require(r.returncode == 0, f"detect predict exited {r.returncode}: {r.stderr[-2000:]}")
+        written = Path(tmp) / "cli" / "641x359.jpg"
+        require(written.exists() and imread(written).shape == (359, 641, 3), f"detect predict wrote no {written}")
+        cli["bytes"] = written.stat().st_size
+
+        # 5. YOLO(url).predict over the BYTES JPEG wire: the server on the card, the frames JPEG at quality 90
+        srv = serve_module.InferenceServer({"spec": CKPT}, port=0).start()
+        sent = []
+        real = serve_module.encode_images
+
+        def recording(a, **k):
+            sent.append((a.copy(), k, real(a, **k)))
+            return sent[-1][2]
+
+        saved_env = os.environ.get("SYT_WIRE_ENCODE")
+        os.environ["SYT_WIRE_ENCODE"] = "jpg"
+        serve_module.encode_images = recording
+        try:
+            wire_arrays = arrays[:8]
+            remote = YOLO(srv.url)
+            results, launches["wire_jpeg"] = run_counted(
+                lambda: remote.predict(wire_arrays, batch=8, project=tmp, name="wire"),
+                {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1}, "YOLO(url) predict, JPEG wire")
+        finally:
+            serve_module.encode_images = real
+            if saved_env is None:
+                os.environ.pop("SYT_WIRE_ENCODE")
+            else:
+                os.environ["SYT_WIRE_ENCODE"] = saved_env
+        try:
+            frames, kw, blobs = sent[-1]
+            require(kw == {"fmt": ".jpg", "quality": 90} and len(blobs) == 8
+                    and all(b[:3] == b"\xff\xd8\xff" for b in blobs), f"the wire sent {kw}, {len(blobs)} blobs")
+            decoded = np.stack([imdecode(b) for b in blobs])
+            served = serve_module.RemoteModel(srv.url)(blobs)[0]
+            local = AutoBackend(CKPT).forward(decoded).cpu().numpy()
+            wire_err = _within_serve_tol(_forward_err(served, local), "JPEG wire against the local forward")
+        finally:
+            srv.shutdown()
+        require(len(results) == 8 and all(np.isfinite(r.boxes.data).all() for r in results), "wire results malformed")
+        saved_bytes["wire_jpeg"] = check_saved(results, Path(tmp) / "wire")
+        wire = {"frames": list(frames.shape), "bytes_per_frame": float(np.mean([len(b) for b in blobs])),
+                "raw_bytes_per_frame": int(np.prod(frames.shape[1:])), "err": wire_err}
+
+    # 6. plot and encode ms per 640 x 360 frame on the host, serially and in 8 threads
+    frame = np.ascontiguousarray(arrays[0] if arrays[0].shape[-1] == 3 else np.repeat(arrays[0], 3, -1))
+    res = yolo.predict(frame, save=False)[0]
+    plots = [res.plot() for _ in range(8)]
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res.plot()
+    plot_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        encode_jpeg(plots[0])
+    encode_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(encode_jpeg, plots))
+        t0 = time.perf_counter()
+        for _ in range(reps // 4):
+            list(ex.map(encode_jpeg, plots))
+        encode_8t_ms = (time.perf_counter() - t0) * 1e3 / (reps // 4 * len(plots))
+    emit("save", encoder=encoder, launches=launches, saved_bytes=saved_bytes, kernel_checks=checks,
+         greedy_keep_k1024={k: {n: v for n, v in d.items() if n in ("shape", "ms", "plain_ms", "bound_ms", "mismatches",
+                                                                        "scan_steps_mean")} for k, d in nms.items()},
+         predict_ms_per_image_batch32=times, cli=cli, wire_jpeg=wire,
+         host_640x360={"frame": list(frame.shape), "detections": len(res), "plot_ms": plot_ms,
+                       "encode_ms_serial": encode_ms, "encode_ms_per_frame_8_threads": encode_8t_ms,
+                       "jpeg_bytes": len(encode_jpeg(plots[0])), "host_cpus": os.cpu_count()},
+         phase_s=time.perf_counter() - t_phase,
+         method="predict at its defaults counted from 0 around each call; each saved file held to imencode of "
+                "the returned plot; the kernels on the inputs the array predicts handed them (global module "
+                "hooks); times on the host clock, the three settings in turns on a YOLO each, after a warm call, "
+                "SAVE_REPS calls each")
+    return launches, checks, nms
+
+
 def main() -> int:
     import torch
 
@@ -2560,6 +2782,7 @@ def main() -> int:
     loop_launches, loop_bottleneck, nms_loop, loop_final = phase_train_loop()
     amp_launches, amp_bottleneck, nms_amp = phase_train_amp(loop_final)
     scratch_launches, scratch_bottleneck, nms_scratch, load_launches, load_bottleneck, nms_load = phase_scratch()
+    save_launches, save_checks, nms_save = phase_save()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -2582,12 +2805,15 @@ def main() -> int:
                                "train_amp": amp_launches["fused_bottleneck"],
                                "scratch": scratch_launches["fused_bottleneck"],
                                "load_val": load_launches["fused_bottleneck"],
+                               "save": sum(save_launches[k]["fused_bottleneck"]
+                                           for k in ("arrays_f32", "jpeg_directory", "wire_jpeg")),
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
                                                          *serve_checks["fused_bottleneck"].values(),
                                                          *train_bottleneck.values(), *loop_bottleneck.values(),
-                                                         *load_bottleneck.values())),
+                                                         *load_bottleneck.values(),
+                                                         *save_checks["arrays_f32"].values())),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -2603,17 +2829,20 @@ def main() -> int:
                                "images_val_half": images_launches["val_bf16"]["fused_bottleneck_bf16"],
                                "train_amp": amp_launches["fused_bottleneck_bf16"],
                                "scratch": scratch_launches["fused_bottleneck_bf16"],
+                               "save_half": save_launches["arrays_bf16"]["fused_bottleneck_bf16"],
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
                                                          *images_checks["fused_bottleneck_bf16"].values(),
                                                          *amp_bottleneck.values(), *scratch_bottleneck.values(),
-                                                         *serve_checks["fused_bottleneck_bf16"].values())),
+                                                         *serve_checks["fused_bottleneck_bf16"].values(),
+                                                         *save_checks["arrays_bf16"].values())),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
                                                                  *images_checks["fused_bottleneck_bf16"].values(),
                                                                  *amp_bottleneck.values(),
                                                                  *scratch_bottleneck.values(),
-                                                                 *serve_checks["fused_bottleneck_bf16"].values())),
+                                                                 *serve_checks["fused_bottleneck_bf16"].values(),
+                                                                 *save_checks["arrays_bf16"].values())),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -2638,6 +2867,7 @@ def main() -> int:
                                "train_ema_val": train_val_launches["greedy_keep"],
                                "train_loop": loop_launches["greedy_keep"], "train_amp": amp_launches["greedy_keep"],
                                "scratch": scratch_launches["greedy_keep"], "load_val": load_launches["greedy_keep"],
+                               "save": sum(v["greedy_keep"] for v in save_launches.values()),
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
@@ -2662,6 +2892,8 @@ def main() -> int:
                                                       "scan_steps_mean", "mismatches")},
              remote_val_k2048={k: nms_serve[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                        "scan_steps_mean", "mismatches")},
+             save_k1024={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean",
+                                                "mismatches")} for p, d in nms_save.items()},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

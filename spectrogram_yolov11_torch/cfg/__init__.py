@@ -5,9 +5,11 @@ cfg/default.yaml, held here as a dict with JAX's defaults.
 
 Defaults that differ from the JAX package's: `plots` is False (True would
 write plots with matplotlib, which the port does not use; val and train raise
-for plots=True); `save` is None, which is True in train (checkpoints, as
-JAX's default) and False in predict (annotated images with cv2, not ported);
-and `mode` is "predict", so `save_txt` writes under runs/detect/predict*.
+for plots=True); and `mode` is "predict", so predict's saved images, labels
+and crops go under runs/detect/predict*. JAX's facade leaves `mode` at
+"train" and writes them under runs/detect/train*, a fault of the reference
+not carried over (ROADMAP.md §3.14). `save` is True, as JAX's: checkpoints in
+train, the annotated <stem>.jpg of every image in predict.
 `conf` None is 0.25 in predict and 0.001 in val, `pre_nms_topk` 0 is 1024 in
 predict and 2048 in val, as in the JAX package.
 
@@ -23,7 +25,9 @@ rest (every one is accepted at its default, and `get_cfg` handles it so):
 | `pretrained`, `deterministic`, `freeze`, `bgr`, `dropout`, `save_hybrid`, `dnn` | read nowhere | inert |
 | `pose`, `kobj`, `overlap_mask`, `mask_ratio`, `retina_masks`, `copy_paste_mode`, `auto_augment`, `erasing`, `crop_fraction` | read by the pose, segment and classify paths only, or nowhere | inert (the detect task) |
 | `augment`, `visualize` | TTA and feature maps in predict | another value than the default raises: item 5 |
-| `show`, `show_labels`, `show_conf`, `show_boxes`, `line_width` | drawing in predict | the same: item 5 |
+| `line_width`, `show_conf`, `show_labels` | predict's saved plots | honoured (Results.plot) |
+| `show_boxes` | read nowhere | inert |
+| `show` | a window in predict | another value than the default raises: item 5 |
 | `save_frames`, `vid_stride`, `stream_buffer` | video and stream sources | the same: item 5 |
 | `embed` | YOLO.embed's layers | the same: item 8 |
 | `format`, `keras`, `int8`, `opset`, `simplify`, `dynamic`, `optimize`, `workspace`, `nms` | the Exporter | the same: item 9 |
@@ -57,7 +61,7 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "data": None,  # val: a dataset YAML (path or packaged name) or dict
     "imgsz": 640,
     "batch": 16,
-    "workers": 8,  # val: host threads that read and decode the images
+    "workers": 8,  # host threads: val's and train's image reads and decodes, predict's saved images
     "seed": 0,  # accepted as in the JAX package; val draws no random numbers
     "device": None,  # None -> "cuda"; "cpu" runs the plain versions on the host
     "single_cls": False,
@@ -71,7 +75,7 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "classes": None,
     "agnostic_nms": False,
     "half": False,
-    "save": None,  # None -> True in train (checkpoints), False in predict (annotated images)
+    "save": True,  # train: checkpoints; predict: each image's plot as <stem>.jpg
     "save_txt": False,
     "save_conf": False,
     "save_crop": False,
@@ -166,11 +170,10 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
 }
 
 # keys of features the port does not have: another value than the default raises, naming the ROADMAP.md item
-_DRAWING, _VIDEO = "item 5 (image encoding and drawing)", "item 5 (video and streams)"
+_VIDEO = "item 5 (video and streams)"
 NOT_PORTED_KEYS = {
-    "augment": "item 5 (TTA)", "visualize": "item 5 (visualize)", "show": _DRAWING, "show_labels": _DRAWING,
-    "show_conf": _DRAWING, "show_boxes": _DRAWING, "line_width": _DRAWING, "save_frames": _VIDEO,
-    "vid_stride": _VIDEO, "stream_buffer": _VIDEO, "embed": "item 8 (embed, profile)",
+    "augment": "item 5 (TTA)", "visualize": "item 5 (visualize)", "show": "item 5 (show: a window)",
+    "save_frames": _VIDEO, "vid_stride": _VIDEO, "stream_buffer": _VIDEO, "embed": "item 8 (embed, profile)",
     **dict.fromkeys(("format", "keras", "int8", "opset", "simplify", "dynamic", "optimize", "workspace", "nms"),
                     "item 9 (the Exporter and the artifact kinds)"),
     "tracker": "item 12 (host-side remainder: trackers)",

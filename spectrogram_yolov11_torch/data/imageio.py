@@ -1,5 +1,5 @@
 """Image files on the host: a PNG reader and writer in numpy and zlib, and
-the dispatch to the JPEG decoder (data/jpeg.py).
+the dispatch to the JPEG decoder and encoder (data/jpeg.py).
 
 The JAX package reads and writes images with cv2 (cv2.imread, cv2.imwrite);
 the port uses neither cv2 nor PIL. `imread` returns what
@@ -18,10 +18,18 @@ C++ compiler at first use), with `_unfilter_loop` kept as its plain version.
 does for 8-bit JPEG and PNG: a gray image comes back (H, W), a colour one BGR
 (H, W, 3), and the EXIF orientation is not applied; an image cv2 would give 4
 channels (alpha, or a tRNS chunk on a palette or RGB PNG) or 16 bits raises
-ValueError. `imencode_png` encodes a gray or BGR(A) uint8 image as PNG bytes
-with filter 0 on every row, and `imwrite_png` writes them to a file.
-Other formats (bmp, tif, webp, ...) raise NotImplementedError naming the
-ROADMAP.md item that ports their decoder; nothing falls back to another reader.
+ValueError. Other formats (bmp, tif, webp, ...) raise NotImplementedError
+naming the ROADMAP.md item that ports their decoder; nothing falls back to
+another reader.
+
+`imencode(ext, img, quality=95)` and `imwrite(path, img, quality=95)` encode
+by the suffix, as cv2.imencode and cv2.imwrite do: ".jpg" and ".jpeg" to the
+bytes cv2 writes at IMWRITE_JPEG_QUALITY = quality (data/jpeg.py:encode_jpeg);
+".png" to `imencode_png`'s bytes (filter 0 on every row, zlib level 1), which
+decode to the image as cv2's file does but are not cv2's bytes (libpng picks
+a filter per row); any other suffix raises NotImplementedError. imencode
+returns the bytes (cv2 returns (True, buffer)); imwrite returns True, and
+raises where cv2 would return False.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from pathlib import Path
 import numpy as np
 
 from ..utils import kernels
-from .jpeg import decode_jpeg
+from .jpeg import decode_jpeg, encode_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
@@ -43,7 +51,6 @@ _OTHER_FORMATS = ((b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"RIF
                   *((b"P%d" % k, "PNM") for k in range(1, 8)))
 _NO_DECODER = ("queued in ROADMAP.md §1 item 5 (image decode); the port reads JPEG (8-bit Huffman sequential) "
                "and 8-bit PNG")
-_NO_ENCODER = "queued in ROADMAP.md §1 item 5 (image encode); the port writes PNG only"
 
 
 def _chunks(data: bytes, path: str):
@@ -96,7 +103,7 @@ def _unfilter(raw: bytes, height: int, width: int, bpp: int, path: str) -> np.nd
     filters, data = lines[:, 0], lines[:, 1:]
     if filters.max(initial=0) > 4:
         raise ValueError(f"corrupt PNG {path}: row filter {int(filters.max())}")
-    if not filters.any():  # every row unfiltered, as imwrite_png writes them
+    if not filters.any():  # every row unfiltered, as imencode_png writes them
         return data
     out = np.empty((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
@@ -195,11 +202,22 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + ctype + body + struct.pack(">I", zlib.crc32(ctype + body))
 
 
-def imwrite_png(path: str | Path, img: np.ndarray) -> None:
-    """Write a uint8 image as cv2.imwrite would read it back (imencode_png's bytes)."""
-    if Path(path).suffix.lower() != ".png":
-        raise NotImplementedError(f"cannot write {path}: no {Path(path).suffix or 'extension'} encoder, {_NO_ENCODER}")
-    Path(path).write_bytes(imencode_png(img))
+def imencode(ext: str, img: np.ndarray, quality: int = 95) -> bytes:
+    """`img` encoded by the suffix `ext` (".jpg", ".jpeg" or ".png", any case), as cv2.imencode(ext, img,
+    [cv2.IMWRITE_JPEG_QUALITY, quality]) encodes it; the bytes."""
+    e = ext.lower() if ext.startswith(".") else f".{ext.lower()}"
+    if e in (".jpg", ".jpeg"):
+        return encode_jpeg(img, quality)
+    if e == ".png":
+        return imencode_png(img)
+    raise NotImplementedError(f"cannot encode {ext!r}: the port writes JPEG and PNG only; other encoders are queued "
+                              "in ROADMAP.md §1 item 5 (second part)")
+
+
+def imwrite(path: str | Path, img: np.ndarray, quality: int = 95) -> bool:
+    """Write `img` to `path`, encoded by its suffix as cv2.imwrite does (imencode)."""
+    Path(path).write_bytes(imencode(Path(path).suffix, img, quality))
+    return True
 
 
 def imencode_png(img: np.ndarray) -> bytes:

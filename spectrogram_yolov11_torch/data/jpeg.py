@@ -1,4 +1,5 @@
-"""Baseline JPEG decoding on the host: what cv2.imread(path, IMREAD_COLOR) gives.
+"""Baseline JPEG on the host: decoding as cv2.imread(path, IMREAD_COLOR)
+decodes, and encoding to the bytes cv2.imencode(".jpg", img) writes.
 
 The JAX package writes its image datasets with cv2.imwrite(... .jpg) and reads
 them with cv2.imread (libjpeg-turbo); the port has neither cv2 nor PIL. Here
@@ -17,6 +18,17 @@ libjpeg). Progressive (SOF2), lossless (SOF3), arithmetic coding (SOF9-11),
 12-bit samples and 4-component CMYK/YCCK raise NotImplementedError
 (ROADMAP.md §1 item 5); input that libjpeg refuses, for which cv2.imread
 returns None, raises ValueError.
+
+`encode_jpeg(img, quality)` writes what cv2.imencode(".jpg", img,
+[IMWRITE_JPEG_QUALITY, quality]) writes with its other parameters at their
+defaults, byte for byte: a JFIF 1.01 APP0 (no units, density 1:1), one DQT
+per table, SOF0 (4:2:0 for a colour frame, one component for a gray one),
+the four standard Huffman tables of ITU T.81 Annex K.3 (two for gray) each
+in a DHT of its own, one interleaved scan and EOI. The quantisation tables
+are Annex K.1's scaled as libjpeg's jpeg_set_quality(quality, TRUE) scales
+them; the scan is the host library's csrc/jpeg_encode.cpp (libjpeg-turbo's
+integer arithmetic: fixed-point YCbCr, h2v2 downsampling, the ISLOW forward
+DCT, its reciprocal quantisation, dummy blocks at the edge of the MCU grid).
 """
 
 from __future__ import annotations
@@ -358,3 +370,66 @@ def _render(lib, frame: _Frame, latched: list) -> np.ndarray:
     if err:
         raise _refuse(f"render error {err}")
     return out
+
+
+# ITU T.81 Annex K.1's luminance and chrominance tables in natural order
+_STD_QUANT = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99,
+    17, 18, 24, 47, *[99] * 4, 18, 21, 26, 66, *[99] * 4, 24, 26, 56, *[99] * 5, 47, 66, *[99] * 38,
+], np.int64).reshape(2, 64)
+_JFIF = b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"  # version 1.01, no units, density 1:1, no thumbnail
+_BYTES_PER_BLOCK = 448  # 64 codes of at most 27 bits each, every byte stuffed: the scan's bound
+
+
+def quant_tables(quality: int) -> np.ndarray:
+    """(2, 64) uint16 luma and chroma quantisation values in natural order, as
+    libjpeg's jpeg_set_quality(quality, force_baseline=TRUE) makes them (the
+    quality clamped to 1..100, as cv2 clamps IMWRITE_JPEG_QUALITY to 0..100
+    and libjpeg 0 to 1)."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return np.clip((_STD_QUANT * scale + 50) // 100, 1, 255).astype(np.uint16)
+
+
+def _marker(code: int, body: bytes) -> bytes:
+    return bytes([0xFF, code]) + struct.pack(">H", len(body) + 2) + body
+
+
+def _dht(slot: int, index: int) -> bytes:
+    table = _STD_TABLES[slot]
+    n = int(table[1:17].sum(dtype=np.int64))
+    return _marker(0xC4, bytes([index]) + table[1 : 17 + n].tobytes())
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """A uint8 frame as the JPEG bytes cv2.imencode(".jpg", img,
+    [cv2.IMWRITE_JPEG_QUALITY, quality]) gives: (H, W, 3) BGR as 4:2:0 YCbCr,
+    (H, W) or (H, W, 1) gray as one component. Other shapes and dtypes, and
+    sides past libjpeg's 65500, raise ValueError."""
+    a = np.asarray(img)
+    if a.dtype != np.uint8 or a.ndim not in (2, 3) or (a.ndim == 3 and a.shape[2] not in (1, 3)):
+        raise ValueError(f"encode_jpeg: expected uint8 (H, W), (H, W, 1) or (H, W, 3), got {a.dtype} {a.shape}")
+    h, w = a.shape[:2]
+    if not (1 <= h <= 65500 and 1 <= w <= 65500):
+        raise ValueError(f"encode_jpeg: a {w} x {h} image; libjpeg takes sides of 1 to 65500")
+    a = np.ascontiguousarray(a.reshape(h, w, -1))
+    gray = a.shape[2] == 1
+    quant = quant_tables(quality)
+    comps = [(1, 0x11, 0)] if gray else [(1, 0x22, 0), (2, 0x11, 1), (3, 0x11, 1)]
+    tables = range(1 if gray else 2)
+    head = [b"\xff\xd8", _marker(0xE0, _JFIF)]
+    head += [_marker(0xDB, bytes([t]) + quant[t][_ZIGZAG].astype(np.uint8).tobytes()) for t in tables]
+    head.append(_marker(0xC0, struct.pack(">BHHB", 8, h, w, len(comps)) + b"".join(map(bytes, comps))))
+    head += [_dht(slot, index) for t in tables for slot, index in ((t, t), (t + 4, 0x10 | t))]
+    head.append(_marker(0xDA, bytes([len(comps), *(v for cid, _, t in comps for v in (cid, t << 4 | t)), 0, 63, 0])))
+    blocks = -(-w // 8) * -(-h // 8) if gray else -(-w // 16) * -(-h // 16) * 6
+    out = np.empty(blocks * _BYTES_PER_BLOCK + 16, np.uint8)
+    written = np.zeros(1, np.int64)
+    huff = np.stack([_STD_TABLES[0], _STD_TABLES[4], _STD_TABLES[1], _STD_TABLES[5]])
+    err = kernels.load("image_encode").jpeg_encode(a.ctypes.data, h, w, a.shape[2], quant.ctypes.data,
+                                                   huff.ctypes.data, out.ctypes.data, out.size, written.ctypes.data)
+    if err:
+        raise RuntimeError(f"jpeg_encode failed ({err}) on a {a.shape} frame")
+    return b"".join(head) + out[: int(written[0])].tobytes() + b"\xff\xd9"

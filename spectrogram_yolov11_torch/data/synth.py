@@ -18,7 +18,7 @@ import torch
 
 from ..ops.stft import spectrogram_numpy
 from .augment import resize_linear_u8
-from .imageio import imwrite_png
+from .imageio import imwrite
 
 
 def synth_iq(rng: np.random.Generator, n_samples: int):
@@ -104,7 +104,7 @@ def _gen_spectrogram(root: Path, split: str, n: int, imgsz: int, seed: int) -> N
     (root / "labels" / split).mkdir(parents=True, exist_ok=True)
     for i in range(n):
         img, events = synth_frame(rng, imgsz, imgsz)
-        imwrite_png(root / "images" / split / f"{i:05d}.png", img)
+        imwrite(root / "images" / split / f"{i:05d}.png", img)
         lines = [f"{c} {(t0 + t1) / 2:.6f} {(f0 + f1) / 2:.6f} {t1 - t0:.6f} {f1 - f0:.6f}"
                  for c, t0, t1, f0, f1 in events]
         (root / "labels" / split / f"{i:05d}.txt").write_text("\n".join(lines))

@@ -6,7 +6,13 @@ goes up as one channel), the device function (engine/pipeline.py:
 build_device_fn: normalise, forward with the fused bottleneck kernel, DFL
 decode, NMS with the greedy keep kernel), then on the host scale_boxes per
 image and Results. The last batch is padded with copies of its last frame, as
-in the JAX predictor, and only the real frames are yielded.
+in the JAX predictor, and only the real frames are yielded. A call that is
+not a stream then saves as JAX's (predictor.py:296-334, images): with save
+(True by default) each image's plot as <stem>.jpg, with save_txt its label
+rows under labels/, with save_crop its crops under crops/, all in one run
+directory (runs/detect/predict*, or project/name), and logs where. The
+images are saved in `workers` threads (the JPEG encoder releases the GIL),
+one by one where two share a stem.
 
 half=True runs the network in bf16, as the JAX predictor maps half=True to
 bf16 (spectrogram_yolov11_tpu/engine/predictor.py:89): the predictor holds its
@@ -17,6 +23,7 @@ model, and a later half=False predictor on it, stay f32.
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterator, List, Optional
 
@@ -28,7 +35,7 @@ from ..data.augment import letterbox_batch
 from ..data.loaders import load_inference_source
 from ..nn.tasks import DetectionModel
 from ..ops.boxes import scale_boxes
-from ..utils import resolve_device
+from ..utils import LOGGER, resolve_device
 from ..utils.callbacks import run_callbacks
 from .pipeline import build_device_fn, eval_network
 from .results import Results
@@ -47,10 +54,6 @@ class BasePredictor:
         args = get_cfg(DEFAULT_CFG_DICT, overrides or {})
         if args.conf is None:
             args.conf = 0.25
-        if args.save or args.save_crop:
-            raise NotImplementedError("save=True and save_crop=True need a JPEG encoder and box drawing (cv2 in the "
-                                      "JAX package), which the port does not have; queued in ROADMAP.md §1 item 5. "
-                                      "save_txt=True works")
         self.args = args
         self.device = resolve_device(args.device or "cuda")
         self.source = model  # None for a predictor whose network runs elsewhere (serve.py:RemotePredictor)
@@ -136,8 +139,28 @@ class BasePredictor:
         if stream:
             return gen
         results = list(gen)
-        if self.args.save_txt:
-            save_dir = get_save_dir(self.args)
-            for r in results:
-                r.save_txt(save_dir / "labels" / f"{Path(r.path).stem or 'image'}.txt", save_conf=self.args.save_conf)
+        a = self.args
+        if a.save or a.save_txt or a.save_crop:
+            save_dir = get_save_dir(a)
+            save_dir.mkdir(parents=True, exist_ok=True)
+            plot_kw = dict(line_width=a.line_width, show_conf=bool(a.show_conf), show_labels=bool(a.show_labels))
+
+            def save_one(r: Results) -> None:
+                stem = Path(r.path).stem or "image"
+                if a.save:
+                    r.save(save_dir / f"{stem}.jpg", **plot_kw)
+                if a.save_txt:
+                    r.save_txt(save_dir / "labels" / f"{stem}.txt", save_conf=a.save_conf)
+                if a.save_crop:
+                    r.save_crop(save_dir / "crops", f"{stem}.jpg")
+
+            stems = [Path(r.path).stem or "image" for r in results]
+            threads = min(int(a.workers), len(results)) if len(set(stems)) == len(stems) else 0
+            if threads > 1:  # the encoder releases the GIL; images of one stem are saved in order, as JAX's
+                with ThreadPoolExecutor(threads) as pool:
+                    list(pool.map(save_one, results))
+            else:
+                for r in results:
+                    save_one(r)
+            LOGGER.info(f"Results saved to {save_dir}")
         return results

@@ -3,9 +3,11 @@ spectrogram_yolov11_tpu/engine/results.py: Boxes (:46) and Results (:203) for
 the detect task. The predictor builds them after the fixed-shape NMS output
 has left the card, so device movement is the identity here too.
 
-plot, save, save_crop and show draw, encode or show images with cv2 in the
-JAX package; the port has no drawing, no JPEG encoder and no window, so they
-raise NotImplementedError.
+plot, save and save_crop are JAX's (:248-304) for boxes: the same line width,
+colours, corners, labels and crops, drawn by utils/plotting.py (rectangles
+equal to cv2.rectangle; labels in the port's stroke font, not cv2's) and
+written by data/imageio.py:imwrite (JPEG bytes equal to cv2.imwrite's). show
+raises NotImplementedError: the card's machine has no window.
 """
 
 from __future__ import annotations
@@ -16,11 +18,18 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..data.imageio import imwrite
 from ..ops.boxes import xyxy2xywh
 from ..utils import SimpleClass
+from ..utils.plotting import put_text, rectangle
 
-_NO_CV2 = ("needs box drawing and a JPEG encoder, or a window for show (cv2 in the JAX package), which the port "
-           "does not have; queued in ROADMAP.md §1 item 5")
+# the JAX package's box colours (engine/results.py:195-199), in the channel order cv2 draws them (BGR)
+_COLORS = np.array(
+    [[4, 42, 255], [11, 219, 235], [243, 243, 243], [0, 223, 183], [17, 31, 104], [255, 111, 221],
+     [255, 68, 79], [204, 237, 0], [0, 243, 68], [189, 0, 255], [0, 180, 255], [221, 0, 186],
+     [0, 192, 38], [255, 36, 125], [104, 0, 123], [108, 27, 255], [47, 109, 252], [104, 31, 17]],
+    np.uint8,
+)
 
 
 class _TensorCompat:
@@ -107,17 +116,51 @@ class Results(_TensorCompat, SimpleClass):
         boxes = self.boxes.data[i].reshape(-1, 6) if self.boxes is not None else None
         return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed)
 
-    def plot(self, *args, **kwargs):
-        raise NotImplementedError(f"Results.plot {_NO_CV2}")
+    def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5, show_conf: bool = True,
+             show_labels: bool = True, img: Optional[np.ndarray] = None) -> np.ndarray:
+        """The detections drawn on a copy of orig_img (or on `img`, in place):
+        each box in its class colour at line width `line_width` or max(round((H
+        + W) / 2 * 0.003), 2), its label (name, and the confidence to 2
+        places) above it at thickness max(lw - 1, 1)."""
+        img = self.orig_img.copy() if img is None else img
+        lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
+        if self.boxes is not None:
+            for b in self.boxes.data:
+                c = int(b[5])
+                color = _COLORS[c % len(_COLORS)].tolist()
+                p1, p2 = (int(b[0]), int(b[1])), (int(b[2]), int(b[3]))
+                rectangle(img, p1, p2, color, lw)
+                if show_labels:
+                    label = self.names.get(c, str(c)) + (f" {b[4]:.2f}" if show_conf else "")
+                    put_text(img, label, (p1[0], max(p1[1] - 4, 12)), font_scale, color, max(lw - 1, 1))
+        return img
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError(f"Results.save {_NO_CV2}")
+    def save(self, filename: str | Path, **plot_kw) -> str:
+        """plot(**plot_kw) written to `filename` (JPEG at quality 95 for .jpg, as cv2.imwrite)."""
+        imwrite(filename, self.plot(**plot_kw))
+        return str(filename)
 
-    def save_crop(self, *args, **kwargs):
-        raise NotImplementedError(f"Results.save_crop {_NO_CV2}")
+    def save_crop(self, save_dir: str | Path, file_name: str | Path = "im.jpg") -> None:
+        """Each detection's crop of orig_img, squared up by 1.02 and 10 px and
+        clipped to the image, written to save_dir/<class name>/<stem>[_i]<suffix>."""
+        if self.boxes is None or not len(self.boxes.data):
+            return
+        h, w = self.orig_img.shape[:2]
+        for i, b in enumerate(self.boxes.data):
+            cx, cy = (b[0] + b[2]) / 2, (b[1] + b[3]) / 2
+            bw, bh = (b[2] - b[0]) * 1.02 + 10, (b[3] - b[1]) * 1.02 + 10
+            x1, x2 = int(max(cx - bw / 2, 0)), int(min(cx + bw / 2, w))
+            y1, y2 = int(max(cy - bh / 2, 0)), int(min(cy + bh / 2, h))
+            if x2 <= x1 or y2 <= y1:
+                continue
+            d = Path(save_dir) / self.names.get(int(b[5]), str(int(b[5])))
+            d.mkdir(parents=True, exist_ok=True)
+            stem, suffix = Path(file_name).stem, Path(file_name).suffix or ".jpg"
+            imwrite(d / f"{stem}{'' if i == 0 else f'_{i}'}{suffix}", self.orig_img[y1:y2, x1:x2])
 
     def show(self, *args, **kwargs):
-        raise NotImplementedError(f"Results.show {_NO_CV2}")
+        raise NotImplementedError("Results.show opens a window (cv2.imshow in the JAX package), which the card's "
+                                  "machine does not have; queued in ROADMAP.md §1 item 5 (second part)")
 
     def save_txt(self, txt_file: str | Path, save_conf: bool = False) -> None:
         """YOLO-format label rows: class, normalised xywh[, conf]."""

@@ -372,7 +372,7 @@ class DetectionTrainer:
             raise ValueError(f"training set too small for batch={self.batch_size}")
         self.setup_optimizer(nb)
         stopper = EarlyStopping(a.patience)
-        save = a.save is not False  # None (the default) saves in training
+        save = a.save is not False  # True, the default, saves the checkpoints
         run_callbacks(self.callbacks, "on_train_start", self)
         t_start = time.time()
         for epoch in range(self.start_epoch, self.epochs):

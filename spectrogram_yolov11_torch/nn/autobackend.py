@@ -17,10 +17,10 @@ numpy array for a server. Reference .pt files and exported artifacts raise
 NotImplementedError naming the ROADMAP.md item that ports them; grpc://
 raises as the JAX client does.
 
-SYT_WIRE_ENCODE=png sends each frame to a server as PNG bytes (the BYTES
-ingest, serve.py:encode_images) instead of the raw tensor; `jpg` raises (the
-port has no JPEG encoder). Only a uint8 channels-last batch is encoded: any
-other input is sent raw, with a warning.
+SYT_WIRE_ENCODE=jpg[:q] or png sends each frame to a server as JPEG (at
+quality q, 90 unless given, as JAX's client) or PNG bytes (the BYTES ingest,
+serve.py:encode_images) instead of the raw tensor. Only a uint8
+channels-last batch is encoded: any other input is sent raw, with a warning.
 """
 
 from __future__ import annotations
@@ -108,7 +108,8 @@ class AutoBackend:
         a = _wire_batch(x)
         if self._wire:
             if a.dtype == np.uint8 and a.ndim == 4 and a.shape[-1] in (1, 3):
-                outs = self._remote(encode_images(a, fmt=f".{self._wire.partition(':')[0].lstrip('.')}"))
+                fmt, _, q = self._wire.partition(":")
+                outs = self._remote(encode_images(a, fmt=f".{fmt.lstrip('.')}", quality=int(q or 90)))
                 return outs[0] if len(outs) == 1 else tuple(outs)
             warnings.warn(f"SYT_WIRE_ENCODE={self._wire}: the batch is {a.dtype} {a.shape}, not uint8 (B, H, W, 1|3); "
                           "sending it raw")

@@ -22,7 +22,8 @@ the binary-tensor extension) on a stdlib ThreadingHTTPServer, and
 - Ingest: a raw UINT8 (N, H, W, 3) tensor; a gray (N, H, W, 1) one, uploaded
   as one channel and broadcast to three on the card; or BYTES, one JPEG or
   PNG per frame, decoded on the host as cv2.imdecode(IMREAD_UNCHANGED) does
-  (data/imageio.py:imdecode). A BYTES payload whose elements run past its
+  (data/imageio.py:imdecode), as the client's SYT_WIRE_ENCODE=jpg|png[:q]
+  sends them (encode_images). A BYTES payload whose elements run past its
   size, or whose count differs from its shape, gets a 400.
 - The server answers FP32 whatever the network's dtype: half=True runs its
   bf16 copy, whose decoded predictions are f32.
@@ -52,7 +53,7 @@ from urllib.parse import urlsplit
 import numpy as np
 import torch
 
-from .data.imageio import imdecode, imencode_png
+from .data.imageio import imdecode, imencode
 from .engine.predictor import BasePredictor
 from .nn.autobackend import AutoBackend
 from .ops.nms import non_max_suppression
@@ -76,15 +77,14 @@ def _np_datatype(arr: np.ndarray) -> str:
         raise ValueError(f"dtype {arr.dtype} has no KServe v2 datatype") from None
 
 
-def encode_images(imgs: np.ndarray, fmt: str = ".png") -> List[bytes]:
+def encode_images(imgs: np.ndarray, fmt: str = ".jpg", quality: int = 90) -> List[bytes]:
     """A (N, H, W, C) uint8 batch as one encoded image per frame, for the BYTES
-    wire format: ".png" (lossless, data/imageio.py:imencode_png). ".jpg" raises:
-    the port has no JPEG encoder."""
-    if fmt in (".jpg", ".jpeg"):
-        raise not_ported("JPEG encoder", "item 5 (image encode)")
-    if fmt != ".png":
-        raise ValueError(f"encode_images: unsupported format {fmt!r} (.png)")
-    return [imencode_png(im) for im in np.asarray(imgs)]
+    wire format, as JAX's encode_images (spectrogram_yolov11_tpu/serve.py:63):
+    ".jpg" / ".jpeg" at `quality` (cv2.imencode's bytes, data/jpeg.py) or
+    ".png" (lossless, data/imageio.py:imencode_png)."""
+    if fmt not in (".jpg", ".jpeg", ".png"):
+        raise ValueError(f"encode_images: unsupported format {fmt!r} (.jpg, .jpeg, .png)")
+    return [imencode(fmt, im, quality) for im in np.asarray(imgs)]
 
 
 def _decode_images(blobs: List[bytes]) -> np.ndarray:

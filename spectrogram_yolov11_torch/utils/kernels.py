@@ -7,17 +7,18 @@ Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v [per-kernel flags] -o build/lib<name>.so csrc/<name>.cu
 
-The host library (HOST_LIBS: the JPEG decoder's body and the PNG row filters,
-csrc/*.cpp) compiles the same way with `c++` (or `g++`) from PATH:
+The host libraries (HOST_LIBS: the JPEG decoder's body and the PNG row
+filters; the JPEG encoder's body; csrc/*.cpp) compile the same way with `c++`
+(or `g++`) from PATH:
 
     c++ -O3 -std=c++17 -shared -fPIC -o build/lib<name>.so csrc/<source>.cpp ...
 
 A missing compiler raises RuntimeError; nothing falls back to another reader.
 A library newer than its sources is reused. Nothing here runs at import: the
 compilers, the build and ctypes are reached only when a kernel is first
-launched or an image first decoded (or `build_all` is called), so the package
-imports on a machine without them. ctypes releases the GIL during a call, so
-the host library decodes in several threads at once. Every CUDA entry point
+launched or an image first decoded or encoded (or `build_all` is called), so
+the package imports on a machine without them. ctypes releases the GIL during
+a call, so the host libraries decode and encode in several threads at once. Every CUDA entry point
 returns cudaGetLastError() after its launches; `check` raises if that is not 0.
 """
 
@@ -47,6 +48,7 @@ KERNELS: Dict[str, Tuple[List[str], Dict[str, str]]] = {
 HOST_LIBS: Dict[str, Tuple[List[str], Dict[str, str]]] = {
     "image_decode": (["jpeg_decode.cpp", "png_unfilter.cpp"],
                      {"jpeg_scan": "pllppiiiipp", "jpeg_render": "pppiiiip", "png_unfilter_row": "ipppli"}),
+    "image_encode": (["jpeg_encode.cpp"], {"jpeg_encode": "piiippplp"}),
 }
 
 _LOCK = threading.Lock()
@@ -70,8 +72,9 @@ def host_compiler() -> str:
         found = shutil.which(cxx)
         if found:
             return found
-    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the port's image decoder "
-                       "(csrc/jpeg_decode.cpp, csrc/png_unfilter.cpp) is built with one at first use")
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the port's image decoder and encoder "
+                       "(csrc/jpeg_decode.cpp, csrc/png_unfilter.cpp, csrc/jpeg_encode.cpp) are built with one at "
+                       "first use")
 
 
 def _sources(name: str) -> List[Path]:

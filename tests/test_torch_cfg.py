@@ -1,12 +1,13 @@
 """The port's configuration and command line against the JAX package's.
 
 - Every key of JAX's cfg/default.yaml (its DEFAULT_CFG_DICT, read here) is
-  in the port's DEFAULT_CFG_DICT at JAX's default, but for the three the
-  port documents (`mode`, `plots`, `save`), and get_cfg accepts the whole
-  set at JAX's values. Each of the 41 keys the port lacked is handled as the
-  cfg module's table says: inert, honoured, `rect=True` warns and is set
-  False as in JAX, or another value than the default raises
-  NotImplementedError naming its ROADMAP.md item.
+  in the port's DEFAULT_CFG_DICT at JAX's default, but for the two the port
+  documents (`mode`, `plots`), and get_cfg accepts the whole set at JAX's
+  values. Each of the 41 keys the port lacked is handled as the cfg module's
+  table says: inert, honoured (predict's drawing keys are held to JAX's
+  plots in tests/test_torch_plot.py and tests/test_torch_predict.py),
+  `rect=True` warns and is set False as in JAX, or another value than the
+  default raises NotImplementedError naming its ROADMAP.md item.
 - `yaml_load` reads the port's packaged YAMLs (the two detect model YAMLs
   with their nested flow lists, `scales:` mapping and `None` / `nearest`
   scalars, and the three dataset YAMLs) as yaml.safe_load does, and the
@@ -32,27 +33,27 @@ from spectrogram_yolov11_tpu.cfg import entrypoint as jax_entrypoint
 ROOT = Path(__file__).resolve().parent.parent
 PORT_CFG = ROOT / "spectrogram_yolov11_torch" / "cfg"
 JAX_CFG = ROOT / "spectrogram_yolov11_tpu" / "cfg"
-PORT_DEFAULTS = {"mode": "predict", "plots": False, "save": None}  # the port's documented differences
+PORT_DEFAULTS = {"mode": "predict", "plots": False}  # the port's documented differences
 # the 41 keys of JAX's default.yaml the port's cfg rejected before, each with its handling
 INERT = ("pretrained", "deterministic", "freeze", "bgr", "dropout", "save_hybrid", "dnn", "pose", "kobj",
          "overlap_mask", "mask_ratio", "retina_masks", "copy_paste_mode", "auto_augment", "erasing", "crop_fraction",
-         "source", "cfg")
-HONOURED = ("model",)
+         "source", "cfg", "show_boxes")
+HONOURED = ("model", "line_width", "show_conf", "show_labels")
 NEW_KEYS = (*INERT, *HONOURED, "rect", *NOT_PORTED_KEYS)
 # a non-default value of each key that raises, and the ROADMAP.md item it names
 NON_DEFAULT = {"augment": True, "visualize": True, "show": True, "show_labels": False, "show_conf": False,
                "show_boxes": False, "line_width": 2, "save_frames": True, "vid_stride": 2, "stream_buffer": True,
                "embed": [10], "format": "onnx", "keras": True, "int8": True, "opset": 17, "simplify": False,
                "dynamic": True, "optimize": True, "workspace": 4.0, "nms": True, "tracker": "bytetrack.yaml"}
-ITEM = {**dict.fromkeys(("augment", "visualize", "show", "show_labels", "show_conf", "show_boxes", "line_width",
-                         "save_frames", "vid_stride", "stream_buffer"), "item 5"), "embed": "item 8",
+ITEM = {**dict.fromkeys(("augment", "visualize", "show", "save_frames", "vid_stride", "stream_buffer"), "item 5"),
+        "embed": "item 8",
         **dict.fromkeys(("format", "keras", "int8", "opset", "simplify", "dynamic", "optimize", "workspace", "nms"),
                         "item 9"), "tracker": "item 12"}
 # a non-default value of each inert key, of the type check_cfg holds it to
 INERT_VALUE = {"pretrained": False, "deterministic": False, "freeze": [0, 1], "bgr": 0.5, "dropout": 0.1,
                "save_hybrid": True, "dnn": True, "pose": 6.0, "kobj": 2.0, "overlap_mask": False, "mask_ratio": 2,
                "retina_masks": True, "copy_paste_mode": "mixup", "auto_augment": "augmix", "erasing": 0.0,
-               "crop_fraction": 0.5, "source": "frames/", "cfg": "custom.yaml"}
+               "crop_fraction": 0.5, "source": "frames/", "cfg": "custom.yaml", "show_boxes": False}
 
 
 def test_every_jax_key_is_accepted_at_its_default():
@@ -78,8 +79,10 @@ def test_each_new_key_is_handled_as_tabled(key, caplog):
             get_cfg(DEFAULT_CFG_DICT, {key: NON_DEFAULT[key]})
     elif key in INERT:
         assert getattr(get_cfg(DEFAULT_CFG_DICT, {key: INERT_VALUE[key]}), key) == INERT_VALUE[key]
-    else:  # model: carried to the trainer, which builds it when it has no model (test_torch_scratch.py)
+    elif key == "model":  # carried to the trainer, which builds it when it has no model (test_torch_scratch.py)
         assert get_cfg(DEFAULT_CFG_DICT, {"model": "yolo11n.yaml"}).model == "yolo11n.yaml"
+    else:  # predict's drawing keys: carried to Results.plot (test_torch_plot.py, test_torch_predict.py)
+        assert getattr(get_cfg(DEFAULT_CFG_DICT, {key: NON_DEFAULT[key]}), key) == NON_DEFAULT[key]
 
 
 YAMLS = sorted((PORT_CFG / "models").rglob("*.yaml")) + sorted((PORT_CFG / "datasets").glob("*.yaml"))

@@ -28,7 +28,7 @@ import spectrogram_yolov11_tpu.data.synth as jax_synth
 from spectrogram_yolov11_torch.data.augment import letterbox_batch, resize_linear_u8
 from spectrogram_yolov11_torch.data.build import DataLoader
 from spectrogram_yolov11_torch.data.dataset import YOLODataset, check_det_dataset, find_dataset_yaml
-from spectrogram_yolov11_torch.data.imageio import imread, imwrite_png
+from spectrogram_yolov11_torch.data.imageio import imread, imwrite
 from spectrogram_yolov11_torch.data.synth import _gen_spectrogram, maybe_generate
 from spectrogram_yolov11_torch.utils import yaml_load
 from spectrogram_yolov11_tpu.data import DataLoader as JaxDataLoader
@@ -71,7 +71,7 @@ def _split(root: Path, shapes, seed=0):
         img = cv2.resize(rng.integers(0, 256, (9, 11, c), dtype=np.uint8), (w, h), interpolation=cv2.INTER_CUBIC)
         img = img.reshape(h, w, c)
         img[::5] = rng.integers(0, 256, img[::5].shape)
-        imwrite_png(root / "images" / "val" / f"{i:03d}.png", img)
+        imwrite(root / "images" / "val" / f"{i:03d}.png", img)
         n = int(rng.integers(0, 5)) if i else 0  # the first image has no labels
         xy = rng.uniform(0.15, 0.85, (n, 2))
         wh = rng.uniform(0.01, 0.3, (n, 2))

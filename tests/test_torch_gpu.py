@@ -21,7 +21,9 @@ says why 3); predict from the JPEG fixture files and val on the fixture split
 against the CPU, as predict and val on arrays and PNG; the KServe-v2 server
 on the card against one on the CPU (the forward tolerance above: boxes 1e-2
 px, scores 1e-4), and YOLO(url) predict and val against local ones on the card
-(boxes 1e-3 px, val 1e-6 per key). The tests leave
+(boxes 1e-3 px, val 1e-6 per key); predict at its defaults (save=True) on
+the card writing each image's plot, the file equal to the port's JPEG of the
+returned Results' plot. The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -405,11 +407,11 @@ def _predict_on_card_against_cpu(tmp_path, half: bool = False):
         raise AssertionError("no array seed in 0..49 is clear of the thresholds")
     for source, frames, batch in ((str(tmp_path / "capture.npy"), [frame], 1), (arrays, arrays, 4)):
         counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
-        got = gpu.predict(source, imgsz=imgsz, batch=batch, half=half)
+        got = gpu.predict(source, imgsz=imgsz, batch=batch, half=half, save=False)
         moved = tuple(n - n0 for n, n0 in zip((fused_bottleneck.launches, fused_bottleneck_bf16.launches,
                                                greedy_keep.launches), counts))
         assert moved == ((0, 6, 1) if half else (6, 0, 1))
-        ref = cpu.predict(source, imgsz=imgsz, batch=batch, half=half)
+        ref = cpu.predict(source, imgsz=imgsz, batch=batch, half=half, save=False)
         assert next(gpu.predictor.model.parameters()).device.type == "cuda" and len(got) == len(ref)
         if half:  # the port's own bf16-to-f32 distance over every anchor of these frames
             d = (_decoded(model, frames, imgsz) - _decoded(cpu.model, frames, imgsz)).abs()
@@ -505,11 +507,11 @@ def test_predict_from_jpeg_files_on_card_matches_cpu():
     for source, batch in ((JPEG_FIXTURES / "spectrogram" / "images" / "val", 8), (JPEG_FIXTURES / "s4*.jpg", 1)):
         n = len(list(source.glob("*.jpg")) if source.is_dir() else list(JPEG_FIXTURES.glob(source.name)))
         counts = (fused_bottleneck.launches, greedy_keep.launches)
-        got = gpu.predict(str(source), imgsz=320, batch=batch)
+        got = gpu.predict(str(source), imgsz=320, batch=batch, save=False)
         torch.cuda.synchronize()
         batches = -(-n // batch)
         assert (fused_bottleneck.launches - counts[0], greedy_keep.launches - counts[1]) == (6 * batches, batches)
-        ref = cpu.predict(str(source), imgsz=320, batch=batch)
+        ref = cpu.predict(str(source), imgsz=320, batch=batch, save=False)
         assert len(got) == len(ref) == n and [g.path for g in got] == [r.path for r in ref]
         for g, r in zip(got, ref):
             np.testing.assert_array_equal(g.orig_img, r.orig_img)
@@ -1043,7 +1045,7 @@ def test_remote_predict_and_val_on_card_match_local_on_card(servers):
     card, _, cpu = servers
     remote, local = YOLO(card.url), YOLO(CKPT)
     img = np.random.default_rng(2).integers(0, 255, (96, 128, 3), np.uint8)
-    kw = dict(imgsz=320, conf=0.0, max_det=8)
+    kw = dict(imgsz=320, conf=0.0, max_det=8, save=False)
     before = _counts()
     got = remote.predict(img, **kw)[0]
     assert _moved(before) == (6, 0, 1)
@@ -1061,3 +1063,32 @@ def test_remote_predict_and_val_on_card_match_local_on_card(servers):
     assert _moved(before) == (6, 0, 1)
     lv = local.val(data=data, batch=8)
     assert list(rv) == list(lv) and all(abs(rv[k] - lv[k]) <= 1e-6 for k in lv), (rv, lv)
+
+
+@pytest.mark.gpu
+def test_predict_saves_on_the_card(tmp_path):
+    """YOLO(ckpt).predict at its defaults on the card (save=True, as JAX's):
+    6 bottleneck and 1 NMS launches per batch, one <stem>.jpg per image, each
+    the port's JPEG of the returned Results' plot and decoding to what the
+    port's decoder gives for those bytes; with half=True the same with the
+    bf16 kernel."""
+    _card()
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.imageio import imdecode, imencode, imread
+    from spectrogram_yolov11_torch.data.synth import synth_frames
+
+    arrays = [np.repeat(synth_frames(1, h, w, seed=30 + i)[0], 3, -1) for i, (h, w) in
+              enumerate([(360, 640), (720, 1280), (500, 333)])]
+    yolo = YOLO(CKPT)
+    for half, name in ((False, "f32"), (True, "bf16")):
+        counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
+        got = yolo.predict(arrays, batch=3, half=half, project=str(tmp_path), name=name)
+        torch.cuda.synchronize()
+        moved = tuple(n - n0 for n, n0 in zip((fused_bottleneck.launches, fused_bottleneck_bf16.launches,
+                                               greedy_keep.launches), counts))
+        assert moved == ((0, 6, 1) if half else (6, 0, 1))
+        assert sorted(p.name for p in (tmp_path / name).iterdir()) == ["image0.jpg", "image1.jpg", "image2.jpg"]
+        for r in got:
+            data = (tmp_path / name / f"{r.path}.jpg").read_bytes()
+            assert data == imencode(".jpg", r.plot())
+            np.testing.assert_array_equal(imread(tmp_path / name / f"{r.path}.jpg"), imdecode(data))

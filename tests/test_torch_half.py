@@ -246,14 +246,14 @@ def test_predict_half_on_cpu_then_f32_again(tmp_path):
               enumerate([(360, 640), (720, 1280), (500, 333)])]
     yolo = YOLO(CKPT, device="cpu")
     for source, batch in ((str(tmp_path / "capture.npy"), 1), (arrays, 2)):
-        ref = yolo.predict(source, imgsz=IMGSZ, batch=batch)
-        half = yolo.predict(source, imgsz=IMGSZ, batch=batch, half=True)
+        ref = yolo.predict(source, imgsz=IMGSZ, batch=batch, save=False)
+        half = yolo.predict(source, imgsz=IMGSZ, batch=batch, half=True, save=False)
         assert yolo.predictor.model.dtype == BF16 and yolo.model.dtype == torch.float32
         assert len(half) == len(ref) and sum(map(len, half)) > 0
         for h, r in zip(half, ref):
             assert h.boxes.data.dtype == np.float32 and h.orig_shape == r.orig_shape and h.path == r.path
             assert np.isfinite(h.boxes.data).all()
-        again = yolo.predict(source, imgsz=IMGSZ, batch=batch)
+        again = yolo.predict(source, imgsz=IMGSZ, batch=batch, save=False)
         assert yolo.predictor.model is yolo.model
         for a, r in zip(again, ref):
             np.testing.assert_array_equal(a.boxes.data, r.boxes.data)

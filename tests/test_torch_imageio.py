@@ -34,7 +34,7 @@ from spectrogram_yolov11_torch.data.imageio import (
     imdecode,
     imencode_png,
     imread,
-    imwrite_png,
+    imwrite,
 )
 
 
@@ -140,7 +140,7 @@ def test_imread_equals_cv2_on_every_png(pngs):
 def test_imwrite_png_round_trips_through_cv2(tmp_path, shape):
     img = np.random.default_rng(len(shape)).integers(0, 256, shape, dtype=np.uint8)
     p = tmp_path / "x.png"
-    imwrite_png(p, img)
+    imwrite(p, img)
     assert row_filters(p) == {0}
     np.testing.assert_array_equal(cv2.imread(str(p), cv2.IMREAD_UNCHANGED).reshape(shape), img)
     np.testing.assert_array_equal(imread(p), cv2.imread(str(p)))
@@ -206,15 +206,15 @@ def test_other_formats_and_broken_files_raise(tmp_path):
         p.rename(tmp_path / "jpeg_bytes.png")
         np.testing.assert_array_equal(imread(tmp_path / "jpeg_bytes.png"), ref)
         (tmp_path / "jpeg_bytes.png").unlink()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        imwrite_png(tmp_path / "x.jpg", img)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # JPEG and PNG are written (test_torch_jpeg_encode.py)
+        imwrite(tmp_path / "x.bmp", img)
     cv2.imwrite(str(tmp_path / "deep.png"), np.zeros((4, 4), np.uint16))
     with pytest.raises(NotImplementedError, match="bit depth 16"):
         imread(tmp_path / "deep.png")
     with pytest.raises(FileNotFoundError):
         imread(tmp_path / "missing.png")
     good = tmp_path / "good.png"
-    imwrite_png(good, img)
+    imwrite(good, img)
     data = bytearray(good.read_bytes())
     data[-20] ^= 0xFF  # inside the IDAT chunk: its CRC no longer holds
     (tmp_path / "bad.png").write_bytes(bytes(data))

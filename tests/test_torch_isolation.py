@@ -2,7 +2,8 @@
 
 An AST scan shows that no file of spectrogram_yolov11_torch/ nor chip_smoke.py
 imports jax, flax, msgpack, yaml, cv2, PIL or the JAX package (the image
-readers, data/imageio.py and data/jpeg.py, the model YAML reader in
+readers and writers, data/imageio.py and data/jpeg.py, the drawing in
+utils/plotting.py and engine/results.py, the model YAML reader in
 nn/tasks.py and the command line, cfg/__init__.py and __main__.py, among
 them); with no card, the entry points (the pipeline, predict, val, the
 trainer and YOLO.train, a model built from YAML and trained, the command
@@ -46,7 +47,7 @@ def _port_files():
     files = sorted((ROOT / "spectrogram_yolov11_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15 and all(f.exists() for f in files)
     assert {"jpeg.py", "imageio.py", "loaders.py", "serve.py", "autobackend.py", "exporter.py", "tasks.py",
-            "__main__.py"} <= {f.name for f in files}
+            "__main__.py", "plotting.py", "results.py", "predictor.py"} <= {f.name for f in files}
     return files
 
 
@@ -65,7 +66,7 @@ def test_default_device_raises_without_card(monkeypatch):
         YOLO(CKPT).predict(frame)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         YOLO(CKPT, device="cuda").predict(frame, device="cuda:0")
-    assert len(YOLO(CKPT).predict(frame, device="cpu", imgsz=64)) == 1
+    assert len(YOLO(CKPT).predict(frame, device="cpu", imgsz=64, save=False)) == 1
     with pytest.raises(RuntimeError, match="no CUDA card"):
         YOLO(CKPT).val(data={"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]})
     with pytest.raises(RuntimeError, match="no CUDA card"):

@@ -377,16 +377,18 @@ def test_what_is_not_ported_raises():
 
 
 def test_host_library_registry_and_a_missing_compiler(monkeypatch):
-    """The host library sits in a registry of its own beside the two CUDA
-    kernels, and without c++ or g++ on PATH its build raises, naming them,
-    before any compiler starts; nothing falls back."""
+    """The host libraries (the decoder's and the encoder's) sit in a registry
+    of their own beside the two CUDA kernels, and without c++ or g++ on PATH
+    a build raises, naming them, before any compiler starts; nothing falls
+    back."""
     from spectrogram_yolov11_torch.utils import kernels
 
     assert set(kernels.KERNELS) == {"greedy_nms", "fused_bottleneck"}
-    assert set(kernels.HOST_LIBS) == {"image_decode"}
+    assert set(kernels.HOST_LIBS) == {"image_decode", "image_encode"}
     monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
-    with pytest.raises(RuntimeError, match=r"c\+\+ or g\+\+"):
-        kernels.build_all(["image_decode"], force=True)
+    for name in kernels.HOST_LIBS:
+        with pytest.raises(RuntimeError, match=r"c\+\+ or g\+\+"):
+            kernels.build_all([name], force=True)
 
 
 def make_fixtures() -> None:

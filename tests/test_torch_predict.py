@@ -10,7 +10,10 @@ letterboxed frame (1e-2 / gain in original pixels). An IQ capture's frame
 differs from the JAX loader's by a grey level at some pixels, so its end to
 end comparison is looser (test_predict_capture_matches_jax). The JAX side
 compiles twice per file: one predictor at the defaults, one at batch 2 with
-classes and conf set.
+classes and conf set. Tests that do not test saving pass save=False (JAX's
+default and the port's is True: an annotated <stem>.jpg per image);
+test_predict_at_its_defaults_saves_what_jax_saves holds the saved files to
+JAX's.
 """
 
 from pathlib import Path
@@ -24,6 +27,7 @@ from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one t
 from spectrogram_yolov11_tpu import YOLO as JaxYOLO
 from spectrogram_yolov11_torch import YOLO
 from spectrogram_yolov11_torch.data.augment import letterbox_batch
+from spectrogram_yolov11_torch.data.imageio import imencode
 from spectrogram_yolov11_torch.data.loaders import load_inference_source
 from spectrogram_yolov11_torch.data.synth import synth_frames, synth_iq
 from spectrogram_yolov11_torch.ops.decode import decode_detections
@@ -68,7 +72,8 @@ def capture(models, tmp_path_factory):
         path = tmp_path_factory.mktemp("iq") / f"capture{seed}.npy"
         np.save(path, iq)
         [(_, frame, _)] = list(load_inference_source(str(path), device="cpu"))
-        if _margins_ok(port.model, [frame], 0.25, 1e-2, 1e-2) and len(port.predict(str(path), imgsz=IMGSZ)[0]):
+        if _margins_ok(port.model, [frame], 0.25, 1e-2, 1e-2) and \
+                len(port.predict(str(path), imgsz=IMGSZ, save=False)[0]):
             return str(path)
     raise AssertionError("no seed in 0..99 gives a capture with a detection and clear margins")
 
@@ -83,7 +88,7 @@ def arrays(models):
                   enumerate([(360, 640), (720, 1280), (500, 333)])]
         frames[2] = (frames[2] * np.array([1.0, 0.9, 0.8])).astype(np.uint8)
         if all(_margins_ok(port.model, frames, c, 1e-4, 1e-5) for c in (0.25, 0.35)) and \
-                sum(map(len, port.predict(frames, imgsz=IMGSZ))) >= 2:
+                sum(map(len, port.predict(frames, imgsz=IMGSZ, save=False))) >= 2:
             return frames
     raise AssertionError("no seed in 0..99 gives arrays with detections and clear margins")
 
@@ -113,7 +118,7 @@ def test_predict_capture_matches_jax(models, capture, tmp_path):
     boxes to 5e-2 px), then the JAX loader's own frame through the port's
     predict at the tight tolerances."""
     port, jax_model = models
-    got = port.predict(capture, imgsz=IMGSZ)
+    got = port.predict(capture, imgsz=IMGSZ, save=False)
     ref = jax_model.predict(capture, imgsz=IMGSZ, save=False)
     assert len(got[0]) > 0
     _assert_same(got, ref, conf_tol=1e-3, px_tol=5e-2)
@@ -121,7 +126,7 @@ def test_predict_capture_matches_jax(models, capture, tmp_path):
     assert got[0].orig_img.dtype == np.uint8 and got[0].orig_img.shape == (640, 640, 3) and diff.max() <= 1
 
     frame = ref[0].orig_img
-    got, ref = port.predict(frame, imgsz=IMGSZ), jax_model.predict(frame, imgsz=IMGSZ, save=False)
+    got, ref = port.predict(frame, imgsz=IMGSZ, save=False), jax_model.predict(frame, imgsz=IMGSZ, save=False)
     _assert_same(got, ref)
     rows, rows_ref = _txt_rows(got[0], tmp_path / "port.txt"), _txt_rows(ref[0], tmp_path / "jax.txt")
     assert len(rows) == len(got[0]) and [r[0] for r in rows] == [r[0] for r in rows_ref]
@@ -133,7 +138,7 @@ def test_predict_arrays_match_jax(models, arrays, kw):
     """batch 2 over 3 arrays pads the last batch with a copy of its last frame."""
     port, jax_model = models
     extra = {} if kw["batch"] == 1 else kw  # batch 1 shares the JAX predictor of the capture test
-    got = port.predict(arrays, imgsz=IMGSZ, **kw)
+    got = port.predict(arrays, imgsz=IMGSZ, save=False, **kw)
     ref = jax_model.predict(arrays, imgsz=IMGSZ, save=False, **extra)
     _assert_same(got, ref)
     assert [r.path for r in got] == ["image0", "image1", "image2"]
@@ -142,11 +147,12 @@ def test_predict_arrays_match_jax(models, arrays, kw):
 
 
 def test_predict_batches_stream_and_callbacks(models, arrays, tmp_path):
-    """Batch size does not change the results; stream=True yields them lazily;
-    callbacks fire in stream_inference's order; save_txt writes one label file
-    per image under project/name."""
+    """Batch size does not change the results; stream=True yields them lazily
+    and saves nothing (at the default save=True too, as JAX's); callbacks fire
+    in stream_inference's order; save_txt writes one label file per image
+    under project/name."""
     port, _ = models
-    one = port.predict(arrays, imgsz=IMGSZ)
+    one = port.predict(arrays, imgsz=IMGSZ, save=False)
     events = []
     for e in ("on_predict_start", "on_predict_batch_start", "on_predict_postprocess_end", "on_predict_batch_end",
               "on_predict_end"):
@@ -160,26 +166,65 @@ def test_predict_batches_stream_and_callbacks(models, arrays, tmp_path):
     _assert_same(two, one)  # the CPU convolutions round by batch size
     assert all(set(r.speed) == {"preprocess", "inference", "postprocess"} for r in two)
     assert not (tmp_path / "run").exists()  # stream=True leaves saving to the caller, as in the JAX predictor
-    port.predict(arrays, imgsz=IMGSZ, save_txt=True, project=str(tmp_path), name="run")
+    port.predict(arrays, imgsz=IMGSZ, save=False, save_txt=True, project=str(tmp_path), name="run")
     assert sorted(p.name for p in (tmp_path / "run" / "labels").iterdir()) == ["image0.txt", "image1.txt", "image2.txt"]
+
+
+def test_predict_at_its_defaults_saves_what_jax_saves(models, arrays, tmp_path):
+    """At its defaults (save=True, as JAX's) predict writes <stem>.jpg per
+    image, each the JPEG of its Results' plot, with the file names JAX's
+    predict writes; with show_labels=False the files are JAX's byte for byte
+    (the same boxes at the same integer corners, the same encoder). save_txt
+    and save_crop write beside them; save=False writes nothing. JAX's side is
+    the batch-1 predictor the module's other tests compiled, its args
+    switched to save, so it does not compile again."""
+    port, jax_model = models
+    got = port.predict(arrays, imgsz=IMGSZ, project=str(tmp_path / "port"), name="run")
+    port.predict(arrays, imgsz=IMGSZ, show_labels=False, project=str(tmp_path / "port"), name="bare")
+    port.predict(arrays, imgsz=IMGSZ, save_txt=True, save_crop=True, project=str(tmp_path / "port"), name="all")
+    port.predict(arrays, imgsz=IMGSZ, save=False, project=str(tmp_path / "port"), name="none")
+    ref = jax_model.predict(arrays, imgsz=IMGSZ, save=False)
+    jp = jax_model.predictor
+    kept = dict(vars(jp.args))
+    try:
+        for name, extra in (("run", {}), ("bare", {"show_labels": False}),
+                            ("all", {"save_txt": True, "save_crop": True})):
+            vars(jp.args).update(kept, save=True, project=str(tmp_path / "jax"), name=name, **extra)
+            jp(arrays, batch_size=1)
+    finally:
+        vars(jp.args).clear()
+        vars(jp.args).update(kept)
+    _assert_same(got, ref)
+    files = {side: sorted(str(p.relative_to(tmp_path / side)) for p in (tmp_path / side).rglob("*") if p.is_file())
+             for side in ("port", "jax")}
+    assert files["port"] == files["jax"]
+    assert [f for f in files["port"] if f.startswith("run/")] == ["run/image0.jpg", "run/image1.jpg", "run/image2.jpg"]
+    assert any(f.startswith("all/crops/") for f in files["port"]) and "all/labels/image0.txt" in files["port"]
+    assert not (tmp_path / "port" / "none").exists()
+    for r in got:
+        assert (tmp_path / "port" / "run" / f"{r.path}.jpg").read_bytes() == imencode(".jpg", r.plot())
+        np.testing.assert_array_equal(r.boxes.xyxy.astype(int), ref[got.index(r)].boxes.xyxy.astype(int))
+    for f in (f for f in files["port"] if f.startswith("bare/")):
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
 
 
 def test_predict_refuses_what_the_port_does_not_do(models, tmp_path):
     port, _ = models
     frame = np.zeros((32, 32, 3), np.uint8)
     # half=True runs the network in bf16 now (held to JAX's bf16 model in tests/test_torch_half.py)
-    half = port.predict(frame, imgsz=IMGSZ, half=True)
+    half = port.predict(frame, imgsz=IMGSZ, half=True, save=False)
     assert len(half) == 1 and half[0].boxes.data.dtype == np.float32 and port.model.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="save=True"):
-        port.predict(frame, imgsz=IMGSZ, save=True)
+    # save=True writes the annotated image (held to JAX's files in test_predict_at_its_defaults_saves_what_jax_saves)
+    port.predict(frame, imgsz=IMGSZ, save=True, project=str(tmp_path), name="saved")
+    assert [p.name for p in (tmp_path / "saved").iterdir()] == ["image0.jpg"]
     # image files, directories and globs run now (held to JAX's predictor in tests/test_torch_sources.py);
     # videos, streams and screens raise, and a missing file raises FileNotFoundError as in the JAX loader
     (tmp_path / "clip.mp4").write_bytes(b"")
     for source in (str(tmp_path / "clip.mp4"), str(tmp_path), "rtsp://camera/stream", 0, "screen 0"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.predict(source, imgsz=IMGSZ)
+            port.predict(source, imgsz=IMGSZ, save=False)
     with pytest.raises(FileNotFoundError):
-        port.predict(str(tmp_path / "frame.jpg"), imgsz=IMGSZ)
+        port.predict(str(tmp_path / "frame.jpg"), imgsz=IMGSZ, save=False)
     with pytest.raises(SyntaxError, match="not a valid argument"):
         port.predict(frame, imgsz=IMGSZ, confidence=0.3)
     # model YAMLs build now (tests/test_torch_scratch.py); another task's YAML raises, naming item 10

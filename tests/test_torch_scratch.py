@@ -283,7 +283,7 @@ def test_module_runner(verb, data, capsys, monkeypatch):
     root, d, yaml_path = data
     args = {"val": [f"model={CKPT}", f"data={yaml_path}", f"imgsz={IMGSZ}", "batch=2"],
             "predict": ["model=spectrogram_yolo11n.yaml", f"source={root / 'data' / 'images' / 'val'}",
-                        f"imgsz={IMGSZ}"],
+                        f"imgsz={IMGSZ}", f"project={root}", "name=cli_predict"],
             "train": ["model=spectrogram_yolo11.yaml", f"data={yaml_path}", "epochs=1", f"imgsz={IMGSZ}", "batch=2",
                       "workers=1", f"project={root}", "name=cli", "exist_ok=True"]}[verb]
     monkeypatch.setattr(sys, "argv", ["spectrogram_yolov11_torch", "detect", verb, *args, "device=cpu"])
@@ -295,6 +295,9 @@ def test_module_runner(verb, data, capsys, monkeypatch):
         assert json.loads(lines[-1]) == YOLO(CKPT, device="cpu").val(data=str(yaml_path), imgsz=IMGSZ, batch=2)
     elif verb == "predict":
         assert len(lines) == 4 and all(line.split(": ")[0].endswith(".png") for line in lines)
+        # at its defaults (save=True, as JAX's CLI) each image's plot is written as <stem>.jpg
+        stems = sorted(Path(line.split(": ")[0]).stem for line in lines)
+        assert sorted(p.stem for p in (root / "cli_predict").glob("*.jpg")) == stems
     else:
         assert (root / "cli" / "weights" / "last.ckpt").exists() and set(json.loads(lines[-1])) >= {"fitness"}
 

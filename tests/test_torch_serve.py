@@ -12,7 +12,8 @@ Tolerances:
   asks. JAX's client reading JAX's server is JAX's forward exactly.
 - Paths that run the same batch through the same network (BYTES against the
   raw tensor on the decoded pixels, gray upload against its 3-channel repeat,
-  PNG wire encoding against raw) are equal exactly.
+  PNG wire encoding against raw) are equal exactly; JPEG wire bytes equal
+  JAX's encode_images on the same frames.
 - A request served in a group against the same request served alone (other
   batch sizes, so other oneDNN blockings): boxes within 1e-3 px, scores
   within 1e-5.
@@ -43,6 +44,7 @@ import pytest
 import torch
 from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
+import spectrogram_yolov11_torch.serve as serve_module
 import spectrogram_yolov11_tpu.utils.callbacks as jax_callbacks
 from spectrogram_yolov11_torch import YOLO
 from spectrogram_yolov11_torch.cfg import entrypoint
@@ -54,6 +56,7 @@ from spectrogram_yolov11_torch.utils import kernels
 from spectrogram_yolov11_tpu.nn.autobackend import AutoBackend as JaxAutoBackend
 from spectrogram_yolov11_tpu.serve import InferenceServer as JaxInferenceServer
 from spectrogram_yolov11_tpu.serve import RemoteModel as JaxRemoteModel
+from spectrogram_yolov11_tpu.serve import encode_images as jax_encode_images
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = str(ROOT / "runs_artifacts" / "spectrogram_yolo11n.ckpt")
@@ -155,15 +158,17 @@ def test_json_tensor_path(port_srv):
 
 
 def test_bytes_ingest_equals_raw_on_the_decoded_pixels(port_srv):
-    """PNG from the port's encoder and from cv2, JPEG from cv2 in 3 and 1
-    channels: each equal to the raw tensor of the pixels cv2.imdecode gives."""
+    """PNG from the port's encoder and from cv2, JPEG from cv2 (the port's
+    encode_images gives its bytes) in 3 and 1 channels: each equal to the raw
+    tensor of the pixels cv2.imdecode gives."""
     cli = RemoteModel(port_srv.url)
     x, gray = _frames(2, 3), _frames(2, 4, c=1)
     raw = cli(x)[0]
-    np.testing.assert_array_equal(cli(encode_images(x))[0], raw)
+    np.testing.assert_array_equal(cli(encode_images(x, fmt=".png"))[0], raw)
     np.testing.assert_array_equal(cli([cv2.imencode(".png", im)[1].tobytes() for im in x])[0], raw)
     for batch in (x, gray):
         blobs = [cv2.imencode(".jpg", im, [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes() for im in batch]
+        assert encode_images(batch) == blobs == jax_encode_images(batch)  # .jpg at quality 90 by default, as JAX's
         decoded = np.stack([cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_UNCHANGED) for b in blobs])
         decoded = decoded.reshape(batch.shape)  # gray decodes (H, W): its channel axis back
         assert not np.array_equal(decoded, batch)  # lossy: the server must see the decoded pixels
@@ -182,7 +187,7 @@ def test_bad_bytes_payloads_get_400_and_the_server_goes_on(port_srv, jax_srv):
     then a good request is served. JAX's server answers the miscount and the
     partial field with 200 and fewer rows than declared (ROADMAP.md §3.8)."""
     url = f"http://127.0.0.1:{port_srv.port}/v2/models/spec/infer"
-    pngs = encode_images(_frames(3, 6))
+    pngs = encode_images(_frames(3, 6), fmt=".png")
     blob = b"".join(len(b).to_bytes(4, "little") + b for b in pngs)
 
     def head(shape, size):
@@ -281,7 +286,7 @@ def test_remote_predict_matches_local_predict(port_srv):
     scores, so a channel swap on a colour image shows."""
     img = np.random.default_rng(2).integers(0, 255, (96, 128, 3), np.uint8)
     gray = np.repeat(np.random.default_rng(3).integers(0, 255, (80, 64, 1), np.uint8), 3, -1)
-    kw = dict(imgsz=S, conf=0.0, max_det=8)
+    kw = dict(imgsz=S, conf=0.0, max_det=8, save=False)
     remote_yolo = YOLO(port_srv.url, device="cpu")
     assert remote_yolo.names == {0: "LTE", 1: "RF"} and remote_yolo.stride == (8.0, 16.0, 32.0)
     assert remote_yolo.device == "cpu" and remote_yolo.model is None
@@ -325,10 +330,12 @@ def test_entrypoint_serve_verb():
 
 
 def test_wire_encoding(port_srv, monkeypatch):
-    """SYT_WIRE_ENCODE=png predicts as the raw wire; =jpg raises (no JPEG
-    encoder); a batch that is not uint8 channels-last goes raw, with a warning."""
+    """SYT_WIRE_ENCODE=png predicts as the raw wire; =jpg[:q] sends the bytes
+    JAX's encode_images gives for the same frames (quality 90 unless given)
+    and is answered; a batch that is not uint8 channels-last goes raw, with
+    a warning."""
     img = np.random.default_rng(8).integers(0, 255, (96, 128, 3), np.uint8)
-    kw = dict(imgsz=S, conf=0.0, max_det=8)
+    kw = dict(imgsz=S, conf=0.0, max_det=8, save=False)
     raw = YOLO(port_srv.url, device="cpu").predict(img, **kw)[0].boxes.data
     monkeypatch.setenv("SYT_WIRE_ENCODE", "png")
     np.testing.assert_array_equal(YOLO(port_srv.url, device="cpu").predict(img, **kw)[0].boxes.data, raw)
@@ -342,9 +349,16 @@ def test_wire_encoding(port_srv, monkeypatch):
     assert np.asarray(jax_backend.forward(_frames(1, 9).astype(np.float32) / 255)).shape == (1, 84, 6)
     with pytest.raises(cv2.error):
         jax_backend.forward(chw)
-    monkeypatch.setenv("SYT_WIRE_ENCODE", "jpg")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        YOLO(port_srv.url, device="cpu").predict(img, **kw)
+    sent = []
+    real = serve_module.encode_images
+    monkeypatch.setattr(serve_module, "encode_images", lambda a, **k: sent.append((a.copy(), k)) or real(a, **k))
+    for wire, fmt, q in (("jpg", ".jpg", 90), ("jpg:75", ".jpg", 75), ("jpeg:30", ".jpeg", 30)):
+        monkeypatch.setenv("SYT_WIRE_ENCODE", wire)
+        got = YOLO(port_srv.url, device="cpu").predict(img, **kw)[0].boxes.data
+        frames, k = sent[-1]
+        assert k == {"fmt": fmt, "quality": q} and frames.shape == (1, S, S, 3)
+        assert real(frames, **k) == jax_encode_images(frames, fmt=fmt, quality=q)
+        assert got.shape == raw.shape and np.isfinite(got).all()
 
 
 def test_half_server_answers_fp32_within_bf16_tolerance(jax_srv):
@@ -386,12 +400,12 @@ def test_client_without_a_card_raises_for_the_default_device(port_srv, monkeypat
     yolo = YOLO(port_srv.url)
     assert yolo.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        yolo.predict(frame, imgsz=S)
+        yolo.predict(frame, imgsz=S, save=False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         yolo.val(data=JPEG_SPLIT, imgsz=S)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         serve(CKPT, port=0, block=False)
-    assert len(yolo.predict(frame, imgsz=S, device="cpu")) == 1
+    assert len(yolo.predict(frame, imgsz=S, device="cpu", save=False)) == 1
 
 
 def test_launch_counts_survive_concurrent_launchers():

@@ -78,15 +78,16 @@ def test_file_dir_and_glob_equal_the_arrays(models, fixtures):
     port, _ = models
     files = sorted(_val_dir(fixtures).glob("*.jpg"))
     arrays = [cv2.imread(str(f)) for f in files]
-    by_dir = port.predict(str(_val_dir(fixtures)), batch=8, imgsz=VAL_IMGSZ)
-    _equal(by_dir, port.predict(arrays, batch=8, imgsz=VAL_IMGSZ), files)
+    by_dir = port.predict(str(_val_dir(fixtures)), batch=8, imgsz=VAL_IMGSZ, save=False)
+    _equal(by_dir, port.predict(arrays, batch=8, imgsz=VAL_IMGSZ, save=False), files)
     assert sum(map(len, by_dir)) > 0
-    _equal(port.predict(str(files[3]), imgsz=VAL_IMGSZ), port.predict(arrays[3], imgsz=VAL_IMGSZ), files[3:4])
+    one_file = port.predict(str(files[3]), imgsz=VAL_IMGSZ, save=False)
+    _equal(one_file, port.predict(arrays[3], imgsz=VAL_IMGSZ, save=False), files[3:4])
     small = sorted(fixtures.glob("*.jpg"))  # mixed sizes and samplings, one batch of 12 and the padded rest
-    by_glob = port.predict(str(fixtures / "*.jpg"), batch=5, imgsz=IMGSZ)
-    _equal(by_glob, port.predict([cv2.imread(str(f)) for f in small], batch=5, imgsz=IMGSZ), small)
+    by_glob = port.predict(str(fixtures / "*.jpg"), batch=5, imgsz=IMGSZ, save=False)
+    _equal(by_glob, port.predict([cv2.imread(str(f)) for f in small], batch=5, imgsz=IMGSZ, save=False), small)
     assert [r.orig_shape for r in by_glob] == [cv2.imread(str(f)).shape[:2] for f in small]
-    recursive = port.predict(str(fixtures / "**" / "*.jpg"), imgsz=IMGSZ)
+    recursive = port.predict(str(fixtures / "**" / "*.jpg"), imgsz=IMGSZ, save=False)
     assert [r.path for r in recursive] == sorted(str(f) for f in fixtures.rglob("*.jpg"))
 
 
@@ -95,12 +96,12 @@ def test_sources_match_jax_predictor(models, fixtures, tmp_path):
     writes one label file per image, named by the file's stem."""
     port, jax_model = models
     for source in (str(_val_dir(fixtures)), str(fixtures / "s4*.jpg"), str(fixtures / "641x359.jpg")):
-        got = port.predict(source, imgsz=IMGSZ)
+        got = port.predict(source, imgsz=IMGSZ, save=False)
         ref = jax_model.predict(source, imgsz=IMGSZ, save=False)
         assert len(got) == len(ref) > 0
         _assert_same(got, ref)
-    assert sum(map(len, port.predict(str(_val_dir(fixtures)), imgsz=IMGSZ))) > 0
-    port.predict(str(_val_dir(fixtures)), imgsz=IMGSZ, save_txt=True, project=str(tmp_path), name="run")
+    assert sum(map(len, port.predict(str(_val_dir(fixtures)), imgsz=IMGSZ, save=False))) > 0
+    port.predict(str(_val_dir(fixtures)), imgsz=IMGSZ, save=False, save_txt=True, project=str(tmp_path), name="run")
     assert sorted(p.name for p in (tmp_path / "run" / "labels").iterdir()) == [f"{i:05d}.txt" for i in range(8)]
 
 

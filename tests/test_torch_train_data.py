@@ -26,7 +26,7 @@ import pytest
 from spectrogram_yolov11_torch.cfg import DEFAULT_CFG_DICT, get_cfg
 from spectrogram_yolov11_torch.data.build import DataLoader
 from spectrogram_yolov11_torch.data.dataset import YOLODataset
-from spectrogram_yolov11_torch.data.imageio import imwrite_png
+from spectrogram_yolov11_torch.data.imageio import imwrite
 from spectrogram_yolov11_tpu.cfg import get_cfg as jax_get_cfg
 from spectrogram_yolov11_tpu.data.build import DataLoader as JaxDataLoader
 from spectrogram_yolov11_tpu.data.dataset import YOLODataset as JaxYOLODataset
@@ -47,7 +47,7 @@ def write_split(root, split: str, n: int, seed: int) -> str:
         h, w = SIZES[i % len(SIZES)]
         img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         img[h // 4 : h // 2, w // 4 : w // 2] = rng.integers(0, 256, 3)
-        imwrite_png(root / "images" / split / f"{i:03d}.png", img)
+        imwrite(root / "images" / split / f"{i:03d}.png", img)
         if i == 1:
             continue  # no label file
         k = 0 if i == 2 else int(rng.integers(1, 6))

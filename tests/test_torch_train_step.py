@@ -320,7 +320,7 @@ def test_val_and_predict_after_a_step_run_the_moved_weights_in_eval_mode(data):
     would show BN on batch statistics."""
     yolo, fresh = YOLO(CKPT, device="cpu"), YOLO(CKPT, device="cpu")
     frame = np.ascontiguousarray(_batch()["img"][0][..., ::-1])  # BGR, as predict takes arrays
-    kw = {"imgsz": IMGSZ, "device": "cpu"}
+    kw = {"imgsz": IMGSZ, "device": "cpu", "save": False}
     yolo.predict(frame, conf=0.001, **kw)
     t = DetectionTrainer(yolo.model, dict(data=data, device="cpu", amp=False, imgsz=IMGSZ, batch=BATCH))
     t.setup_model()
