@@ -216,6 +216,29 @@ Phases, each printing one JSON line, each fatal when it fails:
                saving serially (workers=0) and with save=False, in turns, f32
                and bf16; plot and encode ms per 640 x 360 frame, serially and
                in 8 threads; JPEG bytes per frame
+  17. artifacts val and training artifacts on the 128 + 32 synth split at 640
+               px: YOLO(ckpt).val at its defaults (plots=True) with
+               save_json=True at batch 32, f32 and bf16, each counted from 0
+               (6 bottleneck, or 6 bf16, and 1 NMS launches), the kernels at
+               its inputs, the six charts at JAX's names and pixel sizes
+               decoding through imread, predictions.json and annotations.json;
+               the f32 val's confusion matrix and JSON row counts equal to the
+               CPU's val, its results (the 12 metrics/coco_* keys among them)
+               within 1e-4; YOLO(ckpt).embed of the 8 JPEG fixture frames (6
+               launches per image) within EMBED_TOL of the CPU's;
+               YOLO(ckpt).profile(imgsz=640) (5 runs of each layer: 30
+               launches) with the CPU's params; YOLO(ckpt).train(epochs=1,
+               batch=16) at its defaults (0 + 12 bf16 + 2 launches), each
+               train_batch0..2.jpg equal to imencode(".jpg", images_mosaic(<the
+               batch plot_images was handed>)) and results.png at JAX's size;
+               profile=True on a quarter of the split writing a trace with the
+               card's kernel events; batch=-1 choosing the batch whose probe
+               peak fits 60 % of the card's memory, the next over it (or
+               256). Readings: val seconds at the defaults with save_json
+               against plots=False in turns; ms per chart; COCOeval ms at 32
+               images; train_batch plot ms; embed ms per image; profile's
+               sum of layer ms beside the forward at B = 1; AutoBatch's
+               seconds, batch and probe peaks
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -265,6 +288,9 @@ SERVE_PX_TOL, SERVE_SCORE_TOL = 1e-2, 1e-4
 SERVE_VAL_TOL = 1e-6  # remote val against local val on the card, per key: the same pixels through the same network
 ENCODE_FIXTURES = ROOT / "tests" / "torch_data" / "jpeg_encode"  # cv2's encodes of decoded fixtures, and their SHA-256
 SAVE_REPS = 3  # timed predict calls per setting in phase save
+# YOLO.embed's vectors on the card against the CPU's, max abs: both run the f32 network in full f32 (3xTF32 in the
+# bottleneck kernel), summing in other orders
+EMBED_TOL = 1e-3
 
 
 def emit(phase: str, **kw) -> None:
@@ -1060,7 +1086,7 @@ def phase_val():
         results, launches, speed = {}, {}, {}
         for name, half, expect in (("f32", False, {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1}),
                                    ("bf16", True, {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6, "greedy_keep": 1})):
-            results[name], launches[name] = run_counted(lambda h=half: yolo.val(data=data, batch=VAL_BATCH, half=h),
+            results[name], launches[name] = run_counted(lambda h=half: yolo.val(plots=False, data=data, batch=VAL_BATCH, half=h),
                                                         expect, f"{name} val of one batch of {VAL_BATCH}")
             speed[name] = dict(yolo.validator.speed)
             require(list(results[name]) == ["metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
@@ -1072,7 +1098,7 @@ def phase_val():
         # the card's f32 against the CPU's on the first 4 images
         (Path(tmp) / "val4.txt").write_text("\n".join(ds.im_files[:4]))
         sub = dict(data, val=str(Path(tmp) / "val4.txt"))
-        card4, cpu4 = yolo.val(data=sub, batch=4), YOLO(CKPT, device="cpu").val(data=sub, batch=4)
+        card4, cpu4 = yolo.val(plots=False, data=sub, batch=4), YOLO(CKPT, device="cpu").val(plots=False, data=sub, batch=4)
         diff4 = {k: abs(card4[k] - cpu4[k]) for k in card4}
         require(max(diff4.values()) <= VAL_TOL, f"the card's val on 4 images lies {diff4} from the CPU's")
 
@@ -1087,16 +1113,16 @@ def phase_val():
             block.fused_bottleneck = lambda x, w1, b1, w2, b2: bottleneck_reference_bf16(
                 x, unpack_bottleneck_weights_bf16(w1), b1, unpack_bottleneck_weights_bf16(w2), b2)
             try:
-                return yolo.val(data=d, batch=VAL_BATCH, half=True)[key]
+                return yolo.val(plots=False, data=d, batch=VAL_BATCH, half=True)[key]
             finally:
                 block.fused_bottleneck = kernel
 
         bf16_readings = {"card": results["bf16"][key], "card_plain_bottleneck": plain_bottleneck_map(data),
-                         "cpu": YOLO(CKPT, device="cpu").val(data=data, batch=VAL_BATCH, half=True)[key]}
+                         "cpu": YOLO(CKPT, device="cpu").val(plots=False, data=data, batch=VAL_BATCH, half=True)[key]}
         wide = check_det_dataset(dict(data, path=Path(tmp) / "n256", train="images/train", val="images/val",
                                       n_val=8 * VAL_BATCH))
-        map_256 = {"f32": yolo.val(data=wide, batch=VAL_BATCH)[key],
-                   "bf16": yolo.val(data=wide, batch=VAL_BATCH, half=True)[key],
+        map_256 = {"f32": yolo.val(plots=False, data=wide, batch=VAL_BATCH)[key],
+                   "bf16": yolo.val(plots=False, data=wide, batch=VAL_BATCH, half=True)[key],
                    "bf16_plain_bottleneck": plain_bottleneck_map(wide)}
 
         # the keep kernel at (32, 2048) on the first batch's multi-label candidates
@@ -1121,7 +1147,7 @@ def phase_val():
         times = {}
         for name, half in (("f32", False), ("bf16", True), ("bf16", True), ("f32", False)):
             t0 = time.perf_counter()
-            yolo.val(data=data, batch=VAL_BATCH, half=half)
+            yolo.val(plots=False, data=data, batch=VAL_BATCH, half=half)
             times.setdefault(name, []).append({"val_call_ms_per_image": (time.perf_counter() - t0) * 1e3 / len(ds),
                                                **{f"{k}_ms_per_image": v for k, v in yolo.validator.speed.items()}})
     emit("val", images=len(ds), generate_s=generate_s, results=results, launches=launches,
@@ -1211,11 +1237,11 @@ def phase_images():
     try:
         for name, half, expect in (("f32", False, f32), ("bf16", True, bf16_expect)):
             results[name], launches[f"val_{name}"] = run_counted(
-                lambda h=half: yolo.val(data=data, batch=IMAGES_BATCH, half=h), expect, f"{name} val of the JPEG split")
+                lambda h=half: yolo.val(plots=False, data=data, batch=IMAGES_BATCH, half=h), expect, f"{name} val of the JPEG split")
     finally:
         for h in hooks:
             h.remove()
-    cpu_val = cpu.val(data=data, batch=IMAGES_BATCH)
+    cpu_val = cpu.val(plots=False, data=data, batch=IMAGES_BATCH)
     diff = {k: abs(results["f32"][k] - cpu_val[k]) for k in cpu_val}
     require(max(diff.values()) <= VAL_TOL, f"the card's val of the JPEG split lies {diff} from the CPU's")
     require(results["f32"]["metrics/mAP50(B)"] > 0.5, f"f32 val of the JPEG split {results['f32']}")
@@ -1547,15 +1573,15 @@ def phase_serve():
             remote.backend.forward = lambda x: seen.append(inner(x)) or seen[-1]
             try:
                 rval, launches["remote_val"] = run_counted(
-                    lambda: remote.val(data=data, batch=VAL_BATCH),
+                    lambda: remote.val(plots=False, data=data, batch=VAL_BATCH),
                     {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1}, "remote val")
             finally:
                 remote.backend.forward = inner
-            lval = yolo.val(data=data, batch=VAL_BATCH)
+            lval = yolo.val(plots=False, data=data, batch=VAL_BATCH)
             rval_half, launches["remote_val_half"] = run_counted(
-                lambda: YOLO(srv_half.url).val(data=data, batch=VAL_BATCH),
+                lambda: YOLO(srv_half.url).val(plots=False, data=data, batch=VAL_BATCH),
                 {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6, "greedy_keep": 1}, "remote val on the bf16 server")
-            lval_half = yolo.val(data=data, batch=VAL_BATCH, half=True)
+            lval_half = yolo.val(plots=False, data=data, batch=VAL_BATCH, half=True)
         val_diff = {k: abs(rval[k] - lval[k]) for k in lval}
         half_diff = {k: abs(rval_half[k] - lval_half[k]) for k in lval_half}
         require(max(val_diff.values()) <= SERVE_VAL_TOL and lval["metrics/mAP50-95(B)"] > 0.5,
@@ -1926,8 +1952,8 @@ def phase_train():
         (Path(tmp) / "val4.txt").write_text("\n".join(sorted(str(p) for p in Path(data["val"]).iterdir())[:4]))
         sub = dict(data, val=str(Path(tmp) / "val4.txt"))
         kw = {"data": sub, "imgsz": TRAIN_IMGSZ, "batch": 4}
-        card4 = DetectionValidator(model, dict(kw, device="cuda"))()
-        cpu4 = DetectionValidator(copy.deepcopy(model).cpu(), dict(kw, device="cpu"))()
+        card4 = DetectionValidator(model, dict(kw, plots=False, device="cuda"))()
+        cpu4 = DetectionValidator(copy.deepcopy(model).cpu(), dict(kw, plots=False, device="cpu"))()
         diff4 = {k: abs(card4[k] - cpu4[k]) for k in card4}
         require(max(diff4.values()) <= VAL_TOL, f"the EMA's val on 4 images: card {card4}, CPU {cpu4}")
 
@@ -2085,7 +2111,7 @@ def phase_train_loop():
             yolo.add_callback(event, fn)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        metrics, launches = run_counted(lambda: yolo.train(data=data, project=tmp, name="loop", **kw),
+        metrics, launches = run_counted(lambda: yolo.train(plots=False, data=data, project=tmp, name="loop", **kw),
                                         {k: LOOP_EPOCHS * v for k, v in per_val.items()}, "YOLO.train")
         train_s = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -2123,7 +2149,7 @@ def phase_train_loop():
         best_tree, best_meta = load_checkpoint(trainer.best)
         require(best_tree["ema"] is None and best_tree["opt_state"] is None, "best.ckpt is not stripped")
         best_row = {k: float(v) for k, v in rows[int(best_meta["epoch"])].items()}
-        best_val = YOLO(trainer.best).val(data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ)
+        best_val = YOLO(trainer.best).val(plots=False, data=data, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ)
         best_diff = {k: abs(best_val[k] - best_row[k]) for k in best_val}
         require(max(best_diff.values()) <= VAL_TOL, f"best.ckpt validates to {best_val}, its epoch {best_row}")
 
@@ -2133,7 +2159,7 @@ def phase_train_loop():
         resumed = YOLO(CKPT)
         resumed.add_callback("on_train_start", lambda t: seen.update(
             start_epoch=t.start_epoch, step=t.state["opt"]["step"], ema_updates=t.state["ema_updates"]))
-        resumed_metrics = resumed.train(data=data, project=tmp, name="resumed",
+        resumed_metrics = resumed.train(plots=False, data=data, project=tmp, name="resumed",
                                         resume=str(Path(tmp) / "last_after_2_epochs.ckpt"), **kw)
         want = dict(start_epoch=2, step=int(saved_tree["opt_state"]["step"]), ema_updates=int(saved_meta["updates"]))
         require(seen == want and saved_meta["epoch"] == 1, f"resume started at {seen}, the checkpoint holds {want}")
@@ -2317,7 +2343,7 @@ def phase_train_amp(f32_loop_final: dict):
         t0 = time.perf_counter()
         try:
             metrics, loop_launches = run_counted(
-                lambda: yolo.train(data=data, project=tmp, name="amp", epochs=AMP_EPOCHS, batch=TRAIN_BATCH,
+                lambda: yolo.train(plots=False, data=data, project=tmp, name="amp", epochs=AMP_EPOCHS, batch=TRAIN_BATCH,
                                    imgsz=TRAIN_IMGSZ, close_mosaic=1, workers=8, exist_ok=True),
                 {k: AMP_EPOCHS * v for k, v in per_val.items()}, "YOLO.train at amp=True")
         finally:
@@ -2464,7 +2490,7 @@ def phase_scratch():
         t0 = time.perf_counter()
         try:
             metrics, launches = run_counted(
-                lambda: yolo.train(data=data, project=tmp, name="scratch", epochs=SCRATCH_EPOCHS, batch=TRAIN_BATCH,
+                lambda: yolo.train(plots=False, data=data, project=tmp, name="scratch", epochs=SCRATCH_EPOCHS, batch=TRAIN_BATCH,
                                    imgsz=TRAIN_IMGSZ, workers=8, exist_ok=True),
                 {k: SCRATCH_EPOCHS * v for k, v in per_val.items()}, "YOLO('yolo11n.yaml').train")
         finally:
@@ -2488,13 +2514,13 @@ def phase_scratch():
         log = tr.epoch_log
 
         # 2. transfer: every leaf of the trained checkpoint into the YAML's model; val equal to the checkpoint's
-        ref = YOLO(CKPT).val(data=data, batch=VAL_BATCH)
+        ref = YOLO(CKPT).val(plots=False, data=data, batch=VAL_BATCH)
         moved = YOLO("spectrogram_yolo11n.yaml").load(CKPT)
         require(moved.transferred == LOAD_TRANSFERRED, f"load transferred {moved.transferred} leaves")
         cap, stop = capture_val_inputs(torch.float32)
         try:
             loaded, load_launches = run_counted(
-                lambda: moved.val(data=data, batch=VAL_BATCH),
+                lambda: moved.val(plots=False, data=data, batch=VAL_BATCH),
                 {"fused_bottleneck": 6 * (n_val // VAL_BATCH), "fused_bottleneck_bf16": 0,
                  "greedy_keep": n_val // VAL_BATCH}, "YOLO(yaml).load(ckpt).val")
         finally:
@@ -2502,7 +2528,7 @@ def phase_scratch():
         require(loaded == ref, f"YOLO(yaml).load(ckpt).val {loaded} differs from YOLO(ckpt).val {ref}")
         load_checks, load_nms = kernels_at(cap, 2, moved.model.stride, "load val", VAL_BATCH, 640)
         moved.save(Path(tmp) / "saved.ckpt")
-        resaved = YOLO(Path(tmp) / "saved.ckpt").val(data=data, batch=VAL_BATCH)
+        resaved = YOLO(Path(tmp) / "saved.ckpt").val(plots=False, data=data, batch=VAL_BATCH)
         require(resaved == ref, f"YOLO(saved).val {resaved} differs from YOLO(ckpt).val {ref}")
 
         # 3. the command line, in subprocesses on the card
@@ -2514,9 +2540,10 @@ def phase_scratch():
         tiny_yaml = Path(tmp) / "tiny.yaml"
         tiny_yaml.write_text(f"path: {tiny['path']}\ntrain: images/train\nval: images/val\nnames:\n  0: LTE\n  1: RF\n")
         cli = {}
-        for verb, args in (("val", [f"model={CKPT}", f"data={yaml_path}", f"batch={VAL_BATCH}"]),
+        for verb, args in (("val", [f"model={CKPT}", f"data={yaml_path}", f"batch={VAL_BATCH}", "plots=False"]),
                            ("train", ["model=spectrogram_yolo11.yaml", f"data={tiny_yaml}", "epochs=1", "batch=8",
-                                      "imgsz=320", "workers=4", f"project={tmp}", "name=cli", "exist_ok=True"])):
+                                      "imgsz=320", "workers=4", f"project={tmp}", "name=cli", "exist_ok=True",
+                                      "plots=False"])):
             t0 = time.perf_counter()
             r = subprocess.run([sys.executable, "-m", "spectrogram_yolov11_torch", "detect", verb, *args], cwd=ROOT,
                                capture_output=True, text=True, timeout=300)
@@ -2745,6 +2772,214 @@ def phase_save():
     return launches, checks, nms
 
 
+def phase_artifacts():
+    """Val and training artifacts on the card, on the trained model at 640 px:
+    YOLO(ckpt).val at its defaults (plots=True) with save_json=True on the
+    32-image synth split in f32 and bf16, counted, the kernels at its inputs,
+    the six charts and the two JSON files, the confusion matrix, row counts
+    and COCO stats against the CPU's val; YOLO(ckpt).embed on the 8 JPEG
+    fixture frames, counted per image, against the CPU's; YOLO(ckpt).profile
+    at 640 against the CPU's params and beside the forward's time;
+    YOLO(ckpt).train at its defaults (1 epoch, B = 16) writing
+    train_batch0..2.jpg equal to the JPEG of the mosaic of each batch it drew
+    and results.png; profile=True writing a trace with the card's kernels;
+    batch=-1 (AutoBatch) on the card. Readings: val seconds at the defaults
+    against plots=False, save_json=False in turns; ms per chart; COCOeval ms
+    at 32 images; train_batch plot ms; embed ms per image; AutoBatch seconds,
+    its batch and probes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import spectrogram_yolov11_torch.utils.plotting as plotting
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.data.imageio import imencode, imread
+    from spectrogram_yolov11_torch.engine.trainer import DetectionTrainer
+    from spectrogram_yolov11_torch.ops.cocoeval import COCOeval
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    t_phase = time.perf_counter()
+    f32 = {"fused_bottleneck": 6, "fused_bottleneck_bf16": 0, "greedy_keep": 1}
+    bf16 = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6, "greedy_keep": 1}
+    charts = {"PR_curve.png": (900, 1050, 3), "F1_curve.png": (900, 1050, 3), "P_curve.png": (900, 1050, 3),
+              "R_curve.png": (900, 1050, 3), "confusion_matrix_normalized.png": (1050, 1200, 3),
+              "confusion_matrix.png": (1050, 1200, 3)}
+    launches, checks, nms, out = {}, {}, {}, {}
+    yolo = YOLO(CKPT)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp))
+        out["generate_s"] = time.perf_counter() - t0
+
+        # 1. val at its defaults with save_json=True, f32 and bf16, counted, the kernels at its inputs
+        vals = {}
+        for key, half, expect, dtype in (("val_f32", False, f32, torch.float32),
+                                         ("val_bf16", True, bf16, torch.bfloat16)):
+            cap, stop = capture_val_inputs(dtype)
+            try:
+                res, launches[key] = run_counted(
+                    lambda h=half: yolo.val(data=data, batch=VAL_BATCH, half=h, save_json=True, project=tmp),
+                    expect, f"val {key} at its defaults")
+            finally:
+                stop()
+            v = yolo.validator
+            checks[key], nms[key] = kernels_at(cap, 2, yolo.model.stride, f"artifacts {key}", VAL_BATCH, TRAIN_IMGSZ)
+            files = {p.name: p for p in v.save_dir.iterdir()}
+            require(set(files) == {*charts, "predictions.json", "annotations.json"},
+                    f"val {key} wrote {sorted(files)}")
+            for name, shape in charts.items():
+                require(imread(files[name]).shape == shape, f"{name} of {key} is {imread(files[name]).shape}")
+            rows = {n: len(json.loads(files[n].read_text())) for n in ("predictions.json", "annotations.json")}
+            vals[key] = {"results": res, "matrix": v.confusion_matrix.matrix.copy(), "rows": rows, "validator": v}
+        cpu_yolo = YOLO(CKPT, device="cpu")
+        cpu = cpu_yolo.val(data=data, batch=VAL_BATCH, save_json=True, project=tmp)
+        cpu_v = cpu_yolo.validator
+        card = vals["val_f32"]
+        require(np.array_equal(card["matrix"], cpu_v.confusion_matrix.matrix),
+                f"confusion matrix: card {card['matrix'].tolist()}, CPU {cpu_v.confusion_matrix.matrix.tolist()}")
+        cpu_rows = {"predictions.json": len(cpu_v.jdict), "annotations.json": len(cpu_v.gt_jdict)}
+        require(card["rows"] == cpu_rows, f"JSON rows: card {card['rows']}, CPU {cpu_rows}")
+        coco = {k: v for k, v in card["results"].items() if k.startswith("metrics/coco_")}
+        require(len(coco) == 12, f"the val's COCO keys: {sorted(coco)}")
+        coco_diff = {k: abs(v - cpu[k]) for k, v in card["results"].items()}
+        require(max(coco_diff.values()) <= VAL_TOL, f"val f32 against the CPU: {coco_diff}")
+        out["val"] = {k: {"results": d["results"], "json_rows": d["rows"], "confusion_matrix": d["matrix"].tolist()}
+                      for k, d in vals.items()}
+        out["val"]["cpu_max_diff"] = max(coco_diff.values())
+
+        # readings: val seconds at the defaults against plots=False, save_json=False, in turns; charts and COCOeval
+        t = {"defaults_save_json": [], "plots_false": []}
+        for rep in range(3):
+            for k, kw in (("defaults_save_json", {"save_json": True}), ("plots_false", {"plots": False})):
+                t0 = time.perf_counter()
+                yolo.val(data=data, batch=VAL_BATCH, project=tmp, **kw)
+                t[k].append(time.perf_counter() - t0)
+        out["val_seconds"] = {k: {"median": float(np.median(v)), "all": v} for k, v in t.items()}
+        v = card["validator"]
+        curves, names = v.metrics.curves_results, v.names
+        x = np.linspace(0, 1, curves["p_curve"].shape[1])
+        chart_ms = {}
+        for name, fn in (("PR_curve", lambda d: plotting.plot_pr_curve(curves["p_curve"], curves["r_curve"],
+                                                                         curves["ap"], names, d)),
+                         ("F1_curve", lambda d: plotting.plot_mc_curve(x, curves["f1_curve"], names, d, "F1")),
+                         ("confusion_matrix_normalized",
+                          lambda d: plotting.plot_confusion_matrix(card["matrix"], names, d, True))):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn(Path(tmp) / "charts")
+            chart_ms[name] = (time.perf_counter() - t0) * 1e3 / 5
+        t0 = time.perf_counter()
+        stats = COCOeval(v.gt_jdict, v.jdict).evaluate().stats
+        out["charts_ms"], out["cocoeval_ms_32_images"] = chart_ms, (time.perf_counter() - t0) * 1e3
+        out["detections"] = len(v.jdict)
+        out["coco_stats"] = stats
+
+        # 2. embed on the 8 JPEG fixture frames, counted per image, against the CPU's
+        val_dir = JPEG_FIXTURES / "spectrogram" / "images" / "val"
+        n_jpeg = len(list(val_dir.glob("*.jpg")))
+        yolo.embed(str(val_dir))  # warm
+        t0 = time.perf_counter()
+        vecs, launches["embed"] = run_counted(lambda: yolo.embed(str(val_dir)),
+                                              {"fused_bottleneck": 6 * n_jpeg, "fused_bottleneck_bf16": 0,
+                                               "greedy_keep": 0}, "embed of the JPEG fixtures")
+        embed_ms = (time.perf_counter() - t0) * 1e3 / n_jpeg
+        cpu_vecs = YOLO(CKPT, device="cpu").embed(str(val_dir))
+        embed_err = max(float(np.abs(a - b).max()) for a, b in zip(vecs, cpu_vecs))
+        require(len(vecs) == n_jpeg and all(a.shape == b.shape and a.dtype == np.float32 for a, b in zip(vecs, cpu_vecs))
+                and embed_err <= EMBED_TOL, f"embed on the card against the CPU: {embed_err}")
+        out["embed"] = {"images": n_jpeg, "dim": int(vecs[0].shape[0]), "max_abs_err_vs_cpu": embed_err,
+                        "tolerance": EMBED_TOL, "ms_per_image": embed_ms}
+
+        # 3. profile at 640: params equal to the CPU's, ms per layer, their sum beside the forward's time
+        rows, launches["profile"] = run_counted(lambda: yolo.profile(imgsz=TRAIN_IMGSZ),
+                                                {"fused_bottleneck": 5 * 6, "fused_bottleneck_bf16": 0,
+                                                 "greedy_keep": 0}, "profile at 640")
+        cpu_rows = YOLO(CKPT, device="cpu").profile(imgsz=TRAIN_IMGSZ, timed=False)
+        require([(r["i"], r["type"], r["params"]) for r in rows] == [(r["i"], r["type"], r["params"]) for r in cpu_rows],
+                "profile rows on the card differ from the CPU's")
+        net = yolo._network()
+        xin = torch.zeros(1, 3, TRAIN_IMGSZ, TRAIN_IMGSZ, device="cuda").contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: net(xin), iters=20)
+        out["profile"] = {"layers": len(rows), "params": sum(r["params"] for r in rows),
+                          "gflops": sum(r["gflops"] for r in rows), "sum_layer_ms": sum(r["ms"] for r in rows),
+                          "forward_ms_b1": fwd_ms, "rows": [{k: r[k] for k in ("i", "type", "ms")} for r in rows]}
+
+        # 4. training at its defaults: train_batch0..2.jpg equal to the JPEG of each mosaic, results.png
+        drawn, inner = [], plotting.plot_images
+
+        def record(batch, names, path, **kw):
+            t0 = time.perf_counter()
+            p = inner(batch, names, path, **kw)
+            dt = time.perf_counter() - t0
+            drawn.append((imencode(".jpg", plotting.images_mosaic(batch)), Path(p), dt))
+            return p
+
+        plotting.plot_images = record
+        try:
+            t0 = time.perf_counter()
+            tr = YOLO(CKPT)
+            _, launches["train"] = run_counted(
+                lambda: tr.train(data=data, epochs=1, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, project=tmp, name="train"),
+                {"fused_bottleneck": 0, "fused_bottleneck_bf16": 12, "greedy_keep": 2}, "train at its defaults")
+            train_s = time.perf_counter() - t0
+        finally:
+            plotting.plot_images = inner
+        run = Path(tmp) / "train"
+        require([p for _, p, _ in drawn] == [run / f"train_batch{i}.jpg" for i in range(3)],
+                f"train drew {[str(p) for _, p, _ in drawn]}")
+        for ref, p, _ in drawn:
+            require(p.read_bytes() == ref and imread(p).shape == (1920, 1920, 3), f"{p.name} is not its mosaic's JPEG")
+        require(imread(run / "results.png").shape == (720, 2400, 3), "results.png missing or of another size")
+        out["train"] = {"seconds": train_s, "plot_ms": [dt * 1e3 for _, _, dt in drawn],
+                        "bytes": [len(ref) for ref, _, _ in drawn]}
+
+        # 5. profile=True: a trace with the card's kernels
+        t0 = time.perf_counter()
+        tp = YOLO(CKPT)
+        tp.train(data=data, epochs=1, batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, fraction=0.25, plots=False, profile=True,
+                 project=tmp, name="profiled")
+        profiled_s = time.perf_counter() - t0
+        trace_path = tp.trainer.trace_path
+        events = json.loads(trace_path.read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        require(trace_path.parent == Path(tmp) / "profiled" / "profile" and len(kernels) > 1000,
+                f"trace {trace_path} holds {len(kernels)} kernel events")
+        out["profile_trace"] = {"seconds": profiled_s, "bytes": trace_path.stat().st_size, "events": len(events),
+                                "kernel_events": len(kernels)}
+
+        # 6. batch=-1: AutoBatch on the card
+        # the trainer YOLO.train builds, kept here: at batch 256 the split's 128 train images make no batch
+        ta = DetectionTrainer(YOLO(CKPT).model, {"data": data, "epochs": 1, "batch": -1, "imgsz": TRAIN_IMGSZ,
+                                                 "plots": False, "project": tmp, "name": "autobatch"})
+        try:
+            ta.train()
+        except ValueError as e:
+            require(ta.batch_size == 256 and "too small for batch=256" in str(e), f"train(batch=-1): {e}")
+        ab = ta.autobatch
+        total = torch.cuda.get_device_properties(0).total_memory
+        b, probes = ab["batch"], ab["probes"]
+        nxt = probes.get(2 * b, "not probed")
+        require(probes[b] is not None and probes[b] <= 0.6 * total
+                and (b == 256 or nxt is None or (nxt != "not probed" and nxt > 0.6 * total)),
+                f"AutoBatch chose {b} from {probes} of {total} bytes")
+        out["autobatch"] = {"batch": b, "seconds": ab["seconds"], "probes_gib": {k: (v / 2**30 if v else v)
+                                                                                for k, v in probes.items()},
+                            "limit_gib": 0.6 * total / 2**30, "total_gib": total / 2**30}
+    emit("artifacts", launches=launches,
+         kernel_checks={k: {n: {m: d[m] for m in d if m != "ok"} for n, d in c.items()} for k, c in checks.items()},
+         greedy_keep_k2048={k: {n: v for n, v in d.items() if n in ("shape", "ms", "plain_ms", "bound_ms", "mismatches",
+                                                                        "scan_steps_mean")} for k, d in nms.items()},
+         **out, phase_s=time.perf_counter() - t_phase,
+         method="val, embed, profile and train counted from 0 around each call; the kernels on the val's inputs "
+                "(global module hooks); the card's f32 val, embed and profile against the CPU's; the train_batch "
+                "files held to imencode of images_mosaic of the batches plot_images was handed; times on the host "
+                "clock (val in turns, 3 each), the forward by CUDA events")
+    return launches, checks, nms
+
+
 def main() -> int:
     import torch
 
@@ -2783,6 +3018,7 @@ def main() -> int:
     amp_launches, amp_bottleneck, nms_amp = phase_train_amp(loop_final)
     scratch_launches, scratch_bottleneck, nms_scratch, load_launches, load_bottleneck, nms_load = phase_scratch()
     save_launches, save_checks, nms_save = phase_save()
+    art_launches, art_checks, nms_art = phase_artifacts()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -2807,13 +3043,15 @@ def main() -> int:
                                "load_val": load_launches["fused_bottleneck"],
                                "save": sum(save_launches[k]["fused_bottleneck"]
                                            for k in ("arrays_f32", "jpeg_directory", "wire_jpeg")),
+                               "artifacts": sum(v["fused_bottleneck"] for v in art_launches.values()),
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
                                                          *serve_checks["fused_bottleneck"].values(),
                                                          *train_bottleneck.values(), *loop_bottleneck.values(),
                                                          *load_bottleneck.values(),
-                                                         *save_checks["arrays_f32"].values())),
+                                                         *save_checks["arrays_f32"].values(),
+                                                         *art_checks["val_f32"].values())),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -2830,19 +3068,22 @@ def main() -> int:
                                "train_amp": amp_launches["fused_bottleneck_bf16"],
                                "scratch": scratch_launches["fused_bottleneck_bf16"],
                                "save_half": save_launches["arrays_bf16"]["fused_bottleneck_bf16"],
+                               "artifacts": sum(v["fused_bottleneck_bf16"] for v in art_launches.values()),
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
                                                          *images_checks["fused_bottleneck_bf16"].values(),
                                                          *amp_bottleneck.values(), *scratch_bottleneck.values(),
                                                          *serve_checks["fused_bottleneck_bf16"].values(),
-                                                         *save_checks["arrays_bf16"].values())),
+                                                         *save_checks["arrays_bf16"].values(),
+                                                         *art_checks["val_bf16"].values())),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
                                                                  *images_checks["fused_bottleneck_bf16"].values(),
                                                                  *amp_bottleneck.values(),
                                                                  *scratch_bottleneck.values(),
                                                                  *serve_checks["fused_bottleneck_bf16"].values(),
-                                                                 *save_checks["arrays_bf16"].values())),
+                                                                 *save_checks["arrays_bf16"].values(),
+                                                                 *art_checks["val_bf16"].values())),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -2868,6 +3109,7 @@ def main() -> int:
                                "train_loop": loop_launches["greedy_keep"], "train_amp": amp_launches["greedy_keep"],
                                "scratch": scratch_launches["greedy_keep"], "load_val": load_launches["greedy_keep"],
                                "save": sum(v["greedy_keep"] for v in save_launches.values()),
+                               "artifacts": sum(v["greedy_keep"] for v in art_launches.values()),
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
@@ -2894,6 +3136,8 @@ def main() -> int:
                                                        "scan_steps_mean", "mismatches")},
              save_k1024={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean",
                                                 "mismatches")} for p, d in nms_save.items()},
+             artifacts_val_k2048={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "scan_steps_mean", "mismatches")} for p, d in nms_art.items()},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

@@ -3,13 +3,17 @@ of spectrogram_yolov11_tpu/cfg/__init__.py (get_cfg :125, check_dict_alignment
 :79, check_cfg :92, get_save_dir :151, entrypoint :232) over every key of its
 cfg/default.yaml, held here as a dict with JAX's defaults.
 
-Defaults that differ from the JAX package's: `plots` is False (True would
-write plots with matplotlib, which the port does not use; val and train raise
-for plots=True); and `mode` is "predict", so predict's saved images, labels
-and crops go under runs/detect/predict*. JAX's facade leaves `mode` at
-"train" and writes them under runs/detect/train*, a fault of the reference
-not carried over (ROADMAP.md §3.14). `save` is True, as JAX's: checkpoints in
-train, the annotated <stem>.jpg of every image in predict.
+The one default that differs from the JAX package's: `mode` is "predict", so
+predict's saved images, labels and crops go under runs/detect/predict*.
+JAX's facade leaves `mode` at "train" and writes them under
+runs/detect/train*, a fault of the reference not carried over (ROADMAP.md
+§3.14). `save` is True, as JAX's: checkpoints in train, the annotated
+<stem>.jpg of every image in predict. `plots` is True, as JAX's: val writes
+its PR/F1/P/R curves and confusion matrices, train its first three batch
+mosaics and results.png (the port's own drawing, utils/plotting.py).
+`save_json=True` (val's COCO JSON and protocol eval), `profile=True` (a
+torch.profiler trace of training) and `batch=-1` (AutoBatch,
+utils/autobatch.py) are honoured.
 `conf` None is 0.25 in predict and 0.001 in val, `pre_nms_topk` 0 is 1024 in
 predict and 2048 in val, as in the JAX package.
 
@@ -29,7 +33,7 @@ rest (every one is accepted at its default, and `get_cfg` handles it so):
 | `show_boxes` | read nowhere | inert |
 | `show` | a window in predict | another value than the default raises: item 5 |
 | `save_frames`, `vid_stride`, `stream_buffer` | video and stream sources | the same: item 5 |
-| `embed` | YOLO.embed's layers | the same: item 8 |
+| `embed` | read by no mode (YOLO.embed takes its layers as an argument) | inert; YOLO.embed(embed=...) honours its argument |
 | `format`, `keras`, `int8`, `opset`, `simplify`, `dynamic`, `optimize`, `workspace`, `nms` | the Exporter | the same: item 9 |
 | `tracker` | YOLO.track | the same: item 12 |
 
@@ -60,14 +64,14 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "mode": "predict",
     "data": None,  # val: a dataset YAML (path or packaged name) or dict
     "imgsz": 640,
-    "batch": 16,
+    "batch": 16,  # train: -1 picks it by AutoBatch
     "workers": 8,  # host threads: val's and train's image reads and decodes, predict's saved images
     "seed": 0,  # accepted as in the JAX package; val draws no random numbers
     "device": None,  # None -> "cuda"; "cpu" runs the plain versions on the host
     "single_cls": False,
     "split": "val",  # val: the dataset split to score
-    "save_json": False,  # val: COCO-protocol JSON, not ported (raises)
-    "plots": False,  # val: PR curves and confusion matrix plots, not ported (raises)
+    "save_json": False,  # val: predictions.json, annotations.json and the COCO-protocol stats
+    "plots": True,  # val: PR/F1/P/R curves and confusion matrices; train: batch mosaics and results.png
     "conf": None,  # None -> 0.25 predict / 0.001 val
     "iou": 0.7,
     "max_det": 300,
@@ -107,7 +111,7 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "val": True,  # validate the EMA every epoch (the last epoch always)
     "fraction": 1.0,  # the share of the train images used
     "cache": False,  # False | "ram" (decoded images kept); "disk" is not ported
-    "profile": False,  # not ported (raises)
+    "profile": False,  # train: a torch.profiler trace under <save_dir>/profile
     "multi_scale": False,  # not ported (host augmentation, raises)
     "close_mosaic": 10,  # the last epochs without mosaic
     # augmentation (data/augment.py: TrainTransform), JAX's defaults
@@ -173,7 +177,7 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
 _VIDEO = "item 5 (video and streams)"
 NOT_PORTED_KEYS = {
     "augment": "item 5 (TTA)", "visualize": "item 5 (visualize)", "show": "item 5 (show: a window)",
-    "save_frames": _VIDEO, "vid_stride": _VIDEO, "stream_buffer": _VIDEO, "embed": "item 8 (embed, profile)",
+    "save_frames": _VIDEO, "vid_stride": _VIDEO, "stream_buffer": _VIDEO,
     **dict.fromkeys(("format", "keras", "int8", "opset", "simplify", "dynamic", "optimize", "workspace", "nms"),
                     "item 9 (the Exporter and the artifact kinds)"),
     "tracker": "item 12 (host-side remainder: trackers)",

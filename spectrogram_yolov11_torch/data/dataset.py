@@ -6,9 +6,13 @@ YOLODataset (:126: _find_images with `fraction`, the detect label rows,
 single_cls, the automatic max_gt :157-165, load_image with cache="ram",
 load_sample :344 with its long-side resize, get_item, close_mosaic :381-389).
 Images are read by data/imageio.py (JPEG and PNG, as cv2.imread reads them;
-other formats raise NotImplementedError when an image is read) and the label txts are parsed
-directly: the JAX package's JSON label cache (:246) is a saving the port does
-not have yet (ROADMAP.md item 8), and cache="disk" (.npy sidecars) raises.
+other formats raise NotImplementedError when an image is read), and
+cache="disk" (.npy sidecars) raises. The label txts are parsed once and kept
+in JAX's JSON label cache (_cache_path :197, _hash :201, _load_labels :246,
+_label_to_json / _label_from_json): `<images dir>.labels.detect.json` beside
+the images directory, keyed by the sha256 of the image and label paths and
+their st_mtime_ns, written with the same bytes as JAX's, so the two packages
+share one cache on a split and each reads what the other wrote.
 
 augment=False is the val dataset: get_item(i) is the letterbox geometry and
 labels of image i, the image left at its own size for the letterbox on the
@@ -24,6 +28,8 @@ points at the user's datasets/spectrogram, as the JAX package's copy does.
 
 from __future__ import annotations
 
+import hashlib
+import json
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -31,7 +37,7 @@ import numpy as np
 
 import torch
 
-from ..utils import not_ported, yaml_load
+from ..utils import LOGGER, not_ported, yaml_load
 from .augment import TrainTransform, ValTransform, resize_linear_u8
 from .imageio import imread
 
@@ -114,7 +120,7 @@ class YOLODataset:
         self.augment = augment
         self.im_files = self._find_images(fraction)
         self.label_files = [img2label_path(f) for f in self.im_files]
-        self.labels = [self._load_label(f) for f in self.label_files]
+        self.labels = self._load_labels()
         if not max_gt:
             most = max((len(lab["cls"]) for lab in self.labels), default=0) * (4 if augment else 1)
             max_gt = int(min(128, max(32, -(-int(most * 1.1) // 8) * 8)))
@@ -149,24 +155,77 @@ class YOLODataset:
             return {"cls": int(float(parts[0])), "xywhn": vals[:4]}
         return None
 
+    def _cache_path(self) -> Path:
+        """<images dir>.labels.detect.json (the first path of a list), as JAX's."""
+        p = self.img_path[0] if isinstance(self.img_path, list) else self.img_path
+        return Path(str(p).rstrip("/")).with_suffix(".labels.detect.json")
+
+    def _hash(self) -> str:
+        """sha256 of every image and label path and its st_mtime_ns (where the file exists)."""
+        h = hashlib.sha256()
+        for f in self.im_files + self.label_files:
+            h.update(f.encode())
+            try:
+                h.update(str(Path(f).stat().st_mtime_ns).encode())
+            except OSError:
+                pass
+        return h.hexdigest()
+
     def _load_label(self, label_file: str) -> Dict[str, np.ndarray]:
-        """{cls (n,) int32, xywhn (n, 4) float32} from a label txt; a missing
-        file has no labels, and rows that are short or do not parse are skipped."""
-        rows = []
-        p = Path(label_file)
-        if p.exists():
-            for line in p.read_text().splitlines():
-                parts = line.split()
-                if len(parts) < 5:
-                    continue
-                try:
-                    row = self._parse_row(parts)
-                except ValueError:
-                    row = None
-                if row is not None:
-                    rows.append(row)
+        """({cls (n,) int32, xywhn (n, 4) float32}, bad rows) of a label txt:
+        short rows are skipped, rows that do not parse skipped and counted."""
+        rows, bad = [], 0
+        for line in Path(label_file).read_text().splitlines():
+            parts = line.split()
+            if len(parts) < 5:
+                continue
+            try:
+                row = self._parse_row(parts)
+            except ValueError:
+                row = None
+            if row is None:
+                bad += 1
+            else:
+                rows.append(row)
         return {"cls": np.asarray([r["cls"] for r in rows], np.int32),
-                "xywhn": np.asarray([r["xywhn"] for r in rows], np.float32).reshape(-1, 4)}
+                "xywhn": np.asarray([r["xywhn"] for r in rows], np.float32).reshape(-1, 4)}, bad
+
+    def _load_labels(self) -> List[Dict[str, np.ndarray]]:
+        """Every image's labels: from the cache when its hash is this file
+        list's, else parsed from the txts and the cache (re)written; a cache
+        that cannot be read or written is passed over."""
+        cache_file, key = self._cache_path(), self._hash()
+        if cache_file.exists():
+            try:
+                blob = json.loads(cache_file.read_text())
+                if blob.get("hash") == key:
+                    return [self._label_from_json(lab) for lab in blob["labels"]]
+            except (json.JSONDecodeError, KeyError):
+                pass
+        labels, n_miss, n_bad = [], 0, 0
+        empty = {"cls": np.zeros(0, np.int32), "xywhn": np.zeros((0, 4), np.float32)}
+        for lf in self.label_files:
+            if Path(lf).exists():
+                lab, bad = self._load_label(lf)
+                n_bad += bad
+            else:
+                lab, n_miss = dict(empty), n_miss + 1
+            labels.append(lab)
+        if n_miss or n_bad:
+            LOGGER.info(f"labels: {n_miss} missing files, {n_bad} bad rows skipped")
+        try:
+            cache_file.write_text(json.dumps({"hash": key, "labels": [self._label_to_json(lab) for lab in labels]}))
+        except OSError:
+            pass
+        return labels
+
+    @staticmethod
+    def _label_to_json(lab: Dict) -> Dict:
+        return {"cls": lab["cls"].tolist(), "xywhn": lab["xywhn"].tolist()}
+
+    @staticmethod
+    def _label_from_json(lab: Dict) -> Dict:
+        return {"cls": np.asarray(lab["cls"], np.int32), "xywhn": np.asarray(lab["xywhn"], np.float32).reshape(-1, 4)}
 
     def __len__(self) -> int:
         return len(self.im_files)

@@ -38,9 +38,11 @@ serve.py:RemotePredictor and val validator.py:BackendValidator, each with its
 NMS on the client's device (the card unless device="cpu"); train, load,
 save and the other weight methods raise ValueError; names and stride come
 from the server's metadata.
-Other model sources and modes (reference .pt files, exported artifacts,
-`embed`, `profile`) raise NotImplementedError naming the ROADMAP.md item
-that ports them.
+`embed` gives each image's feature vector (JAX :405-423) and `profile` the
+per-layer params, GFLOPs and ms (JAX :399; nn/tasks.py:DetectionModel.profile),
+both on the facade's device, the card unless device="cpu".
+Other model sources and modes (reference .pt files, exported artifacts)
+raise NotImplementedError naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -180,11 +182,44 @@ class YOLO:
         LOGGER.info("fuse(): the fused bottlenecks fold BN at eval; conv+BN pairs run unfolded (cuDNN)")
         return self
 
-    def embed(self, *args, **kwargs):
-        raise _not_ported("embed (feature embeddings)", "item 8 (embed, profile)")
+    def _network(self):
+        """The model as predict runs it, on the facade's device (the card unless device="cpu")."""
+        from ..utils import resolve_device
+        from .pipeline import eval_network
 
-    def profile(self, *args, **kwargs):
-        raise _not_ported("profile (per-layer times)", "item 8 (embed, profile)")
+        return eval_network(self.model, False, resolve_device(self.overrides.get("device") or "cuda"))
+
+    def profile(self, imgsz: int = 256, **kwargs) -> List[dict]:
+        """Per-layer rows {i, type, params, gflops, ms} of a forward at imgsz,
+        and the table logged (JAX :399; DetectionModel.profile takes batch and
+        timed)."""
+        self._local("profile")
+        return self._network().profile(imgsz=imgsz, **kwargs)
+
+    def embed(self, source, embed: Optional[list] = None, imgsz: int = 640, **kwargs) -> List:
+        """One (C,) float32 feature vector per image of `source` (JAX :405-423):
+        each image letterboxed alone to imgsz x imgsz (JAX's letterbox, scaled
+        up or down, padded with 114), BGR -> RGB, / 255, and the outputs of the
+        layers `embed` names (by default the one before the head, len(model) -
+        2) mean-pooled over H and W and concatenated."""
+        import numpy as np
+
+        from ..data.augment import letterbox_train
+        from ..data.loaders import load_inference_source
+
+        self._local("embed")
+        net = self._network()
+        dev = next(net.parameters()).device
+        idxs = tuple(embed) if embed else (len(net.model) - 2,)
+        out = []
+        with torch.inference_mode():
+            for _path, img, _ in load_inference_source(source, device=dev):
+                img = img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
+                lb, _, _ = letterbox_train(img, int(imgsz))
+                x = torch.from_numpy(np.ascontiguousarray(lb[None, ..., ::-1])).to(dev).float()
+                x = x / torch.tensor(255.0, device=dev)  # an IEEE division on the card too, as numpy's
+                out.append(net(x.permute(0, 3, 1, 2), embed=idxs)[0].float().cpu().numpy())
+        return out
 
     # -- callbacks ---------------------------------------------------------
     def add_callback(self, event: str, func) -> None:

@@ -49,9 +49,21 @@ every leaf but the class branch's carried over.
 
 f32 work runs in full f32: the whole step, backward and update included,
 runs under utils.full_f32, so cuDNN's backward convolutions do not fall back
-to TF32 when the process has it on. Not ported, and raising with their
-ROADMAP.md item: batch=-1 (AutoBatch), profile=True and plots=True (item 8),
-and host image augmentation (item 7b, data/augment.py).
+to TF32 when the process has it on.
+
+plots=True, the default as in JAX, writes train_batch{0,1,2}.jpg from the
+first three iterations (JAX :445-446, _plot_train_batch :595-609: in
+device-augment mode the batch's images are assembled once more by
+ops/device_augment.py:augment_batch, brought to the host as uint8 and drawn
+by utils/plotting.py:plot_images) and results.png from results.csv at the end
+(:505-513); a failed plot is logged, not raised, as in JAX. The EMA's
+validator runs with plots=False, as JAX's (:528). profile=True records a
+torch.profiler trace (CPU, and CUDA on the card) of the epochs and writes it
+as a Chrome trace under <save_dir>/profile, where JAX writes its
+jax.profiler trace (:410-415, :503-504). batch=-1 picks the batch by
+AutoBatch (utils/autobatch.py; JAX :345-348), kept with its probes as
+`autobatch`. Host image augmentation raises with its ROADMAP.md item (item
+7b, data/augment.py).
 """
 
 from __future__ import annotations
@@ -72,7 +84,7 @@ from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel, build_model, intersect_state_dicts
 from ..ops.device_augment import augment_batch
 from ..ops.losses import detection_loss
-from ..utils import LOGGER, RUNS_DIR, full_f32, get_latest_run, not_ported, resolve_device
+from ..utils import LOGGER, RUNS_DIR, full_f32, get_latest_run, plotting, resolve_device
 from ..utils.callbacks import default_callbacks, run_callbacks
 from ..utils.jax_compat import (opt_state_from_flax, opt_state_to_flax, state_dict_to_variables,
                                 variables_to_state_dict)
@@ -129,14 +141,8 @@ class DetectionTrainer:
         a = self.args
         if a.data is None:
             raise TypeError("training needs data=: a dataset YAML or dict")
-        if a.batch in (-1, None):
-            raise not_ported("batch=-1 (AutoBatch)", "item 8 (trainer loop: AutoBatch)")
-        if a.profile:
-            raise not_ported("profile=True (a trace of the training)", "item 8 (trainer loop: profile)")
-        if a.plots:
-            raise not_ported("plots=True (train batch and results plots)", "item 8 (trainer loop: plots)")
         self.device = resolve_device(a.device or "cuda")
-        self.batch_size = int(a.batch)
+        self.batch_size = -1 if a.batch is None else int(a.batch)  # -1: AutoBatch picks it in train()
         self.epochs = int(a.epochs)
         self.imgsz = int(a.imgsz if isinstance(a.imgsz, int) else a.imgsz[0])
         self.data = check_det_dataset(a.data)
@@ -156,6 +162,7 @@ class DetectionTrainer:
         self.epoch_log: list = []  # per epoch: seconds, loader wait, val seconds (train())
         self.split_events: Optional[list] = None  # a list: train_step records its split there (see _mark)
         self.rebuilt: Optional[dict] = None  # {"nc": (model's, data's), "grafted": leaves} after an nc rebuild
+        self.autobatch: Optional[dict] = None  # {"batch", "probes" {batch: peak bytes or None}, "seconds"}
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -341,7 +348,7 @@ class DetectionTrainer:
             a = self.args
             self.validator = DetectionValidator(model, overrides={
                 "data": a.data, "imgsz": self.imgsz, "batch": self.batch_size, "workers": a.workers,
-                "single_cls": a.single_cls, "device": str(self.device)})
+                "single_cls": a.single_cls, "device": str(self.device), "plots": False})
         else:
             self.validator.set_model(model)
         self.metrics = self.validator()
@@ -361,6 +368,13 @@ class DetectionTrainer:
         self.setup_model()
         if a.resume:
             self._resume()
+        if self.batch_size == -1:
+            from ..utils.autobatch import check_train_batch_size
+
+            t0, probes = time.perf_counter(), {}
+            self.batch_size = check_train_batch_size(self.model, imgsz=self.imgsz, nc=self.data["nc"], probes=probes)
+            self.autobatch = {"batch": self.batch_size, "probes": probes, "seconds": time.perf_counter() - t0}
+            LOGGER.info(f"AutoBatch: using batch={self.batch_size}")
         self.wdir.mkdir(parents=True, exist_ok=True)
         train_ds = self.build_dataset()
         if a.close_mosaic and self.start_epoch > max(self.epochs - a.close_mosaic, 0):
@@ -373,6 +387,62 @@ class DetectionTrainer:
         self.setup_optimizer(nb)
         stopper = EarlyStopping(a.patience)
         save = a.save is not False  # True, the default, saves the checkpoints
+        prof = self._start_profile() if a.profile else None
+        try:
+            self._epochs(train_ds, loader, nb, stopper, save)
+        finally:
+            if prof is not None:
+                self._stop_profile(prof)
+        if a.plots:
+            try:
+                if self.csv.exists():
+                    plotting.plot_results(self.csv, self.save_dir)
+            except Exception as e:  # plotting must never fail a training run
+                LOGGER.warning(f"plot_results failed: {e}")
+        if save and self.best.exists():
+            strip_optimizer(self.best)
+        run_callbacks(self.callbacks, "on_train_end", self)
+        with torch.no_grad():  # the final weights on the model, for a chained val() or predict()
+            torch._foreach_copy_(self.params, self.state["ema"]["params"])
+            torch._foreach_copy_(self.stats, self.state["ema"]["batch_stats"])
+        self.model.eval()
+        return self.metrics
+
+    def _start_profile(self):
+        """A started torch.profiler over the CPU, and the card's kernels when training there."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        """Stop the profiler and write its Chrome trace under <save_dir>/profile."""
+        prof.stop()
+        trace_dir = self.save_dir / "profile"
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        self.trace_path = trace_dir / "train.pt.trace.json"
+        prof.export_chrome_trace(str(self.trace_path))
+        LOGGER.info(f"torch.profiler trace -> {self.trace_path}")
+
+    def _plot_train_batch(self, batch: dict, ni: int) -> None:
+        """train_batch{ni}.jpg: the batch's mosaic (JAX :595-609); in
+        device-augment mode its images are assembled once more on the trainer's
+        device and brought to the host as uint8."""
+        try:
+            if "img" not in batch:
+                dev = self.preprocess_batch(batch)
+                with torch.no_grad():
+                    img = augment_batch(*(dev[k] for k in AUG_KEYS)).to(torch.uint8).cpu().numpy()
+                batch = {**batch, "img": img}
+            plotting.plot_images(batch, self.model.names, self.save_dir / f"train_batch{ni}.jpg")
+        except Exception as e:  # plotting must never fail a training run
+            LOGGER.warning(f"train batch plot failed: {e}")
+
+    def _epochs(self, train_ds: YOLODataset, loader: DataLoader, nb: int, stopper: EarlyStopping, save: bool) -> None:
+        """The epoch loop of train(): steps, the EMA's val, results.csv, checkpoints, early stopping."""
+        a = self.args
         run_callbacks(self.callbacks, "on_train_start", self)
         t_start = time.time()
         for epoch in range(self.start_epoch, self.epochs):
@@ -386,6 +456,8 @@ class DetectionTrainer:
             for i, batch in enumerate(loader):
                 wait += time.perf_counter() - t0  # the host's wait for the loader
                 ni = i + nb * epoch
+                if a.plots and ni < 3:
+                    self._plot_train_batch(batch, ni)
                 items.append(self.train_step(batch, ni, self.step_due(ni))[1])
                 run_callbacks(self.callbacks, "on_train_batch_end", self)
                 t0 = time.perf_counter()
@@ -410,14 +482,6 @@ class DetectionTrainer:
                 stop = True
             if stop:
                 break
-        if save and self.best.exists():
-            strip_optimizer(self.best)
-        run_callbacks(self.callbacks, "on_train_end", self)
-        with torch.no_grad():  # the final weights on the model, for a chained val() or predict()
-            torch._foreach_copy_(self.params, self.state["ema"]["params"])
-            torch._foreach_copy_(self.stats, self.state["ema"]["batch_stats"])
-        self.model.eval()
-        return self.metrics
 
     def _flax(self, names, tensors) -> dict:
         return state_dict_to_variables(dict(zip(names, tensors)))

@@ -23,27 +23,42 @@ half=True runs a bf16 copy of the model (DetectionModel.set_dtype), as the
 JAX validator's set_dtype(bfloat16), and leaves the caller's f32 model as it
 is. `split` picks the dataset split scored (data[split], "val" by default;
 the JAX validator always scores "val"). The JAX validator's data-parallel
-mesh branch is not ported here (DDP is ROADMAP.md §1 item 12); plots=True
-and save_json=True raise, and so the confusion matrix, which only the plots
-read, is not filled.
+mesh branch is not ported here (DDP is ROADMAP.md §1 item 12).
+
+plots=True, the default as in JAX, fills the confusion matrix (ops/metrics.py
+ConfusionMatrix, JAX :127, :148-149, :156-157) and after the loop writes
+PR_curve.png, F1_curve.png, P_curve.png, R_curve.png,
+confusion_matrix_normalized.png and confusion_matrix.png (utils/plotting.py;
+JAX _plot_curves :220-235) into the run directory (get_save_dir, name "val",
+or `save_dir`); a failed plot is logged as a warning and does not fail the
+run, as in JAX. save_json=True keeps COCO rows of each image's detections
+and ground truth in its own pixels (_pred_to_json / _gt_to_json, JAX
+:159-183; image_id the file's stem, an int when it is numeric), writes
+predictions.json and annotations.json there, runs ops/cocoeval.py over them
+(_save_json :185-207) and adds `metrics/coco_<key>` to the results (:308-310).
+Both hold for BackendValidator too. JAX asks get_save_dir anew for the plots
+and for the JSON, so an incremented run directory splits them in two
+(val, val2); the port asks once per call and writes both into one directory.
 """
 
 from __future__ import annotations
 
+import json
 import time
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..cfg import DEFAULT_CFG_DICT, get_cfg
+from ..cfg import DEFAULT_CFG_DICT, get_cfg, get_save_dir
 from ..data.augment import letterbox_batch
 from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel
-from ..ops.metrics import DetMetrics, box_iou_np, match_predictions
+from ..ops.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
 from ..ops.nms import non_max_suppression
-from ..utils import not_ported, resolve_device
+from ..utils import LOGGER, resolve_device
 from ..utils.callbacks import run_callbacks
 from .pipeline import build_device_fn, eval_network
 
@@ -81,12 +96,6 @@ class DetectionValidator:
     def __init__(self, model: DetectionModel, overrides: Optional[dict] = None):
         args = get_cfg(DEFAULT_CFG_DICT, {"mode": "val", **(overrides or {})})
         args.conf = 0.001 if args.conf is None else args.conf
-        if args.plots:
-            raise not_ported("plots=True (PR curves and confusion matrix plots, utils/plotting.py)",
-                              "item 8 (validator: val plots)")
-        if args.save_json:
-            raise not_ported("save_json=True (COCO-protocol JSON and eval, ops/cocoeval.py)",
-                              "item 8 (validator: save_json)")
         self.args = args
         self.device = resolve_device(args.device or "cuda")
         self.set_model(model)
@@ -114,6 +123,11 @@ class DetectionValidator:
 
     def init_metrics(self) -> None:
         self.stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        nc = self.model.nc if self.model is not None else len(self.names)  # a backend's: the data's classes
+        self.confusion_matrix = ConfusionMatrix(nc=nc, conf=self.args.conf)
+        self.jdict: list = []  # COCO rows of the detections, with save_json
+        self.gt_jdict: list = []  # and of the ground truth
+        self._cur_im_file = ""
 
     def update_stats(self, out: tuple, batch: dict, i: int) -> None:
         """Image i of a batch: its detections (out, n_valid on the host) and
@@ -125,17 +139,72 @@ class DetectionValidator:
         ratio, dw, dh = (float(x) for x in batch["ratio_pad"][i])
         det = _unletterbox_boxes(det, ratio, dw, dh, ori_w, ori_h)
         gt_cls, gxyxy = _gt_native(batch, i, self.imgsz)
+        if self.args.save_json:
+            self._pred_to_json(det)
+            self._gt_to_json(gt_cls, gxyxy)
         self.stats["target_cls"].append(gt_cls)
         if n == 0:
             self.stats["tp"].append(np.zeros((0, 10), bool))
             self.stats["conf"].append(np.zeros(0))
             self.stats["pred_cls"].append(np.zeros(0))
+            if len(gt_cls) and self.args.plots:
+                self.confusion_matrix.process_batch(None, gxyxy, gt_cls)
             return
         iou = box_iou_np(gxyxy, det[:, :4]) if len(gt_cls) else np.zeros((0, n))
         tp = match_predictions(det[:, 5].astype(int), gt_cls, iou, self.iouv) if len(gt_cls) else np.zeros((n, 10), bool)
         self.stats["tp"].append(tp)
         self.stats["conf"].append(det[:, 4])
         self.stats["pred_cls"].append(det[:, 5])
+        if self.args.plots:
+            self.confusion_matrix.process_batch(det, gxyxy, gt_cls)
+
+    def _image_id(self):
+        stem = Path(str(self._cur_im_file)).stem
+        return int(stem) if stem.isnumeric() else stem
+
+    def _pred_to_json(self, det: np.ndarray) -> None:
+        """COCO rows of the current image's detections (JAX :159): xyxy -> top-left xywh."""
+        image_id = self._image_id()
+        for x1, y1, x2, y2, conf, cls in det.tolist():
+            self.jdict.append({"image_id": image_id, "category_id": int(cls),
+                               "bbox": [round(v, 3) for v in (x1, y1, x2 - x1, y2 - y1)],
+                               "score": round(float(conf), 5)})
+
+    def _gt_to_json(self, gt_cls: np.ndarray, gxyxy: np.ndarray) -> None:
+        """COCO rows of the current image's ground truth (JAX :172)."""
+        image_id = self._image_id()
+        for c, (x1, y1, x2, y2) in zip(gt_cls.tolist(), gxyxy.tolist()):
+            self.gt_jdict.append({"image_id": image_id, "category_id": int(c), "bbox": [x1, y1, x2 - x1, y2 - y1],
+                                  "iscrowd": 0})
+
+    def _save_json(self, save_dir: Path) -> dict:
+        """predictions.json and annotations.json under save_dir, and the COCO
+        protocol's stats over them (JAX :185-207)."""
+        from ..ops.cocoeval import COCOeval
+
+        save_dir.mkdir(parents=True, exist_ok=True)
+        pred_path = save_dir / "predictions.json"
+        pred_path.write_text(json.dumps(self.jdict))
+        (save_dir / "annotations.json").write_text(json.dumps(self.gt_jdict))
+        LOGGER.info(f"predictions saved to {pred_path} ({len(self.jdict)} detections)")
+        stats = {}
+        if self.gt_jdict:
+            stats = COCOeval(self.gt_jdict, self.jdict).evaluate().stats
+            LOGGER.info("COCO protocol: AP {AP:.4f}  AP50 {AP50:.4f}  AP75 {AP75:.4f}".format(**stats))
+        return stats
+
+    def _plot_curves(self, save_dir: Path) -> None:
+        """The PR, F1, P and R curves and both confusion matrices under
+        save_dir (JAX :220-235); a failure is logged, not raised."""
+        from ..utils.plotting import plot_confusion_matrix, plot_val_curves
+
+        try:
+            plot_val_curves(self.metrics, self.names, save_dir)
+            plot_confusion_matrix(self.confusion_matrix.matrix, self.names, save_dir, normalize=True)
+            plot_confusion_matrix(self.confusion_matrix.matrix, self.names, save_dir, normalize=False)
+            LOGGER.info(f"val plots saved to {save_dir}")
+        except Exception as e:  # plotting must never fail a val run
+            LOGGER.warning(f"val plotting failed: {e}")
 
     def get_metrics(self) -> DetMetrics:
         metrics = DetMetrics(names=self.names)
@@ -172,6 +241,7 @@ class DetectionValidator:
         self.init_metrics()
         n_img = 0
         t = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
+        files = self.dataloader.dataset.im_files
         for batch in self.dataloader:
             run_callbacks(self.callbacks, "on_val_batch_start", self)
             t0 = time.perf_counter()
@@ -182,6 +252,7 @@ class DetectionValidator:
             out = (out.cpu().numpy(), nv.cpu().numpy())
             t2 = time.perf_counter()
             for i in range(int(batch["n_valid"])):
+                self._cur_im_file = files[n_img + i]
                 self.update_stats(out, batch, i)
             n_img += int(batch["n_valid"])
             t3 = time.perf_counter()
@@ -192,6 +263,12 @@ class DetectionValidator:
         self.metrics = self.get_metrics()
         self.metrics.speed.update(self.speed)
         res_dict = self.metrics.results_dict
+        if args.plots or (args.save_json and self.jdict):
+            self.save_dir = get_save_dir(args, name="val")
+        if args.plots:
+            self._plot_curves(self.save_dir)
+        if args.save_json and self.jdict:
+            res_dict.update({f"metrics/coco_{k}": v for k, v in self._save_json(self.save_dir).items()})
         run_callbacks(self.callbacks, "on_val_end", self)
         return res_dict
 

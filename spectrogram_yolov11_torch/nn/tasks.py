@@ -2,9 +2,10 @@
 
 Counterpart of spectrogram_yolov11_tpu/nn/tasks.py: parse_model (:232), the
 YOLOGraph routing (:379), yaml_model_load (:459), guess_model_task (:475),
-DetectionModel with init / _bias_init (:557, :575) and info (:589), and
-build_model (:848), restricted to the modules the trained spectrogram
-detector and the stock YOLO11 detect models use. Scaling matches the JAX
+DetectionModel with init / _bias_init (:557, :575), info (:589) and profile
+(:603), the graph's `embed` output (:404-450), and build_model (:848),
+restricted to the modules the trained spectrogram detector and the stock
+YOLO11 detect models use. Scaling matches the JAX
 parse_model: channels make_divisible(min(c, max_channels) * width, 8),
 repeats max(round(n * depth), 1). Any other module name raises KeyError.
 
@@ -22,8 +23,9 @@ import contextlib
 import copy
 import math
 import re
+import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -191,7 +193,9 @@ class DetectionModel(nn.Module):
     `set_dtype` retraced runs in bf16 in eval too.
 
     forward(x (B, 3, H, W) float) -> per-level (box, cls) logits, NCHW, in the
-    model's dtype (in training mode, in its compute dtype)."""
+    model's dtype (in training mode, in its compute dtype); with embed=(i,
+    ...), the concatenation of those layers' outputs, each mean-pooled over H
+    and W, (B, C) (JAX's graph __call__ :404-450)."""
 
     def __init__(self, cfg: dict, ch: int = 3, nc: Optional[int] = None):
         super().__init__()
@@ -212,15 +216,20 @@ class DetectionModel(nn.Module):
         self.stride = tuple(s / box.shape[-2] for box, _ in feats)
 
     @full_f32()
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, embed: Optional[Sequence[int]] = None):
         # a bf16 network rounds its input to bf16, as the JAX model's first conv does
         x = x.to(self.compute_dtype if self.training else self.dtype)
         y: List[Optional[torch.Tensor]] = []
+        embeddings = []
         for i, (m, f) in enumerate(zip(self.model, self.routes)):
             if f != -1:
                 x = y[f] if isinstance(f, int) else [x if j == -1 else y[j] for j in f]
             x = m(x)
             y.append(x if i in self.save else None)
+            if embed and i in embed:
+                embeddings.append(x.mean((2, 3)) if x.ndim == 4 else x)
+        if embed:
+            return torch.cat(embeddings, -1)
         return x
 
     def train(self, mode: bool = True) -> "DetectionModel":
@@ -319,6 +328,60 @@ class DetectionModel(nn.Module):
         with FlopCounterMode(display=False) as counter, torch.no_grad():
             meta(torch.zeros(1, self.ch, int(imgsz), int(imgsz), device="meta"))
         return counter.get_total_flops() / 1e9
+
+    @torch.no_grad()
+    def profile(self, imgsz: int = 256, batch: int = 1, timed: bool = True) -> List[dict]:
+        """Per-layer rows {i, type, params, gflops, ms} of a forward of
+        (batch, 3, imgsz, imgsz) zeros, and the table logged (JAX :603-673):
+        the graph replayed layer by layer in eval mode on the model's device
+        (so C3k's bottlenecks run the fused kernel there); params counted as
+        info counts them; GFLOPs of each layer by get_flops' count (a copy on
+        the meta device in training mode); ms the mean of 3 runs after one
+        warm-up, by CUDA events on the card and the host clock on the CPU."""
+        dev = next(self.parameters()).device
+        if self.training:
+            self.eval()
+        fmt = torch.channels_last if dev.type == "cuda" else torch.contiguous_format
+        x = torch.zeros(batch, self.ch, int(imgsz), int(imgsz), device=dev, dtype=self.dtype).contiguous(
+            memory_format=fmt)
+        y: List[Any] = []
+        rows: List[dict] = []
+        kinds = [m for _, _, m, _ in self.yaml["backbone"] + self.yaml["head"]]  # as the model dict spells them
+        for i, (m, f, kind) in enumerate(zip(self.model, self.routes, kinds)):
+            xin = x if f == -1 else (y[f] if isinstance(f, int) else [x if j == -1 else y[j] for j in f])
+            # counted at a batch of 2 or more (training-mode BN needs 2 values at 1 x 1), scaled to `batch`
+            nb = max(batch, 2)
+            meta = copy.deepcopy(m).to("meta").float().train()
+            shaped = [torch.empty(nb, *t.shape[1:], device="meta") for t in (xin if isinstance(xin, list) else [xin])]
+            with FlopCounterMode(display=False) as counter:
+                meta(shaped if isinstance(xin, list) else shaped[0])
+            t_ms = 0.0
+            with full_f32():
+                if timed:
+                    m(xin)
+                    if dev.type == "cuda":
+                        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        for _ in range(3):
+                            m(xin)
+                        end.record()
+                        end.synchronize()
+                        t_ms = start.elapsed_time(end) / 3
+                    else:
+                        t0 = time.perf_counter()
+                        for _ in range(3):
+                            m(xin)
+                        t_ms = (time.perf_counter() - t0) / 3 * 1e3
+                x = m(xin)
+            y.append(x if i in self.save else None)
+            rows.append({"i": i, "type": kind, "params": sum(p.numel() for p in m.parameters()),
+                         "gflops": counter.get_total_flops() / 1e9 * batch / nb, "ms": t_ms})
+        LOGGER.info(f"{'idx':>4} {'module':<28}{'params':>10} {'GFLOPs':>9} {'ms':>8}")
+        for r in rows:
+            LOGGER.info(f"{r['i']:>4} {r['type']:<28}{r['params']:>10,} {r['gflops']:>9.3f} {r['ms']:>8.3f}")
+        LOGGER.info(f"{'':>4} {'TOTAL':<28}{sum(r['params'] for r in rows):>10,} "
+                    f"{sum(r['gflops'] for r in rows):>9.3f} {sum(r['ms'] for r in rows):>8.3f}")
+        return rows
 
     def info(self, imgsz: int = 640, flops: bool = True) -> str:
         """The summary line JAX's info (:589) logs and returns: layers (rows of

@@ -1,0 +1,182 @@
+"""The COCO evaluation protocol for boxes, on the host (numpy, float64).
+
+Counterpart of spectrogram_yolov11_tpu/ops/cocoeval.py for iou_type="bbox":
+_iou_xywh (:33) and COCOeval (:177) with its defaults, _evaluate_img (:238),
+evaluate (:292), _summ (:336) and _summarize (:350). It is pycocotools'
+algorithm, which the validator runs on its predictions.json and
+annotations.json rows when save_json=True (engine/validator.py):
+
+- per (image, category) box IoU, a crowd ground truth's union being the
+  detection's area;
+- greedy matching in score order at each IoU threshold, with ignore regions
+  (crowd rows and ground truth outside the area range);
+- 101-point interpolated precision accumulated over IoU x recall x category
+  x area x max_dets, the matches made once at the largest max_dets and cut
+  for the smaller ones;
+- the 12-number summary: AP, AP50, AP75, AP{small,medium,large},
+  AR{1,10,100}, AR{small,medium,large}.
+
+Inputs are lists of dicts in the COCO JSON schema: ground truth {image_id,
+category_id, bbox [x, y, w, h]} (optional area, iscrowd, id), detections the
+same with score. The RLE, segm and keypoint parts of the JAX module (:52-176)
+go with the other heads (ROADMAP.md item 10).
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+
+def _iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
+    """(D, G) IoU of xywh boxes; a crowd ground truth's union is the detection's area."""
+    if len(dt) == 0 or len(gt) == 0:
+        return np.zeros((len(dt), len(gt)))
+    dx1, dy1 = dt[:, 0], dt[:, 1]
+    dx2, dy2 = dt[:, 0] + dt[:, 2], dt[:, 1] + dt[:, 3]
+    gx1, gy1 = gt[:, 0], gt[:, 1]
+    gx2, gy2 = gt[:, 0] + gt[:, 2], gt[:, 1] + gt[:, 3]
+    iw = np.minimum(dx2[:, None], gx2[None]) - np.maximum(dx1[:, None], gx1[None])
+    ih = np.minimum(dy2[:, None], gy2[None]) - np.maximum(dy1[:, None], gy1[None])
+    inter = np.clip(iw, 0, None) * np.clip(ih, 0, None)
+    da = (dt[:, 2] * dt[:, 3])[:, None]
+    ga = (gt[:, 2] * gt[:, 3])[None]
+    union = np.where(iscrowd[None].astype(bool), da, da + ga - inter)
+    return inter / np.maximum(union, 1e-12)
+
+
+class COCOeval:
+    """COCOeval(gts, dts).evaluate().stats -> the summary dict."""
+
+    def __init__(self, gts: List[dict], dts: List[dict], iou_thrs: Sequence[float] = None,
+                 rec_thrs: Sequence[float] = None, max_dets: Sequence[int] = None,
+                 area_rng: Dict[str, tuple] = None, iou_type: str = "bbox"):
+        if iou_type != "bbox":
+            from ..utils import not_ported
+
+            raise not_ported(f"COCOeval(iou_type={iou_type!r})", "item 10 (other heads)")
+        self.iou_type = iou_type
+        self.iou_thrs = np.asarray(iou_thrs if iou_thrs is not None else np.linspace(0.5, 0.95, 10))
+        self.rec_thrs = np.asarray(rec_thrs if rec_thrs is not None else np.linspace(0.0, 1.0, 101))
+        self.max_dets = sorted(max_dets if max_dets is not None else (1, 10, 100))
+        self.area_rng = area_rng if area_rng is not None else {
+            "all": (0.0, 1e10), "small": (0.0, 32.0 ** 2), "medium": (32.0 ** 2, 96.0 ** 2), "large": (96.0 ** 2, 1e10)}
+        self._gts = defaultdict(list)
+        self._dts = defaultdict(list)
+        for i, g in enumerate(gts):
+            g = dict(g)
+            g.setdefault("id", i + 1)
+            g.setdefault("iscrowd", 0)
+            g.setdefault("area", float(g["bbox"][2] * g["bbox"][3]))
+            g.setdefault("ignore", g["iscrowd"])
+            self._gts[(g["image_id"], g["category_id"])].append(g)
+        for d in dts:
+            d = dict(d)
+            d.setdefault("area", float(d["bbox"][2] * d["bbox"][3]))  # for the out-of-range ignore
+            self._dts[(d["image_id"], d["category_id"])].append(d)
+        self.img_ids = sorted({k[0] for k in list(self._gts) + list(self._dts)})
+        self.cat_ids = sorted({k[1] for k in list(self._gts) + list(self._dts)})
+        self.stats: Dict[str, float] = {}
+
+    def _evaluate_img(self, img_id, cat_id, arng, max_det):
+        """pycocotools' evaluateImg for one image, category and area range."""
+        gts = self._gts[(img_id, cat_id)]
+        dts = sorted(self._dts[(img_id, cat_id)], key=lambda d: -d["score"])[:max_det]
+        if not gts and not dts:
+            return None
+        g_ignore = np.array([bool(g["ignore"]) or g["area"] < arng[0] or g["area"] > arng[1] for g in gts], bool)
+        order = np.argsort(g_ignore, kind="stable")  # the ground truth not ignored first
+        gts = [gts[i] for i in order]
+        g_ignore = g_ignore[order]
+        crowd = np.array([g["iscrowd"] for g in gts], int)
+        gbb = np.array([g["bbox"] for g in gts], float).reshape(-1, 4)
+        dbb = np.array([d["bbox"] for d in dts], float).reshape(-1, 4)
+        ious = _iou_xywh(dbb, gbb, crowd)
+
+        T, D, G = len(self.iou_thrs), len(dts), len(gts)
+        dt_m = np.zeros((T, D), int)
+        gt_m = np.zeros((T, G), int)
+        dt_ig = np.zeros((T, D), bool)
+        for ti, t in enumerate(self.iou_thrs):
+            for di in range(D):
+                best, m = min(t, 1 - 1e-10), -1
+                for gi in range(G):
+                    if gt_m[ti, gi] and not crowd[gi]:
+                        continue  # matched already, and not a crowd
+                    if m > -1 and not g_ignore[m] and g_ignore[gi]:
+                        break  # past the ground truth not ignored, with a match
+                    if ious[di, gi] < best:
+                        continue
+                    best, m = ious[di, gi], gi
+                if m == -1:
+                    continue
+                dt_ig[ti, di] = g_ignore[m]
+                dt_m[ti, di] = gts[m]["id"]
+                gt_m[ti, m] = 1
+        d_areas = np.array([d["area"] for d in dts], float)
+        out_rng = (d_areas < arng[0]) | (d_areas > arng[1])
+        dt_ig = dt_ig | ((dt_m == 0) & out_rng[None])  # unmatched detections outside the area range
+        return {"dt_scores": np.array([d["score"] for d in dts], float), "dt_matched": dt_m > 0,
+                "dt_ignore": dt_ig, "n_gt": int((~g_ignore).sum())}
+
+    def evaluate(self) -> "COCOeval":
+        """pycocotools' evaluate and accumulate, then the summary into `stats`."""
+        T, R = len(self.iou_thrs), len(self.rec_thrs)
+        K, A, M = len(self.cat_ids), len(self.area_rng), len(self.max_dets)
+        self.precision = -np.ones((T, R, K, A, M))
+        self.recall = -np.ones((T, K, A, M))
+        for ki, cat in enumerate(self.cat_ids):
+            for ai, arng in enumerate(self.area_rng.values()):
+                evs = [self._evaluate_img(i, cat, arng, self.max_dets[-1]) for i in self.img_ids]
+                evs = [e for e in evs if e is not None]
+                if not evs:
+                    continue
+                n_gt = sum(e["n_gt"] for e in evs)
+                for mi, max_det in enumerate(self.max_dets):
+                    if n_gt == 0:
+                        continue
+                    scores = np.concatenate([e["dt_scores"][:max_det] for e in evs])
+                    order = np.argsort(-scores, kind="mergesort")
+                    matched = np.concatenate([e["dt_matched"][:, :max_det] for e in evs], 1)[:, order]
+                    ignored = np.concatenate([e["dt_ignore"][:, :max_det] for e in evs], 1)[:, order]
+                    tp_sum = np.cumsum(matched & ~ignored, 1).astype(float)
+                    fp_sum = np.cumsum(~matched & ~ignored, 1).astype(float)
+                    for ti in range(T):
+                        tp, fp = tp_sum[ti], fp_sum[ti]
+                        rc = tp / n_gt
+                        pr = tp / np.maximum(tp + fp, np.spacing(1))
+                        self.recall[ti, ki, ai, mi] = rc[-1] if len(rc) else 0.0
+                        pr = pr.tolist()
+                        for i in range(len(pr) - 1, 0, -1):  # the precision envelope
+                            pr[i - 1] = max(pr[i - 1], pr[i])
+                        inds = np.searchsorted(rc, self.rec_thrs, side="left")
+                        q = np.zeros(R)
+                        for ri, pi in enumerate(inds):
+                            if pi < len(pr):
+                                q[ri] = pr[pi]
+                        self.precision[ti, :, ki, ai, mi] = q
+        self._summarize()
+        return self
+
+    def _summ(self, ap: bool = True, iou=None, area: str = "all", max_det: int = 100) -> float:
+        ai = list(self.area_rng).index(area)
+        mi = self.max_dets.index(max_det)
+        s = self.precision[..., ai, mi] if ap else self.recall[:, :, ai, mi]
+        if iou is not None:
+            s = s[np.isclose(self.iou_thrs, iou)]
+        s = s[s > -1]
+        return float(s.mean()) if s.size else -1.0
+
+    def _summarize(self) -> None:
+        md = self.max_dets[-1]
+        areas = [a for a in ("small", "medium", "large") if a in self.area_rng]
+        self.stats = {
+            "AP": self._summ(True, None, "all", md),
+            "AP50": self._summ(True, 0.5, "all", md),
+            "AP75": self._summ(True, 0.75, "all", md),
+            **{f"AP{a}": self._summ(True, None, a, md) for a in areas},
+            **{f"AR{m}": self._summ(False, None, "all", m) for m in self.max_dets},
+            **{f"AR{a}": self._summ(False, None, a, md) for a in areas},
+        }

@@ -1,7 +1,10 @@
-"""Box and label drawing on host images: what Results.plot draws. Counterpart
-of the drawing the JAX package does with cv2 (spectrogram_yolov11_tpu/engine/
-results.py:248-284 Results.plot: cv2.rectangle and cv2.putText); the port
-has no cv2.
+"""Drawing on host images: what Results.plot draws, and the charts and batch
+mosaics of val and training. Counterpart of the drawing the JAX package does
+with cv2 and matplotlib (spectrogram_yolov11_tpu/engine/results.py:248-284
+Results.plot: cv2.rectangle and cv2.putText; utils/plotting.py: Colors :19,
+plot_results :48, plot_pr_curve :79, plot_images :117, plot_mc_curve :170,
+plot_confusion_matrix :191, plot_val_curves :221); the port has neither cv2
+nor matplotlib.
 
 `rectangle(img, p1, p2, color, thickness)` is cv2.rectangle at LINE_8, pixel
 for pixel, as OpenCV draws it: four segments through the corners p1, (p2.x,
@@ -27,15 +30,33 @@ and the descent cv2 gives it, so at font_scale 0.5 the label lies inside
 the box cv2.getTextSize reports at the same origin, padded by the thickness
 plus 1 px, and paints only the label's colour. `text_size` gives the port's
 own box of a label: ((width, height above the baseline), depth below it).
+
+`plot_images` is JAX's train-batch mosaic byte for byte: the same tiles,
+`rectangle` for cv2.rectangle, data/augment.py:resize_linear_u8 for
+cv2.resize and the port's JPEG encoder for cv2.imwrite.
+
+The charts (`plot_pr_curve`, `plot_mc_curve`, `plot_confusion_matrix`,
+`plot_val_curves`, `plot_results`) are the port's own drawing in numpy, at
+the pixel size of JAX's figure (figsize x dpi) and with its file names,
+series, legend texts and heatmap values, written as PNG
+(data/imageio.py:imencode_png). matplotlib's pixels are not reproduced; the
+yardstick (tests/test_torch_artifacts.py) is that each series' pixel at each
+mapped data point, or one within 1 px of it, carries the series' colour
+where no later series or the legend covers it, and that the heatmap's cells
+are ordered as their values. Each `render_*` returns the `Chart` its
+`plot_*` writes.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from pathlib import Path
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import LOGGER, not_ported
 
 # character -> (advance, strokes): x to the right and y up from the origin, in
 # px at font_scale 0.5; each stroke a polyline "x,y x,y ...", strokes split by ";"
@@ -213,3 +234,428 @@ def put_text(img: np.ndarray, text: str, org: Sequence[int], font_scale: float, 
         if cx0 < cx1 and cy0 < cy1:
             img[cy0:cy1, cx0:cx1][mask[cy0 - y0 : cy1 - y0, cx0 - x0 : cx1 - x0]] = col
     return img
+
+
+# -- the train-batch mosaic ----------------------------------------------------
+
+
+class Colors:
+    """The palette of JAX's plotting.py:19 (the ultralytics one): colors(i) RGB, colors(i, True) BGR."""
+
+    def __init__(self):
+        hexs = ("042AFF", "0BDBEB", "F3F3F3", "00DFB7", "111F68", "FF6FDD", "FF444F", "CCED00", "00F344", "BD00FF",
+                "00B4FF", "DD00BA", "00FFFF", "26C000", "01FFB3", "7D24FF", "7B0068", "FF1B6C", "FC6D2F", "A2FF0B")
+        self.palette = [tuple(int(h[i : i + 2], 16) for i in (0, 2, 4)) for h in hexs]
+        self.n = len(self.palette)
+
+    def __call__(self, i: int, bgr: bool = False):
+        c = self.palette[int(i) % self.n]
+        return (c[2], c[1], c[0]) if bgr else c
+
+
+colors = Colors()
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
+def images_mosaic(batch: Dict, max_imgs: int = 16, imgsz_grid: int = 1920) -> np.ndarray:
+    """The BGR canvas of JAX's plot_images (:117): the first max_imgs RGB
+    images of the batch in a ceil(sqrt(n)) grid on white, each tile in BGR
+    with its boxes (normalised xywh, int() corners) drawn 2 px wide in the
+    palette's colour of the class, the canvas resized (cv2's INTER_LINEAR)
+    to imgsz_grid on its long side when it is larger."""
+    imgs = _host(batch["img"])[:max_imgs]
+    if imgs.dtype != np.uint8:
+        raise ValueError(f"images_mosaic: expected uint8 images, got {imgs.dtype}")
+    bboxes, cls_all, mask = _host(batch["bboxes"]), _host(batch["cls"]), _host(batch["mask_gt"]).astype(bool)
+    n = len(imgs)
+    cols = int(np.ceil(np.sqrt(n)))
+    rows = int(np.ceil(n / cols))
+    h, w = imgs.shape[1:3]
+    canvas = np.full((rows * h, cols * w, 3), 255, np.uint8)
+    for i, im in enumerate(imgs):
+        r, c = divmod(i, cols)
+        tile = np.ascontiguousarray(im[..., ::-1])
+        m = mask[i]
+        for b, k in zip(bboxes[i][m], cls_all[i][m]):
+            if b.shape[-1] == 5:
+                raise not_ported("plot_images of rotated boxes (cv2.boxPoints, cv2.polylines)", "item 10 (other heads)")
+            x1 = int((b[0] - b[2] / 2) * w)
+            y1 = int((b[1] - b[3] / 2) * h)
+            x2 = int((b[0] + b[2] / 2) * w)
+            y2 = int((b[1] + b[3] / 2) * h)
+            rectangle(tile, (x1, y1), (x2, y2), colors(int(k), True), 2)
+        canvas[r * h : (r + 1) * h, c * w : (c + 1) * w] = tile
+    scale = imgsz_grid / max(canvas.shape[:2])
+    if scale < 1:
+        import torch
+
+        from ..data.augment import resize_linear_u8
+
+        nh, nw = int(canvas.shape[0] * scale), int(canvas.shape[1] * scale)
+        canvas = resize_linear_u8(torch.from_numpy(canvas)[None], nh, nw)[0].numpy()
+    return canvas
+
+
+def plot_images(batch: Dict, names: Dict[int, str], save_path: Path, max_imgs: int = 16,
+                imgsz_grid: int = 1920) -> Path:
+    """JAX's annotated train-batch mosaic (:117), written as cv2.imwrite
+    writes it (JPEG at quality 95 for a .jpg path); returns save_path."""
+    from ..data.imageio import imwrite
+
+    save_path = Path(save_path)
+    canvas = images_mosaic(batch, max_imgs, imgsz_grid)
+    save_path.parent.mkdir(parents=True, exist_ok=True)
+    imwrite(save_path, canvas)
+    return save_path
+
+
+# -- charts --------------------------------------------------------------------
+
+# matplotlib's default colour cycle (tab10), RGB; the port's own constants
+CYCLE = ((31, 119, 180), (255, 127, 14), (44, 160, 44), (214, 39, 40), (148, 103, 189), (140, 86, 75),
+         (227, 119, 194), (127, 127, 127), (188, 189, 34), (23, 190, 207))
+BLUE, BLACK, GREY = (0, 0, 255), (0, 0, 0), (204, 204, 204)  # RGB
+# matplotlib's "Blues": the 9 ColorBrewer anchors, interpolated linearly over 256 entries
+_BLUES = np.array([[247, 251, 255], [222, 235, 247], [198, 219, 239], [158, 202, 225], [107, 174, 214],
+                   [66, 146, 198], [33, 113, 181], [8, 81, 156], [8, 48, 107]], np.float64) / 255.0
+BLUES_LUT = np.round(np.stack([np.interp(np.linspace(0, 1, 256), np.linspace(0, 1, 9), _BLUES[:, i])
+                               for i in range(3)], 1) * 255).astype(np.uint8)  # (256, 3) RGB
+TICK, LABEL, SMALL = 0.6, 0.75, 0.45  # font scales: tick labels, axis labels and titles, legend and cell texts
+
+
+def _bgr(rgb) -> Tuple[int, int, int]:
+    return int(rgb[2]), int(rgb[1]), int(rgb[0])
+
+
+def _text_mask(text: str, scale: float) -> np.ndarray:
+    """put_text's ink of `text` as a bool mask, tight around the text."""
+    (tw, th), base = text_size(text, scale)
+    m = np.zeros((th + base + 2, tw + 2), np.uint8)
+    put_text(m, text, (1, th + 1), scale, (1,))
+    return m.astype(bool)
+
+
+class Chart:
+    """A white BGR canvas (h, w) and one axes box (x0, y0, x1, y1) in pixels,
+    mapping data (x, y) in xlim x ylim into it, y up."""
+
+    def __init__(self, w: int, h: int, box: Tuple[int, int, int, int], xlim=(0.0, 1.0), ylim=(0.0, 1.0)):
+        self.img = np.full((h, w, 3), 255, np.uint8)
+        self.box, self.xlim, self.ylim = box, tuple(map(float, xlim)), tuple(map(float, ylim))
+        self.legend_box: Optional[Tuple[int, int, int, int]] = None
+
+    def to_px(self, x, y) -> Tuple[np.ndarray, np.ndarray]:
+        """Data (x, y) -> pixel (column, row) as floats."""
+        x0, y0, x1, y1 = self.box
+        (a, b), (c, d) = self.xlim, self.ylim
+        px = x0 + (np.asarray(x, np.float64) - a) / (b - a) * (x1 - x0)
+        py = y1 - (np.asarray(y, np.float64) - c) / (d - c) * (y1 - y0)
+        return px, py
+
+    def paint(self, mask: np.ndarray, x: int, y: int, rgb) -> None:
+        """Set the pixels of a bool mask placed with its top-left at (x, y) to rgb, clipped to the canvas."""
+        h, w = self.img.shape[:2]
+        cx0, cy0, cx1, cy1 = max(x, 0), max(y, 0), min(x + mask.shape[1], w), min(y + mask.shape[0], h)
+        if cx0 < cx1 and cy0 < cy1:
+            self.img[cy0:cy1, cx0:cx1][mask[cy0 - y : cy1 - y, cx0 - x : cx1 - x]] = _bgr(rgb)
+
+    def text(self, text: str, x: float, y: float, scale: float = TICK, ha: str = "center", va: str = "center",
+             rotate: bool = False, rgb=BLACK) -> None:
+        """`text` aligned at (x, y) (ha left|center|right, va top|center|bottom); rotate turns it 90 degrees
+        counter-clockwise, as a y label or a rotated tick label reads."""
+        m = _text_mask(text, scale)
+        if rotate:
+            m = np.rot90(m)
+        h, w = m.shape
+        ox = {"left": x, "center": x - w / 2, "right": x - w}[ha]
+        oy = {"top": y, "center": y - h / 2, "bottom": y - h}[va]
+        self.paint(m, int(round(ox)), int(round(oy)), rgb)
+
+    def rect(self, x0: int, y0: int, x1: int, y1: int, rgb, fill=None) -> None:
+        if fill is not None:
+            self.img[y0 : y1 + 1, x0 : x1 + 1] = _bgr(fill)
+        rectangle(self.img, (x0, y0), (x1, y1), _bgr(rgb), 1)
+
+    def axes(self, xticks: Sequence[float], yticks: Sequence[float], xfmt=None, yfmt=None, xlabel: str = "",
+             ylabel: str = "", title: str = "") -> None:
+        """The axes' frame, ticks 5 px outside it with their labels, the axis labels and the title."""
+        x0, y0, x1, y1 = self.box
+        fx = xfmt or (lambda v: f"{v:.1f}")
+        fy = yfmt or (lambda v: f"{v:.1f}")
+        self.rect(x0, y0, x1, y1, BLACK)
+        for v in xticks:
+            px = int(round(float(self.to_px(v, self.ylim[0])[0])))
+            self.img[y1 : y1 + 6, px] = 0
+            self.text(fx(v), px, y1 + 10, TICK, "center", "top")
+        for v in yticks:
+            py = int(round(float(self.to_px(self.xlim[0], v)[1])))
+            self.img[py, x0 - 5 : x0 + 1] = 0
+            self.text(fy(v), x0 - 9, py, TICK, "right", "center")
+        if xlabel:
+            self.text(xlabel, (x0 + x1) / 2, y1 + 36, LABEL, "center", "top")
+        if ylabel:
+            left = x0 - 9 - max((_text_mask(fy(v), TICK).shape[1] for v in yticks), default=0)
+            self.text(ylabel, left - 8, (y0 + y1) / 2, LABEL, "right", "center", rotate=True)
+        if title:
+            self.text(title, (x0 + x1) / 2, y0 - 8, LABEL, "center", "bottom")
+
+    def polyline(self, x, y, rgb, width: int = 1) -> None:
+        """The polyline through the data points, `width` px wide (a square
+        brush), clipped to the axes box; every vertex's own pixel is drawn."""
+        px, py = self.to_px(x, y)
+        ok = np.isfinite(px) & np.isfinite(py)
+        px, py = px[ok], py[ok]
+        if not len(px):
+            return
+        if len(px) == 1:
+            xs, ys = np.rint(px), np.rint(py)
+        else:
+            dx, dy = np.diff(px), np.diff(py)
+            n = np.ceil(np.maximum(np.abs(dx), np.abs(dy))).astype(np.int64) + 1  # samples per segment
+            seg = np.repeat(np.arange(len(n)), n)
+            t = (np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)) / np.maximum(np.repeat(n - 1, n), 1)
+            xs, ys = np.rint(px[seg] + t * dx[seg]), np.rint(py[seg] + t * dy[seg])
+        xs, ys = xs.astype(np.int64), ys.astype(np.int64)
+        lo, hi = -(width // 2), (width - 1) // 2
+        if width > 1:
+            off = np.arange(lo, hi + 1)
+            xs = (xs[:, None, None] + off[None, :, None] + 0 * off[None, None, :]).ravel()
+            ys = (ys[:, None, None] + 0 * off[None, :, None] + off[None, None, :]).ravel()
+        x0, y0, x1, y1 = self.box
+        keep = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+        self.img[ys[keep], xs[keep]] = _bgr(rgb)
+
+    def dots(self, x, y, rgb, radius: int = 2) -> None:
+        """A filled disc at each data point (matplotlib's "." marker)."""
+        px, py = self.to_px(x, y)
+        for cx, cy in zip(np.rint(px).astype(int), np.rint(py).astype(int)):
+            _circle(self.img, int(cx), int(cy), radius, np.asarray(_bgr(rgb), np.uint8))
+
+    def legend(self, entries: Sequence[Tuple[str, tuple, int]],
+               points: Sequence[Tuple[np.ndarray, np.ndarray]]) -> None:
+        """A framed legend (a line sample and its label per entry) in the corner of
+        the axes that covers the fewest of `points` (each an (x, y) data pair)."""
+        if not entries:
+            return
+        x0, y0, x1, y1 = self.box
+        rows = 18
+        w = 46 + max(_text_mask(t, SMALL).shape[1] for t, _, _ in entries) + 8
+        h = rows * len(entries) + 8
+        pts = [np.stack(self.to_px(x, y), -1) for x, y in points]
+        pts = np.concatenate(pts) if pts else np.zeros((0, 2))
+        best = None
+        for lx, ly in ((x1 - 8 - w, y0 + 8), (x0 + 8, y0 + 8), (x0 + 8, y1 - 8 - h), (x1 - 8 - w, y1 - 8 - h)):
+            inside = int(((pts[:, 0] >= lx) & (pts[:, 0] <= lx + w) & (pts[:, 1] >= ly) & (pts[:, 1] <= ly + h)).sum())
+            if best is None or inside < best[0]:
+                best = (inside, lx, ly)
+        _, lx, ly = best
+        self.rect(lx, ly, lx + w, ly + h, GREY, fill=(255, 255, 255))
+        self.legend_box = (lx, ly, lx + w, ly + h)
+        for i, (label, rgb, width) in enumerate(entries):
+            cy = ly + 4 + rows * i + rows // 2
+            lo = -(width // 2)
+            self.img[cy + lo : cy + lo + width, lx + 8 : lx + 38] = _bgr(rgb)
+            self.text(label, lx + 46, cy, SMALL, "left", "center")
+
+    def write(self, path: Path) -> Path:
+        from ..data.imageio import imencode_png
+
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(imencode_png(self.img))
+        return path
+
+
+UNIT_TICKS = tuple(np.round(np.linspace(0, 1, 6), 1))
+
+
+def render_pr_curve(p_curve: np.ndarray, r_curve: np.ndarray, ap: np.ndarray, names: Dict[int, str]) -> Chart:
+    """JAX's plot_pr_curve (:79) figure, 7 x 6 in at 150 dpi: each class's
+    precision against recall, labelled "<name> <AP50:.3f>" (names as given,
+    JAX's caller remaps them by unique_classes) when there are fewer than 21."""
+    ch = Chart(1050, 900, (131, 108, 945, 801))
+    ch.axes(UNIT_TICKS, UNIT_TICKS, xlabel="Recall", ylabel="Precision")
+    show = len(names) < 21
+    entries, points = [], []
+    for ci in range(p_curve.shape[0]):
+        rgb = CYCLE[ci % len(CYCLE)]
+        ch.polyline(r_curve[ci], p_curve[ci], rgb)
+        points.append((r_curve[ci], p_curve[ci]))
+        if show:
+            entries.append((f"{names.get(ci, ci)} {ap[ci, 0]:.3f}", rgb, 1))
+    ch.legend(entries, points)
+    return ch
+
+
+def plot_pr_curve(p_curve: np.ndarray, r_curve: np.ndarray, ap: np.ndarray, names: Dict[int, str],
+                  save_dir: Path, x: Optional[np.ndarray] = None) -> Path:
+    """PR_curve.png under save_dir (JAX :79)."""
+    return render_pr_curve(p_curve, r_curve, ap, names).write(Path(save_dir) / "PR_curve.png")
+
+
+def render_mc_curve(x: np.ndarray, y: np.ndarray, names: Dict[int, str], ylabel: str = "F1") -> Chart:
+    """JAX's plot_mc_curve (:170) figure, 7 x 6 in at 150 dpi: each class's
+    metric against confidence, 1 px, named through `names` when there are
+    fewer than 21, then their mean 3 px in blue, labelled "all classes
+    <max:.2f> at <x of the max:.3f>"."""
+    ch = Chart(1050, 900, (131, 108, 945, 801))
+    ch.axes(UNIT_TICKS, UNIT_TICKS, xlabel="Confidence", ylabel=ylabel)
+    entries, points = [], []
+    for ci in range(y.shape[0]):
+        rgb = CYCLE[ci % len(CYCLE)]
+        ch.polyline(x, y[ci], rgb, 1)
+        points.append((x, y[ci]))
+        if len(names) < 21:
+            entries.append((str(names.get(ci, ci)), rgb, 1))
+    my = y.mean(0)
+    ch.polyline(x, my, BLUE, 3)
+    points.append((x, my))
+    entries.append((f"all classes {my.max():.2f} at {x[my.argmax()]:.3f}", BLUE, 3))
+    ch.legend(entries, points)
+    return ch
+
+
+def plot_mc_curve(x: np.ndarray, y: np.ndarray, names: Dict[int, str], save_dir: Path, ylabel: str = "F1",
+                  fname: Optional[str] = None) -> Path:
+    """<ylabel>_curve.png (or fname) under save_dir (JAX :170)."""
+    return render_mc_curve(x, y, names, ylabel).write(Path(save_dir) / (fname or f"{ylabel}_curve.png"))
+
+
+def _nice_ticks(lo: float, hi: float, most: int = 6) -> Tuple[np.ndarray, str]:
+    """Ticks at multiples of 1, 2, 2.5 or 5 x 10^k inside [lo, hi], at most `most`, and their format."""
+    span = max(hi - lo, 1e-300)
+    for k in range(int(math.floor(math.log10(span / most))), int(math.floor(math.log10(span))) + 2):
+        for m in (1, 2, 2.5, 5):
+            step = m * 10.0 ** k
+            ticks = np.arange(math.ceil(lo / step - 1e-9), math.floor(hi / step + 1e-9) + 1) * step
+            if len(ticks) <= most:
+                decimals = max(0, -k + (1 if m == 2.5 else 0))
+                return ticks, f"{{:.{decimals}f}}"
+    return np.array([lo, hi]), "{:g}"
+
+
+def _data_limits(v: np.ndarray) -> Tuple[float, float]:
+    """matplotlib's autoscaled limits of the data: its range (a single value
+    widened by 5 % of itself, or to +-0.05 at 0) and 5 % margins."""
+    v = v[np.isfinite(v)]
+    lo, hi = (float(v.min()), float(v.max())) if len(v) else (0.0, 1.0)
+    if hi - lo <= 1e-12 * max(abs(lo), abs(hi), 1.0):
+        lo, hi = (lo - 0.05 * abs(lo), hi + 0.05 * abs(hi)) if lo else (-0.05, 0.05)
+    m = (hi - lo) * 0.05
+    return lo - m, hi + m
+
+
+def render_confusion_matrix(matrix: np.ndarray, names: Dict[int, str], normalize: bool = True) -> Chart:
+    """JAX's plot_confusion_matrix (:191) figure, 8 x 7 in at 150 dpi: the
+    matrix (normalised by its column sums + 1e-9) as a "Blues" heatmap from 0
+    to its maximum with a colour bar, the class names and "background" as
+    ticks (x turned 90 degrees), "True" / "Predicted", and each cell above
+    0.005 written "<v:.2f>" when the matrix has at most 30 rows."""
+    m = matrix.astype(np.float64)
+    if normalize:
+        m = m / (m.sum(0, keepdims=True) + 1e-9)
+    n = m.shape[0]
+    labels = [str(names.get(i, str(i))) for i in range(n - 1)] + ["background"]
+    side = 820
+    x0, y0 = 150, 60
+    ch = Chart(1200, 1050, (x0, y0, x0 + side, y0 + side), xlim=(-0.5, n - 0.5), ylim=(n - 0.5, -0.5))
+    vmax = float(m.max()) if m.size and m.max() > 0 else 1.0
+    idx = np.clip((m / vmax * 256).astype(np.int64), 0, 255)
+    edges = np.rint(np.linspace(0, side, n + 1)).astype(int)
+    for i in range(n):
+        for j in range(n):
+            ch.img[y0 + edges[i] : y0 + edges[i + 1], x0 + edges[j] : x0 + edges[j + 1]] = _bgr(BLUES_LUT[idx[i, j]])
+    ch.rect(x0, y0, x0 + side, y0 + side, BLACK)
+    centres = x0 + (edges[:-1] + edges[1:]) / 2
+    for i, lab in enumerate(labels):
+        c = int(round(centres[i] - x0))
+        ch.img[y0 + side : y0 + side + 6, x0 + c] = 0
+        ch.text(lab, x0 + c, y0 + side + 10, TICK, "center", "top", rotate=True)
+        ch.img[y0 + c, x0 - 5 : x0 + 1] = 0
+        ch.text(lab, x0 - 9, y0 + c, TICK, "right", "center")
+    below = y0 + side + 10 + max(_text_mask(t, TICK).shape[1] for t in labels)
+    ch.text("True", x0 + side / 2, below + 14, LABEL, "center", "top")
+    left = x0 - 9 - max(_text_mask(t, TICK).shape[1] for t in labels)
+    ch.text("Predicted", left - 10, y0 + side / 2, LABEL, "right", "center", rotate=True)
+    if n <= 30:
+        for i in range(n):
+            for j in range(n):
+                if m[i, j] > 0.005:
+                    ch.text(f"{m[i, j]:.2f}", centres[j], y0 + (edges[i] + edges[i + 1]) / 2, SMALL)
+    cx0, cx1 = x0 + side + 50, x0 + side + 95  # the colour bar, 0 at the bottom
+    rows = np.arange(side + 1)
+    lut_i = np.clip(((side - rows) / side * 256).astype(np.int64), 0, 255)
+    ch.img[y0 : y0 + side + 1, cx0 : cx1 + 1] = BLUES_LUT[lut_i][:, None, ::-1]
+    ch.rect(cx0, y0, cx1, y0 + side, BLACK)
+    ticks, fmt = _nice_ticks(0.0, vmax)
+    for v in ticks:
+        py = int(round(y0 + side - v / vmax * side))
+        ch.img[py, cx1 : cx1 + 6] = 0
+        ch.text(fmt.format(v), cx1 + 10, py, TICK, "left", "center")
+    return ch
+
+
+def plot_confusion_matrix(matrix: np.ndarray, names: Dict[int, str], save_dir: Path, normalize: bool = True) -> Path:
+    """confusion_matrix_normalized.png or confusion_matrix.png under save_dir (JAX :191)."""
+    out = Path(save_dir) / ("confusion_matrix_normalized.png" if normalize else "confusion_matrix.png")
+    return render_confusion_matrix(matrix, names, normalize).write(out)
+
+
+def plot_val_curves(metrics, names: Dict[int, str], save_dir: Path) -> list:
+    """PR_curve.png, F1_curve.png, P_curve.png and R_curve.png from a
+    DetMetrics' `curves_results` (JAX :221): the PR curve names its rows
+    through a dict remapped by unique_classes, the others through `names`."""
+    curves = getattr(metrics, "curves_results", None)
+    if not curves:
+        return []
+    x = np.linspace(0, 1, curves["p_curve"].shape[1])
+    return [
+        plot_pr_curve(curves["p_curve"], curves["r_curve"], curves["ap"],
+                      {i: names.get(int(c), int(c)) for i, c in enumerate(curves["unique_classes"])}, save_dir),
+        plot_mc_curve(x, curves["f1_curve"], names, save_dir, "F1"),
+        plot_mc_curve(x, curves["p_curve"], names, save_dir, "Precision", "P_curve.png"),
+        plot_mc_curve(x, curves["r_curve"], names, save_dir, "Recall", "R_curve.png"),
+    ]
+
+
+def render_results(rows: Sequence[Dict[str, str]]) -> Chart:
+    """JAX's plot_results (:48) figure: one panel per column of results.csv
+    but `epoch`, at most 5 a row, each 4 x 3 in at 120 dpi, the column
+    against the epoch with "." markers, titled with its name; each panel's
+    limits are the data's with 5 % margins."""
+    keys = [k for k in rows[0] if k != "epoch"]
+    ncols = min(5, len(keys))
+    nrows = (len(keys) + ncols - 1) // ncols
+    pw, ph = 480, 360
+    ch = Chart(pw * ncols, ph * nrows, (0, 0, 1, 1))
+    epochs = np.array([float(r["epoch"]) for r in rows])
+    for i, k in enumerate(keys):
+        vals = np.array([float(r[k] or 0) for r in rows])
+        r, c = divmod(i, ncols)
+        ch.box = (c * pw + 70, r * ph + 36, c * pw + pw - 16, r * ph + ph - 40)
+        ch.xlim, ch.ylim = _data_limits(epochs), _data_limits(vals)
+        xt, xf = _nice_ticks(*ch.xlim)
+        yt, yf = _nice_ticks(*ch.ylim)
+        ch.axes(xt, yt, xfmt=xf.format, yfmt=yf.format, title=k)
+        ch.polyline(epochs, vals, CYCLE[0], 1)
+        ch.dots(epochs, vals, CYCLE[0])
+    return ch
+
+
+def plot_results(csv_file: str | Path, save_dir: Optional[Path] = None) -> Optional[Path]:
+    """results.png beside results.csv (or under save_dir), as JAX's :48; None
+    (with a warning) when the file is missing, None when it has no rows."""
+    import csv as csvmod
+
+    csv_file = Path(csv_file)
+    if not csv_file.exists():
+        LOGGER.warning(f"plot_results: {csv_file} not found")
+        return None
+    with open(csv_file) as f:
+        rows = list(csvmod.DictReader(f))
+    if not rows:
+        return None
+    return render_results(rows).write(Path(save_dir or csv_file.parent) / "results.png")

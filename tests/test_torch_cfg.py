@@ -1,8 +1,8 @@
 """The port's configuration and command line against the JAX package's.
 
 - Every key of JAX's cfg/default.yaml (its DEFAULT_CFG_DICT, read here) is
-  in the port's DEFAULT_CFG_DICT at JAX's default, but for the two the port
-  documents (`mode`, `plots`), and get_cfg accepts the whole set at JAX's
+  in the port's DEFAULT_CFG_DICT at JAX's default, but for the one the port
+  documents (`mode`), and get_cfg accepts the whole set at JAX's
   values. Each of the 41 keys the port lacked is handled as the cfg module's
   table says: inert, honoured (predict's drawing keys are held to JAX's
   plots in tests/test_torch_plot.py and tests/test_torch_predict.py),
@@ -33,27 +33,26 @@ from spectrogram_yolov11_tpu.cfg import entrypoint as jax_entrypoint
 ROOT = Path(__file__).resolve().parent.parent
 PORT_CFG = ROOT / "spectrogram_yolov11_torch" / "cfg"
 JAX_CFG = ROOT / "spectrogram_yolov11_tpu" / "cfg"
-PORT_DEFAULTS = {"mode": "predict", "plots": False}  # the port's documented differences
+PORT_DEFAULTS = {"mode": "predict"}  # the port's documented difference
 # the 41 keys of JAX's default.yaml the port's cfg rejected before, each with its handling
 INERT = ("pretrained", "deterministic", "freeze", "bgr", "dropout", "save_hybrid", "dnn", "pose", "kobj",
          "overlap_mask", "mask_ratio", "retina_masks", "copy_paste_mode", "auto_augment", "erasing", "crop_fraction",
-         "source", "cfg", "show_boxes")
+         "source", "cfg", "show_boxes", "embed")
 HONOURED = ("model", "line_width", "show_conf", "show_labels")
 NEW_KEYS = (*INERT, *HONOURED, "rect", *NOT_PORTED_KEYS)
 # a non-default value of each key that raises, and the ROADMAP.md item it names
 NON_DEFAULT = {"augment": True, "visualize": True, "show": True, "show_labels": False, "show_conf": False,
                "show_boxes": False, "line_width": 2, "save_frames": True, "vid_stride": 2, "stream_buffer": True,
-               "embed": [10], "format": "onnx", "keras": True, "int8": True, "opset": 17, "simplify": False,
+               "format": "onnx", "keras": True, "int8": True, "opset": 17, "simplify": False,
                "dynamic": True, "optimize": True, "workspace": 4.0, "nms": True, "tracker": "bytetrack.yaml"}
 ITEM = {**dict.fromkeys(("augment", "visualize", "show", "save_frames", "vid_stride", "stream_buffer"), "item 5"),
-        "embed": "item 8",
         **dict.fromkeys(("format", "keras", "int8", "opset", "simplify", "dynamic", "optimize", "workspace", "nms"),
                         "item 9"), "tracker": "item 12"}
 # a non-default value of each inert key, of the type check_cfg holds it to
 INERT_VALUE = {"pretrained": False, "deterministic": False, "freeze": [0, 1], "bgr": 0.5, "dropout": 0.1,
                "save_hybrid": True, "dnn": True, "pose": 6.0, "kobj": 2.0, "overlap_mask": False, "mask_ratio": 2,
                "retina_masks": True, "copy_paste_mode": "mixup", "auto_augment": "augmix", "erasing": 0.0,
-               "crop_fraction": 0.5, "source": "frames/", "cfg": "custom.yaml", "show_boxes": False}
+               "crop_fraction": 0.5, "source": "frames/", "cfg": "custom.yaml", "show_boxes": False, "embed": [10]}
 
 
 def test_every_jax_key_is_accepted_at_its_default():

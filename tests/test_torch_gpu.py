@@ -452,7 +452,7 @@ def _val_recording(model, data, **kw):
     mp = pytest.MonkeyPatch()
     mp.setattr(V, "_unletterbox_boxes", lambda *a: dets.append(inner(*a).copy()) or dets[-1])
     try:
-        return model.val(data=data, batch=4, **kw), dets
+        return model.val(data=data, batch=4, **{"plots": False, **kw}), dets
     finally:
         mp.undo()
 
@@ -524,14 +524,22 @@ def test_predict_from_jpeg_files_on_card_matches_cpu():
     assert detections[0] > 0
 
 
+def _jpeg_split(tmp_path) -> dict:
+    """A copy of the JPEG fixture split (its dataset writes the label cache beside the images)."""
+    import shutil
+
+    shutil.copytree(JPEG_FIXTURES / "spectrogram", tmp_path / "spectrogram")
+    return {"path": str(tmp_path / "spectrogram"), "val": "images/val", "names": {0: "LTE", 1: "RF"}}
+
+
 @pytest.mark.gpu
-def test_val_on_jpeg_fixtures_on_card_matches_cpu():
+def test_val_on_jpeg_fixtures_on_card_matches_cpu(tmp_path):
     """YOLO(ckpt).val on the JPEG fixture split on the card against the CPU's:
     results_dict within 1e-4, the detections above a score margin equal."""
     _card()
     from spectrogram_yolov11_torch import YOLO
 
-    data = {"path": str(JPEG_FIXTURES / "spectrogram"), "val": "images/val", "names": {0: "LTE", 1: "RF"}}
+    data = _jpeg_split(tmp_path)
     _assert_val_matches(_val_recording(YOLO(CKPT), data), _val_recording(YOLO(CKPT, device="cpu"), data))
 
 
@@ -559,7 +567,7 @@ def test_val_half_launches_the_bf16_kernel():
                                   "n_train": 0, "n_val": 4, "gen_imgsz": 640, "names": ["LTE", "RF"]})
         counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
         yolo = YOLO(CKPT)
-        res = yolo.val(data=data, batch=2, half=True)
+        res = yolo.val(data=data, batch=2, half=True, plots=False)
         moved = tuple(n - n0 for n, n0 in zip((fused_bottleneck.launches, fused_bottleneck_bf16.launches,
                                                greedy_keep.launches), counts))
     assert moved == (0, 12, 2) and all(np.isfinite(v) for v in res.values())
@@ -874,7 +882,7 @@ def test_train_epoch_on_card_matches_cpu(loop_split, tmp_path):
                           lambda t: counts.append((fused_bottleneck.launches, greedy_keep.launches)))
         yolo.add_callback("on_fit_epoch_end", lambda t: counts.append((fused_bottleneck.launches, greedy_keep.launches)))
         metrics = yolo.train(data=loop_split, epochs=1, batch=2, imgsz=64, amp=False, optimizer="SGD", workers=2,
-                             project=str(tmp_path), name=dev)
+                             project=str(tmp_path), name=dev, plots=False)
         with open(tmp_path / dev / "results.csv") as f:
             row = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
         runs[dev] = (yolo, metrics, row, counts)
@@ -908,7 +916,8 @@ def test_amp_train_epoch_launches_the_bf16_kernels(loop_split, tmp_path):
                                     greedy_keep.launches))
     for event in ("on_train_start", "on_train_batch_end", "on_fit_epoch_end"):
         yolo.add_callback(event, read)
-    metrics = yolo.train(data=loop_split, epochs=1, batch=2, imgsz=64, workers=2, project=str(tmp_path), name="amp")
+    metrics = yolo.train(data=loop_split, epochs=1, batch=2, imgsz=64, workers=2, project=str(tmp_path), name="amp",
+                         plots=False)
     assert yolo.trainer.args.amp is True and yolo.model.compute_dtype == torch.bfloat16
     assert len(counts) == 6 and len(set(counts[:5])) == 1
     assert tuple(b - a for a, b in zip(counts[4], counts[5])) == (0, 12, 2)
@@ -951,7 +960,7 @@ def test_yaml_model_trains_and_its_ema_val_runs_the_kernels(loop_split, tmp_path
              torch.nn.modules.module.register_module_forward_hook(post)]
     try:
         metrics = yolo.train(data=loop_split, epochs=1, batch=2, imgsz=64, workers=2, project=str(tmp_path),
-                             name="scratch")
+                             name="scratch", plots=False)
     finally:
         for h in hooks:
             h.remove()
@@ -973,7 +982,7 @@ def test_yaml_model_trains_and_its_ema_val_runs_the_kernels(loop_split, tmp_path
         _, _, _, valid, boxes = nms_candidates(preds, 0.001, 2, multi_label=True, pre_nms_topk=VAL_PRE_NMS_TOPK)
         assert torch.equal(greedy_keep(boxes, valid, 0.7), greedy_keep_reference(boxes, valid, 0.7))
 
-    kw = dict(data=loop_split, imgsz=64, batch=2)
+    kw = dict(data=loop_split, imgsz=64, batch=2, plots=False)
     ref = YOLO(CKPT, device="cuda").val(**kw)
     moved = YOLO("spectrogram_yolo11n.yaml", device="cuda").load(CKPT)
     before = _counts()
@@ -1033,7 +1042,7 @@ def test_server_on_card_matches_cpu_server(servers):
 
 
 @pytest.mark.gpu
-def test_remote_predict_and_val_on_card_match_local_on_card(servers):
+def test_remote_predict_and_val_on_card_match_local_on_card(servers, tmp_path):
     """YOLO(url).predict and .val with the client on the card against
     YOLO(ckpt) on the card: each client batch launches 1 NMS in the client and
     6 bottlenecks in the server (none through the CPU's server); at conf=0 on
@@ -1057,11 +1066,11 @@ def test_remote_predict_and_val_on_card_match_local_on_card(servers):
         assert len(g) == len(ref) == 8
         np.testing.assert_array_equal(g.boxes.cls, ref.boxes.cls)
     np.testing.assert_allclose(got.boxes.xyxy, ref.boxes.xyxy, atol=1e-3, rtol=0)
-    data = {"path": str(JPEG_FIXTURES / "spectrogram"), "val": "images/val", "names": {0: "LTE", 1: "RF"}}
+    data = _jpeg_split(tmp_path)
     before = _counts()
-    rv = remote.val(data=data, batch=8)
+    rv = remote.val(data=data, batch=8, plots=False)
     assert _moved(before) == (6, 0, 1)
-    lv = local.val(data=data, batch=8)
+    lv = local.val(data=data, batch=8, plots=False)
     assert list(rv) == list(lv) and all(abs(rv[k] - lv[k]) <= 1e-6 for k in lv), (rv, lv)
 
 
@@ -1092,3 +1101,52 @@ def test_predict_saves_on_the_card(tmp_path):
             data = (tmp_path / name / f"{r.path}.jpg").read_bytes()
             assert data == imencode(".jpg", r.plot())
             np.testing.assert_array_equal(imread(tmp_path / name / f"{r.path}.jpg"), imdecode(data))
+
+
+@pytest.mark.gpu
+def test_plot_images_on_card_equals_cpu(tmp_path):
+    """A train batch's mosaic from images assembled on the card (as the trainer
+    draws train_batch*.jpg) has the bytes of the one from the CPU's images:
+    4 seeded samples at 160 px."""
+    from spectrogram_yolov11_torch.cfg import DEFAULT_CFG_DICT, get_cfg
+    from spectrogram_yolov11_torch.data.augment import TrainTransform
+    from spectrogram_yolov11_torch.ops.device_augment import augment_batch
+    from spectrogram_yolov11_torch.utils.plotting import plot_images
+
+    dev = _card()
+    t = TrainTransform(_ColourDS(), 160, get_cfg(DEFAULT_CFG_DICT, {"mode": "train"}), max_gt=32)
+    samples = [t(seed, np.random.default_rng(seed)) for seed in range(4)]
+    batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    args = [torch.from_numpy(batch[k]) for k in ("aug_src", "aug_regions", "aug_pads", "aug_inv", "aug_hsv")]
+    names = {0: "LTE", 1: "RF"}
+    cpu = plot_images({**batch, "img": augment_batch(*args).to(torch.uint8).numpy()}, names, tmp_path / "cpu.jpg")
+    card_img = augment_batch(*(a.to(dev) for a in args)).to(torch.uint8).cpu().numpy()
+    card = plot_images({**batch, "img": card_img}, names, tmp_path / "card.jpg")
+    assert card.read_bytes() == cpu.read_bytes()
+
+
+@pytest.mark.gpu
+def test_val_at_its_defaults_writes_its_artifacts_on_the_card(val_split, tmp_path):
+    """YOLO(ckpt).val at its defaults (plots=True) with save_json=True on the
+    card: 6 + 1 launches, the six charts at JAX's sizes and the two JSON
+    files, the confusion matrix and COCO keys equal to the CPU's val."""
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.imageio import imread
+
+    data, _ = val_split
+    counts = (fused_bottleneck.launches, fused_bottleneck_bf16.launches, greedy_keep.launches)
+    card = YOLO(CKPT)
+    res = card.val(data=data, batch=4, save_json=True, project=str(tmp_path))
+    moved = tuple(n - n0 for n, n0 in zip((fused_bottleneck.launches, fused_bottleneck_bf16.launches,
+                                           greedy_keep.launches), counts))
+    assert moved == (6, 0, 1)
+    out = card.validator.save_dir  # <project>/val*, as JAX's validator names it whatever `name` says
+    sizes = {p.name: imread(p).shape for p in out.glob("*.png")}
+    assert sizes == {**dict.fromkeys(("PR_curve.png", "F1_curve.png", "P_curve.png", "R_curve.png"), (900, 1050, 3)),
+                     **dict.fromkeys(("confusion_matrix.png", "confusion_matrix_normalized.png"), (1050, 1200, 3))}
+    assert (out / "predictions.json").exists() and (out / "annotations.json").exists()
+    cpu = YOLO(CKPT, device="cpu")
+    ref = cpu.val(data=data, batch=4, save_json=True, project=str(tmp_path))
+    assert list(res) == list(ref) and any(k.startswith("metrics/coco_") for k in res)
+    assert all(abs(res[k] - ref[k]) <= 1e-4 for k in res), (res, ref)
+    np.testing.assert_array_equal(card.validator.confusion_matrix.matrix, cpu.validator.confusion_matrix.matrix)

@@ -1,14 +1,16 @@
 """The port stands alone, and runs on the card unless asked for the CPU.
 
 An AST scan shows that no file of spectrogram_yolov11_torch/ nor chip_smoke.py
-imports jax, flax, msgpack, yaml, cv2, PIL or the JAX package (the image
-readers and writers, data/imageio.py and data/jpeg.py, the drawing in
-utils/plotting.py and engine/results.py, the model YAML reader in
-nn/tasks.py and the command line, cfg/__init__.py and __main__.py, among
-them); with no card, the entry points (the pipeline, predict, val, the
-trainer and YOLO.train, a model built from YAML and trained, the command
-line, the server and AutoBackend on a checkpoint or a YAML) raise for the
-default device instead of running on the CPU.
+imports jax, flax, msgpack, yaml, cv2, PIL, matplotlib or the JAX package
+(the image readers and writers, data/imageio.py and data/jpeg.py, the
+drawing and the charts in utils/plotting.py and engine/results.py, the COCO
+eval in ops/cocoeval.py, AutoBatch in utils/autobatch.py, the model YAML
+reader in nn/tasks.py and the command line, cfg/__init__.py and
+__main__.py, among them); with no card, the entry points (the pipeline,
+predict, val, the trainer and YOLO.train, a model built from YAML and
+trained, YOLO.embed and YOLO.profile, the command line, the server and
+AutoBackend on a checkpoint or a YAML) raise for the default device instead
+of running on the CPU.
 """
 
 import ast
@@ -29,7 +31,7 @@ from spectrogram_yolov11_torch.utils import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "runs_artifacts" / "spectrogram_yolo11n.ckpt"
-FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "yaml", "cv2", "PIL", "spectrogram_yolov11_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "yaml", "cv2", "PIL", "matplotlib", "spectrogram_yolov11_tpu"}
 
 
 def _imported_roots(path: Path):
@@ -47,7 +49,8 @@ def _port_files():
     files = sorted((ROOT / "spectrogram_yolov11_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15 and all(f.exists() for f in files)
     assert {"jpeg.py", "imageio.py", "loaders.py", "serve.py", "autobackend.py", "exporter.py", "tasks.py",
-            "__main__.py", "plotting.py", "results.py", "predictor.py"} <= {f.name for f in files}
+            "__main__.py", "plotting.py", "results.py", "predictor.py", "cocoeval.py", "autobatch.py"} <= {
+                f.name for f in files}
     return files
 
 
@@ -67,6 +70,10 @@ def test_default_device_raises_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         YOLO(CKPT, device="cuda").predict(frame, device="cuda:0")
     assert len(YOLO(CKPT).predict(frame, device="cpu", imgsz=64, save=False)) == 1
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        YOLO(CKPT).embed(frame, imgsz=32)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        YOLO(CKPT).profile(imgsz=32)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         YOLO(CKPT).val(data={"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]})
     with pytest.raises(RuntimeError, match="no CUDA card"):

@@ -251,10 +251,11 @@ def test_predict_refuses_what_the_port_does_not_do(models, tmp_path):
             model.val()
     (tmp_path / "images" / "val").mkdir(parents=True)
     assert cv2.imwrite(str(tmp_path / "images" / "val" / "frame.jpg"), frame)
-    res = port.val(data={"path": str(tmp_path), "val": "images/val", "names": ["LTE", "RF"]}, imgsz=IMGSZ)
+    res = port.val(data={"path": str(tmp_path), "val": "images/val", "names": ["LTE", "RF"]}, imgsz=IMGSZ, plots=False)
     assert "metrics/mAP50-95(B)" in res and all(np.isfinite(v) for v in res.values())
     (tmp_path / "images" / "val" / "frame.jpg").unlink()
     assert cv2.imwrite(str(tmp_path / "images" / "val" / "frame.bmp"), frame)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.val(data={"path": str(tmp_path), "val": "images/val", "names": ["LTE", "RF"]}, imgsz=IMGSZ)
+        port.val(data={"path": str(tmp_path), "val": "images/val", "names": ["LTE", "RF"]}, imgsz=IMGSZ,
+                 plots=False)
     assert port.names == {0: "LTE", 1: "RF"} and port.stride == (8.0, 16.0, 32.0) and port.device == "cpu"

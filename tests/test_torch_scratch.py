@@ -236,7 +236,7 @@ def test_load_transfers_as_jax(name):
 
 def test_load_then_val_and_save_round_trip(data, tmp_path):
     root, d, _ = data
-    kw = dict(data=d, imgsz=IMGSZ, batch=2, device="cpu")
+    kw = dict(data=d, imgsz=IMGSZ, batch=2, device="cpu", plots=False)
     port = YOLO("spectrogram_yolo11n.yaml", device="cpu").load(CKPT)
     ref = YOLO(CKPT, device="cpu").val(**kw)
     assert port.val(**kw) == ref
@@ -255,16 +255,19 @@ def test_load_then_val_and_save_round_trip(data, tmp_path):
     assert _flat(back.model).keys() == ours.keys() and all(np.array_equal(_flat(back.model)[p], ours[p]) for p in ours)
     assert back.val(**kw) == ref
     assert port.eval() is port and port.fuse() is port and port.transforms is None
-    for method in (port.embed, port.profile):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            method()
+    # embed and profile run on the loaded model (held to JAX's in tests/test_torch_artifacts.py)
+    rows = port.profile(imgsz=32, timed=False)
+    assert [r["i"] for r in rows] == list(range(len(port.model.model)))
+    assert sum(r["params"] for r in rows) == sum(p.numel() for p in port.model.parameters())
+    (vec,) = port.embed(np.zeros((20, 30, 3), np.uint8), imgsz=32)
+    assert vec.dtype == np.float32 and vec.ndim == 1 and np.isfinite(vec).all()
 
 
 def test_from_scratch_train_on_cpu(data):
     root, d, _ = data
     yolo = YOLO("yolo11n", device="cpu")
     metrics = yolo.train(data=d, epochs=1, imgsz=IMGSZ, batch=2, workers=1, project=str(root), name="scratch",
-                         exist_ok=True)
+                         exist_ok=True, plots=False)
     want = len(_grafted(_jax_shapes("yolo11n.yaml", 2)[1], _jax_shapes("yolo11n.yaml")[1]))
     assert yolo.trainer.rebuilt == {"nc": (80, 2), "grafted": want} and yolo.model.nc == 2
     assert all(np.isfinite(v) for v in metrics.values())
@@ -281,18 +284,19 @@ def test_from_scratch_train_on_cpu(data):
 @pytest.mark.parametrize("verb", ["val", "predict", "train"])
 def test_module_runner(verb, data, capsys, monkeypatch):
     root, d, yaml_path = data
-    args = {"val": [f"model={CKPT}", f"data={yaml_path}", f"imgsz={IMGSZ}", "batch=2"],
+    args = {"val": [f"model={CKPT}", f"data={yaml_path}", f"imgsz={IMGSZ}", "batch=2", "plots=False"],
             "predict": ["model=spectrogram_yolo11n.yaml", f"source={root / 'data' / 'images' / 'val'}",
                         f"imgsz={IMGSZ}", f"project={root}", "name=cli_predict"],
             "train": ["model=spectrogram_yolo11.yaml", f"data={yaml_path}", "epochs=1", f"imgsz={IMGSZ}", "batch=2",
-                      "workers=1", f"project={root}", "name=cli", "exist_ok=True"]}[verb]
+                      "workers=1", f"project={root}", "name=cli", "exist_ok=True", "plots=False"]}[verb]
     monkeypatch.setattr(sys, "argv", ["spectrogram_yolov11_torch", "detect", verb, *args, "device=cpu"])
     with pytest.raises(SystemExit) as e:
         runpy.run_module("spectrogram_yolov11_torch", run_name="__main__")
     assert e.value.code == 0
     lines = capsys.readouterr().out.strip().splitlines()
     if verb == "val":
-        assert json.loads(lines[-1]) == YOLO(CKPT, device="cpu").val(data=str(yaml_path), imgsz=IMGSZ, batch=2)
+        assert json.loads(lines[-1]) == YOLO(CKPT, device="cpu").val(data=str(yaml_path), imgsz=IMGSZ, batch=2,
+                                                                     plots=False)
     elif verb == "predict":
         assert len(lines) == 4 and all(line.split(": ")[0].endswith(".png") for line in lines)
         # at its defaults (save=True, as JAX's CLI) each image's plot is written as <stem>.jpg

@@ -31,6 +31,7 @@ port's (serve.py:_HTTPServer), a 2 ms handler each.
 """
 
 import json
+import shutil
 import sys
 import threading
 import time
@@ -302,9 +303,12 @@ def test_remote_predict_matches_local_predict(port_srv):
     assert np.abs(swapped - local[0].boxes.data).max() > 1e-2  # the check would see a missing or a double flip
 
 
-def test_remote_val_matches_local_val(port_srv):
-    remote = YOLO(port_srv.url, device="cpu").val(data=JPEG_SPLIT, batch=4, imgsz=320)
-    local = YOLO(CKPT, device="cpu").val(data=JPEG_SPLIT, batch=4, imgsz=320)
+def test_remote_val_matches_local_val(port_srv, tmp_path):
+    # a copy of the fixture split: the dataset writes its label cache beside the images
+    shutil.copytree(JPEG_SPLIT["path"], tmp_path / "split")
+    split = {**JPEG_SPLIT, "path": str(tmp_path / "split")}
+    remote = YOLO(port_srv.url, device="cpu").val(data=split, batch=4, imgsz=320, plots=False)
+    local = YOLO(CKPT, device="cpu").val(data=split, batch=4, imgsz=320, plots=False)
     assert list(remote) == list(local) and local["metrics/mAP50(B)"] > 0.5
     assert all(abs(remote[k] - local[k]) <= 1e-6 for k in local), (remote, local)
 

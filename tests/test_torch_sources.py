@@ -17,8 +17,8 @@ train loader on JPEG datasets the JAX package writes, on the CPU.
   JAX YAML given by path resolves relative to its own directory.
 - Videos in a listing raise NotImplementedError before any frame is read.
 
-The fixture split is copied into a temporary directory first: JAX's dataset
-writes its label cache beside the images.
+The fixture split is copied into a temporary directory first: both packages'
+datasets write their shared label cache beside the images.
 """
 
 import shutil
@@ -108,7 +108,7 @@ def test_sources_match_jax_predictor(models, fixtures, tmp_path):
 def test_val_on_jax_jpegs_matches_jax(models, fixtures):
     port, jax_model = models
     data = {"path": str(fixtures / "spectrogram"), "val": "images/val", "names": ["LTE", "RF"]}
-    ours = port.val(data=data, batch=8, imgsz=VAL_IMGSZ)
+    ours = port.val(data=data, batch=8, imgsz=VAL_IMGSZ, plots=False)
     theirs = jax_model.val(data=data, batch=8, imgsz=VAL_IMGSZ, plots=False)
     print("port", ours, "\njax ", theirs)
     assert list(ours) == list(theirs) and ours["metrics/mAP50(B)"] > 0.5

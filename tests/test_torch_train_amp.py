@@ -376,7 +376,7 @@ def test_amp_validate_runs_a_bf16_copy_equal_to_half_val(step, data):
     ema.update(zip(t.stat_names, t.state["ema"]["batch_stats"]))
     model = build_model(step["cfg"], nc=2)
     model.load_state_dict({**model.state_dict(), **{k: v.clone() for k, v in ema.items()}})
-    ref = DetectionValidator(model, dict(data=data, imgsz=IMGSZ, batch=BATCH, half=True, device="cpu"))()
+    ref = DetectionValidator(model, dict(data=data, imgsz=IMGSZ, batch=BATCH, half=True, device="cpu", plots=False))()
     print(f"validate() under amp {got}")
     assert got == ref
     t.train_step(_batch(), 5, True)
@@ -389,7 +389,8 @@ def trained(data, tmp_path_factory):
     """YOLO(ckpt).train at its defaults (amp=True) for 1 epoch on the CPU."""
     project = tmp_path_factory.mktemp("amp_train")
     yolo = YOLO(CKPT, device="cpu")
-    metrics = yolo.train(data=data, epochs=1, batch=BATCH, imgsz=IMGSZ, workers=1, project=str(project), name="run")
+    metrics = yolo.train(data=data, epochs=1, batch=BATCH, imgsz=IMGSZ, workers=1, project=str(project), name="run",
+                         plots=False)
     return yolo, metrics, project / "run"
 
 
@@ -417,11 +418,11 @@ def test_facade_keeps_the_compute_dtype_as_jax(trained, step, data):
 
     yolo = trained[0]
     assert yolo.model.compute_dtype == BF16 and yolo.model.dtype == torch.float32 and not yolo.model.training
-    chained = yolo.val(data=data, batch=BATCH, imgsz=IMGSZ)
+    chained = yolo.val(data=data, batch=BATCH, imgsz=IMGSZ, plots=False)
     assert yolo.validator.model.dtype == BF16
-    assert chained == yolo.val(data=data, batch=BATCH, imgsz=IMGSZ, half=True)
+    assert chained == yolo.val(data=data, batch=BATCH, imgsz=IMGSZ, half=True, plots=False)
     f32_model = copy.deepcopy(yolo.model).set_compute_dtype(torch.float32)
-    f32_val = DetectionValidator(f32_model, dict(data=data, imgsz=IMGSZ, batch=BATCH, device="cpu"))()
+    f32_val = DetectionValidator(f32_model, dict(data=data, imgsz=IMGSZ, batch=BATCH, device="cpu", plots=False))()
     print(f"chained val (bf16) against an f32 val of the same weights: "
           f"{max(abs(chained[k] - f32_val[k]) for k in chained):.2e} at most")
     f32 = DetectionTrainer(build_model(step["cfg"], nc=2), dict(data=data, amp=False, device="cpu"))
@@ -452,7 +453,7 @@ def test_port_resumes_a_jax_amp_checkpoint(step, data, tmp_path):
 
     yolo = YOLO(CKPT, device="cpu")
     yolo.add_callback("on_train_start", at_start)
-    metrics = yolo.train(data=data, epochs=2, batch=BATCH, imgsz=IMGSZ, workers=1, resume=str(path),
+    metrics = yolo.train(data=data, epochs=2, batch=BATCH, imgsz=IMGSZ, workers=1, resume=str(path), plots=False,
                          project=str(tmp_path), name="resumed")
     assert seen["counts"] == (1, 1, 1, BF16)
     assert all(np.array_equal(seen["params"][k], v) for k, v in _leaves(np_tree))

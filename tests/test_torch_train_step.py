@@ -294,14 +294,15 @@ def test_eval_refolds_moved_weights_and_the_bridge_inverts():
 
 def test_trainer_refuses_amp_and_yolo_train_refuses(data):
     """amp=True, the default, is accepted (bf16 compute, tests/test_torch_train_amp.py);
-    the options still not ported raise in the trainer and in YOLO.train."""
+    so are batch=-1 (AutoBatch picks the batch in train()), profile=True and
+    plots=True, the default (tests/test_torch_artifacts.py runs them); host
+    augmentation still raises (tests/test_torch_train_loop.py)."""
     model = build_model(TINY)
     t = DetectionTrainer(model, dict(data=data, device="cpu"))
-    assert t.args.amp is True and t.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="batch=-1.*ROADMAP.*item 8"):
-        DetectionTrainer(model, dict(data=data, device="cpu", batch=-1))
-    with pytest.raises(NotImplementedError, match="profile=True.*ROADMAP.*item 8"):
-        YOLO(CKPT).train(data=data, profile=True)
+    assert t.args.amp is True and t.compute_dtype == torch.bfloat16 and t.args.plots is True
+    assert DetectionTrainer(model, dict(data=data, device="cpu", batch=-1)).batch_size == -1
+    assert DetectionTrainer(model, dict(data=data, device="cpu", profile=True)).args.profile is True
+    assert DetectionTrainer(model, dict(data=data, device="cpu", plots=False)).args.plots is False
     t = DetectionTrainer(model, dict(data=data, device="cpu", amp=False, batch=16))
     t.setup_model()
     t.setup_optimizer(nb=8)  # 100 warmup iterations; accumulate ramps 1 -> 4 over them, then stays 4
@@ -320,7 +321,7 @@ def test_val_and_predict_after_a_step_run_the_moved_weights_in_eval_mode(data):
     would show BN on batch statistics."""
     yolo, fresh = YOLO(CKPT, device="cpu"), YOLO(CKPT, device="cpu")
     frame = np.ascontiguousarray(_batch()["img"][0][..., ::-1])  # BGR, as predict takes arrays
-    kw = {"imgsz": IMGSZ, "device": "cpu", "save": False}
+    kw = {"imgsz": IMGSZ, "device": "cpu", "save": False, "plots": False}
     yolo.predict(frame, conf=0.001, **kw)
     t = DetectionTrainer(yolo.model, dict(data=data, device="cpu", amp=False, imgsz=IMGSZ, batch=BATCH))
     t.setup_model()

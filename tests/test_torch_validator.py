@@ -7,8 +7,12 @@ as maybe_generate seeds val) through `spectrogram_yolov11_torch.YOLO(CKPT)
 .val(data=...)` on the same files. Tolerances:
 
 - f32: every value of results_dict within 1e-4 (measured here: 2e-7 in
-  precision, the others equal); per image, the detections with score >= 0.1
-  equal in count and class, boxes within 1e-2 px of the image's own pixels.
+  precision, the others equal), the `metrics/coco_*` keys of save_json=True
+  among them; per image, the detections with score >= 0.1 equal in count and
+  class, boxes within 1e-2 px of the image's own pixels. Both run at
+  plots=True (the default) with save_json=True; the artifacts (confusion
+  matrix, curves, JSON rows, chart files) are held to JAX's in
+  tests/test_torch_artifacts.py, which reads this module's `runs`.
 - bf16 (half=True against JAX's set_dtype(bfloat16) validator): mAP50-95
   within twice JAX's own bf16-to-f32 distance in mAP50-95, measured in the
   test (here: the port lies 1.7e-4 from JAX's bf16, which lies 2.5e-4 from
@@ -65,9 +69,11 @@ def _val_recording(module, run):
 
 
 @pytest.fixture(scope="module")
-def runs(data):
-    """results_dict and per-image detections: port and JAX in f32, then in bf16
-    (the JAX validator turns its model to bf16 in place, so bf16 comes last)."""
+def runs(data, tmp_path_factory):
+    """results_dict and per-image detections: port and JAX in f32 at plots=True
+    with save_json=True (each validator kept), then in bf16 (the JAX validator
+    turns its model to bf16 in place, so bf16 comes last)."""
+    project = tmp_path_factory.mktemp("val_runs")
     # the JAX facade's logging integrations (TensorBoard through tensorflow) do not touch the results
     # and take ten seconds or more to import: leave them out
     with pytest.MonkeyPatch.context() as mp:
@@ -76,10 +82,13 @@ def runs(data):
     events = []
     for e in EVENTS:
         port.add_callback(e, lambda v, e=e: events.append(e))
-    out = {"events": events, "port_model": port}
-    out["port"] = _val_recording(port_validator, lambda: port.val(data=data, batch=4))
-    out["jax"] = _val_recording(jax_validator, lambda: jax_model.val(data=data, batch=4, plots=False))
-    out["port_half"] = port.val(data=data, batch=4, half=True)
+    out = {"events": events, "port_model": port, "project": project}
+    kw = dict(data=data, batch=4, save_json=True)
+    out["port"] = _val_recording(port_validator, lambda: port.val(project=str(project / "port"), **kw))
+    out["port_validator"] = port.validator
+    out["jax"] = _val_recording(jax_validator, lambda: jax_model.val(plots=True, project=str(project / "jax"), **kw))
+    out["jax_validator"] = jax_model.validator
+    out["port_half"] = port.val(data=data, batch=4, half=True, plots=False)
     out["jax_half"] = jax_model.val(data=data, batch=4, plots=False, half=True)
     return out
 
@@ -115,15 +124,66 @@ def test_val_callbacks_fire_in_order(runs):
     assert runs["events"] == one_run * 2  # the f32 and the bf16 run
 
 
-def test_val_refuses_plots_and_save_json(runs, data):
+def test_val_refuses_plots_and_save_json(runs, data, tmp_path):
+    """plots and save_json are honoured now: plots=True, the default, writes
+    the six charts and nothing else, save_json=True the two JSON files too,
+    both into one run directory (JAX puts the JSON into the next, val2, as it
+    asks get_save_dir twice); plots=False with save_json=False writes nothing.
+    Unknown keys and a missing split still raise."""
     port = runs["port_model"]
-    for kw, what in (({"plots": True}, "plots"), ({"save_json": True}, "save_json")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-            port.val(data=data, **kw)
+    charts = {"PR_curve.png", "F1_curve.png", "P_curve.png", "R_curve.png", "confusion_matrix.png",
+              "confusion_matrix_normalized.png"}
+    assert {p.name for p in (runs["project"] / "port" / "val").iterdir()} == charts | {"predictions.json",
+                                                                                     "annotations.json"}
+    assert {p.name for p in (runs["project"] / "jax" / "val").iterdir()} == charts
+    assert {p.name for p in (runs["project"] / "jax" / "val2").iterdir()} == {"predictions.json", "annotations.json"}
+    res = port.val(data=data, batch=4, plots=False, project=str(tmp_path))
+    assert not any(tmp_path.iterdir()) and not any(k.startswith("metrics/coco_") for k in res)
+    assert res == {k: v for k, v in runs["port"][0].items() if not k.startswith("metrics/coco_")}
     with pytest.raises(SyntaxError, match="not a valid argument"):
         port.val(data=data, confidence=0.3)
     with pytest.raises(KeyError, match="no 'test' split"):  # split picks data[split]; this dataset has no test
         port.val(data=data, split="test")
+
+
+def test_val_artifacts_equal_jax(runs):
+    """The confusion matrix and curves_results of the f32 val equal JAX's, the
+    COCO rows agree in count, image, class and box (within 1e-2 px, JAX's
+    box tolerance above), and the six charts carry JAX's names and pixel sizes;
+    the port's curves hold to the chart yardstick (tests/test_torch_artifacts.py)."""
+    from test_torch_artifacts import assert_heatmap_ordered, assert_series_drawn
+
+    from spectrogram_yolov11_torch.data.imageio import imread
+    from spectrogram_yolov11_torch.utils import plotting
+
+    ours, theirs = runs["port_validator"], runs["jax_validator"]
+    np.testing.assert_array_equal(ours.confusion_matrix.matrix, theirs.confusion_matrix.matrix)
+    assert ours.confusion_matrix.matrix.sum() > 0
+    oc, tc = ours.metrics.curves_results, theirs.metrics.curves_results
+    assert set(oc) == set(tc)
+    for k in oc:
+        np.testing.assert_allclose(np.asarray(oc[k], np.float64), np.asarray(tc[k], np.float64), rtol=0, atol=1e-4,
+                                   err_msg=k)
+    for key in ("jdict", "gt_jdict"):
+        a, b = getattr(ours, key), getattr(theirs, key)
+        assert len(a) == len(b) > 0
+        for ra, rb in zip(a, b):
+            assert (ra["image_id"], ra["category_id"]) == (rb["image_id"], rb["category_id"])
+            assert np.abs(np.subtract(ra["bbox"], rb["bbox"])).max() <= 1e-2
+    port_dir, jax_dir = runs["project"] / "port" / "val", runs["project"] / "jax" / "val"
+    for f in sorted(jax_dir.glob("*.png")):
+        assert imread(port_dir / f.name).shape == imread(f).shape, f.name
+    json_dir = runs["project"] / "jax" / "val2"
+    for name in ("predictions.json", "annotations.json"):
+        assert len(json.loads((port_dir / name).read_text())) == len(json.loads((json_dir / name).read_text()))
+    x = np.linspace(0, 1, oc["p_curve"].shape[1])
+    chart = plotting.render_mc_curve(x, oc["f1_curve"], ours.names, "F1")
+    assert np.array_equal(imread(port_dir / "F1_curve.png"), chart.img)
+    series = [(x, oc["f1_curve"][c], plotting.CYCLE[c], 1) for c in range(len(oc["f1_curve"]))]
+    assert_series_drawn(chart, series + [(x, oc["f1_curve"].mean(0), plotting.BLUE, 3)])
+    chart = plotting.render_confusion_matrix(ours.confusion_matrix.matrix, ours.names, True)
+    assert np.array_equal(imread(port_dir / "confusion_matrix_normalized.png"), chart.img)
+    assert_heatmap_ordered(chart, ours.confusion_matrix.matrix, True)
 
 
 def test_val_without_data_scores_the_checkpoints_train_data(runs, data, tmp_path):
@@ -142,7 +202,7 @@ def test_val_without_data_scores_the_checkpoints_train_data(runs, data, tmp_path
     trained = tmp_path / "trained.ckpt"
     trained.write_bytes(len(header).to_bytes(8, "little") + header + blob[8 + n :])
     assert trained.read_bytes()[-(len(blob) - 8 - n) :] == blob[8 + n :]
-    assert YOLO(trained, device="cpu").val(batch=4) == runs["port"][0]
+    assert YOLO(trained, device="cpu").val(batch=4, save_json=True, project=str(tmp_path)) == runs["port"][0]
     with pytest.raises(TypeError, match="data="):
         YOLO(CKPT, device="cpu").val(batch=4)
 
@@ -191,7 +251,8 @@ if __name__ == "__main__":  # readings on the full 32-image val split: the port 
         split = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp, n_train=0))
         jax_callbacks._INTEGRATIONS = ()
         port, jax_model = YOLO(CKPT, device="cpu"), JaxYOLO(str(CKPT))
-        got = {"port f32": port.val(data=split, batch=32), "port bf16": port.val(data=split, batch=32, half=True),
+        got = {"port f32": port.val(data=split, batch=32, plots=False),
+               "port bf16": port.val(data=split, batch=32, half=True, plots=False),
                "JAX f32": jax_model.val(data=split, batch=32, plots=False),
                "JAX bf16": jax_model.val(data=split, batch=32, plots=False, half=True)}
     for name, res in got.items():
