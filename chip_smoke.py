@@ -239,6 +239,22 @@ Phases, each printing one JSON line, each fatal when it fails:
                images; train_batch plot ms; embed ms per image; profile's
                sum of layer ms beside the forward at B = 1; AutoBatch's
                seconds, batch and probe peaks
+  18. fork     the fork's model zoo: FORK_CONFIGS (12 configs that cover the
+               registry's modules as far as 12 can: the SMSC family at l, P2
+               and P6 heads, the BiFPN concats, the gate at C = 16 and 48),
+               each from its YAML with init(0) at 640 px: the card's f32
+               forward and its bf16 copy's at B = 1 against the CPU's, each
+               counted from 0 (one launch per fused bottleneck, none for a
+               gated one), the kernels at the inputs each forward handed
+               them; the registry's other modules alone on the card against
+               the CPU (fork_module_sweep); then YOLO(FORK_USER).train(epochs=2,
+               batch=16, imgsz=640) at its defaults on the synth split,
+               counted per epoch (bf16 launches in each EMA val, none in the
+               steps), the kernels at the first EMA val's inputs,
+               YOLO(last.ckpt).val in f32 and predict(32 arrays,
+               save=False), counted, info() naming the gated bottlenecks.
+               Readings: ms per forward at B = 32 in f32 and bf16 per
+               config, ms per train step with the loader's wait, val seconds
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -291,6 +307,28 @@ SAVE_REPS = 3  # timed predict calls per setting in phase save
 # YOLO.embed's vectors on the card against the CPU's, max abs: both run the f32 network in full f32 (3xTF32 in the
 # bottleneck kernel), summing in other orders
 EMBED_TOL = 1e-3
+# the fork's zoo (phase fork): a set of configs that covers the registry's modules as far as 12 configs can (the
+# 5 modules that one config each holds, the SMSC family at l, a P2 and a P6 head with the BiFPN concats, the gate at
+# C = 16 and 48); fork_module_sweep takes the rest of the registry
+FORK_CONFIGS = (
+    ("yolo11_fusion_sand3_new_GC.yaml", "n"),  # C3k2GC (GlobalContext, BottleNect, FGM), DDWConv, Fusion; C = 16 gated
+    ("yolo11_fusion_convmaxHCA_SMSC.yaml", "l"),  # C3MSCk2 (DenseCross), ConvHCA; fused at C = 32, 64, 128
+    ("yolo11_p2_WCC_BiFPN_AKCBam_head.yaml", "n"),  # P2 head, AKCBAM (SAKAM, LDConv), BiFPN_WConcat2 and 3
+    ("yolo11_p6_fusion.yaml", "n"),  # P6 head; C = 48 and 16 gated
+    ("yolo11_fusion_sand3_new_OMN.yaml", "n"),  # C3x (MSCSpatialAttention)
+    ("yolo11_CBam.yaml", "n"),  # CBAM
+    ("yolo11_noP5_ghostconv_backbone_OMN.yaml", "n"),  # ConvOMN, GhostConv
+    ("yolo11_noP5_ghostconvHCA_backbone.yaml", "n"),  # GhostConvHCA
+    ("yolo11_recycleconv.yaml", "n"),  # RecycleConv
+    ("yolo11_fusion_convmax_HCA.yaml", "n"),  # GhostConvMax, GhostMaxConv, HCoordAtt
+    ("yolo11_fusion_maxconv_HCA_backbone_SPAF.yaml", "n"),  # MaxConvHCA, SAPF
+    ("yolo11_fusion_sand3_Gconvmax_HCA_XCBAM.yaml", "n"),  # XCBAM2C2f (Faster_Block), MaxConv
+)
+FORK_USER = "yolo11_fusion_sand3_new_GC.yaml"  # the user path: scale n by JAX's name rule, 4 fused + 2 gated (C = 16)
+FORK_EPOCHS = 2
+FORK_TIMED_BATCH = 32
+FORK_TOL = 1e-3  # f32 on the card against the CPU, relative to 1 + max|ref|: the forward tolerance of tests/test_torch_gpu.py
+FORK_SWEEP_B, FORK_SWEEP_C, FORK_SWEEP_HW = 4, 64, 80  # the module sweep's input: a scale-n P3 map at 640 px
 
 
 def emit(phase: str, **kw) -> None:
@@ -2980,6 +3018,335 @@ def phase_artifacts():
     return launches, checks, nms
 
 
+def fork_sweep_modules() -> dict:
+    """The registry's modules that none of FORK_CONFIGS holds at top level (and
+    the building blocks only reached inside others), each built alone at a
+    P3-sized map of a scale-n model: name -> (constructor, number of inputs)."""
+    from spectrogram_yolov11_torch.nn import modules as M
+
+    c = FORK_SWEEP_C
+    return {
+        "ChannelAttention": (lambda: M.ChannelAttention(c), 1), "SpatialAttention": (lambda: M.SpatialAttention(7), 1),
+        "C2f": (lambda: M.C2f(c, c, 1), 1), "C3": (lambda: M.C3(c, c, 1), 1), "C3GC": (lambda: M.C3GC(c, c, 1), 1),
+        "SELayer": (lambda: M.SELayer(c), 1), "SaELayer": (lambda: M.SaELayer(c), 1), "GCT": (lambda: M.GCT(c), 1),
+        "WeightedSpatialAttention": (lambda: M.WeightedSpatialAttention(7), 1),
+        "SobelSpatialAttention": (lambda: M.SobelSpatialAttention(7), 1),
+        "MSCSpatialAttention": (lambda: M.MSCSpatialAttention(c), 1), "ECAAttention": (lambda: M.ECAAttention(c), 1),
+        "CoordAtt": (lambda: M.CoordAtt(c, c), 1), "MaxHCoordAtt": (lambda: M.MaxHCoordAtt(c, c), 1),
+        "FilterMaxConv": (lambda: M.FilterMaxConv(c, c), 1), "LDConv": (lambda: M.LDConv(c, c // 2, 5), 1),
+        "Cross_AKConv": (lambda: M.Cross_AKConv(c, c), 1), "BottleNect": (lambda: M.BottleNect(c), 1),
+        "Mix_SPPF": (lambda: M.Mix_SPPF(c, c), 1), "PartialConvMax": (lambda: M.PartialConvMax(c, c), 1),
+        "SelectChannel": (lambda: M.SelectChannel(c), 2), "BiFPN_WConcat": (lambda: M.BiFPN_WConcat((c, c)), 2),
+        **{f"Fusion_{m}": ((lambda m=m: M.Fusion((c, c), m, c)), 2)
+           for m in ("weight", "adaptive", "concat", "bifpn", "SChannel", "SChannel_new")},
+        "GlobalContext": (lambda: M.GlobalContext(c), 1), "Faster_Block": (lambda: M.Faster_Block(c, c), 1),
+        "DenseCross": (lambda: M.DenseCross(c, c, e=1.0), 1), "DualChannelHConv": (lambda: M.DualChannelHConv(c, c), 1),
+        "MSBottleneck": (lambda: M.MSBottleneck(c, c), 1),
+    }
+
+
+def fork_bf16_tol(d_cpu: float, max_ref: float) -> float:
+    """The card's bf16 forward against the CPU's bf16: twice the CPU's own
+    bf16-to-f32 distance plus two bf16 steps of the largest output (max|ref|
+    * 2^-7): cuDNN and cuFFT sum in other orders than the CPU's libraries,
+    which flips the bf16 rounding of some intermediates by a step, and later
+    bf16 ops carry the flip on (measured: BottleNect at 9.8e-4, where twice
+    the distance was 9.5e-4 and its largest output under 0.125)."""
+    return 2 * d_cpu + max_ref * 2.0**-7
+
+
+def fork_module_sweep() -> dict:
+    """Each module of fork_sweep_modules, with init_weights' draws (seeded), in
+    eval mode: on the card and on the CPU from the same weights and inputs,
+    f32 (in full f32, as the network's forward runs) within FORK_TOL, and its
+    bf16 form (convs and dense layers cast as
+    set_dtype casts them) within fork_bf16_tol of the CPU's bf16;
+    ECAAttention refuses bf16 on the card as on the CPU."""
+    import copy
+
+    import torch
+
+    from spectrogram_yolov11_torch.nn.modules import Bottleneck
+    from spectrogram_yolov11_torch.nn.tasks import init_weights
+    from spectrogram_yolov11_torch.utils import full_f32
+
+    def to_bf16(mod):
+        for m in mod.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.to(torch.bfloat16)
+            if isinstance(m, Bottleneck) and m.fusable:
+                m.fold(torch.bfloat16)
+        return mod
+
+    out = {}
+    g = torch.Generator().manual_seed(0)
+    for name, (make, n) in fork_sweep_modules().items():
+        mod = make()
+        init_weights(mod, g)
+        mod.eval()
+        for m in mod.modules():
+            if isinstance(m, Bottleneck) and m.fusable:
+                m.fold()
+        xs = [torch.randn(FORK_SWEEP_B, FORK_SWEEP_C, FORK_SWEEP_HW, FORK_SWEEP_HW, generator=g) for _ in range(n)]
+        arg = (lambda ts: ts if n > 1 else ts[0])
+        card = copy.deepcopy(mod).cuda()
+        xg = [x.cuda() for x in xs]
+        with torch.inference_mode():
+            with full_f32():  # the port's f32 policy, which the network's forward holds itself
+                ref, got = mod(arg(xs)), card(arg(xg))
+            torch.cuda.synchronize()
+            err = float((got.cpu() - ref).abs().max())
+            tol = FORK_TOL * (1 + float(ref.abs().max()))
+            require(err <= tol, f"module {name}: the card's f32 forward lies {err} from the CPU's (tolerance {tol})")
+            d = {"f32_max_abs_err": err, "f32_tolerance": tol}
+            mod16, card16 = to_bf16(copy.deepcopy(mod)), to_bf16(card)
+            if name == "ECAAttention":
+                for m, x in ((mod16, xs[0]), (card16, xg[0])):
+                    try:
+                        m(x.bfloat16())
+                        raise RuntimeError("ECAAttention ran at bf16")
+                    except TypeError:
+                        pass
+                d["bf16"] = "refused (TypeError), as JAX's"
+            else:
+                ref16 = mod16(arg([x.bfloat16() for x in xs])).float()
+                got16 = card16(arg([x.bfloat16() for x in xg])).float().cpu()
+                d_cpu, err16 = float((ref16 - ref).abs().max()), float((got16 - ref16).abs().max())
+                tol16 = fork_bf16_tol(d_cpu, float(ref16.abs().max()))
+                require(err16 <= tol16, f"module {name}: the card's bf16 forward lies {err16} from the CPU's bf16 "
+                                        f"(tolerance {tol16})")
+                d.update(bf16_max_abs_err=err16, bf16_cpu_distance=d_cpu, bf16_tolerance=tol16)
+        out[name] = d
+    return out
+
+
+def fork_bottleneck_checks(cap: dict, what: str) -> dict:
+    """Each fused bottleneck input kept in `cap` (capture_val_inputs) against
+    its plain version (bottleneck_check), by module."""
+    import torch
+
+    checks = {}
+    with torch.inference_mode():
+        for i, m in enumerate(k for k in cap if k != "feats"):
+            d = bottleneck_check(f"{what} {i}", layer_case(m, cap[m]))
+            checks[f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
+    return checks
+
+
+def fork_nms_at(cap: dict, nc: int, stride) -> dict:
+    """The keep kernel against its plain version on the val's multi-label
+    candidates of the head outputs `cap` kept."""
+    import torch
+
+    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+
+    with torch.inference_mode():
+        preds = decode_detections(cap["feats"], nc, stride)
+        _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, nc, multi_label=True, pre_nms_topk=VAL_PRE_NMS_TOPK)
+        return nms_check(offset_boxes, valid)
+
+
+def scaled_bn(model, seed: int) -> None:
+    """Seeded BN statistics (means N(0, 0.05), variances U(0.15, 0.25)) in
+    place of init's 0 and 1, then eval mode (which folds the fused
+    bottlenecks from them): a network from init(seed) keeps activations of
+    0.05-0.9 standard deviation through its depth (about 0.02 with
+    variance 1), and no BN divides by a small variance, which would grow the
+    rounding of the sums before it."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.05)
+                m.running_var.copy_(torch.empty(m.running_var.shape).uniform_(0.15, 0.25, generator=g))
+    model.eval()
+
+
+def fork_config(name: str, scale: str) -> dict:
+    """One fork config at 640 px: built from its YAML with init(0) on the host;
+    the card's f32 forward and its bf16 copy's at B = 1, counted from 0 (one
+    launch per fused bottleneck, in the form of the dtype; none for a gated
+    one), against the CPU's forward (f32 within FORK_TOL, bf16 within
+    fork_bf16_tol), with the BN statistics of scaled_bn; each fused
+    bottleneck against its
+    plain version at the inputs the card's forwards gave it; ms per forward
+    at B = 32 in f32 and bf16 by CUDA events."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch.nn.tasks import build_model, yaml_model_load
+
+    d = yaml_model_load(name)
+    d["scale"] = scale
+    t0 = time.perf_counter()
+    model = build_model(d).init(0)
+    build_s = time.perf_counter() - t0
+    b = model.bottlenecks()
+    nf = len(b["fused"])
+    x = torch.from_numpy(np.random.default_rng(len(name)).uniform(0, 1, (1, 3, 640, 640)).astype(np.float32))
+    scaled_bn(model, 1)
+    with torch.inference_mode():
+        ref = [t for p in model(x) for t in p]
+        ref16 = [t.float() for p in model.set_dtype(torch.bfloat16)(x) for t in p]
+    card = copy.deepcopy(model).to("cuda", memory_format=torch.channels_last)
+    card16 = card.set_dtype(torch.bfloat16)
+    xg = x.cuda().contiguous(memory_format=torch.channels_last)
+    out = {"scale": scale, "params": sum(p.numel() for p in model.parameters()), "levels": len(model.stride),
+           "fused": [list(t) for t in b["fused"]], "gated": [list(t) for t in b["gated"]], "build_s": build_s}
+    checks = {}
+    for dtype, net, want, expect in (
+            (torch.float32, card, ref, {"fused_bottleneck": nf, "fused_bottleneck_bf16": 0, "greedy_keep": 0}),
+            (torch.bfloat16, card16, ref16, {"fused_bottleneck": 0, "fused_bottleneck_bf16": nf, "greedy_keep": 0})):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cap, stop = capture_val_inputs(dtype)
+        try:
+            with torch.inference_mode():
+                got, launches = run_counted(lambda: net(xg), expect, f"{name} {tag} forward")
+        finally:
+            stop()
+        got = [t.float().cpu() for p in got for t in p]
+        err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+        if dtype == torch.float32:
+            tol = FORK_TOL * (1 + max(float(r.abs().max()) for r in want))
+        else:
+            tol = fork_bf16_tol(max(float((r16 - r).abs().max()) for r16, r in zip(ref16, ref)),
+                                max(float(r.abs().max()) for r in ref16))
+        require(err <= tol, f"{name} {tag}: the card's forward lies {err} from the CPU's (tolerance {tol})")
+        require(len(cap) - ("feats" in cap) == nf, f"{name} {tag}: {len(cap)} bottleneck inputs kept, {nf} fused")
+        checks[tag] = fork_bottleneck_checks(cap, f"{name} {tag}")
+        xb = torch.rand(FORK_TIMED_BATCH, 3, 640, 640, device="cuda").contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: net(xb), iters=5, warmup=2)
+        out[tag] = {"launches": launches, "max_abs_err": err, "tolerance": tol, f"ms_b{FORK_TIMED_BATCH}": ms}
+    del card, card16
+    torch.cuda.empty_cache()
+    return out, checks
+
+
+def phase_fork():
+    """The fork's model zoo on the card. FORK_CONFIGS, each at 640 px (scale n,
+    the SMSC family at l) through fork_config; the rest of the registry
+    through fork_module_sweep; then the user path on the 128 + 32 synth split:
+    YOLO(FORK_USER).train(epochs=FORK_EPOCHS, batch=TRAIN_BATCH,
+    imgsz=TRAIN_IMGSZ) at its defaults (amp), counted from 0 around the call
+    and per epoch (its EMA vals run the bf16 copy: one bf16 launch per fused
+    bottleneck and one NMS per val batch, none for the gated ones, none in the
+    steps), the kernels at the first EMA val's inputs; YOLO(last.ckpt).val in
+    f32 at batch 32 and .predict(32 arrays, batch=32, save=False), each
+    counted, the kernels at the val's inputs. Readings: ms per forward at B =
+    32 in f32 and bf16 per config, ms per train step with the loader's wait,
+    val seconds."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    t_phase = time.perf_counter()
+    configs, checks = {}, {}
+    for name, scale in FORK_CONFIGS:
+        configs[name], checks[name] = fork_config(name, scale)
+    emit("fork_configs", configs=configs)
+    sweep = fork_module_sweep()
+    launches = {"configs": {n: {t: c[t]["launches"] for t in ("f32", "bf16")} for n, c in configs.items()}}
+    bf16 = torch.bfloat16
+    counters = launch_counters()
+    counts = lambda: {k: c.launches for k, c in counters.items()}  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp))
+        n_val = len(list(Path(data["val"]).iterdir()))
+        yolo = YOLO(FORK_USER)
+        nf = len(yolo.model.bottlenecks()["fused"])
+        require(nf and yolo.model.bottlenecks()["gated"], f"{FORK_USER} holds no gated bottleneck")
+        per_val = {"fused_bottleneck": 0, "fused_bottleneck_bf16": nf * (n_val // TRAIN_BATCH),
+                   "greedy_keep": n_val // TRAIN_BATCH}
+        rec = {"counts": []}
+        cap, stop = capture_val_inputs(bf16)
+        yolo.add_callback("on_train_epoch_start", lambda t: rec["counts"].append({"epoch": t.epoch, "start": counts()}))
+        yolo.add_callback("on_train_batch_end", lambda t: rec["counts"][-1].update(steps=counts()))
+
+        def on_fit_epoch_end(t):
+            rec["counts"][-1]["val"] = counts()
+            stop()  # the first EMA val's inputs only
+
+        yolo.add_callback("on_fit_epoch_end", on_fit_epoch_end)
+        t0 = time.perf_counter()
+        try:
+            metrics, launches["train"] = run_counted(
+                lambda: yolo.train(plots=False, data=data, project=tmp, name="fork", epochs=FORK_EPOCHS,
+                                   batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, workers=8, exist_ok=True),
+                {k: FORK_EPOCHS * v for k, v in per_val.items()}, f"YOLO('{FORK_USER}').train")
+        finally:
+            stop()
+        train_s = time.perf_counter() - t0
+        tr = yolo.trainer
+        require(tr.args.amp is True and tr.validator.model.dtype == bf16 and tr.rebuilt["nc"] == (80, 2),
+                f"YOLO('{FORK_USER}').train did not train the rebuilt model at amp=True: {tr.rebuilt}")
+        by_epoch = []
+        for c in rec["counts"]:
+            steps_c = {k: c["steps"][k] - c["start"][k] for k in c["start"]}
+            val_c = {k: c["val"][k] - c["steps"][k] for k in c["start"]}
+            require(not any(steps_c.values()) and val_c == per_val, f"epoch {c['epoch']}: steps {steps_c}, val {val_c}")
+            by_epoch.append({"epoch": c["epoch"], "steps": steps_c, "val": val_c})
+        rows = list(csv.DictReader(open(tr.csv)))
+        losses = [[float(r[k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")] for r in rows]
+        require(len(rows) == FORK_EPOCHS and np.isfinite(losses).all(), f"results.csv {rows}")
+        require(all(0.0 <= v <= 1.0 for v in metrics.values()), f"the EMA val {metrics}")
+        checks["train_ema_val"] = fork_bottleneck_checks(cap, "fork EMA val")
+        nms = {"train_ema_val": fork_nms_at(cap, 2, yolo.model.stride)}
+        log = tr.epoch_log
+
+        # the checkpoint: val in f32, and predict, each counted
+        last = YOLO(tr.last)
+        cap, stop = capture_val_inputs(torch.float32)
+        try:
+            val, launches["val"] = run_counted(
+                lambda: last.val(plots=False, data=data, batch=VAL_BATCH),
+                {"fused_bottleneck": nf * (n_val // VAL_BATCH), "fused_bottleneck_bf16": 0,
+                 "greedy_keep": n_val // VAL_BATCH}, "YOLO(last.ckpt).val")
+        finally:
+            stop()
+        require(all(0.0 <= v <= 1.0 for v in val.values()), f"YOLO(last.ckpt).val {val}")
+        checks["val"] = fork_bottleneck_checks(cap, "fork val")
+        nms["val"] = fork_nms_at(cap, 2, last.model.stride)
+        arrays = _mixed_arrays(PREDICT_BATCH, seed=100)
+        res, launches["predict"] = run_counted(
+            lambda: last.predict(arrays, batch=PREDICT_BATCH, save=False),
+            {"fused_bottleneck": nf, "fused_bottleneck_bf16": 0, "greedy_keep": 1}, "YOLO(last.ckpt).predict")
+        require(len(res) == PREDICT_BATCH and all(r.boxes.data.shape[1] == 6 for r in res), "predict's results")
+        info = last.info()
+        require(f"{nf} fused bottlenecks" in info and "gated (layer, C)" in info, f"info() {info}")
+    emit("fork", configs=configs, module_sweep=sweep, launches=launches,
+         kernel_checks={k: {t: {n: {m: v for m, v in d.items() if m != "ok"} for n, d in c.items()}
+                            for t, c in v.items()} if k in configs else
+                        {n: {m: v for m, v in d.items() if m != "ok"} for n, d in v.items()}
+                        for k, v in checks.items()},
+         greedy_keep_k2048={k: {n: v for n, v in d.items() if n in ("shape", "ms", "plain_ms", "bound_ms",
+                                                                    "mismatches", "scan_steps_mean")}
+                            for k, d in nms.items()},
+         user={"model": FORK_USER, "rebuilt": tr.rebuilt, "launches_by_epoch": by_epoch, "loss_items_by_epoch": losses,
+               "final_ema_bf16": metrics, "val_f32": val, "train_call_s": train_s, "info": info,
+               "ms_per_step_with_wait": [(e["seconds"] - e["val_s"]) / e["steps"] * 1e3 for e in log],
+               "loader_wait_ms_per_step": [e["loader_wait_s"] / e["steps"] * 1e3 for e in log],
+               "val_s": [e["val_s"] for e in log]},
+         phase_s=time.perf_counter() - t_phase,
+         method="each config built from its YAML with init(0); its card forwards counted from 0 around each call "
+                "against the CPU's; the kernels on the inputs each call handed them (global module hooks); "
+                "forward times at B=32 by CUDA events; the user path counted from 0 around each call and per "
+                "epoch by callbacks")
+    return launches, checks, nms
+
+
 def main() -> int:
     import torch
 
@@ -3019,6 +3386,7 @@ def main() -> int:
     scratch_launches, scratch_bottleneck, nms_scratch, load_launches, load_bottleneck, nms_load = phase_scratch()
     save_launches, save_checks, nms_save = phase_save()
     art_launches, art_checks, nms_art = phase_artifacts()
+    fork_launches, fork_checks, nms_fork = phase_fork()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -3028,6 +3396,13 @@ def main() -> int:
                 "serve_half": sum(v[kernel] for v in serve_launches["serve_half"].values()),
                 "remote_predict": serve_launches["remote_predict"][kernel], "remote_val": remote_val}
 
+    def fork_paths(kernel: str) -> int:
+        return (sum(v[t][kernel] for v in fork_launches["configs"].values() for t in ("f32", "bf16"))
+                + sum(fork_launches[k][kernel] for k in ("train", "val", "predict")))
+
+    fork_f32 = [d for n, _ in FORK_CONFIGS for d in fork_checks[n]["f32"].values()] + list(fork_checks["val"].values())
+    fork_bf16 = ([d for n, _ in FORK_CONFIGS for d in fork_checks[n]["bf16"].values()]
+                 + list(fork_checks["train_ema_val"].values()))
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
         dict(name="fused_bottleneck", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
@@ -3044,6 +3419,7 @@ def main() -> int:
                                "save": sum(save_launches[k]["fused_bottleneck"]
                                            for k in ("arrays_f32", "jpeg_directory", "wire_jpeg")),
                                "artifacts": sum(v["fused_bottleneck"] for v in art_launches.values()),
+                               "fork": fork_paths("fused_bottleneck"),
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
@@ -3051,7 +3427,8 @@ def main() -> int:
                                                          *train_bottleneck.values(), *loop_bottleneck.values(),
                                                          *load_bottleneck.values(),
                                                          *save_checks["arrays_f32"].values(),
-                                                         *art_checks["val_f32"].values())),
+                                                         *art_checks["val_f32"].values(), *fork_f32)),
+             fork_max_abs_err=max(d["max_abs_err"] for d in fork_f32),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -3069,6 +3446,7 @@ def main() -> int:
                                "scratch": scratch_launches["fused_bottleneck_bf16"],
                                "save_half": save_launches["arrays_bf16"]["fused_bottleneck_bf16"],
                                "artifacts": sum(v["fused_bottleneck_bf16"] for v in art_launches.values()),
+                               "fork": fork_paths("fused_bottleneck_bf16"),
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
@@ -3076,14 +3454,15 @@ def main() -> int:
                                                          *amp_bottleneck.values(), *scratch_bottleneck.values(),
                                                          *serve_checks["fused_bottleneck_bf16"].values(),
                                                          *save_checks["arrays_bf16"].values(),
-                                                         *art_checks["val_bf16"].values())),
+                                                         *art_checks["val_bf16"].values(), *fork_bf16)),
+             fork_max_abs_err=max(d["max_abs_err"] for d in fork_bf16),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
                                                                  *images_checks["fused_bottleneck_bf16"].values(),
                                                                  *amp_bottleneck.values(),
                                                                  *scratch_bottleneck.values(),
                                                                  *serve_checks["fused_bottleneck_bf16"].values(),
                                                                  *save_checks["arrays_bf16"].values(),
-                                                                 *art_checks["val_bf16"].values())),
+                                                                 *art_checks["val_bf16"].values(), *fork_bf16)),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -3110,6 +3489,7 @@ def main() -> int:
                                "scratch": scratch_launches["greedy_keep"], "load_val": load_launches["greedy_keep"],
                                "save": sum(v["greedy_keep"] for v in save_launches.values()),
                                "artifacts": sum(v["greedy_keep"] for v in art_launches.values()),
+                               "fork": fork_paths("greedy_keep"),
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
@@ -3138,6 +3518,8 @@ def main() -> int:
                                                 "mismatches")} for p, d in nms_save.items()},
              artifacts_val_k2048={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                         "scan_steps_mean", "mismatches")} for p, d in nms_art.items()},
+             fork_val_k2048={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "scan_steps_mean", "mismatches")} for p, d in nms_fork.items()},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

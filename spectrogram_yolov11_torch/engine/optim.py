@@ -77,12 +77,16 @@ def choose_optimizer(cfg, nc: int, nb: int) -> OptConfig:
 
 
 def param_groups(model: nn.Module) -> Dict[str, str]:
-    """{parameter name: 'bias' | 'norm' | 'decay'}: every bias, BN scales, every other weight."""
+    """{parameter name: 'bias' | 'norm' | 'decay'}: every bias, the norms'
+    scales (BN's and LayerNorm's: flax's `scale` leaves), every other weight
+    (the fork's bare parameters among them), as JAX's param_groups reads the
+    leaf names."""
+    norms = (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)
     groups = {}
     for mname, m in model.named_modules():
         for pname, _ in m.named_parameters(recurse=False):
             name = f"{mname}.{pname}" if mname else pname
-            groups[name] = "bias" if pname == "bias" else "norm" if isinstance(m, nn.modules.batchnorm._BatchNorm) else "decay"
+            groups[name] = "bias" if pname == "bias" else "norm" if isinstance(m, norms) else "decay"
     return groups
 
 

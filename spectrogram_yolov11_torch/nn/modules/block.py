@@ -2,17 +2,26 @@
 attention stack and the DFL decode.
 
 Counterparts of spectrogram_yolov11_tpu/nn/modules/block.py: dfl_decode (:35),
-Bottleneck (:69), C3k (:173), C3k2 (:204), SPPF (:246), Attention / PSABlock /
-C2PSA (:264-357).
+Bottleneck (:69), C2f (:126), C3 (:151), C3k (:173), _c2f_forward (:195) as
+C2f.forward, C3k2 (:204), SPPF (:246), Attention / PSABlock / C2PSA
+(:264-357), and the fork's C3x (:788).
 
-C3k's inner bottlenecks are same-width 3x3 -> 3x3 residual blocks. In the
-inference forward they run as one fused CUDA kernel
+The inner bottlenecks of C3k (and C2f) are same-width 3x3 -> 3x3 residual
+blocks. In the inference forward they run as one fused CUDA kernel
 (ops/fused_conv.py:fused_bottleneck) on weights with BN folded in and packed
 for the kernel once, by `fold()` after the weights are loaded or the model is
 put in eval mode, in the dtype the network runs in (f32 or bf16). In training
 BN uses batch statistics, so nothing can be folded: they run their two Convs
 (cuDNN), as the JAX trainer does. C3k2's own Bottleneck keeps e=0.5, so its
-two convs differ in width and it stays on the plain path.
+two convs differ in width and it stays on the plain path, as do C3's (1x1
+then 3x3).
+
+The width gate: the kernel takes C in ops/fused_conv.py:CHANNELS. A
+same-width 3x3 bottleneck of another width (C = 16, 20 or 48 in the fork's
+zoo) is `gated`, decided by its shape when the model is built: it runs its
+two convs in eval too, as JAX's production graph runs every bottleneck
+through XLA's convs. The kernel itself still raises for such a width, and
+nothing catches a failure to build or launch it.
 
 In bf16 the rounding points are the JAX package's: the DFL decode's exp runs
 in the logits' dtype with an f32 projection, and attention takes QK^T and AV
@@ -25,13 +34,12 @@ pools in bf16, as the JAX blocks at dtype=bfloat16 with train=True.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.fused_conv import fused_bottleneck, pack_bottleneck_weights, pack_bottleneck_weights_bf16
+from ...ops.fused_conv import CHANNELS, fused_bottleneck, pack_bottleneck_weights, pack_bottleneck_weights_bf16
 from .conv import Conv
 
 
@@ -58,18 +66,26 @@ def dfl_decode(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     return s[..., :4] / s[..., 4:]
 
 
-class Bottleneck(nn.Module):
-    """cv1 -> cv2 (+ residual). Same-width 3x3 residual instances are `fusable`:
-    in eval they run the fused kernel on BN-folded weights set by `fold()`, in
-    training their two Convs."""
+def _is_3x3(k) -> bool:
+    return tuple(k) == (3, 3) if isinstance(k, (tuple, list)) else k == 3
 
-    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k: Tuple[int, int] = (3, 3), e: float = 0.5):
+
+class Bottleneck(nn.Module):
+    """cv1 -> cv2 (+ residual); k holds each conv's kernel, an int or a pair.
+    Same-width 3x3 residual instances whose width the kernel takes are
+    `fusable`: in eval they run the fused kernel on BN-folded weights set by
+    `fold()`, in training their two Convs. Those of another width are
+    `gated` and run their two Convs in both modes."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k=(3, 3), e: float = 0.5):
         super().__init__()
         c_ = int(c2 * e)
         self.cv1 = Conv(c1, c_, k[0], 1)
         self.cv2 = Conv(c_, c2, k[1], 1, g=g)
         self.add = shortcut and c1 == c2
-        self.fusable = self.add and c_ == c2 and tuple(k) == (3, 3) and g == 1
+        same_width_3x3 = self.add and c_ == c2 and _is_3x3(k[0]) and _is_3x3(k[1]) and g == 1
+        self.fusable = same_width_3x3 and c2 in CHANNELS
+        self.gated = same_width_3x3 and not self.fusable
         for name in ("w1", "b1", "w2", "b2"):
             self.register_buffer(name, None, persistent=False)
 
@@ -108,38 +124,71 @@ class Bottleneck(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
-class C3k(nn.Module):
-    """CSP block with `n` inner k x k bottlenecks (e=1.0, same width)."""
+class C2f(nn.Module):
+    """CSP block with dense growth: cv1 split in two, each of the `n` inner
+    blocks grows from the last piece, cv2 merges them all (JAX's C2f and its
+    shared _c2f_forward). Subclasses build it by `_csp` with their own inner
+    block."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5, k: int = 3):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1, e: float = 0.5):
         super().__init__()
-        c_ = int(c2 * e)
-        self.cv1 = Conv(c1, c_, 1, 1)
-        self.cv2 = Conv(c1, c_, 1, 1)
-        self.cv3 = Conv(2 * c_, c2, 1)
-        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, k=(k, k), e=1.0) for _ in range(n)))
+        self._csp(c1, c2, n, e, lambda c: Bottleneck(c, c, shortcut, g, k=((3, 3), (3, 3)), e=1.0))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cv3(torch.cat((self.m(self.cv1(x)), self.cv2(x)), 1))
-
-
-class C3k2(nn.Module):
-    """YOLO11 block: C2f whose inner block is C3k (c3k=True) or a Bottleneck with e=0.5."""
-
-    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5, g: int = 1, shortcut: bool = True):
-        super().__init__()
+    def _csp(self, c1: int, c2: int, n: int, e: float, inner) -> None:
+        """cv1, cv2 and the n blocks inner(c) at the hidden width c."""
         self.c = c = int(c2 * e)
         self.cv1 = Conv(c1, 2 * c, 1, 1)
         self.cv2 = Conv((2 + n) * c, c2, 1)
-        self.m = nn.ModuleList(
-            C3k(c, c, 2, shortcut, g) if c3k else Bottleneck(c, c, shortcut, g, k=(3, 3), e=0.5) for _ in range(n)
-        )
+        self.m = nn.ModuleList(inner(c) for _ in range(n))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ys = list(self.cv1(x).chunk(2, 1))
         for m in self.m:
             ys.append(m(ys[-1]))
         return self.cv2(torch.cat(ys, 1))
+
+
+class C3(nn.Module):
+    """CSP block with 3 convs: `n` inner bottlenecks (e=1.0, kernels `k`) on
+    cv1's half, cv2's half beside them, cv3 merging. Subclasses replace `m`."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5,
+                 k=((1, 1), (3, 3))):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, k=k, e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(torch.cat((self.m(self.cv1(x)), self.cv2(x)), 1))
+
+
+class C3k(C3):
+    """C3 with `n` inner k x k bottlenecks (e=1.0, same width)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5, k: int = 3):
+        super().__init__(c1, c2, n, shortcut, g, e, k=(k, k))
+
+
+class C3x(C3):
+    """The fork's C3x: C3 whose inner stack is one MSCSpatialAttention over
+    the hidden channels (not the stock cross-conv C3x)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        from .fork import MSCSpatialAttention  # fork.py builds on this module
+
+        super().__init__(c1, c2, 0, shortcut, g, e)
+        self.m = MSCSpatialAttention(int(c2 * e))
+
+
+class C3k2(C2f):
+    """YOLO11 block: C2f whose inner block is C3k (c3k=True) or a Bottleneck with e=0.5."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5, g: int = 1, shortcut: bool = True):
+        nn.Module.__init__(self)
+        self._csp(c1, c2, n, e, lambda c: C3k(c, c, 2, shortcut, g) if c3k else Bottleneck(c, c, shortcut, g, k=(3, 3), e=0.5))
 
 
 class SPPF(nn.Module):

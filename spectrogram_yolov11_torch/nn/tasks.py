@@ -1,18 +1,22 @@
 """Model YAML or dict -> network graph, and the detection model of the port.
 
-Counterpart of spectrogram_yolov11_tpu/nn/tasks.py: parse_model (:232), the
-YOLOGraph routing (:379), yaml_model_load (:459), guess_model_task (:475),
-DetectionModel with init / _bias_init (:557, :575), info (:589) and profile
-(:603), the graph's `embed` output (:404-450), and build_model (:848),
-restricted to the modules the trained spectrogram detector and the stock
-YOLO11 detect models use. Scaling matches the JAX
-parse_model: channels make_divisible(min(c, max_channels) * width, 8),
-repeats max(round(n * depth), 1). Any other module name raises KeyError.
+Counterpart of spectrogram_yolov11_tpu/nn/tasks.py: the module registry and
+its sets (:40-193), parse_model (:232), the YOLOGraph routing (:379),
+yaml_model_load (:459), guess_model_task (:475), DetectionModel with init /
+_bias_init (:557, :575), info (:589) and profile (:603), the graph's `embed`
+output (:404-450), and build_model (:848), restricted to the detect task:
+the stock YOLO11 modules, the trained spectrogram detector's and the fork's
+whole zoo (nn/modules/fork.py; the 136 detect configs that build under
+cfg/models/11/fork/). Scaling matches the JAX parse_model: channels
+make_divisible(min(c, max_channels) * width, 8), repeats max(round(n *
+depth), 1). Any other module name raises KeyError; DyHead and TorchVision
+raise with their ROADMAP.md item.
 
 A model is built from a dict (a checkpoint's `model_yaml`) or from a model
 YAML: a path, or a name that find_model_yaml (JAX cfg/__init__.py:349)
-resolves under the port's cfg/models/ (yolo11.yaml, spectrogram_yolo11.yaml;
-`yolo11n.yaml` and the bare `yolo11n` are yolo11.yaml at scale n), read by
+resolves under the port's cfg/models/ (yolo11.yaml, spectrogram_yolo11.yaml,
+fork/*.yaml; `yolo11n.yaml` and the bare `yolo11n` are yolo11.yaml at scale
+n, `yolo11n_HCA.yaml` is fork/yolo11_HCA.yaml at n), read by
 utils.yaml_load. Heads other than Detect raise with their ROADMAP.md item.
 """
 
@@ -37,22 +41,36 @@ from . import modules as M
 
 MODELS_DIR = Path(__file__).resolve().parents[1] / "cfg" / "models"
 
+FORK_MODULES = (
+    "SELayer", "SaELayer", "Mix_SPPF", "SAPF", "HCoordAtt", "MaxHCoordAtt", "CoordAtt", "AKCBAM", "LDConv",
+    "Cross_AKConv", "ConvOMN", "DDWConv", "MaxConv", "MaxConvHCA", "FilterMaxConv", "PartialConvMax", "ConvHCA",
+    "GhostConvMax", "GhostMaxConv", "GhostConvHCA", "RecycleConv", "Fusion", "SelectChannel", "BiFPN_WConcat",
+    "BiFPN_WConcat2", "BiFPN_WConcat3", "XCBAM2C2f", "C3GC", "C3k2GC", "C3MSCk2", "BottleNect", "GCT",
+    "GlobalContext", "ECAAttention", "MSCSpatialAttention", "SobelSpatialAttention", "WeightedSpatialAttention",
+    "DenseCross", "DualChannelHConv", "Faster_Block", "MSBottleneck",
+)
 MODULE_REGISTRY: Dict[str, type] = {
-    "Conv": M.Conv,
-    "DWConv": M.DWConv,
-    "Bottleneck": M.Bottleneck,
-    "C3k": M.C3k,
-    "C3k2": M.C3k2,
-    "SPPF": M.SPPF,
-    "C2PSA": M.C2PSA,
-    "HCoordAtt": M.HCoordAtt,
-    "Concat": M.Concat,
+    **{name: getattr(M, name) for name in (
+        "Conv", "DWConv", "GhostConv", "CBAM", "ChannelAttention", "SpatialAttention", "Concat", "Bottleneck",
+        "C2f", "C3", "C3k", "C3k2", "C2PSA", "SPPF", "C3x", "Detect", *FORK_MODULES)},
     "nn.Upsample": M.Upsample,
-    "Detect": M.Detect,
 }
-BASE_MODULES = {M.Conv, M.DWConv, M.Bottleneck, M.C3k, M.C3k2, M.SPPF, M.C2PSA, M.HCoordAtt}
-REPEAT_MODULES = {M.C3k, M.C3k2, M.C2PSA}
-SCALE_SENSITIVE = {M.C3k2}  # args[3] (c3k) flips on m/l/x scales
+BASE_MODULES = {
+    M.Conv, M.GhostConv, M.Bottleneck, M.SPPF, M.C2PSA, M.DWConv, M.C2f, M.C3k2, M.C3, M.C3k, M.CBAM, M.C3x,
+    # the fork's base modules (JAX nn/tasks.py:179-181)
+    M.RecycleConv, M.GhostConvHCA, M.LDConv, M.Cross_AKConv, M.Mix_SPPF, M.SELayer, M.SaELayer,
+    M.SAPF, M.DDWConv, M.ConvOMN, M.MaxConv, M.GhostMaxConv, M.ConvHCA, M.GhostConvMax,
+    M.FilterMaxConv, M.MaxConvHCA, M.C3k2GC, M.C3MSCk2, M.XCBAM2C2f, M.CoordAtt, M.HCoordAtt,
+    M.MaxHCoordAtt, M.AKCBAM, M.C3GC,
+}
+REPEAT_MODULES = {M.C2f, M.C3k2, M.C3, M.C3x, M.C2PSA, M.C3k, M.C3k2GC, M.C3MSCk2, M.XCBAM2C2f, M.C3GC}
+SCALE_SENSITIVE = {M.C3k2, M.C3k2GC, M.C3MSCk2, M.XCBAM2C2f}  # args[3] flips on m/l/x scales
+# modules of JAX's registry whose family the port refuses, with the ROADMAP.md item that queues it
+NOT_PORTED_MODULES = {
+    "DyHeadBlock": ("the DyHead block (yolo11_DYHEAD.yaml)", "item 11 (other model families: dyhead)"),
+    "TorchVision": ("the TorchVision backbone (yolo11-cls-resnet18.yaml)",
+                    "items 10 (other heads: classify) and 11 (other model families)"),
+}
 
 
 def find_model_yaml(name: str | Path) -> Path:
@@ -113,8 +131,11 @@ def intersect_state_dicts(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Ten
     return out, n
 
 
-def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]]:
-    """Returns (layers, their `from` routes, sorted save list)."""
+def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int], List[dict]]:
+    """Returns (layers, their `from` routes, sorted save list, specs): each
+    spec the layer's {type, n, args, kwargs, c2} as JAX's LayerSpec holds
+    them (n the repeats after scaling, args the scaled arguments, c2 its
+    output width)."""
     legacy = True
     max_channels = float("inf")
     nc, scales = d.get("nc"), d.get("scales")
@@ -129,6 +150,7 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
     layers: List[nn.Module] = []
     routes: List[Any] = []
     save: List[int] = []
+    specs: List[dict] = []
     for i, (f, n, m, args) in enumerate(d["backbone"] + d["head"]):
         if m not in MODULE_REGISTRY:
             raise KeyError(f"Unknown module '{m}' in model dict (layer {i}). Known: {sorted(MODULE_REGISTRY)}")
@@ -158,23 +180,67 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
                         args[3] = True
                     else:
                         args.append(True)
-        elif cls is M.Concat:
+        elif cls in {M.Concat, M.BiFPN_WConcat2, M.BiFPN_WConcat3}:
             c2 = sum(ch_list[x] for x in f)
+            if cls is not M.Concat:  # JAX's param `w` takes its length from the inputs at the first call
+                kwargs["n"] = len(f)
+        elif cls is M.BiFPN_WConcat:
+            c2 = sum(ch_list[x] for x in f)
+            args = [tuple(ch_list[x] for x in f), *args]
+        elif cls is M.Fusion:
+            # the reference hardcodes mode 'ESChannel'; the output has the first input's width
+            inc = tuple(ch_list[x] for x in f)
+            c2, args, kwargs["c1"] = ch_list[f[0]], [inc, "ESChannel"], ch_list[f[0]]
+        elif cls is M.SelectChannel:
+            c2, args = ch_list[f[0]], [ch_list[f[0]]]
         elif cls is M.Detect:
             args.append(tuple(ch_list[x] for x in f))
             kwargs["legacy"] = legacy
             c2 = None
-        else:  # Upsample
+        else:  # Upsample and the fork's other modules keep the width of their input
             c2 = ch_list[f]
 
         layer = nn.Sequential(*(cls(*args, **kwargs) for _ in range(n))) if n > 1 else cls(*args, **kwargs)
         layers.append(layer)
         routes.append(f)
+        specs.append({"type": m, "n": n, "args": args, "kwargs": kwargs, "c2": c2})
         save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
         if i == 0:
             ch_list = []
         ch_list.append(c2)
-    return layers, routes, sorted(set(save))
+    return layers, routes, sorted(set(save)), specs
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, g: torch.Generator) -> None:
+    """Draw every weight of `module` in place from `g` as JAX's init draws it
+    (DetectionModel.init): a conv or dense layer by its `init_kind` (torch:
+    U(+-1/sqrt(fan_in)) kernel and bias; lecun: flax's lecun_normal, a normal
+    truncated at +-2 of its unit normal and scaled, with a zero bias; zeros),
+    BN and LayerNorm to scale 1, bias 0 (BN mean 0, variance 1), and the
+    fork's bare parameters by their module's init_params."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = max(m.weight[0].numel(), 1)
+            kind = getattr(m, "init_kind", "torch")
+            if kind == "torch":
+                bound = 1.0 / math.sqrt(fan_in)
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
+                continue
+            if kind == "lecun":
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                m.weight.copy_(torch.nn.init.trunc_normal_(torch.empty(m.weight.shape), 0.0, std, -2 * std, 2 * std,
+                                                           generator=g))
+            else:
+                m.weight.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+            m.reset_parameters()
+        elif hasattr(m, "init_params"):
+            m.init_params(g)
 
 
 class DetectionModel(nn.Module):
@@ -207,7 +273,7 @@ class DetectionModel(nn.Module):
         self.names = {i: f"{i}" for i in range(self.nc)}  # the data's or a checkpoint's names replace these
         self.dtype = torch.float32  # the activations' dtype; parameters too, except BN's, which stay f32
         self.compute_dtype = torch.float32  # the activations' dtype in training; parameters stay f32
-        layers, self.routes, self.save = parse_model(self.yaml, ch)
+        layers, self.routes, self.save, self.specs = parse_model(self.yaml, ch)
         self.model = nn.ModuleList(layers)
         self.eval()
         s = 256  # dummy forward for the strides, as the JAX BaseModel does
@@ -279,7 +345,7 @@ class DetectionModel(nn.Module):
         model.dtype = dtype
         model.fold()
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):  # flax's conv and dense with dtype=bfloat16; bare params stay f32
                 m.to(dtype)
         return model
 
@@ -295,21 +361,16 @@ class DetectionModel(nn.Module):
         every conv weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with
         fan_in = cin/groups * kh * kw (JAX's torch_kernel_init and
         torch_bias_init, nn/modules/conv.py:90, :101), drawn in module order;
-        BN scale 1, bias 0, mean 0, variance 1; then Detect's bias init
+        where JAX leaves flax's default (a conv's or dense layer's
+        `init_kind`), lecun_normal and a zero bias, or zeros; BN and
+        LayerNorm scale 1, bias 0 (BN mean 0, variance 1); the fork's bare
+        parameters by their module's init_params; then Detect's bias init
         (head.py). flax's threefry streams are not reproduced: the random
         leaves follow JAX's distributions, the deterministic ones equal
         JAX's. Returns the model."""
         if self.dtype != torch.float32:
             raise ValueError(f"init draws the weights of an f32 model, not of its {self.dtype} copy")
-        g = torch.Generator().manual_seed(int(seed))
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                bound = 1.0 / math.sqrt(max(m.weight[0].numel(), 1))
-                for p in (m.weight, m.bias):
-                    if p is not None:
-                        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+        init_weights(self, torch.Generator().manual_seed(int(seed)))
         for m in self.modules():  # after the draws: modules() visits the head before its convs
             if isinstance(m, M.Detect):
                 m.bias_init(self.stride)
@@ -383,14 +444,32 @@ class DetectionModel(nn.Module):
                     f"{sum(r['gflops'] for r in rows):>9.3f} {sum(r['ms'] for r in rows):>8.3f}")
         return rows
 
+    def bottlenecks(self) -> Dict[str, List[Tuple[int, int]]]:
+        """The same-width 3x3 bottlenecks, as (layer, C) pairs: "fused", those the
+        kernel runs in eval (one launch each per forward), and "gated", those
+        whose width it does not take (they run their two convs)."""
+        out: Dict[str, List[Tuple[int, int]]] = {"fused": [], "gated": []}
+        for i, layer in enumerate(self.model):
+            for m in layer.modules():
+                if isinstance(m, M.Bottleneck) and (m.fusable or m.gated):
+                    out["fused" if m.fusable else "gated"].append((i, m.cv2.conv.out_channels))
+        return out
+
     def info(self, imgsz: int = 640, flops: bool = True) -> str:
         """The summary line JAX's info (:589) logs and returns: layers (rows of
         the YAML), parameters (BN's scale and bias among them, no statistics)
-        and GFLOPs at imgsz (get_flops)."""
+        and GFLOPs at imgsz (get_flops); then, where the model has gated
+        bottlenecks (a width the kernel does not take, ops/fused_conv.py:
+        CHANNELS), the count of fused ones and the gated ones by layer and
+        width. A model without gated bottlenecks prints JAX's line."""
         n_params = sum(p.numel() for p in self.parameters())
         msg = f"{self.yaml.get('yaml_name', 'model')} summary: {len(self.model)} layers, {n_params:,} parameters"
         if flops:
             msg += f", {self.get_flops(imgsz):.1f} GFLOPs @ {imgsz}px"
+        b = self.bottlenecks()
+        if b["gated"]:
+            msg += (f"; {len(b['fused'])} fused bottlenecks, {len(b['gated'])} gated (layer, C): "
+                    + ", ".join(f"({i}, {c})" for i, c in b["gated"]))
         LOGGER.info(msg)
         return msg
 
@@ -402,6 +481,9 @@ def build_model(cfg: Union[str, Path, dict], nc: Optional[int] = None,
     carried across by the bridge and loaded with strict=True, else the model
     holds torch's default init until `init(seed)` draws JAX's."""
     d = cfg if isinstance(cfg, dict) else yaml_model_load(cfg)
+    for _, _, m, _ in d.get("backbone", []) + d.get("head", []):
+        if m in NOT_PORTED_MODULES:
+            raise not_ported(*NOT_PORTED_MODULES[m])
     task = guess_model_task(d) if d.get("head") else "detect"  # a headless dict fails in parse_model
     if task != "detect":
         raise not_ported(f"a {task} model ({d.get('yaml_name') or d['head'][-1][2]})", "item 10 (other heads)")

@@ -10,11 +10,19 @@ and the reverse bridge merges them back as translate_key does.
 
 Leaves:
   conv `kernel` (kh, kw, cin/g, cout) HWIO -> `weight` (cout, cin/g, kh, kw) OIHW
-  conv `bias`                                 -> `bias`
-  BN params `scale` / `bias`                  -> `weight` / `bias`
+  dense `kernel` (in, out)                    -> `weight` (out, in) (Linear)
+  conv and dense `bias`                       -> `bias`
+  BN and LayerNorm params `scale` / `bias`    -> `weight` / `bias`
   BN batch_stats `mean` / `var`               -> `running_mean` / `running_var`
-Every BN also gets torch's `num_batches_tracked` bookkeeping buffer (0), so the
-result loads with `strict=True`.
+  any other leaf: a bare `self.param` of the fork's modules (GCT `alpha`,
+  `gamma`, `beta`; SobelConv `convs_<i>`; ECAAttention and RecycleConv
+  `conv`; RecycleConv `trainable_scale`; FGM `alpha`, `beta`; Fusion
+  `fusion_weight`; the BiFPN concats' `w`: BARE_PARAMS) -> a parameter of
+  the same name and shape
+Every BN (every batch_stats `mean`) also gets torch's `num_batches_tracked`
+bookkeeping buffer (0), so the result loads with `strict=True`. The reverse
+bridge tells a conv's weight from a dense layer's and a norm's by its rank (4,
+2, 1), and keeps every other name as a bare leaf.
 
 The optimizer state crosses the same bridge: `opt_state_to_flax` writes the
 moments as params-shaped trees (the tree form of JAX's OptState, which its
@@ -34,6 +42,11 @@ import torch
 
 _PARAM_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+# the fork's bare parameters (nn/modules/fork.py), by leaf name
+BARE_PARAMS = frozenset({"alpha", "gamma", "beta", "convs_0", "convs_1", "convs_2", "conv", "trainable_scale",
+                         "fusion_weight", "w"})
+_KERNEL_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}  # HWIO -> OIHW; (in, out) -> (out, in)
+_KERNEL_TO_FLAX = {4: (2, 3, 1, 0), 2: (1, 0)}
 
 
 def _torch_name(tok: str) -> str:
@@ -53,6 +66,10 @@ def _leaves(tree: dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[st
             yield prefix + (k,), v
 
 
+def _dotted(key: str, leaf: str) -> str:
+    return f"{key}.{leaf}" if key else leaf
+
+
 def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
     """flax variables {params, batch_stats} -> state dict of the port's model."""
     out: Dict[str, torch.Tensor] = {}
@@ -60,17 +77,19 @@ def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
         key = ".".join(_torch_name(t) for t in path[:-1])
         arr = np.asarray(leaf, np.float32)
         if path[-1] == "kernel":
-            arr = arr.transpose(3, 2, 0, 1)
-        elif path[-1] == "scale":
-            out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
-        elif path[-1] != "bias":
+            if arr.ndim not in _KERNEL_TO_TORCH:
+                raise KeyError(f"unexpected {arr.ndim}-D kernel {'/'.join(path)}")
+            arr = arr.transpose(_KERNEL_TO_TORCH[arr.ndim])
+        elif path[-1] not in _PARAM_LEAF and path[-1] not in BARE_PARAMS:
             raise KeyError(f"unexpected parameter leaf {'/'.join(path)}")
-        out[f"{key}.{_PARAM_LEAF[path[-1]]}"] = torch.tensor(np.ascontiguousarray(arr))
+        out[_dotted(key, _PARAM_LEAF.get(path[-1], path[-1]))] = torch.tensor(np.ascontiguousarray(arr))
     for path, leaf in _leaves(variables.get("batch_stats", {})):
         if path[-1] not in _STAT_LEAF:
             raise KeyError(f"unexpected batch_stats leaf {'/'.join(path)}")
         key = ".".join(_torch_name(t) for t in path[:-1])
-        out[f"{key}.{_STAT_LEAF[path[-1]]}"] = torch.tensor(np.asarray(leaf, np.float32))
+        out[_dotted(key, _STAT_LEAF[path[-1]])] = torch.tensor(np.asarray(leaf, np.float32))
+        if path[-1] == "mean":
+            out[_dotted(key, "num_batches_tracked")] = torch.zeros((), dtype=torch.long)
     return out
 
 
@@ -89,26 +108,27 @@ def state_dict_to_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
     """A state dict of the port's model (or any {name: tensor} keyed by its
     parameter and BN buffer names: grads, optimizer moments) -> flax
     {params, batch_stats} numpy trees, each leaf in its tensor's dtype. 4-D
-    `weight` -> `kernel` (HWIO), BN's 1-D `weight` -> `scale`, `bias` ->
-    `bias`, `running_mean` / `running_var` -> batch_stats `mean` / `var`;
-    `num_batches_tracked` has no flax counterpart and is left out."""
+    `weight` -> `kernel` (HWIO), 2-D `weight` -> `kernel` (in, out), a norm's
+    1-D `weight` -> `scale`, `bias` -> `bias`, `running_mean` / `running_var`
+    -> batch_stats `mean` / `var`, a bare parameter -> a params leaf of its
+    name; `num_batches_tracked` has no flax counterpart and is left out."""
     trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for name, t in state_dict.items():
-        key, leaf = name.rsplit(".", 1)
+        key, leaf = name.rsplit(".", 1) if "." in name else ("", name)
         if leaf == "num_batches_tracked":
             continue
         arr = t.detach().cpu().numpy().copy()  # a copy: the tree does not follow the tensor's later updates
         if leaf == "weight":
-            tree, flax_leaf = "params", "kernel" if arr.ndim == 4 else "scale"
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
-        elif leaf == "bias":
-            tree, flax_leaf = "params", "bias"
+            tree, flax_leaf = "params", "kernel" if arr.ndim in _KERNEL_TO_FLAX else "scale"
+            arr = arr.transpose(_KERNEL_TO_FLAX[arr.ndim]) if arr.ndim in _KERNEL_TO_FLAX else arr
         elif leaf in ("running_mean", "running_var"):
             tree, flax_leaf = "batch_stats", {"running_mean": "mean", "running_var": "var"}[leaf]
+        elif leaf == "bias" or leaf in BARE_PARAMS:
+            tree, flax_leaf = "params", leaf
         else:
             raise KeyError(f"unexpected state dict entry {name}")
         node = trees[tree]
-        for tok in _flax_path(key):
+        for tok in _flax_path(key) if key else ():
             node = node.setdefault(tok, {})
         node[flax_leaf] = np.ascontiguousarray(arr)
     return trees

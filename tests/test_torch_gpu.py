@@ -23,7 +23,10 @@ on the card against one on the CPU (the forward tolerance above: boxes 1e-2
 px, scores 1e-4), and YOLO(url) predict and val against local ones on the card
 (boxes 1e-3 px, val 1e-6 per key); predict at its defaults (save=True) on
 the card writing each image's plot, the file equal to the port's JPEG of the
-returned Results' plot. The tests leave
+returned Results' plot; a fork config's forward on the card against the
+CPU's, f32 (1e-3 abs/rel) and bf16 (within twice the CPU's own bf16-to-f32
+distance), its kernel launches equal to its fused bottlenecks, the gated
+widths launching nothing. The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -258,6 +261,57 @@ def test_scale_s_forward_on_card_matches_cpu():
     for (gb, gc), (rb, rc) in zip(got, ref):
         torch.testing.assert_close(gb.cpu(), rb, atol=1e-3, rtol=1e-3)
         torch.testing.assert_close(gc.cpu(), rc, atol=1e-3, rtol=1e-3)
+
+
+FORK_CASES = [("yolo11_fusion_sand3_new_GC.yaml", "n"), ("yolo11_p2_WCC_BiFPN_AKCBam_head.yaml", "n"),
+              ("yolo11_p6_fusion.yaml", "n"), ("yolo11_SMSC.yaml", "l")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,scale", FORK_CASES)
+def test_fork_config_on_card_matches_cpu(name, scale):
+    """A fork config from its YAML with init(seed) and seeded BN statistics
+    (variances 0.15-0.25, chip_smoke.py:scaled_bn): the card's f32 forward
+    launches the kernel once per fused bottleneck (the gated ones, C = 16 or
+    48, run their convs) and matches the CPU's forward (1e-3 abs/rel); the
+    card's bf16 copy launches the bf16 kernel as often and lies within twice
+    the CPU's own bf16-to-f32 distance of the CPU's bf16 copy."""
+    dev = _card()
+    from spectrogram_yolov11_torch.nn.tasks import build_model, yaml_model_load
+
+    d = yaml_model_load(name)
+    d["scale"] = scale
+    model = build_model(d).init(0)
+    # seeded BN statistics with variances of 0.15-0.25, so the activations keep a scale of 0.05-0.9
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.05)
+                m.running_var.copy_(torch.empty(m.running_var.shape).uniform_(0.15, 0.25, generator=g))
+    model.eval()
+    fused = len(model.bottlenecks()["fused"])
+    assert fused and (name not in ("yolo11_fusion_sand3_new_GC.yaml", "yolo11_p6_fusion.yaml")
+                      or model.bottlenecks()["gated"])
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, 3, 128, 128)).astype(np.float32))
+    model_g = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+    xg = x.to(dev).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        n0, b0 = fused_bottleneck.launches, fused_bottleneck_bf16.launches
+        got = model_g(xg)
+        torch.cuda.synchronize()
+        assert (fused_bottleneck.launches - n0, fused_bottleneck_bf16.launches - b0) == (fused, 0)
+        ref = model(x)
+        for g, r in zip([t for p in got for t in p], [t for p in ref for t in p]):
+            torch.testing.assert_close(g.cpu(), r, atol=1e-3, rtol=1e-3)
+        n0, b0 = fused_bottleneck.launches, fused_bottleneck_bf16.launches
+        got16 = model_g.set_dtype(torch.bfloat16)(xg)
+        torch.cuda.synchronize()
+        assert (fused_bottleneck.launches - n0, fused_bottleneck_bf16.launches - b0) == (0, fused)
+        ref16 = model.set_dtype(torch.bfloat16)(x)
+        for g, r16, r in zip(*([t for p in o for t in p] for o in (got16, ref16, ref))):
+            d_cpu = float((r16.float() - r).abs().max())
+            assert float((g.float().cpu() - r16.float()).abs().max()) <= 2 * d_cpu
 
 
 def _seeded_captures(n: int, seed: int) -> np.ndarray:

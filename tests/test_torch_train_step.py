@@ -1,8 +1,10 @@
 """The port's detect training step against the JAX package's train_step, f32 on the CPU.
 
 Two models, each with its JAX step compiled once per module fixture: a tiny
-detect model (strided Convs, one C3k2 whose C3k holds two fusable width-4
-bottlenecks, a Detect head; random JAX init with random BN statistics),
+detect model (strided Convs, one C3k2 whose C3k holds two same-width 3x3
+bottlenecks at C = 4, gated: the kernel takes C in ops/fused_conv.py:CHANNELS,
+so they run their two convs in eval too; a Detect head; random JAX init with
+random BN statistics),
 stepped with SGD; and the trained spectrogram_yolo11n at full width and depth,
 stepped with optimizer=auto (AdamW). Both at 64 px, B = 2, on one seeded
 batch with padded GT rows, weights carried across by the bridge. Each takes
@@ -272,8 +274,10 @@ def test_eval_refolds_moved_weights_and_the_bridge_inverts():
     ref = dict(_leaves(variables))
     assert back.keys() == ref.keys() and all(np.array_equal(back[k], ref[k]) for k in ref)
 
-    model = build_model(TINY, variables=jax.tree_util.tree_map(
-        np.asarray, jax_build_model(dict(TINY), nc=2, verbose=False).init(jax.random.PRNGKey(3), imgsz=IMGSZ)))
+    # TINY with its C3k2 at width 128, so its C3k's two bottlenecks (C = 32) are fused
+    fusable = dict(TINY, backbone=[*TINY["backbone"][:3], [-1, 1, "C3k2", [128, True]], *TINY["backbone"][4:]])
+    model = build_model(fusable, variables=jax.tree_util.tree_map(
+        np.asarray, jax_build_model(dict(fusable), nc=2, verbose=False).init(jax.random.PRNGKey(3), imgsz=IMGSZ)))
     model.train()
     with torch.no_grad():
         for p in model.parameters():
@@ -285,7 +289,7 @@ def test_eval_refolds_moved_weights_and_the_bridge_inverts():
     for m in fused:
         w1, _ = m.cv1.folded()
         assert torch.equal(m.w1, pack_bottleneck_weights(w1.permute(2, 3, 1, 0)).view_as(m.w1))
-    fresh = build_model(TINY, variables=state_dict_to_variables(model.state_dict()))
+    fresh = build_model(fusable, variables=state_dict_to_variables(model.state_dict()))
     x = torch.rand(2, 3, IMGSZ, IMGSZ)
     with torch.no_grad():
         for (a, b), (c, d) in zip(model(x), fresh(x)):
