@@ -255,6 +255,24 @@ Phases, each printing one JSON line, each fatal when it fails:
                save=False), counted, info() naming the gated bottlenecks.
                Readings: ms per forward at B = 32 in f32 and bf16 per
                config, ms per train step with the loader's wait, val seconds
+  19. host_augment  host augmentation and the rest of the training data: the
+               host library's warps, HSV conversions and drawing fills
+               (csrc/warp.cpp, utils/plotting.py) on the seeded cases of
+               tests/torch_data/host_augment/cv2_digests.json, each output's
+               SHA-256 equal to cv2's recorded one; YOLO(ckpt).train(epochs=2,
+               batch=16, imgsz=640, close_mosaic=1) at amp with
+               device_augment=False, degrees=10, shear=2, perspective=5e-4,
+               mixup=0.5, multi_scale=True on the synth split, counted per
+               epoch (no launch in the steps, 6 bf16 bottleneck + 1 NMS per
+               EMA val batch), the kernels at the first EMA val's inputs, the
+               sizes multi_scale drew; the same call in device mode at the
+               default hyps, counted alike; `python -m
+               spectrogram_yolov11_torch train epochs=1 imgsz=320 batch=16
+               cache=disk` with no data= (the shapes128.yaml default,
+               generated at first use) printing its val mAP. Readings: ms per
+               warp and per HSV jitter of a 640 px sample, a host-mode
+               sample's ms split into read, composite, warp, HSV and mixup, ms
+               per step with the loader's wait in host beside device mode
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -329,6 +347,10 @@ FORK_EPOCHS = 2
 FORK_TIMED_BATCH = 32
 FORK_TOL = 1e-3  # f32 on the card against the CPU, relative to 1 + max|ref|: the forward tolerance of tests/test_torch_gpu.py
 FORK_SWEEP_B, FORK_SWEEP_C, FORK_SWEEP_HW = 4, 64, 80  # the module sweep's input: a scale-n P3 map at 640 px
+HOST_DIGESTS = ROOT / "tests" / "torch_data" / "host_augment" / "cv2_digests.json"  # seeded cases, cv2's SHA-256
+HOST_AUG = dict(device_augment=False, degrees=10.0, shear=2.0, perspective=5e-4, mixup=0.5, multi_scale=True)
+HOST_EPOCHS = 2  # YOLO.train's epochs in phase host_augment (close_mosaic=1: mosaic and mixup in the first)
+HOST_SPLIT_SAMPLES = 24  # host-mode samples timed stage by stage
 
 
 def emit(phase: str, **kw) -> None:
@@ -3347,6 +3369,203 @@ def phase_fork():
     return launches, checks, nms
 
 
+def host_op_outputs() -> tuple:
+    """The port's output for every case of HOST_DIGESTS, by name, and ms per
+    call of the 640 px sample's ops (the mosaic canvas's warps, HSV jitter)."""
+    import numpy as np
+
+    from spectrogram_yolov11_torch.data import warp
+    from spectrogram_yolov11_torch.utils.plotting import ellipse_filled, fill_poly
+
+    spec, out, ms = json.loads(HOST_DIGESTS.read_text())["cases"], {}, {}
+    for c in spec["warp"]:
+        img = np.random.default_rng(c["seed"]).integers(0, 256, c["shape"], dtype=np.uint8)
+        fn = warp.warp_affine_u8 if c["kind"] == "affine" else warp.warp_perspective_u8
+        out[c["name"]] = fn(img, np.asarray(c["M"], np.float64), c["dsize"])
+        if c["name"].endswith("mosaic640"):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn(img, np.asarray(c["M"], np.float64), c["dsize"])
+            ms[f"warp_{c['kind']}_1280_to_640"] = (time.perf_counter() - t0) / 5 * 1e3
+    v = np.arange(1 << 24, dtype=np.uint32)
+    out["bgr_to_hsv_all"] = warp.bgr_to_hsv_u8(
+        np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1).astype(np.uint8).reshape(4096, 4096, 3))
+    h, sat, val = np.meshgrid(np.arange(180), np.arange(256), np.arange(256), indexing="ij")
+    triples = np.stack([h, sat, val], -1).astype(np.uint8)
+    for width in (256, 1):
+        out[f"hsv_to_bgr_all_w{width}"] = warp.hsv_to_bgr_u8(triples.reshape(-1, width, 3))
+    for c in spec["augment_hsv"]:
+        img = np.random.default_rng(c["seed"]).integers(0, 256, c["shape"], dtype=np.uint8)
+        luts = np.asarray(c["luts"], np.uint8)
+        warp.augment_hsv_u8(img, luts)
+        out[c["name"]] = img.copy()  # the timing below goes on in place
+        if c["shape"][0] == 640:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                warp.augment_hsv_u8(img, luts)
+            ms["augment_hsv_640"] = (time.perf_counter() - t0) / 5 * 1e3
+    for c in spec["draw"]:
+        img = np.random.default_rng(c["seed"]).integers(0, 256, (c["size"], c["size"], 3), dtype=np.uint8)
+        if c["kind"] == "ellipse":
+            out[c["name"]] = ellipse_filled(img, c["center"], c["axes"], c["color"])
+        else:
+            out[c["name"]] = fill_poly(img, np.asarray(c["pts"], np.int32), c["color"])
+    return out, ms
+
+
+def host_sample_split(data: dict) -> dict:
+    """ms per host-mode sample at TRAIN_IMGSZ with HOST_AUG's hyps, mosaic on,
+    split by stage: read (the four images read and resized), composite (the
+    canvas), warp, HSV and mixup (the blend; its partner's read, canvas and
+    warp fall in those stages), each stage's function wrapped with a timer."""
+    import numpy as np
+
+    import spectrogram_yolov11_torch.data.augment as aug
+    from spectrogram_yolov11_torch.cfg import DEFAULT_CFG_DICT, get_cfg
+    from spectrogram_yolov11_torch.data.dataset import YOLODataset
+
+    ds = YOLODataset(data["train"], imgsz=TRAIN_IMGSZ, max_gt=0, augment=True,
+                     hyp=get_cfg(DEFAULT_CFG_DICT, {"mode": "train", **HOST_AUG}))
+    require(not ds.transform.device_mode, "HOST_AUG's dataset is not in host mode")
+    spent = {"read": 0.0, "composite": 0.0, "warp": 0.0, "hsv": 0.0, "mixup": 0.0}
+
+    def timed(stage, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[stage] += time.perf_counter() - t0
+        return run
+
+    saved = {k: getattr(aug, k) for k in ("mosaic4", "random_perspective", "augment_hsv", "mixup")}
+    ds.load_sample = timed("read", ds.load_sample)
+    for k, stage in (("mosaic4", "composite"), ("random_perspective", "warp"), ("augment_hsv", "hsv"),
+                     ("mixup", "mixup")):
+        setattr(aug, k, timed(stage, saved[k]))
+    try:
+        ds.get_item(0, np.random.default_rng(0))  # the host library's build and first calls
+        for k in spent:
+            spent[k] = 0.0
+        t0 = time.perf_counter()
+        for i in range(HOST_SPLIT_SAMPLES):
+            ds.get_item(i % len(ds), np.random.default_rng(i))
+        total = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(aug, k, fn)
+    per = {k: v / HOST_SPLIT_SAMPLES * 1e3 for k, v in spent.items()}
+    per["other"] = total / HOST_SPLIT_SAMPLES * 1e3 - sum(per.values())
+    per["total"] = total / HOST_SPLIT_SAMPLES * 1e3
+    return per
+
+
+def phase_host_augment():
+    """Host augmentation on the card's machine (see the module docstring, 19)."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.augment import resolve_device_augment
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    t_phase = time.perf_counter()
+    recorded = json.loads(HOST_DIGESTS.read_text())["sha256"]
+    outputs, op_ms = host_op_outputs()
+    got = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest() for k, v in outputs.items()}
+    bad = sorted(k for k in recorded if got.get(k) != recorded[k])
+    require(set(got) == set(recorded) and not bad, f"host ops differing from cv2's digests: {bad}")
+    del outputs
+
+    bf16 = torch.bfloat16
+    counters = launch_counters()
+    counts = lambda: {k: c.launches for k, c in counters.items()}  # noqa: E731
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp))
+        split = host_sample_split(data)
+        n_val = len(list(Path(data["val"]).iterdir()))
+        per_val = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6 * (n_val // TRAIN_BATCH),
+                   "greedy_keep": n_val // TRAIN_BATCH}
+        for mode, hyp in (("host", HOST_AUG), ("device", {})):
+            rec = {"counts": []}
+            cap, stop = capture_val_inputs(bf16)
+            yolo = YOLO(CKPT)
+            yolo.add_callback("on_train_epoch_start",
+                              lambda t: rec["counts"].append({"epoch": t.epoch, "start": counts()}))
+            yolo.add_callback("on_train_batch_end", lambda t: rec["counts"][-1].update(steps=counts()))
+
+            def on_fit_epoch_end(t, rec=rec, stop=stop):
+                rec["counts"][-1]["val"] = counts()
+                stop()  # the first EMA val's inputs only
+
+            yolo.add_callback("on_fit_epoch_end", on_fit_epoch_end)
+            t0 = time.perf_counter()
+            try:
+                metrics, launches[mode] = run_counted(
+                    lambda: yolo.train(plots=False, data=data, project=tmp, name=mode, epochs=HOST_EPOCHS,
+                                       batch=TRAIN_BATCH, imgsz=TRAIN_IMGSZ, close_mosaic=1, workers=8,
+                                       exist_ok=True, **hyp),
+                    {k: HOST_EPOCHS * v for k, v in per_val.items()}, f"YOLO.train in {mode} mode")
+            finally:
+                stop()
+            tr = yolo.trainer
+            require(resolve_device_augment(tr.args) == (mode == "device") and tr.validator.model.dtype == bf16,
+                    f"YOLO.train ran in the wrong mode or dtype ({mode})")
+            by_epoch = []
+            for c in rec["counts"]:
+                steps_c = {k: c["steps"][k] - c["start"][k] for k in c["start"]}
+                val_c = {k: c["val"][k] - c["steps"][k] for k in c["start"]}
+                require(not any(steps_c.values()) and val_c == per_val,
+                        f"{mode} epoch {c['epoch']}: steps {steps_c}, val {val_c}")
+                by_epoch.append({"epoch": c["epoch"], "steps": steps_c, "val": val_c})
+            require(all(0.0 <= v <= 1.0 for v in metrics.values()), f"{mode} EMA val {metrics}")
+            checks, nms = kernels_at(cap, yolo.model.nc, yolo.model.stride, f"{mode} EMA", TRAIN_BATCH, TRAIN_IMGSZ)
+            log = tr.epoch_log
+            runs[mode] = {"train_call_s": time.perf_counter() - t0, "launches_by_epoch": by_epoch,
+                          "final_ema_bf16": metrics, "checks": {"fused_bottleneck_bf16": checks,
+                                                                "greedy_keep_k2048": nms},
+                          "ms_per_step_with_wait": [(e["seconds"] - e["val_s"]) / e["steps"] * 1e3 for e in log],
+                          "loader_wait_ms_per_step": [e["loader_wait_s"] / e["steps"] * 1e3 for e in log],
+                          "val_s": [e["val_s"] for e in log], "multi_scale_sizes": tr.ms_sizes_drawn}
+        ladder = sorted({max(32, int(round(TRAIN_IMGSZ * f / 32)) * 32) for f in (0.5, 0.75, 1.0, 1.25, 1.5)})
+        drawn = runs["host"]["multi_scale_sizes"]
+        rng = np.random.default_rng(0 + 1234)  # the seed's default, 0: JAX's draw per step
+        require(drawn == [int(rng.choice(ladder)) for _ in drawn] and len(drawn) == HOST_EPOCHS * 128 // TRAIN_BATCH,
+                f"multi_scale drew {drawn}")
+        require(not runs["device"]["multi_scale_sizes"], "device mode drew multi_scale sizes")
+
+        # the command line's default data (shapes128.yaml, generated at first use) with the disk cache
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "spectrogram_yolov11_torch", "train", "epochs=1", "imgsz=320",
+                            "batch=16", "cache=disk", "plots=False", f"project={tmp}", "name=cli", "exist_ok=True"],
+                           cwd=ROOT, capture_output=True, text=True, timeout=300)
+        require(r.returncode == 0, f"train with no data= exited {r.returncode}: {r.stderr[-2000:]}")
+        cli_metrics = json.loads((r.stdout.strip().splitlines() or ["{}"])[-1])
+        shapes = check_det_dataset("shapes128.yaml")  # written by the command line's run
+        root = shapes["path"]
+        sidecars = len(list(Path(shapes["train"]).glob("*.npy")))
+        require("metrics/mAP50-95(B)" in cli_metrics and sidecars == shapes["n_train"],
+                f"train with no data= printed {cli_metrics}, {sidecars} sidecars under {root}")
+        cli = {"seconds": time.perf_counter() - t0, "metrics": cli_metrics, "data": str(root), "sidecars": sidecars}
+    emit("host_augment", digests_equal=len(recorded), op_ms=op_ms, sample_split_ms=split, launches=launches,
+         runs={m: {k: v for k, v in d.items() if k != "checks"} for m, d in runs.items()},
+         kernel_checks={m: {n: {k: v for k, v in c.items() if k != "ok"}
+                            for n, c in d["checks"]["fused_bottleneck_bf16"].items()} for m, d in runs.items()},
+         greedy_keep_k2048={m: {k: d["checks"]["greedy_keep_k2048"][k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "mismatches")} for m, d in runs.items()},
+         cli=cli, phase_s=time.perf_counter() - t_phase,
+         method="host ops: SHA-256 of each output against cv2's recorded digest, ms by perf_counter over 5 calls; "
+                "the sample split by timers around each stage's function over HOST_SPLIT_SAMPLES samples; "
+                "YOLO.train counted from 0 around each call and per epoch by callbacks, the kernels at the first "
+                "EMA val's inputs (global module hooks); ms per step = (epoch seconds - val seconds) / steps")
+    return launches, {m: d["checks"] for m, d in runs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3387,6 +3606,7 @@ def main() -> int:
     save_launches, save_checks, nms_save = phase_save()
     art_launches, art_checks, nms_art = phase_artifacts()
     fork_launches, fork_checks, nms_fork = phase_fork()
+    host_launches, host_checks = phase_host_augment()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -3403,6 +3623,7 @@ def main() -> int:
     fork_f32 = [d for n, _ in FORK_CONFIGS for d in fork_checks[n]["f32"].values()] + list(fork_checks["val"].values())
     fork_bf16 = ([d for n, _ in FORK_CONFIGS for d in fork_checks[n]["bf16"].values()]
                  + list(fork_checks["train_ema_val"].values()))
+    host_bf16 = [d for c in host_checks.values() for d in c["fused_bottleneck_bf16"].values()]
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
         dict(name="fused_bottleneck", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
@@ -3420,6 +3641,7 @@ def main() -> int:
                                            for k in ("arrays_f32", "jpeg_directory", "wire_jpeg")),
                                "artifacts": sum(v["fused_bottleneck"] for v in art_launches.values()),
                                "fork": fork_paths("fused_bottleneck"),
+                               "host_augment": sum(v["fused_bottleneck"] for v in host_launches.values()),
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
@@ -3447,6 +3669,7 @@ def main() -> int:
                                "save_half": save_launches["arrays_bf16"]["fused_bottleneck_bf16"],
                                "artifacts": sum(v["fused_bottleneck_bf16"] for v in art_launches.values()),
                                "fork": fork_paths("fused_bottleneck_bf16"),
+                               "host_augment": sum(v["fused_bottleneck_bf16"] for v in host_launches.values()),
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
@@ -3454,15 +3677,18 @@ def main() -> int:
                                                          *amp_bottleneck.values(), *scratch_bottleneck.values(),
                                                          *serve_checks["fused_bottleneck_bf16"].values(),
                                                          *save_checks["arrays_bf16"].values(),
-                                                         *art_checks["val_bf16"].values(), *fork_bf16)),
+                                                         *art_checks["val_bf16"].values(), *fork_bf16,
+                                                         *host_bf16)),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_bf16),
+             host_augment_max_abs_err=max(d["max_abs_err"] for d in host_bf16),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
                                                                  *images_checks["fused_bottleneck_bf16"].values(),
                                                                  *amp_bottleneck.values(),
                                                                  *scratch_bottleneck.values(),
                                                                  *serve_checks["fused_bottleneck_bf16"].values(),
                                                                  *save_checks["arrays_bf16"].values(),
-                                                                 *art_checks["val_bf16"].values(), *fork_bf16)),
+                                                                 *art_checks["val_bf16"].values(), *fork_bf16,
+                                                                 *host_bf16)),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -3490,6 +3716,7 @@ def main() -> int:
                                "save": sum(v["greedy_keep"] for v in save_launches.values()),
                                "artifacts": sum(v["greedy_keep"] for v in art_launches.values()),
                                "fork": fork_paths("greedy_keep"),
+                               "host_augment": sum(v["greedy_keep"] for v in host_launches.values()),
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
@@ -3520,6 +3747,9 @@ def main() -> int:
                                                         "scan_steps_mean", "mismatches")} for p, d in nms_art.items()},
              fork_val_k2048={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                    "scan_steps_mean", "mismatches")} for p, d in nms_fork.items()},
+             host_augment_val_k2048={m: {k: c["greedy_keep_k2048"][k] for k in (
+                 "shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean", "mismatches")}
+                 for m, c in host_checks.items()},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

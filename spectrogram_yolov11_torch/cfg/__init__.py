@@ -42,9 +42,9 @@ rest (every one is accepted at its default, and `get_cfg` handles it so):
 and `cfg=<yaml>` overrides, and `serve` (JAX :307-321), which also takes
 device=; the other modes and verbs raise with their ROADMAP.md items. It
 defaults as JAX's: mode train, model yolo11n.yaml, data (train and val
-without it, and no checkpoint data) shapes128.yaml, which the port does not
-package (its synthetic shapes kinds are item 7), so that raises
-FileNotFoundError. `python -m spectrogram_yolov11_torch ...` runs it; the
+without it, and no checkpoint data) shapes128.yaml, the port's copy of JAX's
+(64 + 16 synthetic shapes at 640 px, written as JAX writes them at first
+use, data/synth.py). `python -m spectrogram_yolov11_torch ...` runs it; the
 port installs no console script: `yolo` stays the JAX package's.
 """
 
@@ -110,12 +110,12 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "resume": False,  # True (the newest last*.ckpt under the runs dir) or a checkpoint path
     "val": True,  # validate the EMA every epoch (the last epoch always)
     "fraction": 1.0,  # the share of the train images used
-    "cache": False,  # False | "ram" (decoded images kept); "disk" is not ported
+    "cache": False,  # False | "ram" (decoded images kept) | "disk" (.npy sidecars beside the images)
     "profile": False,  # train: a torch.profiler trace under <save_dir>/profile
-    "multi_scale": False,  # not ported (host augmentation, raises)
+    "multi_scale": False,  # host augmentation: each step's images resized to a size drawn from 0.5-1.5 x imgsz
     "close_mosaic": 10,  # the last epochs without mosaic
     # augmentation (data/augment.py: TrainTransform), JAX's defaults
-    "device_augment": "auto",  # auto | True: the image half on the card; False (host images) is not ported
+    "device_augment": "auto",  # auto | True: the image half on the card; False: on the host (JAX's resolution)
     "hsv_h": 0.015,
     "hsv_s": 0.7,
     "hsv_v": 0.4,
@@ -127,7 +127,7 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "flipud": 0.0,
     "fliplr": 0.5,
     "mosaic": 1.0,
-    "mixup": 0.0,  # > 0 is not ported (host augmentation, raises)
+    "mixup": 0.0,  # > 0 augments on the host (mosaic pairs blended by beta(32, 32))
     "copy_paste": 0.0,  # inert for detect, as in the JAX package (it needs segments)
     # the rest of JAX's cfg/default.yaml, at its defaults (the module's table says how each is read)
     "model": None,  # the trainer builds it when it has no model; YOLO.train passes its model's path

@@ -40,9 +40,12 @@ The coefficients are computed on the host in float32 as cv2 computes them;
 the passes are integer tensor ops, so the card and the CPU give the same
 bytes (tests/test_torch_dataset.py holds them to cv2 on the CPU).
 
-The training side (below `HOST_AUGMENT_ITEM`) is JAX's device-augment mode:
-labels and image parameters on the host, the image on the card
-(ops/device_augment.py); host augmentation of the images raises.
+The training side (below `resolve_device_augment`) is JAX's train transform
+in both of its modes: device-augment mode (labels and image parameters on the
+host, the image assembled on the card by ops/device_augment.py) and host mode
+(the image augmented on the host: the mosaic canvas, the warp and the HSV
+jitter through data/warp.py's C++, equal to JAX's cv2 calls byte for byte,
+mixup, the flips), with JAX's rule for which one runs.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils import not_ported
+from ..utils import LOGGER
+from .warp import augment_hsv_u8, warp_affine_u8, warp_perspective_u8
 
 PAD_VALUE = 114
 
@@ -215,12 +219,13 @@ def letterbox_batch(frames: Sequence, imgsz: int, device: torch.device, gray_sta
 
 def format_sample(sample: Dict, imgsz: int, max_gt: int) -> Dict[str, np.ndarray]:
     """Labels of a letterboxed sample (xyxy pixels) -> cls (max_gt,) int32,
-    bboxes (max_gt, 4) xywh float32 normalised by the sample's `img_shape`
-    (h, w) (the train path's, whose image is assembled on the card) or
-    imgsz x imgsz, and mask_gt (max_gt,) bool, the first max_gt boxes of
-    positive size in front (JAX :394-420, detect fields)."""
-    boxes, cls = sample["bboxes"], sample["cls"]
-    h, w = sample.get("img_shape", (imgsz, imgsz))
+    bboxes (max_gt, 4) xywh float32 normalised by the image's size (its
+    `img`, the sample's `img_shape` (h, w) when the card assembles it, or
+    imgsz x imgsz), and mask_gt (max_gt,) bool, the first max_gt boxes of
+    positive size in front; a sample with an image gets `img`, its BGR
+    channels flipped to RGB (JAX :394-420, detect fields)."""
+    boxes, cls, img = sample["bboxes"], sample["cls"], sample.get("img")
+    h, w = img.shape[:2] if img is not None else sample.get("img_shape", (imgsz, imgsz))
     n = min(len(boxes), max_gt)
     cls_pad, mask = np.zeros((max_gt,), np.int32), np.zeros((max_gt,), bool)
     box_pad = np.zeros((max_gt, 4), np.float32)
@@ -231,7 +236,10 @@ def format_sample(sample: Dict, imgsz: int, max_gt: int) -> Dict[str, np.ndarray
         good = (xywh[:, 2] > 0) & (xywh[:, 3] > 0)
         k = int(good.sum())
         box_pad[:k], cls_pad[:k], mask[:k] = xywh[good], cls[:n][good], True
-    return {"cls": cls_pad, "bboxes": box_pad, "mask_gt": mask}
+    out = {"cls": cls_pad, "bboxes": box_pad, "mask_gt": mask}
+    if img is not None:
+        out["img"] = np.ascontiguousarray(img[..., ::-1])
+    return out
 
 
 class ValTransform:
@@ -254,22 +262,42 @@ class ValTransform:
             boxes[:, :4] *= r
             boxes[:, [0, 2]] += left
             boxes[:, [1, 3]] += top
-        out = format_sample(dict(sample, bboxes=boxes), self.imgsz, self.max_gt)
+        out = format_sample({"cls": sample["cls"], "bboxes": boxes}, self.imgsz, self.max_gt)
         out["img"] = img
         out["ori_shape"] = np.asarray(img.shape[:2], np.int32)
         out["ratio_pad"] = np.asarray([r, dw, dh], np.float32)
         return out
 
 
-# -- the training side, device-augment mode ---------------------------------
-# Counterpart of spectrogram_yolov11_tpu/data/augment.py's label half of the
-# train pipeline in device mode (TrainTransform._call_device :627-679): the
-# host builds each sample's labels and the parameters of its image, and
-# ops/device_augment.py assembles the image on the card inside the train
-# step. Every random number is drawn from the sample's numpy Generator in
-# JAX's order, so a sample's labels and parameters equal JAX's bit for bit.
+# -- the training side ------------------------------------------------------
+# Counterpart of spectrogram_yolov11_tpu/data/augment.py's train pipeline
+# (TrainTransform :547-680) in both modes. Every random number is drawn from
+# the sample's numpy Generator in JAX's order, so a sample's labels, image
+# parameters and (in host mode) image equal JAX's bit for bit.
 
-HOST_AUGMENT_ITEM = "item 7b (host augmentation)"
+
+def resolve_device_augment(hyp) -> bool:
+    """True when the card assembles the train images (device-augment mode),
+    False when the host augments them, by JAX's rule: 'auto' is on for a
+    separable warp (degrees = shear = perspective = 0) without multi_scale
+    (engine/trainer.py:218-230); True, or 'auto' resolved on, falls back to
+    the host with JAX's warning when mixup > 0 (data/augment.py:566-580).
+    False is host mode. copy_paste acts on segments only, and albumentations
+    is not installed with either package, so neither blocks detect's device
+    mode here. multi_scale under device mode is the trainer's to ignore."""
+    da = hyp.device_augment
+    if isinstance(da, str):
+        if da.lower() != "auto":
+            raise ValueError(f"device_augment={da!r}: use 'auto', True or False")
+        separable = not (float(hyp.degrees or 0) or float(hyp.shear or 0) or float(hyp.perspective or 0))
+        da = separable and not bool(hyp.multi_scale)
+        if da:
+            LOGGER.info("device_augment=auto -> on (separable warp); image augmentation runs on the card in the "
+                        "train step")
+    if da and hyp.mixup:
+        LOGGER.warning("device_augment: falling back to host augmentation (mixup>0)")
+        da = False
+    return bool(da)
 
 
 def letterbox_train(img: np.ndarray, imgsz: int) -> Tuple[np.ndarray, float, float]:
@@ -294,18 +322,19 @@ def pad_labels(sample: Dict, dw: float, dh: float) -> Dict:
     return dict(sample, bboxes=boxes)
 
 
-def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
-    """The labels of a 4-image mosaic on a 2S x 2S canvas, and its tiles for
-    the card (JAX mosaic4(compose_image=False) :83): centre (xc, yc) drawn in
-    [S/2, 3S/2) (yc first), each image clipped to its quadrant, its boxes
-    moved by the tile's offset and clipped to the canvas. `tiles` holds the
-    images in (4, S, S, 3) uint8, each tile's canvas rect [x1a, y1a, x2a,
-    y2a) and its (padw, padh) canvas-to-source offset; the canvas itself is
-    never built."""
+def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator, compose_image: bool = False) -> Dict:
+    """A 4-image mosaic on a 2S x 2S canvas (JAX mosaic4 :83): centre (xc, yc)
+    drawn in [S/2, 3S/2) (yc first), each image clipped to its quadrant, its
+    boxes moved by the tile's offset and clipped to the canvas. With
+    compose_image the canvas of 114 with the tiles pasted is `img`; without,
+    `tiles` holds the images for the card in (4, S, S, 3) uint8, each tile's
+    canvas rect [x1a, y1a, x2a, y2a) and its (padw, padh) canvas-to-source
+    offset, and the canvas is never built."""
     s = imgsz
     border = (-s // 2, -s // 2)
     yc, xc = (int(rng.uniform(-b, 2 * s + b)) for b in border)
-    tiles_src = np.zeros((4, s, s, 3), np.uint8)
+    canvas = np.full((s * 2, s * 2, 3), PAD_VALUE, np.uint8) if compose_image else None
+    tiles_src = None if compose_image else np.zeros((4, s, s, 3), np.uint8)
     tiles_reg = np.zeros((4, 4), np.int32)
     tiles_pad = np.zeros((4, 2), np.int32)
     cls_out, box_out = [], []
@@ -324,7 +353,10 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
         else:  # bottom-right
             x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
             x1b, y1b = 0, 0
-        tiles_src[i, :h, :w] = img
+        if compose_image:
+            canvas[y1a:y2a, x1a:x2a] = img[y1b : y1b + y2a - y1a, x1b : x1b + x2a - x1a]
+        else:
+            tiles_src[i, :h, :w] = img
         tiles_reg[i] = (x1a, y1a, x2a, y2a)
         padw, padh = x1a - x1b, y1a - y1b
         tiles_pad[i] = (padw, padh)
@@ -336,8 +368,12 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator) -> Dict:
             cls_out.append(sample["cls"])
     cls_cat = np.concatenate(cls_out) if cls_out else np.zeros((0,), np.int32)
     box_cat = np.clip(np.concatenate(box_out) if box_out else np.zeros((0, 4), np.float32), 0, 2 * s)
-    return {"cls": cls_cat, "bboxes": box_cat, "mosaic_border": border, "img_shape": (s * 2, s * 2),
-            "tiles": {"src": tiles_src, "regions": tiles_reg, "pads": tiles_pad}}
+    out = {"cls": cls_cat, "bboxes": box_cat, "mosaic_border": border, "img_shape": (s * 2, s * 2)}
+    if compose_image:
+        out["img"] = canvas
+    else:
+        out["tiles"] = {"src": tiles_src, "regions": tiles_reg, "pads": tiles_pad}
+    return out
 
 
 def box_candidates(box1: np.ndarray, box2: np.ndarray, wh_thr=2, ar_thr=100, area_thr=0.1, eps=1e-16) -> np.ndarray:
@@ -360,13 +396,28 @@ def rotation_matrix_2d(angle: float, scale: float) -> np.ndarray:
                      [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
 
 
+def rotation_matrix_2d(angle: float, scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D(angle, center=(0, 0), scale), its float64
+    arithmetic written out: a = angle * (pi / 180), alpha = cos(a) * scale,
+    beta = sin(a) * scale, and the centre terms at (0, 0)."""
+    a = angle * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx = cy = 0.0
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
+
+
 def random_perspective(sample: Dict, degrees: float, translate: float, scale: float, shear: float,
-                       perspective: float, border: Tuple[int, int], rng: np.random.Generator) -> Dict:
-    """The warp M = T @ S @ R @ P @ C of a sample whose image is assembled on
-    the card (JAX random_perspective(warp_image=False) :167): the draws of P,
-    the angle, the scale, S and T in JAX's order (ranges of 0 included), the
-    boxes' corners warped and re-boxed, clipped to the output and filtered by
-    box_candidates; M recorded as `warp_M` and the output size as `img_shape`."""
+                       perspective: float, border: Tuple[int, int], rng: np.random.Generator,
+                       warp_image: bool = False) -> Dict:
+    """The warp M = T @ S @ R @ P @ C of a sample (JAX random_perspective
+    :167): the draws of P, the angle, the scale, S and T in JAX's order
+    (ranges of 0 included), the boxes' corners warped and re-boxed, clipped
+    to the output and filtered by box_candidates. With warp_image the
+    sample's `img` is warped into the output (border 114) as cv2.warpAffine,
+    or cv2.warpPerspective when perspective is set, warps it
+    (data/warp.py), unless M is the identity without a border; without, M
+    is recorded as `warp_M` for the card and the output size as `img_shape`."""
     in_h, in_w = sample["img_shape"]
     h, w = in_h + border[0] * 2, in_w + border[1] * 2
     C = np.eye(3)
@@ -398,7 +449,12 @@ def random_perspective(sample: Dict, degrees: float, translate: float, scale: fl
         new[:, [1, 3]] = new[:, [1, 3]].clip(0, h)
         keep = box_candidates(boxes.T * sc, new.T, area_thr=0.10)
         boxes, cls = new[keep].astype(np.float32), cls[keep]
-    return {"cls": cls, "bboxes": boxes, "warp_M": M, "img_shape": (h, w), "tiles": sample["tiles"]}
+    if not warp_image:
+        return {"cls": cls, "bboxes": boxes, "warp_M": M, "img_shape": (h, w), "tiles": sample["tiles"]}
+    img = sample["img"]
+    if border[0] or border[1] or (M != np.eye(3)).any():
+        img = (warp_perspective_u8 if perspective else warp_affine_u8)(img, M, (w, h), PAD_VALUE)
+    return {"img": img, "cls": cls, "bboxes": boxes, "img_shape": (h, w)}
 
 
 def draw_hsv_gains(hgain: float, sgain: float, vgain: float, rng: np.random.Generator) -> np.ndarray:
@@ -409,12 +465,40 @@ def draw_hsv_gains(hgain: float, sgain: float, vgain: float, rng: np.random.Gene
     return np.ones(3, np.float32)
 
 
-def random_flip(sample: Dict, fliplr: float, flipud: float, rng: np.random.Generator) -> Dict:
-    """The flips applied to the boxes only (JAX random_flip(flip_image=False)
-    :278): up-down first, then left-right, each drawn only when its
-    probability is non-zero; the image's flips are recorded as `flips`
-    (up-down, left-right) for the warp's inverse."""
+def augment_hsv(img: np.ndarray, hgain: float, sgain: float, vgain: float, rng: np.random.Generator) -> np.ndarray:
+    """JAX's augment_hsv (:68) of a BGR uint8 image: gains from one
+    uniform(-1, 1, 3) draw (none when every gain is 0), uint8 tables built in
+    float64 (hue x * g % 180, saturation and value x * g clipped to 0-255,
+    truncated), applied between cv2's BGR -> HSV and HSV -> BGR by
+    data/warp.py:augment_hsv_u8, in place on a C-contiguous image (the
+    warp's or the blend's output); returns the image."""
+    if not (hgain or sgain or vgain):
+        return img
+    r = rng.uniform(-1, 1, 3) * [hgain, sgain, vgain] + 1
+    x = np.arange(0, 256, dtype=r.dtype)
+    luts = np.stack([((x * r[0]) % 180).astype(np.uint8), np.clip(x * r[1], 0, 255).astype(np.uint8),
+                     np.clip(x * r[2], 0, 255).astype(np.uint8)])
+    augment_hsv_u8(img, luts)
+    return img
+
+
+def mixup(sample1: Dict, sample2: Dict, rng: np.random.Generator) -> Dict:
+    """JAX's mixup (:382): r from beta(32, 32), the images blended in float32
+    as img1 * r + img2 * (1 - r) and truncated to uint8, the labels joined."""
+    r = rng.beta(32.0, 32.0)
+    img = (sample1["img"].astype(np.float32) * r + sample2["img"].astype(np.float32) * (1 - r)).astype(np.uint8)
+    return {"img": img, "cls": np.concatenate([sample1["cls"], sample2["cls"]]),
+            "bboxes": np.concatenate([sample1["bboxes"], sample2["bboxes"]])}
+
+
+def random_flip(sample: Dict, fliplr: float, flipud: float, rng: np.random.Generator,
+                flip_image: bool = False) -> Dict:
+    """The flips (JAX random_flip :278): up-down first, then left-right, each
+    drawn only when its probability is non-zero, applied to the boxes. With
+    flip_image the sample's `img` is flipped too; without, the flips are
+    recorded as `flips` (up-down, left-right) for the warp's inverse."""
     boxes = sample["bboxes"]
+    img = sample.get("img")
     h, w = sample["img_shape"]
     did_ud = did_lr = False
     if flipud and rng.random() < flipud:
@@ -427,70 +511,85 @@ def random_flip(sample: Dict, fliplr: float, flipud: float, rng: np.random.Gener
         if len(boxes):
             boxes = boxes.copy()
             boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
-    return dict(sample, bboxes=boxes, flips=(did_ud, did_lr))
-
-
-def resolve_device_augment(hyp) -> None:
-    """Raise for the settings under which the JAX trainer augments images on
-    the host (its _resolve_device_augment, trainer.py:218-230, and
-    TrainTransform's blockers, augment.py:566-578): device_augment=False,
-    'auto' with degrees, shear or perspective set (pass device_augment=True
-    for the card's general warp), multi_scale, or mixup. copy_paste acts on
-    segments only, so it is inert for detect, in both packages."""
-    da = hyp.device_augment
-    if isinstance(da, str):
-        if da.lower() != "auto":
-            raise ValueError(f"device_augment={da!r}: use 'auto', True or False")
-        if hyp.degrees or hyp.shear or hyp.perspective:
-            raise not_ported("device_augment='auto' with degrees, shear or perspective set (the JAX trainer then "
-                             "augments on the host; device_augment=True warps them on the card)", HOST_AUGMENT_ITEM)
-    elif not da:
-        raise not_ported("device_augment=False (images augmented on the host with cv2)", HOST_AUGMENT_ITEM)
-    if hyp.multi_scale:
-        raise not_ported("multi_scale=True (a resized batch per step)", HOST_AUGMENT_ITEM)
-    if hyp.mixup:
-        raise not_ported("mixup > 0 (image mixup on the host)", HOST_AUGMENT_ITEM)
+    if not flip_image:
+        return dict(sample, bboxes=boxes, flips=(did_ud, did_lr))
+    img = img[::-1] if did_ud else img
+    img = img[:, ::-1] if did_lr else img
+    return {"img": np.ascontiguousarray(img), "cls": sample["cls"], "bboxes": boxes}
 
 
 class TrainTransform:
-    """The train transform in device-augment mode (JAX TrainTransform :547-680
-    with device_mode=True): `__call__(idx, rng)` gives a sample's formatted
-    labels and the parameters the card assembles its image from: `aug_src`
-    (4, S, S, 3) uint8 BGR tiles, `aug_regions` (4, 4) int32 canvas rects,
-    `aug_pads` (4, 2) int32 offsets, `aug_inv` (3, 3) float32 output-index to
-    canvas matrix (inv(M) with the flips folded in as index reflections) and
-    `aug_hsv` (3,) float32 gains. Draws, in order: mosaic or not (only while
-    mosaic is on), the 3 partner indices and the centre, the warp, the HSV
-    gains, the flips. close_mosaic() turns mosaic off for later samples."""
+    """The train transform (JAX TrainTransform :547-680): `__call__(idx,
+    rng)` gives sample idx's formatted labels (cls, bboxes, mask_gt) and its
+    image, in the mode resolve_device_augment picks (`device_mode`).
+
+    Device mode (JAX's _call_device): the parameters the card assembles the
+    image from: `aug_src` (4, S, S, 3) uint8 BGR tiles, `aug_regions` (4, 4)
+    int32 canvas rects, `aug_pads` (4, 2) int32 offsets, `aug_inv` (3, 3)
+    float32 output-index to canvas matrix (inv(M) with the flips folded in as
+    index reflections) and `aug_hsv` (3,) float32 gains. Draws, in order:
+    mosaic or not (only while mosaic is on), the 3 partner indices and the
+    centre, the warp, the HSV gains, the flips.
+
+    Host mode (JAX's __call__): `img` (S, S, 3) uint8 RGB, augmented here.
+    Draws, in order: mosaic or not, its partners and centre (else the
+    letterbox); the warp of the canvas (data/warp.py); while mosaic is on,
+    mixup or not, then the partner's index, its mosaic and warp, and the
+    blend's beta; the HSV gains; the flips. JAX's Albumentations hook draws
+    nothing when the albumentations package is absent, and neither machine
+    has it, so the port has none; copy_paste needs segments (inert for detect).
+
+    close_mosaic() turns mosaic off for later samples."""
 
     def __init__(self, dataset, imgsz: int, hyp, max_gt: int = 128):
-        resolve_device_augment(hyp)
         self.dataset = dataset
         self.imgsz = imgsz
         self.hyp = hyp
         self.max_gt = max_gt
         self.mosaic_enabled = True
+        self.device_mode = resolve_device_augment(hyp)
 
     def close_mosaic(self) -> None:
         self.mosaic_enabled = False
 
+    def _mosaic(self, idx: int, rng: np.random.Generator, compose_image: bool) -> Dict:
+        idxs = [idx] + list(rng.integers(0, len(self.dataset), 3))
+        return mosaic4([self.dataset.load_sample(int(i), square_to=self.imgsz) for i in idxs], self.imgsz, rng,
+                       compose_image)
+
+    def _warp(self, sample: Dict, border, rng: np.random.Generator, warp_image: bool) -> Dict:
+        h = self.hyp
+        return random_perspective(sample, h.degrees, h.translate, h.scale, h.shear, h.perspective, border, rng,
+                                  warp_image)
+
     def __call__(self, idx: int, rng: np.random.Generator) -> Dict[str, np.ndarray]:
-        h, s = self.hyp, self.imgsz
-        if self.mosaic_enabled and rng.random() < h.mosaic:
-            idxs = [idx] + list(rng.integers(0, len(self.dataset), 3))
-            sample = mosaic4([self.dataset.load_sample(int(i), square_to=s) for i in idxs], s, rng)
+        h, s, host = self.hyp, self.imgsz, not self.device_mode
+        use_mosaic = self.mosaic_enabled and rng.random() < h.mosaic
+        if use_mosaic:
+            sample = self._mosaic(idx, rng, compose_image=host)
             border = sample.pop("mosaic_border")
         else:
             raw = self.dataset.load_sample(idx, square_to=s)
             img, dw, dh = letterbox_train(raw["img"], s)
-            src = np.zeros((4, s, s, 3), np.uint8)
-            src[0] = img
-            regions = np.zeros((4, 4), np.int32)
-            regions[0] = (0, 0, s, s)
-            sample = dict(pad_labels(raw, dw, dh), img_shape=(s, s),
-                          tiles={"src": src, "regions": regions, "pads": np.zeros((4, 2), np.int32)})
+            sample = dict(pad_labels(raw, dw, dh), img_shape=(s, s))
+            if host:
+                sample["img"] = img
+            else:
+                src = np.zeros((4, s, s, 3), np.uint8)
+                src[0] = img
+                regions = np.zeros((4, 4), np.int32)
+                regions[0] = (0, 0, s, s)
+                del sample["img"]
+                sample["tiles"] = {"src": src, "regions": regions, "pads": np.zeros((4, 2), np.int32)}
             border = (0, 0)
-        sample = random_perspective(sample, h.degrees, h.translate, h.scale, h.shear, h.perspective, border, rng)
+        sample = self._warp(sample, border, rng, warp_image=host)
+        if host:
+            if use_mosaic and h.mixup and rng.random() < h.mixup:
+                other = self._mosaic(int(rng.integers(0, len(self.dataset))), rng, compose_image=True)
+                other = self._warp(other, other.pop("mosaic_border"), rng, warp_image=True)
+                sample = dict(mixup(sample, other, rng), img_shape=sample["img_shape"])
+            sample["img"] = augment_hsv(sample["img"], h.hsv_h, h.hsv_s, h.hsv_v, rng)
+            return format_sample(random_flip(sample, h.fliplr, h.flipud, rng, flip_image=True), s, self.max_gt)
         hsv = draw_hsv_gains(h.hsv_h, h.hsv_s, h.hsv_v, rng)
         sample = random_flip(sample, h.fliplr, h.flipud, rng)
         out = format_sample(sample, s, self.max_gt)

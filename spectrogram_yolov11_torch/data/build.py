@@ -12,7 +12,8 @@ is a list of the frames at their own sizes (BGR uint8 HWC), letterboxed on
 the card by the validator.
 
 Training (shuffle=True, drop_last=True, as the JAX trainer builds it): the
-epoch's order is default_rng(seed + epoch).permutation(n) (set_epoch picks
+batch holds the train transform's fields stacked, `img` (B, S, S, 3) uint8
+RGB too when the host augments the images; the epoch's order is default_rng(seed + epoch).permutation(n) (set_epoch picks
 the epoch), the tail that does not fill a batch is dropped, and the sample at
 position p of the epoch draws from its own stream,
 default_rng((seed * 1_000_003 + epoch) * 100_003 + p), so a batch does not
@@ -30,12 +31,13 @@ import numpy as np
 import torch
 
 
-def collate(samples: list, pin_memory: bool = False) -> Dict:
-    """Stack the samples' fields into one batch; `img` stays a list. With
-    pin_memory the stacked fields are torch tensors in pinned memory."""
+def collate(samples: list, pin_memory: bool = False, stack_img: bool = False) -> Dict:
+    """Stack the samples' fields into one batch; `img` stays a list unless
+    stack_img (the train batch's equal-sized images). With pin_memory the
+    stacked fields are torch tensors in pinned memory."""
     out: Dict = {}
     for k in samples[0]:
-        if k == "img":
+        if k == "img" and not stack_img:
             out[k] = [s[k] for s in samples]
         elif pin_memory:
             first = torch.from_numpy(np.ascontiguousarray(samples[0][k]))
@@ -98,7 +100,8 @@ class DataLoader:
                         pending.append(pool.submit(self._item, int(idxs[p]), p))
                     n_valid = min(bs, n - bi * bs)
                     samples = [pending.popleft().result() for _ in range(n_valid)]
-                    batch = collate(samples + samples[-1:] * (bs - n_valid), self.pin_memory)  # a val tail padded
+                    batch = collate(samples + samples[-1:] * (bs - n_valid), self.pin_memory,  # a val tail padded
+                                    stack_img=getattr(self.dataset, "augment", False))
                     batch["n_valid"] = np.int32(n_valid)
                     yield batch
             finally:

@@ -6,8 +6,12 @@ YOLODataset (:126: _find_images with `fraction`, the detect label rows,
 single_cls, the automatic max_gt :157-165, load_image with cache="ram",
 load_sample :344 with its long-side resize, get_item, close_mosaic :381-389).
 Images are read by data/imageio.py (JPEG and PNG, as cv2.imread reads them;
-other formats raise NotImplementedError when an image is read), and
-cache="disk" (.npy sidecars) raises. The label txts are parsed once and kept
+other formats raise NotImplementedError when an image is read), kept in
+memory with cache="ram" or in `.npy` sidecars with cache="disk" (JAX
+:324-341: np.save of the decoded BGR image beside its file, read before
+decoding; a sidecar that does not load is rewritten, and a directory that
+cannot be written to warns and runs uncached; the two packages read each
+other's sidecars). The label txts are parsed once and kept
 in JAX's JSON label cache (_cache_path :197, _hash :201, _load_labels :246,
 _label_to_json / _label_from_json): `<images dir>.labels.detect.json` beside
 the images directory, keyed by the sha256 of the image and label paths and
@@ -16,9 +20,11 @@ share one cache on a split and each reads what the other wrote.
 
 augment=False is the val dataset: get_item(i) is the letterbox geometry and
 labels of image i, the image left at its own size for the letterbox on the
-card (data/augment.py: ValTransform). augment=True is the train dataset in
-device-augment mode: get_item(i, rng) is a sample's labels and the
-parameters its image is assembled from on the card (TrainTransform).
+card (data/augment.py: ValTransform). augment=True is the train dataset:
+get_item(i, rng) is a sample's labels and either the parameters its image is
+assembled from on the card or its image augmented on the host
+(TrainTransform, in the mode data/augment.py:resolve_device_augment picks
+from the train args).
 
 Dataset YAMLs given by name resolve among the port's own copies under
 cfg/datasets/. The synthetic ones point at datasets/torch/..., so the two
@@ -37,7 +43,7 @@ import numpy as np
 
 import torch
 
-from ..utils import LOGGER, not_ported, yaml_load
+from ..utils import LOGGER, yaml_load
 from .augment import TrainTransform, ValTransform, resize_linear_u8
 from .imageio import imread
 
@@ -125,9 +131,8 @@ class YOLODataset:
             most = max((len(lab["cls"]) for lab in self.labels), default=0) * (4 if augment else 1)
             max_gt = int(min(128, max(32, -(-int(most * 1.1) // 8) * 8)))
         self.max_gt = max_gt
-        if cache == "disk":
-            raise not_ported("cache='disk' (decoded .npy sidecars)", "item 7 (training data)")
         self.cache_ram = cache in (True, "ram")
+        self.cache_disk = cache == "disk"
         self._im_cache: Dict[int, np.ndarray] = {}
         self.transform = TrainTransform(self, imgsz, hyp, max_gt=max_gt) if augment else ValTransform(imgsz, max_gt)
 
@@ -231,12 +236,25 @@ class YOLODataset:
         return len(self.im_files)
 
     def load_image(self, i: int) -> np.ndarray:
-        """Image i as BGR uint8 (H, W, 3), kept after its first read with cache="ram"."""
+        """Image i as BGR uint8 (H, W, 3), kept after its first read with
+        cache="ram", or in its .npy sidecar with cache="disk"."""
         if self.cache_ram and i in self._im_cache:
             return self._im_cache[i]
+        npy = Path(self.im_files[i]).with_suffix(".npy")
+        if self.cache_disk and npy.exists():
+            try:
+                return np.load(npy)
+            except (OSError, ValueError, EOFError):  # a truncated sidecar: decode and rewrite it
+                pass
         img = imread(self.im_files[i])
         if self.cache_ram:
             self._im_cache[i] = img
+        elif self.cache_disk:
+            try:
+                np.save(npy, img)
+            except OSError as e:  # a read-only dataset directory: run uncached
+                LOGGER.warning(f"disk cache write failed ({e}); continuing uncached")
+                self.cache_disk = False
         return img
 
     def load_sample(self, i: int, square_to: Optional[int] = None) -> Dict:

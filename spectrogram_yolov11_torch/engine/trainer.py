@@ -6,8 +6,8 @@ _make_train_step (:251-336), train (:339-522), validate (:524-537),
 _save_ckpt (:539-565), _resume (:567-593) and _write_csv (:611). One step:
 
   the batch's upload -> its images: the train loader's tiles and parameters
-  assembled on the card (ops/device_augment.py), or a caller's uint8 `img`
-  -> images / 255 -> forward in training mode (BN on batch statistics, its
+  assembled on the card (ops/device_augment.py), or its uint8 `img` (the
+  host-augmented loader's, or a caller's) -> images / 255 -> forward in training mode (BN on batch statistics, its
   running statistics moved as flax moves them) -> TAL + CIoU/DFL/BCE loss ->
   grads added to the grad buffer -> on a step the trainer asks for
   (do_step, decided on the host by `step_due`): clip the buffer to global
@@ -62,8 +62,16 @@ torch.profiler trace (CPU, and CUDA on the card) of the epochs and writes it
 as a Chrome trace under <save_dir>/profile, where JAX writes its
 jax.profiler trace (:410-415, :503-504). batch=-1 picks the batch by
 AutoBatch (utils/autobatch.py; JAX :345-348), kept with its probes as
-`autobatch`. Host image augmentation raises with its ROADMAP.md item (item
-7b, data/augment.py).
+`autobatch`. The train loader augments in the mode
+data/augment.py:resolve_device_augment picks (JAX :218-230); in host mode its
+batches carry `img`. multi_scale (host mode; under device mode it warns and
+is ignored, as in JAX :418-420) draws one size per step from the ladder
+{max(32, round(S * f / 32) * 32)} for f in 0.5, 0.75, 1, 1.25, 1.5 with
+default_rng(seed + 1234) (JAX :421-424, :447-450) and resizes the step's
+images to it as cv2's INTER_LINEAR does (data/augment.py:resize_linear_u8,
+integer tensor ops that give the same bytes on the card as on the host, so
+they run after the upload); `ms_sizes_drawn` keeps the draws. A new size
+costs cuDNN a new set of plans, not a recompile.
 """
 
 from __future__ import annotations
@@ -79,6 +87,7 @@ import numpy as np
 import torch
 
 from ..cfg import DEFAULT_CFG_DICT, get_cfg, get_save_dir
+from ..data.augment import resize_linear_u8
 from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel, build_model, intersect_state_dicts
@@ -163,6 +172,7 @@ class DetectionTrainer:
         self.split_events: Optional[list] = None  # a list: train_step records its split there (see _mark)
         self.rebuilt: Optional[dict] = None  # {"nc": (model's, data's), "grafted": leaves} after an nc rebuild
         self.autobatch: Optional[dict] = None  # {"batch", "probes" {batch: peak bytes or None}, "seconds"}
+        self.ms_sizes_drawn: list = []  # multi_scale: the image size drawn for each step
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -356,7 +366,7 @@ class DetectionTrainer:
 
     # -- the loop ------------------------------------------------------------
     def build_dataset(self) -> YOLODataset:
-        """The train split in device-augment mode, the GT pad sized from its labels."""
+        """The train split (its augment mode from the args), the GT pad sized from its labels."""
         a = self.args
         return YOLODataset(self.data["train"], imgsz=self.imgsz, max_gt=0, single_cls=a.single_cls, augment=True,
                            hyp=a, fraction=a.fraction, cache=a.cache)
@@ -444,6 +454,13 @@ class DetectionTrainer:
         """The epoch loop of train(): steps, the EMA's val, results.csv, checkpoints, early stopping."""
         a = self.args
         run_callbacks(self.callbacks, "on_train_start", self)
+        ms_sizes, ms_rng = None, None
+        if a.multi_scale and train_ds.transform.device_mode:
+            LOGGER.warning("multi_scale is not supported with device_augment; ignoring multi_scale")
+        elif a.multi_scale:
+            ms_sizes = sorted({max(32, int(round(self.imgsz * f / 32)) * 32) for f in (0.5, 0.75, 1.0, 1.25, 1.5)})
+            ms_rng = np.random.default_rng(a.seed + 1234)
+            LOGGER.info(f"Multi-scale training over {ms_sizes}")
         t_start = time.time()
         for epoch in range(self.start_epoch, self.epochs):
             self.epoch = epoch
@@ -458,6 +475,13 @@ class DetectionTrainer:
                 ni = i + nb * epoch
                 if a.plots and ni < 3:
                     self._plot_train_batch(batch, ni)
+                if ms_sizes is not None:
+                    sz = int(ms_rng.choice(ms_sizes))
+                    self.ms_sizes_drawn.append(sz)
+                    if sz != batch["img"].shape[1]:
+                        img = batch["img"]
+                        img = (img if torch.is_tensor(img) else torch.from_numpy(img)).to(self.device, non_blocking=True)
+                        batch = {**batch, "img": resize_linear_u8(img, sz, sz)}
                 items.append(self.train_step(batch, ni, self.step_due(ni))[1])
                 run_callbacks(self.callbacks, "on_train_batch_end", self)
                 t0 = time.perf_counter()

@@ -169,6 +169,21 @@ def _yaml_value(text: str, where: str) -> Any:
     return value
 
 
+def _flow_depth(text: str) -> int:
+    """How many flow lists are open at the end of text (brackets inside quoted items do not count)."""
+    depth, quote, start = 0, None, True  # start: at the beginning of an item, where a quote may open
+    for c in text:
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "'\"" and start:
+            quote = c
+        elif c in "[]":
+            depth += 1 if c == "[" else -1
+        if not c.isspace():
+            start = c in "[,"
+    return depth
+
+
 def _strip_comment(line: str) -> str:
     """The line without a trailing comment (a # at its start or after a space, outside quotes)."""
     quote = None
@@ -186,8 +201,9 @@ def yaml_load(file: str | Path, append_filename: bool = False) -> Dict[str, Any]
     """Read a dataset or model YAML: the subset those configs use, as
     yaml.safe_load reads it (the port reads no YAML library). It takes
     comments, top-level `key: value` with a scalar (str, int, float, bool,
-    null) or a one-line flow list `[a, [b, c]]` (nested, as a model's layer
-    rows), and a key with an empty value followed by a block: indented
+    null) or a flow list `[a, [b, c]]` (nested, as a model's layer rows; one
+    that runs on over indented lines, as lvis.yaml's `names`, has its line
+    breaks folded to spaces), and a key with an empty value followed by a block: indented
     `key: value` lines (`names:` with `0: LTE` under it, `scales:` with
     `n: [0.50, 0.25, 1024]`) or `- value` lines (`backbone:` and `head:`).
     Anything else raises a ValueError naming the line."""
@@ -195,9 +211,18 @@ def yaml_load(file: str | Path, append_filename: bool = False) -> Dict[str, Any]
     data: Dict[str, Any] = {}
     block: Dict[Any, Any] | List[Any] | None = None
     block_key, block_indent = "", 0
+    flow: List[str] = []  # a top-level flow list still open: [key, its text so far, where it began]
     for n, raw in enumerate(path.read_text(encoding="utf-8").splitlines(), 1):
         where = f"{path}:{n}"
         line = _strip_comment(raw)
+        if flow:
+            if not line.startswith(" "):
+                raise ValueError(f"unterminated YAML flow list from {flow[2]}")
+            flow[1] += " " + line.strip()
+            if _flow_depth(flow[1]) == 0:
+                data[flow[0]] = _yaml_value(flow[1], flow[2])
+                flow = []
+            continue
         if not line.strip() or line.strip() == "---":
             continue
         if line[0] == "\t":
@@ -227,9 +252,13 @@ def yaml_load(file: str | Path, append_filename: bool = False) -> Dict[str, Any]
         if value is None:  # a block of `key: value` or `- value` lines follows, or the value is null
             block, block_key, block_indent = {}, key, 0
             data[key] = block
+        elif value.startswith("[") and _flow_depth(value) > 0:
+            block, flow = None, [key, value, where]
         else:
             block = None
             data[key] = _yaml_value(value, where)
+    if flow:
+        raise ValueError(f"unterminated YAML flow list from {flow[2]}")
     data = {k: (None if v == {} else v) for k, v in data.items()}
     if append_filename:
         data["yaml_file"] = str(file)

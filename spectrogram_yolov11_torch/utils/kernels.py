@@ -8,10 +8,10 @@ Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
          -Xcompiler -fPIC -Xptxas -v [per-kernel flags] -o build/lib<name>.so csrc/<name>.cu
 
 The host libraries (HOST_LIBS: the JPEG decoder's body and the PNG row
-filters; the JPEG encoder's body; csrc/*.cpp) compile the same way with `c++`
-(or `g++`) from PATH:
+filters; the JPEG encoder's body; the augmentation's warps and HSV
+conversions; csrc/*.cpp) compile the same way with `c++` (or `g++`) from PATH:
 
-    c++ -O3 -std=c++17 -shared -fPIC -o build/lib<name>.so csrc/<source>.cpp ...
+    c++ -O3 -std=c++17 -shared -fPIC [per-library flags] -o build/lib<name>.so csrc/<source>.cpp ...
 
 A missing compiler raises RuntimeError; nothing falls back to another reader.
 A library newer than its sources is reused. Nothing here runs at import: the
@@ -44,11 +44,16 @@ KERNELS: Dict[str, Tuple[List[str], Dict[str, str]]] = {
     "fused_bottleneck": ([], {"fused_bottleneck_f32": "ppppppiiiip", "fused_bottleneck_bf16": "ppppppiiiip"}),
 }
 
-# host libraries: name -> (sources in csrc/, {C function: argument kinds}); "l" is a 64-bit int
-HOST_LIBS: Dict[str, Tuple[List[str], Dict[str, str]]] = {
+# host libraries: name -> (sources in csrc/, {C function: argument kinds}, extra compiler flags);
+# "l" is a 64-bit int
+HOST_LIBS: Dict[str, Tuple[List[str], Dict[str, str], List[str]]] = {
     "image_decode": (["jpeg_decode.cpp", "png_unfilter.cpp"],
-                     {"jpeg_scan": "pllppiiiipp", "jpeg_render": "pppiiiip", "png_unfilter_row": "ipppli"}),
-    "image_encode": (["jpeg_encode.cpp"], {"jpeg_encode": "piiippplp"}),
+                     {"jpeg_scan": "pllppiiiipp", "jpeg_render": "pppiiiip", "png_unfilter_row": "ipppli"}, []),
+    "image_encode": (["jpeg_encode.cpp"], {"jpeg_encode": "piiippplp"}, []),
+    # no contraction: every multiply-add that OpenCV fuses is an explicit fmaf in the source
+    "image_warp": (["warp.cpp"], {"warp_affine_u8": "piipiipi", "warp_perspective_u8": "piipiipi",
+                                  "bgr_to_hsv_u8": "ppl", "hsv_to_bgr_u8": "ppii", "augment_hsv_u8": "piip"},
+                   ["-ffp-contract=off", "-fno-math-errno"]),
 }
 
 _LOCK = threading.Lock()
@@ -72,9 +77,9 @@ def host_compiler() -> str:
         found = shutil.which(cxx)
         if found:
             return found
-    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the port's image decoder and encoder "
-                       "(csrc/jpeg_decode.cpp, csrc/png_unfilter.cpp, csrc/jpeg_encode.cpp) are built with one at "
-                       "first use")
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the port's image decoder, encoder and "
+                       "augmentation (csrc/jpeg_decode.cpp, csrc/png_unfilter.cpp, csrc/jpeg_encode.cpp, "
+                       "csrc/warp.cpp) are built with one at first use")
 
 
 def _sources(name: str) -> List[Path]:
@@ -83,7 +88,7 @@ def _sources(name: str) -> List[Path]:
 
 def _command(name: str, out: Path) -> List[str]:
     if name in HOST_LIBS:
-        return [host_compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", "-o", str(out),
+        return [host_compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", *HOST_LIBS[name][2], "-o", str(out),
                 *map(str, _sources(name))]
     flags, _ = KERNELS[name]
     return [

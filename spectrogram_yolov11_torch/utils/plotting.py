@@ -14,7 +14,10 @@ width (thickness + 1) // 2 on each side of the centre line, and every corner
 gets a filled midpoint circle of that radius (cv2's round joints), so the
 outer corners are rounded. Segments of length 0 draw their circle only, so a
 box with p1 == p2 is a disc, and everything is clipped to the image; a
-negative thickness fills the box.
+negative thickness fills the box. `ellipse_filled` and `fill_poly` are
+cv2.ellipse(..., 0, 0, 360, color, -1) and cv2.fillPoly at LINE_8 as
+OpenCV rasterises them in fixed point (each function's docstring says how),
+for the synthetic shapes of data/synth.py (JAX's data/synth.py:80-105).
 
 `put_text(img, text, org, font_scale, color, thickness)` draws the printable
 ASCII characters 32-126 (any other as "?", as cv2 does) in the port's own
@@ -167,6 +170,278 @@ def rectangle(img: np.ndarray, p1: Sequence[int], p2: Sequence[int], color, thic
         _circle(img, bx, by, half, col)
     return img
 
+
+
+# -- filled ellipses and polygons, as OpenCV's drawing.cpp rasterises them ----
+XY_SHIFT = 16  # OpenCV's fixed-point fraction bits of drawn coordinates
+XY_ONE = 1 << XY_SHIFT
+# OpenCV's SinTable: sin of each whole degree 0..450, printed to 7 decimals, as float
+_SIN_TABLE = [float(np.float32(float(f"{math.sin(math.radians(i)):.7f}"))) for i in range(451)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division, truncating toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _cv_round(x: float) -> int:
+    """cvRound: nearest integer, halves to even."""
+    return int(np.rint(x))
+
+
+def _put(img: np.ndarray, x: int, y: int, col: np.ndarray) -> None:
+    if 0 <= x < img.shape[1] and 0 <= y < img.shape[0]:
+        img[y, x] = col
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """OpenCV's clipLine of a segment to a w x h box: (inside, x1, y1, x2, y2)."""
+    right, bottom = w - 1, h - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1, c1 = a, (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2, c2 = a, (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _line8(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, col: np.ndarray) -> None:
+    """OpenCV's Line at connectivity 8 (its LineIterator, left to right)."""
+    h, w = img.shape[:2]
+    if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
+        inside, x1, y1, x2, y2 = _clip_line(w, h, x1, y1, x2, y2)
+        if not inside:
+            return
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy, sy = x2 - x1, abs(y2 - y1), 1 if y2 >= y1 else -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err, plus, minus = dx - 2 * dy, 2 * dx, -2 * dy
+    x, y = x1, y1
+    for _ in range(dx + 1):
+        img[y, x] = col
+        step = err < 0
+        err += minus + (plus if step else 0)
+        if vert:
+            y += sy
+            x += step
+        else:
+            x += 1
+            y += sy if step else 0
+
+
+def _line2(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, col: np.ndarray) -> None:
+    """OpenCV's Line2: a segment between XY_SHIFT fixed-point ends."""
+    h, w = img.shape[:2]
+    inside, x1, y1, x2, y2 = _clip_line(w << XY_SHIFT, h << XY_SHIFT, x1, y1, x2, y2)
+    if not inside:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    half = XY_ONE >> 1
+    if abs(dx) > abs(dy):
+        if dx < 0:
+            x1, x2, y1, y2, dy = x2, x1, y2, y1, -dy
+        step, count = _cdiv(dy << XY_SHIFT, abs(dx) | 1), (x2 - x1) >> XY_SHIFT
+        _put(img, (x2 + half) >> XY_SHIFT, (y2 + half) >> XY_SHIFT, col)
+        x, y = (x1 + half) >> XY_SHIFT, y1 + half
+        for _ in range(count + 1):
+            _put(img, x, y >> XY_SHIFT, col)
+            x, y = x + 1, y + step
+    else:
+        if dy < 0:
+            x1, x2, y1, y2, dx = x2, x1, y2, y1, -dx
+        step, count = _cdiv(dx << XY_SHIFT, abs(dy) | 1), (y2 - y1) >> XY_SHIFT
+        _put(img, (x2 + half) >> XY_SHIFT, (y2 + half) >> XY_SHIFT, col)
+        x, y = x1 + half, (y1 + half) >> XY_SHIFT
+        for _ in range(count + 1):
+            _put(img, x >> XY_SHIFT, y, col)
+            x, y = x + step, y + 1
+
+
+def _fill_convex_poly(img: np.ndarray, v, col: np.ndarray) -> None:
+    """OpenCV's FillConvexPoly at LINE_8 of XY_SHIFT fixed-point vertices:
+    the outline by _line2, then the rows between the two chains that walk
+    down from the top vertex, each pixel whose centre the span covers."""
+    h, w = img.shape[:2]
+    n, half = len(v), XY_ONE >> 1
+    p0 = v[-1]
+    for p in v:
+        _line2(img, p0[0], p0[1], p[0], p[1], col)
+        p0 = p
+    ys = [p[1] for p in v]
+    imin = ys.index(min(ys))
+    xmin, xmax = (min(p[0] for p in v) + half) >> XY_SHIFT, (max(p[0] for p in v) + half) >> XY_SHIFT
+    ymin, ymax = (min(ys) + half) >> XY_SHIFT, (max(ys) + half) >> XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    idx, di, ye, ex, edx = [imin, imin], [1, n - 1], [ymin, ymin], [-XY_ONE, -XY_ONE], [0, 0]
+    edges, y = n, ymin
+    while True:
+        for k in (0, 1):
+            if y < ye[k]:
+                continue
+            i0, i = idx[k], (idx[k] + di[k]) % n
+            while True:  # the next vertex of this chain below row y
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = (v[i][1] + half) >> XY_SHIFT
+                if ty > y:
+                    ye[k], ex[k], idx[k] = ty, v[i0][0], i
+                    edx[k] = _cdiv((v[i][0] - v[i0][0]) * 2 + (ty - y), 2 * (ty - y))
+                    break
+                i0, i = i, (i + di[k]) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            x1, x2 = sorted(ex)
+            x1, x2 = (x1 + half) >> XY_SHIFT, (x2 + half) >> XY_SHIFT
+            if x2 >= 0 and x1 < w:
+                img[y, max(x1, 0) : min(x2, w - 1) + 1] = col
+        ex[0] += edx[0]
+        ex[1] += edx[1]
+        y += 1
+        if y > ymax:
+            break
+
+
+def ellipse_filled(img: np.ndarray, center: Sequence[int], axes: Sequence[int], color) -> np.ndarray:
+    """cv2.ellipse(img, center, axes, 0, 0, 360, color, -1) at LINE_8, in
+    place on a uint8 (H, W, C) image; returns img. As OpenCV draws it: the
+    polygon of ellipse2Poly (a vertex every 90, 30, 18 or 5 degrees as the
+    longer semi-axis is under 3, 10, 15 px or more; sines from OpenCV's 7-digit
+    table) at XY_SHIFT fixed point, filled by FillConvexPoly."""
+    col = _color(img, color)
+    cx, cy = int(center[0]) << XY_SHIFT, int(center[1]) << XY_SHIFT
+    aw, ah = abs(int(axes[0])) << XY_SHIFT, abs(int(axes[1])) << XY_SHIFT
+    step = (max(aw, ah) + (XY_ONE >> 1)) >> XY_SHIFT
+    step = 90 if step < 3 else 30 if step < 10 else 18 if step < 15 else 5
+    v, prev = [], None
+    for deg in range(0, 360 + step, step):
+        deg = min(deg, 360)
+        px, py = cx + aw * _SIN_TABLE[450 - deg], cy + ah * _SIN_TABLE[deg]  # rotation 0: cos 1, sin 0
+        qx, qy = _cv_round(px / XY_ONE) << XY_SHIFT, _cv_round(py / XY_ONE) << XY_SHIFT
+        pt = (qx + _cv_round(px - qx), qy + _cv_round(py - qy))
+        if pt != prev:
+            v.append(pt)
+            prev = pt
+    if len(v) == 1:
+        v = [(cx, cy), (cx, cy)]
+    _fill_convex_poly(img, v, col)
+    return img
+
+
+class _Edge:
+    __slots__ = ("y0", "y1", "x", "dx", "next")
+
+    def __init__(self, y0: int, y1: int, x: int, dx: int):
+        self.y0, self.y1, self.x, self.dx, self.next = y0, y1, x, dx, None
+
+
+def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
+    """cv2.fillPoly(img, [pts], color) at LINE_8, shift 0, in place on a uint8
+    (H, W, C) image; returns img. As OpenCV draws it: each edge's LINE_8
+    outline, then the scanline fill of its edge table (edges entered at
+    half-pixel x, slopes in 16.16 fixed point rounded down, each span from
+    the pixel its left edge reaches to the last one before its right edge),
+    which fills self-intersecting polygons by the even-odd rule. Equal to
+    cv2 for vertices inside the image (tests/test_torch_host_augment.py);
+    edges that leave it are clipped as OpenCV clips them, but not held to it."""
+    h, w = img.shape[:2]
+    col = _color(img, color)
+    pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
+    half, edges = XY_ONE >> 1, []
+    p0x, p0y = pts[-1][0] << XY_SHIFT, pts[-1][1]
+    for x, y in pts:
+        p1x, p1y = x << XY_SHIFT, y
+        t0x, t1x = (p0x + half) >> XY_SHIFT, (p1x + half) >> XY_SHIFT
+        _line8(img, t0x, p0y, t1x, p1y, col)
+        if 0 <= t0x < w and 0 <= t1x < w and 0 <= p0y < h and 0 <= p1y < h:
+            c0x, c0y, c1x, c1y = p0x + half, p0y, p1x + half, p1y
+        else:  # the edge from its clipped ends, where clipping leaves it a height
+            _, a, b, c, d = _clip_line(w, h, t0x, p0y, t1x, p1y)
+            c0x, c0y, c1x, c1y = ((a << XY_SHIFT) + half, b, (c << XY_SHIFT) + half, d) if b != d else (
+                p0x, p0y, p1x, p1y)
+        if p0y != p1y:
+            dx = (c1x - c0x) // (c1y - c0y)
+            edges.append(_Edge(p0y, p1y, c0x + (p0y - c0y) * dx, dx) if p0y < p1y else
+                         _Edge(p1y, p0y, c1x + (p1y - c1y) * dx, dx))
+        p0x, p0y = p1x, p1y
+    _fill_edges(img, edges, col)
+    return img
+
+
+def _fill_edges(img: np.ndarray, edges, col: np.ndarray) -> None:
+    """OpenCV's FillEdgeCollection at LINE_8: the active edge list walked per
+    row, spans drawn between alternate edges, then bubble-sorted by x."""
+    h, w = img.shape[:2]
+    total = len(edges)
+    if total < 2:
+        return
+    ends = [e.x + (e.y1 - e.y0) * e.dx for e in edges]
+    if (max(e.y1 for e in edges) < 0 or min(e.y0 for e in edges) >= h or max(*ends, *(e.x for e in edges)) < 0
+            or min(*ends, *(e.x for e in edges)) >= (w << XY_SHIFT)):
+        return
+    y_max = min(max(e.y1 for e in edges), h)
+    edges = sorted(edges, key=lambda e: (e.y0, e.x, e.dx)) + [_Edge(2**31 - 1, 0, 0, 0)]
+    head, i = _Edge(0, 0, 0, 0), 0
+    e = edges[0]
+    for y in range(e.y0, y_max):
+        draw, prelast, last = False, head, head.next
+        while last is not None or e.y0 == y:
+            if last is not None and last.y1 == y:  # this edge ends: drop it
+                prelast.next = last = last.next
+                continue
+            keep = prelast
+            if last is not None and (e.y0 > y or last.x < e.x):
+                prelast, last = last, last.next
+            elif i < total:  # an edge starts: insert it
+                prelast.next, e.next, prelast = e, last, e
+                i += 1
+                e = edges[i]
+            else:
+                break
+            if draw:
+                if y >= 0:
+                    lo, hi = sorted((keep.x, prelast.x))
+                    x1, x2 = lo >> XY_SHIFT, (hi - 1) >> XY_SHIFT
+                    if x1 < w and x2 >= 0:
+                        img[y, max(x1, 0) : min(x2, w - 1) + 1] = col
+                keep.x += keep.dx
+                prelast.x += prelast.dx
+            draw = not draw
+        stop = None
+        while True:  # bubble sort of the active list by x
+            prelast, last, swapped = head, head.next, None
+            while last is not stop and last.next is not None:
+                te = last.next
+                if last.x > te.x:
+                    prelast.next, last.next, te.next = te, te.next, last
+                    prelast = swapped = te
+                else:
+                    prelast, last = last, te
+            if swapped is None or swapped is head.next:
+                break
+            stop = swapped
 
 def _ink(text: str, font_scale: float) -> np.ndarray:
     """(n, 4) segments of the text in px from the origin, y down."""

@@ -101,8 +101,8 @@ def test_check_det_dataset_equals_jax(tmp_path):
     assert yaml_load(PORT_YAMLS / "spectrogram_synth.yaml")["path"] == "../../../datasets/torch/spectrogram_synth"
     with pytest.raises(FileNotFoundError):
         check_det_dataset({"path": str(tmp_path), "val": "missing", "names": ["a"]})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_det_dataset({"path": str(tmp_path), "val": "images/val", "names": ["a"], "synthetic": "shapes"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):  # the detect `shapes` kind is generated
+        check_det_dataset({"path": str(tmp_path), "val": "images/val", "names": ["a"], "synthetic": "shapes-seg"})
 
 
 # (source (h, w, c), destination (h, w)): exact 2x (cv2's area average), r = 0.64 with a half-pixel pad, r = 0.5

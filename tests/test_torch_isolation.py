@@ -6,7 +6,9 @@ imports jax, flax, msgpack, yaml, cv2, PIL, matplotlib or the JAX package
 drawing and the charts in utils/plotting.py and engine/results.py, the COCO
 eval in ops/cocoeval.py, AutoBatch in utils/autobatch.py, the model YAML
 reader in nn/tasks.py, the fork's modules in nn/modules/fork.py, conv.py and
-block.py, the weight bridge in utils/jax_compat.py, and the command line,
+block.py, the weight bridge in utils/jax_compat.py, the host augmentation's
+warps and HSV in data/warp.py and data/augment.py, the synthetic shapes in
+data/synth.py, and the command line,
 cfg/__init__.py and __main__.py, among them); with no card, the entry points (the pipeline,
 predict, val, the trainer and YOLO.train, a model built from YAML and
 trained, YOLO.embed and YOLO.profile, the command line, the server and
@@ -51,7 +53,7 @@ def _port_files():
     assert len(files) > 15 and all(f.exists() for f in files)
     assert {"jpeg.py", "imageio.py", "loaders.py", "serve.py", "autobackend.py", "exporter.py", "tasks.py",
             "__main__.py", "plotting.py", "results.py", "predictor.py", "cocoeval.py", "autobatch.py",
-            "fork.py", "conv.py", "block.py", "jax_compat.py"} <= {
+            "fork.py", "conv.py", "block.py", "jax_compat.py", "warp.py", "synth.py", "augment.py"} <= {
                 f.name for f in files}
     return files
 

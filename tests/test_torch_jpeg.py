@@ -377,14 +377,14 @@ def test_what_is_not_ported_raises():
 
 
 def test_host_library_registry_and_a_missing_compiler(monkeypatch):
-    """The host libraries (the decoder's and the encoder's) sit in a registry
-    of their own beside the two CUDA kernels, and without c++ or g++ on PATH
+    """The host libraries (the decoder's, the encoder's and the augmentation's
+    warps) sit in a registry of their own beside the two CUDA kernels, and without c++ or g++ on PATH
     a build raises, naming them, before any compiler starts; nothing falls
     back."""
     from spectrogram_yolov11_torch.utils import kernels
 
     assert set(kernels.KERNELS) == {"greedy_nms", "fused_bottleneck"}
-    assert set(kernels.HOST_LIBS) == {"image_decode", "image_encode"}
+    assert set(kernels.HOST_LIBS) == {"image_decode", "image_encode", "image_warp"}
     monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
     for name in kernels.HOST_LIBS:
         with pytest.raises(RuntimeError, match=r"c\+\+ or g\+\+"):

@@ -16,9 +16,14 @@ resize_linear_u8 in the port), and the 4-image mosaic mixes the sizes.
 - The automatic GT pad (max_gt=0) equals JAX's, with and without augment.
 - The train DataLoader (shuffle, drop_last, per-sample streams) at B = 3 over
   two epochs: the order and every batch equal to JAX's DataLoader.
-- The settings under which JAX augments images on the host raise
-  NotImplementedError naming ROADMAP.md item 7b.
+- The settings under which JAX augments images on the host (device_augment
+  False; 'auto' with degrees; multi_scale; mixup) pick JAX's mode, host
+  augmentation, with JAX's warning where it falls back (mixup). The host
+  mode's samples are held to JAX's in tests/test_torch_host_augment.py.
 """
+
+import logging
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -30,6 +35,7 @@ from spectrogram_yolov11_torch.data.imageio import imwrite
 from spectrogram_yolov11_tpu.cfg import get_cfg as jax_get_cfg
 from spectrogram_yolov11_tpu.data.build import DataLoader as JaxDataLoader
 from spectrogram_yolov11_tpu.data.dataset import YOLODataset as JaxYOLODataset
+from spectrogram_yolov11_tpu.engine.trainer import BaseTrainer as JaxBaseTrainer
 from spectrogram_yolov11_tpu.utils import DEFAULT_CFG
 
 IMGSZ = 64
@@ -123,6 +129,27 @@ def test_train_loader_equals_jax(split):
 @pytest.mark.parametrize("hyp,what", [({"device_augment": False}, "device_augment=False"),
                                       (GENERAL, "device_augment='auto' with degrees"),
                                       ({"multi_scale": True}, "multi_scale"), ({"mixup": 0.1}, "mixup")])
-def test_host_augmentation_raises(split, hyp, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.*item 7b"):
-        YOLODataset(split, imgsz=IMGSZ, augment=True, hyp=get_cfg(DEFAULT_CFG_DICT, {"mode": "train", **hyp}))
+def test_host_augmentation_raises(split, hyp, what, caplog):
+    """Each setting that once raised (item 7b, now closed) resolves as JAX's
+    trainer and dataset resolve it: host augmentation, with JAX's warning
+    exactly where JAX warns (mixup under 'auto' falls back from the card)."""
+    jax_args = jax_get_cfg(DEFAULT_CFG, hyp)
+    jax_device = JaxBaseTrainer._resolve_device_augment(SimpleNamespace(args=jax_args))
+    jax_logger = logging.getLogger("syt")  # JAX's logger does not propagate to caplog's; the port's does
+    warnings = {}
+    jax_logger.addHandler(caplog.handler)
+    try:
+        for who in ("jax", "port"):
+            caplog.clear()
+            if who == "jax":
+                ds = JaxYOLODataset(split, imgsz=IMGSZ, augment=True, hyp=jax_args, nc=2, max_gt=0,
+                                    device_augment=jax_device)
+            else:
+                ds = YOLODataset(split, imgsz=IMGSZ, max_gt=0, augment=True,
+                                 hyp=get_cfg(DEFAULT_CFG_DICT, {"mode": "train", **hyp}))
+            warnings[who] = (ds.transform.device_mode, [r.getMessage() for r in caplog.records
+                                                        if r.levelno >= logging.WARNING])
+    finally:
+        jax_logger.removeHandler(caplog.handler)
+    assert warnings["port"] == warnings["jax"], what
+    assert warnings["port"][0] is False and bool(warnings["port"][1]) == (what == "mixup")
