@@ -273,6 +273,29 @@ Phases, each printing one JSON line, each fatal when it fails:
                warp and per HSV jitter of a 640 px sample, a host-mode
                sample's ms split into read, composite, warp, HSV and mixup, ms
                per step with the loader's wait in host beside device mode
+  20. predict_extras  predict's remaining model paths on the trained model at
+               640 px: predict(augment=True) (TTA: passes at 640, 544 and 448
+               px, one NMS) on 4 seeded IQ captures (B = 1) and the 32 arrays
+               (batch 32) in f32 and with half=True, each call counted from 0
+               (18 + 1 launches; 18 bf16 + 1), every bottleneck input the
+               first capture's call hands the kernel (40x40, 34x34, 28x28 at
+               C = 32; 20x20, 17x17, 14x14 at C = 64) against the plain
+               version, the keep kernel at the 32 arrays' merged (32, 1024)
+               candidates; on 2 captures the card's f32 against a CPU YOLO
+               (counts and classes equal, boxes within 1e-2 px) and its bf16
+               merged candidates within twice their distance from the card's
+               f32 of the CPU's bf16; a weight ensemble YOLO([ckpt, the
+               best.ckpt of phase train_loop]) (trained here for one epoch
+               when the phase runs alone) on the 32 arrays and 2 captures,
+               counted (12 + 1), against the CPU; predict(visualize=True) on
+               one capture counted as one forward more (12 + 1), its feature
+               PNGs named as the CPU's and within 1 of its pixels; the tables
+               (to_json, to_sql twice; to_df/to_csv where pandas imports, else
+               its ImportError); the training phases' args.json,
+               metrics.jsonl rows and TensorBoard files (fault 21). Readings:
+               ms per capture and per image with augment=True beside
+               augment=False, in turns, f32 and bf16; the ensemble's ms per
+               image beside one model's
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -351,6 +374,11 @@ HOST_DIGESTS = ROOT / "tests" / "torch_data" / "host_augment" / "cv2_digests.jso
 HOST_AUG = dict(device_augment=False, degrees=10.0, shear=2.0, perspective=5e-4, mixup=0.5, multi_scale=True)
 HOST_EPOCHS = 2  # YOLO.train's epochs in phase host_augment (close_mosaic=1: mosaic and mixup in the first)
 HOST_SPLIT_SAMPLES = 24  # host-mode samples timed stage by stage
+
+
+RUN_FILES: dict = {}  # what the training phases' run directories hold (fault 21), by phase
+SECOND_CKPT: list = []  # phase train_loop's best.ckpt, kept for the ensemble of phase predict_extras
+KEEP_DIR: list = []  # a directory for SECOND_CKPT, removed when the script ends
 
 
 def emit(phase: str, **kw) -> None:
@@ -2179,6 +2207,8 @@ def phase_train_loop():
             h.remove()
         trainer = yolo.trainer
         require(trainer.ema_model is rec["model"], "validate() scored another model than the hooked EMA model")
+        RUN_FILES["train_loop"] = run_files(trainer.save_dir, LOOP_EPOCHS)
+        keep_checkpoint(trainer.best)
         by_epoch = []
         for c in rec["counts"]:
             steps = {k: c["steps"][k] - c["start"][k] for k in c["start"]}
@@ -2412,6 +2442,7 @@ def phase_train_amp(f32_loop_final: dict):
         loop_peak_gb = torch.cuda.max_memory_allocated() / 2**30
         tr = yolo.trainer
         require(tr.args.amp is True and yolo.model.compute_dtype == bf16, "YOLO.train did not run at amp=True")
+        RUN_FILES["train_amp"] = run_files(tr.save_dir, AMP_EPOCHS)
         require(tr.validator.model.dtype == bf16, "the EMA's val did not run a bf16 copy")
         by_epoch = []
         for c in rec["counts"]:
@@ -3566,6 +3597,255 @@ def phase_host_augment():
     return launches, {m: d["checks"] for m, d in runs.items()}
 
 
+def run_files(save_dir, epochs: int) -> dict:
+    """What a training run's directory holds of the logging integrations
+    (utils/jsonl.py, utils/tb.py): fails unless args.json is there and
+    metrics.jsonl holds one row per epoch with the losses and the metrics,
+    and unless TensorBoard event files are there exactly when the
+    tensorboard package is installed."""
+    import importlib.util
+
+    d = Path(save_dir)
+    require((d / "args.json").exists() and (d / "metrics.jsonl").exists(), f"{d} lacks args.json or metrics.jsonl")
+    args = json.loads((d / "args.json").read_text())
+    rows = [json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()]
+    require([r["epoch"] for r in rows] == list(range(1, epochs + 1))
+            and all({"time", "train/box_loss", "metrics/mAP50-95(B)", "fitness"} <= set(r) for r in rows),
+            f"{d}/metrics.jsonl rows {rows}")
+    tensorboard = importlib.util.find_spec("tensorboard") is not None
+    events = sorted(p.name for p in d.glob("events.out.tfevents.*"))
+    require(bool(events) == tensorboard, f"tensorboard installed: {tensorboard}, event files {events}")
+    return {"args_json_keys": len(args), "args_epochs": args.get("epochs"), "metrics_rows": len(rows),
+            "last_row": rows[-1], "tensorboard_installed": tensorboard, "event_files": len(events)}
+
+
+def keep_checkpoint(path) -> None:
+    """A copy of a checkpoint in KEEP_DIR, its path in SECOND_CKPT."""
+    import atexit
+    import shutil
+    import tempfile
+
+    if not KEEP_DIR:
+        KEEP_DIR.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        atexit.register(shutil.rmtree, KEEP_DIR[0], True)
+    SECOND_CKPT[:] = [shutil.copy(path, Path(KEEP_DIR[0]) / "second.ckpt")]
+
+
+def bottleneck_inputs(dtype):
+    """A global module pre-hook that keeps every eval-mode fused bottleneck's
+    NHWC input at `dtype` once per (module, shape); it launches nothing.
+    Returns (captured, stop)."""
+    import torch
+
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+
+    cap = {}
+
+    def pre(mod, args):  # returns None: the input stays as it is
+        if isinstance(mod, Bottleneck) and mod.fusable and not mod.training and args[0].dtype == dtype:
+            cap.setdefault((mod, tuple(args[0].shape)), args[0].permute(0, 2, 3, 1).contiguous())
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(pre)
+    return cap, hook.remove
+
+
+def phase_predict_extras():
+    """Predict's remaining model paths on the card (see the module docstring, 20)."""
+    import sqlite3
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.augment import letterbox_batch
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.data.imageio import imread
+    from spectrogram_yolov11_torch.data.loaders import iq_frame
+    from spectrogram_yolov11_torch.engine.pipeline import normalize, tta_predictions
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    t_phase = time.perf_counter()
+    dev, nb, bf16 = torch.device("cuda"), PREDICT_BATCH, torch.bfloat16
+    yolo, cpu = YOLO(CKPT), YOLO(CKPT, device="cpu")
+    iq, arrays = predict_inputs()
+    launches = {}
+
+    def counted(path: str, fn, bottlenecks: int, kernel: str = "fused_bottleneck"):
+        expect = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": 1}
+        expect[kernel] = bottlenecks
+        out, got = run_counted(fn, expect, f"one {path} predict batch")
+        launches[path] = {k: launches.get(path, {}).get(k, 0) + v for k, v in got.items()}
+        return out
+
+    def frame_of(x):
+        return letterbox_batch(list(iq_frame(torch.from_numpy(np.stack([x.real, x.imag], -1))[None].to(dev))), 640, dev)
+
+    def box_err(a, b) -> float:
+        return float(np.abs(a.boxes.xyxy - b.boxes.xyxy).max(initial=0.0))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [str(Path(tmp) / f"capture{i}.npy") for i in range(4)]
+        for p, capture in zip(paths, iq):
+            np.save(p, capture)
+
+        # TTA in f32 and bf16: counted calls, the kernels at the first call's inputs, card against CPU
+        tta, checks, nets = {}, {"fused_bottleneck": {}, "fused_bottleneck_bf16": {}}, {}
+        for half in (False, True):
+            path, kernel = ("tta_half", "fused_bottleneck_bf16") if half else ("tta", "fused_bottleneck")
+            cap, stop = bottleneck_inputs(bf16 if half else torch.float32)
+            try:
+                caps = counted(path, lambda: yolo.predict(paths[0], augment=True, half=half, save=False), 18, kernel)
+            finally:
+                stop()
+            nets[path] = yolo.predictor.model
+            caps += [counted(path, lambda p=p: yolo.predict(p, augment=True, half=half, save=False)[0], 18, kernel)
+                     for p in paths[1:]]
+            require(nets[path].dtype == (bf16 if half else torch.float32) and sum(map(len, caps)) > 0
+                    and all(np.isfinite(r.boxes.data).all() for r in caps), f"{path} capture results")
+            with torch.inference_mode():
+                for (mod, shape), x in cap.items():
+                    d = bottleneck_check(f"{path} {tuple(shape)}", layer_case(mod, x))
+                    checks[kernel][f"{id(mod):x}_{shape[2]}x{shape[3]}"] = {k: v for k, v in d.items()
+                                                                           if "args" not in k}
+            sizes = sorted({(shape[1], shape[2]) for _, shape in cap})
+            require(sizes == [(32, 28), (32, 34), (32, 40), (64, 14), (64, 17), (64, 20)] and len(cap) == 18,
+                    f"{path} bottleneck inputs {sizes}, {len(cap)} of them")
+            batch32 = counted(path, lambda: yolo.predict(arrays, batch=nb, augment=True, half=half, save=False), 18,
+                              kernel)
+            require(len(batch32) == nb and all(r.orig_shape == a.shape[:2] for r, a in zip(batch32, arrays))
+                    and all(np.isfinite(r.boxes.data).all() for r in batch32), f"{path} array results")
+            tta[path] = {"captures": caps, "batch32": batch32}
+
+        # the keep kernel at the merged candidates of the 32 arrays, (32, 1024)
+        lb = letterbox_batch(arrays, 640, dev)
+        with torch.inference_mode():
+            merged = tta_predictions(nets["tta"], normalize(lb))
+        require(merged.shape[1] == 8000 + 6069 + 980, f"TTA merged {tuple(merged.shape)} candidates")
+        _, _, _, valid, offset_boxes = nms_candidates(merged, 0.25, yolo.model.nc, pre_nms_topk=1024)
+        require(valid.shape == (nb, 1024), f"TTA candidates {tuple(valid.shape)}")
+        nms = nms_check(offset_boxes, valid)
+
+        # the card against the CPU on 2 captures: f32 detections, bf16 merged candidates by the bf16 rule
+        compare = []
+        for i, (p, x) in enumerate(zip(paths[:2], iq[:2])):
+            c32 = cpu.predict(p, augment=True, save=False)[0]
+            g32 = tta["tta"]["captures"][i]
+            require(len(c32) == len(g32) and np.array_equal(c32.boxes.cls, g32.boxes.cls) and box_err(c32, g32) <= 1e-2,
+                    f"TTA on the card and the CPU disagree on {p}: {g32.boxes.data.tolist()} vs {c32.boxes.data.tolist()}")
+            cpu.predict(p, augment=True, half=True, save=False)
+            frame = frame_of(x)
+            with torch.inference_mode():
+                pg = tta_predictions(nets["tta_half"], normalize(frame)).float().cpu()
+                pc = tta_predictions(cpu.predictor.model, normalize(frame.cpu())).float()
+                pf = tta_predictions(nets["tta"], normalize(frame)).cpu()
+            parts = (("box_px", slice(0, 4)), ("score", slice(4, None)))
+            d_cpu = {k: float((pg[..., sl] - pc[..., sl]).abs().max()) for k, sl in parts}
+            d_f32 = {k: float((pg[..., sl] - pf[..., sl]).abs().max()) for k, sl in parts}
+            require(all(d_cpu[k] <= 2 * d_f32[k] for k in d_cpu),
+                    f"TTA bf16 on the card lies {d_cpu} from the CPU's, more than twice {d_f32} from the card's f32")
+            compare.append({"n": len(g32), "classes": g32.boxes.cls.tolist(), "max_box_err_px": box_err(c32, g32),
+                            "bf16_to_cpu_bf16": d_cpu, "bf16_to_card_f32": d_f32})
+
+        # ms per capture and per image, augment=True beside augment=False, in turns
+        times = {}
+        for half in (False, True):
+            tag = "bf16" if half else "f32"
+            for aug in (False, True, True, False):
+                key = f"{tag}_{'tta' if aug else 'plain'}"
+                cap_ms = host_ms_per_call(lambda: [yolo.predict(p, augment=aug, half=half, save=False)
+                                                   for p in paths], 3) / len(paths)
+                arr_ms = host_ms_per_call(lambda: yolo.predict(arrays, batch=nb, augment=aug, half=half,
+                                                               save=False), 3) / nb
+                times.setdefault(key, {"ms_per_capture_b1": [], "ms_per_image_batch32": []})
+                times[key]["ms_per_capture_b1"].append(cap_ms)
+                times[key]["ms_per_image_batch32"].append(arr_ms)
+
+        # a weight ensemble: the trained checkpoint with a second training run's best.ckpt
+        trained_here = not SECOND_CKPT
+        if trained_here:  # the phase alone: one epoch of the same detector
+            data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp))
+            second = YOLO(CKPT)
+            second.train(plots=False, data=data, project=tmp, name="second", epochs=1, batch=TRAIN_BATCH,
+                         imgsz=TRAIN_IMGSZ, workers=8, exist_ok=True)
+            RUN_FILES["predict_extras_second"] = run_files(second.trainer.save_dir, 1)
+            keep_checkpoint(second.trainer.best)
+        ens, ens_cpu = YOLO([CKPT, SECOND_CKPT[0]]), YOLO([CKPT, SECOND_CKPT[0]], device="cpu")
+        ens_arrays = counted("ensemble", lambda: ens.predict(arrays, batch=nb, save=False), 12)
+        require(len(ens_arrays) == nb and all(np.isfinite(r.boxes.data).all() for r in ens_arrays),
+                "ensemble array results")
+        ens_compare = []
+        for p in paths[:2]:
+            g = counted("ensemble", lambda p=p: ens.predict(p, save=False)[0], 12)
+            c = ens_cpu.predict(p, save=False)[0]
+            require(len(c) == len(g) and np.array_equal(c.boxes.cls, g.boxes.cls) and box_err(c, g) <= 1e-2,
+                    f"the ensemble on the card and the CPU disagree on {p}: {g.boxes.data.tolist()} vs "
+                    f"{c.boxes.data.tolist()}")
+            ens_compare.append({"n": len(g), "classes": g.boxes.cls.tolist(), "max_box_err_px": box_err(c, g)})
+        ens_ms = {}
+        for key in ("one_model", "ensemble", "ensemble", "one_model"):
+            m = ens if key == "ensemble" else yolo
+            ens_ms.setdefault(key, []).append(host_ms_per_call(lambda m=m: m.predict(arrays, batch=nb, save=False), 3) / nb)
+
+        # visualize=True on one capture: one forward more, the CPU's file names, pixels within 1
+        vis_kw = dict(visualize=True, save=False, project=tmp, exist_ok=True)
+        vis = counted("visualize", lambda: yolo.predict(paths[0], name="vis_card", **vis_kw), 12)
+        cpu.predict(paths[0], name="vis_cpu", **vis_kw)
+        card_files = sorted(q.name for q in (Path(tmp) / "vis_card" / "features").glob("*.png"))
+        cpu_files = sorted(q.name for q in (Path(tmp) / "vis_cpu" / "features").glob("*.png"))
+        require(card_files == cpu_files and len(card_files) > 20, f"feature maps {card_files} vs the CPU's {cpu_files}")
+        worst, unequal, total = 0, 0, 0
+        for name in card_files:
+            a, b = (imread(Path(tmp) / d / "features" / name).astype(int) for d in ("vis_card", "vis_cpu"))
+            require(a.shape == b.shape, f"{name}: {a.shape} vs {b.shape}")
+            worst, unequal, total = max(worst, int(np.abs(a - b).max())), unequal + int((a != b).sum()), total + a.size
+        require(worst <= 1, f"feature maps on the card differ from the CPU's by {worst}")
+        require(len(vis) == 1, "visualize predict results")
+
+        # the tables on the card's results
+        r0 = max(tta["tta"]["captures"], key=len)
+        db = str(Path(tmp) / "results.db")
+        r0.to_sql(db_path=db)
+        r0.to_sql(db_path=db)
+        con = sqlite3.connect(db)
+        rows = con.execute("SELECT * FROM results").fetchall()
+        con.close()
+        summary = r0.summary()
+        want = [(d["name"], d["class"], d["confidence"], *(d["box"][k] for k in ("x1", "y1", "x2", "y2")))
+                for d in summary]
+        require(rows == want * 2 and json.loads(r0.to_json()) == summary, "to_sql rows or to_json")
+        try:
+            import pandas as pd
+        except ImportError:
+            pd = None
+        if pd is None:
+            try:
+                r0.to_df()
+                require(False, "to_df ran without pandas")
+            except ImportError as e:
+                tables = {"pandas": None, "to_df": f"ImportError: {e}"}
+        else:
+            require(r0.to_csv() == pd.DataFrame(summary).to_csv(), "to_csv")
+            tables = {"pandas": pd.__version__, "to_csv_equal": True}
+        tables.update(to_sql_rows=len(rows), detections=len(r0))
+
+        # fault 21: the training phases' run directories
+        require(RUN_FILES, "no training phase's run files were read")
+    emit("predict_extras", launches=launches,
+         tta={k: {"detections_per_capture": [len(r) for r in v["captures"]],
+                  "detections_arrays_batch32": sum(map(len, v["batch32"]))} for k, v in tta.items()},
+         kernel_checks={k: v for k, v in checks.items()}, greedy_keep_k1024=nms, card_vs_cpu=compare, times=times,
+         ensemble={"second_checkpoint": "trained here (1 epoch)" if trained_here else "phase train_loop's best.ckpt",
+                   "card_vs_cpu": ens_compare, "ms_per_image_batch32": ens_ms},
+         visualize={"files": len(card_files), "max_pixel_diff": worst, "unequal_share": unequal / total},
+         tables=tables, run_files=RUN_FILES, phase_s=time.perf_counter() - t_phase,
+         method="whole predict calls on the host clock after one warm call, 3 calls each, in turns; counts from 0 "
+                "around each call; the bottleneck inputs by a global module pre-hook on the first capture's call; "
+                "the keep kernel at the arrays' merged candidates ranked as the device function ranks them")
+    return launches, checks, nms
+
+
 def main() -> int:
     import torch
 
@@ -3607,6 +3887,7 @@ def main() -> int:
     art_launches, art_checks, nms_art = phase_artifacts()
     fork_launches, fork_checks, nms_fork = phase_fork()
     host_launches, host_checks = phase_host_augment()
+    extras_launches, extras_checks, nms_extras = phase_predict_extras()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -3624,6 +3905,10 @@ def main() -> int:
     fork_bf16 = ([d for n, _ in FORK_CONFIGS for d in fork_checks[n]["bf16"].values()]
                  + list(fork_checks["train_ema_val"].values()))
     host_bf16 = [d for c in host_checks.values() for d in c["fused_bottleneck_bf16"].values()]
+    extras_f32, extras_bf16 = (list(extras_checks[k].values()) for k in ("fused_bottleneck", "fused_bottleneck_bf16"))
+
+    def extras_paths(kernel: str) -> dict:
+        return {path: got[kernel] for path, got in extras_launches.items()}
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
         dict(name="fused_bottleneck", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
@@ -3642,6 +3927,7 @@ def main() -> int:
                                "artifacts": sum(v["fused_bottleneck"] for v in art_launches.values()),
                                "fork": fork_paths("fused_bottleneck"),
                                "host_augment": sum(v["fused_bottleneck"] for v in host_launches.values()),
+                               **extras_paths("fused_bottleneck"),
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
@@ -3649,8 +3935,10 @@ def main() -> int:
                                                          *train_bottleneck.values(), *loop_bottleneck.values(),
                                                          *load_bottleneck.values(),
                                                          *save_checks["arrays_f32"].values(),
-                                                         *art_checks["val_f32"].values(), *fork_f32)),
+                                                         *art_checks["val_f32"].values(), *fork_f32,
+                                                         *extras_f32)),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_f32),
+             predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_f32),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -3670,6 +3958,7 @@ def main() -> int:
                                "artifacts": sum(v["fused_bottleneck_bf16"] for v in art_launches.values()),
                                "fork": fork_paths("fused_bottleneck_bf16"),
                                "host_augment": sum(v["fused_bottleneck_bf16"] for v in host_launches.values()),
+                               **extras_paths("fused_bottleneck_bf16"),
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
@@ -3678,9 +3967,10 @@ def main() -> int:
                                                          *serve_checks["fused_bottleneck_bf16"].values(),
                                                          *save_checks["arrays_bf16"].values(),
                                                          *art_checks["val_bf16"].values(), *fork_bf16,
-                                                         *host_bf16)),
+                                                         *host_bf16, *extras_bf16)),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_bf16),
              host_augment_max_abs_err=max(d["max_abs_err"] for d in host_bf16),
+             predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_bf16),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
                                                                  *images_checks["fused_bottleneck_bf16"].values(),
                                                                  *amp_bottleneck.values(),
@@ -3688,7 +3978,7 @@ def main() -> int:
                                                                  *serve_checks["fused_bottleneck_bf16"].values(),
                                                                  *save_checks["arrays_bf16"].values(),
                                                                  *art_checks["val_bf16"].values(), *fork_bf16,
-                                                                 *host_bf16)),
+                                                                 *host_bf16, *extras_bf16)),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -3717,6 +4007,7 @@ def main() -> int:
                                "artifacts": sum(v["greedy_keep"] for v in art_launches.values()),
                                "fork": fork_paths("greedy_keep"),
                                "host_augment": sum(v["greedy_keep"] for v in host_launches.values()),
+                               **extras_paths("greedy_keep"),
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
@@ -3750,6 +4041,8 @@ def main() -> int:
              host_augment_val_k2048={m: {k: c["greedy_keep_k2048"][k] for k in (
                  "shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean", "mismatches")}
                  for m, c in host_checks.items()},
+             predict_extras_tta_k1024={k: nms_extras[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                                  "scan_steps_mean", "mismatches")},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

@@ -28,11 +28,11 @@ rest (every one is accepted at its default, and `get_cfg` handles it so):
 | `rect` | warns and is set False (cfg/__init__.py:139-146) | warns and is set False |
 | `pretrained`, `deterministic`, `freeze`, `bgr`, `dropout`, `save_hybrid`, `dnn` | read nowhere | inert |
 | `pose`, `kobj`, `overlap_mask`, `mask_ratio`, `retina_masks`, `copy_paste_mode`, `auto_augment`, `erasing`, `crop_fraction` | read by the pose, segment and classify paths only, or nowhere | inert (the detect task) |
-| `augment`, `visualize` | TTA and feature maps in predict | another value than the default raises: item 5 |
+| `augment`, `visualize` | TTA and feature maps in predict; read by no other mode | honoured in predict (engine/predictor.py: TTA's device function, the feature-map PNGs); read by no other mode, as in JAX |
 | `line_width`, `show_conf`, `show_labels` | predict's saved plots | honoured (Results.plot) |
 | `show_boxes` | read nowhere | inert |
-| `show` | a window in predict | another value than the default raises: item 5 |
-| `save_frames`, `vid_stride`, `stream_buffer` | video and stream sources | the same: item 5 |
+| `show` | a window in predict | another value than the default raises: item 5 (no display on the card's machine) |
+| `save_frames`, `vid_stride`, `stream_buffer` | video and stream sources | another value than the default raises: item 5 (video and streams) |
 | `embed` | read by no mode (YOLO.embed takes its layers as an argument) | inert; YOLO.embed(embed=...) honours its argument |
 | `format`, `keras`, `int8`, `opset`, `simplify`, `dynamic`, `optimize`, `workspace`, `nms` | the Exporter | the same: item 9 |
 | `tracker` | YOLO.track | the same: item 12 |
@@ -176,7 +176,7 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
 # keys of features the port does not have: another value than the default raises, naming the ROADMAP.md item
 _VIDEO = "item 5 (video and streams)"
 NOT_PORTED_KEYS = {
-    "augment": "item 5 (TTA)", "visualize": "item 5 (visualize)", "show": "item 5 (show: a window)",
+    "show": "item 5 (show: a window)",
     "save_frames": _VIDEO, "vid_stride": _VIDEO, "stream_buffer": _VIDEO,
     **dict.fromkeys(("format", "keras", "int8", "opset", "simplify", "dynamic", "optimize", "workspace", "nms"),
                     "item 9 (the Exporter and the artifact kinds)"),

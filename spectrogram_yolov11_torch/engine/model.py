@@ -8,6 +8,7 @@ YAMLs and the JAX package's `.ckpt` checkpoints:
     YOLO("yolo11n.yaml").train(data="spectrogram_synth.yaml", epochs=2)   # from scratch, the head rebuilt for nc=2
     YOLO("spectrogram_yolo11n.yaml").load("best.ckpt").val(data=...)    # transfer by path and shape
     YOLO("http://127.0.0.1:8000/spec").predict(frames)   # a served model (serve.py)
+    YOLO(["run1/weights/best.ckpt", "run2/weights/best.ckpt"]).predict(frames)   # a weight ensemble
 
 A model YAML (a path, a packaged name such as `yolo11n.yaml`, or the bare
 name `yolo11n`, read as `yolo11n.yaml`) builds the network with fresh weights
@@ -41,14 +42,30 @@ from the server's metadata.
 `embed` gives each image's feature vector (JAX :405-423) and `profile` the
 per-layer params, GFLOPs and ms (JAX :399; nn/tasks.py:DetectionModel.profile),
 both on the facade's device, the card unless device="cpu".
+A list or tuple of model sources makes a weight ensemble, as JAX's facade
+(:48-59): each member a YOLO of its own (checkpoints, YAMLs, the fork's
+YAMLs; detect only, an AssertionError otherwise, as JAX's), the first, the
+lead, giving the facade's model, overrides and names. predict runs
+engine/predictor.py:EnsemblePredictor (every member's predictions into one
+NMS; an AssertionError when the members' nc differ, as JAX's); train raises
+ValueError (inference only, JAX :244); val, info, save, embed and profile use
+the lead's model, as JAX's use its model and variables; load and
+reset_weights change a copy of the lead held by the facade, not the
+members, as JAX's replace the facade's variables only. A served model cannot
+be a member (ValueError).
 Other model sources and modes (reference .pt files, exported artifacts)
-raise NotImplementedError naming the ROADMAP.md item that ports them.
+raise NotImplementedError naming the ROADMAP.md item that ports them;
+augment=True and visualize=True in predict run TTA and write feature maps
+(engine/predictor.py); show=True and video sources raise (ROADMAP.md §1
+item 5).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Any, Dict, List, Optional
+
+import copy
 
 import torch
 
@@ -59,7 +76,7 @@ from ..utils.callbacks import default_callbacks
 from ..utils.jax_compat import state_dict_to_variables, variables_to_state_dict
 from .checkpoint import load_checkpoint, save_checkpoint
 from .pipeline import load_model
-from .predictor import BasePredictor
+from .predictor import BasePredictor, EnsemblePredictor
 from .trainer import DetectionTrainer
 from .validator import BackendValidator, DetectionValidator
 
@@ -68,9 +85,22 @@ class YOLO:
     """`YOLO('best.ckpt')` or `YOLO('yolo11n.yaml')` on the PyTorch port;
     `device` sets the default device of predict, val and train."""
 
-    def __init__(self, model: str | Path = "yolo11n.yaml", task: Optional[str] = None, verbose: bool = False,
-                 device: Optional[str] = None):
+    def __init__(self, model: str | Path | list | tuple = "yolo11n.yaml", task: Optional[str] = None,
+                 verbose: bool = False, device: Optional[str] = None):
         self.callbacks = default_callbacks()
+        self._ensemble: Optional[List["YOLO"]] = None
+        if isinstance(model, (list, tuple)):  # a weight ensemble (JAX :48-59)
+            members = [YOLO(m, task=task, device=device) for m in model]
+            assert all(m.task == "detect" for m in members), "weight ensembling supports the detect task"
+            if any(m.backend is not None for m in members):
+                raise ValueError("a served model cannot be a member of a weight ensemble")
+            lead = members[0]
+            self._ensemble = members
+            self.model_path, self.task, self.ckpt_meta = str(model[0]), lead.task, lead.ckpt_meta
+            self.overrides = dict(lead.overrides)
+            self.predictor = self._predictor_key = self.validator = self.trainer = self.ckpt_data = None
+            self.model, self.backend = lead.model, None
+            return
         self.model_path = str(model)
         self.ckpt_meta: Dict[str, Any] = {}
         self.overrides: Dict[str, Any] = {} if device is None else {"device": str(device)}
@@ -123,6 +153,13 @@ class YOLO:
     def _weights_changed(self) -> None:
         self.predictor, self._predictor_key = None, None  # the next predict rebuilds
 
+    def _own_lead(self) -> None:
+        """For an ensemble, a copy of the lead's model on the facade before its
+        weights change: JAX's load and reset_weights replace the facade's
+        variables, not the members'."""
+        if self._ensemble is not None and self.model is self._ensemble[0].model:
+            self.model = copy.deepcopy(self.model)
+
     # -- weights -------------------------------------------------------------
     def load(self, weights: str | Path = "yolo11n.pt") -> "YOLO":
         """Transfer a checkpoint's weights (its EMA before its raw variables)
@@ -131,6 +168,7 @@ class YOLO:
         of transferred leaves is logged, as JAX logs it, and kept as
         `self.transferred`. Reference .pt files raise (item 11)."""
         self._local("load")
+        self._own_lead()
         path = str(weights)
         if Path(path).suffix == ".pt":
             raise _not_ported(f"reference .pt import ({path})", "item 11 (other model families)")
@@ -145,6 +183,7 @@ class YOLO:
     def reset_weights(self) -> "YOLO":
         """Draw every weight anew from seed 0 (JAX :202)."""
         self._local("reset_weights")
+        self._own_lead()
         self.model.init(0)
         self._weights_changed()
         return self
@@ -266,6 +305,9 @@ class YOLO:
                 from ..serve import RemotePredictor
 
                 self.predictor = RemotePredictor(self.backend, overrides=overrides)
+            elif self._ensemble is not None:
+                self.predictor = EnsemblePredictor([m.model for m in self._ensemble], overrides=overrides,
+                                                   names=self.names)
             else:
                 self.predictor = BasePredictor(self.model, overrides=overrides, names=self.names)
             self._predictor_key = key
@@ -285,6 +327,8 @@ class YOLO:
         (bf16 after amp: val() and predict() then run bf16), and the next
         predict builds its predictor anew; see engine/trainer.py for the
         options that raise."""
+        if self._ensemble is not None:
+            raise ValueError("weight ensembles are inference-only; train the members individually")
         if self.backend is not None:
             raise ValueError("remote (served) models are inference-only; train locally and re-serve")
         overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"task", "mode"}}

@@ -13,7 +13,9 @@ request runs once per batch):
 `build_device_fn` is steps 2-5 for frames already letterboxed to S x S; the
 predictor (engine/predictor.py) letterboxes any frame sizes on the card
 (data/augment.py) and calls it, and `build_pipeline` pads frames of one known
-size and calls it.
+size and calls it; with augment=True it is TTA's (three scaled and flipped
+passes into one NMS). `build_ensemble_fn` is the device function of a
+weight ensemble (every member's predictions into one NMS).
 
 On the card the network runs channels_last: the NHWC input is viewed as NCHW
 for free, and so is every C3k activation handed to the fused bottleneck.
@@ -28,11 +30,13 @@ in f32 as before.
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data.augment import letterbox_geometry
 from ..nn.tasks import DetectionModel, build_model
@@ -79,24 +83,111 @@ def forward_decode(model: DetectionModel, rgb: torch.Tensor) -> torch.Tensor:
 
 def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
                     classes: Optional[Sequence[int]] = None, agnostic: bool = False,
-                    pre_nms_topk: int = PRE_NMS_TOPK, half: bool = False, multi_label: bool = False) -> Callable:
+                    pre_nms_topk: int = PRE_NMS_TOPK, half: bool = False, multi_label: bool = False,
+                    augment: bool = False) -> Callable:
     """The device function of a predict, serve or val batch: fn(uint8 (B, S, S,
     1|3) letterboxed frames on the model's device) -> (out (B, max_det, 6), n
     (B,)), rows [x1, y1, x2, y2, conf, cls] in the JAX layout. Steps 2-5
     above, NMS over every (anchor, class) pair with `multi_label` (the
-    validator's setting) and over each anchor's best class otherwise; the
-    network in bf16 with `half` (an f32 model is converted by set_dtype,
-    which leaves it as it is) and in f32 otherwise, everything else in full
-    f32 (utils.full_f32: the DFL decode is a matmul)."""
+    validator's setting) and over each anchor's best class otherwise; with
+    `augment` (predict's TTA, JAX's run_tta) the candidates are
+    tta_predictions' three passes. The network in bf16 with `half` (an f32
+    model is converted by set_dtype, which leaves it as it is) and in f32
+    otherwise, everything else in full f32 (utils.full_f32: the DFL decode
+    is a matmul)."""
     classes = None if classes is None else [classes] if isinstance(classes, int) else list(classes)
     model = model.set_dtype(torch.bfloat16 if half else torch.float32)
 
     @torch.inference_mode()
     @full_f32()
     def fn(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        preds = forward_decode(model, frames.expand(-1, -1, -1, 3).flip(-1))  # gray broadcast, BGR -> RGB
+        if augment:
+            preds = tta_predictions(model, normalize(frames))
+        else:
+            preds = forward_decode(model, frames.expand(-1, -1, -1, 3).flip(-1))  # gray broadcast, BGR -> RGB
         return non_max_suppression(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, multi_label=multi_label,
                                    agnostic=agnostic, max_det=max_det, pre_nms_topk=pre_nms_topk, classes=classes)
+
+    return fn
+
+
+def normalize(frames: torch.Tensor) -> torch.Tensor:
+    """uint8 (B, S, S, 1|3) BGR frames -> f32 (B, S, S, 3) RGB in [0, 1]: the
+    gray broadcast, BGR -> RGB and / 255 of JAX's _norm_on_device."""
+    return frames.expand(-1, -1, -1, 3).flip(-1).float() / 255.0
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """The NCHW view of NHWC images, channels_last in memory on the card."""
+    x = x.permute(0, 3, 1, 2)
+    return x.contiguous(memory_format=torch.channels_last) if x.is_cuda else x
+
+
+TTA_PASSES = ((1.0, False), (0.83, True), (0.67, False))  # (scale, left-right flip), JAX's run_tta
+TTA_PAD = 0.447  # the pad value of a scaled pass (JAX's scale_img: the imagenet mean gray)
+
+
+def tta_input(x: torch.Tensor, si: float, flip: bool, gs: int) -> torch.Tensor:
+    """One TTA pass's network input from normalised NHWC frames (B, S, S, 3):
+    flipped left-right with `flip`; at a scale other than 1 resized to
+    int(S * si) (bilinear with antialiasing, as jax.image.resize shrinks) and
+    padded right and bottom with TTA_PAD up to ceil(S * si / gs) * gs. NCHW."""
+    x = nchw(x.flip(2) if flip else x)
+    if si != 1.0:
+        s = x.shape[2]
+        s_new, pad_to = int(s * si), math.ceil(s * si / gs) * gs
+        x = F.interpolate(x, size=(s_new, s_new), mode="bilinear", align_corners=False, antialias=True)
+        x = F.pad(x, (0, pad_to - s_new, 0, pad_to - s_new), value=TTA_PAD)
+        x = x.contiguous(memory_format=torch.channels_last) if x.is_cuda else x
+    return x
+
+
+def tta_predictions(model: DetectionModel, x: torch.Tensor) -> torch.Tensor:
+    """Decoded predictions (B, A', 4 + nc) of JAX's run_tta (engine/predictor.py:
+    134-174) for normalised NHWC frames x (B, S, S, 3): each pass of
+    TTA_PASSES forwarded and decoded, its boxes divided by its scale and
+    un-flipped (x -> S - x), the 1.0 pass cut to its first two levels' anchors
+    and the 0.67 pass's first level dropped (by the first two levels' counts
+    whatever the level count, as JAX's code), concatenated along the anchors.
+    The resize and pad run in f32 whatever the network's dtype."""
+    gs, s = int(max(model.stride)), x.shape[1]
+    merged = []
+    for si, flip in TTA_PASSES:
+        feats = model(tta_input(x, si, flip, gs))
+        p = decode_detections(feats, model.nc, model.stride)
+        xywh = p[..., :4] / torch.tensor(si, device=p.device)  # an IEEE division, as XLA's
+        if flip:
+            xywh = torch.cat([s - xywh[..., :1], xywh[..., 1:]], -1)
+        p = torch.cat([xywh, p[..., 4:]], -1)
+        counts = [b.shape[-2] * b.shape[-1] for b, _ in feats]
+        if si == 1.0:
+            p = p[:, : counts[0] + counts[1]]  # drop the P5 tail
+        elif si == 0.67:
+            p = p[:, counts[0]:]  # drop the P3 head
+        merged.append(p)
+    return torch.cat(merged, 1)
+
+
+def build_ensemble_fn(models: Sequence[DetectionModel], conf: float = CONF_THRES, iou: float = IOU_THRES,
+                      max_det: int = MAX_DET, classes: Optional[Sequence[int]] = None,
+                      agnostic: bool = False) -> Callable:
+    """The device function of a weight ensemble (JAX's EnsemblePredictor,
+    engine/predictor.py:420-460): fn(uint8 (B, S, S, 1|3) letterboxed frames)
+    -> (out (B, max_det, 6), n (B,)): the frames normalised, each member's
+    forward decoded with its own strides, the predictions concatenated along
+    the anchors in member order, one NMS (best class per anchor, its default
+    pre_nms_topk 1024, as JAX's passes none). Each member runs in its own
+    dtype (the predictor hands bf16 copies with half=True)."""
+    classes = None if classes is None else [classes] if isinstance(classes, int) else list(classes)
+    nc = models[0].nc
+
+    @torch.inference_mode()
+    @full_f32()
+    def fn(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = nchw(normalize(frames))
+        preds = torch.cat([decode_detections(m(x), nc, m.stride) for m in models], 1)
+        return non_max_suppression(preds, conf_thres=conf, iou_thres=iou, nc=nc, multi_label=False,
+                                   agnostic=agnostic, max_det=max_det, classes=classes)
 
     return fn
 

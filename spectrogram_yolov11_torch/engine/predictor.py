@@ -18,6 +18,21 @@ half=True runs the network in bf16, as the JAX predictor maps half=True to
 bf16 (spectrogram_yolov11_tpu/engine/predictor.py:89): the predictor holds its
 own bf16 copy of the model (DetectionModel.set_dtype), so the caller's f32
 model, and a later half=False predictor on it, stay f32.
+
+augment=True runs test-time augmentation, JAX's run_tta (:134-174):
+engine/pipeline.py:build_device_fn with augment, three passes (scales 1,
+0.83 flipped, 0.67) into one NMS. visualize=True writes, once per predictor, the feature maps
+of the first batch's first frame through the predictor's network on its
+device (one forward more), as JAX's _visualize_features (:192-220): every
+top-level layer whose output is 4-D as a channel grid
+(utils/plotting.py:feature_visualization) under <save_dir>/features,
+stage{k}_model_{i}.png, k the rank of the layer's flax name among the
+graph's intermediates in lexicographic order (feature_stages); a failure is
+logged as a warning and predict goes on, as in JAX.
+
+EnsemblePredictor is JAX's (:420-460) for YOLO([a, b]): the members' decoded
+predictions, each at its own strides, concatenated into one NMS
+(engine/pipeline.py:build_ensemble_fn).
 """
 
 from __future__ import annotations
@@ -37,8 +52,25 @@ from ..nn.tasks import DetectionModel
 from ..ops.boxes import scale_boxes
 from ..utils import LOGGER, resolve_device
 from ..utils.callbacks import run_callbacks
-from .pipeline import build_device_fn, eval_network
+from ..utils.plotting import feature_visualization
+from .pipeline import build_device_fn, build_ensemble_fn, eval_network, nchw, normalize
 from .results import Results
+
+
+def feature_stages(model: DetectionModel) -> List[tuple]:
+    """(stage, name, module) of every top-level layer module of the network, by
+    JAX's numbering: flax names its layers model_{i}, or model_{i}_{j} for
+    the j-th of a layer repeated n > 1 times (the port's nn.Sequential), and
+    the root's own output is the intermediate "__call__"; JAX's
+    _visualize_features enumerates sorted(intermediates), so a layer's stage
+    is its name's rank in lexicographic order, "__call__" at 0."""
+    mods = {}
+    for i, layer in enumerate(model.model):
+        if isinstance(layer, torch.nn.Sequential):
+            mods.update({f"model_{i}_{j}": m for j, m in enumerate(layer)})
+        else:
+            mods[f"model_{i}"] = layer
+    return [(k, name, mods[name]) for k, name in enumerate(sorted(["__call__", *mods])) if name in mods]
 
 
 def _host_frame(img) -> np.ndarray:
@@ -70,7 +102,37 @@ class BasePredictor:
         return build_device_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
                                classes=a.classes, agnostic=bool(a.agnostic_nms),
                                pre_nms_topk=int(a.pre_nms_topk or 0) or 1024,
-                               half=self.model.dtype == torch.bfloat16)
+                               half=self.model.dtype == torch.bfloat16, augment=bool(a.augment))
+
+    def _visualize_features(self, batch: torch.Tensor) -> None:
+        """visualize=True: the first frame of `batch` (letterboxed uint8 on the
+        device) normalised and forwarded through the predictor's network, each
+        top-level layer's output kept by a forward hook; every 4-D one (the
+        first element of a tuple output) written as its channel grid, permuted
+        to JAX's NHWC. A failure is logged and predict goes on, as JAX's."""
+        self._visualized = True
+        save_dir = get_save_dir(self.args) / "features"
+        try:
+            if self.model is None:
+                raise ValueError("the predictor holds no network (a served model)")
+            outs, hooks = {}, []
+            for _, name, mod in feature_stages(self.model):
+                hooks.append(mod.register_forward_hook(lambda m, a, o, name=name: outs.setdefault(name, o)))
+            try:
+                with torch.inference_mode():
+                    self.model(nchw(normalize(batch[:1])))
+            finally:
+                for h in hooks:
+                    h.remove()
+            for stage, name, _ in feature_stages(self.model):
+                out = outs.get(name)
+                arr = out[0] if isinstance(out, (tuple, list)) else out
+                if torch.is_tensor(arr) and arr.ndim == 4:
+                    feature_visualization(arr.permute(0, 2, 3, 1).float().cpu().numpy(), name, stage,
+                                          save_dir=save_dir)
+            LOGGER.info(f"feature maps saved to {save_dir}")
+        except Exception as e:  # visualization must never fail inference
+            LOGGER.warning(f"visualize=True failed: {e}")
 
     def preprocess(self, imgs: list, gray_state: Optional[list] = None) -> torch.Tensor:
         """Letterbox the frames on the device: (B, imgsz, imgsz, 1|3) uint8 BGR."""
@@ -112,6 +174,8 @@ class BasePredictor:
             n_real = len(buf_imgs)
             t0 = time.perf_counter()
             batch = self.preprocess(buf_imgs + [buf_imgs[-1]] * (batch_size - n_real), gray_state)
+            if self.args.visualize and not getattr(self, "_visualized", False):
+                self._visualize_features(batch)
             self._sync()
             t1 = time.perf_counter()
             out, nv = self._device_fn(batch)
@@ -164,3 +228,29 @@ class BasePredictor:
                     save_one(r)
             LOGGER.info(f"Results saved to {save_dir}")
         return results
+
+
+class EnsemblePredictor(BasePredictor):
+    """JAX's EnsemblePredictor (engine/predictor.py:420-460) for a weight
+    ensemble: `members` are detection models sharing nc (an AssertionError
+    otherwise, as JAX's); the lead's (the first's) model and names serve
+    the predictor, each member runs on the predictor's device (its bf16 copy
+    with half=True), and build_ensemble_fn puts every member's decoded
+    predictions into one NMS. augment is not read, as in JAX."""
+
+    def __init__(self, members: List[DetectionModel], overrides: Optional[dict] = None,
+                 names: Optional[dict] = None):
+        assert len({m.nc for m in members}) == 1, "ensemble members must share nc"
+        super().__init__(members[0], overrides=overrides, names=names)
+        self.others = [eval_network(m, bool(self.args.half), self.device) for m in members[1:]]
+
+    def _build_device_fn(self):
+        a = self.args
+        return build_ensemble_fn([self.model, *self.others], conf=float(a.conf), iou=float(a.iou),
+                                 max_det=int(a.max_det), classes=a.classes, agnostic=bool(a.agnostic_nms))
+
+    def _visualize_features(self, batch: torch.Tensor) -> None:
+        """As JAX's, whose forward of the lead's graph on the members' tuple of
+        variables fails: a warning, no files."""
+        self._visualized = True
+        LOGGER.warning("visualize=True failed: a weight ensemble has no single network to visualize")

@@ -7,7 +7,10 @@ plot, save and save_crop are JAX's (:248-304) for boxes: the same line width,
 colours, corners, labels and crops, drawn by utils/plotting.py (rectangles
 equal to cv2.rectangle; labels in the port's stroke font, not cv2's) and
 written by data/imageio.py:imwrite (JPEG bytes equal to cv2.imwrite's). show
-raises NotImplementedError: the card's machine has no window.
+raises NotImplementedError: the card's machine has no window. The tables
+are JAX's (:338-388): to_json / summary rows, to_df, to_csv and to_xml
+through pandas (imported when called: its ImportError where it is absent),
+to_sql into sqlite3.
 """
 
 from __future__ import annotations
@@ -183,6 +186,41 @@ class Results(_TensorCompat, SimpleClass):
                     "box": {"x1": float(b[0]), "y1": float(b[1]), "x2": float(b[2]), "y2": float(b[3])},
                 })
         return json.dumps(out, indent=2)
+
+    def to_df(self):
+        """The detections as a pandas DataFrame of to_json's rows (JAX :356):
+        pandas is imported here, so without it this raises its ImportError."""
+        import pandas as pd
+
+        return pd.DataFrame(json.loads(self.to_json()))
+
+    def to_csv(self, *args, **kwargs) -> str:
+        """to_df().to_csv(*args, **kwargs) (JAX :362)."""
+        return self.to_df().to_csv(*args, **kwargs)
+
+    def to_xml(self, *args, **kwargs) -> str:
+        """to_df().to_xml(*args, **kwargs) (JAX :366; pandas with lxml), an
+        empty <data> document without detections."""
+        df = self.to_df()
+        return df.to_xml(*args, **kwargs) if len(df) else "<?xml version='1.0' encoding='utf-8'?>\n<data></data>"
+
+    def to_sql(self, table_name: str = "results", db_path: str = "results.db") -> None:
+        """Append the detections to an sqlite table (JAX :371), created with
+        JAX's schema (name TEXT, class INTEGER, confidence REAL, x1 REAL,
+        y1 REAL, x2 REAL, y2 REAL) when missing; the stdlib's sqlite3."""
+        import sqlite3
+
+        con = sqlite3.connect(db_path)
+        try:
+            cur = con.cursor()
+            cur.execute(f"CREATE TABLE IF NOT EXISTS {table_name} "
+                        "(name TEXT, class INTEGER, confidence REAL, x1 REAL, y1 REAL, x2 REAL, y2 REAL)")
+            rows = [(r["name"], r["class"], r["confidence"], r.get("box", {}).get("x1"), r.get("box", {}).get("y1"),
+                     r.get("box", {}).get("x2"), r.get("box", {}).get("y2")) for r in self.summary()]
+            cur.executemany(f"INSERT INTO {table_name} VALUES (?,?,?,?,?,?,?)", rows)
+            con.commit()
+        finally:
+            con.close()
 
     def tojson(self, *args, **kwargs) -> str:
         """Alias of to_json under the reference's name."""

@@ -1,11 +1,21 @@
 """Callback bus for the trainer, the validator and the predictor. Counterpart
 of spectrogram_yolov11_tpu/utils/callbacks.py (default_callbacks :28,
-run_callbacks :34) for the events DetectionTrainer.train,
-DetectionValidator.__call__ and BasePredictor.stream_inference fire, in the
-order they fire them."""
+run_callbacks :34, _attach_integrations :48) for the events
+DetectionTrainer.train, DetectionValidator.__call__ and
+BasePredictor.stream_inference fire, in the order they fire them.
+
+default_callbacks attaches the logging integrations, each a module of this
+package exporting a `callbacks` dict of event -> function, as JAX's
+_attach_integrations does: one whose import fails (ImportError or
+AssertionError) is skipped. `jsonl` (utils/jsonl.py: args.json and one
+metrics.jsonl row per epoch) is always there; `tb` (utils/tb.py: TensorBoard
+scalars) only where the tensorboard package imports. JAX's other eight (wb,
+mlflow, hub, comet, clearml, dvc, neptune, raytune) are ROADMAP.md §1 item
+12."""
 
 from __future__ import annotations
 
+import importlib
 from typing import Callable, Dict, List
 
 EVENTS = [
@@ -25,11 +35,27 @@ EVENTS = [
     "on_predict_end",
 ]
 
+# integration modules of this package, each exporting a `callbacks` event -> fn dict
+_INTEGRATIONS = (".jsonl", ".tb")
+
 
 def default_callbacks() -> Dict[str, List[Callable]]:
-    return {e: [] for e in EVENTS}
+    cbs: Dict[str, List[Callable]] = {e: [] for e in EVENTS}
+    _attach_integrations(cbs)
+    return cbs
 
 
 def run_callbacks(callbacks: Dict[str, List[Callable]], event: str, obj) -> None:
     for fn in callbacks.get(event, []):
         fn(obj)
+
+
+def _attach_integrations(cbs: Dict[str, List[Callable]]) -> None:
+    for mod in _INTEGRATIONS:
+        try:
+            m = importlib.import_module(mod, package=__package__)
+        except (ImportError, AssertionError):
+            continue
+        for k, v in m.callbacks.items():
+            if v not in cbs[k]:
+                cbs[k].append(v)

@@ -359,13 +359,18 @@ class _Edge:
 
 def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
     """cv2.fillPoly(img, [pts], color) at LINE_8, shift 0, in place on a uint8
-    (H, W, C) image; returns img. As OpenCV draws it: each edge's LINE_8
-    outline, then the scanline fill of its edge table (edges entered at
-    half-pixel x, slopes in 16.16 fixed point rounded down, each span from
-    the pixel its left edge reaches to the last one before its right edge),
-    which fills self-intersecting polygons by the even-odd rule. Equal to
-    cv2 for vertices inside the image (tests/test_torch_host_augment.py);
-    edges that leave it are clipped as OpenCV clips them, but not held to it."""
+    (H, W, C) image, for any integer vertices (inside the image, past its
+    edges or thousands of pixels out, degenerate); returns img. As OpenCV
+    5.0 draws it: each edge's LINE_8 outline, then the scanline fill of its
+    edge table, which fills self-intersecting polygons by the even-odd rule.
+    An edge is entered at its vertices' x in 16.16 fixed point, its slope
+    rounded down. An edge that leaves the image runs between the ends
+    clipLine leaves it, extended to its own rows; where clipping leaves it no
+    height (it only touches the image, or misses it), it runs straight down
+    the column of its clipped end. Each span fills the pixels whose x lies
+    between its two edges, ends included, clipped to the image. Equal to cv2
+    5.0.0 on seeded polygons inside and across the image's edges
+    (tests/test_torch_host_augment.py)."""
     h, w = img.shape[:2]
     col = _color(img, color)
     pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
@@ -375,12 +380,13 @@ def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
         p1x, p1y = x << XY_SHIFT, y
         t0x, t1x = (p0x + half) >> XY_SHIFT, (p1x + half) >> XY_SHIFT
         _line8(img, t0x, p0y, t1x, p1y, col)
-        if 0 <= t0x < w and 0 <= t1x < w and 0 <= p0y < h and 0 <= p1y < h:
-            c0x, c0y, c1x, c1y = p0x + half, p0y, p1x + half, p1y
-        else:  # the edge from its clipped ends, where clipping leaves it a height
+        c0x, c0y, c1x, c1y = p0x, p0y, p1x, p1y
+        if not (0 <= t0x < w and 0 <= t1x < w and 0 <= p0y < h and 0 <= p1y < h):
             _, a, b, c, d = _clip_line(w, h, t0x, p0y, t1x, p1y)
-            c0x, c0y, c1x, c1y = ((a << XY_SHIFT) + half, b, (c << XY_SHIFT) + half, d) if b != d else (
-                p0x, p0y, p1x, p1y)
+            if b != d:
+                c0x, c0y, c1x, c1y = a << XY_SHIFT, b, c << XY_SHIFT, d
+            else:  # no height left: a vertical edge at the clipped end's column
+                c0x = c1x = a << XY_SHIFT
         if p0y != p1y:
             dx = (c1x - c0x) // (c1y - c0y)
             edges.append(_Edge(p0y, p1y, c0x + (p0y - c0y) * dx, dx) if p0y < p1y else
@@ -423,7 +429,7 @@ def _fill_edges(img: np.ndarray, edges, col: np.ndarray) -> None:
             if draw:
                 if y >= 0:
                     lo, hi = sorted((keep.x, prelast.x))
-                    x1, x2 = lo >> XY_SHIFT, (hi - 1) >> XY_SHIFT
+                    x1, x2 = (lo + XY_ONE - 1) >> XY_SHIFT, hi >> XY_SHIFT  # the pixels from lo to hi
                     if x1 < w and x2 >= 0:
                         img[y, max(x1, 0) : min(x2, w - 1) + 1] = col
                 keep.x += keep.dx
@@ -585,6 +591,33 @@ def plot_images(batch: Dict, names: Dict[int, str], save_path: Path, max_imgs: i
     save_path.parent.mkdir(parents=True, exist_ok=True)
     imwrite(save_path, canvas)
     return save_path
+
+
+def feature_visualization(feats: np.ndarray, module_type: str, stage: int, n: int = 32,
+                          save_dir: Path = Path("runs/features")) -> Path:
+    """JAX's channel grid of a feature map (utils/plotting.py:150): `feats`
+    (1, h, w, c) or (h, w, c), NHWC as JAX holds it; the first min(n, c)
+    channels in a ceil(sqrt) x ceil(sqrt) grid, each min-max normalised (+1e-6)
+    in f32, the canvas written as (canvas * 255).astype(uint8) to
+    save_dir/stage{stage}_{module_type's last dotted part}.png (the port's PNG
+    writer: cv2's pixels, not its bytes). Returns the path."""
+    from ..data.imageio import imwrite
+
+    f = np.asarray(feats[0] if feats.ndim == 4 else feats, np.float32)  # (h, w, c)
+    c = min(n, f.shape[-1])
+    cols = int(math.ceil(math.sqrt(c)))
+    h, w = f.shape[:2]
+    canvas = np.zeros((cols * h, cols * w), np.float32)
+    for i in range(c):
+        r, cc = divmod(i, cols)
+        ch = f[..., i]
+        rng = ch.max() - ch.min()
+        canvas[r * h : (r + 1) * h, cc * w : (cc + 1) * w] = (ch - ch.min()) / (rng + 1e-6)
+    save_dir = Path(save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    out = save_dir / f"stage{stage}_{module_type.split('.')[-1]}.png"
+    imwrite(out, (canvas * 255).astype(np.uint8))
+    return out
 
 
 # -- charts --------------------------------------------------------------------

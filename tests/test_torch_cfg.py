@@ -5,7 +5,9 @@
   documents (`mode`), and get_cfg accepts the whole set at JAX's
   values. Each of the 41 keys the port lacked is handled as the cfg module's
   table says: inert, honoured (predict's drawing keys are held to JAX's
-  plots in tests/test_torch_plot.py and tests/test_torch_predict.py),
+  plots in tests/test_torch_plot.py and tests/test_torch_predict.py,
+  augment and visualize to JAX's TTA and feature maps in
+  tests/test_torch_predict_extras.py),
   `rect=True` warns and is set False as in JAX, or another value than the
   default raises NotImplementedError naming its ROADMAP.md item.
 - `yaml_load` reads the port's packaged YAMLs (the two detect model YAMLs
@@ -38,7 +40,7 @@ PORT_DEFAULTS = {"mode": "predict"}  # the port's documented difference
 INERT = ("pretrained", "deterministic", "freeze", "bgr", "dropout", "save_hybrid", "dnn", "pose", "kobj",
          "overlap_mask", "mask_ratio", "retina_masks", "copy_paste_mode", "auto_augment", "erasing", "crop_fraction",
          "source", "cfg", "show_boxes", "embed")
-HONOURED = ("model", "line_width", "show_conf", "show_labels")
+HONOURED = ("model", "line_width", "show_conf", "show_labels", "augment", "visualize")
 NEW_KEYS = (*INERT, *HONOURED, "rect", *NOT_PORTED_KEYS)
 # a non-default value of each key that raises, and the ROADMAP.md item it names
 NON_DEFAULT = {"augment": True, "visualize": True, "show": True, "show_labels": False, "show_conf": False,
@@ -80,7 +82,8 @@ def test_each_new_key_is_handled_as_tabled(key, caplog):
         assert getattr(get_cfg(DEFAULT_CFG_DICT, {key: INERT_VALUE[key]}), key) == INERT_VALUE[key]
     elif key == "model":  # carried to the trainer, which builds it when it has no model (test_torch_scratch.py)
         assert get_cfg(DEFAULT_CFG_DICT, {"model": "yolo11n.yaml"}).model == "yolo11n.yaml"
-    else:  # predict's drawing keys: carried to Results.plot (test_torch_plot.py, test_torch_predict.py)
+    else:  # predict's drawing keys, carried to Results.plot (test_torch_plot.py, test_torch_predict.py), and
+        # augment and visualize, taken by predict (test_torch_predict_extras.py) and read by no other mode
         assert getattr(get_cfg(DEFAULT_CFG_DICT, {key: NON_DEFAULT[key]}), key) == NON_DEFAULT[key]
 
 

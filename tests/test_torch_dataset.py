@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 import spectrogram_yolov11_tpu.data.synth as jax_synth
 from spectrogram_yolov11_torch.data.augment import letterbox_batch, resize_linear_u8

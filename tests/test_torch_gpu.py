@@ -26,7 +26,10 @@ the card writing each image's plot, the file equal to the port's JPEG of the
 returned Results' plot; a fork config's forward on the card against the
 CPU's, f32 (1e-3 abs/rel) and bf16 (within twice the CPU's own bf16-to-f32
 distance), its kernel launches equal to its fused bottlenecks, the gated
-widths launching nothing. The tests leave
+widths launching nothing; predict(augment=True) launching 18 bottlenecks
+(three passes) and 1 NMS, in f32 and bf16, each input it hands the kernel
+(the 640, 544 and 448 px passes' maps) against the plain version; a weight
+ensemble's 12 + 1 launches and its detections against the CPU's. The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -1204,3 +1207,79 @@ def test_val_at_its_defaults_writes_its_artifacts_on_the_card(val_split, tmp_pat
     assert list(res) == list(ref) and any(k.startswith("metrics/coco_") for k in res)
     assert all(abs(res[k] - ref[k]) <= 1e-4 for k in res), (res, ref)
     np.testing.assert_array_equal(card.validator.confusion_matrix.matrix, cpu.validator.confusion_matrix.matrix)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [False, True], ids=["f32", "bf16"])
+def test_tta_kernel_shapes_and_launches(half):
+    """predict(augment=True) at 640 px on two seeded arrays (batch 2): 18
+    bottleneck launches (6 per pass, in the dtype) and 1 NMS launch; every
+    bottleneck input it hands the kernel, at 40x40 / 34x34 / 28x28 (C = 32)
+    and 20x20 / 17x17 / 14x14 (C = 64), against the plain version."""
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.synth import synth_frames
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+
+    _card()
+    seen = {}
+
+    def pre(mod, args):  # returns None: the input stays as it is
+        if isinstance(mod, Bottleneck) and mod.fusable and not mod.training:
+            seen.setdefault((mod, tuple(args[0].shape)), args[0].permute(0, 2, 3, 1).contiguous())
+
+    frames = [np.repeat(synth_frames(1, 360, 640, seed=i)[0], 3, -1) for i in range(2)]
+    yolo = YOLO(CKPT)
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(pre)
+    try:
+        before = _counts()
+        res = yolo.predict(frames, batch=2, augment=True, half=half, save=False)
+        moved = _moved(before)
+    finally:
+        hook.remove()
+    assert moved == ((0, 18, 1) if half else (18, 0, 1)) and len(res) == 2
+    sizes = sorted({(k[1][1], k[1][2]) for k in seen})
+    assert sizes == [(32, 28), (32, 34), (32, 40), (64, 14), (64, 17), (64, 20)]
+    for (mod, _), x in seen.items():
+        c = x.shape[-1]
+        if half:
+            ref = bottleneck_reference_bf16(x, *_unpacked(mod, c, True))
+            assert_bf16_close(fused_bottleneck_bf16(x, mod.w1, mod.b1, mod.w2, mod.b2), ref)
+        else:
+            w1, w2 = mod.w1.view(2, 9, c, c), mod.w2.view(2, 9, c, c)
+            got = fused_bottleneck(x, w1, mod.b1, w2, mod.b2)
+            torch.testing.assert_close(got, bottleneck_reference(x, *_unpacked(mod, c, False)), atol=1e-4, rtol=1e-4)
+
+
+def _unpacked(mod, c: int, half: bool) -> tuple:
+    """(w1, b1, w2, b2) of a folded bottleneck in the plain version's HWIO form."""
+    from spectrogram_yolov11_torch.ops.fused_conv import unpack_bottleneck_weights, unpack_bottleneck_weights_bf16
+
+    if half:
+        return unpack_bottleneck_weights_bf16(mod.w1), mod.b1, unpack_bottleneck_weights_bf16(mod.w2), mod.b2
+    return (unpack_bottleneck_weights(mod.w1.view(2, 9, c, c)), mod.b1,
+            unpack_bottleneck_weights(mod.w2.view(2, 9, c, c)), mod.b2)
+
+
+@pytest.mark.gpu
+def test_ensemble_on_card_matches_cpu():
+    """YOLO([ckpt, ckpt with its weights moved]) on two seeded arrays: 12
+    bottleneck launches (6 per member) and 1 NMS launch on the card; counts
+    and classes equal to the CPU's, boxes within 1e-2 px."""
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.synth import synth_frames
+
+    _card()
+    frames = [np.repeat(synth_frames(1, 360, 640, seed=10 + i)[0], 3, -1) for i in range(2)]
+    card, cpu = YOLO([CKPT, CKPT]), YOLO([CKPT, CKPT], device="cpu")
+    with torch.no_grad():
+        for y in (card, cpu):  # a second member that differs from the lead: its weights scaled by 1.01
+            for p in y._ensemble[1].model.parameters():
+                p.mul_(1.01)
+            y._ensemble[1].model.fold()
+    before = _counts()
+    got = card.predict(frames, batch=2, save=False)
+    assert _moved(before) == (12, 0, 1)
+    ref = cpu.predict(frames, batch=2, save=False)
+    for g, r in zip(got, ref):
+        assert len(g) == len(r) and np.array_equal(g.boxes.cls, r.boxes.cls)
+        assert float(np.abs(g.boxes.xyxy - r.boxes.xyxy).max(initial=0.0)) <= 1e-2

@@ -12,7 +12,10 @@
   the twins over the same triples; the port's augment_hsv equal to JAX's on
   50 seeded gain draws.
 - ellipse_filled and fill_poly (utils/plotting.py) equal to cv2.ellipse(-1)
-  and cv2.fillPoly on 200 seeded shapes, degenerate ones among them.
+  and cv2.fillPoly on 200 seeded shapes, degenerate ones among them; and
+  fill_poly on 900 seeded polygons whose vertices leave the image (negative,
+  past the far edges, on both sides, in the thousands, within 2e4,
+  degenerate: fault 22).
 - The committed digests (tests/torch_data/host_augment/cv2_digests.json:
   seeded inputs and the SHA-256 of cv2's outputs, which chip_smoke.py holds
   the card machine's build to, as it has no cv2) still equal cv2's and the
@@ -201,6 +204,44 @@ def test_ellipse_and_polygon_fills_equal_cv2():
         assert np.array_equal(draw(canvas, kind, args, True), draw(canvas, kind, args, False)), (seed, kind, args)
 
 
+EDGE_KINDS = ("negative", "past_edge", "both_sides", "thousands", "far", "degenerate")
+
+
+def edge_case(seed: int, kind: str):
+    """A polygon whose vertices leave the image: (canvas, "poly", (pts, color)).
+    negative: coordinates down to -W / -H; past_edge: up to 2W / 2H; both_sides:
+    within 10 px of either edge; thousands: within +-3000; far: within +-2e4;
+    degenerate: one or two vertices, repeated ones, or three on a line, across
+    the edges."""
+    rng = np.random.default_rng(1000 + seed)
+    h, w = (int(v) for v in rng.integers(5, 60, 2))
+    n = int(rng.integers(3, 8))
+    if kind == "negative":
+        pts = np.stack([rng.integers(-w, w, n), rng.integers(-h, h, n)], 1)
+    elif kind == "past_edge":
+        pts = np.stack([rng.integers(0, 2 * w, n), rng.integers(0, 2 * h, n)], 1)
+    elif kind == "both_sides":
+        pts = np.stack([rng.integers(-10, w + 10, n), rng.integers(-10, h + 10, n)], 1)
+    elif kind == "thousands":
+        pts = rng.integers(-3000, 3000, (n, 2))
+    elif kind == "far":
+        pts = rng.integers(-20000, 20000, (n, 2))
+    else:
+        p, q = rng.integers(-w, 2 * w, 2), rng.integers(-w, 2 * w, 2)
+        pts = [np.stack([p]), np.stack([p, q]), np.stack([p, p, q, q]), np.stack([p, (p + q) // 2, q])][seed % 4]
+    canvas = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    return canvas, "poly", (np.asarray(pts, np.int32), tuple(int(c) for c in rng.integers(0, 256, 3)))
+
+
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+def test_fill_poly_across_the_edge_equals_cv2(kind):
+    """Fault 22: fill_poly equal to cv2.fillPoly on 150 polygons of each kind
+    whose vertices leave the image."""
+    for seed in range(150):
+        canvas, _, args = edge_case(seed, kind)
+        assert np.array_equal(draw(canvas, "poly", args, True), draw(canvas, "poly", args, False)), (seed, args)
+
+
 def _sha(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
@@ -276,6 +317,11 @@ def make_fixtures() -> None:
         else:
             c.update(pts=args[0].tolist(), color=list(args[1]))
         draws.append(c)
+    for i, kind in enumerate(EDGE_KINDS):  # polygons across the image's edges (fault 22), on square canvases
+        for seed in (2 * i, 2 * i + 1):
+            _, _, (pts, color) = edge_case(seed, kind)
+            draws.append({"name": f"draw_poly_edge_{kind}_{seed}", "seed": 400 + seed, "size": 48, "kind": "poly",
+                          "pts": pts.tolist(), "color": list(color)})
     DIGESTS.parent.mkdir(parents=True, exist_ok=True)
     made = ("PYTHONPATH=. python tests/test_torch_host_augment.py (make_fixtures): the SHA-256 of cv2 "
             f"{cv2.__version__}'s output for each case (uint8 inputs: default_rng(seed).integers(0, 256, shape); "

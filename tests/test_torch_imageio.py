@@ -26,6 +26,7 @@ from pathlib import Path
 import cv2
 import numpy as np
 import pytest
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_torch.data.imageio import (
     PNG_SIGNATURE,

@@ -8,8 +8,10 @@ eval in ops/cocoeval.py, AutoBatch in utils/autobatch.py, the model YAML
 reader in nn/tasks.py, the fork's modules in nn/modules/fork.py, conv.py and
 block.py, the weight bridge in utils/jax_compat.py, the host augmentation's
 warps and HSV in data/warp.py and data/augment.py, the synthetic shapes in
-data/synth.py, and the command line,
+data/synth.py, the training run's files in utils/jsonl.py and utils/tb.py,
+and the command line,
 cfg/__init__.py and __main__.py, among them); with no card, the entry points (the pipeline,
+predict, predict with augment=True and visualize=True, a weight ensemble's
 predict, val, the trainer and YOLO.train, a model built from YAML and
 trained, YOLO.embed and YOLO.profile, the command line, the server and
 AutoBackend on a checkpoint or a YAML) raise for the default device instead
@@ -53,7 +55,8 @@ def _port_files():
     assert len(files) > 15 and all(f.exists() for f in files)
     assert {"jpeg.py", "imageio.py", "loaders.py", "serve.py", "autobackend.py", "exporter.py", "tasks.py",
             "__main__.py", "plotting.py", "results.py", "predictor.py", "cocoeval.py", "autobatch.py",
-            "fork.py", "conv.py", "block.py", "jax_compat.py", "warp.py", "synth.py", "augment.py"} <= {
+            "fork.py", "conv.py", "block.py", "jax_compat.py", "warp.py", "synth.py", "augment.py", "jsonl.py",
+            "tb.py", "callbacks.py", "pipeline.py"} <= {
                 f.name for f in files}
     return files
 
@@ -74,6 +77,10 @@ def test_default_device_raises_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         YOLO(CKPT, device="cuda").predict(frame, device="cuda:0")
     assert len(YOLO(CKPT).predict(frame, device="cpu", imgsz=64, save=False)) == 1
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        YOLO(CKPT).predict(frame, augment=True, visualize=True)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        YOLO([CKPT, CKPT]).predict(frame)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         YOLO(CKPT).embed(frame, imgsz=32)
     with pytest.raises(RuntimeError, match="no CUDA card"):

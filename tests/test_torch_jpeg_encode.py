@@ -29,6 +29,7 @@ from pathlib import Path
 import cv2
 import numpy as np
 import pytest
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_torch.data.imageio import imencode, imread, imwrite
 from spectrogram_yolov11_torch.data.jpeg import encode_jpeg, quant_tables

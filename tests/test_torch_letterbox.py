@@ -11,6 +11,7 @@ tolerance is 1 grey level, on smooth spectrogram frames.
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_tpu.data.augment import letterbox as jax_letterbox
 from spectrogram_yolov11_tpu.ops.boxes import scale_boxes as jax_scale_boxes

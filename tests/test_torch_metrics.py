@@ -10,6 +10,7 @@ detections) are among the cases.
 
 import numpy as np
 import pytest
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_torch.ops import metrics as port
 from spectrogram_yolov11_tpu.ops import metrics as jax_metrics

@@ -24,6 +24,7 @@
 import cv2
 import numpy as np
 import pytest
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_torch.engine.results import _COLORS, Results
 from spectrogram_yolov11_torch.utils.plotting import put_text, rectangle, text_size

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_torch.ops.decode import make_anchors
 from spectrogram_yolov11_torch.ops.tal import select_topk_candidates, task_aligned_assign

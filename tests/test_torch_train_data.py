@@ -27,6 +27,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+from test_torch_train_step import one_torch_thread  # noqa: F401 (autouse: one torch thread in this module)
 
 from spectrogram_yolov11_torch.cfg import DEFAULT_CFG_DICT, get_cfg
 from spectrogram_yolov11_torch.data.build import DataLoader

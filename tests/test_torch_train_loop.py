@@ -32,6 +32,11 @@ Tolerances, with the values a CPU run measured (CHANGES.md):
   within 1e-4 of the leaf's largest magnitude;
 - the val metrics of each epoch within 1e-4.
 
+The run directories' args.json, metrics.jsonl and TensorBoard event files
+(fault 21; utils/jsonl.py, utils/tb.py): keys and values equal to JAX's
+run's for the same call but for paths and the device string, the rows'
+losses and metrics at the tolerances above, the scalars read back.
+
 Checkpoints: the port's last.ckpt and best.ckpt read by JAX's
 load_checkpoint: the weights and the EMA equal to the port's trainer's at
 the end, the optimizer state accepted by JAX's flat_opt_state, best.ckpt
@@ -47,6 +52,7 @@ iteration where the straight run accumulates.
 """
 
 import csv
+import json
 import shutil
 from pathlib import Path
 
@@ -133,7 +139,9 @@ def _exact_augment_batch(src, regions, pads, inv, hsv_r, separable=False):
 def runs(setup):
     root, data, ckpt = setup
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_callbacks, "_INTEGRATIONS", ())  # the logging integrations touch no result
+        # the two integrations the port has (args.json, metrics.jsonl, TensorBoard scalars), whose files
+        # test_run_files_match_jax compares; JAX's TensorBoard one imports TensorFlow (10 s or more)
+        mp.setattr(jax_callbacks, "_INTEGRATIONS", (".jsonl", ".tb"))
         mp.setattr(jax_device_augment, "augment_batch", _exact_augment_batch)
         jax_yolo = JaxYOLO(str(ckpt))
         jax_metrics = jax_yolo.train(data=data, project=str(root / "jax"), device="cpu:0", **TRAIN)
@@ -163,6 +171,63 @@ def test_two_epochs_match_jax(runs):
     print(f"final EMA: worst leaf {leaf}, {worst:.2e} of its max")
     assert worst <= EMA_FRAC
     assert not port.model.training and port.predictor is None
+
+
+def _events(run: Path) -> dict:
+    """tag -> [(step, value)] of the run directory's TensorBoard event files."""
+    from tensorboard.backend.event_processing.event_file_loader import EventFileLoader
+
+    out = {}
+    for f in sorted(run.glob("events.out.tfevents.*")):
+        for ev in EventFileLoader(str(f)).Load():
+            for v in ev.summary.value:
+                out.setdefault(v.tag, []).append((ev.step, v.simple_value))
+    return out
+
+
+def test_run_files_match_jax(runs):
+    """Fault 21: args.json, metrics.jsonl and the TensorBoard scalars of the
+    same call, the port's against JAX's: args.json's keys equal and every
+    value but the paths and the device string; each row's keys equal, its
+    epoch equal, its time positive, the losses within ITEMS_RTOL relative
+    and the metrics within METRIC_TOL; the same tags, steps and values
+    (float32) read back from each run's event file."""
+    _, _, jax_dir = runs["jax"]
+    _, _, port_dir = runs["port"]
+    got, want = (json.loads((d / "args.json").read_text()) for d in (port_dir, jax_dir))
+    assert got.keys() == want.keys()
+    apart = {"project", "device"}  # the runs' own directories, and "cpu" against JAX's "cpu:0"
+    assert {k: v for k, v in got.items() if k not in apart} == {k: v for k, v in want.items() if k not in apart}
+    rows = [[json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()] for d in (port_dir, jax_dir)]
+    assert len(rows[0]) == len(rows[1]) == EPOCHS
+    for g, w in zip(*rows):
+        assert g.keys() == w.keys() and g["epoch"] == w["epoch"] and g["time"] > 0
+        for k in w:
+            if k.startswith("train/"):
+                assert abs(g[k] - w[k]) <= ITEMS_RTOL * abs(w[k]), k
+            elif k not in ("epoch", "time"):
+                assert abs(g[k] - w[k]) <= METRIC_TOL, k
+    ev_got, ev_want = _events(port_dir), _events(jax_dir)
+    assert ev_got.keys() == ev_want.keys() and {"train/box_loss", "metrics/mAP50-95(B)", "metrics/fitness"} <= set(
+        ev_want)
+    for tag, series in ev_want.items():
+        assert [s for s, _ in ev_got[tag]] == [s for s, _ in series] == list(range(1, EPOCHS + 1)), tag
+        tol = ITEMS_RTOL * max(abs(v) for _, v in series) if tag.startswith("train/") else METRIC_TOL
+        assert max(abs(a - b) for (_, a), (_, b) in zip(ev_got[tag], series)) <= tol, tag
+
+
+def test_integrations_attach_as_jax(monkeypatch):
+    """default_callbacks attaches jsonl and tb as JAX's _attach_integrations
+    does, each function once, and skips a module whose import fails."""
+    import spectrogram_yolov11_torch.utils.callbacks as port_callbacks
+    from spectrogram_yolov11_torch.utils import jsonl, tb
+
+    cbs = port_callbacks.default_callbacks()
+    for m in (jsonl, tb):
+        assert all(cbs[k].count(fn) == 1 for k, fn in m.callbacks.items())
+    monkeypatch.setattr(port_callbacks, "_INTEGRATIONS", (".jsonl", ".no_such_integration"))
+    cbs = port_callbacks.default_callbacks()
+    assert cbs["on_train_start"] == [jsonl.on_train_start] and cbs["on_fit_epoch_end"] == [jsonl.on_fit_epoch_end]
 
 
 def test_checkpoints_load_in_jax(runs):
