@@ -296,6 +296,31 @@ Phases, each printing one JSON line, each fatal when it fails:
                ms per capture and per image with augment=True beside
                augment=False, in turns, f32 and bf16; the ensemble's ms per
                image beside one model's
+  21. segment   the segment task: yolo11n-seg.yaml at 640 px on shapes128-seg
+               (its packaged YAML, 64 train + 16 val JPEGs written at first
+               use into a temporary directory). YOLO(yaml).train 3 epochs at
+               batch 16 at its defaults (amp, device-augment mode), counted
+               (6 bf16 bottleneck + 1 NMS launches per epoch's EMA val, none
+               in the steps), seconds per epoch, ms per later step with the
+               loader's wait, peak memory; 1 epoch in f32 in host mode with
+               copy_paste=0.5, counted (6 + 1); the first f32 step's loss
+               items (box, seg, cls, dfl) on the card against the CPU's on
+               the same 2-image batch. best.ckpt validated on the split, then
+               on a copy labelled with its own top 6 detections per image
+               (rectangles: a model 12 steps old matches no drawn shape) on
+               the card in f32 and bf16 (6 + 1 launches each) against the CPU
+               (box and mask mAP50 and mAP50-95 within 1e-4 in f32; bf16
+               within twice the CPU's own bf16-to-f32 distance plus 1e-4),
+               once with save_json (bbox and segm stats); every bottleneck
+               input of the first f32 val batch
+               against the plain version and the keep kernel at the val's
+               (16, 2048) single-label candidates (0 mismatches, scan steps).
+               Predict on the 16 val images at batch 16, f32 and half=True,
+               at the defaults (saving; each file equal to imencode(".jpg",
+               r.plot())) and with save=False, counted (6 + 1 per call), ms
+               per image in turns; at conf 0.001 and max_det 30 the card
+               against the CPU in f32: counts and classes equal, boxes within
+               1e-2 px, the share of unequal mask pixels at most 1e-4
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -377,6 +402,9 @@ HOST_SPLIT_SAMPLES = 24  # host-mode samples timed stage by stage
 
 
 RUN_FILES: dict = {}  # what the training phases' run directories hold (fault 21), by phase
+SEG_EPOCHS, SEG_BATCH = 3, 16  # phase segment: YOLO("yolo11n-seg.yaml").train at its defaults
+SEG_MASK_SHARE = 1e-4  # phase segment: unequal mask pixels of the card's f32 predict against the CPU's, a share
+SEG_CONF, SEG_MAX_DET = 0.001, 30  # phase segment: the card-vs-CPU predict, so a model 12 steps old keeps masks
 SECOND_CKPT: list = []  # phase train_loop's best.ckpt, kept for the ensemble of phase predict_extras
 KEEP_DIR: list = []  # a directory for SECOND_CKPT, removed when the script ends
 
@@ -3846,6 +3874,192 @@ def phase_predict_extras():
     return launches, checks, nms
 
 
+def seg_val_kernels(cap: dict, nc: int, stride) -> tuple:
+    """The six bottlenecks and the keep kernel at the inputs a segment val
+    batch handed them (capture_val_inputs), the keep kernel at the
+    validator's single-label candidates (non_max_suppression_extras, k =
+    2048)."""
+    import torch
+
+    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+
+    checks = fork_bottleneck_checks(cap, "segment val")
+    with torch.inference_mode():
+        preds = decode_detections(cap["feats"], nc, stride)
+        _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, nc, pre_nms_topk=VAL_PRE_NMS_TOPK)
+        nms = nms_check(offset_boxes, valid)
+    shapes = sorted(c["shape"] for c in checks.values())
+    require(shapes == [[SEG_BATCH, 20, 20, 64]] * 4 + [[SEG_BATCH, 40, 40, 32]] * 2, f"segment val inputs {shapes}")
+    return checks, nms
+
+
+def phase_segment():
+    """The segment task on the card (see the module docstring, 21)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.augment import resolve_device_augment
+    from spectrogram_yolov11_torch.data.build import DataLoader
+    from spectrogram_yolov11_torch.data.dataset import YOLODataset, check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.data.imageio import imencode
+    from spectrogram_yolov11_torch.engine.trainer import SegmentationTrainer
+    from spectrogram_yolov11_torch.nn.tasks import build_model
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    t_phase = time.perf_counter()
+    bf16, nb = torch.bfloat16, SEG_BATCH
+    one_batch = lambda kernel: {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": 1,  # noqa: E731
+                                kernel: 6}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = dict(yaml_load(find_dataset_yaml("shapes128-seg.yaml")), path=str(Path(tmp) / "shapes128-seg"))
+        t0 = time.perf_counter()
+        data = check_det_dataset(data)
+        gen_s = time.perf_counter() - t0
+        val_files = sorted(Path(data["val"]).glob("*.jpg"))
+        require(len(sorted(Path(data["train"]).glob("*.jpg"))) == 64 and len(val_files) == 16,
+                f"shapes128-seg split at {data['path']}")
+
+        # YOLO(yaml).train at its defaults: amp, device-augment mode, counted per epoch's EMA val
+        yolo, rec = YOLO("yolo11n-seg.yaml"), {"epochs": []}
+        yolo.add_callback("on_train_epoch_start", lambda t: rec["epochs"].append(
+            {k: c.launches for k, c in launch_counters().items()}))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, launches["train"] = run_counted(
+            lambda: yolo.train(data=data, epochs=SEG_EPOCHS, batch=nb, plots=False, project=tmp, name="seg"),
+            {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6 * SEG_EPOCHS, "greedy_keep": SEG_EPOCHS},
+            "YOLO('yolo11n-seg.yaml').train")
+        train_s, peak_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+        tr = yolo.trainer
+        require(list(metrics)[-1] == "fitness" and "metrics/mAP50-95(M)" in metrics
+                and all(np.isfinite(list(metrics.values()))), f"segment train metrics {metrics}")
+        require(tr.loss_names == ("box_loss", "seg_loss", "cls_loss", "dfl_loss") and tr.best.exists(),
+                "segment trainer loss names or best.ckpt")
+        RUN_FILES["segment"] = run_files(tr.save_dir, SEG_EPOCHS)
+        epochs = [{"seconds": e["seconds"], "steps": e["steps"], "loader_wait_s": e["loader_wait_s"],
+                   "val_s": e["val_s"], "ms_per_step_with_wait": (e["seconds"] - e["val_s"]) / e["steps"] * 1e3}
+                  for e in tr.epoch_log]
+        best = Path(tmp) / "best.ckpt"
+        best.write_bytes(tr.best.read_bytes())
+
+        # one f32 epoch in host mode with copy_paste
+        host = YOLO("yolo11n-seg.yaml")
+        t0 = time.perf_counter()
+        host_metrics, launches["train_host"] = run_counted(
+            lambda: host.train(data=data, epochs=1, batch=nb, amp=False, copy_paste=0.5, plots=False, project=tmp,
+                               name="seg_host"), one_batch("fused_bottleneck"), "host-mode segment train")
+        host_s = time.perf_counter() - t0
+        require(not resolve_device_augment(host.trainer.args, "segment")
+                and all(np.isfinite(list(host_metrics.values()))), "host-mode segment train")
+
+        # the first f32 step's items on the card against the CPU's, same 2-image batch
+        ds = YOLODataset(data["train"], imgsz=640, max_gt=0, augment=True, task="segment",
+                         hyp=SegmentationTrainer(None, dict(data=data, amp=False, device="cpu")).args)
+        batch = next(iter(DataLoader(ds, 2, workers=2, shuffle=True, seed=0, drop_last=True)))
+        items = {}
+        for dev in ("cuda", "cpu"):
+            t = SegmentationTrainer(build_model("yolo11n-seg.yaml").init(0),
+                                    dict(data=data, batch=2, amp=False, device=dev, plots=False))
+            t.setup_model()
+            t.setup_optimizer(32)
+            items[dev] = t.train_step(batch, 0, False)[1].float().cpu().numpy()
+        step_rel = float(np.abs(items["cuda"] - items["cpu"]).max() / np.abs(items["cpu"]).max())
+        require(step_rel <= 1e-3 and (items["cpu"] > 0).all(),
+                f"segment step items card {items['cuda'].tolist()} vs CPU {items['cpu'].tolist()}")
+
+        # val of best.ckpt on the split and on a copy labelled with the card's own top 6 detections per image
+        # (rectangles: a model 12 steps old matches no drawn shape, these give the comparisons matches to score):
+        # card f32 and bf16 counted, the kernels at the first f32 batch, the CPU's as reference
+        card, cpu = YOLO(str(best)), YOLO(str(best), device="cpu")
+        v_split = card.val(data=data, batch=nb, plots=False)
+        lab = Path(tmp) / "self_labelled"
+        (lab / "images").mkdir(parents=True)
+        (lab / "labels").mkdir()
+        for r in card.predict(data["val"], batch=nb, conf=SEG_CONF, max_det=6, save=False):
+            h, w = r.orig_shape
+            (lab / "images" / Path(r.path).name).write_bytes(Path(r.path).read_bytes())
+            rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in (x1 / w, y1 / h, x2 / w, y1 / h, x2 / w, y2 / h,
+                                                                    x1 / w, y2 / h))
+                    for (x1, y1, x2, y2), c in zip(r.boxes.xyxy, r.boxes.cls)]
+            (lab / "labels" / f"{Path(r.path).stem}.txt").write_text("\n".join(rows))
+        kw = dict(data={"path": str(lab), "train": "images", "val": "images", "names": data["names"]}, batch=nb,
+                  plots=False)
+        cap, stop = capture_val_inputs(torch.float32)
+        try:
+            t0 = time.perf_counter()
+            v32, launches["val"] = run_counted(lambda: card.val(**kw), one_batch("fused_bottleneck"), "segment val f32")
+            val_s = time.perf_counter() - t0
+        finally:
+            stop()
+        checks, nms = seg_val_kernels(cap, card.model.nc, card.model.stride)
+        v16, launches["val_half"] = run_counted(lambda: card.val(half=True, **kw), one_batch("fused_bottleneck_bf16"),
+                                                "segment val bf16")
+        c32, c16 = cpu.val(**kw), cpu.val(half=True, **kw)
+        val_cmp = {}
+        for key in ("metrics/mAP50-95(B)", "metrics/mAP50-95(M)", "metrics/mAP50(B)", "metrics/mAP50(M)"):
+            d32, d16, own = abs(v32[key] - c32[key]), abs(v16[key] - c16[key]), abs(c16[key] - c32[key])
+            require(d32 <= VAL_TOL and d16 <= 2 * own + VAL_TOL,
+                    f"segment val {key}: card f32 {v32[key]} CPU {c32[key]}; card bf16 {v16[key]} CPU {c16[key]}")
+            val_cmp[key] = {"card_f32": v32[key], "cpu_f32": c32[key], "card_bf16": v16[key], "cpu_bf16": c16[key]}
+        vj, launches["val_save_json"] = run_counted(lambda: card.val(save_json=True, project=tmp, **kw),
+                                                    one_batch("fused_bottleneck"), "segment val save_json")
+        coco = {k: v for k, v in vj.items() if k.startswith("metrics/coco_")}
+        require("metrics/coco_AP(M)" in coco and "metrics/coco_AP" in coco and v32["metrics/mAP50(B)"] > 0.5,
+                f"segment COCO stats {sorted(coco)}, val {v32}")
+
+        # predict on the 16 val images at batch 16: f32 and bf16, at the defaults (saving) and save=False
+        imgs = data["val"]  # the directory: its 16 JPEGs in name order
+        times, saved = {}, {}
+        for half in (False, True):
+            kernel = "fused_bottleneck_bf16" if half else "fused_bottleneck"
+            tag = "bf16" if half else "f32"
+            out, launches[f"predict_{tag}"] = run_counted(
+                lambda: card.predict(imgs, batch=nb, half=half, project=tmp, name=f"pred_{tag}"), one_batch(kernel),
+                f"segment predict {tag}")
+            files = {f.stem: f for f in (Path(tmp) / f"pred_{tag}").glob("*.jpg")}
+            require(len(files) == 16 and all(files[Path(r.path).stem].read_bytes() == imencode(".jpg", r.plot())
+                                             for r in out), f"segment predict {tag} saved files")
+            saved[tag] = {"files": len(files), "masks": sum(0 if r.masks is None else len(r.masks) for r in out)}
+            for save in (True, False, False, True):
+                key = f"{tag}_{'save' if save else 'nosave'}"
+                t0 = time.perf_counter()
+                card.predict(imgs, batch=nb, half=half, save=save, project=tmp, name=f"t_{key}")
+                times.setdefault(key, []).append((time.perf_counter() - t0) / nb * 1e3)
+        g = card.predict(imgs, batch=nb, conf=SEG_CONF, max_det=SEG_MAX_DET, save=False)
+        c = cpu.predict(imgs, batch=nb, conf=SEG_CONF, max_det=SEG_MAX_DET, save=False)
+        unequal = total = 0
+        box_err = 0.0
+        for a, b in zip(g, c):
+            require(len(a) == len(b) and np.array_equal(a.boxes.cls, b.boxes.cls),
+                    f"segment predict card {len(a)} vs CPU {len(b)} detections")
+            if len(a):
+                box_err = max(box_err, float(np.abs(a.boxes.xyxy - b.boxes.xyxy).max()))
+                unequal += int((a.masks.data != b.masks.data).sum())
+                total += a.masks.data.size
+        share = unequal / max(total, 1)
+        require(total > 0 and box_err <= 1e-2 and share <= SEG_MASK_SHARE,
+                f"segment predict boxes {box_err} px, masks {share} of {total} pixels")
+    emit("segment", seconds=time.perf_counter() - t_phase, dataset_gen_s=gen_s, train_s=train_s,
+         train_epochs=epochs, peak_gb=peak_gb, train_metrics=metrics, host_train_s=host_s,
+         host_metrics=host_metrics, first_step_items={"card": items["cuda"].tolist(), "cpu": items["cpu"].tolist(),
+                                                      "max_rel": step_rel},
+         val_split=v_split, val_s=val_s, val_self_labelled=val_cmp, coco=coco, bottleneck=checks,
+         nms_val={k: nms[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean",
+                                      "mismatches")},
+         predict_ms_per_image={k: sorted(v) for k, v in times.items()}, predict_saved=saved,
+         predict_card_vs_cpu={"conf": SEG_CONF, "max_det": SEG_MAX_DET, "detections": sum(len(a) for a in g),
+                              "max_box_err_px": box_err,
+                              "unequal_mask_share": share, "mask_pixels": total},
+         launches=launches)
+    return launches, checks, nms
+
+
 def main() -> int:
     import torch
 
@@ -3888,6 +4102,7 @@ def main() -> int:
     fork_launches, fork_checks, nms_fork = phase_fork()
     host_launches, host_checks = phase_host_augment()
     extras_launches, extras_checks, nms_extras = phase_predict_extras()
+    seg_launches, seg_checks, nms_seg = phase_segment()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -3909,6 +4124,9 @@ def main() -> int:
 
     def extras_paths(kernel: str) -> dict:
         return {path: got[kernel] for path, got in extras_launches.items()}
+
+    def seg_paths(kernel: str) -> dict:
+        return {f"segment_{path}": got[kernel] for path, got in seg_launches.items()}
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
         dict(name="fused_bottleneck", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
@@ -3927,7 +4145,7 @@ def main() -> int:
                                "artifacts": sum(v["fused_bottleneck"] for v in art_launches.values()),
                                "fork": fork_paths("fused_bottleneck"),
                                "host_augment": sum(v["fused_bottleneck"] for v in host_launches.values()),
-                               **extras_paths("fused_bottleneck"),
+                               **extras_paths("fused_bottleneck"), **seg_paths("fused_bottleneck"),
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
@@ -3936,9 +4154,10 @@ def main() -> int:
                                                          *load_bottleneck.values(),
                                                          *save_checks["arrays_f32"].values(),
                                                          *art_checks["val_f32"].values(), *fork_f32,
-                                                         *extras_f32)),
+                                                         *extras_f32, *seg_checks.values())),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_f32),
              predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_f32),
+             segment_val_max_abs_err=max(d["max_abs_err"] for d in seg_checks.values()),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -3958,7 +4177,7 @@ def main() -> int:
                                "artifacts": sum(v["fused_bottleneck_bf16"] for v in art_launches.values()),
                                "fork": fork_paths("fused_bottleneck_bf16"),
                                "host_augment": sum(v["fused_bottleneck_bf16"] for v in host_launches.values()),
-                               **extras_paths("fused_bottleneck_bf16"),
+                               **extras_paths("fused_bottleneck_bf16"), **seg_paths("fused_bottleneck_bf16"),
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
@@ -4007,7 +4226,7 @@ def main() -> int:
                                "artifacts": sum(v["greedy_keep"] for v in art_launches.values()),
                                "fork": fork_paths("greedy_keep"),
                                "host_augment": sum(v["greedy_keep"] for v in host_launches.values()),
-                               **extras_paths("greedy_keep"),
+                               **extras_paths("greedy_keep"), **seg_paths("greedy_keep"),
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
@@ -4043,6 +4262,8 @@ def main() -> int:
                  for m, c in host_checks.items()},
              predict_extras_tta_k1024={k: nms_extras[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                                   "scan_steps_mean", "mismatches")},
+             segment_val_k2048={k: nms_seg[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "scan_steps_mean", "mismatches")},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from ..utils import LOGGER
+from ..utils.plotting import fill_poly
 from .warp import augment_hsv_u8, warp_affine_u8, warp_perspective_u8
 
 PAD_VALUE = 114
@@ -217,42 +218,60 @@ def letterbox_batch(frames: Sequence, imgsz: int, device: torch.device, gray_sta
     return out
 
 
-def format_sample(sample: Dict, imgsz: int, max_gt: int) -> Dict[str, np.ndarray]:
+def format_sample(sample: Dict, imgsz: int, max_gt: int, task: str = "detect",
+                  mask_ratio: int = 4) -> Dict[str, np.ndarray]:
     """Labels of a letterboxed sample (xyxy pixels) -> cls (max_gt,) int32,
     bboxes (max_gt, 4) xywh float32 normalised by the image's size (its
     `img`, the sample's `img_shape` (h, w) when the card assembles it, or
     imgsz x imgsz), and mask_gt (max_gt,) bool, the first max_gt boxes of
     positive size in front; a sample with an image gets `img`, its BGR
-    channels flipped to RGB (JAX :394-420, detect fields)."""
+    channels flipped to RGB (JAX :394-420). The segment task adds `masks`,
+    the index-encoded instance mask (imgsz / mask_ratio square, int32): the
+    kept boxes' polygons, scaled to it and truncated to int32, filled in
+    order with their index + 1 by utils/plotting.py:fill_poly, equal to
+    cv2.fillPoly (JAX :465-473)."""
     boxes, cls, img = sample["bboxes"], sample["cls"], sample.get("img")
     h, w = img.shape[:2] if img is not None else sample.get("img_shape", (imgsz, imgsz))
     n = min(len(boxes), max_gt)
     cls_pad, mask = np.zeros((max_gt,), np.int32), np.zeros((max_gt,), bool)
     box_pad = np.zeros((max_gt, 4), np.float32)
+    keep_idx: List[int] = []
     if n:
         b = boxes[:n].astype(np.float32)
         xywh = np.stack([(b[:, 0] + b[:, 2]) / 2 / w, (b[:, 1] + b[:, 3]) / 2 / h,
                          (b[:, 2] - b[:, 0]) / w, (b[:, 3] - b[:, 1]) / h], axis=1)
         good = (xywh[:, 2] > 0) & (xywh[:, 3] > 0)
-        k = int(good.sum())
+        keep_idx = list(np.where(good)[0])
+        k = len(keep_idx)
         box_pad[:k], cls_pad[:k], mask[:k] = xywh[good], cls[:n][good], True
     out = {"cls": cls_pad, "bboxes": box_pad, "mask_gt": mask}
     if img is not None:
         out["img"] = np.ascontiguousarray(img[..., ::-1])
+    if task == "segment":
+        mh, mw = imgsz // mask_ratio, imgsz // mask_ratio
+        inst = np.zeros((mh, mw), np.int32)
+        polys = sample.get("segments", [])  # a mixed-up sample has none, and raises IndexError here, as JAX's
+        sx, sy = mw / w, mh / h
+        for new_i, i in enumerate(keep_idx):
+            fill_poly(inst, (np.asarray(polys[i], np.float32) * [sx, sy]).astype(np.int32), int(new_i) + 1)
+        out["masks"] = inst
     return out
 
 
 class ValTransform:
-    """The val transform: the letterbox geometry (scaleup=False) of a sample,
-    its labels scaled and shifted into the letterboxed frame and formatted,
-    `ori_shape` (h, w) int32 and `ratio_pad` [r, dw, dh] float32 for
-    un-letterboxing at metric time. `img` stays the frame at its own size:
-    the validator letterboxes a batch on the card (letterbox_batch with
-    scaleup=False)."""
+    """The val transform (JAX :704): the letterbox geometry (scaleup=False) of
+    a sample, its labels (and polygons) scaled and shifted into the
+    letterboxed frame and formatted (the segment task's instance mask
+    among them), `ori_shape` (h, w) int32 and `ratio_pad` [r, dw, dh]
+    float32 for un-letterboxing at metric time. `img` stays the frame at its
+    own size: the validator letterboxes a batch on the card
+    (letterbox_batch with scaleup=False)."""
 
-    def __init__(self, imgsz: int, max_gt: int = 256):
+    def __init__(self, imgsz: int, max_gt: int = 256, task: str = "detect", mask_ratio: int = 4):
         self.imgsz = imgsz
         self.max_gt = max_gt
+        self.task = task
+        self.mask_ratio = mask_ratio
 
     def __call__(self, sample: Dict) -> Dict[str, np.ndarray]:
         img = sample["img"]
@@ -260,9 +279,10 @@ class ValTransform:
         boxes = sample["bboxes"].copy()
         if len(boxes):
             boxes[:, :4] *= r
-            boxes[:, [0, 2]] += left
-            boxes[:, [1, 3]] += top
-        out = format_sample({"cls": sample["cls"], "bboxes": boxes}, self.imgsz, self.max_gt)
+        s = {"cls": sample["cls"], "bboxes": boxes}
+        if "segments" in sample:
+            s["segments"] = [p * r for p in sample["segments"]]
+        out = format_sample(pad_labels(s, dw, dh), self.imgsz, self.max_gt, self.task, self.mask_ratio)
         out["img"] = img
         out["ori_shape"] = np.asarray(img.shape[:2], np.int32)
         out["ratio_pad"] = np.asarray([r, dw, dh], np.float32)
@@ -276,15 +296,15 @@ class ValTransform:
 # parameters and (in host mode) image equal JAX's bit for bit.
 
 
-def resolve_device_augment(hyp) -> bool:
+def resolve_device_augment(hyp, task: str = "detect") -> bool:
     """True when the card assembles the train images (device-augment mode),
     False when the host augments them, by JAX's rule: 'auto' is on for a
     separable warp (degrees = shear = perspective = 0) without multi_scale
     (engine/trainer.py:218-230); True, or 'auto' resolved on, falls back to
-    the host with JAX's warning when mixup > 0 (data/augment.py:566-580).
-    False is host mode. copy_paste acts on segments only, and albumentations
-    is not installed with either package, so neither blocks detect's device
-    mode here. multi_scale under device mode is the trainer's to ignore."""
+    the host with JAX's warning when mixup > 0, or copy_paste > 0 for the
+    segment task (data/augment.py:566-580). False is host mode.
+    albumentations is not installed with either package, so it blocks
+    nothing here. multi_scale under device mode is the trainer's to ignore."""
     da = hyp.device_augment
     if isinstance(da, str):
         if da.lower() != "auto":
@@ -294,8 +314,9 @@ def resolve_device_augment(hyp) -> bool:
         if da:
             LOGGER.info("device_augment=auto -> on (separable warp); image augmentation runs on the card in the "
                         "train step")
-    if da and hyp.mixup:
-        LOGGER.warning("device_augment: falling back to host augmentation (mixup>0)")
+    blockers = [b for b, on in (("mixup>0", hyp.mixup), ("copy_paste>0", hyp.copy_paste and task == "segment")) if on]
+    if da and blockers:
+        LOGGER.warning(f"device_augment: falling back to host augmentation ({', '.join(blockers)})")
         da = False
     return bool(da)
 
@@ -313,13 +334,16 @@ def letterbox_train(img: np.ndarray, imgsz: int) -> Tuple[np.ndarray, float, flo
 
 
 def pad_labels(sample: Dict, dw: float, dh: float) -> Dict:
-    """The sample with its boxes shifted by the letterbox's pads (JAX _pad_labels :488)."""
+    """The sample with its boxes (and polygons) shifted by the letterbox's pads (JAX _pad_labels :496)."""
     px, py = int(round(dw - 0.1)), int(round(dh - 0.1))
     boxes = sample["bboxes"].copy()
     if len(boxes):
         boxes[:, [0, 2]] += px
         boxes[:, [1, 3]] += py
-    return dict(sample, bboxes=boxes)
+    out = dict(sample, bboxes=boxes)
+    if "segments" in sample:
+        out["segments"] = [p + np.asarray([px, py], np.float32) for p in sample["segments"]]
+    return out
 
 
 def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator, compose_image: bool = False) -> Dict:
@@ -329,7 +353,8 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator, compose_i
     compose_image the canvas of 114 with the tiles pasted is `img`; without,
     `tiles` holds the images for the card in (4, S, S, 3) uint8, each tile's
     canvas rect [x1a, y1a, x2a, y2a) and its (padw, padh) canvas-to-source
-    offset, and the canvas is never built."""
+    offset, and the canvas is never built. Polygons (`segments`) move with
+    their boxes (JAX :106-152)."""
     s = imgsz
     border = (-s // 2, -s // 2)
     yc, xc = (int(rng.uniform(-b, 2 * s + b)) for b in border)
@@ -337,7 +362,8 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator, compose_i
     tiles_src = None if compose_image else np.zeros((4, s, s, 3), np.uint8)
     tiles_reg = np.zeros((4, 4), np.int32)
     tiles_pad = np.zeros((4, 2), np.int32)
-    cls_out, box_out = [], []
+    has_seg = "segments" in samples[0]
+    cls_out, box_out, seg_out = [], [], []
     for i, sample in enumerate(samples):
         img = sample["img"]
         h, w = img.shape[:2]
@@ -366,9 +392,13 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator, compose_i
             b[:, [1, 3]] += padh
             box_out.append(b)
             cls_out.append(sample["cls"])
+            if has_seg:
+                seg_out.extend([p + np.asarray([padw, padh], np.float32) for p in sample["segments"]])
     cls_cat = np.concatenate(cls_out) if cls_out else np.zeros((0,), np.int32)
     box_cat = np.clip(np.concatenate(box_out) if box_out else np.zeros((0, 4), np.float32), 0, 2 * s)
     out = {"cls": cls_cat, "bboxes": box_cat, "mosaic_border": border, "img_shape": (s * 2, s * 2)}
+    if has_seg:
+        out["segments"] = seg_out
     if compose_image:
         out["img"] = canvas
     else:
@@ -396,24 +426,16 @@ def rotation_matrix_2d(angle: float, scale: float) -> np.ndarray:
                      [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
 
 
-def rotation_matrix_2d(angle: float, scale: float) -> np.ndarray:
-    """cv2.getRotationMatrix2D(angle, center=(0, 0), scale), its float64
-    arithmetic written out: a = angle * (pi / 180), alpha = cos(a) * scale,
-    beta = sin(a) * scale, and the centre terms at (0, 0)."""
-    a = angle * (math.pi / 180)
-    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
-    cx = cy = 0.0
-    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
-                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
-
-
 def random_perspective(sample: Dict, degrees: float, translate: float, scale: float, shear: float,
                        perspective: float, border: Tuple[int, int], rng: np.random.Generator,
                        warp_image: bool = False) -> Dict:
     """The warp M = T @ S @ R @ P @ C of a sample (JAX random_perspective
     :167): the draws of P, the angle, the scale, S and T in JAX's order
     (ranges of 0 included), the boxes' corners warped and re-boxed, clipped
-    to the output and filtered by box_candidates. With warp_image the
+    to the output and filtered by box_candidates; where the sample has
+    polygons (`segments`), they are warped and the boxes re-derived from
+    them, clipped to the output, and the filter's area threshold is 0.01
+    (JAX :222-264). With warp_image the
     sample's `img` is warped into the output (border 114) as cv2.warpAffine,
     or cv2.warpPerspective when perspective is set, warps it
     (data/warp.py), unless M is the identity without a border; without, M
@@ -436,25 +458,38 @@ def random_perspective(sample: Dict, degrees: float, translate: float, scale: fl
     T[0, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * w
     T[1, 2] = rng.uniform(0.5 - translate, 0.5 + translate) * h
     M = T @ S @ R @ P @ C
-    boxes, cls = sample["bboxes"], sample["cls"]
+    def warp_pts(pts: np.ndarray) -> np.ndarray:
+        xy = np.ones((len(pts), 3))
+        xy[:, :2] = pts
+        xy = xy @ M.T
+        return (xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]).astype(np.float32)
+
+    boxes, cls, segments = sample["bboxes"], sample["cls"], sample.get("segments")
     if len(boxes):
         n = len(boxes)
-        xy = np.ones((n * 4, 3))
-        xy[:, :2] = boxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)
-        xy = xy @ M.T
-        xy = (xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]).astype(np.float32).reshape(n, 8)
-        x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
-        new = np.stack((x.min(1), y.min(1), x.max(1), y.max(1)), axis=1)
-        new[:, [0, 2]] = new[:, [0, 2]].clip(0, w)
-        new[:, [1, 3]] = new[:, [1, 3]].clip(0, h)
-        keep = box_candidates(boxes.T * sc, new.T, area_thr=0.10)
+        if segments is not None and len(segments):  # the boxes re-derived from the warped polygons
+            segments = [warp_pts(p) for p in segments]
+            new = np.stack([np.concatenate([p.min(0).clip([0, 0], [w, h]), p.max(0).clip([0, 0], [w, h])])
+                            for p in segments]).astype(np.float32)
+        else:
+            xy = warp_pts(boxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n * 4, 2)).reshape(n, 8)
+            x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
+            new = np.stack((x.min(1), y.min(1), x.max(1), y.max(1)), axis=1)
+            new[:, [0, 2]] = new[:, [0, 2]].clip(0, w)
+            new[:, [1, 3]] = new[:, [1, 3]].clip(0, h)
+        keep = box_candidates(boxes.T * sc, new.T, area_thr=0.01 if segments is not None and len(segments) else 0.10)
         boxes, cls = new[keep].astype(np.float32), cls[keep]
+        if segments is not None and len(segments):
+            segments = [p for p, k in zip(segments, keep) if k]
+    out = {"cls": cls, "bboxes": boxes, "img_shape": (h, w)}
+    if segments is not None:
+        out["segments"] = segments if len(boxes) else []
     if not warp_image:
-        return {"cls": cls, "bboxes": boxes, "warp_M": M, "img_shape": (h, w), "tiles": sample["tiles"]}
+        return dict(out, warp_M=M, tiles=sample["tiles"])
     img = sample["img"]
     if border[0] or border[1] or (M != np.eye(3)).any():
         img = (warp_perspective_u8 if perspective else warp_affine_u8)(img, M, (w, h), PAD_VALUE)
-    return {"img": img, "cls": cls, "bboxes": boxes, "img_shape": (h, w)}
+    return dict(out, img=img)
 
 
 def draw_hsv_gains(hgain: float, sgain: float, vgain: float, rng: np.random.Generator) -> np.ndarray:
@@ -482,9 +517,52 @@ def augment_hsv(img: np.ndarray, hgain: float, sgain: float, vgain: float, rng: 
     return img
 
 
+def copy_paste(sample: Dict, p: float, rng: np.random.Generator) -> Dict:
+    """JAX's copy_paste in 'flip' mode (:331-375) on a host sample with
+    polygons: the image mirrored left-right; of the instances whose mirrored
+    box covers under 0.30 of every existing box (IoA), round(p * count) drawn
+    by rng.choice without replacement are pasted: their mirrored polygons
+    (truncated to int32) filled into a mask by fill_poly (cv2.fillPoly's
+    pixels), the mirrored image's pixels copied under it, and their class,
+    mirrored box and polygon appended. Nothing is drawn when no instance
+    qualifies or p <= 0."""
+    segments = sample.get("segments")
+    if not segments or p <= 0:
+        return sample
+    img = sample["img"]
+    h, w = img.shape[:2]
+    boxes = sample["bboxes"]
+    flipped_boxes = boxes.copy()
+    flipped_boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
+    x1 = np.maximum(flipped_boxes[:, None, 0], boxes[None, :, 0])
+    y1 = np.maximum(flipped_boxes[:, None, 1], boxes[None, :, 1])
+    x2 = np.minimum(flipped_boxes[:, None, 2], boxes[None, :, 2])
+    y2 = np.minimum(flipped_boxes[:, None, 3], boxes[None, :, 3])
+    inter = np.clip(x2 - x1, 0, None) * np.clip(y2 - y1, 0, None)
+    area = np.clip(boxes[:, 2] - boxes[:, 0], 1e-9, None) * np.clip(boxes[:, 3] - boxes[:, 1], 1e-9, None)
+    candidates = np.nonzero((inter / area[None] < 0.30).all(1))[0]
+    k = round(p * len(candidates))
+    if k == 0:
+        return sample
+    chosen = rng.choice(candidates, k, replace=False)
+    mask = np.zeros((h, w), np.uint8)
+    new_segs = []
+    for j in chosen:
+        seg_f = segments[j].copy()
+        seg_f[:, 0] = w - seg_f[:, 0]
+        fill_poly(mask, seg_f.astype(np.int32), 1)
+        new_segs.append(seg_f)
+    img = img.copy()
+    m = mask.astype(bool)
+    img[m] = img[:, ::-1][m]
+    return dict(sample, img=img, cls=np.concatenate([sample["cls"], sample["cls"][chosen]]),
+                bboxes=np.concatenate([boxes, flipped_boxes[chosen]]), segments=list(segments) + new_segs)
+
+
 def mixup(sample1: Dict, sample2: Dict, rng: np.random.Generator) -> Dict:
     """JAX's mixup (:382): r from beta(32, 32), the images blended in float32
-    as img1 * r + img2 * (1 - r) and truncated to uint8, the labels joined."""
+    as img1 * r + img2 * (1 - r) and truncated to uint8, the labels joined
+    (boxes and classes: polygons are dropped, as JAX's drops them)."""
     r = rng.beta(32.0, 32.0)
     img = (sample1["img"].astype(np.float32) * r + sample2["img"].astype(np.float32) * (1 - r)).astype(np.uint8)
     return {"img": img, "cls": np.concatenate([sample1["cls"], sample2["cls"]]),
@@ -493,11 +571,12 @@ def mixup(sample1: Dict, sample2: Dict, rng: np.random.Generator) -> Dict:
 
 def random_flip(sample: Dict, fliplr: float, flipud: float, rng: np.random.Generator,
                 flip_image: bool = False) -> Dict:
-    """The flips (JAX random_flip :278): up-down first, then left-right, each
-    drawn only when its probability is non-zero, applied to the boxes. With
+    """The flips (JAX random_flip :288): up-down first, then left-right, each
+    drawn only when its probability is non-zero, applied to the boxes and
+    polygons (`segments`, JAX :288-325). With
     flip_image the sample's `img` is flipped too; without, the flips are
     recorded as `flips` (up-down, left-right) for the warp's inverse."""
-    boxes = sample["bboxes"]
+    boxes, segments = sample["bboxes"], sample.get("segments")
     img = sample.get("img")
     h, w = sample["img_shape"]
     did_ud = did_lr = False
@@ -506,16 +585,21 @@ def random_flip(sample: Dict, fliplr: float, flipud: float, rng: np.random.Gener
         if len(boxes):
             boxes = boxes.copy()
             boxes[:, [1, 3]] = h - boxes[:, [3, 1]]
+            if segments is not None:
+                segments = [np.stack([p[:, 0], h - p[:, 1]], 1) for p in segments]
     if fliplr and rng.random() < fliplr:
         did_lr = True
         if len(boxes):
             boxes = boxes.copy()
             boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
+            if segments is not None:
+                segments = [np.stack([w - p[:, 0], p[:, 1]], 1) for p in segments]
+    seg = {} if segments is None else {"segments": segments}
     if not flip_image:
-        return dict(sample, bboxes=boxes, flips=(did_ud, did_lr))
+        return dict(sample, bboxes=boxes, flips=(did_ud, did_lr), **seg)
     img = img[::-1] if did_ud else img
     img = img[:, ::-1] if did_lr else img
-    return {"img": np.ascontiguousarray(img), "cls": sample["cls"], "bboxes": boxes}
+    return {"img": np.ascontiguousarray(img), "cls": sample["cls"], "bboxes": boxes, **seg}
 
 
 class TrainTransform:
@@ -537,17 +621,23 @@ class TrainTransform:
     mixup or not, then the partner's index, its mosaic and warp, and the
     blend's beta; the HSV gains; the flips. JAX's Albumentations hook draws
     nothing when the albumentations package is absent, and neither machine
-    has it, so the port has none; copy_paste needs segments (inert for detect).
+    has it, so the port has none. The segment task (JAX's `task`): the
+    polygons go through mosaic, the warp and the flips, and `masks` is the
+    index-encoded instance mask at imgsz / mask_ratio (format_sample); in
+    host mode copy_paste (p = hyp.copy_paste) runs after the mosaic or
+    letterbox and draws its choice there (JAX :604).
 
     close_mosaic() turns mosaic off for later samples."""
 
-    def __init__(self, dataset, imgsz: int, hyp, max_gt: int = 128):
+    def __init__(self, dataset, imgsz: int, hyp, max_gt: int = 128, task: str = "detect", mask_ratio: int = 4):
         self.dataset = dataset
         self.imgsz = imgsz
         self.hyp = hyp
         self.max_gt = max_gt
+        self.task = task
+        self.mask_ratio = mask_ratio
         self.mosaic_enabled = True
-        self.device_mode = resolve_device_augment(hyp)
+        self.device_mode = resolve_device_augment(hyp, task)
 
     def close_mosaic(self) -> None:
         self.mosaic_enabled = False
@@ -582,6 +672,8 @@ class TrainTransform:
                 del sample["img"]
                 sample["tiles"] = {"src": src, "regions": regions, "pads": np.zeros((4, 2), np.int32)}
             border = (0, 0)
+        if host and h.copy_paste and "segments" in sample:
+            sample = copy_paste(sample, h.copy_paste, rng)
         sample = self._warp(sample, border, rng, warp_image=host)
         if host:
             if use_mosaic and h.mixup and rng.random() < h.mixup:
@@ -589,10 +681,11 @@ class TrainTransform:
                 other = self._warp(other, other.pop("mosaic_border"), rng, warp_image=True)
                 sample = dict(mixup(sample, other, rng), img_shape=sample["img_shape"])
             sample["img"] = augment_hsv(sample["img"], h.hsv_h, h.hsv_s, h.hsv_v, rng)
-            return format_sample(random_flip(sample, h.fliplr, h.flipud, rng, flip_image=True), s, self.max_gt)
+            return format_sample(random_flip(sample, h.fliplr, h.flipud, rng, flip_image=True), s, self.max_gt,
+                                 self.task, self.mask_ratio)
         hsv = draw_hsv_gains(h.hsv_h, h.hsv_s, h.hsv_v, rng)
         sample = random_flip(sample, h.fliplr, h.flipud, rng)
-        out = format_sample(sample, s, self.max_gt)
+        out = format_sample(sample, s, self.max_gt, self.task, self.mask_ratio)
         A = np.linalg.inv(sample["warp_M"])  # flips act on the warped image, so they come first on the inverse path
         did_ud, did_lr = sample["flips"]
         if did_lr:

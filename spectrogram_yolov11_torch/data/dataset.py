@@ -1,10 +1,13 @@
-"""Detection datasets: YOLO-format images and label txts, for validation and training.
+"""Detect and segment datasets: YOLO-format images and label txts, for validation and training.
 
-Counterpart of spectrogram_yolov11_tpu/data/dataset.py for the detect task:
-IMG_FORMATS (:27), img2label_path (:30), check_det_dataset (:42) and
-YOLODataset (:126: _find_images with `fraction`, the detect label rows,
-single_cls, the automatic max_gt :157-165, load_image with cache="ram",
-load_sample :344 with its long-side resize, get_item, close_mosaic :381-389).
+Counterpart of spectrogram_yolov11_tpu/data/dataset.py for the detect and
+segment tasks: IMG_FORMATS (:27), img2label_path (:30), check_det_dataset
+(:42) and YOLODataset (:126: _find_images with `fraction`, the detect label
+rows and the segment task's polygon rows (:212-222, the box the polygon's
+bounds), `segments` in each image's labels (:282), single_cls, the automatic
+max_gt :157-165, load_image with cache="ram", load_sample :344 with its
+long-side resize and the polygons scaled to pixels (:372), get_item,
+close_mosaic :381-389).
 Images are read by data/imageio.py (JPEG and PNG, as cv2.imread reads them;
 other formats raise NotImplementedError when an image is read), kept in
 memory with cache="ram" or in `.npy` sidecars with cache="disk" (JAX
@@ -13,7 +16,7 @@ decoding; a sidecar that does not load is rewritten, and a directory that
 cannot be written to warns and runs uncached; the two packages read each
 other's sidecars). The label txts are parsed once and kept
 in JAX's JSON label cache (_cache_path :197, _hash :201, _load_labels :246,
-_label_to_json / _label_from_json): `<images dir>.labels.detect.json` beside
+_label_to_json / _label_from_json :303-312): `<images dir>.labels.<task>.json` beside
 the images directory, keyed by the sha256 of the image and label paths and
 their st_mtime_ns, written with the same bytes as JAX's, so the two packages
 share one cache on a split and each reads what the other wrote.
@@ -120,9 +123,11 @@ class YOLODataset:
     ceil8(1.1 * most labels of an image * (4 with mosaic))))."""
 
     def __init__(self, img_path, imgsz: int = 640, max_gt: int = 256, single_cls: bool = False,
-                 augment: bool = False, hyp=None, fraction: float = 1.0, cache=False):
+                 augment: bool = False, hyp=None, fraction: float = 1.0, cache=False, task: str = "detect",
+                 mask_ratio: int = 4):
         self.img_path = [Path(p) for p in img_path] if isinstance(img_path, (list, tuple)) else Path(img_path)
         self.single_cls = single_cls
+        self.task = task
         self.augment = augment
         self.im_files = self._find_images(fraction)
         self.label_files = [img2label_path(f) for f in self.im_files]
@@ -134,7 +139,8 @@ class YOLODataset:
         self.cache_ram = cache in (True, "ram")
         self.cache_disk = cache == "disk"
         self._im_cache: Dict[int, np.ndarray] = {}
-        self.transform = TrainTransform(self, imgsz, hyp, max_gt=max_gt) if augment else ValTransform(imgsz, max_gt)
+        self.transform = (TrainTransform(self, imgsz, hyp, max_gt=max_gt, task=task, mask_ratio=mask_ratio) if augment
+                          else ValTransform(imgsz, max_gt, task=task, mask_ratio=mask_ratio))
 
     def _find_images(self, fraction: float = 1.0) -> List[str]:
         files: List[str] = []
@@ -152,18 +158,25 @@ class YOLODataset:
             files = files[: max(1, round(len(files) * fraction))]
         return files
 
-    @staticmethod
-    def _parse_row(parts: List[str]) -> Optional[Dict]:
-        """One detect label row -> {cls, xywhn}; None for a row with a box of no or too large size."""
+    def _parse_row(self, parts: List[str]) -> Optional[Dict]:
+        """One label row -> {cls, xywhn} (and `seg`, the polygon's points (n, 2)
+        normalised, for a segment row: an even count of 6 or more values, its
+        box the points' bounds); None for a detect row with a box of no or
+        too large size."""
         vals = [float(x) for x in parts[1:]]
+        if self.task == "segment" and len(vals) >= 6 and len(vals) % 2 == 0:
+            pts = np.asarray(vals, np.float32).reshape(-1, 2)
+            lo, hi = pts.min(0), pts.max(0)
+            return {"cls": int(float(parts[0])), "xywhn": [(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0],
+                                                           hi[1] - lo[1]], "seg": pts.tolist()}
         if len(vals) >= 4 and 0 < vals[2] <= 1.0001 and 0 < vals[3] <= 1.0001:
             return {"cls": int(float(parts[0])), "xywhn": vals[:4]}
         return None
 
     def _cache_path(self) -> Path:
-        """<images dir>.labels.detect.json (the first path of a list), as JAX's."""
+        """<images dir>.labels.<task>.json (the first path of a list), as JAX's."""
         p = self.img_path[0] if isinstance(self.img_path, list) else self.img_path
-        return Path(str(p).rstrip("/")).with_suffix(".labels.detect.json")
+        return Path(str(p).rstrip("/")).with_suffix(f".labels.{self.task}.json")
 
     def _hash(self) -> str:
         """sha256 of every image and label path and its st_mtime_ns (where the file exists)."""
@@ -177,8 +190,11 @@ class YOLODataset:
         return h.hexdigest()
 
     def _load_label(self, label_file: str) -> Dict[str, np.ndarray]:
-        """({cls (n,) int32, xywhn (n, 4) float32}, bad rows) of a label txt:
-        short rows are skipped, rows that do not parse skipped and counted."""
+        """({cls (n,) int32, xywhn (n, 4) float32, and for the segment task
+        segments, a list of (k, 2) float32}, bad rows) of a label txt: short
+        rows are skipped, rows that do not parse skipped and counted. A
+        segment dataset's row that is not a polygon raises KeyError, as JAX's
+        (:282)."""
         rows, bad = [], 0
         for line in Path(label_file).read_text().splitlines():
             parts = line.split()
@@ -192,8 +208,11 @@ class YOLODataset:
                 bad += 1
             else:
                 rows.append(row)
-        return {"cls": np.asarray([r["cls"] for r in rows], np.int32),
-                "xywhn": np.asarray([r["xywhn"] for r in rows], np.float32).reshape(-1, 4)}, bad
+        lab = {"cls": np.asarray([r["cls"] for r in rows], np.int32),
+               "xywhn": np.asarray([r["xywhn"] for r in rows], np.float32).reshape(-1, 4)}
+        if self.task == "segment":
+            lab["segments"] = [np.asarray(r["seg"], np.float32) for r in rows]
+        return lab, bad
 
     def _load_labels(self) -> List[Dict[str, np.ndarray]]:
         """Every image's labels: from the cache when its hash is this file
@@ -208,7 +227,8 @@ class YOLODataset:
             except (json.JSONDecodeError, KeyError):
                 pass
         labels, n_miss, n_bad = [], 0, 0
-        empty = {"cls": np.zeros(0, np.int32), "xywhn": np.zeros((0, 4), np.float32)}
+        empty = {"cls": np.zeros(0, np.int32), "xywhn": np.zeros((0, 4), np.float32),
+                 **({"segments": []} if self.task == "segment" else {})}
         for lf in self.label_files:
             if Path(lf).exists():
                 lab, bad = self._load_label(lf)
@@ -226,11 +246,17 @@ class YOLODataset:
 
     @staticmethod
     def _label_to_json(lab: Dict) -> Dict:
-        return {"cls": lab["cls"].tolist(), "xywhn": lab["xywhn"].tolist()}
+        out = {"cls": lab["cls"].tolist(), "xywhn": lab["xywhn"].tolist()}
+        if "segments" in lab:
+            out["segments"] = [p.tolist() for p in lab["segments"]]
+        return out
 
     @staticmethod
     def _label_from_json(lab: Dict) -> Dict:
-        return {"cls": np.asarray(lab["cls"], np.int32), "xywhn": np.asarray(lab["xywhn"], np.float32).reshape(-1, 4)}
+        out = {"cls": np.asarray(lab["cls"], np.int32), "xywhn": np.asarray(lab["xywhn"], np.float32).reshape(-1, 4)}
+        if "segments" in lab:
+            out["segments"] = [np.asarray(p, np.float32) for p in lab["segments"]]
+        return out
 
     def __len__(self) -> int:
         return len(self.im_files)
@@ -258,7 +284,8 @@ class YOLODataset:
         return img
 
     def load_sample(self, i: int, square_to: Optional[int] = None) -> Dict:
-        """Image i and its labels as xyxy pixels; with square_to, the image
+        """Image i and its labels as xyxy pixels (and its polygons in pixels,
+        `segments`, for the segment task); with square_to, the image
         resized first so its long side is square_to (each side min(int(side *
         r), square_to)), as cv2.resize(INTER_LINEAR) does it (resize_linear_u8):
         the JAX package's train-time resize (:344-357)."""
@@ -279,7 +306,10 @@ class YOLODataset:
             b[:, 1] = (xywhn[:, 1] - xywhn[:, 3] / 2) * h
             b[:, 2] = (xywhn[:, 0] + xywhn[:, 2] / 2) * w
             b[:, 3] = (xywhn[:, 1] + xywhn[:, 3] / 2) * h
-        return {"img": img, "cls": cls, "bboxes": b}
+        out = {"img": img, "cls": cls, "bboxes": b}
+        if "segments" in lab:
+            out["segments"] = [p * np.asarray([w, h], np.float32) for p in lab["segments"]]
+        return out
 
     def get_item(self, i: int, rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:
         """Sample i: TrainTransform's with the sample's Generator `rng` when

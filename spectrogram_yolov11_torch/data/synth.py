@@ -3,7 +3,8 @@
 A copy of spectrogram_yolov11_tpu/data/synth.py:207 _synth_iq (numpy only);
 a frame maker that resizes the (F, T) spectrogram as the JAX package's
 cv2.resize(INTER_LINEAR) (:252) does, through data/augment.py's
-resize_linear_u8; and `maybe_generate` (JAX :25) with its two detect kinds:
+resize_linear_u8; and `maybe_generate` (JAX :25) with its two detect kinds
+and the segment kind:
 
 - `spectrogram` (`_gen_spectrogram`, JAX :243) writes the split as PNG
   through data/imageio.py where the JAX package writes JPEG through cv2. The
@@ -16,8 +17,13 @@ resize_linear_u8; and `maybe_generate` (JAX :25) with its two detect kinds:
   (utils/plotting.py: rectangle, ellipse_filled and fill_poly, each equal
   to cv2's), JPEG at quality 95 by the port's encoder (equal to
   cv2.imwrite), labels with 6 decimals; nc from the YAML's `names`.
+- `shapes-seg` (`_gen_shapes_seg`, JAX :114-135: shapes128-seg.yaml,
+  coco8-seg.yaml and the other segment stand-ins) likewise writes JAX's
+  files byte for byte: the same noise, 1-4 star-shaped polygons of 8 or 16
+  points (by class parity) filled by fill_poly, the label rows the class
+  and the normalised points with 6 decimals.
 
-The seg, pose and obb shapes kinds raise, naming their ROADMAP.md item.
+The pose and obb shapes kinds raise, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -87,12 +93,12 @@ def maybe_generate(data: dict) -> bool:
     `synthetic`) when its val split is missing: n_train images into each
     `train` dir with seed + j and n_val into each `val` dir with seed + 10000,
     as the JAX package does. Returns False for a YAML with no `synthetic` key.
-    The `spectrogram` and `shapes` kinds are ported; the seg, pose and obb
-    shapes kinds raise."""
+    The `spectrogram`, `shapes` and `shapes-seg` kinds are ported; the pose
+    and obb shapes kinds raise."""
     kind = data.get("synthetic")
     if not kind:
         return False
-    if kind not in ("spectrogram", "shapes"):
+    if kind not in ("spectrogram", "shapes", "shapes-seg"):
         raise not_ported(f"synthetic dataset kind {kind!r}", "item 10 (other heads)")
     n_train, n_val = int(data.get("n_train", 64)), int(data.get("n_val", 16))
     imgsz, seed = int(data.get("gen_imgsz", 640)), int(data.get("seed", 0))
@@ -105,6 +111,8 @@ def maybe_generate(data: dict) -> bool:
     for d, n, s in jobs:  # <root>/images/<split> -> <root>/labels/<split>
         if kind == "shapes":
             _gen_shapes(Path(d).parent.parent, Path(d).name, n, imgsz, s, nc=len(data.get("names") or range(3)))
+        elif kind == "shapes-seg":
+            _gen_shapes_seg(Path(d).parent.parent, Path(d).name, n, imgsz, s, nc=len(data.get("names") or range(2)))
         else:
             _gen_spectrogram(Path(d).parent.parent, Path(d).name, n, imgsz, s)
     return True
@@ -143,6 +151,37 @@ def _gen_shapes(root: Path, split: str, n: int, imgsz: int, seed: int, nc: int =
                 fill_poly(img, [(x1 + w // 2, y1), (x1, y1 + h), (x1 + w, y1 + h)], color)
             labels.append((cls, (x1 + w / 2) / imgsz, (y1 + h / 2) / imgsz, w / imgsz, h / imgsz))
         _write_sample(root, split, i, img, labels, ".jpg")
+
+
+def _rand_polygon(rng: np.random.Generator, cx: float, cy: float, rad: float, n_pts: int = 8) -> np.ndarray:
+    """A star-shaped polygon of n_pts points around (cx, cy), float32 (JAX :107)."""
+    angles = np.sort(rng.uniform(0, 2 * np.pi, n_pts))
+    radii = rng.uniform(0.5, 1.0, n_pts) * rad
+    return np.stack([cx + radii * np.cos(angles), cy + radii * np.sin(angles)], 1).astype(np.float32)
+
+
+def _gen_shapes_seg(root: Path, split: str, n: int, imgsz: int, seed: int, nc: int = 2) -> None:
+    """n JPEGs of imgsz x imgsz: the shapes kind's noise and 1-4 filled
+    polygons (8 points for an even class, 16 for an odd one, clipped to the
+    image) with their segment label rows, cls and the normalised points
+    (JAX :114-135, the same draws)."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        base = rng.integers(40, 160, (imgsz // 8, imgsz // 8, 3), dtype=np.uint8)
+        img = resize_linear_u8(torch.from_numpy(base)[None], imgsz, imgsz)[0].numpy().copy()
+        lines = []
+        for _ in range(int(rng.integers(1, 5))):
+            cls = int(rng.integers(0, nc))
+            cx, cy = rng.uniform(0.15, 0.85, 2) * imgsz
+            rad = rng.uniform(0.05, 0.15) * imgsz
+            poly = np.clip(_rand_polygon(rng, cx, cy, rad, n_pts=8 if cls % 2 == 0 else 16), 0, imgsz - 1)
+            color = tuple(int(c) for c in rng.integers(100, 255, 3))
+            fill_poly(img, poly.astype(np.int32), color)
+            lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in (poly / imgsz).reshape(-1)))
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        imwrite(root / "images" / split / f"{i:05d}.jpg", img)
+        (root / "labels" / split / f"{i:05d}.txt").write_text("\n".join(lines))
 
 
 def _gen_spectrogram(root: Path, split: str, n: int, imgsz: int, seed: int) -> None:

@@ -1,6 +1,6 @@
 """The `YOLO` facade for the port. Counterpart of
-spectrogram_yolov11_tpu/engine/model.py:40 YOLO for the detect task on model
-YAMLs and the JAX package's `.ckpt` checkpoints:
+spectrogram_yolov11_tpu/engine/model.py:40 YOLO for the detect and segment
+tasks on model YAMLs and the JAX package's `.ckpt` checkpoints:
 
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").predict("capture.npy")
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").val(data="spectrogram_synth.yaml", batch=32)
@@ -9,6 +9,16 @@ YAMLs and the JAX package's `.ckpt` checkpoints:
     YOLO("spectrogram_yolo11n.yaml").load("best.ckpt").val(data=...)    # transfer by path and shape
     YOLO("http://127.0.0.1:8000/spec").predict(frames)   # a served model (serve.py)
     YOLO(["run1/weights/best.ckpt", "run2/weights/best.ckpt"]).predict(frames)   # a weight ensemble
+    YOLO("yolo11n-seg.yaml").train(data="shapes128-seg.yaml", epochs=3)   # the segment task
+
+The task is the model's (its head: Segment -> "segment", JAX's
+guess_model_task), and picks the predictor, validator and trainer as JAX's
+task maps do (:289, :300-320): SegmentationPredictor (Results with masks),
+SegmentationValidator (box and mask mAP) and SegmentationTrainer for
+"segment". As JAX's facade, a model YAML puts its task in the overrides, so
+its training runs under runs/<task>/, while predict and val drop it (their
+run directories stay runs/detect/*). Pose, OBB and classify raise (item
+10), and so do a segment model's serving and ensembles (JAX's assert).
 
 A model YAML (a path, a packaged name such as `yolo11n.yaml`, or the bare
 name `yolo11n`, read as `yolo11n.yaml`) builds the network with fresh weights
@@ -76,9 +86,12 @@ from ..utils.callbacks import default_callbacks
 from ..utils.jax_compat import state_dict_to_variables, variables_to_state_dict
 from .checkpoint import load_checkpoint, save_checkpoint
 from .pipeline import load_model
-from .predictor import BasePredictor, EnsemblePredictor
-from .trainer import DetectionTrainer
-from .validator import BackendValidator, DetectionValidator
+from .predictor import BasePredictor, EnsemblePredictor, SegmentationPredictor
+from .trainer import TASK2TRAINER
+from .validator import BackendValidator, DetectionValidator, SegmentationValidator
+
+TASK2PREDICTOR = {"detect": BasePredictor, "segment": SegmentationPredictor}
+TASK2VALIDATOR = {"detect": DetectionValidator, "segment": SegmentationValidator}
 
 
 class YOLO:
@@ -111,9 +124,9 @@ class YOLO:
         self.ckpt_data = None  # the dataset the checkpoint was trained on, val's default
         self.model = None
         self.backend = None  # the AutoBackend of a served model
-        if task not in (None, "detect"):
+        if task not in (None, "detect", "segment"):
             raise _not_ported(f"task {task!r}", "item 10 (other heads)")
-        self.task = "detect"
+        self.task = task or "detect"
         if self.model_path.startswith(("http://", "https://", "grpc://")):
             from ..nn.autobackend import AutoBackend
 
@@ -137,10 +150,13 @@ class YOLO:
         """The model of a YAML, with fresh weights from seed 0 (JAX :83-87 and
         _ensure_variables' PRNGKey(0)), on the host; another task's raises (item 10)."""
         self.model = build_model(cfg_path).init(0)
+        self.task = self.model.task
         self.overrides["model"] = cfg_path
+        self.overrides["task"] = self.task
 
     def _load_ckpt(self, path: str) -> None:
         self.model, meta = load_model(path)
+        self.task = self.model.task
         self.model.names = meta.get("names") or {i: f"{i}" for i in range(self.model.nc)}
         self.ckpt_meta = meta
         self.overrides["model"] = path
@@ -309,7 +325,7 @@ class YOLO:
                 self.predictor = EnsemblePredictor([m.model for m in self._ensemble], overrides=overrides,
                                                    names=self.names)
             else:
-                self.predictor = BasePredictor(self.model, overrides=overrides, names=self.names)
+                self.predictor = TASK2PREDICTOR[self.task](self.model, overrides=overrides, names=self.names)
             self._predictor_key = key
         self.predictor.callbacks = self.callbacks  # shared, as in the JAX facade
         return self.predictor(source, stream=stream, batch_size=kwargs.get("batch", 1))
@@ -331,9 +347,9 @@ class YOLO:
             raise ValueError("weight ensembles are inference-only; train the members individually")
         if self.backend is not None:
             raise ValueError("remote (served) models are inference-only; train locally and re-serve")
-        overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k not in {"task", "mode"}}
+        overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k != "mode"}
         overrides.setdefault("model", self.model_path)
-        trainer = DetectionTrainer(self.model, overrides)
+        trainer = TASK2TRAINER[self.task](self.model, overrides)
         self._merge_callbacks(trainer)
         metrics = trainer.train()
         self.model, self.trainer = trainer.model, trainer
@@ -353,7 +369,7 @@ class YOLO:
         if self.backend is not None:  # scored through the served graph, the val NMS here
             validator = BackendValidator(self.backend, overrides=overrides)
         else:
-            validator = DetectionValidator(self.model, overrides=overrides)
+            validator = TASK2VALIDATOR[self.task](self.model, overrides=overrides)
         validator.callbacks = self.callbacks  # shared, as in the JAX facade
         self.validator = validator
         return validator(data=data)

@@ -10,7 +10,8 @@ request runs once per batch):
      conf 0.25, iou 0.7, max_det 300, pre_nms_topk 512, the predictor at its
      arguments (pre_nms_topk 1024 by default).
 
-`build_device_fn` is steps 2-5 for frames already letterboxed to S x S; the
+`build_device_fn` is steps 2-5 for frames already letterboxed to S x S
+(`build_segment_fn` the segment task's, with its masks); the
 predictor (engine/predictor.py) letterboxes any frame sizes on the card
 (data/augment.py) and calls it, and `build_pipeline` pads frames of one known
 size and calls it; with augment=True it is TTA's (three scaled and flipped
@@ -41,7 +42,8 @@ import torch.nn.functional as F
 from ..data.augment import letterbox_geometry
 from ..nn.tasks import DetectionModel, build_model
 from ..ops.decode import decode_detections
-from ..ops.nms import non_max_suppression
+from ..ops.masks import crop_masks_device
+from ..ops.nms import non_max_suppression, non_max_suppression_extras
 from ..utils import full_f32, resolve_device
 from .checkpoint import load_checkpoint
 
@@ -107,6 +109,35 @@ def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float 
             preds = forward_decode(model, frames.expand(-1, -1, -1, 3).flip(-1))  # gray broadcast, BGR -> RGB
         return non_max_suppression(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, multi_label=multi_label,
                                    agnostic=agnostic, max_det=max_det, pre_nms_topk=pre_nms_topk, classes=classes)
+
+    return fn
+
+
+def build_segment_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
+                     pre_nms_topk: int = 1024, half: bool = False, binary: bool = False) -> Callable:
+    """The device function of a segment predict or val batch (JAX's
+    SegmentationPredictor and SegmentationValidator device functions,
+    engine/predictor.py:338, engine/validator.py:416): fn(uint8 (B, S, S,
+    1|3) letterboxed BGR frames on the model's device) -> (out (B, max_det,
+    6) [x1, y1, x2, y2, conf, cls], n (B,), masks (B, max_det, S / 4, S /
+    4)). The frames normalised and forwarded, the boxes decoded, the
+    coefficients (f32) carried through NMS with extras (each anchor's best
+    class; the greedy keep kernel), the masks sigmoid(coefficients @
+    prototypes) in f32, thresholded at 0.5 with `binary` (the validator's
+    bool masks), and cropped to their boxes (crop_masks_device). The
+    network in bf16 with `half`. Rows past n hold zeros and empty masks."""
+    model = model.set_dtype(torch.bfloat16 if half else torch.float32)
+
+    @torch.inference_mode()
+    @full_f32()
+    def fn(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        feats, mc, proto = model(nchw(normalize(frames)))
+        preds = torch.cat([decode_detections(feats, model.nc, model.stride), mc.float()], -1)
+        out, n = non_max_suppression_extras(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, max_det=max_det,
+                                            pre_nms_topk=pre_nms_topk)
+        masks = torch.sigmoid(torch.einsum("bdk,bkhw->bdhw", out[..., 6:], proto.float()))
+        masks = crop_masks_device(masks > 0.5 if binary else masks, out[..., :4], frames.shape[1:3])
+        return out[..., :6], n, masks
 
     return fn
 

@@ -33,6 +33,17 @@ logged as a warning and predict goes on, as in JAX.
 EnsemblePredictor is JAX's (:420-460) for YOLO([a, b]): the members' decoded
 predictions, each at its own strides, concatenated into one NMS
 (engine/pipeline.py:build_ensemble_fn).
+
+SegmentationPredictor is JAX's (:338-393) for the segment task: the device
+function (engine/pipeline.py:build_segment_fn: NMS with the mask
+coefficients carried, each anchor's best class, pre_nms_topk 1024, classes
+and agnostic_nms not read, as in JAX; sigmoid masks cropped to their boxes)
+and, per image on the card, each kept mask resized to imgsz x imgsz as cv2's
+float INTER_LINEAR (ops/masks.py:resize_linear_f32), cut to the letterboxed
+region by JAX's round(pad -+ 0.1), resized to the image's size, thresholded
+at 0.5 and cropped to its scaled box (truncated to int); only those bool
+masks come to the host, for Results.masks. As in JAX, augment and
+visualize are not read by the segment predictor.
 """
 
 from __future__ import annotations
@@ -52,8 +63,9 @@ from ..nn.tasks import DetectionModel
 from ..ops.boxes import scale_boxes
 from ..utils import LOGGER, resolve_device
 from ..utils.callbacks import run_callbacks
+from ..ops.masks import resize_linear_f32
 from ..utils.plotting import feature_visualization
-from .pipeline import build_device_fn, build_ensemble_fn, eval_network, nchw, normalize
+from .pipeline import build_device_fn, build_ensemble_fn, build_segment_fn, eval_network, nchw, normalize
 from .results import Results
 
 
@@ -178,11 +190,11 @@ class BasePredictor:
                 self._visualize_features(batch)
             self._sync()
             t1 = time.perf_counter()
-            out, nv = self._device_fn(batch)
-            out, nv = out[:n_real].cpu().numpy(), nv[:n_real].cpu().numpy()
+            dev = self._device_fn(batch)
+            out, nv = dev[0][:n_real].cpu().numpy(), dev[1][:n_real].cpu().numpy()
             t2 = time.perf_counter()
             speed = {"preprocess": (t1 - t0) / n_real * 1e3, "inference": (t2 - t1) / n_real * 1e3, "postprocess": 0.0}
-            res = self.postprocess(out, nv, buf_imgs, buf_paths, speed)
+            res = self.postprocess(out, nv, buf_imgs, buf_paths, speed, *dev[2:])  # a segment batch's masks
             speed["postprocess"] = (time.perf_counter() - t2) / n_real * 1e3
             self.results = res
             run_callbacks(self.callbacks, "on_predict_postprocess_end", self)
@@ -254,3 +266,48 @@ class EnsemblePredictor(BasePredictor):
         variables fails: a warning, no files."""
         self._visualized = True
         LOGGER.warning("visualize=True failed: a weight ensemble has no single network to visualize")
+
+
+class SegmentationPredictor(BasePredictor):
+    """The segment predictor (the module docstring): Results with boxes and masks."""
+
+    def _build_device_fn(self):
+        a = self.args
+        return build_segment_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
+                                half=self.model.dtype == torch.bfloat16)
+
+    def _visualize_features(self, batch: torch.Tensor) -> None:
+        """Not read, as JAX's segment predictor does not (its stream_inference has no visualize step)."""
+        self._visualized = True
+
+    def process_masks(self, masks: torch.Tensor, boxes: np.ndarray, shape) -> np.ndarray:
+        """(n, S / 4, S / 4) float masks of one image on the card and its (n, 4)
+        boxes in its own pixels -> (n, h0, w0) bool on the host (JAX :365-393)."""
+        s, (h0, w0) = self.imgsz, shape
+        gain = min(s / h0, s / w0)
+        pw, ph = (s - w0 * gain) / 2, (s - h0 * gain) / 2
+        m = resize_linear_f32(masks, s, s)
+        m = m[:, int(round(ph - 0.1)) : s - int(round(ph + 0.1)), int(round(pw - 0.1)) : s - int(round(pw + 0.1))]
+        m = resize_linear_f32(m.contiguous(), h0, w0) > 0.5
+        b = torch.from_numpy(boxes.astype(int)).to(m.device)
+        x1, y1, x2, y2 = (b[:, k, None, None] for k in range(4))
+        rows = torch.arange(h0, device=m.device)[:, None]
+        cols = torch.arange(w0, device=m.device)[None, :]
+        inside = (rows >= y1.clamp(min=0)) & (rows < y2) & (cols >= x1.clamp(min=0)) & (cols < x2)
+        return (m & inside).cpu().numpy()
+
+    def postprocess(self, out: np.ndarray, n_valid: np.ndarray, orig_imgs: list, paths: list, speed: dict,
+                    masks: torch.Tensor) -> List[Results]:
+        """Each image's detections scaled to its pixels and its masks (process_masks)."""
+        results = []
+        for i, (img0, path) in enumerate(zip(orig_imgs, paths)):
+            n = int(n_valid[i])
+            det = out[i, :n].copy()
+            img0 = _host_frame(img0)
+            mk = None
+            if n:
+                det[:, :4] = scale_boxes((self.imgsz, self.imgsz), det[:, :4], img0.shape[:2])
+                with torch.inference_mode():
+                    mk = self.process_masks(masks[i, :n], det[:, :4], img0.shape[:2])
+            results.append(Results(img0, path, self.names, boxes=det, speed=speed, masks=mk))
+        return results

@@ -1,7 +1,17 @@
-"""Detection results on the host (numpy). Counterpart of
-spectrogram_yolov11_tpu/engine/results.py: Boxes (:46) and Results (:203) for
-the detect task. The predictor builds them after the fixed-shape NMS output
-has left the card, so device movement is the identity here too.
+"""Detection and segmentation results on the host (numpy). Counterpart of
+spectrogram_yolov11_tpu/engine/results.py: Boxes (:46), Masks (:90) and
+Results (:203) for the detect and segment tasks. The predictor builds them
+after the fixed-shape NMS output has left the card, so device movement is
+the identity here too.
+
+With masks, plot first fills each mask's pixels with its colour (by the
+mask's index) on a copy of the image and blends it over the image as
+cv2.addWeighted(img, 0.55, overlay, 0.45, 0) does on uint8, bit for bit
+(JAX :254-258: a fused multiply-add of the first product onto the rounded
+second, rounded to f32 and then to the nearest integer, ties to even, and
+saturated), then draws the boxes. Masks.xy and save_txt of a mask result
+need cv2.findContours (JAX data/converter.py:196 masks2segments) and raise
+(ROADMAP.md item 10).
 
 plot, save and save_crop are JAX's (:248-304) for boxes: the same line width,
 colours, corners, labels and crops, drawn by utils/plotting.py (rectangles
@@ -23,7 +33,7 @@ import numpy as np
 
 from ..data.imageio import imwrite
 from ..ops.boxes import xyxy2xywh
-from ..utils import SimpleClass
+from ..utils import SimpleClass, not_ported
 from ..utils.plotting import put_text, rectangle
 
 # the JAX package's box colours (engine/results.py:195-199), in the channel order cv2 draws them (BGR)
@@ -98,26 +108,57 @@ class Boxes(_TensorCompat, SimpleClass):
         return self.xywh / np.asarray([w, h, w, h], np.float32)
 
 
+class Masks(_TensorCompat, SimpleClass):
+    """(n, H, W) bool masks at the original image's resolution (JAX :90)."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xy(self):
+        raise not_ported("Masks.xy (mask contours by cv2.findContours)", "item 10 (other heads: Masks.xy)")
+
+
+def add_weighted(img: np.ndarray, alpha: float, overlay: np.ndarray, beta: float) -> np.ndarray:
+    """cv2.addWeighted(img, alpha, overlay, beta, 0) on uint8, bit for bit:
+    fma(img, f32(alpha), f32(overlay * f32(beta))) rounded to f32, then to
+    the nearest integer (ties to even), saturated."""
+    a, b = np.float32(alpha), np.float32(beta)
+    second = (overlay.astype(np.float32) * b).astype(np.float64)
+    t = (img.astype(np.float64) * np.float64(a) + second).astype(np.float32)
+    return np.clip(np.rint(t), 0, 255).astype(np.uint8)
+
+
 class Results(_TensorCompat, SimpleClass):
     """One image's detections: orig_img (host uint8 HWC BGR), path, names,
-    boxes and the per-image speed dict in ms."""
+    boxes, masks (the segment task's, (n, H, W) bool) and the per-image
+    speed dict in ms."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
-                 boxes: Optional[np.ndarray] = None, speed: Optional[dict] = None):
+                 boxes: Optional[np.ndarray] = None, speed: Optional[dict] = None, masks: Optional[np.ndarray] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
-        return 0 if self.boxes is None else len(self.boxes)
+        for k in (self.boxes, self.masks):
+            if k is not None:
+                return len(k)
+        return 0
 
     def __getitem__(self, i):
         """Row-select detections: i is an int, a slice, or a bool/index array."""
         boxes = self.boxes.data[i].reshape(-1, 6) if self.boxes is not None else None
-        return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed)
+        masks = self.masks.data[i].reshape((-1,) + self.masks.data.shape[1:]) if self.masks is not None else None
+        return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed, masks=masks)
 
     def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5, show_conf: bool = True,
              show_labels: bool = True, img: Optional[np.ndarray] = None) -> np.ndarray:
@@ -127,6 +168,11 @@ class Results(_TensorCompat, SimpleClass):
         places) above it at thickness max(lw - 1, 1)."""
         img = self.orig_img.copy() if img is None else img
         lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
+        if self.masks is not None:
+            overlay = img.copy()
+            for i, m in enumerate(self.masks.data):
+                overlay[m.astype(bool)] = _COLORS[i % len(_COLORS)]
+            img = add_weighted(img, 0.55, overlay, 0.45)
         if self.boxes is not None:
             for b in self.boxes.data:
                 c = int(b[5])
@@ -166,7 +212,12 @@ class Results(_TensorCompat, SimpleClass):
                                   "machine does not have; queued in ROADMAP.md §1 item 5 (second part)")
 
     def save_txt(self, txt_file: str | Path, save_conf: bool = False) -> None:
-        """YOLO-format label rows: class, normalised xywh[, conf]."""
+        """YOLO-format label rows: class, normalised xywh[, conf]. A mask
+        result's rows are polygons from the masks' contours (JAX :305-316),
+        which raise (item 10)."""
+        if self.masks is not None and len(self.masks):
+            raise not_ported("save_txt of a mask result (contours by cv2.findContours)",
+                             "item 10 (other heads: save_txt of masks)")
         lines = []
         if self.boxes is not None:
             for b, xywhn in zip(self.boxes.data, self.boxes.xywhn):
@@ -233,11 +284,14 @@ class Results(_TensorCompat, SimpleClass):
         """Empty Results with the same image, path and names."""
         return Results(self.orig_img, self.path, self.names, speed=self.speed)
 
-    def update(self, boxes: Optional[np.ndarray] = None) -> None:
-        """Replace the boxes in place; a 7th column, when present, becomes the track ids."""
+    def update(self, boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None) -> None:
+        """Replace the boxes (a 7th column, when present, becomes the track
+        ids) and the masks in place (JAX :414)."""
         if boxes is not None:
             boxes = np.asarray(boxes)
             self.boxes = Boxes(boxes[:, :6], self.orig_shape, ids=boxes[:, 6] if boxes.shape[1] > 6 else None)
+        if masks is not None:
+            self.masks = Masks(masks, self.orig_shape)
 
     def verbose(self) -> str:
         """Log-line summary such as '2 LTEs, 1 RF, '."""

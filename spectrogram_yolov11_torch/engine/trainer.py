@@ -1,4 +1,4 @@
-"""The detect trainer on the card: the training step, its epoch loop and checkpoints.
+"""The detect and segment trainers on the card: the training step, its epoch loop and checkpoints.
 
 Counterpart of spectrogram_yolov11_tpu/engine/trainer.py: batch_images
 (:75-90), EarlyStopping (:112-129), compute_loss / forward_train /
@@ -72,6 +72,14 @@ images to it as cv2's INTER_LINEAR does (data/augment.py:resize_linear_u8,
 integer tensor ops that give the same bytes on the card as on the host, so
 they run after the upload); `ms_sizes_drawn` keeps the draws. A new size
 costs cuDNN a new set of plans, not a recompile.
+
+SegmentationTrainer is JAX's (:629) for the segment task: the dataset
+carries each image's index-encoded instance mask (`masks`, uploaded with the
+step's other keys), the loss is ops/losses.py:segmentation_loss
+(overlap_mask as JAX's `overlap`), its items box, seg, cls and dfl
+(`loss_names`, the results.csv and metrics.jsonl columns), the EMA is
+scored by a SegmentationValidator at mask_ratio, and multi_scale is not
+drawn, as JAX draws it for the detect task only (:421).
 """
 
 from __future__ import annotations
@@ -92,7 +100,7 @@ from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel, build_model, intersect_state_dicts
 from ..ops.device_augment import augment_batch
-from ..ops.losses import detection_loss
+from ..ops.losses import detection_loss, segmentation_loss
 from ..utils import LOGGER, RUNS_DIR, full_f32, get_latest_run, plotting, resolve_device
 from ..utils.callbacks import default_callbacks, run_callbacks
 from ..utils.jax_compat import (opt_state_from_flax, opt_state_to_flax, state_dict_to_variables,
@@ -100,12 +108,11 @@ from ..utils.jax_compat import (opt_state_from_flax, opt_state_to_flax, state_di
 from .checkpoint import load_checkpoint, save_checkpoint, strip_optimizer
 from .optim import (GROUPS, adamw_update_, choose_optimizer, clip_grad_norm_, ema_decay, ema_update_, lr_at,
                     param_groups, sgd_update_)
-from .validator import DetectionValidator
+from .validator import DetectionValidator, SegmentationValidator
 
 AUG_KEYS = ("aug_src", "aug_regions", "aug_pads", "aug_inv", "aug_hsv")
-TRAIN_BATCH_KEYS = ("img", "cls", "bboxes", "mask_gt", *AUG_KEYS)  # a batch holds `img` or the aug_* keys
+TRAIN_BATCH_KEYS = ("img", "cls", "bboxes", "mask_gt", "masks", *AUG_KEYS)  # `img` or the aug_* keys; `masks`: segment
 BN_STATS = ("running_mean", "running_var")
-LOSS_NAMES = ("box_loss", "cls_loss", "dfl_loss")
 
 
 def batch_images(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -144,6 +151,10 @@ class DetectionTrainer:
     names: train() runs the whole loop; a caller that feeds its own batches
     runs setup_model(), setup_optimizer(nb), then train_step(batch, ni,
     step_due(ni)) per batch, and validate() to score the EMA."""
+
+    task = "detect"
+    loss_names = ("box_loss", "cls_loss", "dfl_loss")
+    default_model = "yolo11n.yaml"  # built when the trainer is given no model and args.model is unset
 
     def __init__(self, model: Optional[DetectionModel], overrides: Optional[dict] = None):
         self.args = get_cfg(DEFAULT_CFG_DICT, {"mode": "train", **(overrides or {})})
@@ -194,7 +205,7 @@ class DetectionTrainer:
             self.rebuilt = {"nc": (m.nc, nc), "grafted": grafted}
             m = new
         if m is None:
-            m = build_model(str(self.args.model or "yolo11n.yaml"), nc=nc).init(seed)
+            m = build_model(str(self.args.model or self.default_model), nc=nc).init(seed)
         if m.dtype != torch.float32:
             raise ValueError(f"the trainer trains an f32 model, got {m.dtype}")
         fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
@@ -347,18 +358,22 @@ class DetectionTrainer:
                                  self.state["ema"]["batch_stats"])
         return m.eval()
 
+    def get_validator(self, model: DetectionModel) -> DetectionValidator:
+        """The EMA's validator (JAX :524-530): the trainer's data, device, imgsz and batch, plots off."""
+        a = self.args
+        return DetectionValidator(model, overrides={
+            "data": a.data, "imgsz": self.imgsz, "batch": self.batch_size, "workers": a.workers,
+            "single_cls": a.single_cls, "device": str(self.device), "plots": False})
+
     def validate(self) -> Dict[str, float]:
         """results_dict of the EMA on the data's val split, through one
-        DetectionValidator kept for the trainer's life (the trainer's device,
-        imgsz and batch). With amp the EMA model computes in bf16, so the
-        validator scores a bf16 copy of it, made anew at each call
-        (set_model), as JAX's validator applies the bf16 graph."""
+        validator (get_validator) kept for the trainer's life. With amp the
+        EMA model computes in bf16, so the validator scores a bf16 copy of
+        it, made anew at each call (set_model), as JAX's validator applies
+        the bf16 graph."""
         model = self.ema_eval_model()
         if self.validator is None:
-            a = self.args
-            self.validator = DetectionValidator(model, overrides={
-                "data": a.data, "imgsz": self.imgsz, "batch": self.batch_size, "workers": a.workers,
-                "single_cls": a.single_cls, "device": str(self.device), "plots": False})
+            self.validator = self.get_validator(model)
         else:
             self.validator.set_model(model)
         self.metrics = self.validator()
@@ -369,7 +384,7 @@ class DetectionTrainer:
         """The train split (its augment mode from the args), the GT pad sized from its labels."""
         a = self.args
         return YOLODataset(self.data["train"], imgsz=self.imgsz, max_gt=0, single_cls=a.single_cls, augment=True,
-                           hyp=a, fraction=a.fraction, cache=a.cache)
+                           hyp=a, fraction=a.fraction, cache=a.cache, task=self.task, mask_ratio=int(a.mask_ratio))
 
     def train(self) -> Dict[str, float]:
         """JAX's train() (:339-522) for the detect task; returns the last
@@ -457,7 +472,7 @@ class DetectionTrainer:
         ms_sizes, ms_rng = None, None
         if a.multi_scale and train_ds.transform.device_mode:
             LOGGER.warning("multi_scale is not supported with device_augment; ignoring multi_scale")
-        elif a.multi_scale:
+        elif a.multi_scale and self.task == "detect":
             ms_sizes = sorted({max(32, int(round(self.imgsz * f / 32)) * 32) for f in (0.5, 0.75, 1.0, 1.25, 1.5)})
             ms_rng = np.random.default_rng(a.seed + 1234)
             LOGGER.info(f"Multi-scale training over {ms_sizes}")
@@ -485,10 +500,10 @@ class DetectionTrainer:
                 items.append(self.train_step(batch, ni, self.step_due(ni))[1])
                 run_callbacks(self.callbacks, "on_train_batch_end", self)
                 t0 = time.perf_counter()
-            mloss = np.zeros(len(LOSS_NAMES))
+            mloss = np.zeros(len(self.loss_names))
             for i, x in enumerate(torch.stack(items).cpu().numpy()):  # JAX's running mean, in float64
                 mloss = (mloss * i + x) / (i + 1)
-            self.label_loss = {f"train/{n}": v for n, v in zip(LOSS_NAMES, mloss)}
+            self.label_loss = {f"train/{n}": v for n, v in zip(self.loss_names, mloss)}
             fitness, t_val = None, time.perf_counter()
             if a.val or epoch == self.epochs - 1:
                 self.metrics = self.validate()
@@ -553,7 +568,7 @@ class DetectionTrainer:
                         "updates": int(meta.get("updates", 0))}
 
     def _write_csv(self, epoch: int, mloss, metrics: Dict[str, float]) -> None:
-        row = {"epoch": epoch, **{f"train/{n}": float(v) for n, v in zip(LOSS_NAMES, mloss)},
+        row = {"epoch": epoch, **{f"train/{n}": float(v) for n, v in zip(self.loss_names, mloss)},
                **{k: float(v) for k, v in metrics.items()}}
         write_header = not self.csv.exists()
         self.csv.parent.mkdir(parents=True, exist_ok=True)
@@ -562,3 +577,31 @@ class DetectionTrainer:
             if write_header:
                 w.writeheader()
             w.writerow(row)
+
+
+class SegmentationTrainer(DetectionTrainer):
+    """The segment trainer (JAX :629; the module docstring): train() or the
+    step alone, as DetectionTrainer, on a segment model and dataset."""
+
+    task = "segment"
+    loss_names = ("box_loss", "seg_loss", "cls_loss", "dfl_loss")
+    default_model = "yolo11n-seg.yaml"
+
+    def compute_loss(self, out, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(total, items (box, seg, cls, dfl)) of the segment loss at the batch's image size."""
+        a = self.args
+        feats, mc, proto = out
+        return segmentation_loss(feats, mc, proto, batch["cls"], batch["bboxes"], batch["mask_gt"], batch["masks"],
+                                 nc=self.data["nc"], imgsz=batch_imgsz(batch),
+                                 strides=tuple(float(s) for s in self.model.stride), hyp_box=float(a.box),
+                                 hyp_cls=float(a.cls), hyp_dfl=float(a.dfl), overlap=bool(a.overlap_mask))
+
+    def get_validator(self, model: DetectionModel) -> SegmentationValidator:
+        """The EMA's validator (JAX :647-656): as detect's, at the run's mask_ratio, single_cls not passed."""
+        a = self.args
+        return SegmentationValidator(model, overrides={
+            "data": a.data, "imgsz": self.imgsz, "batch": self.batch_size, "workers": a.workers,
+            "device": str(self.device), "plots": False, "mask_ratio": a.mask_ratio})
+
+
+TASK2TRAINER = {"detect": DetectionTrainer, "segment": SegmentationTrainer}

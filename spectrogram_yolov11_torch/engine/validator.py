@@ -39,6 +39,18 @@ predictions.json and annotations.json there, runs ops/cocoeval.py over them
 Both hold for BackendValidator too. JAX asks get_save_dir anew for the plots
 and for the JSON, so an incremented run directory splits them in two
 (val, val2); the port asks once per call and writes both into one directory.
+
+SegmentationValidator is JAX's (:410-520) for the segment task: box and
+mask mAP. Its device function (engine/pipeline.py:build_segment_fn) adds
+each detection's mask, sigmoid(coefficients @ prototypes) > 0.5 cropped to
+its box, at the prototypes' resolution (S / 4); only each image's first
+n_valid masks leave the card. The mask TP matrix matches them by mask IoU
+against the index-encoded ground truth at the same resolution (the val
+dataset's `masks`). With save_json each mask is un-letterboxed to the
+image's own size (_unletterbox_mask: the letterboxed region cropped,
+resized as cv2's float INTER_LINEAR, ops/masks.py:resize_linear_f32, and
+thresholded at 0.5), RLE-encoded into the rows, and the COCO protocol runs
+for "segm" too, its keys suffixed (M).
 """
 
 from __future__ import annotations
@@ -56,11 +68,13 @@ from ..data.augment import letterbox_batch
 from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel
-from ..ops.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
+from ..ops.iou import mask_iou
+from ..ops.masks import resize_linear_f32
+from ..ops.metrics import ConfusionMatrix, DetMetrics, SegmentMetrics, box_iou_np, match_predictions
 from ..ops.nms import non_max_suppression
 from ..utils import LOGGER, resolve_device
 from ..utils.callbacks import run_callbacks
-from .pipeline import build_device_fn, eval_network
+from .pipeline import build_device_fn, build_segment_fn, eval_network
 
 VAL_PRE_NMS_TOPK = 2048
 
@@ -213,9 +227,16 @@ class DetectionValidator:
                             np.concatenate(self.stats["pred_cls"]), np.concatenate(self.stats["target_cls"]))
         return metrics
 
+    task = "detect"
+
     def get_dataloader(self, img_path, batch_size: int) -> DataLoader:
-        ds = YOLODataset(img_path, imgsz=self.imgsz, max_gt=256, single_cls=self.args.single_cls)
+        ds = YOLODataset(img_path, imgsz=self.imgsz, max_gt=256, single_cls=self.args.single_cls, task=self.task,
+                         mask_ratio=int(self.args.mask_ratio))
         return DataLoader(ds, batch_size=batch_size, workers=self.args.workers)
+
+    def to_host(self, out: tuple) -> tuple:
+        """The device function's outputs on the host, as numpy."""
+        return tuple(t.cpu().numpy() for t in out)
 
     def preprocess(self, batch: dict) -> torch.Tensor:
         """The batch's frames letterboxed on the device: (B, imgsz, imgsz, 1|3) uint8 BGR."""
@@ -248,8 +269,7 @@ class DetectionValidator:
             frames = self.preprocess(batch)
             self._sync()
             t1 = time.perf_counter()
-            out, nv = self._device_fn(frames)
-            out = (out.cpu().numpy(), nv.cpu().numpy())
+            out = self.to_host(self._device_fn(frames))
             t2 = time.perf_counter()
             for i in range(int(batch["n_valid"])):
                 self._cur_im_file = files[n_img + i]
@@ -309,3 +329,99 @@ class BackendValidator(DetectionValidator):
                                            pre_nms_topk=int(a.pre_nms_topk or 0) or VAL_PRE_NMS_TOPK)
 
         return fn
+
+
+class SegmentationValidator(DetectionValidator):
+    """validator(data) -> results_dict of box and mask P, R, mAP50, mAP50-95
+    (the `(M)` keys) and fitness (their sum), JAX's SegmentationValidator
+    (the module docstring)."""
+
+    task = "segment"
+
+    def _build_device_fn(self):
+        a = self.args
+        return build_segment_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
+                                pre_nms_topk=int(a.pre_nms_topk or 0) or VAL_PRE_NMS_TOPK,
+                                half=self.model.dtype == torch.bfloat16, binary=True)
+
+    def to_host(self, out: tuple) -> tuple:
+        """(out, n_valid, masks): each image's first n_valid masks, gathered on
+        the card and copied in one transfer, as a list of (n, S / 4, S / 4) bool."""
+        det, nv, masks = out
+        nv = nv.cpu().numpy()
+        packed = torch.cat([masks[i, : int(n)] for i, n in enumerate(nv)]).cpu().numpy()
+        return det.cpu().numpy(), nv, np.split(packed, np.cumsum(nv)[:-1])
+
+    def init_metrics(self) -> None:
+        super().init_metrics()
+        self.stats["tp_m"] = []
+
+    @staticmethod
+    def _unletterbox_mask(mask: np.ndarray, dw: float, dh: float, ow: int, oh: int, imgsz: int) -> np.ndarray:
+        """A mask in the letterboxed frame at any resolution -> bool (oh, ow):
+        the letterboxed region cropped (its offsets and size rounded at the
+        mask's scale), resized as cv2's float INTER_LINEAR, > 0.5 (JAX :442)."""
+        hm, wm = mask.shape
+        sx, sy = wm / imgsz, hm / imgsz
+        left, top = int(round(dw * sx)), int(round(dh * sy))
+        w_c, h_c = max(1, int(round((imgsz - 2 * dw) * sx))), max(1, int(round((imgsz - 2 * dh) * sy)))
+        crop = torch.from_numpy(np.ascontiguousarray(mask[top : top + h_c, left : left + w_c], np.float32))
+        return resize_linear_f32(crop[None], oh, ow)[0].numpy() > 0.5
+
+    def update_stats(self, out: tuple, batch: dict, i: int) -> None:
+        """The box stats (DetectionValidator), then the mask TP matrix: mask
+        IoU at the prototypes' resolution against the index-encoded ground
+        truth (JAX :457-490); with save_json, the RLEs of the image's masks
+        and ground truth in its own pixels for the JSON rows."""
+        det, nv, masks = out
+        n = int(nv[i])
+        gt_inst = np.asarray(batch["masks"][i])
+        n_gt = int(np.asarray(batch["mask_gt"][i]).sum())
+        if self.args.save_json:
+            from ..ops.cocoeval import rle_encode
+
+            ori_h, ori_w = (int(x) for x in batch["ori_shape"][i])
+            _, dw, dh = (float(x) for x in batch["ratio_pad"][i])
+            self._cur_pred_rles = [rle_encode(self._unletterbox_mask(m, dw, dh, ori_w, ori_h, self.imgsz))
+                                   for m in masks[i]]
+            self._cur_gt_rles = [rle_encode(self._unletterbox_mask(gt_inst == j + 1, dw, dh, ori_w, ori_h, self.imgsz))
+                                 for j in range(n_gt)]
+        super().update_stats((det, nv), batch, i)
+        gt_cls = self.stats["target_cls"][-1]
+        if n == 0 or not len(gt_cls):
+            self.stats["tp_m"].append(np.zeros((n, 10), bool))
+            return
+        m_gt = torch.from_numpy(np.stack([gt_inst == j + 1 for j in range(len(gt_cls))]).reshape(len(gt_cls), -1))
+        iou = mask_iou(m_gt, torch.from_numpy(masks[i].reshape(n, -1))).numpy()
+        self.stats["tp_m"].append(match_predictions(det[i, :n, 5].astype(int), gt_cls, iou, self.iouv))
+
+    def _pred_to_json(self, det: np.ndarray) -> None:
+        start = len(self.jdict)
+        super()._pred_to_json(det)
+        for row, rle in zip(self.jdict[start:], self._cur_pred_rles):
+            row["segmentation"] = rle
+
+    def _gt_to_json(self, gt_cls: np.ndarray, gxyxy: np.ndarray) -> None:
+        start = len(self.gt_jdict)
+        super()._gt_to_json(gt_cls, gxyxy)
+        for row, rle in zip(self.gt_jdict[start:], self._cur_gt_rles):
+            row["segmentation"] = rle
+
+    def _save_json(self, save_dir: Path) -> dict:
+        """The box protocol's stats, then the "segm" protocol's with the (M) suffix (JAX :504-515)."""
+        from ..ops.cocoeval import COCOeval
+
+        stats = super()._save_json(save_dir)
+        if self.gt_jdict:
+            m = COCOeval(self.gt_jdict, self.jdict, iou_type="segm").evaluate().stats
+            LOGGER.info("COCO protocol (segm): AP {AP:.4f}  AP50 {AP50:.4f}".format(**m))
+            stats.update({f"{k}(M)": v for k, v in m.items()})
+        return stats
+
+    def get_metrics(self) -> SegmentMetrics:
+        metrics = SegmentMetrics(names=self.names)
+        if self.stats["conf"]:
+            metrics.process(np.concatenate(self.stats["tp"]), np.concatenate(self.stats["conf"]),
+                            np.concatenate(self.stats["pred_cls"]), np.concatenate(self.stats["target_cls"]),
+                            tp_m=np.concatenate(self.stats["tp_m"]))
+        return metrics

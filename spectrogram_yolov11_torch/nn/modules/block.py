@@ -4,7 +4,8 @@ attention stack and the DFL decode.
 Counterparts of spectrogram_yolov11_tpu/nn/modules/block.py: dfl_decode (:35),
 Bottleneck (:69), C2f (:126), C3 (:151), C3k (:173), _c2f_forward (:195) as
 C2f.forward, C3k2 (:204), SPPF (:246), Attention / PSABlock / C2PSA
-(:264-357), and the fork's C3x (:788).
+(:264-357), Proto (:522, the segment head's mask prototypes) and the fork's
+C3x (:788).
 
 The inner bottlenecks of C3k (and C2f) are same-width 3x3 -> 3x3 residual
 blocks. In the inference forward they run as one fused CUDA kernel
@@ -40,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.fused_conv import CHANNELS, fused_bottleneck, pack_bottleneck_weights, pack_bottleneck_weights_bf16
-from .conv import Conv
+from .conv import Conv, ConvTranspose2d
 
 
 @functools.lru_cache(maxsize=8)
@@ -275,3 +276,20 @@ class C2PSA(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, b = self.cv1(x).chunk(2, 1)
         return self.cv2(torch.cat((a, self.m(b)), 1))
+
+
+class Proto(nn.Module):
+    """The segment head's mask prototypes (JAX block.py:522): cv1 3x3 ->
+    `upsample`, a 2x2 stride-2 transposed conv with bias (JAX's
+    conv_transpose2d) -> cv2 3x3 -> cv3 1x1 to c2 channels; (B, c1, H, W) ->
+    (B, c2, 2H, 2W)."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))

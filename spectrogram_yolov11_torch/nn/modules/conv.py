@@ -73,6 +73,23 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """torch's ConvTranspose2d that computes in its input's dtype, as JAX's
+    conv_transpose2d (conv.py:371: flax's ConvTranspose with
+    transpose_kernel=True, padding VALID) at dtype=bfloat16; flax's default
+    init (lecun, fan_in = out channels x kh x kw, zero bias). flax's kernel
+    (kh, kw, out, in) is the torch weight (in, out, kh, kw) by the bridge's
+    HWIO -> OIHW transpose, unflipped: both are the gradient of a conv."""
+
+    def __init__(self, *args, init_kind: str = "lecun", **kwargs):
+        super().__init__(*args, **kwargs)
+        self.init_kind = init_kind
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+
+
 class Linear(nn.Linear):
     """torch's Linear that computes in its input's dtype, as flax's nn.Dense
     with dtype=bfloat16 (SELayer, SaELayer); flax's default init (lecun)."""

@@ -1,7 +1,8 @@
-"""Detection head (NCHW) of the port.
+"""Detection and segmentation heads (NCHW) of the port.
 
-Counterpart of spectrogram_yolov11_tpu/nn/modules/head.py:29 Detect in its
-non-legacy form (the YOLO11 head: a depthwise-separable class branch). As in
+Counterparts of spectrogram_yolov11_tpu/nn/modules/head.py:29 Detect in its
+non-legacy form (the YOLO11 head: a depthwise-separable class branch) and
+:86 Segment. As in
 the JAX head, each level returns a (box, cls) pair of raw logits; decode and
 NMS live in ops/. Each branch's last conv (with bias) computes in its input's
 dtype, as the JAX head's conv2d at the model's dtype.
@@ -15,6 +16,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from .block import Proto
 from .conv import Conv, Conv2d, DWConv
 
 
@@ -52,3 +54,26 @@ class Detect(nn.Module):
 
     def forward(self, xs: List[torch.Tensor]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         return [(self.cv2[i](x), self.cv3[i](x)) for i, x in enumerate(xs)]
+
+
+class Segment(nn.Module):
+    """Detect, the mask coefficient branches and Proto (JAX head.py:86):
+    forward(xs) -> (Detect's per-level pairs, coefficients (B, A, nm) in the
+    anchor order (level, h, w), prototypes (B, nm, H0 * 2, W0 * 2) from
+    xs[0]). The JAX head gives its prototypes NHWC; the port's stay NCHW.
+    Level i's coefficient branch is cv4[i]: Conv 3x3 to c4 = max(ch[0] // 4,
+    nm), Conv 3x3, conv 1x1 with bias to nm."""
+
+    def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256, ch: Sequence[int] = (), legacy: bool = False,
+                 reg_max: int = 16):
+        super().__init__()
+        self.nc, self.nm, self.npr = nc, nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        c4 = max(ch[0] // 4, nm)
+        self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), Conv2d(c4, nm, 1)) for x in ch)
+        self.detect = Detect(nc, ch, legacy, reg_max)
+
+    def forward(self, xs: List[torch.Tensor]):
+        p = self.proto(xs[0])
+        mc = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2)
+        return self.detect(xs), mc, p

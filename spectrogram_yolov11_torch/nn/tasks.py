@@ -4,20 +4,24 @@ Counterpart of spectrogram_yolov11_tpu/nn/tasks.py: the module registry and
 its sets (:40-193), parse_model (:232), the YOLOGraph routing (:379),
 yaml_model_load (:459), guess_model_task (:475), DetectionModel with init /
 _bias_init (:557, :575), info (:589) and profile (:603), the graph's `embed`
-output (:404-450), and build_model (:848), restricted to the detect task:
-the stock YOLO11 modules, the trained spectrogram detector's and the fork's
-whole zoo (nn/modules/fork.py; the 136 detect configs that build under
+output (:404-450), and build_model (:848), with SegmentationModel (:683) for the
+segment task: the stock YOLO11 modules, the Segment head (yolo11-seg.yaml),
+the trained spectrogram detector's and the fork's whole zoo
+(nn/modules/fork.py; the 136 detect configs that build under
 cfg/models/11/fork/). Scaling matches the JAX parse_model: channels
 make_divisible(min(c, max_channels) * width, 8), repeats max(round(n *
-depth), 1). Any other module name raises KeyError; DyHead and TorchVision
-raise with their ROADMAP.md item.
+depth), 1), and the Segment head's prototype width npr as
+make_divisible(min(npr, max_channels) * width, 8) (JAX :355). Any other
+module name raises KeyError; DyHead and TorchVision raise with their
+ROADMAP.md item.
 
 A model is built from a dict (a checkpoint's `model_yaml`) or from a model
 YAML: a path, or a name that find_model_yaml (JAX cfg/__init__.py:349)
 resolves under the port's cfg/models/ (yolo11.yaml, spectrogram_yolo11.yaml,
 fork/*.yaml; `yolo11n.yaml` and the bare `yolo11n` are yolo11.yaml at scale
-n, `yolo11n_HCA.yaml` is fork/yolo11_HCA.yaml at n), read by
-utils.yaml_load. Heads other than Detect raise with their ROADMAP.md item.
+n, `yolo11n-seg.yaml` is yolo11-seg.yaml at n, `yolo11n_HCA.yaml` is
+fork/yolo11_HCA.yaml at n), read by utils.yaml_load. Heads other than Detect
+and Segment (pose, obb, classify) raise with their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ FORK_MODULES = (
 MODULE_REGISTRY: Dict[str, type] = {
     **{name: getattr(M, name) for name in (
         "Conv", "DWConv", "GhostConv", "CBAM", "ChannelAttention", "SpatialAttention", "Concat", "Bottleneck",
-        "C2f", "C3", "C3k", "C3k2", "C2PSA", "SPPF", "C3x", "Detect", *FORK_MODULES)},
+        "C2f", "C3", "C3k", "C3k2", "C2PSA", "SPPF", "C3x", "Detect", "Segment", *FORK_MODULES)},
     "nn.Upsample": M.Upsample,
 }
 BASE_MODULES = {
@@ -76,8 +80,8 @@ NOT_PORTED_MODULES = {
 def find_model_yaml(name: str | Path) -> Path:
     """A model YAML by path or by name under the port's cfg/models/ (JAX
     cfg/__init__.py:349): the name as given, then without its scale letter
-    (yolo11n -> yolo11). The other tasks' YAMLs of the JAX package (-seg,
-    -pose, -obb, -cls) raise with their ROADMAP.md item."""
+    (yolo11n -> yolo11, yolo11n-seg -> yolo11-seg). The other tasks' YAMLs
+    of the JAX package (-pose, -obb, -cls) raise with their ROADMAP.md item."""
     p = Path(name)
     if p.exists():
         return p
@@ -87,7 +91,7 @@ def find_model_yaml(name: str | Path) -> Path:
         hits = sorted(MODELS_DIR.rglob(f"{cand}.yaml"))
         if hits:
             return hits[0]
-    if re.search(r"-(seg|pose|obb|cls)\b", stem):
+    if re.search(r"-(pose|obb|cls)\b", stem):
         raise not_ported(f"the {stem} model (another task's head)", "item 10 (other heads)")
     raise FileNotFoundError(f"Model yaml '{name}' not found under {MODELS_DIR}")
 
@@ -193,8 +197,10 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
             c2, args, kwargs["c1"] = ch_list[f[0]], [inc, "ESChannel"], ch_list[f[0]]
         elif cls is M.SelectChannel:
             c2, args = ch_list[f[0]], [ch_list[f[0]]]
-        elif cls is M.Detect:
+        elif cls in (M.Detect, M.Segment):
             args.append(tuple(ch_list[x] for x in f))
+            if cls is M.Segment:  # the prototype width npr scales as a width (JAX :355)
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             kwargs["legacy"] = legacy
             c2 = None
         else:  # Upsample and the fork's other modules keep the width of their input
@@ -220,8 +226,8 @@ def init_weights(module: nn.Module, g: torch.Generator) -> None:
     BN and LayerNorm to scale 1, bias 0 (BN mean 0, variance 1), and the
     fork's bare parameters by their module's init_params."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = max(m.weight[0].numel(), 1)
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            fan_in = max(m.weight[0].numel(), 1)  # a transposed conv's (in, out, kh, kw): out * kh * kw, as flax's
             kind = getattr(m, "init_kind", "torch")
             if kind == "torch":
                 bound = 1.0 / math.sqrt(fan_in)
@@ -261,7 +267,11 @@ class DetectionModel(nn.Module):
     forward(x (B, 3, H, W) float) -> per-level (box, cls) logits, NCHW, in the
     model's dtype (in training mode, in its compute dtype); with embed=(i,
     ...), the concatenation of those layers' outputs, each mean-pooled over H
-    and W, (B, C) (JAX's graph __call__ :404-450)."""
+    and W, (B, C) (JAX's graph __call__ :404-450). A model whose head is
+    Segment returns (those pairs, mask coefficients (B, A, nm), prototypes
+    (B, nm, H / 4, W / 4)) and is a SegmentationModel."""
+
+    task = "detect"
 
     def __init__(self, cfg: dict, ch: int = 3, nc: Optional[int] = None):
         super().__init__()
@@ -278,7 +288,8 @@ class DetectionModel(nn.Module):
         self.eval()
         s = 256  # dummy forward for the strides, as the JAX BaseModel does
         with torch.no_grad():
-            feats = self.forward(torch.zeros(1, ch, s, s))
+            out = self.forward(torch.zeros(1, ch, s, s))
+        feats = out[0] if isinstance(out, tuple) else out  # a Segment head's pairs come first
         self.stride = tuple(s / box.shape[-2] for box, _ in feats)
 
     @full_f32()
@@ -345,7 +356,8 @@ class DetectionModel(nn.Module):
         model.dtype = dtype
         model.fold()
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):  # flax's conv and dense with dtype=bfloat16; bare params stay f32
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):  # flax's conv, dense and transposed conv
+                # with dtype=bfloat16; bare params stay f32
                 m.to(dtype)
         return model
 
@@ -474,9 +486,20 @@ class DetectionModel(nn.Module):
         return msg
 
 
+class SegmentationModel(DetectionModel):
+    """The segment task's model (JAX nn/tasks.py:683): a DetectionModel whose
+    head is Segment."""
+
+    task = "segment"
+
+
+TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel}  # JAX's task map (:839), the ported tasks
+
+
 def build_model(cfg: Union[str, Path, dict], nc: Optional[int] = None,
                 variables: Optional[dict] = None) -> DetectionModel:
-    """DetectionModel from a model dict or a model YAML (yaml_model_load); with
+    """The task's model (DetectionModel or SegmentationModel, by
+    guess_model_task) from a model dict or a model YAML (yaml_model_load); with
     `variables` (flax {params, batch_stats} numpy trees) the weights are
     carried across by the bridge and loaded with strict=True, else the model
     holds torch's default init until `init(seed)` draws JAX's."""
@@ -485,9 +508,9 @@ def build_model(cfg: Union[str, Path, dict], nc: Optional[int] = None,
         if m in NOT_PORTED_MODULES:
             raise not_ported(*NOT_PORTED_MODULES[m])
     task = guess_model_task(d) if d.get("head") else "detect"  # a headless dict fails in parse_model
-    if task != "detect":
+    if task not in TASK2MODEL:
         raise not_ported(f"a {task} model ({d.get('yaml_name') or d['head'][-1][2]})", "item 10 (other heads)")
-    model = DetectionModel(d, nc=nc)
+    model = TASK2MODEL[task](d, nc=nc)
     if variables is not None:
         model.load_state_dict(variables_to_state_dict(variables), strict=True)
     return model

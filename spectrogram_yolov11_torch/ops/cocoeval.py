@@ -1,13 +1,15 @@
-"""The COCO evaluation protocol for boxes, on the host (numpy, float64).
+"""The COCO evaluation protocol for boxes and masks, on the host (numpy, float64).
 
-Counterpart of spectrogram_yolov11_tpu/ops/cocoeval.py for iou_type="bbox":
-_iou_xywh (:33) and COCOeval (:177) with its defaults, _evaluate_img (:238),
-evaluate (:292), _summ (:336) and _summarize (:350). It is pycocotools'
-algorithm, which the validator runs on its predictions.json and
-annotations.json rows when save_json=True (engine/validator.py):
+Counterpart of spectrogram_yolov11_tpu/ops/cocoeval.py for iou_type "bbox"
+and "segm": _iou_xywh (:33), the compressed RLE codec rle_encode (:52),
+_rle_counts (:84), rle_decode (:108), rle_area (:123), _iou_rle (:127), and
+COCOeval (:177) with its defaults, _evaluate_img (:238), evaluate (:292),
+_summ (:336) and _summarize (:350). It is pycocotools' algorithm, which the
+validator runs on its predictions.json and annotations.json rows when
+save_json=True (engine/validator.py), the segment validator with "segm" too:
 
-- per (image, category) box IoU, a crowd ground truth's union being the
-  detection's area;
+- per (image, category) box IoU, or the IoU of the RLE-decoded masks, a
+  crowd ground truth's union being the detection's area;
 - greedy matching in score order at each IoU threshold, with ignore regions
   (crowd rows and ground truth outside the area range);
 - 101-point interpolated precision accumulated over IoU x recall x category
@@ -17,9 +19,10 @@ annotations.json rows when save_json=True (engine/validator.py):
   AR{1,10,100}, AR{small,medium,large}.
 
 Inputs are lists of dicts in the COCO JSON schema: ground truth {image_id,
-category_id, bbox [x, y, w, h]} (optional area, iscrowd, id), detections the
-same with score. The RLE, segm and keypoint parts of the JAX module (:52-176)
-go with the other heads (ROADMAP.md item 10).
+category_id, bbox [x, y, w, h]} (optional area, iscrowd, id; `segmentation`,
+an RLE, for "segm", whose area is the RLE's), detections the same with
+score. The keypoint protocol (JAX :142-176) goes with the pose head
+(ROADMAP.md item 10).
 """
 
 from __future__ import annotations
@@ -47,16 +50,97 @@ def _iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray
     return inter / np.maximum(union, 1e-12)
 
 
+def rle_encode(mask: np.ndarray) -> dict:
+    """Binary (h, w) mask -> COCO compressed RLE {size, counts: str}, as
+    pycocotools' encode: column-major runs alternating 0s and 1s from a run
+    of 0s (maybe empty); each count written in 5-bit groups with 0x20 the
+    continuation bit and 0x10 the sign, the counts from the fourth on as the
+    difference from the one two before, each character offset by 48."""
+    h, w = mask.shape
+    flat = np.asarray(mask, dtype=np.uint8).flatten(order="F")
+    bounds = np.concatenate([[0], np.flatnonzero(np.diff(flat)) + 1, [flat.size]])
+    cnts = np.diff(bounds).tolist()
+    if flat.size and flat[0] == 1:
+        cnts = [0] + cnts
+    if not flat.size:
+        cnts = [0]
+    out = []
+    for i, c in enumerate(cnts):
+        x = int(c) - (int(cnts[i - 2]) if i > 2 else 0)
+        more = True
+        while more:
+            ch = x & 0x1F
+            x >>= 5
+            more = (x != -1) if (ch & 0x10) else (x != 0)
+            out.append(chr((ch | 0x20 if more else ch) + 48))
+    return {"size": [int(h), int(w)], "counts": "".join(out)}
+
+
+def _rle_counts(rle: dict) -> np.ndarray:
+    """The run lengths of a compressed (str or bytes) or uncompressed (list) RLE."""
+    counts = rle["counts"]
+    if isinstance(counts, (list, tuple, np.ndarray)):
+        return np.asarray(counts, dtype=np.int64)
+    if isinstance(counts, bytes):
+        counts = counts.decode("ascii")
+    cnts: list = []
+    p = 0
+    while p < len(counts):
+        x, k, more = 0, 0, True
+        while more:
+            c = ord(counts[p]) - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            p += 1
+            k += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * k)
+        if len(cnts) > 2:
+            x += cnts[-2]
+        cnts.append(x)
+    return np.asarray(cnts, dtype=np.int64)
+
+
+def rle_decode(rle: dict) -> np.ndarray:
+    """A COCO RLE -> bool (h, w) mask; a count that does not cover h * w raises ValueError."""
+    h, w = rle["size"]
+    cnts = _rle_counts(rle)
+    vals = np.zeros(len(cnts), dtype=bool)
+    vals[1::2] = True
+    flat = np.repeat(vals, cnts)
+    if flat.size != h * w:
+        raise ValueError(f"RLE decodes to {flat.size} px, expected {h}x{w}={h * w}")
+    return flat.reshape((w, h)).T
+
+
+def rle_area(rle: dict) -> float:
+    """The mask's pixel count: the sum of the runs of 1s."""
+    return float(_rle_counts(rle)[1::2].sum())
+
+
+def _iou_rle(dts: List[dict], gts: List[dict], iscrowd: np.ndarray) -> np.ndarray:
+    """(D, G) IoU of the RLE masks; a crowd ground truth's union is the detection's area."""
+    if not dts or not gts:
+        return np.zeros((len(dts), len(gts)))
+    dm = np.stack([rle_decode(d["segmentation"]).ravel() for d in dts])
+    gm = np.stack([rle_decode(g["segmentation"]).ravel() for g in gts])
+    inter = (dm[:, None, :] & gm[None, :, :]).sum(-1).astype(float)
+    da = dm.sum(-1).astype(float)[:, None]
+    ga = gm.sum(-1).astype(float)[None, :]
+    union = np.where(iscrowd[None].astype(bool), da, da + ga - inter)
+    return inter / np.maximum(union, 1e-12)
+
+
 class COCOeval:
     """COCOeval(gts, dts).evaluate().stats -> the summary dict."""
 
     def __init__(self, gts: List[dict], dts: List[dict], iou_thrs: Sequence[float] = None,
                  rec_thrs: Sequence[float] = None, max_dets: Sequence[int] = None,
                  area_rng: Dict[str, tuple] = None, iou_type: str = "bbox"):
-        if iou_type != "bbox":
+        if iou_type not in ("bbox", "segm"):
             from ..utils import not_ported
 
-            raise not_ported(f"COCOeval(iou_type={iou_type!r})", "item 10 (other heads)")
+            raise not_ported(f"COCOeval(iou_type={iou_type!r})", "item 10 (other heads: pose)")
         self.iou_type = iou_type
         self.iou_thrs = np.asarray(iou_thrs if iou_thrs is not None else np.linspace(0.5, 0.95, 10))
         self.rec_thrs = np.asarray(rec_thrs if rec_thrs is not None else np.linspace(0.0, 1.0, 101))
@@ -69,16 +153,20 @@ class COCOeval:
             g = dict(g)
             g.setdefault("id", i + 1)
             g.setdefault("iscrowd", 0)
-            g.setdefault("area", float(g["bbox"][2] * g["bbox"][3]))
+            g.setdefault("area", self._area(g))
             g.setdefault("ignore", g["iscrowd"])
             self._gts[(g["image_id"], g["category_id"])].append(g)
         for d in dts:
             d = dict(d)
-            d.setdefault("area", float(d["bbox"][2] * d["bbox"][3]))  # for the out-of-range ignore
+            d.setdefault("area", self._area(d))  # for the out-of-range ignore
             self._dts[(d["image_id"], d["category_id"])].append(d)
         self.img_ids = sorted({k[0] for k in list(self._gts) + list(self._dts)})
         self.cat_ids = sorted({k[1] for k in list(self._gts) + list(self._dts)})
         self.stats: Dict[str, float] = {}
+
+    def _area(self, row: dict) -> float:
+        """A row's area: its RLE's pixel count for "segm", its box's otherwise."""
+        return rle_area(row["segmentation"]) if self.iou_type == "segm" else float(row["bbox"][2] * row["bbox"][3])
 
     def _evaluate_img(self, img_id, cat_id, arng, max_det):
         """pycocotools' evaluateImg for one image, category and area range."""
@@ -91,9 +179,12 @@ class COCOeval:
         gts = [gts[i] for i in order]
         g_ignore = g_ignore[order]
         crowd = np.array([g["iscrowd"] for g in gts], int)
-        gbb = np.array([g["bbox"] for g in gts], float).reshape(-1, 4)
-        dbb = np.array([d["bbox"] for d in dts], float).reshape(-1, 4)
-        ious = _iou_xywh(dbb, gbb, crowd)
+        if self.iou_type == "segm":
+            ious = _iou_rle(dts, gts, crowd)
+        else:
+            gbb = np.array([g["bbox"] for g in gts], float).reshape(-1, 4)
+            dbb = np.array([d["bbox"] for d in dts], float).reshape(-1, 4)
+            ious = _iou_xywh(dbb, gbb, crowd)
 
         T, D, G = len(self.iou_thrs), len(dts), len(gts)
         dt_m = np.zeros((T, D), int)

@@ -1,6 +1,6 @@
 """IoU (torch). Counterpart of spectrogram_yolov11_tpu/ops/iou.py: box_iou (:17)
 and bbox_iou (:27), whose CIoU drives both the TAL assigner's metric and the
-box loss."""
+box loss, and mask_iou (:118), the segment validator's mask matching."""
 
 from __future__ import annotations
 
@@ -58,3 +58,10 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, GIoU: bo
         return (iou - rho2 / c2).squeeze(-1)
     c_area = cw * ch + eps
     return (iou - (c_area - union) / c_area).squeeze(-1)
+
+
+def mask_iou(mask1: torch.Tensor, mask2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """(N, HW) x (M, HW) binary masks -> (N, M) IoU, summed in f32 (JAX iou.py:118)."""
+    m1, m2 = mask1.float(), mask2.float()
+    inter = m1 @ m2.T
+    return inter / (m1.sum(-1)[:, None] + m2.sum(-1)[None] - inter + eps)

@@ -1,13 +1,14 @@
-"""The detect training loss over padded batches.
+"""The detect and segment training losses over padded batches.
 
-Counterpart of the detect part of spectrogram_yolov11_tpu/ops/losses.py:43-175
-(_bce_logits, df_loss, bbox_loss, preprocess_targets, detection_loss), with
-the same reductions:
+Counterpart of spectrogram_yolov11_tpu/ops/losses.py:43-175 (_bce_logits,
+df_loss, bbox_loss, preprocess_targets, detection_loss) and :223
+segmentation_loss, with the same reductions:
 
   cls   = BCE(logits, target scores).sum() / max(target_scores.sum(), 1)
   box   = sum((1 - CIoU) * w) / target_scores_sum, w = target_scores.sum(-1) on fg anchors
   dfl   = the weighted two-bin cross-entropy, summed the same way
   items = (box * hyp_box, cls * hyp_cls, dfl * hyp_dfl), total = items.sum() * batch
+  segment: the same terms and seg, the mask BCE below; items = (box, seg * hyp_box, cls, dfl)
 
 Boxes are masked, not indexed, so every shape is fixed and nothing syncs
 with the host. The assigner sees sigmoid(scores) and the decoded boxes
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 from .decode import bbox2dist, dist2bbox, make_anchors
 from .iou import bbox_iou
+from .masks import crop_mask
 from .tal import task_aligned_assign
 
 
@@ -64,14 +66,11 @@ def preprocess_targets(cls: torch.Tensor, bboxes: torch.Tensor, mask_gt: torch.T
     return cls[..., None], gt_xyxy, mask_gt[..., None]
 
 
-def detection_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], cls: torch.Tensor, bboxes: torch.Tensor,
-                   mask_gt: torch.Tensor, nc: int, reg_max: int = 16, imgsz: int = 640,
-                   strides: Sequence[float] = (8.0, 16.0, 32.0), hyp_box: float = 7.5, hyp_cls: float = 0.5,
-                   hyp_dfl: float = 1.5, tal_topk: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
-    """v8DetectionLoss on the head's per-level (box (b, 4*reg_max, H, W), cls
-    (b, nc, H, W)) logits and the padded GT: cls (b, g) int, bboxes (b, g, 4)
-    normalised xywh, mask_gt (b, g) bool. Returns (total, items (box, cls,
-    dfl) without gradient)."""
+def _detect_terms(feats: List[Tuple[torch.Tensor, torch.Tensor]], cls: torch.Tensor, bboxes: torch.Tensor,
+                  mask_gt: torch.Tensor, nc: int, reg_max: int, imgsz: int, strides: Sequence[float], tal_topk: int):
+    """The detect loss's terms and the assignment: (assign, loss_iou,
+    loss_cls, loss_dfl), unweighted (JAX _assign_for_feats and the head of
+    detection_loss)."""
     b = feats[0][0].shape[0]
     dev = feats[0][0].device
     anchor_points, stride_t = make_anchors([tuple(bx.shape[-2:]) for bx, _ in feats], strides, dev)
@@ -94,5 +93,61 @@ def detection_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], cls: torch.Te
     loss_cls = bce_logits(pred_scores, assign.target_scores).sum() / target_scores_sum
     loss_iou, loss_dfl = bbox_loss(pred_dist_logits, pred_bboxes, anchor_points, target_bboxes,
                                    assign.target_scores, target_scores_sum, assign.fg_mask, reg_max)
+    return assign, loss_iou, loss_cls, loss_dfl
+
+
+def detection_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], cls: torch.Tensor, bboxes: torch.Tensor,
+                   mask_gt: torch.Tensor, nc: int, reg_max: int = 16, imgsz: int = 640,
+                   strides: Sequence[float] = (8.0, 16.0, 32.0), hyp_box: float = 7.5, hyp_cls: float = 0.5,
+                   hyp_dfl: float = 1.5, tal_topk: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v8DetectionLoss on the head's per-level (box (b, 4*reg_max, H, W), cls
+    (b, nc, H, W)) logits and the padded GT: cls (b, g) int, bboxes (b, g, 4)
+    normalised xywh, mask_gt (b, g) bool. Returns (total, items (box, cls,
+    dfl) without gradient)."""
+    _, loss_iou, loss_cls, loss_dfl = _detect_terms(feats, cls, bboxes, mask_gt, nc, reg_max, imgsz, strides,
+                                                    tal_topk)
     items = torch.stack([hyp_box * loss_iou, hyp_cls * loss_cls, hyp_dfl * loss_dfl])
+    return items.sum() * feats[0][0].shape[0], items.detach()
+
+
+def segmentation_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], mask_coeffs: torch.Tensor, proto: torch.Tensor,
+                      cls: torch.Tensor, bboxes: torch.Tensor, mask_gt: torch.Tensor, gt_masks: torch.Tensor, nc: int,
+                      reg_max: int = 16, imgsz: int = 640, strides: Sequence[float] = (8.0, 16.0, 32.0),
+                      hyp_box: float = 7.5, hyp_cls: float = 0.5, hyp_dfl: float = 1.5, max_fg: int = 128,
+                      overlap: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v8SegmentationLoss as JAX's segmentation_loss (losses.py:223): the
+    detect terms, then the mask term over the max_fg foreground anchors of
+    each image with the highest target score (a stable descending sort cut
+    at max_fg, as jax.lax.top_k breaks ties by the lower index): for each,
+    BCE(coeff @ proto, its ground-truth instance of the index-encoded
+    gt_masks (b, hm, wm), pixel = index + 1) cropped to its target box in
+    mask pixels and divided by the box's area (at least 1), averaged over
+    the selected foreground anchors. mask_coeffs (b, A, nm) and proto (b,
+    nm, hm, wm) are upcast to f32, as JAX's. overlap=False raises JAX's
+    ValueError: its branch takes a (b, K, 1, 1) index along axis 1 of the
+    3-D gt_masks; so does max_fg above the anchor count (top_k's check: an
+    image under 80 px). Returns (total, items (box, seg, cls, dfl) without
+    gradient)."""
+    if not overlap:
+        raise ValueError(f"indices and arr must have the same number of dimensions; 4 vs. {gt_masks.ndim}")
+    assign, loss_iou, loss_cls, loss_dfl = _detect_terms(feats, cls, bboxes, mask_gt, nc, reg_max, imgsz, strides,
+                                                         10)
+    b, nm, hm, wm = proto.shape
+    if max_fg > assign.fg_mask.shape[1]:  # jax.lax.top_k's check
+        raise ValueError(f"k argument to top_k must be no larger than size along axis; got k={max_fg} with "
+                         f"shape={list(assign.fg_mask.shape)} and axis=1")
+    score_rank = assign.target_scores.sum(-1).masked_fill(~assign.fg_mask, -1.0)
+    sel = torch.sort(score_rank, dim=1, descending=True, stable=True)[1][:, :max_fg]  # (b, K) anchors
+    sel_fg = assign.fg_mask.gather(1, sel).float()
+    sel_gt_idx = assign.target_gt_idx.gather(1, sel)
+    sel_coeff = mask_coeffs.float().gather(1, sel[..., None].expand(-1, -1, nm))  # (b, K, nm)
+    sel_boxes = assign.target_bboxes.gather(1, sel[..., None].expand(-1, -1, 4))  # (b, K, 4) pixels
+    pred_masks = torch.einsum("bkn,bnhw->bkhw", sel_coeff, proto.float())
+    gt_m = (gt_masks[:, None] == (sel_gt_idx[..., None, None] + 1)).float()
+    boxes_m = sel_boxes * (hm / float(imgsz))  # to mask pixels
+    cropped = crop_mask(bce_logits(pred_masks, gt_m), boxes_m)
+    area = ((boxes_m[..., 2] - boxes_m[..., 0]) * (boxes_m[..., 3] - boxes_m[..., 1])).clamp(min=1.0)
+    per_anchor = cropped.sum((-2, -1)) / area  # the crop's BCE averaged over the box's pixels
+    loss_mask = (per_anchor * sel_fg).sum() / sel_fg.sum().clamp(min=1.0)
+    items = torch.stack([hyp_box * loss_iou, hyp_box * loss_mask, hyp_cls * loss_cls, hyp_dfl * loss_dfl])
     return items.sum() * b, items.detach()

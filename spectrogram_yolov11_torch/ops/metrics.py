@@ -2,9 +2,10 @@
 the 101-point interpolated AP per class, the F1-max operating point, the
 metric containers and the confusion matrix.
 
-A copy of the detect part of spectrogram_yolov11_tpu/ops/metrics.py
+A copy of the detect and segment parts of spectrogram_yolov11_tpu/ops/metrics.py
 (box_iou_np :29, match_predictions :41, smooth :68, compute_ap :76,
-ap_per_class :86, Metric :138, DetMetrics :202, ConfusionMatrix :328), which
+ap_per_class :86, Metric :138, DetMetrics :202, SegmentMetrics :243,
+ConfusionMatrix :328), which
 reproduces the reference's mAP machinery; the port keeps its own copy because
 it imports nothing of the JAX package. Accumulating stats over a dataset is
 ragged host work, so it stays numpy here, and the results equal the JAX
@@ -230,6 +231,35 @@ class DetMetrics:
     @property
     def ap_class_index(self):
         return self.box.ap_class_index
+
+
+class SegmentMetrics(DetMetrics):
+    """Box and mask metrics (JAX metrics.py:243): the mask TP matrix scored by
+    ap_per_class as the box one, the `(M)` keys after the `(B)` ones, fitness
+    the sum of both."""
+
+    def __init__(self, names: Optional[dict] = None):
+        super().__init__(names)
+        self.seg = Metric()
+        self.task = "segment"
+
+    def process(self, tp, conf, pred_cls, target_cls, tp_m=None):
+        super().process(tp, conf, pred_cls, target_cls)
+        if tp_m is not None and len(conf):
+            results = ap_per_class(np.asarray(tp_m), np.asarray(conf), np.asarray(pred_cls), np.asarray(target_cls))
+            self.seg.nc = len(self.names)
+            self.seg.update(results)
+
+    @property
+    def keys(self):
+        return super().keys + ["metrics/precision(M)", "metrics/recall(M)", "metrics/mAP50(M)", "metrics/mAP50-95(M)"]
+
+    def mean_results(self):
+        return super().mean_results() + self.seg.mean_results()
+
+    @property
+    def fitness(self):
+        return self.box.fitness() + self.seg.fitness()
 
 
 class ConfusionMatrix:

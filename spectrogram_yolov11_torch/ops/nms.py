@@ -1,5 +1,7 @@
-"""Batched fixed-shape NMS (torch). Counterpart of
-spectrogram_yolov11_tpu/ops/nms.py:64 non_max_suppression.
+"""Batched fixed-shape NMS (torch). Counterparts of
+spectrogram_yolov11_tpu/ops/nms.py:64 non_max_suppression and :124
+non_max_suppression_extras (extra per-anchor columns, the segment head's
+mask coefficients, carried through the selection).
 
     decoded preds (B, A, 4+nc)
       -> top-k candidates (best class, or every (anchor, class) pair with multi_label)
@@ -43,6 +45,12 @@ def nms_candidates(
     Returns (boxes (B, k, 4) xyxy, scores (B, k), cls (B, k) float, valid (B, k),
     offset_boxes (B, k, 4) contiguous: the boxes shifted by cls * max_wh unless
     agnostic, which is what the greedy keep kernel takes)."""
+    return _candidates(preds, conf_thres, nc, multi_label, agnostic, pre_nms_topk, max_wh, classes)[:5]
+
+
+def _candidates(preds, conf_thres, nc, multi_label=False, agnostic=False, pre_nms_topk=1024, max_wh=7680.0,
+                classes=None):
+    """nms_candidates' five tensors and the candidates' anchor indices (B, k)."""
     b, a, _ = preds.shape
     boxes_xywh = preds[..., :4]
     scores = preds[..., 4 : 4 + nc]
@@ -62,7 +70,7 @@ def nms_candidates(
     valid = top_scores > conf_thres
     boxes = xywh2xyxy(boxes_xywh.gather(1, anchor[..., None].expand(b, k, 4)))
     offset = torch.zeros_like(cls) if agnostic else cls * max_wh
-    return boxes, top_scores, cls, valid, (boxes + offset[..., None]).contiguous()
+    return boxes, top_scores, cls, valid, (boxes + offset[..., None]).contiguous(), anchor
 
 
 def non_max_suppression(
@@ -82,18 +90,43 @@ def non_max_suppression(
     Rows of `out` are [x1, y1, x2, y2, conf, cls], zero past n_valid."""
     boxes, top_scores, cls, valid, offset_boxes = nms_candidates(
         preds, conf_thres, nc, multi_label, agnostic, pre_nms_topk, max_wh, classes)
-    k = boxes.shape[1]
     keep = greedy_keep(offset_boxes, valid, iou_thres)
+    return _first_kept(torch.cat([boxes, top_scores[..., None], cls[..., None]], -1), top_scores, keep, conf_thres,
+                       max_det)
 
+
+def _first_kept(rows: torch.Tensor, top_scores: torch.Tensor, keep: torch.Tensor, conf_thres: float,
+                max_det: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first max_det kept rows (B, k, D) in score order, zero past the
+    valid ones and padded to max_det, and their count (B,)."""
+    k = rows.shape[1]
     rank = torch.where(keep, top_scores, torch.full_like(top_scores, -1.0))
     sel_scores, sel = _top(rank, min(max_det, k))
     sel_valid = sel_scores > conf_thres
-    out = torch.cat(
-        [boxes.gather(1, sel[..., None].expand(-1, -1, 4)), top_scores.gather(1, sel)[..., None], cls.gather(1, sel)[..., None]],
-        -1,
-    )
+    out = rows.gather(1, sel[..., None].expand(-1, -1, rows.shape[-1]))
     out = torch.where(sel_valid[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
     if max_det > k:
         out = torch.nn.functional.pad(out, (0, 0, 0, max_det - k))
         sel_valid = torch.nn.functional.pad(sel_valid, (0, max_det - k))
     return out, sel_valid.sum(1, dtype=torch.int32)
+
+
+def non_max_suppression_extras(
+    preds: torch.Tensor,
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    nc: int = 80,
+    max_det: int = 300,
+    pre_nms_topk: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """preds (B, A, 4 + nc + E) -> (out (B, max_det, 6 + E), n_valid (B,)):
+    rows [x1, y1, x2, y2, conf, cls, extras...], zero past n_valid (JAX
+    nms.py:124). Each anchor's best class, class-offset boxes (7680 px), the
+    keep step of the greedy keep kernel, as non_max_suppression; the E extra
+    columns of each kept anchor ride along."""
+    boxes, top_scores, cls, valid, offset_boxes, anchor = _candidates(preds[..., : 4 + nc], conf_thres, nc,
+                                                                      pre_nms_topk=pre_nms_topk)
+    extra = preds[..., 4 + nc :].gather(1, anchor[..., None].expand(-1, -1, preds.shape[-1] - 4 - nc))
+    keep = greedy_keep(offset_boxes, valid, iou_thres)
+    return _first_kept(torch.cat([boxes, top_scores[..., None], cls[..., None], extra], -1), top_scores, keep,
+                       conf_thres, max_det)

@@ -60,11 +60,12 @@ def autobatch(probe: Callable[[int], Optional[int]], fraction: float = 0.60, sta
 
 def check_train_batch_size(model, imgsz: int = 640, nc: int = 80, fraction: float = 0.60,
                            probes: Optional[Dict[int, Optional[int]]] = None) -> int:
-    """autobatch over the detect train step of `model` on its device: a copy
-    of it in training mode computing in f32, the forward, the detection loss
-    and the backward to every parameter, on (b, 3, imgsz, imgsz) zeros with 128
-    empty label slots per image, as JAX's probe (:63)."""
-    from ..ops.losses import detection_loss
+    """autobatch over the train step of `model` on its device: a copy of it
+    in training mode computing in f32, the forward, the task's loss (the
+    detection loss, or a segment model's segmentation loss over empty
+    instance masks) and the backward to every parameter, on (b, 3, imgsz,
+    imgsz) zeros with 128 empty label slots per image, as JAX's probe (:63)."""
+    from ..ops.losses import detection_loss, segmentation_loss
 
     dev = next(model.parameters()).device
     m = copy.deepcopy(model).train()
@@ -79,7 +80,12 @@ def check_train_batch_size(model, imgsz: int = 640, nc: int = 80, fraction: floa
         boxes = torch.zeros(b, 128, 4, device=dev)
         mask = torch.zeros(b, 128, dtype=torch.bool, device=dev)
         with full_f32():
-            loss, _ = detection_loss(m(x), cls, boxes, mask, nc=nc, imgsz=imgsz, strides=strides)
+            out = m(x)
+            if isinstance(out, tuple):  # a segment model's (feats, coefficients, prototypes)
+                gt = torch.zeros(b, *out[2].shape[-2:], dtype=torch.int32, device=dev)
+                loss, _ = segmentation_loss(*out, cls, boxes, mask, gt, nc=nc, imgsz=imgsz, strides=strides)
+            else:
+                loss, _ = detection_loss(out, cls, boxes, mask, nc=nc, imgsz=imgsz, strides=strides)
             torch.autograd.grad(loss, params)
 
     def probe_card(b: int) -> Optional[int]:

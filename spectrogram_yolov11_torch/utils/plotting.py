@@ -116,10 +116,13 @@ _SEGMENTS = {c: np.array([[float(v) for p in (a, b) for v in p.split(",")]
 
 
 def _color(img: np.ndarray, color) -> np.ndarray:
-    """The colour as the image's channels take it (cv2: the first C values of the scalar)."""
+    """The colour as the image's channels take it (cv2: the first C values of
+    the scalar, rounded and saturated to the image's integer type): (C,) for
+    an (H, W, C) image, a scalar for an (H, W) one."""
     c = np.asarray(color, np.float64).reshape(-1)
-    ch = 1 if img.ndim == 2 else img.shape[2]
-    return np.clip(np.round(c[:ch]), 0, 255).astype(img.dtype)
+    info = np.iinfo(img.dtype)
+    col = np.clip(np.round(c[: 1 if img.ndim == 2 else img.shape[2]]), info.min, info.max).astype(img.dtype)
+    return col if img.ndim == 3 else col[0]
 
 
 def _fill(img: np.ndarray, x0: int, y0: int, x1: int, y1: int, color: np.ndarray) -> None:
@@ -128,7 +131,7 @@ def _fill(img: np.ndarray, x0: int, y0: int, x1: int, y1: int, color: np.ndarray
     x0, x1 = max(min(x0, x1), 0), min(max(x0, x1), w - 1)
     y0, y1 = max(min(y0, y1), 0), min(max(y0, y1), h - 1)
     if x0 <= x1 and y0 <= y1:
-        img[y0 : y1 + 1, x0 : x1 + 1] = color if img.ndim == 3 else color[0]
+        img[y0 : y1 + 1, x0 : x1 + 1] = color
 
 
 def _circle(img: np.ndarray, cx: int, cy: int, radius: int, color: np.ndarray) -> None:
@@ -358,8 +361,9 @@ class _Edge:
 
 
 def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
-    """cv2.fillPoly(img, [pts], color) at LINE_8, shift 0, in place on a uint8
-    (H, W, C) image, for any integer vertices (inside the image, past its
+    """cv2.fillPoly(img, [pts], color) at LINE_8, shift 0, in place on an
+    integer (H, W, C) or (H, W) image (uint8 pictures, the segment task's
+    int32 instance masks and uint8 paste masks), for any integer vertices (inside the image, past its
     edges or thousands of pixels out, degenerate); returns img. As OpenCV
     5.0 draws it: each edge's LINE_8 outline, then the scanline fill of its
     edge table, which fills self-intersecting polygons by the even-odd rule.
@@ -499,7 +503,6 @@ def put_text(img: np.ndarray, text: str, org: Sequence[int], font_scale: float, 
     of it (each character's pixels computed once per scale, thickness and
     sub-pixel offset); only the colour is written."""
     col = _color(img, color)
-    col = col if img.ndim == 3 else col[0]
     h, w = img.shape[:2]
     s, pen = font_scale * 2, 0
     oy = math.floor(org[1])

@@ -29,7 +29,10 @@ distance), its kernel launches equal to its fused bottlenecks, the gated
 widths launching nothing; predict(augment=True) launching 18 bottlenecks
 (three passes) and 1 NMS, in f32 and bf16, each input it hands the kernel
 (the 640, 544 and 448 px passes' maps) against the plain version; a weight
-ensemble's 12 + 1 launches and its detections against the CPU's. The tests leave
+ensemble's 12 + 1 launches and its detections against the CPU's; yolo11n-seg's
+forward (feats, coefficients, prototypes) against the CPU's (1e-3 abs/rel)
+and its predict's masks (at most 1e-4 of the pixels unequal), and both
+kernels at the segment validator's inputs against their plain versions. The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -1283,3 +1286,101 @@ def test_ensemble_on_card_matches_cpu():
     for g, r in zip(got, ref):
         assert len(g) == len(r) and np.array_equal(g.boxes.cls, r.boxes.cls)
         assert float(np.abs(g.boxes.xyxy - r.boxes.xyxy).max(initial=0.0)) <= 1e-2
+
+
+def _seg_model():
+    """yolo11n-seg at scale n, init(0), BN statistics seeded as the fork
+    configs' (variances 0.15-0.25), the class branches' last biases 0 (scores
+    near 0.5, so predict keeps detections)."""
+    from spectrogram_yolov11_torch.nn.tasks import build_model
+
+    model = build_model("yolo11n-seg.yaml", nc=2).init(0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.05)
+                m.running_var.copy_(torch.empty(m.running_var.shape).uniform_(0.15, 0.25, generator=g))
+        for branch in model.model[-1].detect.cv3:
+            branch[-1].bias.zero_()
+    return model.eval()
+
+
+@pytest.mark.gpu
+def test_segment_forward_and_predict_on_card_match_cpu(tmp_path):
+    """yolo11n-seg: the card's f32 forward (feats, coefficients, prototypes)
+    against the CPU's (1e-3 abs/rel), 6 bottleneck launches; its predict on 3
+    arrays at conf 0.01, max_det 30 (SegmentationPredictor, 6 + 1 launches per batch)
+    against the CPU's: counts and classes equal, boxes within 1e-2 px, the
+    masks' unequal pixels at most 1e-4 of all."""
+    dev = _card()
+    from spectrogram_yolov11_torch.engine.predictor import SegmentationPredictor
+
+    model = _seg_model()
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, 3, 256, 256)).astype(np.float32))
+    model_g = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+    with torch.inference_mode():
+        n0 = fused_bottleneck.launches
+        got = model_g(x.to(dev).contiguous(memory_format=torch.channels_last))
+        torch.cuda.synchronize()
+        assert fused_bottleneck.launches - n0 == 6
+        ref = model(x)
+    flat = lambda o: [t for p in o[0] for t in p] + [o[1], o[2]]  # noqa: E731
+    for g, r in zip(flat(got), flat(ref)):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-3, rtol=1e-3)
+    rng = np.random.default_rng(4)
+    arrays = [rng.integers(0, 256, s, dtype=np.uint8) for s in ((360, 640, 3), (500, 333, 3), (640, 640, 3))]
+    kw = dict(conf=0.01, max_det=30, save=False)
+    n0, k0 = fused_bottleneck.launches, greedy_keep.launches
+    card = SegmentationPredictor(model, overrides=dict(kw, device="cuda"))(arrays, batch_size=3)
+    assert (fused_bottleneck.launches - n0, greedy_keep.launches - k0) == (6, 1)
+    cpu = SegmentationPredictor(model, overrides=dict(kw, device="cpu"))(arrays, batch_size=3)
+    unequal = total = 0
+    for a, b in zip(card, cpu):
+        assert len(a) == len(b) and np.array_equal(a.boxes.cls, b.boxes.cls)
+        if len(a):
+            np.testing.assert_allclose(a.boxes.xyxy, b.boxes.xyxy, atol=1e-2, rtol=0)
+            unequal += int((a.masks.data != b.masks.data).sum())
+            total += a.masks.data.size
+    assert total and unequal <= 1e-4 * total
+
+
+@pytest.mark.gpu
+def test_kernels_at_segment_val_inputs():
+    """The segment validator's device function on the card (yolo11n-seg, B = 4
+    at 640 px): 6 bottleneck and 1 keep launches; each bottleneck input it
+    hands the kernel against the plain version (1e-4 abs/rel), and the keep
+    kernel at its single-label (4, 2048) candidates equal to the plain
+    version."""
+    dev = _card()
+    from spectrogram_yolov11_torch.engine.pipeline import build_segment_fn
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+
+    model = _seg_model().to(dev, memory_format=torch.channels_last)
+    fn = build_segment_fn(model, conf=0.001, iou=0.7, pre_nms_topk=2048, binary=True)
+    cap, heads = {}, []
+
+    def keep(mod, args):  # returns None: the input stays as it is
+        cap.setdefault(mod, args[0].permute(0, 2, 3, 1).contiguous())
+
+    hooks = [m.register_forward_pre_hook(keep) for m in model.modules() if isinstance(m, Bottleneck) and m.fusable]
+    hooks.append(model.model[-1].detect.register_forward_hook(lambda m, a, o: heads.append(o)))
+    frames = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (4, 640, 640, 3), dtype=np.uint8)).to(dev)
+    n0, k0 = fused_bottleneck.launches, greedy_keep.launches
+    out, nv, masks = fn(frames)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    assert (fused_bottleneck.launches - n0, greedy_keep.launches - k0) == (6, 1) and len(cap) == 6
+    assert masks.dtype == torch.bool and masks.shape == (4, 300, 160, 160)
+    with torch.inference_mode():
+        for mod, x in cap.items():
+            c = x.shape[-1]
+            got = fused_bottleneck(x, mod.w1.view(2, 9, c, c), mod.b1, mod.w2.view(2, 9, c, c), mod.b2)
+            torch.testing.assert_close(got, bottleneck_reference(x, *_unpacked(mod, c, False)), atol=1e-4, rtol=1e-4)
+        preds = decode_detections(heads[0], model.nc, model.stride)
+        _, _, _, valid, boxes = nms_candidates(preds, 0.001, model.nc, pre_nms_topk=2048)
+        assert valid.shape == (4, 2048)
+        assert torch.equal(greedy_keep(boxes, valid, 0.7), greedy_keep_reference(boxes, valid, 0.7))
