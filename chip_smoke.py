@@ -321,6 +321,37 @@ Phases, each printing one JSON line, each fatal when it fails:
                per image in turns; at conf 0.001 and max_det 30 the card
                against the CPU in f32: counts and classes equal, boxes within
                1e-2 px, the share of unequal mask pixels at most 1e-4
+  22. pose      the pose task: yolo11n-pose.yaml at 640 px on shapes128-pose
+               (5 keypoints; its packaged YAML, 64 train + 16 val JPEGs
+               written at first use into a temporary directory).
+               YOLO(yaml).train 3 epochs at batch 16 at its defaults (amp,
+               device-augment mode; the (17, 3) head rebuilt for the data's
+               (5, 3)), counted (6 bf16 bottleneck + 1 NMS launches per
+               epoch's EMA val, none in the steps), seconds per epoch, ms
+               per later step with the loader's wait, peak memory; 1 epoch in
+               f32 in host mode (device_augment=False), counted (6 + 1); 1
+               epoch on coco8-pose.yaml (17 keypoints, the OKS_SIGMA
+               branches), counted (6 bf16 + 1); the first f32 step's five
+               loss items (box, pose, kobj, cls, dfl) on the card against the
+               CPU's on the same 2-image batch (1e-4 relative). best.ckpt
+               validated on the split, then on a copy labelled with its own
+               top 6 detections per image, boxes and keypoints (a model 12
+               steps old matches no drawn figure), on the card in f32 and
+               bf16 (6 + 1 launches each) against the CPU (box and pose
+               mAP50 and mAP50-95 within 1e-4 in f32; bf16 within twice the
+               CPU's own bf16-to-f32 distance plus 1e-4), once with save_json
+               (bbox and keypoints stats); every bottleneck input of the
+               first EMA val of the amp train (bf16), of the f32 val and of
+               the bf16 val of the self-labelled copy against the plain
+               version, and the keep kernel at each of those vals' (16, 2048)
+               single-label candidates (0 mismatches).
+               Predict on the 16 val images at batch 16, f32 and half=True,
+               at the defaults (saving; each file equal to imencode(".jpg",
+               r.plot())) and with save=False, counted (6 + 1 per call), ms
+               per image in turns; at conf 0.001 and max_det 30, saving (the
+               keypoints drawn, each file equal as above, 6 + 1), the card
+               against the CPU in f32: counts and classes equal, boxes and
+               keypoints within 1e-2 px
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -405,6 +436,9 @@ RUN_FILES: dict = {}  # what the training phases' run directories hold (fault 21
 SEG_EPOCHS, SEG_BATCH = 3, 16  # phase segment: YOLO("yolo11n-seg.yaml").train at its defaults
 SEG_MASK_SHARE = 1e-4  # phase segment: unequal mask pixels of the card's f32 predict against the CPU's, a share
 SEG_CONF, SEG_MAX_DET = 0.001, 30  # phase segment: the card-vs-CPU predict, so a model 12 steps old keeps masks
+POSE_EPOCHS, POSE_BATCH = 3, 16  # phase pose: YOLO("yolo11n-pose.yaml").train at its defaults
+POSE_STEP_RTOL = 1e-4  # phase pose: the first f32 step's loss items on the card against the CPU's, relative
+POSE_PX_TOL = 1e-2  # phase pose: the card's f32 predict against the CPU's, boxes and keypoints in px
 SECOND_CKPT: list = []  # phase train_loop's best.ckpt, kept for the ensemble of phase predict_extras
 KEEP_DIR: list = []  # a directory for SECOND_CKPT, removed when the script ends
 
@@ -2538,10 +2572,12 @@ def capture_val_inputs(dtype):
     return cap, stop
 
 
-def kernels_at(cap: dict, nc: int, stride, what: str, batch: int, imgsz: int):
+def kernels_at(cap: dict, nc: int, stride, what: str, batch: int, imgsz: int, multi_label: bool = True):
     """Each fused bottleneck and the keep kernel against their plain versions
     on the inputs `cap` kept (capture_val_inputs): (bottleneck checks, NMS
-    check). Fails unless the six bottlenecks of a scale-n model at `batch`
+    check). The keep kernel at the validator's candidates: multi-label for
+    detect, single-label for segment and pose (non_max_suppression_extras),
+    k = 2048. Fails unless the six bottlenecks of a scale-n model at `batch`
     and `imgsz` were seen."""
     import torch
 
@@ -2549,13 +2585,10 @@ def kernels_at(cap: dict, nc: int, stride, what: str, batch: int, imgsz: int):
     from spectrogram_yolov11_torch.ops.decode import decode_detections
     from spectrogram_yolov11_torch.ops.nms import nms_candidates
 
-    checks = {}
+    checks = fork_bottleneck_checks(cap, what)
     with torch.inference_mode():
-        for i, m in enumerate(m for m in cap if m != "feats"):
-            d = bottleneck_check(f"{what} {i}", layer_case(m, cap[m]))
-            checks[f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
         preds = decode_detections(cap["feats"], nc, stride)
-        _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, nc, multi_label=True,
+        _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, nc, multi_label=multi_label,
                                                       pre_nms_topk=VAL_PRE_NMS_TOPK)
         nms = nms_check(offset_boxes, valid)
     shapes = sorted(c["shape"] for c in checks.values())
@@ -3874,27 +3907,6 @@ def phase_predict_extras():
     return launches, checks, nms
 
 
-def seg_val_kernels(cap: dict, nc: int, stride) -> tuple:
-    """The six bottlenecks and the keep kernel at the inputs a segment val
-    batch handed them (capture_val_inputs), the keep kernel at the
-    validator's single-label candidates (non_max_suppression_extras, k =
-    2048)."""
-    import torch
-
-    from spectrogram_yolov11_torch.engine.validator import VAL_PRE_NMS_TOPK
-    from spectrogram_yolov11_torch.ops.decode import decode_detections
-    from spectrogram_yolov11_torch.ops.nms import nms_candidates
-
-    checks = fork_bottleneck_checks(cap, "segment val")
-    with torch.inference_mode():
-        preds = decode_detections(cap["feats"], nc, stride)
-        _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, nc, pre_nms_topk=VAL_PRE_NMS_TOPK)
-        nms = nms_check(offset_boxes, valid)
-    shapes = sorted(c["shape"] for c in checks.values())
-    require(shapes == [[SEG_BATCH, 20, 20, 64]] * 4 + [[SEG_BATCH, 40, 40, 32]] * 2, f"segment val inputs {shapes}")
-    return checks, nms
-
-
 def phase_segment():
     """The segment task on the card (see the module docstring, 21)."""
     import tempfile
@@ -3997,7 +4009,8 @@ def phase_segment():
             val_s = time.perf_counter() - t0
         finally:
             stop()
-        checks, nms = seg_val_kernels(cap, card.model.nc, card.model.stride)
+        checks, nms = kernels_at(cap, card.model.nc, card.model.stride, "segment val", nb, 640,
+                                 multi_label=False)
         v16, launches["val_half"] = run_counted(lambda: card.val(half=True, **kw), one_batch("fused_bottleneck_bf16"),
                                                 "segment val bf16")
         c32, c16 = cpu.val(**kw), cpu.val(half=True, **kw)
@@ -4060,6 +4073,205 @@ def phase_segment():
     return launches, checks, nms
 
 
+def phase_pose():
+    """The pose task on the card (see the module docstring, 22)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.augment import resolve_device_augment
+    from spectrogram_yolov11_torch.data.build import DataLoader
+    from spectrogram_yolov11_torch.data.dataset import YOLODataset, check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.data.imageio import imencode
+    from spectrogram_yolov11_torch.engine.trainer import PoseTrainer
+    from spectrogram_yolov11_torch.nn.tasks import build_model, yaml_model_load
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    t_phase = time.perf_counter()
+    bf16, nb = torch.bfloat16, POSE_BATCH
+    one_batch = lambda kernel: {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": 1,  # noqa: E731
+                                kernel: 6}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = dict(yaml_load(find_dataset_yaml("shapes128-pose.yaml")), path=str(Path(tmp) / "shapes128-pose"))
+        t0 = time.perf_counter()
+        data = check_det_dataset(data)
+        gen_s = time.perf_counter() - t0
+        require(len(sorted(Path(data["train"]).glob("*.jpg"))) == 64 and len(sorted(Path(data["val"]).glob("*.jpg")))
+                == 16 and data["kpt_shape"] == [5, 3], f"shapes128-pose split at {data['path']}")
+
+        # YOLO(yaml).train at its defaults: amp, device-augment mode, counted per epoch's EMA val; the kernels'
+        # inputs kept at the first EMA val (bf16)
+        yolo = YOLO("yolo11n-pose.yaml")
+        cap, stop = capture_val_inputs(bf16)
+        yolo.add_callback("on_fit_epoch_end", lambda t: stop())  # the first EMA val's inputs only
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            metrics, launches["train"] = run_counted(
+                lambda: yolo.train(data=data, epochs=POSE_EPOCHS, batch=nb, plots=False, project=tmp, name="pose"),
+                {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6 * POSE_EPOCHS, "greedy_keep": POSE_EPOCHS},
+                "YOLO('yolo11n-pose.yaml').train")
+        finally:
+            stop()
+        train_s, peak_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+        tr = yolo.trainer
+        require(tr.validator.model.dtype == bf16, "the pose EMA's val did not run a bf16 copy")
+        checks, nms = {}, {}
+        checks["ema_val"], nms["ema_val"] = kernels_at(cap, yolo.model.nc, yolo.model.stride, "pose EMA val", nb, 640,
+                                                       multi_label=False)
+        require(list(metrics)[-1] == "fitness" and "metrics/mAP50-95(P)" in metrics
+                and all(np.isfinite(list(metrics.values()))), f"pose train metrics {metrics}")
+        require(tr.loss_names == ("box_loss", "pose_loss", "kobj_loss", "cls_loss", "dfl_loss") and tr.best.exists()
+                and tr.rebuilt == {"kpt_shape": ((17, 3), (5, 3))} and resolve_device_augment(tr.args, "pose"),
+                f"pose trainer: loss names, best.ckpt, device mode, the head rebuilt ({tr.rebuilt})")
+        RUN_FILES["pose"] = run_files(tr.save_dir, POSE_EPOCHS)
+        epochs = [{"seconds": e["seconds"], "steps": e["steps"], "loader_wait_s": e["loader_wait_s"],
+                   "val_s": e["val_s"], "ms_per_step_with_wait": (e["seconds"] - e["val_s"]) / e["steps"] * 1e3}
+                  for e in tr.epoch_log]
+        best = Path(tmp) / "best.ckpt"
+        best.write_bytes(tr.best.read_bytes())
+
+        # one f32 epoch in host mode
+        host = YOLO("yolo11n-pose.yaml")
+        t0 = time.perf_counter()
+        host_metrics, launches["train_host"] = run_counted(
+            lambda: host.train(data=data, epochs=1, batch=nb, amp=False, device_augment=False, plots=False,
+                               project=tmp, name="pose_host"), one_batch("fused_bottleneck"), "host-mode pose train")
+        host_s = time.perf_counter() - t0
+        require(not resolve_device_augment(host.trainer.args, "pose")
+                and all(np.isfinite(list(host_metrics.values()))), "host-mode pose train")
+
+        # one epoch on coco8-pose (17 keypoints: the OKS_SIGMA branches of the loss and the validator)
+        coco = check_det_dataset(dict(yaml_load(find_dataset_yaml("coco8-pose.yaml")),
+                                      path=str(Path(tmp) / "coco8-pose")))
+        c17 = YOLO("yolo11n-pose.yaml")
+        t0 = time.perf_counter()
+        coco_metrics, launches["train_coco8"] = run_counted(
+            lambda: c17.train(data=coco, epochs=1, batch=nb, plots=False, project=tmp, name="pose_coco8"),
+            one_batch("fused_bottleneck_bf16"), "coco8-pose train")
+        coco_s = time.perf_counter() - t0
+        require(c17.trainer.rebuilt is None and c17.model.kpt_shape == (17, 3)
+                and all(np.isfinite(list(coco_metrics.values()))), f"coco8-pose train {coco_metrics}")
+
+        # the first f32 step's items on the card against the CPU's, same 2-image batch
+        hyp = PoseTrainer(None, dict(data=data, amp=False, device="cpu")).args
+        ds = YOLODataset(data["train"], imgsz=640, max_gt=0, augment=True, task="pose", kpt_shape=(5, 3),
+                         flip_idx=data["flip_idx"], hyp=hyp)
+        batch = next(iter(DataLoader(ds, 2, workers=2, shuffle=True, seed=0, drop_last=True)))
+        items = {}
+        d5 = {**yaml_model_load("yolo11n-pose.yaml"), "kpt_shape": [5, 3]}
+        for dev in ("cuda", "cpu"):
+            t = PoseTrainer(build_model(dict(d5)).init(0), dict(data=data, batch=2, amp=False, device=dev, plots=False))
+            t.setup_model()
+            t.setup_optimizer(32)
+            items[dev] = t.train_step(batch, 0, False)[1].float().cpu().numpy()
+        step_rel = float((np.abs(items["cuda"] - items["cpu"]) / np.abs(items["cpu"])).max())
+        require(step_rel <= POSE_STEP_RTOL and (items["cpu"] > 0).all(),
+                f"pose step items card {items['cuda'].tolist()} vs CPU {items['cpu'].tolist()}")
+
+        # val of best.ckpt on the split and on a copy labelled with the card's own top 6 detections per image,
+        # boxes and keypoints: card f32 and bf16 counted, the kernels at the first f32 batch, the CPU's as reference
+        card, cpu = YOLO(str(best)), YOLO(str(best), device="cpu")
+        require(card.task == "pose" and card.model.kpt_shape == (5, 3), "best.ckpt reloads as a (5, 3) pose model")
+        v_split = card.val(data=data, batch=nb, plots=False)
+        lab = Path(tmp) / "self_labelled"
+        (lab / "images").mkdir(parents=True)
+        (lab / "labels").mkdir()
+        for r in card.predict(data["val"], batch=nb, conf=SEG_CONF, max_det=6, save=False):
+            h, w = r.orig_shape
+            (lab / "images" / Path(r.path).name).write_bytes(Path(r.path).read_bytes())
+            rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in [*xywhn] + [u for x, y, _ in kp for u in
+                                                                              (x / w, y / h, 2.0)])
+                    for xywhn, c, kp in zip(r.boxes.xywhn, r.boxes.cls, r.keypoints.data)]
+            (lab / "labels" / f"{Path(r.path).stem}.txt").write_text("\n".join(rows))
+        kw = dict(data={"path": str(lab), "train": "images", "val": "images", "names": data["names"],
+                        "kpt_shape": [5, 3]}, batch=nb, plots=False)
+        cap, stop = capture_val_inputs(torch.float32)
+        try:
+            t0 = time.perf_counter()
+            v32, launches["val"] = run_counted(lambda: card.val(**kw), one_batch("fused_bottleneck"), "pose val f32")
+            val_s = time.perf_counter() - t0
+        finally:
+            stop()
+        checks["val"], nms["val"] = kernels_at(cap, card.model.nc, card.model.stride, "pose val", nb, 640,
+                                               multi_label=False)
+        cap, stop = capture_val_inputs(bf16)
+        try:
+            v16, launches["val_half"] = run_counted(lambda: card.val(half=True, **kw),
+                                                    one_batch("fused_bottleneck_bf16"), "pose val bf16")
+        finally:
+            stop()
+        checks["val_half"], nms["val_half"] = kernels_at(cap, card.model.nc, card.model.stride, "pose val bf16", nb,
+                                                         640, multi_label=False)
+        c32, c16 = cpu.val(**kw), cpu.val(half=True, **kw)
+        val_cmp = {}
+        for key in ("metrics/mAP50-95(B)", "metrics/mAP50-95(P)", "metrics/mAP50(B)", "metrics/mAP50(P)"):
+            d32, d16, own = abs(v32[key] - c32[key]), abs(v16[key] - c16[key]), abs(c16[key] - c32[key])
+            require(d32 <= VAL_TOL and d16 <= 2 * own + VAL_TOL,
+                    f"pose val {key}: card f32 {v32[key]} CPU {c32[key]}; card bf16 {v16[key]} CPU {c16[key]}")
+            val_cmp[key] = {"card_f32": v32[key], "cpu_f32": c32[key], "card_bf16": v16[key], "cpu_bf16": c16[key]}
+        vj, launches["val_save_json"] = run_counted(lambda: card.val(save_json=True, project=tmp, **kw),
+                                                    one_batch("fused_bottleneck"), "pose val save_json")
+        coco_stats = {k: v for k, v in vj.items() if k.startswith("metrics/coco_")}
+        require("metrics/coco_AP(P)" in coco_stats and "metrics/coco_AP" in coco_stats
+                and v32["metrics/mAP50(B)"] > 0.5 and v32["metrics/mAP50(P)"] > 0.5,
+                f"pose COCO stats {sorted(coco_stats)}, val {v32}")
+
+        # predict on the 16 val images at batch 16: f32 and bf16, at the defaults (saving) and save=False
+        imgs = data["val"]
+        times, saved = {}, {}
+        for half in (False, True):
+            kernel = "fused_bottleneck_bf16" if half else "fused_bottleneck"
+            tag = "bf16" if half else "f32"
+            out, launches[f"predict_{tag}"] = run_counted(
+                lambda: card.predict(imgs, batch=nb, half=half, project=tmp, name=f"pose_pred_{tag}"),
+                one_batch(kernel), f"pose predict {tag}")
+            files = {f.stem: f for f in (Path(tmp) / f"pose_pred_{tag}").glob("*.jpg")}
+            require(len(files) == 16 and all(files[Path(r.path).stem].read_bytes() == imencode(".jpg", r.plot())
+                                             for r in out), f"pose predict {tag} saved files")
+            saved[tag] = {"files": len(files), "keypoints": sum(len(r.keypoints.data) for r in out)}
+            for save in (True, False, False, True):
+                key = f"{tag}_{'save' if save else 'nosave'}"
+                t0 = time.perf_counter()
+                card.predict(imgs, batch=nb, half=half, save=save, project=tmp, name=f"pose_t_{key}")
+                times.setdefault(key, []).append((time.perf_counter() - t0) / nb * 1e3)
+        # at conf 0.001, max_det 30 (a model 12 steps old has no detection above 0.25 to draw): saving, with the
+        # keypoints drawn, each file equal to imencode(".jpg", r.plot()); the CPU's as reference
+        g, launches["predict_drawn"] = run_counted(
+            lambda: card.predict(imgs, batch=nb, conf=SEG_CONF, max_det=SEG_MAX_DET, project=tmp,
+                                 name="pose_pred_drawn"), one_batch("fused_bottleneck"), "pose predict drawn")
+        files = {f.stem: f for f in (Path(tmp) / "pose_pred_drawn").glob("*.jpg")}
+        saved["f32_conf0.001"] = {"files": len(files), "keypoints": sum(len(r.keypoints.data) for r in g)}
+        require(len(files) == 16 and saved["f32_conf0.001"]["keypoints"] > 0
+                and all(files[Path(r.path).stem].read_bytes() == imencode(".jpg", r.plot()) for r in g),
+                "pose predict saved files with keypoints drawn")
+        c = cpu.predict(imgs, batch=nb, conf=SEG_CONF, max_det=SEG_MAX_DET, save=False)
+        box_err = kpt_err = 0.0
+        for a, b in zip(g, c):
+            require(len(a) == len(b) and np.array_equal(a.boxes.cls, b.boxes.cls),
+                    f"pose predict card {len(a)} vs CPU {len(b)} detections")
+            if len(a):
+                box_err = max(box_err, float(np.abs(a.boxes.xyxy - b.boxes.xyxy).max()))
+                kpt_err = max(kpt_err, float(np.abs(a.keypoints.xy - b.keypoints.xy).max()))
+        require(sum(len(a) for a in g) > 0 and box_err <= POSE_PX_TOL and kpt_err <= POSE_PX_TOL,
+                f"pose predict boxes {box_err} px, keypoints {kpt_err} px")
+    emit("pose", seconds=time.perf_counter() - t_phase, dataset_gen_s=gen_s, train_s=train_s,
+         train_epochs=epochs, peak_gb=peak_gb, train_metrics=metrics, host_train_s=host_s,
+         host_metrics=host_metrics, coco8_train_s=coco_s, coco8_metrics=coco_metrics,
+         first_step_items={"card": items["cuda"].tolist(), "cpu": items["cpu"].tolist(), "max_rel": step_rel},
+         val_split=v_split, val_s=val_s, val_self_labelled=val_cmp, coco=coco_stats, bottleneck=checks,
+         nms={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean", "mismatches")}
+              for p, d in nms.items()},
+         predict_ms_per_image={k: sorted(v) for k, v in times.items()}, predict_saved=saved,
+         predict_card_vs_cpu={"conf": SEG_CONF, "max_det": SEG_MAX_DET, "detections": sum(len(a) for a in g),
+                              "max_box_err_px": box_err, "max_keypoint_err_px": kpt_err},
+         launches=launches)
+    return launches, checks, nms
+
+
 def main() -> int:
     import torch
 
@@ -4103,6 +4315,7 @@ def main() -> int:
     host_launches, host_checks = phase_host_augment()
     extras_launches, extras_checks, nms_extras = phase_predict_extras()
     seg_launches, seg_checks, nms_seg = phase_segment()
+    pose_launches, pose_checks, nms_pose = phase_pose()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -4121,12 +4334,16 @@ def main() -> int:
                  + list(fork_checks["train_ema_val"].values()))
     host_bf16 = [d for c in host_checks.values() for d in c["fused_bottleneck_bf16"].values()]
     extras_f32, extras_bf16 = (list(extras_checks[k].values()) for k in ("fused_bottleneck", "fused_bottleneck_bf16"))
+    pose_bf16 = [d for k in ("ema_val", "val_half") for d in pose_checks[k].values()]
 
     def extras_paths(kernel: str) -> dict:
         return {path: got[kernel] for path, got in extras_launches.items()}
 
     def seg_paths(kernel: str) -> dict:
         return {f"segment_{path}": got[kernel] for path, got in seg_launches.items()}
+
+    def pose_paths(kernel: str) -> dict:
+        return {f"pose_{path}": got[kernel] for path, got in pose_launches.items()}
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
         dict(name="fused_bottleneck", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
@@ -4146,6 +4363,7 @@ def main() -> int:
                                "fork": fork_paths("fused_bottleneck"),
                                "host_augment": sum(v["fused_bottleneck"] for v in host_launches.values()),
                                **extras_paths("fused_bottleneck"), **seg_paths("fused_bottleneck"),
+                               **pose_paths("fused_bottleneck"),
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
@@ -4154,10 +4372,12 @@ def main() -> int:
                                                          *load_bottleneck.values(),
                                                          *save_checks["arrays_f32"].values(),
                                                          *art_checks["val_f32"].values(), *fork_f32,
-                                                         *extras_f32, *seg_checks.values())),
+                                                         *extras_f32, *seg_checks.values(),
+                                                         *pose_checks["val"].values())),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_f32),
              predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_f32),
              segment_val_max_abs_err=max(d["max_abs_err"] for d in seg_checks.values()),
+             pose_val_max_abs_err=max(d["max_abs_err"] for d in pose_checks["val"].values()),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -4178,6 +4398,7 @@ def main() -> int:
                                "fork": fork_paths("fused_bottleneck_bf16"),
                                "host_augment": sum(v["fused_bottleneck_bf16"] for v in host_launches.values()),
                                **extras_paths("fused_bottleneck_bf16"), **seg_paths("fused_bottleneck_bf16"),
+                               **pose_paths("fused_bottleneck_bf16"),
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
@@ -4186,10 +4407,14 @@ def main() -> int:
                                                          *serve_checks["fused_bottleneck_bf16"].values(),
                                                          *save_checks["arrays_bf16"].values(),
                                                          *art_checks["val_bf16"].values(), *fork_bf16,
-                                                         *host_bf16, *extras_bf16)),
+                                                         *host_bf16, *extras_bf16, *pose_bf16)),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_bf16),
              host_augment_max_abs_err=max(d["max_abs_err"] for d in host_bf16),
              predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_bf16),
+             pose_ema_val={"shapes": sorted(d["shape"] for d in pose_checks["ema_val"].values()),
+                           "max_abs_err": max(d["max_abs_err"] for d in pose_checks["ema_val"].values()),
+                           "unequal_share_max": max(d["unequal_share"] for d in pose_checks["ema_val"].values())},
+             pose_val_half_max_abs_err=max(d["max_abs_err"] for d in pose_checks["val_half"].values()),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
                                                                  *images_checks["fused_bottleneck_bf16"].values(),
                                                                  *amp_bottleneck.values(),
@@ -4197,7 +4422,7 @@ def main() -> int:
                                                                  *serve_checks["fused_bottleneck_bf16"].values(),
                                                                  *save_checks["arrays_bf16"].values(),
                                                                  *art_checks["val_bf16"].values(), *fork_bf16,
-                                                                 *host_bf16, *extras_bf16)),
+                                                                 *host_bf16, *extras_bf16, *pose_bf16)),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -4226,7 +4451,7 @@ def main() -> int:
                                "artifacts": sum(v["greedy_keep"] for v in art_launches.values()),
                                "fork": fork_paths("greedy_keep"),
                                "host_augment": sum(v["greedy_keep"] for v in host_launches.values()),
-                               **extras_paths("greedy_keep"), **seg_paths("greedy_keep"),
+                               **extras_paths("greedy_keep"), **seg_paths("greedy_keep"), **pose_paths("greedy_keep"),
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
@@ -4264,6 +4489,8 @@ def main() -> int:
                                                                   "scan_steps_mean", "mismatches")},
              segment_val_k2048={k: nms_seg[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                         "scan_steps_mean", "mismatches")},
+             pose_k2048={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean",
+                                               "mismatches")} for p, d in nms_pose.items()},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

@@ -219,7 +219,7 @@ def letterbox_batch(frames: Sequence, imgsz: int, device: torch.device, gray_sta
 
 
 def format_sample(sample: Dict, imgsz: int, max_gt: int, task: str = "detect",
-                  mask_ratio: int = 4) -> Dict[str, np.ndarray]:
+                  mask_ratio: int = 4, kpt_shape: Tuple[int, int] = (17, 3)) -> Dict[str, np.ndarray]:
     """Labels of a letterboxed sample (xyxy pixels) -> cls (max_gt,) int32,
     bboxes (max_gt, 4) xywh float32 normalised by the image's size (its
     `img`, the sample's `img_shape` (h, w) when the card assembles it, or
@@ -229,7 +229,9 @@ def format_sample(sample: Dict, imgsz: int, max_gt: int, task: str = "detect",
     the index-encoded instance mask (imgsz / mask_ratio square, int32): the
     kept boxes' polygons, scaled to it and truncated to int32, filled in
     order with their index + 1 by utils/plotting.py:fill_poly, equal to
-    cv2.fillPoly (JAX :465-473)."""
+    cv2.fillPoly (JAX :465-473). The pose task adds `keypoints` (max_gt,
+    nk, 3) float32: the kept boxes' keypoints, xy normalised by the image's
+    size, zeros where a sample has none (a mixed-up one, as JAX's, :474-484)."""
     boxes, cls, img = sample["bboxes"], sample["cls"], sample.get("img")
     h, w = img.shape[:2] if img is not None else sample.get("img_shape", (imgsz, imgsz))
     n = min(len(boxes), max_gt)
@@ -255,23 +257,35 @@ def format_sample(sample: Dict, imgsz: int, max_gt: int, task: str = "detect",
         for new_i, i in enumerate(keep_idx):
             fill_poly(inst, (np.asarray(polys[i], np.float32) * [sx, sy]).astype(np.int32), int(new_i) + 1)
         out["masks"] = inst
+    elif task == "pose":
+        kpt_pad = np.zeros((max_gt, kpt_shape[0], 3), np.float32)
+        kpts = sample.get("keypoints")
+        if kpts is not None and len(kpts):
+            for new_i, i in enumerate(keep_idx):
+                kp = kpts[i].copy()
+                kp[:, 0] /= w
+                kp[:, 1] /= h
+                kpt_pad[new_i] = kp
+        out["keypoints"] = kpt_pad
     return out
 
 
 class ValTransform:
     """The val transform (JAX :704): the letterbox geometry (scaleup=False) of
-    a sample, its labels (and polygons) scaled and shifted into the
+    a sample, its labels (and polygons, or keypoints) scaled and shifted into the
     letterboxed frame and formatted (the segment task's instance mask
     among them), `ori_shape` (h, w) int32 and `ratio_pad` [r, dw, dh]
     float32 for un-letterboxing at metric time. `img` stays the frame at its
     own size: the validator letterboxes a batch on the card
     (letterbox_batch with scaleup=False)."""
 
-    def __init__(self, imgsz: int, max_gt: int = 256, task: str = "detect", mask_ratio: int = 4):
+    def __init__(self, imgsz: int, max_gt: int = 256, task: str = "detect", mask_ratio: int = 4,
+                 kpt_shape: Tuple[int, int] = (17, 3)):
         self.imgsz = imgsz
         self.max_gt = max_gt
         self.task = task
         self.mask_ratio = mask_ratio
+        self.kpt_shape = tuple(kpt_shape)
 
     def __call__(self, sample: Dict) -> Dict[str, np.ndarray]:
         img = sample["img"]
@@ -282,7 +296,13 @@ class ValTransform:
         s = {"cls": sample["cls"], "bboxes": boxes}
         if "segments" in sample:
             s["segments"] = [p * r for p in sample["segments"]]
-        out = format_sample(pad_labels(s, dw, dh), self.imgsz, self.max_gt, self.task, self.mask_ratio)
+        if "keypoints" in sample:
+            k = sample["keypoints"].copy()
+            if len(k):
+                k[..., :2] *= r
+            s["keypoints"] = k
+        out = format_sample(pad_labels(s, dw, dh), self.imgsz, self.max_gt, self.task, self.mask_ratio,
+                            self.kpt_shape)
         out["img"] = img
         out["ori_shape"] = np.asarray(img.shape[:2], np.int32)
         out["ratio_pad"] = np.asarray([r, dw, dh], np.float32)
@@ -302,7 +322,8 @@ def resolve_device_augment(hyp, task: str = "detect") -> bool:
     separable warp (degrees = shear = perspective = 0) without multi_scale
     (engine/trainer.py:218-230); True, or 'auto' resolved on, falls back to
     the host with JAX's warning when mixup > 0, or copy_paste > 0 for the
-    segment task (data/augment.py:566-580). False is host mode.
+    segment task (data/augment.py:566-580); the pose task has no exception
+    (JAX's engine/trainer.py:218). False is host mode.
     albumentations is not installed with either package, so it blocks
     nothing here. multi_scale under device mode is the trainer's to ignore."""
     da = hyp.device_augment
@@ -334,7 +355,7 @@ def letterbox_train(img: np.ndarray, imgsz: int) -> Tuple[np.ndarray, float, flo
 
 
 def pad_labels(sample: Dict, dw: float, dh: float) -> Dict:
-    """The sample with its boxes (and polygons) shifted by the letterbox's pads (JAX _pad_labels :496)."""
+    """The sample with its boxes (and polygons, or keypoints) shifted by the letterbox's pads (JAX _pad_labels :496)."""
     px, py = int(round(dw - 0.1)), int(round(dh - 0.1))
     boxes = sample["bboxes"].copy()
     if len(boxes):
@@ -343,6 +364,11 @@ def pad_labels(sample: Dict, dw: float, dh: float) -> Dict:
     out = dict(sample, bboxes=boxes)
     if "segments" in sample:
         out["segments"] = [p + np.asarray([px, py], np.float32) for p in sample["segments"]]
+    if "keypoints" in sample and len(sample["keypoints"]):
+        k = sample["keypoints"].copy()
+        k[..., 0] += px
+        k[..., 1] += py
+        out["keypoints"] = k
     return out
 
 
@@ -353,8 +379,8 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator, compose_i
     compose_image the canvas of 114 with the tiles pasted is `img`; without,
     `tiles` holds the images for the card in (4, S, S, 3) uint8, each tile's
     canvas rect [x1a, y1a, x2a, y2a) and its (padw, padh) canvas-to-source
-    offset, and the canvas is never built. Polygons (`segments`) move with
-    their boxes (JAX :106-152)."""
+    offset, and the canvas is never built. Polygons (`segments`) and
+    keypoints move with their boxes (JAX :106-155)."""
     s = imgsz
     border = (-s // 2, -s // 2)
     yc, xc = (int(rng.uniform(-b, 2 * s + b)) for b in border)
@@ -362,8 +388,8 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator, compose_i
     tiles_src = None if compose_image else np.zeros((4, s, s, 3), np.uint8)
     tiles_reg = np.zeros((4, 4), np.int32)
     tiles_pad = np.zeros((4, 2), np.int32)
-    has_seg = "segments" in samples[0]
-    cls_out, box_out, seg_out = [], [], []
+    has_seg, has_kpt = "segments" in samples[0], "keypoints" in samples[0]
+    cls_out, box_out, seg_out, kpt_out = [], [], [], []
     for i, sample in enumerate(samples):
         img = sample["img"]
         h, w = img.shape[:2]
@@ -394,11 +420,19 @@ def mosaic4(samples: List[Dict], imgsz: int, rng: np.random.Generator, compose_i
             cls_out.append(sample["cls"])
             if has_seg:
                 seg_out.extend([p + np.asarray([padw, padh], np.float32) for p in sample["segments"]])
+            if has_kpt:
+                k = sample["keypoints"].copy()
+                k[..., 0] += padw
+                k[..., 1] += padh
+                kpt_out.append(k)
     cls_cat = np.concatenate(cls_out) if cls_out else np.zeros((0,), np.int32)
     box_cat = np.clip(np.concatenate(box_out) if box_out else np.zeros((0, 4), np.float32), 0, 2 * s)
     out = {"cls": cls_cat, "bboxes": box_cat, "mosaic_border": border, "img_shape": (s * 2, s * 2)}
     if has_seg:
         out["segments"] = seg_out
+    if has_kpt:
+        nk = samples[0]["keypoints"].shape[1]
+        out["keypoints"] = np.concatenate(kpt_out) if kpt_out else np.zeros((0, nk, 3), np.float32)
     if compose_image:
         out["img"] = canvas
     else:
@@ -435,7 +469,8 @@ def random_perspective(sample: Dict, degrees: float, translate: float, scale: fl
     to the output and filtered by box_candidates; where the sample has
     polygons (`segments`), they are warped and the boxes re-derived from
     them, clipped to the output, and the filter's area threshold is 0.01
-    (JAX :222-264). With warp_image the
+    (JAX :222-264); keypoints are warped with their boxes, and a point
+    warped outside [0, w] x [0, h] gets visibility 0 (JAX :244-250). With warp_image the
     sample's `img` is warped into the output (border 114) as cv2.warpAffine,
     or cv2.warpPerspective when perspective is set, warps it
     (data/warp.py), unless M is the identity without a border; without, M
@@ -464,7 +499,7 @@ def random_perspective(sample: Dict, degrees: float, translate: float, scale: fl
         xy = xy @ M.T
         return (xy[:, :2] / xy[:, 2:3] if perspective else xy[:, :2]).astype(np.float32)
 
-    boxes, cls, segments = sample["bboxes"], sample["cls"], sample.get("segments")
+    boxes, cls, segments, keypoints = sample["bboxes"], sample["cls"], sample.get("segments"), sample.get("keypoints")
     if len(boxes):
         n = len(boxes)
         if segments is not None and len(segments):  # the boxes re-derived from the warped polygons
@@ -477,13 +512,23 @@ def random_perspective(sample: Dict, degrees: float, translate: float, scale: fl
             new = np.stack((x.min(1), y.min(1), x.max(1), y.max(1)), axis=1)
             new[:, [0, 2]] = new[:, [0, 2]].clip(0, w)
             new[:, [1, 3]] = new[:, [1, 3]].clip(0, h)
+        if keypoints is not None and len(keypoints):
+            nk = keypoints.shape[1]
+            flat = warp_pts(keypoints[..., :2].reshape(-1, 2)).reshape(-1, nk, 2)
+            vis = keypoints[..., 2:3].copy()
+            vis[(flat[..., 0] < 0) | (flat[..., 0] > w) | (flat[..., 1] < 0) | (flat[..., 1] > h)] = 0
+            keypoints = np.concatenate([flat, vis], axis=-1).astype(np.float32)
         keep = box_candidates(boxes.T * sc, new.T, area_thr=0.01 if segments is not None and len(segments) else 0.10)
         boxes, cls = new[keep].astype(np.float32), cls[keep]
         if segments is not None and len(segments):
             segments = [p for p, k in zip(segments, keep) if k]
+        if keypoints is not None and len(keypoints):
+            keypoints = keypoints[keep]
     out = {"cls": cls, "bboxes": boxes, "img_shape": (h, w)}
     if segments is not None:
         out["segments"] = segments if len(boxes) else []
+    if keypoints is not None:
+        out["keypoints"] = keypoints if len(boxes) else np.zeros((0, sample["keypoints"].shape[1], 3), np.float32)
     if not warp_image:
         return dict(out, warp_M=M, tiles=sample["tiles"])
     img = sample["img"]
@@ -524,8 +569,10 @@ def copy_paste(sample: Dict, p: float, rng: np.random.Generator) -> Dict:
     by rng.choice without replacement are pasted: their mirrored polygons
     (truncated to int32) filled into a mask by fill_poly (cv2.fillPoly's
     pixels), the mirrored image's pixels copied under it, and their class,
-    mirrored box and polygon appended. Nothing is drawn when no instance
-    qualifies or p <= 0."""
+    mirrored box and polygon appended, and their keypoints mirrored where the
+    sample has any (JAX :375-378: a pose sample has no polygons, so the
+    step leaves it alone). Nothing is drawn when no instance qualifies or
+    p <= 0."""
     segments = sample.get("segments")
     if not segments or p <= 0:
         return sample
@@ -555,14 +602,19 @@ def copy_paste(sample: Dict, p: float, rng: np.random.Generator) -> Dict:
     img = img.copy()
     m = mask.astype(bool)
     img[m] = img[:, ::-1][m]
-    return dict(sample, img=img, cls=np.concatenate([sample["cls"], sample["cls"][chosen]]),
-                bboxes=np.concatenate([boxes, flipped_boxes[chosen]]), segments=list(segments) + new_segs)
+    out = dict(sample, img=img, cls=np.concatenate([sample["cls"], sample["cls"][chosen]]),
+               bboxes=np.concatenate([boxes, flipped_boxes[chosen]]), segments=list(segments) + new_segs)
+    if "keypoints" in sample and len(sample["keypoints"]):
+        kf = sample["keypoints"][chosen].copy()
+        kf[..., 0] = w - kf[..., 0]
+        out["keypoints"] = np.concatenate([sample["keypoints"], kf])
+    return out
 
 
 def mixup(sample1: Dict, sample2: Dict, rng: np.random.Generator) -> Dict:
     """JAX's mixup (:382): r from beta(32, 32), the images blended in float32
     as img1 * r + img2 * (1 - r) and truncated to uint8, the labels joined
-    (boxes and classes: polygons are dropped, as JAX's drops them)."""
+    (boxes and classes: polygons and keypoints are dropped, as JAX's drops them)."""
     r = rng.beta(32.0, 32.0)
     img = (sample1["img"].astype(np.float32) * r + sample2["img"].astype(np.float32) * (1 - r)).astype(np.uint8)
     return {"img": img, "cls": np.concatenate([sample1["cls"], sample2["cls"]]),
@@ -570,13 +622,14 @@ def mixup(sample1: Dict, sample2: Dict, rng: np.random.Generator) -> Dict:
 
 
 def random_flip(sample: Dict, fliplr: float, flipud: float, rng: np.random.Generator,
-                flip_image: bool = False) -> Dict:
-    """The flips (JAX random_flip :288): up-down first, then left-right, each
-    drawn only when its probability is non-zero, applied to the boxes and
-    polygons (`segments`, JAX :288-325). With
+                flip_image: bool = False, flip_idx: Optional[Sequence[int]] = None) -> Dict:
+    """The flips (JAX random_flip :278): up-down first, then left-right, each
+    drawn only when its probability is non-zero, applied to the boxes,
+    polygons (`segments`) and keypoints, whose left-right flip also reorders
+    them by flip_idx (JAX :288-327). With
     flip_image the sample's `img` is flipped too; without, the flips are
     recorded as `flips` (up-down, left-right) for the warp's inverse."""
-    boxes, segments = sample["bboxes"], sample.get("segments")
+    boxes, segments, keypoints = sample["bboxes"], sample.get("segments"), sample.get("keypoints")
     img = sample.get("img")
     h, w = sample["img_shape"]
     did_ud = did_lr = False
@@ -587,6 +640,9 @@ def random_flip(sample: Dict, fliplr: float, flipud: float, rng: np.random.Gener
             boxes[:, [1, 3]] = h - boxes[:, [3, 1]]
             if segments is not None:
                 segments = [np.stack([p[:, 0], h - p[:, 1]], 1) for p in segments]
+            if keypoints is not None and len(keypoints):
+                keypoints = keypoints.copy()
+                keypoints[..., 1] = h - keypoints[..., 1]
     if fliplr and rng.random() < fliplr:
         did_lr = True
         if len(boxes):
@@ -594,12 +650,19 @@ def random_flip(sample: Dict, fliplr: float, flipud: float, rng: np.random.Gener
             boxes[:, [0, 2]] = w - boxes[:, [2, 0]]
             if segments is not None:
                 segments = [np.stack([w - p[:, 0], p[:, 1]], 1) for p in segments]
-    seg = {} if segments is None else {"segments": segments}
+            if keypoints is not None and len(keypoints):
+                keypoints = keypoints.copy()
+                keypoints[..., 0] = w - keypoints[..., 0]
+                if flip_idx is not None:
+                    keypoints = keypoints[:, list(flip_idx)]
+    extra = {} if segments is None else {"segments": segments}
+    if keypoints is not None:
+        extra["keypoints"] = keypoints
     if not flip_image:
-        return dict(sample, bboxes=boxes, flips=(did_ud, did_lr), **seg)
+        return dict(sample, bboxes=boxes, flips=(did_ud, did_lr), **extra)
     img = img[::-1] if did_ud else img
     img = img[:, ::-1] if did_lr else img
-    return {"img": np.ascontiguousarray(img), "cls": sample["cls"], "bboxes": boxes, **seg}
+    return {"img": np.ascontiguousarray(img), "cls": sample["cls"], "bboxes": boxes, **extra}
 
 
 class TrainTransform:
@@ -625,17 +688,23 @@ class TrainTransform:
     polygons go through mosaic, the warp and the flips, and `masks` is the
     index-encoded instance mask at imgsz / mask_ratio (format_sample); in
     host mode copy_paste (p = hyp.copy_paste) runs after the mosaic or
-    letterbox and draws its choice there (JAX :604).
+    letterbox and draws its choice there (JAX :604). The pose task: the
+    keypoints go through mosaic, the warp and the flips (left-right by
+    `flip_idx`), in both modes, and `keypoints` is (max_gt, nk, 3)
+    (format_sample at `kpt_shape`).
 
     close_mosaic() turns mosaic off for later samples."""
 
-    def __init__(self, dataset, imgsz: int, hyp, max_gt: int = 128, task: str = "detect", mask_ratio: int = 4):
+    def __init__(self, dataset, imgsz: int, hyp, max_gt: int = 128, task: str = "detect", mask_ratio: int = 4,
+                 kpt_shape: Tuple[int, int] = (17, 3), flip_idx: Optional[Sequence[int]] = None):
         self.dataset = dataset
         self.imgsz = imgsz
         self.hyp = hyp
         self.max_gt = max_gt
         self.task = task
         self.mask_ratio = mask_ratio
+        self.kpt_shape = tuple(kpt_shape)
+        self.flip_idx = flip_idx
         self.mosaic_enabled = True
         self.device_mode = resolve_device_augment(hyp, task)
 
@@ -681,11 +750,11 @@ class TrainTransform:
                 other = self._warp(other, other.pop("mosaic_border"), rng, warp_image=True)
                 sample = dict(mixup(sample, other, rng), img_shape=sample["img_shape"])
             sample["img"] = augment_hsv(sample["img"], h.hsv_h, h.hsv_s, h.hsv_v, rng)
-            return format_sample(random_flip(sample, h.fliplr, h.flipud, rng, flip_image=True), s, self.max_gt,
-                                 self.task, self.mask_ratio)
+            return format_sample(random_flip(sample, h.fliplr, h.flipud, rng, flip_image=True, flip_idx=self.flip_idx),
+                                 s, self.max_gt, self.task, self.mask_ratio, self.kpt_shape)
         hsv = draw_hsv_gains(h.hsv_h, h.hsv_s, h.hsv_v, rng)
-        sample = random_flip(sample, h.fliplr, h.flipud, rng)
-        out = format_sample(sample, s, self.max_gt, self.task, self.mask_ratio)
+        sample = random_flip(sample, h.fliplr, h.flipud, rng, flip_idx=self.flip_idx)
+        out = format_sample(sample, s, self.max_gt, self.task, self.mask_ratio, self.kpt_shape)
         A = np.linalg.inv(sample["warp_M"])  # flips act on the warped image, so they come first on the inverse path
         did_ud, did_lr = sample["flips"]
         if did_lr:

@@ -1,13 +1,15 @@
-"""Detect and segment datasets: YOLO-format images and label txts, for validation and training.
+"""Detect, segment and pose datasets: YOLO-format images and label txts, for validation and training.
 
-Counterpart of spectrogram_yolov11_tpu/data/dataset.py for the detect and
-segment tasks: IMG_FORMATS (:27), img2label_path (:30), check_det_dataset
-(:42) and YOLODataset (:126: _find_images with `fraction`, the detect label
-rows and the segment task's polygon rows (:212-222, the box the polygon's
-bounds), `segments` in each image's labels (:282), single_cls, the automatic
-max_gt :157-165, load_image with cache="ram", load_sample :344 with its
-long-side resize and the polygons scaled to pixels (:372), get_item,
-close_mosaic :381-389).
+Counterpart of spectrogram_yolov11_tpu/data/dataset.py for the detect,
+segment and pose tasks: IMG_FORMATS (:27), img2label_path (:30),
+check_det_dataset (:42) and YOLODataset (:126: _find_images with `fraction`,
+the detect label rows, the segment task's polygon rows (:212-222, the box
+the polygon's bounds) and the pose task's rows (:232-238: `cls cx cy w h`
+and kpt_shape's nk x nd values, visibility 1 added when nd = 2),
+`segments` and `keypoints` (n, nk, 3) in each image's labels (:282-287),
+single_cls, the automatic max_gt :157-165, load_image with cache="ram",
+load_sample :344 with its long-side resize and the polygons and keypoints
+scaled to pixels (:372-378), get_item, close_mosaic :381-389).
 Images are read by data/imageio.py (JPEG and PNG, as cv2.imread reads them;
 other formats raise NotImplementedError when an image is read), kept in
 memory with cache="ram" or in `.npy` sidecars with cache="disk" (JAX
@@ -120,14 +122,17 @@ class YOLODataset:
     letterbox on the card; for training (augment=True, with the train args as
     `hyp`) get_item(i, rng) is TrainTransform's sample. max_gt=0 sizes the GT
     pad from the labels, as the JAX trainer asks: min(128, max(32,
-    ceil8(1.1 * most labels of an image * (4 with mosaic))))."""
+    ceil8(1.1 * most labels of an image * (4 with mosaic)))). A pose
+    dataset reads its rows by `kpt_shape` (the data's, JAX's default (17,
+    3)) and flips its keypoints left to right by `flip_idx`."""
 
     def __init__(self, img_path, imgsz: int = 640, max_gt: int = 256, single_cls: bool = False,
                  augment: bool = False, hyp=None, fraction: float = 1.0, cache=False, task: str = "detect",
-                 mask_ratio: int = 4):
+                 mask_ratio: int = 4, kpt_shape=(17, 3), flip_idx=None):
         self.img_path = [Path(p) for p in img_path] if isinstance(img_path, (list, tuple)) else Path(img_path)
         self.single_cls = single_cls
         self.task = task
+        self.kpt_shape = tuple(kpt_shape or (17, 3))
         self.augment = augment
         self.im_files = self._find_images(fraction)
         self.label_files = [img2label_path(f) for f in self.im_files]
@@ -139,8 +144,9 @@ class YOLODataset:
         self.cache_ram = cache in (True, "ram")
         self.cache_disk = cache == "disk"
         self._im_cache: Dict[int, np.ndarray] = {}
-        self.transform = (TrainTransform(self, imgsz, hyp, max_gt=max_gt, task=task, mask_ratio=mask_ratio) if augment
-                          else ValTransform(imgsz, max_gt, task=task, mask_ratio=mask_ratio))
+        self.transform = (TrainTransform(self, imgsz, hyp, max_gt=max_gt, task=task, mask_ratio=mask_ratio,
+                                         kpt_shape=self.kpt_shape, flip_idx=flip_idx) if augment
+                          else ValTransform(imgsz, max_gt, task=task, mask_ratio=mask_ratio, kpt_shape=self.kpt_shape))
 
     def _find_images(self, fraction: float = 1.0) -> List[str]:
         files: List[str] = []
@@ -161,14 +167,23 @@ class YOLODataset:
     def _parse_row(self, parts: List[str]) -> Optional[Dict]:
         """One label row -> {cls, xywhn} (and `seg`, the polygon's points (n, 2)
         normalised, for a segment row: an even count of 6 or more values, its
-        box the points' bounds); None for a detect row with a box of no or
-        too large size."""
+        box the points' bounds; `kpt`, (nk, 3) normalised xy and visibility,
+        for a pose row of 4 + nk * nd values, None for one of another
+        length); None for a detect row with a box of no or too large size."""
         vals = [float(x) for x in parts[1:]]
         if self.task == "segment" and len(vals) >= 6 and len(vals) % 2 == 0:
             pts = np.asarray(vals, np.float32).reshape(-1, 2)
             lo, hi = pts.min(0), pts.max(0)
             return {"cls": int(float(parts[0])), "xywhn": [(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0],
                                                            hi[1] - lo[1]], "seg": pts.tolist()}
+        if self.task == "pose":
+            nk, nd = self.kpt_shape
+            if len(vals) != 4 + nk * nd:
+                return None
+            kpts = np.asarray(vals[4:], np.float32).reshape(nk, nd)
+            if nd == 2:
+                kpts = np.concatenate([kpts, np.ones((nk, 1), np.float32)], 1)
+            return {"cls": int(float(parts[0])), "xywhn": vals[:4], "kpt": kpts.tolist()}
         if len(vals) >= 4 and 0 < vals[2] <= 1.0001 and 0 < vals[3] <= 1.0001:
             return {"cls": int(float(parts[0])), "xywhn": vals[:4]}
         return None
@@ -191,7 +206,8 @@ class YOLODataset:
 
     def _load_label(self, label_file: str) -> Dict[str, np.ndarray]:
         """({cls (n,) int32, xywhn (n, 4) float32, and for the segment task
-        segments, a list of (k, 2) float32}, bad rows) of a label txt: short
+        segments, a list of (k, 2) float32, for the pose task keypoints (n, nk,
+        3) float32}, bad rows) of a label txt: short
         rows are skipped, rows that do not parse skipped and counted. A
         segment dataset's row that is not a polygon raises KeyError, as JAX's
         (:282)."""
@@ -212,6 +228,10 @@ class YOLODataset:
                "xywhn": np.asarray([r["xywhn"] for r in rows], np.float32).reshape(-1, 4)}
         if self.task == "segment":
             lab["segments"] = [np.asarray(r["seg"], np.float32) for r in rows]
+        if self.task == "pose":
+            nk = self.kpt_shape[0]
+            lab["keypoints"] = (np.asarray([r["kpt"] for r in rows], np.float32).reshape(-1, nk, 3) if rows
+                                else np.zeros((0, nk, 3), np.float32))
         return lab, bad
 
     def _load_labels(self) -> List[Dict[str, np.ndarray]]:
@@ -228,7 +248,8 @@ class YOLODataset:
                 pass
         labels, n_miss, n_bad = [], 0, 0
         empty = {"cls": np.zeros(0, np.int32), "xywhn": np.zeros((0, 4), np.float32),
-                 **({"segments": []} if self.task == "segment" else {})}
+                 **({"segments": []} if self.task == "segment" else {}),
+                 **({"keypoints": np.zeros((0, self.kpt_shape[0], 3), np.float32)} if self.task == "pose" else {})}
         for lf in self.label_files:
             if Path(lf).exists():
                 lab, bad = self._load_label(lf)
@@ -249,13 +270,16 @@ class YOLODataset:
         out = {"cls": lab["cls"].tolist(), "xywhn": lab["xywhn"].tolist()}
         if "segments" in lab:
             out["segments"] = [p.tolist() for p in lab["segments"]]
+        if "keypoints" in lab:
+            out["keypoints"] = lab["keypoints"].tolist()
         return out
 
-    @staticmethod
-    def _label_from_json(lab: Dict) -> Dict:
+    def _label_from_json(self, lab: Dict) -> Dict:
         out = {"cls": np.asarray(lab["cls"], np.int32), "xywhn": np.asarray(lab["xywhn"], np.float32).reshape(-1, 4)}
         if "segments" in lab:
             out["segments"] = [np.asarray(p, np.float32) for p in lab["segments"]]
+        if "keypoints" in lab:
+            out["keypoints"] = np.asarray(lab["keypoints"], np.float32).reshape(-1, self.kpt_shape[0], 3)
         return out
 
     def __len__(self) -> int:
@@ -285,7 +309,8 @@ class YOLODataset:
 
     def load_sample(self, i: int, square_to: Optional[int] = None) -> Dict:
         """Image i and its labels as xyxy pixels (and its polygons in pixels,
-        `segments`, for the segment task); with square_to, the image
+        `segments`, for the segment task, its keypoints' xy in pixels,
+        `keypoints`, for the pose task); with square_to, the image
         resized first so its long side is square_to (each side min(int(side *
         r), square_to)), as cv2.resize(INTER_LINEAR) does it (resize_linear_u8):
         the JAX package's train-time resize (:344-357)."""
@@ -309,6 +334,11 @@ class YOLODataset:
         out = {"img": img, "cls": cls, "bboxes": b}
         if "segments" in lab:
             out["segments"] = [p * np.asarray([w, h], np.float32) for p in lab["segments"]]
+        if "keypoints" in lab:
+            k = lab["keypoints"].copy()
+            k[..., 0] *= w
+            k[..., 1] *= h
+            out["keypoints"] = k
         return out
 
     def get_item(self, i: int, rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:

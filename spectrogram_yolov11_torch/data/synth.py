@@ -22,8 +22,14 @@ and the segment kind:
   files byte for byte: the same noise, 1-4 star-shaped polygons of 8 or 16
   points (by class parity) filled by fill_poly, the label rows the class
   and the normalised points with 6 decimals.
+- `shapes-pose` (`_gen_shapes_pose`, JAX :138-171: shapes128-pose.yaml,
+  coco8-pose.yaml and the other pose stand-ins, nk and nd from the YAML's
+  `kpt_shape`) likewise: the same noise, 1-3 filled rectangles, each
+  keypoint a filled red disc of radius 4 (utils/plotting.py:circle, equal
+  to cv2.circle), the label rows the class, the box and each keypoint's
+  normalised xy (and visibility 2 when nd = 3), formatted as JAX's.
 
-The pose and obb shapes kinds raise, naming their ROADMAP.md item.
+The obb shapes kind raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch
 
 from ..ops.stft import spectrogram_numpy
 from ..utils import LOGGER, not_ported
-from ..utils.plotting import ellipse_filled, fill_poly, rectangle
+from ..utils.plotting import circle, ellipse_filled, fill_poly, rectangle
 from .augment import resize_linear_u8
 from .imageio import imwrite
 
@@ -93,12 +99,12 @@ def maybe_generate(data: dict) -> bool:
     `synthetic`) when its val split is missing: n_train images into each
     `train` dir with seed + j and n_val into each `val` dir with seed + 10000,
     as the JAX package does. Returns False for a YAML with no `synthetic` key.
-    The `spectrogram`, `shapes` and `shapes-seg` kinds are ported; the pose
-    and obb shapes kinds raise."""
+    The `spectrogram`, `shapes`, `shapes-seg` and `shapes-pose` kinds are
+    ported; the obb shapes kind raises."""
     kind = data.get("synthetic")
     if not kind:
         return False
-    if kind not in ("spectrogram", "shapes", "shapes-seg"):
+    if kind not in ("spectrogram", "shapes", "shapes-seg", "shapes-pose"):
         raise not_ported(f"synthetic dataset kind {kind!r}", "item 10 (other heads)")
     n_train, n_val = int(data.get("n_train", 64)), int(data.get("n_val", 16))
     imgsz, seed = int(data.get("gen_imgsz", 640)), int(data.get("seed", 0))
@@ -113,6 +119,9 @@ def maybe_generate(data: dict) -> bool:
             _gen_shapes(Path(d).parent.parent, Path(d).name, n, imgsz, s, nc=len(data.get("names") or range(3)))
         elif kind == "shapes-seg":
             _gen_shapes_seg(Path(d).parent.parent, Path(d).name, n, imgsz, s, nc=len(data.get("names") or range(2)))
+        elif kind == "shapes-pose":
+            _gen_shapes_pose(Path(d).parent.parent, Path(d).name, n, imgsz, s, nc=len(data.get("names") or range(1)),
+                             kpt_shape=tuple(data.get("kpt_shape") or (5, 3)))
         else:
             _gen_spectrogram(Path(d).parent.parent, Path(d).name, n, imgsz, s)
     return True
@@ -182,6 +191,46 @@ def _gen_shapes_seg(root: Path, split: str, n: int, imgsz: int, seed: int, nc: i
         (root / "labels" / split).mkdir(parents=True, exist_ok=True)
         imwrite(root / "images" / split / f"{i:05d}.jpg", img)
         (root / "labels" / split / f"{i:05d}.txt").write_text("\n".join(lines))
+
+
+def _gen_shapes_pose(root: Path, split: str, n: int, imgsz: int, seed: int, nc: int = 1,
+                     kpt_shape=(5, 3)) -> None:
+    """n JPEGs of imgsz x imgsz: the shapes kind's noise and 1-3 filled
+    rectangles, each with nk keypoints drawn as red discs of radius 4: at
+    5 keypoints its corners and centre, otherwise nk points on its inscribed
+    ellipse; the label rows `cls cx cy w h` and each keypoint's normalised
+    xy, with visibility 2 when nd = 3 (JAX :138-171, the same draws and the
+    same formatting: 6 decimals for a Python float, str() for the rest)."""
+    rng = np.random.default_rng(seed)
+    nk, ndim = int(kpt_shape[0]), int(kpt_shape[1])
+    for i in range(n):
+        base = rng.integers(40, 160, (imgsz // 8, imgsz // 8, 3), dtype=np.uint8)
+        img = resize_linear_u8(torch.from_numpy(base)[None], imgsz, imgsz)[0].numpy().copy()
+        labels = []
+        for _ in range(int(rng.integers(1, 4))):
+            cls = int(rng.integers(0, nc))
+            w = rng.uniform(0.1, 0.3) * imgsz
+            h = rng.uniform(0.1, 0.3) * imgsz
+            x1 = rng.uniform(0, imgsz - w)
+            y1 = rng.uniform(0, imgsz - h)
+            color = tuple(int(c) for c in rng.integers(100, 255, 3))
+            rectangle(img, (int(x1), int(y1)), (int(x1 + w), int(y1 + h)), color, -1)
+            if nk == 5:
+                kps = np.array([[x1, y1], [x1 + w, y1], [x1 + w, y1 + h], [x1, y1 + h], [x1 + w / 2, y1 + h / 2]],
+                               np.float32)
+            else:
+                th = 2 * np.pi * np.arange(nk, dtype=np.float32) / nk
+                kps = np.stack([x1 + w / 2 + w / 2 * np.cos(th), y1 + h / 2 + h / 2 * np.sin(th)], 1)
+            for kx, ky in kps:
+                circle(img, (int(kx), int(ky)), 4, (0, 0, 255))
+            row = [cls, (x1 + w / 2) / imgsz, (y1 + h / 2) / imgsz, w / imgsz, h / imgsz]
+            for kx, ky in kps:
+                row += [kx / imgsz, ky / imgsz] + ([2] if ndim == 3 else [])
+            labels.append(" ".join(f"{v:.6f}" if isinstance(v, float) else str(v) for v in row))
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        imwrite(root / "images" / split / f"{i:05d}.jpg", img)
+        (root / "labels" / split / f"{i:05d}.txt").write_text("\n".join(labels))
 
 
 def _gen_spectrogram(root: Path, split: str, n: int, imgsz: int, seed: int) -> None:

@@ -11,7 +11,8 @@ request runs once per batch):
      arguments (pre_nms_topk 1024 by default).
 
 `build_device_fn` is steps 2-5 for frames already letterboxed to S x S
-(`build_segment_fn` the segment task's, with its masks); the
+(`build_segment_fn` the segment task's, with its masks, `build_pose_fn` the
+pose task's, with its keypoints); the
 predictor (engine/predictor.py) letterboxes any frame sizes on the card
 (data/augment.py) and calls it, and `build_pipeline` pads frames of one known
 size and calls it; with augment=True it is TTA's (three scaled and flipped
@@ -41,7 +42,7 @@ import torch.nn.functional as F
 
 from ..data.augment import letterbox_geometry
 from ..nn.tasks import DetectionModel, build_model
-from ..ops.decode import decode_detections
+from ..ops.decode import decode_detections, decode_kpts
 from ..ops.masks import crop_masks_device
 from ..ops.nms import non_max_suppression, non_max_suppression_extras
 from ..utils import full_f32, resolve_device
@@ -138,6 +139,31 @@ def build_segment_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float
         masks = torch.sigmoid(torch.einsum("bdk,bkhw->bdhw", out[..., 6:], proto.float()))
         masks = crop_masks_device(masks > 0.5 if binary else masks, out[..., :4], frames.shape[1:3])
         return out[..., :6], n, masks
+
+    return fn
+
+
+def build_pose_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
+                  pre_nms_topk: int = 1024, half: bool = False) -> Callable:
+    """The device function of a pose predict or val batch (JAX's
+    PosePredictor and PoseValidator device functions, engine/predictor.py:
+    503, engine/validator.py:539): fn(uint8 (B, S, S, 1|3) letterboxed BGR
+    frames on the model's device) -> (out (B, max_det, 6 + nk * nd) [x1, y1,
+    x2, y2, conf, cls, keypoints...], n (B,)). The frames normalised and
+    forwarded, the boxes and the keypoints decoded (decode_kpts: letterbox
+    pixels, the visibility a sigmoid when nd = 3), the keypoints carried
+    through NMS with extras (each anchor's best class; the greedy keep
+    kernel). The network in bf16 with `half`. Rows past n hold zeros."""
+    model = model.set_dtype(torch.bfloat16 if half else torch.float32)
+
+    @torch.inference_mode()
+    @full_f32()
+    def fn(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        feats, kpt_raw = model(nchw(normalize(frames)))
+        kpts = decode_kpts(kpt_raw, model.kpt_shape, [tuple(b.shape[-2:]) for b, _ in feats], model.stride)
+        preds = torch.cat([decode_detections(feats, model.nc, model.stride), kpts.flatten(2)], -1)
+        return non_max_suppression_extras(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, max_det=max_det,
+                                          pre_nms_topk=pre_nms_topk)
 
     return fn
 

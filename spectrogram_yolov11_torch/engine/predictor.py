@@ -44,6 +44,14 @@ region by JAX's round(pad -+ 0.1), resized to the image's size, thresholded
 at 0.5 and cropped to its scaled box (truncated to int); only those bool
 masks come to the host, for Results.masks. As in JAX, augment and
 visualize are not read by the segment predictor.
+
+PosePredictor is JAX's (:499-539) for the pose task: the device function
+(engine/pipeline.py:build_pose_fn: NMS with the decoded keypoints carried,
+each anchor's best class, pre_nms_topk 1024, classes and agnostic_nms not
+read, as in JAX) and, per image on the host, the boxes scaled to its pixels
+and the keypoints un-letterboxed as JAX's: (xy - pad) / gain with each pad
+Python's round(pad - 0.1), for Results.keypoints. augment is not read, as
+in JAX; visualize is BasePredictor's, as JAX's pose predictor inherits it.
 """
 
 from __future__ import annotations
@@ -65,7 +73,8 @@ from ..utils import LOGGER, resolve_device
 from ..utils.callbacks import run_callbacks
 from ..ops.masks import resize_linear_f32
 from ..utils.plotting import feature_visualization
-from .pipeline import build_device_fn, build_ensemble_fn, build_segment_fn, eval_network, nchw, normalize
+from .pipeline import (build_device_fn, build_ensemble_fn, build_pose_fn, build_segment_fn, eval_network, nchw,
+                       normalize)
 from .results import Results
 
 
@@ -310,4 +319,34 @@ class SegmentationPredictor(BasePredictor):
                 with torch.inference_mode():
                     mk = self.process_masks(masks[i, :n], det[:, :4], img0.shape[:2])
             results.append(Results(img0, path, self.names, boxes=det, speed=speed, masks=mk))
+        return results
+
+
+class PosePredictor(BasePredictor):
+    """The pose predictor (the module docstring): Results with boxes and keypoints."""
+
+    def _build_device_fn(self):
+        a = self.args
+        return build_pose_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
+                             half=self.model.dtype == torch.bfloat16)
+
+    def postprocess(self, out: np.ndarray, n_valid: np.ndarray, orig_imgs: list, paths: list,
+                    speed: dict) -> List[Results]:
+        """Each image's detections scaled to its pixels and its keypoints (n, nk, nd) un-letterboxed."""
+        nk = self.model.kpt_shape[0]
+        nd = (out.shape[-1] - 6) // nk
+        results = []
+        for i, (img0, path) in enumerate(zip(orig_imgs, paths)):
+            n = int(n_valid[i])
+            img0 = _host_frame(img0)
+            det = out[i, :n, :6].copy()
+            kpts = out[i, :n, 6:].reshape(n, nk, nd).copy()
+            if n:
+                h0, w0 = img0.shape[:2]
+                gain = min(self.imgsz / h0, self.imgsz / w0)
+                pw, ph = round((self.imgsz - w0 * gain) / 2 - 0.1), round((self.imgsz - h0 * gain) / 2 - 0.1)
+                det[:, :4] = scale_boxes((self.imgsz, self.imgsz), det[:, :4], (h0, w0))
+                kpts[..., 0] = (kpts[..., 0] - pw) / gain
+                kpts[..., 1] = (kpts[..., 1] - ph) / gain
+            results.append(Results(img0, path, self.names, boxes=det, speed=speed, keypoints=kpts))
         return results

@@ -1,8 +1,8 @@
-"""Detection and segmentation results on the host (numpy). Counterpart of
-spectrogram_yolov11_tpu/engine/results.py: Boxes (:46), Masks (:90) and
-Results (:203) for the detect and segment tasks. The predictor builds them
-after the fixed-shape NMS output has left the card, so device movement is
-the identity here too.
+"""Detection, segmentation and pose results on the host (numpy). Counterpart
+of spectrogram_yolov11_tpu/engine/results.py: Boxes (:46), Masks (:90),
+Keypoints (:110) and Results (:203) for the detect, segment and pose tasks.
+The predictor builds them after the fixed-shape NMS output has left the
+card, so device movement is the identity here too.
 
 With masks, plot first fills each mask's pixels with its colour (by the
 mask's index) on a copy of the image and blends it over the image as
@@ -11,7 +11,12 @@ cv2.addWeighted(img, 0.55, overlay, 0.45, 0) does on uint8, bit for bit
 second, rounded to f32 and then to the nearest integer, ties to even, and
 saturated), then draws the boxes. Masks.xy and save_txt of a mask result
 need cv2.findContours (JAX data/converter.py:196 masks2segments) and raise
-(ROADMAP.md item 10).
+(ROADMAP.md item 10). With keypoints, plot then draws each keypoint whose
+visibility is over 0.5 (every one when there is none) as a filled green
+disc of radius max(lw, 2) at its truncated pixel (utils/plotting.py:circle,
+equal to cv2.circle; JAX :270-273), and save_txt appends each row's
+keypoints normalised by the image's size (JAX :319-322). The tables carry
+no keypoints, as JAX's carry none.
 
 plot, save and save_crop are JAX's (:248-304) for boxes: the same line width,
 colours, corners, labels and crops, drawn by utils/plotting.py (rectangles
@@ -34,7 +39,7 @@ import numpy as np
 from ..data.imageio import imwrite
 from ..ops.boxes import xyxy2xywh
 from ..utils import SimpleClass, not_ported
-from ..utils.plotting import put_text, rectangle
+from ..utils.plotting import circle, put_text, rectangle
 
 # the JAX package's box colours (engine/results.py:195-199), in the channel order cv2 draws them (BGR)
 _COLORS = np.array(
@@ -123,6 +128,28 @@ class Masks(_TensorCompat, SimpleClass):
         raise not_ported("Masks.xy (mask contours by cv2.findContours)", "item 10 (other heads: Masks.xy)")
 
 
+class Keypoints(_TensorCompat, SimpleClass):
+    """(n, K, 2|3) keypoints in original-image pixels (JAX :110): xy, xyn
+    (normalised by the image's size) and conf (the visibility, or None)."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data, np.float32)
+        self.orig_shape = orig_shape
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def xyn(self):
+        h, w = self.orig_shape
+        return self.data[..., :2] / np.asarray([w, h], np.float32)
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
 def add_weighted(img: np.ndarray, alpha: float, overlay: np.ndarray, beta: float) -> np.ndarray:
     """cv2.addWeighted(img, alpha, overlay, beta, 0) on uint8, bit for bit:
     fma(img, f32(alpha), f32(overlay * f32(beta))) rounded to f32, then to
@@ -135,17 +162,19 @@ def add_weighted(img: np.ndarray, alpha: float, overlay: np.ndarray, beta: float
 
 class Results(_TensorCompat, SimpleClass):
     """One image's detections: orig_img (host uint8 HWC BGR), path, names,
-    boxes, masks (the segment task's, (n, H, W) bool) and the per-image
-    speed dict in ms."""
+    boxes, masks (the segment task's, (n, H, W) bool), keypoints (the pose
+    task's, (n, K, 2|3)) and the per-image speed dict in ms."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
-                 boxes: Optional[np.ndarray] = None, speed: Optional[dict] = None, masks: Optional[np.ndarray] = None):
+                 boxes: Optional[np.ndarray] = None, speed: Optional[dict] = None, masks: Optional[np.ndarray] = None,
+                 keypoints: Optional[np.ndarray] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
@@ -158,14 +187,17 @@ class Results(_TensorCompat, SimpleClass):
         """Row-select detections: i is an int, a slice, or a bool/index array."""
         boxes = self.boxes.data[i].reshape(-1, 6) if self.boxes is not None else None
         masks = self.masks.data[i].reshape((-1,) + self.masks.data.shape[1:]) if self.masks is not None else None
-        return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed, masks=masks)
+        kpts = self.keypoints.data[i].reshape((-1,) + self.keypoints.data.shape[1:]) if self.keypoints is not None \
+            else None
+        return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed, masks=masks,
+                       keypoints=kpts)
 
     def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5, show_conf: bool = True,
              show_labels: bool = True, img: Optional[np.ndarray] = None) -> np.ndarray:
         """The detections drawn on a copy of orig_img (or on `img`, in place):
         each box in its class colour at line width `line_width` or max(round((H
         + W) / 2 * 0.003), 2), its label (name, and the confidence to 2
-        places) above it at thickness max(lw - 1, 1)."""
+        places) above it at thickness max(lw - 1, 1); then the keypoints."""
         img = self.orig_img.copy() if img is None else img
         lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
         if self.masks is not None:
@@ -182,6 +214,11 @@ class Results(_TensorCompat, SimpleClass):
                 if show_labels:
                     label = self.names.get(c, str(c)) + (f" {b[4]:.2f}" if show_conf else "")
                     put_text(img, label, (p1[0], max(p1[1] - 4, 12)), font_scale, color, max(lw - 1, 1))
+        if self.keypoints is not None:
+            for kp in self.keypoints.data:
+                for x, y, *v in kp:
+                    if not v or v[0] > 0.5:
+                        circle(img, (int(x), int(y)), max(lw, 2), (0, 255, 0))
         return img
 
     def save(self, filename: str | Path, **plot_kw) -> str:
@@ -212,16 +249,24 @@ class Results(_TensorCompat, SimpleClass):
                                   "machine does not have; queued in ROADMAP.md §1 item 5 (second part)")
 
     def save_txt(self, txt_file: str | Path, save_conf: bool = False) -> None:
-        """YOLO-format label rows: class, normalised xywh[, conf]. A mask
+        """YOLO-format label rows: class, normalised xywh[, each keypoint's
+        normalised x, y (and visibility)][, conf]. A mask
         result's rows are polygons from the masks' contours (JAX :305-316),
         which raise (item 10)."""
         if self.masks is not None and len(self.masks):
             raise not_ported("save_txt of a mask result (contours by cv2.findContours)",
                              "item 10 (other heads: save_txt of masks)")
         lines = []
+        h, w = self.orig_img.shape[:2]
         if self.boxes is not None:
-            for b, xywhn in zip(self.boxes.data, self.boxes.xywhn):
-                line = (int(b[5]), *xywhn.tolist()) + ((float(b[4]),) if save_conf else ())
+            for i, (b, xywhn) in enumerate(zip(self.boxes.data, self.boxes.xywhn)):
+                line = (int(b[5]), *xywhn.tolist())
+                if self.keypoints is not None and i < len(self.keypoints.data):
+                    kp = np.asarray(self.keypoints.data[i], np.float32).copy()
+                    kp[..., 0] /= w
+                    kp[..., 1] /= h
+                    line = line + tuple(float(v) for v in kp.reshape(-1))
+                line = line + ((float(b[4]),) if save_conf else ())
                 lines.append(" ".join(f"{v:.6g}" if isinstance(v, float) else str(v) for v in line))
         Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
         Path(txt_file).write_text("\n".join(lines) + ("\n" if lines else ""))
@@ -284,14 +329,17 @@ class Results(_TensorCompat, SimpleClass):
         """Empty Results with the same image, path and names."""
         return Results(self.orig_img, self.path, self.names, speed=self.speed)
 
-    def update(self, boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None) -> None:
+    def update(self, boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
+               keypoints: Optional[np.ndarray] = None) -> None:
         """Replace the boxes (a 7th column, when present, becomes the track
-        ids) and the masks in place (JAX :414)."""
+        ids), the masks and the keypoints in place (JAX :414)."""
         if boxes is not None:
             boxes = np.asarray(boxes)
             self.boxes = Boxes(boxes[:, :6], self.orig_shape, ids=boxes[:, 6] if boxes.shape[1] > 6 else None)
         if masks is not None:
             self.masks = Masks(masks, self.orig_shape)
+        if keypoints is not None:
+            self.keypoints = Keypoints(keypoints, self.orig_shape)
 
     def verbose(self) -> str:
         """Log-line summary such as '2 LTEs, 1 RF, '."""

@@ -1,4 +1,4 @@
-"""The detect and segment trainers on the card: the training step, its epoch loop and checkpoints.
+"""The detect, segment and pose trainers on the card: the training step, its epoch loop and checkpoints.
 
 Counterpart of spectrogram_yolov11_tpu/engine/trainer.py: batch_images
 (:75-90), EarlyStopping (:112-129), compute_loss / forward_train /
@@ -80,6 +80,18 @@ step's other keys), the loss is ops/losses.py:segmentation_loss
 (`loss_names`, the results.csv and metrics.jsonl columns), the EMA is
 scored by a SegmentationValidator at mask_ratio, and multi_scale is not
 drawn, as JAX draws it for the detect task only (:421).
+
+PoseTrainer is JAX's (:659) for the pose task: the dataset reads the data's
+`kpt_shape` and flips by its `flip_idx` (JAX :245-246), each sample carries
+its keypoints (`keypoints` (max_gt, nk, 3), normalised), the loss is
+ops/losses.py:pose_loss at the data's kpt_shape and args.pose and args.kobj,
+its items box, pose, kobj, cls and dfl, and the EMA is scored by a
+PoseValidator. A model whose kpt_shape differs from the data's is rebuilt
+from its own model dict with the data's kpt_shape and fresh weights from
+`args.seed`, nothing grafted, as JAX's setup_model (:183-190, :204-210)
+rebuilds from `args.model` (a checkpoint's path there fails: ROADMAP §3.33;
+`rebuilt` records {"kpt_shape": (model's, data's)}); its model dict, and so
+each checkpoint's, carries the data's kpt_shape.
 """
 
 from __future__ import annotations
@@ -98,9 +110,9 @@ from ..cfg import DEFAULT_CFG_DICT, get_cfg, get_save_dir
 from ..data.augment import resize_linear_u8
 from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
-from ..nn.tasks import DetectionModel, build_model, intersect_state_dicts
+from ..nn.tasks import DetectionModel, build_model, intersect_state_dicts, yaml_model_load
 from ..ops.device_augment import augment_batch
-from ..ops.losses import detection_loss, segmentation_loss
+from ..ops.losses import detection_loss, pose_loss, segmentation_loss
 from ..utils import LOGGER, RUNS_DIR, full_f32, get_latest_run, plotting, resolve_device
 from ..utils.callbacks import default_callbacks, run_callbacks
 from ..utils.jax_compat import (opt_state_from_flax, opt_state_to_flax, state_dict_to_variables,
@@ -108,10 +120,11 @@ from ..utils.jax_compat import (opt_state_from_flax, opt_state_to_flax, state_di
 from .checkpoint import load_checkpoint, save_checkpoint, strip_optimizer
 from .optim import (GROUPS, adamw_update_, choose_optimizer, clip_grad_norm_, ema_decay, ema_update_, lr_at,
                     param_groups, sgd_update_)
-from .validator import DetectionValidator, SegmentationValidator
+from .validator import DetectionValidator, PoseValidator, SegmentationValidator
 
 AUG_KEYS = ("aug_src", "aug_regions", "aug_pads", "aug_inv", "aug_hsv")
-TRAIN_BATCH_KEYS = ("img", "cls", "bboxes", "mask_gt", "masks", *AUG_KEYS)  # `img` or the aug_* keys; `masks`: segment
+# `img` or the aug_* keys; `masks` the segment task's, `keypoints` the pose task's
+TRAIN_BATCH_KEYS = ("img", "cls", "bboxes", "mask_gt", "masks", "keypoints", *AUG_KEYS)
 BN_STATS = ("running_mean", "running_var")
 
 
@@ -195,8 +208,15 @@ class DetectionTrainer:
         training mode at the trainer's compute dtype, as JAX's setup_model
         retraces the facade's model in place (:178-181): rebuilt for the
         data's nc when it differs, or built from args.model when there is
-        none (JAX :191-216)."""
+        none (JAX :191-216); a pose model whose kpt_shape is not the data's is
+        built anew (JAX :183-190)."""
         m, nc, seed = self.model, self.data["nc"], self.args.seed
+        kpt = tuple(self.data.get("kpt_shape") or ()) if self.task == "pose" else ()
+        cfg = str(self.args.model or self.default_model)
+        if m is not None and kpt and tuple(getattr(m, "kpt_shape", ())) != kpt:
+            LOGGER.info(f"Rebuilding pose head for dataset kpt_shape={list(kpt)}")
+            self.rebuilt = {"kpt_shape": (tuple(getattr(m, "kpt_shape", ())), kpt)}
+            cfg, m = dict(m.yaml), None  # the model's own dict: args.model may name a checkpoint (ROADMAP §3.33)
         if m is not None and m.nc != nc:
             LOGGER.info(f"Overriding model nc={m.nc} with dataset nc={nc}")
             new = build_model({k: v for k, v in m.yaml.items() if k != "yaml_file"}, nc=nc).init(seed)
@@ -205,7 +225,9 @@ class DetectionTrainer:
             self.rebuilt = {"nc": (m.nc, nc), "grafted": grafted}
             m = new
         if m is None:
-            m = build_model(str(self.args.model or self.default_model), nc=nc).init(seed)
+            if kpt:  # the model dict at the data's kpt_shape (JAX :204-210)
+                cfg = {**(cfg if isinstance(cfg, dict) else yaml_model_load(cfg)), "kpt_shape": list(kpt)}
+            m = build_model(cfg, nc=nc).init(seed)
         if m.dtype != torch.float32:
             raise ValueError(f"the trainer trains an f32 model, got {m.dtype}")
         fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
@@ -384,7 +406,8 @@ class DetectionTrainer:
         """The train split (its augment mode from the args), the GT pad sized from its labels."""
         a = self.args
         return YOLODataset(self.data["train"], imgsz=self.imgsz, max_gt=0, single_cls=a.single_cls, augment=True,
-                           hyp=a, fraction=a.fraction, cache=a.cache, task=self.task, mask_ratio=int(a.mask_ratio))
+                           hyp=a, fraction=a.fraction, cache=a.cache, task=self.task, mask_ratio=int(a.mask_ratio),
+                           kpt_shape=self.data.get("kpt_shape", (17, 3)), flip_idx=self.data.get("flip_idx"))
 
     def train(self) -> Dict[str, float]:
         """JAX's train() (:339-522) for the detect task; returns the last
@@ -604,4 +627,30 @@ class SegmentationTrainer(DetectionTrainer):
             "device": str(self.device), "plots": False, "mask_ratio": a.mask_ratio})
 
 
-TASK2TRAINER = {"detect": DetectionTrainer, "segment": SegmentationTrainer}
+class PoseTrainer(DetectionTrainer):
+    """The pose trainer (JAX :659; the module docstring): train() or the
+    step alone, as DetectionTrainer, on a pose model and dataset."""
+
+    task = "pose"
+    loss_names = ("box_loss", "pose_loss", "kobj_loss", "cls_loss", "dfl_loss")
+    default_model = "yolo11n-pose.yaml"
+
+    def compute_loss(self, out, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(total, items (box, pose, kobj, cls, dfl)) of the pose loss at the
+        trainer's imgsz, as JAX's (:664-675)."""
+        a = self.args
+        feats, kpt_raw = out
+        return pose_loss(feats, kpt_raw, batch["cls"], batch["bboxes"], batch["mask_gt"], batch["keypoints"],
+                         nc=self.data["nc"], kpt_shape=tuple(self.data.get("kpt_shape", (17, 3))), imgsz=self.imgsz,
+                         strides=tuple(float(s) for s in self.model.stride), hyp_box=float(a.box),
+                         hyp_cls=float(a.cls), hyp_dfl=float(a.dfl), hyp_pose=float(a.pose), hyp_kobj=float(a.kobj))
+
+    def get_validator(self, model: DetectionModel) -> PoseValidator:
+        """The EMA's validator (JAX :680-686): as detect's, single_cls not passed."""
+        a = self.args
+        return PoseValidator(model, overrides={
+            "data": a.data, "imgsz": self.imgsz, "batch": self.batch_size, "workers": a.workers,
+            "device": str(self.device), "plots": False})
+
+
+TASK2TRAINER = {"detect": DetectionTrainer, "segment": SegmentationTrainer, "pose": PoseTrainer}

@@ -51,6 +51,21 @@ image's own size (_unletterbox_mask: the letterboxed region cropped,
 resized as cv2's float INTER_LINEAR, ops/masks.py:resize_linear_f32, and
 thresholded at 0.5), RLE-encoded into the rows, and the COCO protocol runs
 for "segm" too, its keys suffixed (M).
+
+PoseValidator is JAX's (:530-650) for the pose task: box and keypoint
+(OKS) mAP. Its device function (engine/pipeline.py:build_pose_fn) carries
+each detection's decoded keypoints through NMS at pre_nms_topk 2048. Per
+image the predicted and ground-truth keypoints are un-letterboxed to its
+own pixels ((xy - pad) / ratio, the ground truth from the val dataset's
+normalised `keypoints`), and the keypoint TP matrix matches them by OKS
+(ops/iou.py:kpt_iou, over the ground truth's visible points) with each
+ground truth's area its box's times 0.53, and OKS_SIGMA at (17, 3)
+keypoints, 1 / nk otherwise. A model whose kpt_shape is not the data's
+raises JAX's ValueError. With save_json the rows carry the keypoints
+([x, y, score] * nk rounded to 3 decimals; the ground truth's visibility
+as 2 or 0, `num_keypoints` and area 0.53 x its box's), and the COCO
+protocol runs for "keypoints" too (ops/cocoeval.py, the same sigmas), its
+keys suffixed (P).
 """
 
 from __future__ import annotations
@@ -68,13 +83,14 @@ from ..data.augment import letterbox_batch
 from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel
-from ..ops.iou import mask_iou
+from ..ops.iou import kpt_iou, mask_iou
 from ..ops.masks import resize_linear_f32
-from ..ops.metrics import ConfusionMatrix, DetMetrics, SegmentMetrics, box_iou_np, match_predictions
+from ..ops.metrics import (OKS_SIGMA, ConfusionMatrix, DetMetrics, PoseMetrics, SegmentMetrics, box_iou_np,
+                           match_predictions)
 from ..ops.nms import non_max_suppression
 from ..utils import LOGGER, resolve_device
 from ..utils.callbacks import run_callbacks
-from .pipeline import build_device_fn, build_segment_fn, eval_network
+from .pipeline import build_device_fn, build_pose_fn, build_segment_fn, eval_network
 
 VAL_PRE_NMS_TOPK = 2048
 
@@ -231,7 +247,7 @@ class DetectionValidator:
 
     def get_dataloader(self, img_path, batch_size: int) -> DataLoader:
         ds = YOLODataset(img_path, imgsz=self.imgsz, max_gt=256, single_cls=self.args.single_cls, task=self.task,
-                         mask_ratio=int(self.args.mask_ratio))
+                         mask_ratio=int(self.args.mask_ratio), kpt_shape=self.data.get("kpt_shape", (17, 3)))
         return DataLoader(ds, batch_size=batch_size, workers=self.args.workers)
 
     def to_host(self, out: tuple) -> tuple:
@@ -424,4 +440,102 @@ class SegmentationValidator(DetectionValidator):
             metrics.process(np.concatenate(self.stats["tp"]), np.concatenate(self.stats["conf"]),
                             np.concatenate(self.stats["pred_cls"]), np.concatenate(self.stats["target_cls"]),
                             tp_m=np.concatenate(self.stats["tp_m"]))
+        return metrics
+
+
+class PoseValidator(DetectionValidator):
+    """validator(data) -> results_dict of box and keypoint P, R, mAP50,
+    mAP50-95 (the `(P)` keys) and fitness (their sum), JAX's PoseValidator
+    (the module docstring)."""
+
+    task = "pose"
+
+    def set_model(self, model: DetectionModel) -> None:
+        super().set_model(model)
+        self.kpt_shape = tuple(getattr(model, "kpt_shape", (17, 3)))
+
+    def _build_device_fn(self):
+        a = self.args
+        return build_pose_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
+                             pre_nms_topk=int(a.pre_nms_topk or 0) or VAL_PRE_NMS_TOPK,
+                             half=self.model.dtype == torch.bfloat16)
+
+    def init_metrics(self) -> None:
+        super().init_metrics()
+        self.stats["tp_p"] = []
+
+    def _sigmas(self) -> np.ndarray:
+        nk = self.kpt_shape[0]
+        return OKS_SIGMA if self.kpt_shape == (17, 3) else np.full(nk, 1.0 / nk)
+
+    def update_stats(self, out: tuple, batch: dict, i: int) -> None:
+        """The box stats (DetectionValidator), then the keypoint TP matrix:
+        OKS of the image's keypoints in its own pixels against its ground
+        truth's, the areas its boxes' times 0.53 (JAX :560-598)."""
+        det, nv = out
+        n = int(nv[i])
+        dk = tuple(self.data.get("kpt_shape") or ()) if self.data else ()
+        if dk and dk != self.kpt_shape:
+            raise ValueError(
+                f"model kpt_shape {self.kpt_shape} != dataset kpt_shape {dk}; build the model with the dataset's "
+                "kpt_shape (train does this automatically; for standalone val pass a matching model/cfg)")
+        ratio, dw, dh = (float(x) for x in batch["ratio_pad"][i])
+        pk = det[i, :n, 6:].reshape(n, self.kpt_shape[0], (det.shape[-1] - 6) // self.kpt_shape[0]).copy()
+        pk[..., 0] = (pk[..., 0] - dw) / ratio
+        pk[..., 1] = (pk[..., 1] - dh) / ratio
+        gk = batch["keypoints"][i][batch["mask_gt"][i]].copy()  # normalised, in the letterboxed frame
+        gk[..., 0] = (gk[..., 0] * self.imgsz - dw) / ratio
+        gk[..., 1] = (gk[..., 1] * self.imgsz - dh) / ratio
+        self._cur_pred_kpts, self._cur_gt_kpts = pk, gk
+        super().update_stats((det, nv), batch, i)
+        gt_cls = self.stats["target_cls"][-1]
+        if n == 0 or not len(gt_cls):
+            self.stats["tp_p"].append(np.zeros((n, 10), bool))
+            return
+        _, gxyxy = _gt_native(batch, i, self.imgsz)
+        area = (gxyxy[:, 2] - gxyxy[:, 0]) * (gxyxy[:, 3] - gxyxy[:, 1]) * 0.53
+        iou = kpt_iou(torch.from_numpy(np.asarray(gk, np.float32)), torch.from_numpy(np.asarray(pk, np.float32)),
+                      torch.from_numpy(np.asarray(area, np.float32)), self._sigmas()).numpy()
+        self.stats["tp_p"].append(match_predictions(det[i, :n, 5].astype(int), gt_cls, iou, self.iouv))
+
+    def _pred_to_json(self, det: np.ndarray) -> None:
+        """The box rows with their keypoints, [x, y, score] * nk (score 1 when nd = 2), rounded to 3 decimals."""
+        start = len(self.jdict)
+        super()._pred_to_json(det)
+        for row, kp in zip(self.jdict[start:], self._cur_pred_kpts):
+            k = np.asarray(kp, float)
+            score = k[:, 2] if k.shape[1] > 2 else np.ones(len(k))
+            row["keypoints"] = np.stack([k[:, 0], k[:, 1], score], -1).reshape(-1).round(3).tolist()
+
+    def _gt_to_json(self, gt_cls: np.ndarray, gxyxy: np.ndarray) -> None:
+        """The ground truth's rows with their keypoints (visibility 2 where
+        visible, else 0), num_keypoints, and area 0.53 x the box's, the factor
+        of the OKS above (JAX :612-625)."""
+        start = len(self.gt_jdict)
+        super()._gt_to_json(gt_cls, gxyxy)
+        for row, kp in zip(self.gt_jdict[start:], self._cur_gt_kpts):
+            k = np.asarray(kp, float)
+            vis = (k[:, 2] if k.shape[1] > 2 else np.ones(len(k))) > 0
+            vis = vis.astype(float) * 2.0
+            row["keypoints"] = np.stack([k[:, 0], k[:, 1], vis], -1).reshape(-1).round(3).tolist()
+            row["num_keypoints"] = int((vis > 0).sum())
+            row["area"] = 0.53 * row["bbox"][2] * row["bbox"][3]
+
+    def _save_json(self, save_dir: Path) -> dict:
+        """The box protocol's stats, then the "keypoints" protocol's with the (P) suffix (JAX :627-640)."""
+        from ..ops.cocoeval import COCOeval
+
+        stats = super()._save_json(save_dir)
+        if self.gt_jdict:
+            p = COCOeval(self.gt_jdict, self.jdict, iou_type="keypoints", kpt_sigmas=self._sigmas()).evaluate().stats
+            LOGGER.info("COCO protocol (keypoints): AP {AP:.4f}  AP50 {AP50:.4f}".format(**p))
+            stats.update({f"{k}(P)": v for k, v in p.items()})
+        return stats
+
+    def get_metrics(self) -> PoseMetrics:
+        metrics = PoseMetrics(names=self.names)
+        if self.stats["conf"]:
+            metrics.process(np.concatenate(self.stats["tp"]), np.concatenate(self.stats["conf"]),
+                            np.concatenate(self.stats["pred_cls"]), np.concatenate(self.stats["target_cls"]),
+                            tp_p=np.concatenate(self.stats["tp_p"]))
         return metrics

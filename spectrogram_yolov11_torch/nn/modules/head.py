@@ -1,8 +1,8 @@
-"""Detection and segmentation heads (NCHW) of the port.
+"""Detection, segmentation and pose heads (NCHW) of the port.
 
 Counterparts of spectrogram_yolov11_tpu/nn/modules/head.py:29 Detect in its
-non-legacy form (the YOLO11 head: a depthwise-separable class branch) and
-:86 Segment. As in
+non-legacy form (the YOLO11 head: a depthwise-separable class branch), :86
+Segment and :114 Pose. As in
 the JAX head, each level returns a (box, cls) pair of raw logits; decode and
 NMS live in ops/. Each branch's last conv (with bias) computes in its input's
 dtype, as the JAX head's conv2d at the model's dtype.
@@ -77,3 +77,24 @@ class Segment(nn.Module):
         p = self.proto(xs[0])
         mc = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2)
         return self.detect(xs), mc, p
+
+
+class Pose(nn.Module):
+    """Detect and the keypoint branches (JAX head.py:114): forward(xs) ->
+    (Detect's per-level pairs, raw keypoints (B, A, nk) in the anchor order
+    (level, h, w)), nk = kpt_shape[0] * kpt_shape[1]. Level i's keypoint
+    branch is cv4[i]: Conv 3x3 to c4 = max(ch[0] // 4, nk), Conv 3x3, conv
+    1x1 with bias to nk (c4 is 51 for 17 x 3 keypoints at scale n)."""
+
+    def __init__(self, nc: int = 80, kpt_shape: Sequence[int] = (17, 3), ch: Sequence[int] = (),
+                 legacy: bool = False, reg_max: int = 16):
+        super().__init__()
+        self.nc, self.kpt_shape = nc, tuple(kpt_shape)
+        nk = self.kpt_shape[0] * self.kpt_shape[1]
+        c4 = max(ch[0] // 4, nk)
+        self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), Conv2d(c4, nk, 1)) for x in ch)
+        self.detect = Detect(nc, ch, legacy, reg_max)
+
+    def forward(self, xs: List[torch.Tensor]):
+        k = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2)
+        return self.detect(xs), k

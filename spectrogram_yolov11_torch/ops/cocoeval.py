@@ -1,28 +1,35 @@
-"""The COCO evaluation protocol for boxes and masks, on the host (numpy, float64).
+"""The COCO evaluation protocol for boxes, masks and keypoints, on the host
+(numpy, float64).
 
-Counterpart of spectrogram_yolov11_tpu/ops/cocoeval.py for iou_type "bbox"
-and "segm": _iou_xywh (:33), the compressed RLE codec rle_encode (:52),
-_rle_counts (:84), rle_decode (:108), rle_area (:123), _iou_rle (:127), and
-COCOeval (:177) with its defaults, _evaluate_img (:238), evaluate (:292),
-_summ (:336) and _summarize (:350). It is pycocotools' algorithm, which the
-validator runs on its predictions.json and annotations.json rows when
-save_json=True (engine/validator.py), the segment validator with "segm" too:
+Counterpart of spectrogram_yolov11_tpu/ops/cocoeval.py for iou_type "bbox",
+"segm" and "keypoints": _iou_xywh (:33), the compressed RLE codec rle_encode
+(:52), _rle_counts (:84), rle_decode (:108), rle_area (:123), _iou_rle
+(:127), COCO_KPT_SIGMAS (:141; here metrics.OKS_SIGMA, the same
+numbers), _iou_oks (:147), and COCOeval (:177) with its
+defaults, _evaluate_img (:238), evaluate (:292), _summ (:336) and _summarize
+(:350). It is pycocotools' algorithm, which the validator runs on its
+predictions.json and annotations.json rows when save_json=True
+(engine/validator.py), the segment validator with "segm" too and the pose
+validator with "keypoints":
 
-- per (image, category) box IoU, or the IoU of the RLE-decoded masks, a
-  crowd ground truth's union being the detection's area;
+- per (image, category) box IoU, the IoU of the RLE-decoded masks, a
+  crowd ground truth's union being the detection's area, or the OKS of the
+  keypoints (pycocotools' computeOks, with its branch for a ground truth
+  without visible keypoints: the distance to the box grown by its size);
 - greedy matching in score order at each IoU threshold, with ignore regions
-  (crowd rows and ground truth outside the area range);
+  (crowd rows, ground truth outside the area range and, for keypoints,
+  ground truth without labelled keypoints);
 - 101-point interpolated precision accumulated over IoU x recall x category
   x area x max_dets, the matches made once at the largest max_dets and cut
   for the smaller ones;
-- the 12-number summary: AP, AP50, AP75, AP{small,medium,large},
-  AR{1,10,100}, AR{small,medium,large}.
+- the summary: AP, AP50, AP75, AP{small,medium,large}, AR{1,10,100},
+  AR{small,medium,large}; for keypoints max_dets (20,) and no "small".
 
 Inputs are lists of dicts in the COCO JSON schema: ground truth {image_id,
 category_id, bbox [x, y, w, h]} (optional area, iscrowd, id; `segmentation`,
-an RLE, for "segm", whose area is the RLE's), detections the same with
-score. The keypoint protocol (JAX :142-176) goes with the pose head
-(ROADMAP.md item 10).
+an RLE, for "segm", whose area is the RLE's; `keypoints` [x, y, v] * K and
+optional `num_keypoints` for "keypoints"), detections the same with score
+(a keypoint detection's area, when absent, that of its keypoints' extent).
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from collections import defaultdict
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from .metrics import OKS_SIGMA
 
 
 def _iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
@@ -131,22 +140,62 @@ def _iou_rle(dts: List[dict], gts: List[dict], iscrowd: np.ndarray) -> np.ndarra
     return inter / np.maximum(union, 1e-12)
 
 
+def _iou_oks(dts: List[dict], gts: List[dict], sigmas: np.ndarray) -> np.ndarray:
+    """(D, G) OKS, pycocotools' computeOks: over a ground truth's visible
+    keypoints, or, when it has none, over all of them with each detected
+    point's distance to the ground truth's box grown by its width and height
+    on each side."""
+    if not dts or not gts:
+        return np.zeros((len(dts), len(gts)))
+    var = (sigmas * 2.0) ** 2
+    k = len(sigmas)
+    ious = np.zeros((len(dts), len(gts)))
+    for j, gt in enumerate(gts):
+        g = np.asarray(gt["keypoints"], float)
+        xg, yg, vg = g[0::3], g[1::3], g[2::3]
+        k1 = int((vg > 0).sum())
+        bx, by, bw, bh = gt["bbox"]
+        x0, x1 = bx - bw, bx + 2 * bw
+        y0, y1 = by - bh, by + 2 * bh
+        for i, dt in enumerate(dts):
+            d = np.asarray(dt["keypoints"], float)
+            xd, yd = d[0::3], d[1::3]
+            if k1 > 0:
+                dx, dy = xd - xg, yd - yg
+            else:
+                z = np.zeros(k)
+                dx = np.maximum(z, x0 - xd) + np.maximum(z, xd - x1)
+                dy = np.maximum(z, y0 - yd) + np.maximum(z, yd - y1)
+            e = (dx ** 2 + dy ** 2) / var / (gt["area"] + np.spacing(1)) / 2.0
+            if k1 > 0:
+                e = e[vg > 0]
+            ious[i, j] = np.sum(np.exp(-e)) / e.shape[0]
+    return ious
+
+
 class COCOeval:
     """COCOeval(gts, dts).evaluate().stats -> the summary dict."""
 
     def __init__(self, gts: List[dict], dts: List[dict], iou_thrs: Sequence[float] = None,
                  rec_thrs: Sequence[float] = None, max_dets: Sequence[int] = None,
-                 area_rng: Dict[str, tuple] = None, iou_type: str = "bbox"):
-        if iou_type not in ("bbox", "segm"):
+                 area_rng: Dict[str, tuple] = None, iou_type: str = "bbox", kpt_sigmas: np.ndarray = None):
+        if iou_type not in ("bbox", "segm", "keypoints"):
             from ..utils import not_ported
 
-            raise not_ported(f"COCOeval(iou_type={iou_type!r})", "item 10 (other heads: pose)")
+            raise not_ported(f"COCOeval(iou_type={iou_type!r})", "item 10 (other heads: obb)")
         self.iou_type = iou_type
+        self.kpt_sigmas = np.asarray(kpt_sigmas if kpt_sigmas is not None else OKS_SIGMA)
         self.iou_thrs = np.asarray(iou_thrs if iou_thrs is not None else np.linspace(0.5, 0.95, 10))
         self.rec_thrs = np.asarray(rec_thrs if rec_thrs is not None else np.linspace(0.0, 1.0, 101))
-        self.max_dets = sorted(max_dets if max_dets is not None else (1, 10, 100))
-        self.area_rng = area_rng if area_rng is not None else {
-            "all": (0.0, 1e10), "small": (0.0, 32.0 ** 2), "medium": (32.0 ** 2, 96.0 ** 2), "large": (96.0 ** 2, 1e10)}
+        if max_dets is None:  # pycocotools' Params: (1, 10, 100), and (20,) for keypoints
+            max_dets = (20,) if iou_type == "keypoints" else (1, 10, 100)
+        self.max_dets = sorted(max_dets)
+        if area_rng is None:
+            area_rng = {"all": (0.0, 1e10), "small": (0.0, 32.0 ** 2), "medium": (32.0 ** 2, 96.0 ** 2),
+                        "large": (96.0 ** 2, 1e10)}
+            if iou_type == "keypoints":  # the keypoint protocol has no "small"
+                area_rng.pop("small")
+        self.area_rng = area_rng
         self._gts = defaultdict(list)
         self._dts = defaultdict(list)
         for i, g in enumerate(gts):
@@ -155,10 +204,16 @@ class COCOeval:
             g.setdefault("iscrowd", 0)
             g.setdefault("area", self._area(g))
             g.setdefault("ignore", g["iscrowd"])
+            if iou_type == "keypoints":  # pycocotools' _prepare: ground truth without labelled keypoints is ignored
+                nk = g.get("num_keypoints")
+                if nk is None:
+                    nk = int((np.asarray(g["keypoints"], float)[2::3] > 0).sum())
+                g["ignore"] = bool(g["ignore"]) or nk == 0
             self._gts[(g["image_id"], g["category_id"])].append(g)
         for d in dts:
             d = dict(d)
-            d.setdefault("area", self._area(d))  # for the out-of-range ignore
+            if "area" not in d:  # for the out-of-range ignore (pycocotools' loadRes)
+                d["area"] = self._kpt_area(d) if iou_type == "keypoints" else self._area(d)
             self._dts[(d["image_id"], d["category_id"])].append(d)
         self.img_ids = sorted({k[0] for k in list(self._gts) + list(self._dts)})
         self.cat_ids = sorted({k[1] for k in list(self._gts) + list(self._dts)})
@@ -167,6 +222,13 @@ class COCOeval:
     def _area(self, row: dict) -> float:
         """A row's area: its RLE's pixel count for "segm", its box's otherwise."""
         return rle_area(row["segmentation"]) if self.iou_type == "segm" else float(row["bbox"][2] * row["bbox"][3])
+
+    @staticmethod
+    def _kpt_area(row: dict) -> float:
+        """A keypoint detection's area: that of its keypoints' extent."""
+        kp = np.asarray(row["keypoints"], float)
+        xs, ys = kp[0::3], kp[1::3]
+        return float((xs.max() - xs.min()) * (ys.max() - ys.min())) if kp.size else 0.0
 
     def _evaluate_img(self, img_id, cat_id, arng, max_det):
         """pycocotools' evaluateImg for one image, category and area range."""
@@ -181,6 +243,8 @@ class COCOeval:
         crowd = np.array([g["iscrowd"] for g in gts], int)
         if self.iou_type == "segm":
             ious = _iou_rle(dts, gts, crowd)
+        elif self.iou_type == "keypoints":
+            ious = _iou_oks(dts, gts, self.kpt_sigmas)
         else:
             gbb = np.array([g["bbox"] for g in gts], float).reshape(-1, 4)
             dbb = np.array([d["bbox"] for d in dts], float).reshape(-1, 4)

@@ -2,7 +2,7 @@
 
 Counterpart of spectrogram_yolov11_tpu/ops/decode.py: make_anchors (:21),
 dist2bbox (:37), bbox2dist (:49, the loss's DFL targets), decode_detections
-(:99). DFL and sigmoid run per level, then
+(:99) and decode_kpts (:150, the pose head's keypoints). DFL and sigmoid run per level, then
 the small results are concatenated, as in the JAX form.
 """
 
@@ -59,3 +59,18 @@ def decode_detections(
         scores.append(torch.sigmoid(c.flatten(2).transpose(1, 2)).float())  # in the logits' dtype, as JAX
     boxes = dist2bbox(torch.cat(dists, 1), anchors[None], xywh=True) * stride_t[None]
     return torch.cat([boxes, torch.cat(scores, 1)], -1)
+
+
+def decode_kpts(kpt_raw: torch.Tensor, kpt_shape: Tuple[int, int], shapes: Sequence[Tuple[int, int]],
+                strides: Sequence[float]) -> torch.Tensor:
+    """Raw keypoints (B, A, nk * nd) -> (B, A, nk, nd) f32 in input pixels
+    (JAX decode.py:150): xy = (raw * 2 + (anchor - 0.5)) * stride, and a
+    sigmoid on the visibility channel when nd = 3."""
+    anchors, stride_t = make_anchors(shapes, strides, kpt_raw.device)
+    b, a, _ = kpt_raw.shape
+    nk, nd = kpt_shape
+    y = kpt_raw.float().reshape(b, a, nk, nd)
+    xy = (y[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * stride_t[None, :, None, :]
+    if nd == 3:
+        return torch.cat([xy, torch.sigmoid(y[..., 2:3])], -1)
+    return xy

@@ -1,6 +1,7 @@
 """IoU (torch). Counterpart of spectrogram_yolov11_tpu/ops/iou.py: box_iou (:17)
 and bbox_iou (:27), whose CIoU drives both the TAL assigner's metric and the
-box loss, and mask_iou (:118), the segment validator's mask matching."""
+box loss, mask_iou (:118), the segment validator's mask matching, and
+kpt_iou (:125), the pose validator's OKS."""
 
 from __future__ import annotations
 
@@ -65,3 +66,15 @@ def mask_iou(mask1: torch.Tensor, mask2: torch.Tensor, eps: float = 1e-7) -> tor
     m1, m2 = mask1.float(), mask2.float()
     inter = m1 @ m2.T
     return inter / (m1.sum(-1)[:, None] + m2.sum(-1)[None] - inter + eps)
+
+
+def kpt_iou(kpt1: torch.Tensor, kpt2: torch.Tensor, area: torch.Tensor, sigma, eps: float = 1e-7) -> torch.Tensor:
+    """OKS between ground truth (N, K, 3) and predicted (M, K, 2|3) keypoints
+    with the ground truths' areas (N,) -> (N, M) (JAX iou.py:125); a ground
+    truth's keypoints of visibility 0 count for nothing."""
+    d = (kpt1[:, None, :, 0] - kpt2[None, :, :, 0]) ** 2 + (kpt1[:, None, :, 1] - kpt2[None, :, :, 1]) ** 2
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=kpt1.device)
+    kpt_mask = kpt1[..., 2] != 0  # (N, K)
+    e = d / ((2 * sigma) ** 2) / (area[:, None, None] + eps) / 2
+    oks = torch.exp(-e) * kpt_mask[:, None]
+    return oks.sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)

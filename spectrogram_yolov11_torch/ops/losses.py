@@ -1,14 +1,17 @@
-"""The detect and segment training losses over padded batches.
+"""The detect, segment and pose training losses over padded batches.
 
 Counterpart of spectrogram_yolov11_tpu/ops/losses.py:43-175 (_bce_logits,
-df_loss, bbox_loss, preprocess_targets, detection_loss) and :223
-segmentation_loss, with the same reductions:
+df_loss, bbox_loss, preprocess_targets, detection_loss), :223
+segmentation_loss, :285 keypoint_loss_terms and :304 pose_loss, with the
+same reductions:
 
   cls   = BCE(logits, target scores).sum() / max(target_scores.sum(), 1)
   box   = sum((1 - CIoU) * w) / target_scores_sum, w = target_scores.sum(-1) on fg anchors
   dfl   = the weighted two-bin cross-entropy, summed the same way
   items = (box * hyp_box, cls * hyp_cls, dfl * hyp_dfl), total = items.sum() * batch
   segment: the same terms and seg, the mask BCE below; items = (box, seg * hyp_box, cls, dfl)
+  pose: the same terms, the OKS location loss and the visibility BCE;
+        items = (box, pose * hyp_pose, kobj * hyp_kobj, cls, dfl)
 
 Boxes are masked, not indexed, so every shape is fixed and nothing syncs
 with the host. The assigner sees sigmoid(scores) and the decoded boxes
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from .decode import bbox2dist, dist2bbox, make_anchors
 from .iou import bbox_iou
 from .masks import crop_mask
+from .metrics import OKS_SIGMA
 from .tal import task_aligned_assign
 
 
@@ -150,4 +154,66 @@ def segmentation_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], mask_coeff
     per_anchor = cropped.sum((-2, -1)) / area  # the crop's BCE averaged over the box's pixels
     loss_mask = (per_anchor * sel_fg).sum() / sel_fg.sum().clamp(min=1.0)
     items = torch.stack([hyp_box * loss_iou, hyp_box * loss_mask, hyp_cls * loss_cls, hyp_dfl * loss_dfl])
+    return items.sum() * b, items.detach()
+
+
+def keypoint_loss_terms(pred_xy: torch.Tensor, gt_xy: torch.Tensor, kpt_mask: torch.Tensor, area: torch.Tensor,
+                        sigmas: torch.Tensor) -> torch.Tensor:
+    """The OKS keypoint-location loss per entry (JAX losses.py:285): pred_xy
+    and gt_xy (..., nk, 2), kpt_mask (..., nk), area (..., 1), sigmas (nk,)
+    -> (..., nk) terms (1 - exp(-e)) * mask * nk / (visible count + 1e-9),
+    e = d^2 / (2 sigma)^2 / (area + 1e-9) / 2."""
+    d2 = ((pred_xy - gt_xy) ** 2).sum(-1)
+    e = d2 / (2 * sigmas) ** 2 / (area + 1e-9) / 2
+    kpt_loss_factor = kpt_mask.shape[-1] / ((kpt_mask != 0).sum(-1, keepdim=True) + 1e-9)
+    return (1 - torch.exp(-e)) * kpt_mask * kpt_loss_factor
+
+
+def pose_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], pred_kpts_raw: torch.Tensor, cls: torch.Tensor,
+              bboxes: torch.Tensor, mask_gt: torch.Tensor, gt_kpts: torch.Tensor, nc: int,
+              kpt_shape: Tuple[int, int] = (17, 3), reg_max: int = 16, imgsz: int = 640,
+              strides: Sequence[float] = (8.0, 16.0, 32.0), hyp_box: float = 7.5, hyp_cls: float = 0.5,
+              hyp_dfl: float = 1.5, hyp_pose: float = 12.0, hyp_kobj: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v8PoseLoss as JAX's pose_loss (losses.py:304): the detect terms, then
+    over the foreground anchors the OKS location loss of the keypoints
+    decoded in grid units (raw xy * 2 + anchor - 0.5) against each anchor's
+    ground truth (gt_kpts (b, g, nk, nd), normalised xy and visibility, in
+    grid units of the anchor's stride), with OKS_SIGMA at 17 keypoints and
+    1 / nk otherwise, and the visibility BCE when nd = 3 (0 when nd = 2),
+    each the mean over keypoints averaged over foreground anchors. JAX picks
+    each anchor's ground truth with a one-hot einsum; the gather here gives
+    the same numbers. pred_kpts_raw (b, A, nk * nd) is upcast to f32.
+    Returns (total, items (box, pose, kobj, cls, dfl) without gradient)."""
+    nk, nd = kpt_shape
+    assign, loss_iou, loss_cls, loss_dfl = _detect_terms(feats, cls, bboxes, mask_gt, nc, reg_max, imgsz, strides,
+                                                         10)
+    b = feats[0][0].shape[0]
+    anchor_points, stride_t = make_anchors([tuple(bx.shape[-2:]) for bx, _ in feats], strides, feats[0][0].device)
+    y = pred_kpts_raw.float().reshape(b, -1, nk, nd)
+    xy = y[..., :2] * 2.0 + (anchor_points[None, :, None, :] - 0.5)  # grid units
+    g = gt_kpts.shape[1]
+    idx = assign.target_gt_idx[..., None, None]
+    sel_gt = gt_kpts.float().gather(1, idx.expand(-1, -1, nk, gt_kpts.shape[-1])) if g else \
+        torch.zeros(b, y.shape[1], nk, gt_kpts.shape[-1], device=y.device)
+    sel_xy = sel_gt[..., :2] * imgsz / stride_t[None, :, None, :]
+    if nd == 3:
+        kpt_mask = (sel_gt[..., 2] != 0).float()
+    else:
+        kpt_mask = torch.ones(xy.shape[:-1], device=xy.device)
+    tb = assign.target_bboxes / stride_t[None]  # grid units xyxy
+    area = ((tb[..., 2] - tb[..., 0]) * (tb[..., 3] - tb[..., 1])).clamp(min=1e-9)[..., None]
+    if nk == 17:
+        sigmas = torch.as_tensor(OKS_SIGMA, dtype=torch.float32, device=xy.device)
+    else:
+        sigmas = torch.full((nk,), 1.0 / nk, dtype=torch.float32, device=xy.device)
+    loc = keypoint_loss_terms(xy, sel_xy, kpt_mask, area, sigmas)
+    fgw = assign.fg_mask.float()
+    n_fg = fgw.sum().clamp(min=1.0)
+    loss_kpt = (loc.mean(-1) * fgw).sum() / n_fg
+    if nd == 3:
+        loss_kobj = (bce_logits(y[..., 2], kpt_mask).mean(-1) * fgw).sum() / n_fg
+    else:
+        loss_kobj = torch.zeros((), device=xy.device)
+    items = torch.stack([hyp_box * loss_iou, hyp_pose * loss_kpt, hyp_kobj * loss_kobj, hyp_cls * loss_cls,
+                         hyp_dfl * loss_dfl])
     return items.sum() * b, items.detach()

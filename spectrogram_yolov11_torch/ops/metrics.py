@@ -2,9 +2,10 @@
 the 101-point interpolated AP per class, the F1-max operating point, the
 metric containers and the confusion matrix.
 
-A copy of the detect and segment parts of spectrogram_yolov11_tpu/ops/metrics.py
-(box_iou_np :29, match_predictions :41, smooth :68, compute_ap :76,
-ap_per_class :86, Metric :138, DetMetrics :202, SegmentMetrics :243,
+A copy of the detect, segment and pose parts of
+spectrogram_yolov11_tpu/ops/metrics.py (OKS_SIGMA :23, box_iou_np :29,
+match_predictions :41, smooth :68, compute_ap :76, ap_per_class :86, Metric
+:138, DetMetrics :202, SegmentMetrics :243, PoseMetrics :270,
 ConfusionMatrix :328), which
 reproduces the reference's mAP machinery; the port keeps its own copy because
 it imports nothing of the JAX package. Accumulating stats over a dataset is
@@ -17,6 +18,13 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+# the COCO keypoints' OKS sigmas (JAX metrics.py:23): the pose loss and the
+# pose validator use them when the data has 17 keypoints
+OKS_SIGMA = (
+    np.array([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07, 1.07, 0.87, 0.87, 0.89, 0.89])
+    / 10.0
+)
 
 
 def box_iou_np(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
@@ -260,6 +268,35 @@ class SegmentMetrics(DetMetrics):
     @property
     def fitness(self):
         return self.box.fitness() + self.seg.fitness()
+
+
+class PoseMetrics(DetMetrics):
+    """Box and keypoint metrics (JAX metrics.py:270): the OKS TP matrix
+    scored by ap_per_class as the box one, the `(P)` keys after the `(B)`
+    ones, fitness the sum of both."""
+
+    def __init__(self, names: Optional[dict] = None):
+        super().__init__(names)
+        self.pose = Metric()
+        self.task = "pose"
+
+    def process(self, tp, conf, pred_cls, target_cls, tp_p=None):
+        super().process(tp, conf, pred_cls, target_cls)
+        if tp_p is not None and len(conf):
+            results = ap_per_class(np.asarray(tp_p), np.asarray(conf), np.asarray(pred_cls), np.asarray(target_cls))
+            self.pose.nc = len(self.names)
+            self.pose.update(results)
+
+    @property
+    def keys(self):
+        return super().keys + ["metrics/precision(P)", "metrics/recall(P)", "metrics/mAP50(P)", "metrics/mAP50-95(P)"]
+
+    def mean_results(self):
+        return super().mean_results() + self.pose.mean_results()
+
+    @property
+    def fitness(self):
+        return self.box.fitness() + self.pose.fitness()
 
 
 class ConfusionMatrix:

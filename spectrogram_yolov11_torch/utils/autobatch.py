@@ -62,10 +62,11 @@ def check_train_batch_size(model, imgsz: int = 640, nc: int = 80, fraction: floa
                            probes: Optional[Dict[int, Optional[int]]] = None) -> int:
     """autobatch over the train step of `model` on its device: a copy of it
     in training mode computing in f32, the forward, the task's loss (the
-    detection loss, or a segment model's segmentation loss over empty
-    instance masks) and the backward to every parameter, on (b, 3, imgsz,
+    detection loss, a segment model's segmentation loss over empty
+    instance masks, or a pose model's pose loss over empty keypoints) and
+    the backward to every parameter, on (b, 3, imgsz,
     imgsz) zeros with 128 empty label slots per image, as JAX's probe (:63)."""
-    from ..ops.losses import detection_loss, segmentation_loss
+    from ..ops.losses import detection_loss, pose_loss, segmentation_loss
 
     dev = next(model.parameters()).device
     m = copy.deepcopy(model).train()
@@ -81,7 +82,11 @@ def check_train_batch_size(model, imgsz: int = 640, nc: int = 80, fraction: floa
         mask = torch.zeros(b, 128, dtype=torch.bool, device=dev)
         with full_f32():
             out = m(x)
-            if isinstance(out, tuple):  # a segment model's (feats, coefficients, prototypes)
+            if isinstance(out, tuple) and len(out) == 2:  # a pose model's (feats, raw keypoints)
+                kpts = torch.zeros(b, 128, m.kpt_shape[0], 3, device=dev)
+                loss, _ = pose_loss(*out, cls, boxes, mask, kpts, nc=nc, kpt_shape=m.kpt_shape, imgsz=imgsz,
+                                    strides=strides)
+            elif isinstance(out, tuple):  # a segment model's (feats, coefficients, prototypes)
                 gt = torch.zeros(b, *out[2].shape[-2:], dtype=torch.int32, device=dev)
                 loss, _ = segmentation_loss(*out, cls, boxes, mask, gt, nc=nc, imgsz=imgsz, strides=strides)
             else:

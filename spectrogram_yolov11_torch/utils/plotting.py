@@ -14,7 +14,10 @@ width (thickness + 1) // 2 on each side of the centre line, and every corner
 gets a filled midpoint circle of that radius (cv2's round joints), so the
 outer corners are rounded. Segments of length 0 draw their circle only, so a
 box with p1 == p2 is a disc, and everything is clipped to the image; a
-negative thickness fills the box. `ellipse_filled` and `fill_poly` are
+negative thickness fills the box. `circle(img, center, radius, color)` is
+cv2.circle(..., -1) at LINE_8, pixel for pixel: the midpoint algorithm's
+horizontal spans, clipped to the image (the pose shapes' keypoints and
+Results.plot's keypoints). `ellipse_filled` and `fill_poly` are
 cv2.ellipse(..., 0, 0, 360, color, -1) and cv2.fillPoly at LINE_8 as
 OpenCV rasterises them in fixed point (each function's docstring says how),
 for the synthetic shapes of data/synth.py (JAX's data/synth.py:80-105).
@@ -149,6 +152,13 @@ def _circle(img: np.ndarray, cx: int, cy: int, radius: int, color: np.ndarray) -
         err -= minus & mask
         dx += mask
         minus -= mask & 2
+
+
+def circle(img: np.ndarray, center: Sequence[int], radius: int, color) -> np.ndarray:
+    """cv2.circle(img, center, radius, color, -1) at LINE_8, in place on a
+    uint8 (H, W) or (H, W, C) image; returns img."""
+    _circle(img, int(center[0]), int(center[1]), int(radius), _color(img, color))
+    return img
 
 
 def rectangle(img: np.ndarray, p1: Sequence[int], p2: Sequence[int], color, thickness: int = 1) -> np.ndarray:

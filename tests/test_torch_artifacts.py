@@ -153,8 +153,8 @@ def test_cocoeval_stats_equal_jax(seed):
         assert abs(v - theirs.stats[k]) <= 1e-12, (k, v, theirs.stats[k])
     assert all(v > -1 for v in ours.stats.values())  # every area range and cut has ground truth and a value
     assert len([d for d in dts if d["image_id"] == 0]) > 100
-    with pytest.raises(NotImplementedError, match="item 10"):  # segm runs since the segment task (test_torch_segment.py)
-        COCOeval(gts, dts, iou_type="keypoints")
+    with pytest.raises(NotImplementedError, match="item 10"):  # segm and keypoints run since their tasks
+        COCOeval(gts, dts, iou_type="obb")  # (test_torch_segment.py, test_torch_pose.py)
 
 
 @pytest.mark.parametrize("stem", ["000123", "frame_7"])

@@ -102,8 +102,9 @@ def test_check_det_dataset_equals_jax(tmp_path):
     assert yaml_load(PORT_YAMLS / "spectrogram_synth.yaml")["path"] == "../../../datasets/torch/spectrogram_synth"
     with pytest.raises(FileNotFoundError):
         check_det_dataset({"path": str(tmp_path), "val": "missing", "names": ["a"]})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):  # `shapes` and `shapes-seg` are generated
-        check_det_dataset({"path": str(tmp_path), "val": "images/val", "names": ["a"], "synthetic": "shapes-pose"})
+    # `shapes`, `shapes-seg` and `shapes-pose` are generated
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+        check_det_dataset({"path": str(tmp_path), "val": "images/val", "names": ["a"], "synthetic": "shapes-obb"})
 
 
 # (source (h, w, c), destination (h, w)): exact 2x (cv2's area average), r = 0.64 with a half-pixel pad, r = 0.5

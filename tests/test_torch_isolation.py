@@ -13,7 +13,8 @@ and the command line,
 cfg/__init__.py and __main__.py, among them); with no card, the entry points (the pipeline,
 predict, predict with augment=True and visualize=True, a weight ensemble's
 predict, val, the trainer and YOLO.train, a model built from YAML and
-trained, YOLO.embed and YOLO.profile, the command line, the server and
+trained, a pose model's predict, val and train and the `pose` command
+line, YOLO.embed and YOLO.profile, the command line, the server and
 AutoBackend on a checkpoint or a YAML) raise for the default device instead
 of running on the CPU.
 """
@@ -96,6 +97,13 @@ def test_default_device_raises_without_card(monkeypatch):
         YOLO("yolo11n.yaml").train(data={"path": str(ROOT), "val": "tests", "names": ["LTE", "RF"]}, amp=False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         entrypoint(f"yolo detect val model={CKPT} data=spectrogram_synth.yaml")
+    pose = YOLO("yolo11n-pose.yaml")
+    pose_data = {"path": str(ROOT), "val": "tests", "names": ["figure"], "kpt_shape": [17, 3]}
+    for run in (lambda: pose.predict(frame), lambda: pose.val(data=pose_data),
+                lambda: pose.train(data=pose_data, amp=False),
+                lambda: entrypoint("yolo pose predict source=tests/torch_data/jpeg imgsz=32")):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            run()
     with pytest.raises(RuntimeError, match="no CUDA card"):
         AutoBackend("yolo11n.yaml")
     with pytest.raises(RuntimeError, match="no CUDA card"):

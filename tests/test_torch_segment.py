@@ -319,5 +319,5 @@ def test_segm_cocoeval_equals_jax(seed):
     for k, v in ours.items():
         assert abs(v - theirs[k]) <= 1e-12, (k, v, theirs[k])
     assert ours["AP50"] > 0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        COCOeval(gts, dts, iou_type="keypoints")
+    with pytest.raises(NotImplementedError, match="item 10"):  # keypoints run since the pose task
+        COCOeval(gts, dts, iou_type="obb")  # (tests/test_torch_pose.py)
