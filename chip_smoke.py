@@ -352,6 +352,37 @@ Phases, each printing one JSON line, each fatal when it fails:
                keypoints drawn, each file equal as above, 6 + 1), the card
                against the CPU in f32: counts and classes equal, boxes and
                keypoints within 1e-2 px
+  23. obb       the OBB task: yolo11n-obb.yaml at 640 px on shapes128-obb
+               (64 + 16 JPEGs written by the port at first use, in a
+               temporary directory). The port's polylines of the committed
+               cases and box_points of 500 seeded boxes equal cv2's digests
+               (tests/torch_data/obb/). YOLO("yolo11n-obb.yaml").train 3
+               epochs at B = 16 at its defaults (amp, device-augment mode,
+               plots=True: the train-batch mosaics of rotated boxes; the head
+               rebuilt for nc 15 -> 2), counted (6 bf16 bottleneck launches
+               per epoch's EMA val, none in the steps, and no keep kernel:
+               rotated NMS is Fast-NMS over probiou in plain torch), seconds
+               per epoch, ms per later step with the loader's wait; 1 epoch
+               in f32 in host mode (device_augment=False), counted (6); 1
+               epoch on dota8.yaml (15 classes), counted (6 bf16); the first
+               f32 step's loss items (box, cls, dfl) on the card against the
+               CPU's on the same 2-image batch (1e-4 relative). best.ckpt
+               validated on the split, then on a copy labelled with its own
+               top 6 rotated boxes per image (4-corner rows by box_points; a
+               box with a side under 2 px left out, as the labels drop it), on
+               the card in f32 and bf16 (6 launches each) against the CPU
+               (mAP50 and mAP50-95 within 1e-4 in f32, mAP50-95 above 0.5;
+               bf16 within twice the CPU's own bf16-to-f32 distance plus
+               1e-4), once with save_json (no rows, as JAX's); every
+               bottleneck input of the first EMA val (bf16), of the f32 val
+               and of the bf16 val against the plain version; nms_rotated's
+               ms at the f32 val's (16, 8400) predictions, k = 2048. Predict
+               on the 16 val images at batch 16, f32 and half=True, at the
+               defaults (saving; each file equal to imencode(".jpg",
+               r.plot())) and with save=False, counted (6), ms per image in
+               turns; at conf 0.001 and max_det 30 the card against the CPU
+               in f32: counts and classes equal, xywh within 1e-2 px and the
+               angle within 1e-4 rad
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -439,6 +470,10 @@ SEG_CONF, SEG_MAX_DET = 0.001, 30  # phase segment: the card-vs-CPU predict, so 
 POSE_EPOCHS, POSE_BATCH = 3, 16  # phase pose: YOLO("yolo11n-pose.yaml").train at its defaults
 POSE_STEP_RTOL = 1e-4  # phase pose: the first f32 step's loss items on the card against the CPU's, relative
 POSE_PX_TOL = 1e-2  # phase pose: the card's f32 predict against the CPU's, boxes and keypoints in px
+OBB_EPOCHS, OBB_BATCH = 3, 16  # phase obb: YOLO("yolo11n-obb.yaml").train at its defaults
+OBB_STEP_RTOL = 1e-4  # phase obb: the first f32 step's loss items on the card against the CPU's, relative
+OBB_PX_TOL, OBB_RAD_TOL = 1e-2, 1e-4  # phase obb: the card's f32 predict against the CPU's, xywh in px, angle
+OBB_DIGESTS = ROOT / "tests" / "torch_data" / "obb" / "polylines_digests.json"  # cv2's polylines and boxPoints
 SECOND_CKPT: list = []  # phase train_loop's best.ckpt, kept for the ensemble of phase predict_extras
 KEEP_DIR: list = []  # a directory for SECOND_CKPT, removed when the script ends
 
@@ -2585,15 +2620,12 @@ def kernels_at(cap: dict, nc: int, stride, what: str, batch: int, imgsz: int, mu
     from spectrogram_yolov11_torch.ops.decode import decode_detections
     from spectrogram_yolov11_torch.ops.nms import nms_candidates
 
-    checks = fork_bottleneck_checks(cap, what)
+    checks = bottlenecks_at(cap, what, batch, imgsz)
     with torch.inference_mode():
         preds = decode_detections(cap["feats"], nc, stride)
         _, _, _, valid, offset_boxes = nms_candidates(preds, 0.001, nc, multi_label=multi_label,
                                                       pre_nms_topk=VAL_PRE_NMS_TOPK)
         nms = nms_check(offset_boxes, valid)
-    shapes = sorted(c["shape"] for c in checks.values())
-    p4, p3 = imgsz // 32, imgsz // 16
-    require(shapes == [[batch, p4, p4, 64]] * 4 + [[batch, p3, p3, 32]] * 2, f"{what} inputs {shapes}")
     return checks, nms
 
 
@@ -4272,6 +4304,230 @@ def phase_pose():
     return launches, checks, nms
 
 
+def bottlenecks_at(cap: dict, what: str, batch: int, imgsz: int) -> dict:
+    """Each fused bottleneck input `cap` kept (capture_val_inputs) against its
+    plain version; fails unless the six bottlenecks of a scale-n model at
+    `batch` and `imgsz` were seen."""
+    checks = fork_bottleneck_checks(cap, what)
+    shapes = sorted(c["shape"] for c in checks.values())
+    p4, p3 = imgsz // 32, imgsz // 16
+    require(shapes == [[batch, p4, p4, 64]] * 4 + [[batch, p3, p3, 32]] * 2, f"{what} inputs {shapes}")
+    return checks
+
+
+def phase_obb():
+    """The OBB task on the card (see the module docstring, 23)."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.augment import resolve_device_augment
+    from spectrogram_yolov11_torch.data.build import DataLoader
+    from spectrogram_yolov11_torch.data.dataset import YOLODataset, check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.data.imageio import imencode
+    from spectrogram_yolov11_torch.engine.trainer import OBBTrainer
+    from spectrogram_yolov11_torch.nn.modules.head import OBB
+    from spectrogram_yolov11_torch.nn.tasks import build_model, yaml_model_load
+    from spectrogram_yolov11_torch.ops.boxes import box_points
+    from spectrogram_yolov11_torch.ops.decode import decode_obb
+    from spectrogram_yolov11_torch.ops.nms import nms_rotated
+    from spectrogram_yolov11_torch.utils import yaml_load
+    from spectrogram_yolov11_torch.utils.plotting import polylines
+
+    t_phase = time.perf_counter()
+    bf16, nb = torch.bfloat16, OBB_BATCH
+    one_batch = lambda kernel: {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": 0,  # noqa: E731
+                                kernel: 6}
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+
+    # the drawing: polylines and box_points against cv2's committed digests
+    blob = json.loads(OBB_DIGESTS.read_text())
+    drawn = {c["name"]: sha(polylines(np.random.default_rng(c["seed"]).integers(0, 256, (*c["size"], 3),
+                                                                                 dtype=np.uint8),
+                                      np.asarray(c["pts"], np.int32), c["closed"], tuple(c["color"]),
+                                      c["thickness"])) for c in blob["cases"]}
+    rng, bp = np.random.default_rng(blob["box_points"]["seed"]), blob["box_points"]
+    pts = np.stack([box_points(((c[0], c[1]), (wh[0], wh[1]), a)) for c, wh, a in
+                    zip(rng.uniform(-50, 700, (bp["n"], 2)), rng.uniform(0, 300, (bp["n"], 2)),
+                        rng.uniform(-360, 360, bp["n"]))])
+    require(drawn == blob["sha256"] and sha(pts) == bp["sha256_f32"] and sha(pts.astype(np.int32)) == bp["sha256_i32"],
+            "polylines or box_points differ from cv2's digests")
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = dict(yaml_load(find_dataset_yaml("shapes128-obb.yaml")), path=str(Path(tmp) / "shapes128-obb"))
+        t0 = time.perf_counter()
+        data = check_det_dataset(data)
+        gen_s = time.perf_counter() - t0
+        require(len(sorted(Path(data["train"]).glob("*.jpg"))) == 64 and len(sorted(Path(data["val"]).glob("*.jpg")))
+                == 16 and data["nc"] == 2, f"shapes128-obb split at {data['path']}")
+
+        # YOLO(yaml).train at its defaults: amp, device-augment mode, plots=True, counted per epoch's EMA val; the
+        # kernels' inputs kept at the first EMA val (bf16)
+        yolo = YOLO("yolo11n-obb.yaml")
+        cap, stop = capture_val_inputs(bf16)
+        yolo.add_callback("on_fit_epoch_end", lambda t: stop())  # the first EMA val's inputs only
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            metrics, launches["train"] = run_counted(
+                lambda: yolo.train(data=data, epochs=OBB_EPOCHS, batch=nb, project=tmp, name="obb"),
+                {"fused_bottleneck": 0, "fused_bottleneck_bf16": 6 * OBB_EPOCHS, "greedy_keep": 0},
+                "YOLO('yolo11n-obb.yaml').train")
+        finally:
+            stop()
+        train_s, peak_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+        tr = yolo.trainer
+        require(tr.validator.model.dtype == bf16, "the obb EMA's val did not run a bf16 copy")
+        checks = {"ema_val": bottlenecks_at(cap, "obb EMA val", nb, 640)}
+        require(list(metrics)[-1] == "fitness" and all(np.isfinite(list(metrics.values()))),
+                f"obb train metrics {metrics}")
+        mosaics = sorted(p.name for p in Path(tr.save_dir).glob("train_batch*.jpg"))
+        require(tr.loss_names == ("box_loss", "cls_loss", "dfl_loss") and tr.best.exists()
+                and tr.rebuilt["nc"] == (15, 2) and resolve_device_augment(tr.args, "obb")
+                and mosaics == ["train_batch0.jpg", "train_batch1.jpg", "train_batch2.jpg"],
+                f"obb trainer: loss names, best.ckpt, device mode, the head rebuilt ({tr.rebuilt}), mosaics {mosaics}")
+        RUN_FILES["obb"] = run_files(tr.save_dir, OBB_EPOCHS)
+        epochs = [{"seconds": e["seconds"], "steps": e["steps"], "loader_wait_s": e["loader_wait_s"],
+                   "val_s": e["val_s"], "ms_per_step_with_wait": (e["seconds"] - e["val_s"]) / e["steps"] * 1e3}
+                  for e in tr.epoch_log]
+        best = Path(tmp) / "best.ckpt"
+        best.write_bytes(tr.best.read_bytes())
+
+        # one f32 epoch in host mode
+        host = YOLO("yolo11n-obb.yaml")
+        t0 = time.perf_counter()
+        host_metrics, launches["train_host"] = run_counted(
+            lambda: host.train(data=data, epochs=1, batch=nb, amp=False, device_augment=False, plots=False,
+                               project=tmp, name="obb_host"), one_batch("fused_bottleneck"), "host-mode obb train")
+        host_s = time.perf_counter() - t0
+        require(not resolve_device_augment(host.trainer.args, "obb")
+                and all(np.isfinite(list(host_metrics.values()))), "host-mode obb train")
+
+        # one epoch on dota8 (15 classes: the head kept at the YAML's nc)
+        dota = check_det_dataset(dict(yaml_load(find_dataset_yaml("dota8.yaml")), path=str(Path(tmp) / "dota8")))
+        d15 = YOLO("yolo11n-obb.yaml")
+        t0 = time.perf_counter()
+        dota_metrics, launches["train_dota8"] = run_counted(
+            lambda: d15.train(data=dota, epochs=1, batch=nb, plots=False, project=tmp, name="obb_dota8"),
+            one_batch("fused_bottleneck_bf16"), "dota8 train")
+        dota_s = time.perf_counter() - t0
+        require(d15.trainer.rebuilt is None and d15.model.nc == 15
+                and all(np.isfinite(list(dota_metrics.values()))), f"dota8 train {dota_metrics}")
+
+        # the first f32 step's items on the card against the CPU's, same 2-image batch
+        hyp = OBBTrainer(None, dict(data=data, amp=False, device="cpu")).args
+        ds = YOLODataset(data["train"], imgsz=640, max_gt=0, augment=True, task="obb", hyp=hyp)
+        batch = next(iter(DataLoader(ds, 2, workers=2, shuffle=True, seed=0, drop_last=True)))
+        items = {}
+        d2 = {**yaml_model_load("yolo11n-obb.yaml"), "nc": 2}
+        for dev in ("cuda", "cpu"):
+            t = OBBTrainer(build_model(dict(d2)).init(0), dict(data=data, batch=2, amp=False, device=dev, plots=False))
+            t.setup_model()
+            t.setup_optimizer(32)
+            items[dev] = t.train_step(batch, 0, False)[1].float().cpu().numpy()
+        step_rel = float((np.abs(items["cuda"] - items["cpu"]) / np.abs(items["cpu"])).max())
+        require(step_rel <= OBB_STEP_RTOL and (items["cpu"] > 0).all(),
+                f"obb step items card {items['cuda'].tolist()} vs CPU {items['cpu'].tolist()}")
+
+        # val of best.ckpt on the split and on a copy labelled with the card's own top 6 rotated boxes per image:
+        # card f32 and bf16 counted, the kernels at each val's inputs, the CPU's as reference
+        card, cpu = YOLO(str(best)), YOLO(str(best), device="cpu")
+        require(card.task == "obb" and card.model.nc == 2, "best.ckpt reloads as a 2-class obb model")
+        v_split = card.val(data=data, batch=nb, plots=False)
+        lab = Path(tmp) / "self_labelled"
+        (lab / "images").mkdir(parents=True)
+        (lab / "labels").mkdir()
+        for r in card.predict(data["val"], batch=nb, conf=SEG_CONF, max_det=6, save=False):
+            h, w = r.orig_shape
+            (lab / "images" / Path(r.path).name).write_bytes(Path(r.path).read_bytes())
+            rows = [f"{int(c)} " + " ".join(f"{v:.6f}" for v in (box_points(((x, y), (bw, bh), float(np.degrees(a))))
+                                                                 / np.asarray([w, h], np.float32)).reshape(-1))
+                    for (x, y, bw, bh, a), c in zip(r.obb.xywhr, r.obb.cls) if min(bw, bh) >= 2]  # as format_sample
+            (lab / "labels" / f"{Path(r.path).stem}.txt").write_text("\n".join(rows))
+        kw = dict(data={"path": str(lab), "train": "images", "val": "images", "names": data["names"]}, batch=nb,
+                  plots=False)
+        heads = []
+        grab = torch.nn.modules.module.register_module_forward_hook(
+            lambda m, a, o: heads.append(o) if isinstance(m, OBB) and not heads else None)
+        cap, stop = capture_val_inputs(torch.float32)
+        try:
+            t0 = time.perf_counter()
+            v32, launches["val"] = run_counted(lambda: card.val(**kw), one_batch("fused_bottleneck"), "obb val f32")
+            val_s = time.perf_counter() - t0
+        finally:
+            stop()
+            grab.remove()
+        checks["val"] = bottlenecks_at(cap, "obb val", nb, 640)
+        with torch.inference_mode():
+            preds = decode_obb(*heads[0], card.model.nc, card.model.stride)
+            nms_ms = cuda_ms(lambda: nms_rotated(preds, 0.001, 0.7, card.model.nc, 300, 2048), iters=10)
+        cap, stop = capture_val_inputs(bf16)
+        try:
+            v16, launches["val_half"] = run_counted(lambda: card.val(half=True, **kw),
+                                                    one_batch("fused_bottleneck_bf16"), "obb val bf16")
+        finally:
+            stop()
+        checks["val_half"] = bottlenecks_at(cap, "obb val bf16", nb, 640)
+        c32, c16 = cpu.val(**kw), cpu.val(half=True, **kw)
+        val_cmp = {}
+        for key in ("metrics/mAP50-95(B)", "metrics/mAP50(B)"):
+            d32, d16, own = abs(v32[key] - c32[key]), abs(v16[key] - c16[key]), abs(c16[key] - c32[key])
+            require(d32 <= VAL_TOL and d16 <= 2 * own + VAL_TOL,
+                    f"obb val {key}: card f32 {v32[key]} CPU {c32[key]}; card bf16 {v16[key]} CPU {c16[key]}")
+            val_cmp[key] = {"card_f32": v32[key], "cpu_f32": c32[key], "card_bf16": v16[key], "cpu_bf16": c16[key]}
+        vj, launches["val_save_json"] = run_counted(lambda: card.val(save_json=True, project=tmp, **kw),
+                                                    one_batch("fused_bottleneck"), "obb val save_json")
+        require(v32["metrics/mAP50-95(B)"] > 0.5 and not any(k.startswith("metrics/coco_") for k in vj)
+                and not list(Path(tmp).rglob("predictions.json")), f"obb val {v32}, save_json {sorted(vj)}")
+
+        # predict on the 16 val images at batch 16: f32 and bf16, at the defaults (saving) and save=False
+        imgs = data["val"]
+        times, saved = {}, {}
+        for half in (False, True):
+            kernel = "fused_bottleneck_bf16" if half else "fused_bottleneck"
+            tag = "bf16" if half else "f32"
+            out, launches[f"predict_{tag}"] = run_counted(
+                lambda: card.predict(imgs, batch=nb, half=half, project=tmp, name=f"obb_pred_{tag}"),
+                one_batch(kernel), f"obb predict {tag}")
+            files = {f.stem: f for f in (Path(tmp) / f"obb_pred_{tag}").glob("*.jpg")}
+            require(len(files) == 16 and all(files[Path(r.path).stem].read_bytes() == imencode(".jpg", r.plot())
+                                             for r in out), f"obb predict {tag} saved files")
+            saved[tag] = {"files": len(files), "rotated_boxes": sum(len(r) for r in out)}
+            for save in (True, False, False, True):
+                key = f"{tag}_{'save' if save else 'nosave'}"
+                t0 = time.perf_counter()
+                card.predict(imgs, batch=nb, half=half, save=save, project=tmp, name=f"obb_t_{key}")
+                times.setdefault(key, []).append((time.perf_counter() - t0) / nb * 1e3)
+        g, launches["predict_low_conf"] = run_counted(
+            lambda: card.predict(imgs, batch=nb, conf=SEG_CONF, max_det=SEG_MAX_DET, save=False),
+            one_batch("fused_bottleneck"), "obb predict conf 0.001")
+        c = cpu.predict(imgs, batch=nb, conf=SEG_CONF, max_det=SEG_MAX_DET, save=False)
+        px_err = rad_err = 0.0
+        for a, b in zip(g, c):
+            require(len(a) == len(b) and np.array_equal(a.obb.cls, b.obb.cls),
+                    f"obb predict card {len(a)} vs CPU {len(b)} detections")
+            if len(a):
+                px_err = max(px_err, float(np.abs(a.obb.xywhr[:, :4] - b.obb.xywhr[:, :4]).max()))
+                rad_err = max(rad_err, float(np.abs(a.obb.xywhr[:, 4] - b.obb.xywhr[:, 4]).max()))
+        require(sum(len(a) for a in g) > 0 and px_err <= OBB_PX_TOL and rad_err <= OBB_RAD_TOL,
+                f"obb predict xywh {px_err} px, angle {rad_err} rad")
+    emit("obb", seconds=time.perf_counter() - t_phase, dataset_gen_s=gen_s, train_s=train_s,
+         train_epochs=epochs, peak_gb=peak_gb, train_metrics=metrics, train_batch_mosaics=mosaics,
+         host_train_s=host_s, host_metrics=host_metrics, dota8_train_s=dota_s, dota8_metrics=dota_metrics,
+         first_step_items={"card": items["cuda"].tolist(), "cpu": items["cpu"].tolist(), "max_rel": step_rel},
+         val_split=v_split, val_s=val_s, val_self_labelled=val_cmp, bottleneck=checks,
+         nms_rotated={"shape": list(preds.shape), "k": 2048, "ms": nms_ms},
+         predict_ms_per_image={k: sorted(v) for k, v in times.items()}, predict_saved=saved,
+         predict_card_vs_cpu={"conf": SEG_CONF, "max_det": SEG_MAX_DET, "detections": sum(len(a) for a in g),
+                              "max_xywh_err_px": px_err, "max_angle_err_rad": rad_err},
+         drawing={"polylines_cases": len(drawn), "box_points": bp["n"]}, launches=launches)
+    return launches, checks
+
+
 def main() -> int:
     import torch
 
@@ -4316,6 +4572,7 @@ def main() -> int:
     extras_launches, extras_checks, nms_extras = phase_predict_extras()
     seg_launches, seg_checks, nms_seg = phase_segment()
     pose_launches, pose_checks, nms_pose = phase_pose()
+    obb_launches, obb_checks = phase_obb()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -4335,6 +4592,7 @@ def main() -> int:
     host_bf16 = [d for c in host_checks.values() for d in c["fused_bottleneck_bf16"].values()]
     extras_f32, extras_bf16 = (list(extras_checks[k].values()) for k in ("fused_bottleneck", "fused_bottleneck_bf16"))
     pose_bf16 = [d for k in ("ema_val", "val_half") for d in pose_checks[k].values()]
+    obb_bf16 = [d for k in ("ema_val", "val_half") for d in obb_checks[k].values()]
 
     def extras_paths(kernel: str) -> dict:
         return {path: got[kernel] for path, got in extras_launches.items()}
@@ -4344,6 +4602,9 @@ def main() -> int:
 
     def pose_paths(kernel: str) -> dict:
         return {f"pose_{path}": got[kernel] for path, got in pose_launches.items()}
+
+    def obb_paths(kernel: str) -> dict:
+        return {f"obb_{path}": got[kernel] for path, got in obb_launches.items()}
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
         dict(name="fused_bottleneck", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
@@ -4363,7 +4624,7 @@ def main() -> int:
                                "fork": fork_paths("fused_bottleneck"),
                                "host_augment": sum(v["fused_bottleneck"] for v in host_launches.values()),
                                **extras_paths("fused_bottleneck"), **seg_paths("fused_bottleneck"),
-                               **pose_paths("fused_bottleneck"),
+                               **pose_paths("fused_bottleneck"), **obb_paths("fused_bottleneck"),
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
@@ -4373,11 +4634,12 @@ def main() -> int:
                                                          *save_checks["arrays_f32"].values(),
                                                          *art_checks["val_f32"].values(), *fork_f32,
                                                          *extras_f32, *seg_checks.values(),
-                                                         *pose_checks["val"].values())),
+                                                         *pose_checks["val"].values(), *obb_checks["val"].values())),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_f32),
              predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_f32),
              segment_val_max_abs_err=max(d["max_abs_err"] for d in seg_checks.values()),
              pose_val_max_abs_err=max(d["max_abs_err"] for d in pose_checks["val"].values()),
+             obb_val_max_abs_err=max(d["max_abs_err"] for d in obb_checks["val"].values()),
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -4398,7 +4660,7 @@ def main() -> int:
                                "fork": fork_paths("fused_bottleneck_bf16"),
                                "host_augment": sum(v["fused_bottleneck_bf16"] for v in host_launches.values()),
                                **extras_paths("fused_bottleneck_bf16"), **seg_paths("fused_bottleneck_bf16"),
-                               **pose_paths("fused_bottleneck_bf16"),
+                               **pose_paths("fused_bottleneck_bf16"), **obb_paths("fused_bottleneck_bf16"),
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
@@ -4407,7 +4669,7 @@ def main() -> int:
                                                          *serve_checks["fused_bottleneck_bf16"].values(),
                                                          *save_checks["arrays_bf16"].values(),
                                                          *art_checks["val_bf16"].values(), *fork_bf16,
-                                                         *host_bf16, *extras_bf16, *pose_bf16)),
+                                                         *host_bf16, *extras_bf16, *pose_bf16, *obb_bf16)),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_bf16),
              host_augment_max_abs_err=max(d["max_abs_err"] for d in host_bf16),
              predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_bf16),
@@ -4415,6 +4677,10 @@ def main() -> int:
                            "max_abs_err": max(d["max_abs_err"] for d in pose_checks["ema_val"].values()),
                            "unequal_share_max": max(d["unequal_share"] for d in pose_checks["ema_val"].values())},
              pose_val_half_max_abs_err=max(d["max_abs_err"] for d in pose_checks["val_half"].values()),
+             obb_ema_val={"shapes": sorted(d["shape"] for d in obb_checks["ema_val"].values()),
+                          "max_abs_err": max(d["max_abs_err"] for d in obb_checks["ema_val"].values()),
+                          "unequal_share_max": max(d["unequal_share"] for d in obb_checks["ema_val"].values())},
+             obb_val_half_max_abs_err=max(d["max_abs_err"] for d in obb_checks["val_half"].values()),
              unequal_share_max=max(d["unequal_share"] for d in (*half_checks.values(), *b1_half.values(),
                                                                  *images_checks["fused_bottleneck_bf16"].values(),
                                                                  *amp_bottleneck.values(),
@@ -4422,7 +4688,8 @@ def main() -> int:
                                                                  *serve_checks["fused_bottleneck_bf16"].values(),
                                                                  *save_checks["arrays_bf16"].values(),
                                                                  *art_checks["val_bf16"].values(), *fork_bf16,
-                                                                 *host_bf16, *extras_bf16, *pose_bf16)),
+                                                                 *host_bf16, *extras_bf16, *pose_bf16,
+                                                                 *obb_bf16)),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -4452,6 +4719,7 @@ def main() -> int:
                                "fork": fork_paths("greedy_keep"),
                                "host_augment": sum(v["greedy_keep"] for v in host_launches.values()),
                                **extras_paths("greedy_keep"), **seg_paths("greedy_keep"), **pose_paths("greedy_keep"),
+                               **obb_paths("greedy_keep"),
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,

@@ -28,8 +28,8 @@ rest (every one is accepted at its default, and `get_cfg` handles it so):
 | `rect` | warns and is set False (cfg/__init__.py:139-146) | warns and is set False |
 | `pretrained`, `deterministic`, `freeze`, `bgr`, `dropout`, `save_hybrid`, `dnn` | read nowhere | inert |
 | `overlap_mask`, `mask_ratio` | the segment task's loss (overlap), its instance masks and validator (mask_ratio) | read as JAX does by the segment task (engine/trainer.py:SegmentationTrainer; overlap_mask=False raises JAX's ValueError); inert for detect |
-| `pose`, `kobj` | the pose task's loss gains | read as JAX does by the pose task (engine/trainer.py:PoseTrainer); inert for detect and segment |
-| `retina_masks`, `copy_paste_mode`, `auto_augment`, `erasing`, `crop_fraction` | read by the classify path only, or nowhere | inert (JAX's segment and pose paths read none of them) |
+| `pose`, `kobj` | the pose task's loss gains | read as JAX does by the pose task (engine/trainer.py:PoseTrainer); inert for detect, segment and obb |
+| `retina_masks`, `copy_paste_mode`, `auto_augment`, `erasing`, `crop_fraction` | read by the classify path only, or nowhere | inert (JAX's segment, pose and obb paths read none of them) |
 | `augment`, `visualize` | TTA and feature maps in predict; read by no other mode | honoured in predict (engine/predictor.py: TTA's device function, the feature-map PNGs); read by no other mode, as in JAX |
 | `line_width`, `show_conf`, `show_labels` | predict's saved plots | honoured (Results.plot) |
 | `show_boxes` | read nowhere | inert |
@@ -40,7 +40,7 @@ rest (every one is accepted at its default, and `get_cfg` handles it so):
 | `tracker` | YOLO.track | the same: item 12 |
 
 `entrypoint` is the `yolo` command's parser (JAX :232) for the verbs
-`train`, `val` and `predict` (the task word `detect`, `segment` or `pose`
+`train`, `val` and `predict` (the task word `detect`, `segment`, `pose` or `obb`
 optional), with `k=v`
 and `cfg=<yaml>` overrides, and `serve` (JAX :307-321), which also takes
 device=; the other modes and verbs raise with their ROADMAP.md items. It
@@ -48,7 +48,8 @@ defaults as JAX's: mode train, model yolo11n.yaml, data (train and val
 without it, and no checkpoint data) shapes128.yaml, the port's copy of JAX's
 (64 + 16 synthetic shapes at 640 px, written as JAX writes them at first
 use, data/synth.py); for `segment`, yolo11n-seg.yaml and shapes128-seg.yaml;
-for `pose`, yolo11n-pose.yaml and shapes128-pose.yaml. `python -m
+for `pose`, yolo11n-pose.yaml and shapes128-pose.yaml; for `obb`,
+yolo11n-obb.yaml and shapes128-obb.yaml. `python -m
 spectrogram_yolov11_torch ...` runs it; the
 port installs no console script: `yolo` stays the JAX package's.
 """
@@ -133,7 +134,7 @@ DEFAULT_CFG_DICT: Dict[str, Any] = {
     "fliplr": 0.5,
     "mosaic": 1.0,
     "mixup": 0.0,  # > 0 augments on the host (mosaic pairs blended by beta(32, 32))
-    "copy_paste": 0.0,  # the segment task's 'flip' copy-paste (host mode); inert for detect, as in JAX
+    "copy_paste": 0.0,  # the segment and obb tasks' 'flip' copy-paste (host mode); inert for detect, as in JAX
     # the rest of JAX's cfg/default.yaml, at its defaults (the module's table says how each is read)
     "model": None,  # the trainer builds it when it has no model; YOLO.train passes its model's path
     "source": None,  # predict's source (the command line)
@@ -291,13 +292,14 @@ def parse_key_value_pairs(pairs: list) -> dict:
 TASKS = {"detect", "segment", "classify", "pose", "obb"}
 MODES = {"train", "val", "predict", "export", "track", "benchmark"}
 TASK2DATA = {"detect": "shapes128.yaml", "segment": "shapes128-seg.yaml",
-             "pose": "shapes128-pose.yaml"}  # JAX's (cfg/__init__.py:32-45)
-TASK2MODEL = {"detect": "yolo11n.yaml", "segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml"}
+             "pose": "shapes128-pose.yaml", "obb": "shapes128-obb.yaml"}  # JAX's (cfg/__init__.py:32-45)
+TASK2MODEL = {"detect": "yolo11n.yaml", "segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml",
+              "obb": "yolo11n-obb.yaml"}
 
 CLI_HELP_MSG = """
     Usage: python -m spectrogram_yolov11_torch [TASK] MODE [ARGS]
 
-        TASK (optional): detect, segment or pose
+        TASK (optional): detect, segment, pose or obb
         MODE (required): one of {train, val, predict}, or serve
         ARGS (optional): 'key=value' overrides, e.g. imgsz=640 data=spectrogram_synth.yaml, and cfg=<yaml>
 
@@ -307,6 +309,7 @@ CLI_HELP_MSG = """
         python -m spectrogram_yolov11_torch predict model=runs/detect/train/weights/best.ckpt source=frames/
         python -m spectrogram_yolov11_torch segment train data=shapes128-seg.yaml epochs=3
         python -m spectrogram_yolov11_torch pose train data=shapes128-pose.yaml epochs=3
+        python -m spectrogram_yolov11_torch obb train data=shapes128-obb.yaml epochs=3
         python -m spectrogram_yolov11_torch serve model=runs/detect/train/weights/best.ckpt port=8000
 """
 
@@ -326,7 +329,7 @@ def _serve(argv: list) -> Any:
 
 
 def entrypoint(debug: str = "") -> Any:
-    """The `yolo` command line (JAX :232): `[detect|segment|pose] train|val|predict k=v ...
+    """The `yolo` command line (JAX :232): `[detect|segment|pose|obb] train|val|predict k=v ...
     [cfg=<yaml>]` builds YOLO(model, task=task) and calls the mode with the
     overrides (the card unless device=cpu); `serve model=best.ckpt [port=8000
     host=127.0.0.1 half=False device=cuda block=True data_parallel=False

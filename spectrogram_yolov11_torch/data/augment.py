@@ -56,6 +56,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.boxes import min_area_rect
 from ..utils import LOGGER
 from ..utils.plotting import fill_poly
 from .warp import augment_hsv_u8, warp_affine_u8, warp_perspective_u8
@@ -231,11 +232,34 @@ def format_sample(sample: Dict, imgsz: int, max_gt: int, task: str = "detect",
     order with their index + 1 by utils/plotting.py:fill_poly, equal to
     cv2.fillPoly (JAX :465-473). The pose task adds `keypoints` (max_gt,
     nk, 3) float32: the kept boxes' keypoints, xy normalised by the image's
-    size, zeros where a sample has none (a mixed-up one, as JAX's, :474-484)."""
+    size, zeros where a sample has none (a mixed-up one, as JAX's, :474-484).
+    The obb task's bboxes are (max_gt, 5) float32 cx, cy, w, h normalised
+    and the angle in radians, from ops/boxes.py:min_area_rect of each of the
+    first max_gt polygons (JAX :423-445, cv2.minAreaRect there): a rectangle
+    with a side under 2 px is dropped, the long side put first (the angle
+    then turned by pi / 2) and the angle wrapped into [-pi/2, pi/2); a
+    mixed-up sample has no polygons and raises IndexError, as JAX's."""
     boxes, cls, img = sample["bboxes"], sample["cls"], sample.get("img")
     h, w = img.shape[:2] if img is not None else sample.get("img_shape", (imgsz, imgsz))
     n = min(len(boxes), max_gt)
     cls_pad, mask = np.zeros((max_gt,), np.int32), np.zeros((max_gt,), bool)
+    if task == "obb":
+        box_pad, polys, k = np.zeros((max_gt, 5), np.float32), sample.get("segments", []), 0
+        for i in range(n):
+            (cx, cy), (bw, bh), ang = min_area_rect(np.asarray(polys[i], np.float32))
+            if bw < 2 or bh < 2:
+                continue
+            ang = ang / 180 * np.pi
+            if bw < bh:  # the long side first
+                bw, bh, ang = bh, bw, ang + np.pi / 2
+            box_pad[k] = [cx / w, cy / h, bw / w, bh / h, (ang + np.pi / 2) % np.pi - np.pi / 2]
+            cls_pad[k] = cls[i]
+            k += 1
+        mask[:k] = True
+        out = {"cls": cls_pad, "bboxes": box_pad, "mask_gt": mask}
+        if img is not None:
+            out["img"] = np.ascontiguousarray(img[..., ::-1])
+        return out
     box_pad = np.zeros((max_gt, 4), np.float32)
     keep_idx: List[int] = []
     if n:
@@ -322,7 +346,7 @@ def resolve_device_augment(hyp, task: str = "detect") -> bool:
     separable warp (degrees = shear = perspective = 0) without multi_scale
     (engine/trainer.py:218-230); True, or 'auto' resolved on, falls back to
     the host with JAX's warning when mixup > 0, or copy_paste > 0 for the
-    segment task (data/augment.py:566-580); the pose task has no exception
+    segment and obb tasks (data/augment.py:566-580); the pose task has no exception
     (JAX's engine/trainer.py:218). False is host mode.
     albumentations is not installed with either package, so it blocks
     nothing here. multi_scale under device mode is the trainer's to ignore."""
@@ -335,7 +359,8 @@ def resolve_device_augment(hyp, task: str = "detect") -> bool:
         if da:
             LOGGER.info("device_augment=auto -> on (separable warp); image augmentation runs on the card in the "
                         "train step")
-    blockers = [b for b, on in (("mixup>0", hyp.mixup), ("copy_paste>0", hyp.copy_paste and task == "segment")) if on]
+    blockers = [b for b, on in (("mixup>0", hyp.mixup),
+                                ("copy_paste>0", hyp.copy_paste and task in ("segment", "obb"))) if on]
     if da and blockers:
         LOGGER.warning(f"device_augment: falling back to host augmentation ({', '.join(blockers)})")
         da = False
@@ -691,7 +716,10 @@ class TrainTransform:
     letterbox and draws its choice there (JAX :604). The pose task: the
     keypoints go through mosaic, the warp and the flips (left-right by
     `flip_idx`), in both modes, and `keypoints` is (max_gt, nk, 3)
-    (format_sample at `kpt_shape`).
+    (format_sample at `kpt_shape`). The obb task: each box's 4-point polygon
+    goes through mosaic, the warp (which re-derives the boxes from it) and
+    the flips in both modes, copy_paste in host mode as the segment task's,
+    and format_sample turns it into the rotated box (max_gt, 5).
 
     close_mosaic() turns mosaic off for later samples."""
 

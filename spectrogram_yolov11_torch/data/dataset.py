@@ -1,12 +1,15 @@
-"""Detect, segment and pose datasets: YOLO-format images and label txts, for validation and training.
+"""Detect, segment, pose and OBB datasets: YOLO-format images and label txts, for validation and training.
 
 Counterpart of spectrogram_yolov11_tpu/data/dataset.py for the detect,
-segment and pose tasks: IMG_FORMATS (:27), img2label_path (:30),
+segment, pose and obb tasks: IMG_FORMATS (:27), img2label_path (:30),
 check_det_dataset (:42) and YOLODataset (:126: _find_images with `fraction`,
 the detect label rows, the segment task's polygon rows (:212-222, the box
-the polygon's bounds) and the pose task's rows (:232-238: `cls cx cy w h`
-and kpt_shape's nk x nd values, visibility 1 added when nd = 2),
-`segments` and `keypoints` (n, nk, 3) in each image's labels (:282-287),
+the polygon's bounds), the obb task's rows (:227-231: `cls x1 y1 ... x4 y4`,
+kept as a 4-point polygon, the box its bounds; a row of another length is
+read as a detect row and then fails, KeyError, as JAX's) and the pose task's
+rows (:232-238: `cls cx cy w h` and kpt_shape's nk x nd values, visibility 1
+added when nd = 2), `segments` (segment and obb) and `keypoints` (n, nk, 3)
+in each image's labels (:282-287),
 single_cls, the automatic max_gt :157-165, load_image with cache="ram",
 load_sample :344 with its long-side resize and the polygons and keypoints
 scaled to pixels (:372-378), get_item, close_mosaic :381-389).
@@ -176,6 +179,11 @@ class YOLODataset:
             lo, hi = pts.min(0), pts.max(0)
             return {"cls": int(float(parts[0])), "xywhn": [(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0],
                                                            hi[1] - lo[1]], "seg": pts.tolist()}
+        if self.task == "obb" and len(vals) == 8:
+            pts = np.asarray(vals, np.float32).reshape(4, 2)
+            lo, hi = pts.min(0), pts.max(0)
+            return {"cls": int(float(parts[0])), "xywhn": [(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0],
+                                                           hi[1] - lo[1]], "seg": pts.tolist()}
         if self.task == "pose":
             nk, nd = self.kpt_shape
             if len(vals) != 4 + nk * nd:
@@ -226,7 +234,7 @@ class YOLODataset:
                 rows.append(row)
         lab = {"cls": np.asarray([r["cls"] for r in rows], np.int32),
                "xywhn": np.asarray([r["xywhn"] for r in rows], np.float32).reshape(-1, 4)}
-        if self.task == "segment":
+        if self.task in ("segment", "obb"):
             lab["segments"] = [np.asarray(r["seg"], np.float32) for r in rows]
         if self.task == "pose":
             nk = self.kpt_shape[0]
@@ -248,7 +256,7 @@ class YOLODataset:
                 pass
         labels, n_miss, n_bad = [], 0, 0
         empty = {"cls": np.zeros(0, np.int32), "xywhn": np.zeros((0, 4), np.float32),
-                 **({"segments": []} if self.task == "segment" else {}),
+                 **({"segments": []} if self.task in ("segment", "obb") else {}),
                  **({"keypoints": np.zeros((0, self.kpt_shape[0], 3), np.float32)} if self.task == "pose" else {})}
         for lf in self.label_files:
             if Path(lf).exists():

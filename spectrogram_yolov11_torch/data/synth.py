@@ -28,8 +28,15 @@ and the segment kind:
   keypoint a filled red disc of radius 4 (utils/plotting.py:circle, equal
   to cv2.circle), the label rows the class, the box and each keypoint's
   normalised xy (and visibility 2 when nd = 3), formatted as JAX's.
+- `shapes-obb` (`_gen_shapes_obb`, JAX :178-203: shapes128-obb.yaml,
+  dota8.yaml, DOTAv1.yaml and DOTAv1.5.yaml) likewise: the same noise, 1-4
+  rotated rectangles (a box for an even class, a bar for an odd one) whose
+  corners are ops/boxes.py:box_points (cv2.boxPoints' float32 corners),
+  skipped when a corner leaves [0, imgsz - 1], filled by fill_poly at the
+  corners truncated to int32; the label rows the class and the normalised
+  corners with 6 decimals.
 
-The obb shapes kind raises, naming its ROADMAP.md item.
+Any other kind raises KeyError, as JAX's table lookup does.
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..ops.boxes import box_points
 from ..ops.stft import spectrogram_numpy
-from ..utils import LOGGER, not_ported
+from ..utils import LOGGER
 from ..utils.plotting import circle, ellipse_filled, fill_poly, rectangle
 from .augment import resize_linear_u8
 from .imageio import imwrite
@@ -99,13 +107,13 @@ def maybe_generate(data: dict) -> bool:
     `synthetic`) when its val split is missing: n_train images into each
     `train` dir with seed + j and n_val into each `val` dir with seed + 10000,
     as the JAX package does. Returns False for a YAML with no `synthetic` key.
-    The `spectrogram`, `shapes`, `shapes-seg` and `shapes-pose` kinds are
-    ported; the obb shapes kind raises."""
+    The kinds are JAX's: `spectrogram`, `shapes`, `shapes-seg`,
+    `shapes-pose` and `shapes-obb`; another raises KeyError, as JAX's."""
     kind = data.get("synthetic")
     if not kind:
         return False
-    if kind not in ("spectrogram", "shapes", "shapes-seg", "shapes-pose"):
-        raise not_ported(f"synthetic dataset kind {kind!r}", "item 10 (other heads)")
+    if kind not in ("spectrogram", "shapes", "shapes-seg", "shapes-pose", "shapes-obb"):
+        raise KeyError(kind)
     n_train, n_val = int(data.get("n_train", 64)), int(data.get("n_val", 16))
     imgsz, seed = int(data.get("gen_imgsz", 640)), int(data.get("seed", 0))
     vals = data["val"] if isinstance(data["val"], list) else [data["val"]]
@@ -122,6 +130,8 @@ def maybe_generate(data: dict) -> bool:
         elif kind == "shapes-pose":
             _gen_shapes_pose(Path(d).parent.parent, Path(d).name, n, imgsz, s, nc=len(data.get("names") or range(1)),
                              kpt_shape=tuple(data.get("kpt_shape") or (5, 3)))
+        elif kind == "shapes-obb":
+            _gen_shapes_obb(Path(d).parent.parent, Path(d).name, n, imgsz, s, nc=len(data.get("names") or range(2)))
         else:
             _gen_spectrogram(Path(d).parent.parent, Path(d).name, n, imgsz, s)
     return True
@@ -231,6 +241,37 @@ def _gen_shapes_pose(root: Path, split: str, n: int, imgsz: int, seed: int, nc: 
         (root / "labels" / split).mkdir(parents=True, exist_ok=True)
         imwrite(root / "images" / split / f"{i:05d}.jpg", img)
         (root / "labels" / split / f"{i:05d}.txt").write_text("\n".join(labels))
+
+
+def _gen_shapes_obb(root: Path, split: str, n: int, imgsz: int, seed: int, nc: int = 2) -> None:
+    """n JPEGs of imgsz x imgsz: the shapes kind's noise and 1-4 filled
+    rotated rectangles (an even class a box of sides 0.08-0.2 of the image,
+    an odd one a bar 0.2-0.35 long and 0.03-0.08 wide), each at an angle
+    drawn in [0, 180) degrees, with their label rows, cls and the four
+    normalised corners (JAX :178-203, the same draws)."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        base = rng.integers(40, 160, (imgsz // 8, imgsz // 8, 3), dtype=np.uint8)
+        img = resize_linear_u8(torch.from_numpy(base)[None], imgsz, imgsz)[0].numpy().copy()
+        lines = []
+        for _ in range(int(rng.integers(1, 5))):
+            cls = int(rng.integers(0, nc))
+            cx, cy = rng.uniform(0.2, 0.8, 2) * imgsz
+            if cls % 2 == 0:
+                w, h = rng.uniform(0.08, 0.2, 2) * imgsz
+            else:
+                w, h = rng.uniform(0.2, 0.35) * imgsz, rng.uniform(0.03, 0.08) * imgsz
+            ang = rng.uniform(0, 180)
+            pts = box_points(((cx, cy), (w, h), ang))
+            if pts.min() < 0 or pts.max() > imgsz - 1:
+                continue
+            color = tuple(int(c) for c in rng.integers(100, 255, 3))
+            fill_poly(img, pts.astype(np.int32), color)
+            lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in (pts / imgsz).reshape(-1)))
+        (root / "images" / split).mkdir(parents=True, exist_ok=True)
+        (root / "labels" / split).mkdir(parents=True, exist_ok=True)
+        imwrite(root / "images" / split / f"{i:05d}.jpg", img)
+        (root / "labels" / split / f"{i:05d}.txt").write_text("\n".join(lines))
 
 
 def _gen_spectrogram(root: Path, split: str, n: int, imgsz: int, seed: int) -> None:

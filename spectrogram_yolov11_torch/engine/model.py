@@ -1,6 +1,6 @@
 """The `YOLO` facade for the port. Counterpart of
-spectrogram_yolov11_tpu/engine/model.py:40 YOLO for the detect, segment and
-pose tasks on model YAMLs and the JAX package's `.ckpt` checkpoints:
+spectrogram_yolov11_tpu/engine/model.py:40 YOLO for the detect, segment,
+pose and obb tasks on model YAMLs and the JAX package's `.ckpt` checkpoints:
 
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").predict("capture.npy")
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").val(data="spectrogram_synth.yaml", batch=32)
@@ -11,17 +11,20 @@ pose tasks on model YAMLs and the JAX package's `.ckpt` checkpoints:
     YOLO(["run1/weights/best.ckpt", "run2/weights/best.ckpt"]).predict(frames)   # a weight ensemble
     YOLO("yolo11n-seg.yaml").train(data="shapes128-seg.yaml", epochs=3)   # the segment task
     YOLO("yolo11n-pose.yaml").train(data="shapes128-pose.yaml", epochs=3)   # the pose task
+    YOLO("yolo11n-obb.yaml").train(data="shapes128-obb.yaml", epochs=3)   # the obb task
 
 The task is the model's (its head: Segment -> "segment", Pose -> "pose",
-JAX's guess_model_task), and picks the predictor, validator and trainer as
-JAX's task maps do (:289, :300-320): SegmentationPredictor (Results with
-masks), SegmentationValidator (box and mask mAP) and SegmentationTrainer
-for "segment"; PosePredictor (Results with keypoints), PoseValidator (box
-and OKS keypoint mAP) and PoseTrainer for "pose". As JAX's facade, a model
-YAML puts its task in the overrides, so its training runs under
-runs/<task>/, while predict and val drop it (their run directories stay
-runs/detect/*). OBB and classify raise (item 10), and so do a segment or
-pose model's serving and ensembles (JAX's assert).
+OBB -> "obb", JAX's guess_model_task), and picks the predictor, validator
+and trainer as JAX's task maps do (:289, :300-320): SegmentationPredictor
+(Results with masks), SegmentationValidator (box and mask mAP) and
+SegmentationTrainer for "segment"; PosePredictor (Results with keypoints),
+PoseValidator (box and OKS keypoint mAP) and PoseTrainer for "pose";
+OBBPredictor (Results with rotated boxes), OBBValidator (rotated-box mAP by
+probiou) and OBBTrainer for "obb". As JAX's facade, a model YAML puts its
+task in the overrides, so its training runs under runs/<task>/, while
+predict and val drop it (their run directories stay runs/detect/*).
+Classify raises (item 10), and so do a segment, pose or obb model's serving
+and ensembles (JAX's assert).
 
 A model YAML (a path, a packaged name such as `yolo11n.yaml`, or the bare
 name `yolo11n`, read as `yolo11n.yaml`) builds the network with fresh weights
@@ -89,12 +92,14 @@ from ..utils.callbacks import default_callbacks
 from ..utils.jax_compat import state_dict_to_variables, variables_to_state_dict
 from .checkpoint import load_checkpoint, save_checkpoint
 from .pipeline import load_model
-from .predictor import BasePredictor, EnsemblePredictor, PosePredictor, SegmentationPredictor
+from .predictor import BasePredictor, EnsemblePredictor, OBBPredictor, PosePredictor, SegmentationPredictor
 from .trainer import TASK2TRAINER
-from .validator import BackendValidator, DetectionValidator, PoseValidator, SegmentationValidator
+from .validator import BackendValidator, DetectionValidator, OBBValidator, PoseValidator, SegmentationValidator
 
-TASK2PREDICTOR = {"detect": BasePredictor, "segment": SegmentationPredictor, "pose": PosePredictor}
-TASK2VALIDATOR = {"detect": DetectionValidator, "segment": SegmentationValidator, "pose": PoseValidator}
+TASK2PREDICTOR = {"detect": BasePredictor, "segment": SegmentationPredictor, "pose": PosePredictor,
+                  "obb": OBBPredictor}
+TASK2VALIDATOR = {"detect": DetectionValidator, "segment": SegmentationValidator, "pose": PoseValidator,
+                  "obb": OBBValidator}
 
 
 class YOLO:
@@ -127,7 +132,7 @@ class YOLO:
         self.ckpt_data = None  # the dataset the checkpoint was trained on, val's default
         self.model = None
         self.backend = None  # the AutoBackend of a served model
-        if task not in (None, "detect", "segment", "pose"):
+        if task not in (None, "detect", "segment", "pose", "obb"):
             raise _not_ported(f"task {task!r}", "item 10 (other heads)")
         self.task = task or "detect"
         if self.model_path.startswith(("http://", "https://", "grpc://")):
@@ -136,7 +141,7 @@ class YOLO:
             self.backend = AutoBackend(self.model_path)
             if self.backend.task != "detect":
                 raise _not_ported(f"task {self.backend.task!r} of {self.model_path}",
-                                  "item 10 (other heads: serving segment and pose models)")
+                                  "item 10 (other heads: serving segment, pose and obb models)")
             return
         suffix = Path(self.model_path).suffix
         if suffix in {".yaml", ".yml"}:

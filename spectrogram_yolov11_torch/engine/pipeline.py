@@ -12,7 +12,8 @@ request runs once per batch):
 
 `build_device_fn` is steps 2-5 for frames already letterboxed to S x S
 (`build_segment_fn` the segment task's, with its masks, `build_pose_fn` the
-pose task's, with its keypoints); the
+pose task's, with its keypoints, `build_obb_fn` the obb task's, rotated
+boxes through ops/nms.py:nms_rotated, no keep kernel); the
 predictor (engine/predictor.py) letterboxes any frame sizes on the card
 (data/augment.py) and calls it, and `build_pipeline` pads frames of one known
 size and calls it; with augment=True it is TTA's (three scaled and flipped
@@ -42,9 +43,9 @@ import torch.nn.functional as F
 
 from ..data.augment import letterbox_geometry
 from ..nn.tasks import DetectionModel, build_model
-from ..ops.decode import decode_detections, decode_kpts
+from ..ops.decode import decode_detections, decode_kpts, decode_obb
 from ..ops.masks import crop_masks_device
-from ..ops.nms import non_max_suppression, non_max_suppression_extras
+from ..ops.nms import nms_rotated, non_max_suppression, non_max_suppression_extras
 from ..utils import full_f32, resolve_device
 from .checkpoint import load_checkpoint
 
@@ -164,6 +165,30 @@ def build_pose_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = 
         preds = torch.cat([decode_detections(feats, model.nc, model.stride), kpts.flatten(2)], -1)
         return non_max_suppression_extras(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, max_det=max_det,
                                           pre_nms_topk=pre_nms_topk)
+
+    return fn
+
+
+def build_obb_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
+                 pre_nms_topk: int = 1024, half: bool = False) -> Callable:
+    """The device function of an obb predict or val batch (JAX's
+    OBBPredictor and OBBValidator device functions, engine/predictor.py:546,
+    engine/validator.py:660): fn(uint8 (B, S, S, 1|3) letterboxed BGR frames
+    on the model's device) -> (out (B, max_det, 7) [cx, cy, w, h, angle,
+    conf, cls], n (B,)). The frames normalised and forwarded, the rotated
+    boxes decoded (decode_obb: letterbox pixels, radians), then Fast-NMS
+    over probiou (nms_rotated: each anchor's best class, class-agnostic); the
+    greedy keep kernel does not run. The network in bf16 with `half`. Rows
+    past n hold zeros."""
+    model = model.set_dtype(torch.bfloat16 if half else torch.float32)
+
+    @torch.inference_mode()
+    @full_f32()
+    def fn(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        feats, angle_raw = model(nchw(normalize(frames)))
+        preds = decode_obb(feats, angle_raw, model.nc, model.stride)
+        return nms_rotated(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, max_det=max_det,
+                           pre_nms_topk=pre_nms_topk)
 
     return fn
 

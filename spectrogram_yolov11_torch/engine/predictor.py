@@ -52,6 +52,14 @@ read, as in JAX) and, per image on the host, the boxes scaled to its pixels
 and the keypoints un-letterboxed as JAX's: (xy - pad) / gain with each pad
 Python's round(pad - 0.1), for Results.keypoints. augment is not read, as
 in JAX; visualize is BasePredictor's, as JAX's pose predictor inherits it.
+
+OBBPredictor is JAX's (:543-577) for the obb task: the device function
+(engine/pipeline.py:build_obb_fn: Fast-NMS over probiou, each anchor's best
+class, pre_nms_topk 1024, classes and agnostic_nms not read, as in JAX; no
+keep kernel) and, per image on the host, the rotated boxes un-letterboxed
+as JAX's: (cx - pad) / gain, (cy - pad) / gain, (w, h) / gain, the pads
+Python's round(pad - 0.1), unclipped, for Results.obb. augment is not read,
+as in JAX; visualize is BasePredictor's.
 """
 
 from __future__ import annotations
@@ -73,8 +81,8 @@ from ..utils import LOGGER, resolve_device
 from ..utils.callbacks import run_callbacks
 from ..ops.masks import resize_linear_f32
 from ..utils.plotting import feature_visualization
-from .pipeline import (build_device_fn, build_ensemble_fn, build_pose_fn, build_segment_fn, eval_network, nchw,
-                       normalize)
+from .pipeline import (build_device_fn, build_ensemble_fn, build_obb_fn, build_pose_fn, build_segment_fn,
+                       eval_network, nchw, normalize)
 from .results import Results
 
 
@@ -349,4 +357,31 @@ class PosePredictor(BasePredictor):
                 kpts[..., 0] = (kpts[..., 0] - pw) / gain
                 kpts[..., 1] = (kpts[..., 1] - ph) / gain
             results.append(Results(img0, path, self.names, boxes=det, speed=speed, keypoints=kpts))
+        return results
+
+
+class OBBPredictor(BasePredictor):
+    """The obb predictor (the module docstring): Results with rotated boxes."""
+
+    def _build_device_fn(self):
+        a = self.args
+        return build_obb_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
+                            half=self.model.dtype == torch.bfloat16)
+
+    def postprocess(self, out: np.ndarray, n_valid: np.ndarray, orig_imgs: list, paths: list,
+                    speed: dict) -> List[Results]:
+        """Each image's rotated boxes (n, 7) un-letterboxed to its pixels (JAX :564-577)."""
+        results = []
+        for i, (img0, path) in enumerate(zip(orig_imgs, paths)):
+            n = int(n_valid[i])
+            img0 = _host_frame(img0)
+            det = out[i, :n].copy()
+            if n:
+                h0, w0 = img0.shape[:2]
+                gain = min(self.imgsz / h0, self.imgsz / w0)
+                pw, ph = round((self.imgsz - w0 * gain) / 2 - 0.1), round((self.imgsz - h0 * gain) / 2 - 0.1)
+                det[:, 0] = (det[:, 0] - pw) / gain
+                det[:, 1] = (det[:, 1] - ph) / gain
+                det[:, 2:4] /= gain
+            results.append(Results(img0, path, self.names, speed=speed, obb=det))
         return results

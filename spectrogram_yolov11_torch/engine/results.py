@@ -1,6 +1,7 @@
-"""Detection, segmentation and pose results on the host (numpy). Counterpart
-of spectrogram_yolov11_tpu/engine/results.py: Boxes (:46), Masks (:90),
-Keypoints (:110) and Results (:203) for the detect, segment and pose tasks.
+"""Detection, segmentation, pose and OBB results on the host (numpy).
+Counterpart of spectrogram_yolov11_tpu/engine/results.py: Boxes (:46),
+Masks (:90), Keypoints (:110), OBBoxes (:154) and Results (:203) for the
+detect, segment, pose and obb tasks.
 The predictor builds them after the fixed-shape NMS output has left the
 card, so device movement is the identity here too.
 
@@ -16,7 +17,12 @@ visibility is over 0.5 (every one when there is none) as a filled green
 disc of radius max(lw, 2) at its truncated pixel (utils/plotting.py:circle,
 equal to cv2.circle; JAX :270-273), and save_txt appends each row's
 keypoints normalised by the image's size (JAX :319-322). The tables carry
-no keypoints, as JAX's carry none.
+no keypoints, as JAX's carry none. With rotated boxes (`obb`, (n, 7) cx, cy,
+w, h, angle, conf, cls), plot draws each box's corners, truncated to int32,
+as a closed polyline in its class colour at the line width
+(utils/plotting.py:polylines, equal to cv2.polylines; JAX :275-278), and
+save_txt writes the class and the 8 corners normalised by the image's size
+(JAX :327-332); the tables and save_crop carry no rotated boxes, as JAX's.
 
 plot, save and save_crop are JAX's (:248-304) for boxes: the same line width,
 colours, corners, labels and crops, drawn by utils/plotting.py (rectangles
@@ -37,9 +43,9 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..data.imageio import imwrite
-from ..ops.boxes import xyxy2xywh
+from ..ops.boxes import xywhr2xyxyxyxy, xyxy2xywh
 from ..utils import SimpleClass, not_ported
-from ..utils.plotting import circle, put_text, rectangle
+from ..utils.plotting import circle, polylines, put_text, rectangle
 
 # the JAX package's box colours (engine/results.py:195-199), in the channel order cv2 draws them (BGR)
 _COLORS = np.array(
@@ -150,6 +156,46 @@ class Keypoints(_TensorCompat, SimpleClass):
         return self.data[..., 2] if self.data.shape[-1] == 3 else None
 
 
+class OBBoxes(_TensorCompat, SimpleClass):
+    """(n, 7) [cx, cy, w, h, angle, conf, cls] rotated boxes in
+    original-image pixels, the angle in radians (JAX :154): xywhr, conf, cls,
+    the corners xyxyxyxy (n, 4, 2) and xyxyxyxyn (normalised by the image's
+    size), and xyxy, each box's axis-aligned hull."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data, np.float32).reshape(-1, 7)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    @property
+    def xywhr(self):
+        return self.data[:, :5]
+
+    @property
+    def conf(self):
+        return self.data[:, 5]
+
+    @property
+    def cls(self):
+        return self.data[:, 6]
+
+    @property
+    def xyxyxyxy(self):
+        return xywhr2xyxyxyxy(self.data[:, :5])
+
+    @property
+    def xyxyxyxyn(self):
+        h, w = self.orig_shape
+        return self.xyxyxyxy / np.asarray([w, h], np.float32)
+
+    @property
+    def xyxy(self):
+        c = self.xyxyxyxy.reshape(-1, 4, 2)
+        return np.concatenate([c.min(axis=1), c.max(axis=1)], axis=-1)
+
+
 def add_weighted(img: np.ndarray, alpha: float, overlay: np.ndarray, beta: float) -> np.ndarray:
     """cv2.addWeighted(img, alpha, overlay, beta, 0) on uint8, bit for bit:
     fma(img, f32(alpha), f32(overlay * f32(beta))) rounded to f32, then to
@@ -163,11 +209,12 @@ def add_weighted(img: np.ndarray, alpha: float, overlay: np.ndarray, beta: float
 class Results(_TensorCompat, SimpleClass):
     """One image's detections: orig_img (host uint8 HWC BGR), path, names,
     boxes, masks (the segment task's, (n, H, W) bool), keypoints (the pose
-    task's, (n, K, 2|3)) and the per-image speed dict in ms."""
+    task's, (n, K, 2|3)), obb (the obb task's rotated boxes, (n, 7)) and the
+    per-image speed dict in ms."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
                  boxes: Optional[np.ndarray] = None, speed: Optional[dict] = None, masks: Optional[np.ndarray] = None,
-                 keypoints: Optional[np.ndarray] = None):
+                 keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -175,10 +222,11 @@ class Results(_TensorCompat, SimpleClass):
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
+        self.obb = OBBoxes(obb, self.orig_shape) if obb is not None else None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
-        for k in (self.boxes, self.masks):
+        for k in (self.boxes, self.masks, self.obb):
             if k is not None:
                 return len(k)
         return 0
@@ -189,15 +237,17 @@ class Results(_TensorCompat, SimpleClass):
         masks = self.masks.data[i].reshape((-1,) + self.masks.data.shape[1:]) if self.masks is not None else None
         kpts = self.keypoints.data[i].reshape((-1,) + self.keypoints.data.shape[1:]) if self.keypoints is not None \
             else None
+        obb = self.obb.data[i].reshape(-1, 7) if self.obb is not None else None
         return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed, masks=masks,
-                       keypoints=kpts)
+                       keypoints=kpts, obb=obb)
 
     def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5, show_conf: bool = True,
              show_labels: bool = True, img: Optional[np.ndarray] = None) -> np.ndarray:
         """The detections drawn on a copy of orig_img (or on `img`, in place):
         each box in its class colour at line width `line_width` or max(round((H
         + W) / 2 * 0.003), 2), its label (name, and the confidence to 2
-        places) above it at thickness max(lw - 1, 1); then the keypoints."""
+        places) above it at thickness max(lw - 1, 1); then the keypoints, then
+        the rotated boxes."""
         img = self.orig_img.copy() if img is None else img
         lw = line_width or max(round(sum(img.shape[:2]) / 2 * 0.003), 2)
         if self.masks is not None:
@@ -219,6 +269,9 @@ class Results(_TensorCompat, SimpleClass):
                 for x, y, *v in kp:
                     if not v or v[0] > 0.5:
                         circle(img, (int(x), int(y)), max(lw, 2), (0, 255, 0))
+        if self.obb is not None:
+            for corners, c in zip(self.obb.xyxyxyxy, self.obb.cls):
+                polylines(img, corners.astype(np.int32), True, _COLORS[int(c) % len(_COLORS)].tolist(), lw)
         return img
 
     def save(self, filename: str | Path, **plot_kw) -> str:
@@ -250,7 +303,8 @@ class Results(_TensorCompat, SimpleClass):
 
     def save_txt(self, txt_file: str | Path, save_conf: bool = False) -> None:
         """YOLO-format label rows: class, normalised xywh[, each keypoint's
-        normalised x, y (and visibility)][, conf]. A mask
+        normalised x, y (and visibility)][, conf]; after them a rotated box's
+        class and its 8 normalised corners[, conf]. A mask
         result's rows are polygons from the masks' contours (JAX :305-316),
         which raise (item 10)."""
         if self.masks is not None and len(self.masks):
@@ -267,6 +321,11 @@ class Results(_TensorCompat, SimpleClass):
                     kp[..., 1] /= h
                     line = line + tuple(float(v) for v in kp.reshape(-1))
                 line = line + ((float(b[4]),) if save_conf else ())
+                lines.append(" ".join(f"{v:.6g}" if isinstance(v, float) else str(v) for v in line))
+        if self.obb is not None:
+            for corners, c, conf in zip(self.obb.xyxyxyxy, self.obb.cls, self.obb.conf):
+                xy = (np.asarray(corners, np.float32) / np.asarray([w, h], np.float32)).reshape(-1)
+                line = (int(c), *(float(v) for v in xy)) + ((float(conf),) if save_conf else ())
                 lines.append(" ".join(f"{v:.6g}" if isinstance(v, float) else str(v) for v in line))
         Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
         Path(txt_file).write_text("\n".join(lines) + ("\n" if lines else ""))
@@ -330,9 +389,9 @@ class Results(_TensorCompat, SimpleClass):
         return Results(self.orig_img, self.path, self.names, speed=self.speed)
 
     def update(self, boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
-               keypoints: Optional[np.ndarray] = None) -> None:
+               keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None) -> None:
         """Replace the boxes (a 7th column, when present, becomes the track
-        ids), the masks and the keypoints in place (JAX :414)."""
+        ids), the masks, the keypoints and the rotated boxes in place (JAX :414)."""
         if boxes is not None:
             boxes = np.asarray(boxes)
             self.boxes = Boxes(boxes[:, :6], self.orig_shape, ids=boxes[:, 6] if boxes.shape[1] > 6 else None)
@@ -340,12 +399,16 @@ class Results(_TensorCompat, SimpleClass):
             self.masks = Masks(masks, self.orig_shape)
         if keypoints is not None:
             self.keypoints = Keypoints(keypoints, self.orig_shape)
+        if obb is not None:
+            self.obb = OBBoxes(obb, self.orig_shape)
 
     def verbose(self) -> str:
-        """Log-line summary such as '2 LTEs, 1 RF, '."""
-        if self.boxes is None or len(self.boxes) == 0:
+        """Log-line summary such as '2 LTEs, 1 RF, ': of the rotated boxes
+        when there are any, else of the boxes."""
+        det = self.obb if self.obb is not None else self.boxes
+        if det is None or len(det) == 0:
             return "(no detections), "
-        cls = self.boxes.cls.astype(int)
+        cls = det.cls.astype(int)
         parts = []
         for c in np.unique(cls):
             n = int((cls == c).sum())

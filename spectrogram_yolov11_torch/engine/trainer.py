@@ -1,4 +1,4 @@
-"""The detect, segment and pose trainers on the card: the training step, its epoch loop and checkpoints.
+"""The detect, segment, pose and OBB trainers on the card: the training step, its epoch loop and checkpoints.
 
 Counterpart of spectrogram_yolov11_tpu/engine/trainer.py: batch_images
 (:75-90), EarlyStopping (:112-129), compute_loss / forward_train /
@@ -92,6 +92,13 @@ from its own model dict with the data's kpt_shape and fresh weights from
 rebuilds from `args.model` (a checkpoint's path there fails: ROADMAP §3.33;
 `rebuilt` records {"kpt_shape": (model's, data's)}); its model dict, and so
 each checkpoint's, carries the data's kpt_shape.
+
+OBBTrainer is JAX's (:690) for the obb task: the dataset keeps each box's
+4-point polygon through the augmentation and gives rotated boxes (`bboxes`
+(max_gt, 5): normalised cx, cy, w, h and the angle), the loss is
+ops/losses.py:obb_loss at the trainer's imgsz, its items box, cls and dfl
+(JAX's trainer keeps BaseTrainer's names), and the EMA is scored by an
+OBBValidator; multi_scale is not drawn, as JAX draws it for detect only.
 """
 
 from __future__ import annotations
@@ -112,7 +119,7 @@ from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel, build_model, intersect_state_dicts, yaml_model_load
 from ..ops.device_augment import augment_batch
-from ..ops.losses import detection_loss, pose_loss, segmentation_loss
+from ..ops.losses import detection_loss, obb_loss, pose_loss, segmentation_loss
 from ..utils import LOGGER, RUNS_DIR, full_f32, get_latest_run, plotting, resolve_device
 from ..utils.callbacks import default_callbacks, run_callbacks
 from ..utils.jax_compat import (opt_state_from_flax, opt_state_to_flax, state_dict_to_variables,
@@ -120,7 +127,7 @@ from ..utils.jax_compat import (opt_state_from_flax, opt_state_to_flax, state_di
 from .checkpoint import load_checkpoint, save_checkpoint, strip_optimizer
 from .optim import (GROUPS, adamw_update_, choose_optimizer, clip_grad_norm_, ema_decay, ema_update_, lr_at,
                     param_groups, sgd_update_)
-from .validator import DetectionValidator, PoseValidator, SegmentationValidator
+from .validator import DetectionValidator, OBBValidator, PoseValidator, SegmentationValidator
 
 AUG_KEYS = ("aug_src", "aug_regions", "aug_pads", "aug_inv", "aug_hsv")
 # `img` or the aug_* keys; `masks` the segment task's, `keypoints` the pose task's
@@ -653,4 +660,27 @@ class PoseTrainer(DetectionTrainer):
             "device": str(self.device), "plots": False})
 
 
-TASK2TRAINER = {"detect": DetectionTrainer, "segment": SegmentationTrainer, "pose": PoseTrainer}
+class OBBTrainer(DetectionTrainer):
+    """The obb trainer (JAX :690; the module docstring): train() or the step
+    alone, as DetectionTrainer, on an OBB model and dataset."""
+
+    task = "obb"
+    default_model = "yolo11n-obb.yaml"
+
+    def compute_loss(self, out, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(total, items (box, cls, dfl)) of the OBB loss at the trainer's imgsz, as JAX's (:695-702)."""
+        a = self.args
+        feats, angle_raw = out
+        return obb_loss(feats, angle_raw, batch["cls"], batch["bboxes"], batch["mask_gt"], nc=self.data["nc"],
+                        imgsz=self.imgsz, strides=tuple(float(s) for s in self.model.stride), hyp_box=float(a.box),
+                        hyp_cls=float(a.cls), hyp_dfl=float(a.dfl))
+
+    def get_validator(self, model: DetectionModel) -> OBBValidator:
+        """The EMA's validator (JAX :704-710): as detect's, single_cls not passed."""
+        a = self.args
+        return OBBValidator(model, overrides={
+            "data": a.data, "imgsz": self.imgsz, "batch": self.batch_size, "workers": a.workers,
+            "device": str(self.device), "plots": False})
+
+
+TASK2TRAINER = {"detect": DetectionTrainer, "segment": SegmentationTrainer, "pose": PoseTrainer, "obb": OBBTrainer}

@@ -66,6 +66,18 @@ raises JAX's ValueError. With save_json the rows carry the keypoints
 as 2 or 0, `num_keypoints` and area 0.53 x its box's), and the COCO
 protocol runs for "keypoints" too (ops/cocoeval.py, the same sigmas), its
 keys suffixed (P).
+
+OBBValidator is JAX's (:655-715) for the obb task: rotated-box mAP. Its
+device function (engine/pipeline.py:build_obb_fn) decodes the rotated boxes
+and runs Fast-NMS over probiou (ops/nms.py:nms_rotated, each anchor's best
+class, pre_nms_topk 2048); the greedy keep kernel does not run. Per image
+the detections and the ground truth (the val dataset's normalised cx, cy,
+w, h and angle) are un-letterboxed to its own pixels ((xy - pad) / ratio,
+wh / ratio, unclipped) and the TP matrix matches them by probiou
+(ops/iou.py:batch_probiou); the metrics are OBBMetrics. As in JAX, the
+confusion matrix stays empty and save_json writes nothing: JAX's
+update_stats keeps no COCO rows for rotated boxes, so predictions.json,
+annotations.json and the coco keys are not written (ROADMAP.md §3.38).
 """
 
 from __future__ import annotations
@@ -83,14 +95,14 @@ from ..data.augment import letterbox_batch
 from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel
-from ..ops.iou import kpt_iou, mask_iou
+from ..ops.iou import batch_probiou, kpt_iou, mask_iou
 from ..ops.masks import resize_linear_f32
-from ..ops.metrics import (OKS_SIGMA, ConfusionMatrix, DetMetrics, PoseMetrics, SegmentMetrics, box_iou_np,
-                           match_predictions)
+from ..ops.metrics import (OKS_SIGMA, ConfusionMatrix, DetMetrics, OBBMetrics, PoseMetrics, SegmentMetrics,
+                           box_iou_np, match_predictions)
 from ..ops.nms import non_max_suppression
 from ..utils import LOGGER, resolve_device
 from ..utils.callbacks import run_callbacks
-from .pipeline import build_device_fn, build_pose_fn, build_segment_fn, eval_network
+from .pipeline import build_device_fn, build_obb_fn, build_pose_fn, build_segment_fn, eval_network
 
 VAL_PRE_NMS_TOPK = 2048
 
@@ -538,4 +550,58 @@ class PoseValidator(DetectionValidator):
             metrics.process(np.concatenate(self.stats["tp"]), np.concatenate(self.stats["conf"]),
                             np.concatenate(self.stats["pred_cls"]), np.concatenate(self.stats["target_cls"]),
                             tp_p=np.concatenate(self.stats["tp_p"]))
+        return metrics
+
+
+class OBBValidator(DetectionValidator):
+    """validator(data) -> results_dict of rotated-box P, R, mAP50, mAP50-95
+    and fitness, JAX's OBBValidator (the module docstring)."""
+
+    task = "obb"
+
+    def _build_device_fn(self):
+        a = self.args
+        return build_obb_fn(self.model, conf=float(a.conf), iou=float(a.iou), max_det=int(a.max_det),
+                            pre_nms_topk=int(a.pre_nms_topk or 0) or VAL_PRE_NMS_TOPK,
+                            half=self.model.dtype == torch.bfloat16)
+
+    def update_stats(self, out: tuple, batch: dict, i: int) -> None:
+        """Image i: its rotated detections (n, 7) and ground truth (m, 5) in its
+        own pixels, and the TP matrix by probiou at 10 thresholds (JAX :677-704)."""
+        out_np, nv = out
+        n = int(nv[i])
+        ratio, dw, dh = (float(x) for x in batch["ratio_pad"][i])
+        det = out_np[i, :n].copy()  # cx cy w h angle conf cls
+        if n:
+            det[:, 0] = (det[:, 0] - dw) / ratio
+            det[:, 1] = (det[:, 1] - dh) / ratio
+            det[:, 2:4] /= ratio
+        m = batch["mask_gt"][i]
+        gt_cls = batch["cls"][i][m].astype(int)
+        g = batch["bboxes"][i][m].copy()  # normalised cx cy w h in the letterboxed frame, and the angle
+        g[:, :4] *= self.imgsz
+        g[:, 0] = (g[:, 0] - dw) / ratio
+        g[:, 1] = (g[:, 1] - dh) / ratio
+        g[:, 2:4] /= ratio
+        self.stats["target_cls"].append(gt_cls)
+        if n == 0:
+            self.stats["tp"].append(np.zeros((0, 10), bool))
+            self.stats["conf"].append(np.zeros(0))
+            self.stats["pred_cls"].append(np.zeros(0))
+            return
+        if len(gt_cls):
+            iou = batch_probiou(torch.from_numpy(np.ascontiguousarray(g, np.float32)),
+                                torch.from_numpy(np.ascontiguousarray(det[:, :5], np.float32))).numpy()
+            tp = match_predictions(det[:, 6].astype(int), gt_cls, iou, self.iouv)
+        else:
+            tp = np.zeros((n, 10), bool)
+        self.stats["tp"].append(tp)
+        self.stats["conf"].append(det[:, 5])
+        self.stats["pred_cls"].append(det[:, 6])
+
+    def get_metrics(self) -> OBBMetrics:
+        metrics = OBBMetrics(names=self.names)
+        if self.stats["conf"]:
+            metrics.process(np.concatenate(self.stats["tp"]), np.concatenate(self.stats["conf"]),
+                            np.concatenate(self.stats["pred_cls"]), np.concatenate(self.stats["target_cls"]))
         return metrics

@@ -78,9 +78,9 @@ class AutoBackend:
                 model, meta = load_model(self.weights)
             else:
                 model, meta = build_model(self.weights).init(0), {}
-            if model.task != "detect":  # serving and exporting a segment or pose model: JAX serve.py:641-715
+            if model.task != "detect":  # serving and exporting a segment, pose or obb model: JAX serve.py:641-715
                 raise not_ported(f"an AutoBackend (served or exported model) of the {model.task} task "
-                                 f"({self.weights})", "item 10 (other heads: serving segment and pose models)")
+                                 f"({self.weights})", "item 10 (other heads: serving segment, pose and obb models)")
             names = meta.get("names") or {i: f"{i}" for i in range(model.nc)}
             self.names = {int(k): str(v) for k, v in names.items()}
             self.model = eval_network(model, half, self.device)

@@ -1,8 +1,8 @@
-"""Detection, segmentation and pose heads (NCHW) of the port.
+"""Detection, segmentation, pose and OBB heads (NCHW) of the port.
 
 Counterparts of spectrogram_yolov11_tpu/nn/modules/head.py:29 Detect in its
 non-legacy form (the YOLO11 head: a depthwise-separable class branch), :86
-Segment and :114 Pose. As in
+Segment, :114 Pose and :141 OBB. As in
 the JAX head, each level returns a (box, cls) pair of raw logits; decode and
 NMS live in ops/. Each branch's last conv (with bias) computes in its input's
 dtype, as the JAX head's conv2d at the model's dtype.
@@ -98,3 +98,22 @@ class Pose(nn.Module):
     def forward(self, xs: List[torch.Tensor]):
         k = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2)
         return self.detect(xs), k
+
+
+class OBB(nn.Module):
+    """Detect and the angle branches (JAX head.py:141): forward(xs) ->
+    (Detect's per-level pairs, raw angles (B, A, ne) in the anchor order
+    (level, h, w)); ops/decode.py:decode_obb turns them into radians. Level
+    i's angle branch is cv4[i]: Conv 3x3 to c4 = max(ch[0] // 4, ne), Conv
+    3x3, conv 1x1 with bias to ne."""
+
+    def __init__(self, nc: int = 80, ne: int = 1, ch: Sequence[int] = (), legacy: bool = False, reg_max: int = 16):
+        super().__init__()
+        self.nc, self.ne = nc, ne
+        c4 = max(ch[0] // 4, ne)
+        self.cv4 = nn.ModuleList(nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), Conv2d(c4, ne, 1)) for x in ch)
+        self.detect = Detect(nc, ch, legacy, reg_max)
+
+    def forward(self, xs: List[torch.Tensor]):
+        a = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2)
+        return self.detect(xs), a

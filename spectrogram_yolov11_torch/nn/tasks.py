@@ -5,8 +5,9 @@ its sets (:40-193), parse_model (:232), the YOLOGraph routing (:379),
 yaml_model_load (:459), guess_model_task (:475), DetectionModel with init /
 _bias_init (:557, :575), info (:589) and profile (:603), the graph's `embed`
 output (:404-450), and build_model (:848), with SegmentationModel (:683) for the
-segment task and PoseModel (:687) for the pose task: the stock YOLO11
-modules, the Segment and Pose heads (yolo11-seg.yaml, yolo11-pose.yaml),
+segment task, PoseModel (:687) for the pose task and OBBModel (:698) for
+the obb task: the stock YOLO11 modules, the Segment, Pose and OBB heads
+(yolo11-seg.yaml, yolo11-pose.yaml, yolo11-obb.yaml),
 the trained spectrogram detector's and the fork's whole zoo
 (nn/modules/fork.py; the 136 detect configs that build under
 cfg/models/11/fork/). Scaling matches the JAX parse_model: channels
@@ -22,9 +23,9 @@ YAML: a path, or a name that find_model_yaml (JAX cfg/__init__.py:349)
 resolves under the port's cfg/models/ (yolo11.yaml, spectrogram_yolo11.yaml,
 fork/*.yaml; `yolo11n.yaml` and the bare `yolo11n` are yolo11.yaml at scale
 n, `yolo11n-seg.yaml` is yolo11-seg.yaml at n, `yolo11n-pose.yaml`
-yolo11-pose.yaml at n, `yolo11n_HCA.yaml` is fork/yolo11_HCA.yaml at n),
-read by utils.yaml_load. Heads other than Detect, Segment and Pose (obb,
-classify) raise with their ROADMAP.md item.
+yolo11-pose.yaml at n, `yolo11n-obb.yaml` yolo11-obb.yaml at n,
+`yolo11n_HCA.yaml` is fork/yolo11_HCA.yaml at n), read by utils.yaml_load.
+The classify head raises with its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ FORK_MODULES = (
 MODULE_REGISTRY: Dict[str, type] = {
     **{name: getattr(M, name) for name in (
         "Conv", "DWConv", "GhostConv", "CBAM", "ChannelAttention", "SpatialAttention", "Concat", "Bottleneck",
-        "C2f", "C3", "C3k", "C3k2", "C2PSA", "SPPF", "C3x", "Detect", "Segment", "Pose", *FORK_MODULES)},
+        "C2f", "C3", "C3k", "C3k2", "C2PSA", "SPPF", "C3x", "Detect", "Segment", "Pose", "OBB", *FORK_MODULES)},
     "nn.Upsample": M.Upsample,
 }
 BASE_MODULES = {
@@ -84,7 +85,7 @@ def find_model_yaml(name: str | Path) -> Path:
     """A model YAML by path or by name under the port's cfg/models/ (JAX
     cfg/__init__.py:349): the name as given, then without its scale letter
     (yolo11n -> yolo11, yolo11n-seg -> yolo11-seg). The other tasks' YAMLs
-    of the JAX package (-obb, -cls) raise with their ROADMAP.md item."""
+    of the JAX package (-cls) raise with their ROADMAP.md item."""
     p = Path(name)
     if p.exists():
         return p
@@ -94,7 +95,7 @@ def find_model_yaml(name: str | Path) -> Path:
         hits = sorted(MODELS_DIR.rglob(f"{cand}.yaml"))
         if hits:
             return hits[0]
-    if re.search(r"-(obb|cls)\b", stem):
+    if re.search(r"-cls\b", stem):
         raise not_ported(f"the {stem} model (another task's head)", "item 10 (other heads)")
     raise FileNotFoundError(f"Model yaml '{name}' not found under {MODELS_DIR}")
 
@@ -200,7 +201,7 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
             c2, args, kwargs["c1"] = ch_list[f[0]], [inc, "ESChannel"], ch_list[f[0]]
         elif cls is M.SelectChannel:
             c2, args = ch_list[f[0]], [ch_list[f[0]]]
-        elif cls in (M.Detect, M.Segment, M.Pose):
+        elif cls in (M.Detect, M.Segment, M.Pose, M.OBB):
             args.append(tuple(ch_list[x] for x in f))
             if cls is M.Segment:  # the prototype width npr scales as a width (JAX :355)
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
@@ -274,7 +275,8 @@ class DetectionModel(nn.Module):
     Segment returns (those pairs, mask coefficients (B, A, nm), prototypes
     (B, nm, H / 4, W / 4)) and is a SegmentationModel; one whose head is
     Pose returns (those pairs, raw keypoints (B, A, nk * nd)) and is a
-    PoseModel."""
+    PoseModel; one whose head is OBB returns (those pairs, raw angles (B, A,
+    1)) and is an OBBModel."""
 
     task = "detect"
 
@@ -294,7 +296,7 @@ class DetectionModel(nn.Module):
         s = 256  # dummy forward for the strides, as the JAX BaseModel does
         with torch.no_grad():
             out = self.forward(torch.zeros(1, ch, s, s))
-        feats = out[0] if isinstance(out, tuple) else out  # a Segment or Pose head's pairs come first
+        feats = out[0] if isinstance(out, tuple) else out  # a Segment, Pose or OBB head's pairs come first
         self.stride = tuple(s / box.shape[-2] for box, _ in feats)
 
     @full_f32()
@@ -512,12 +514,20 @@ class PoseModel(DetectionModel):
         self.kpt_shape = tuple(self.yaml.get("kpt_shape", (17, 3)))
 
 
-TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel}  # JAX's task map (:839)
+class OBBModel(DetectionModel):
+    """The obb task's model (JAX nn/tasks.py:698): a DetectionModel whose head
+    is OBB."""
+
+    task = "obb"
+
+
+TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel,
+              "obb": OBBModel}  # JAX's task map (:839)
 
 
 def build_model(cfg: Union[str, Path, dict], nc: Optional[int] = None,
                 variables: Optional[dict] = None) -> DetectionModel:
-    """The task's model (DetectionModel, SegmentationModel or PoseModel, by
+    """The task's model (DetectionModel, SegmentationModel, PoseModel or OBBModel, by
     guess_model_task) from a model dict or a model YAML (yaml_model_load); with
     `variables` (flax {params, batch_stats} numpy trees) the weights are
     carried across by the bridge and loaded with strict=True, else the model

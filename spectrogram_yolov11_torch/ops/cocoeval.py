@@ -179,10 +179,10 @@ class COCOeval:
     def __init__(self, gts: List[dict], dts: List[dict], iou_thrs: Sequence[float] = None,
                  rec_thrs: Sequence[float] = None, max_dets: Sequence[int] = None,
                  area_rng: Dict[str, tuple] = None, iou_type: str = "bbox", kpt_sigmas: np.ndarray = None):
-        if iou_type not in ("bbox", "segm", "keypoints"):
+        if iou_type not in ("bbox", "segm", "keypoints"):  # JAX's asserts these three: none for rotated boxes
             from ..utils import not_ported
 
-            raise not_ported(f"COCOeval(iou_type={iou_type!r})", "item 10 (other heads: obb)")
+            raise not_ported(f"COCOeval(iou_type={iou_type!r}), which JAX's COCOeval lacks too", "item 10 (other heads)")
         self.iou_type = iou_type
         self.kpt_sigmas = np.asarray(kpt_sigmas if kpt_sigmas is not None else OKS_SIGMA)
         self.iou_thrs = np.asarray(iou_thrs if iou_thrs is not None else np.linspace(0.5, 0.95, 10))

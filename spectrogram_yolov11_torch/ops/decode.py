@@ -2,12 +2,14 @@
 
 Counterpart of spectrogram_yolov11_tpu/ops/decode.py: make_anchors (:21),
 dist2bbox (:37), bbox2dist (:49, the loss's DFL targets), decode_detections
-(:99) and decode_kpts (:150, the pose head's keypoints). DFL and sigmoid run per level, then
+(:99), decode_kpts (:150, the pose head's keypoints), and the OBB head's
+dist2rbox (:57) and decode_obb (:132). DFL and sigmoid run per level, then
 the small results are concatenated, as in the JAX form.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import torch
@@ -44,6 +46,17 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -
     return torch.cat((anchor_points - x1y1, x2y2 - anchor_points), -1).clamp(0, reg_max - 0.01)
 
 
+def dist2rbox(pred_dist: torch.Tensor, pred_angle: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tensor:
+    """LTRB distances and an angle (radians) -> rotated boxes (cx, cy, w, h)
+    at the anchor points (JAX decode.py:57): the centre offset (rb - lt) / 2
+    turned by the angle."""
+    lt, rb = pred_dist.chunk(2, -1)
+    cos, sin = torch.cos(pred_angle), torch.sin(pred_angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, -1)
+    x, y = xf * cos - yf * sin, xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], -1) + anchor_points, lt + rb], -1)
+
+
 def decode_detections(
     feats: List[Tuple[torch.Tensor, torch.Tensor]], nc: int, strides: Sequence[float], reg_max: int = 16
 ) -> torch.Tensor:
@@ -51,14 +64,21 @@ def decode_detections(
     port's Detect returns them -> (B, A, 4+nc) f32: xywh boxes in input pixels
     and sigmoid class scores, anchors in the JAX (level, h, w) order. On bf16
     logits the exp and the sigmoid run in bf16, so the scores are bf16 values."""
-    device = feats[0][0].device
-    anchors, stride_t = make_anchors([tuple(b.shape[-2:]) for b, _ in feats], strides, device)
+    anchors, stride_t = make_anchors([tuple(b.shape[-2:]) for b, _ in feats], strides, feats[0][0].device)
+    dist, scores = _decode_streams(feats, reg_max)
+    boxes = dist2bbox(dist, anchors[None], xywh=True) * stride_t[None]
+    return torch.cat([boxes, scores], -1)
+
+
+def _decode_streams(feats: List[Tuple[torch.Tensor, torch.Tensor]], reg_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DFL and sigmoid per level, then the small results concatenated (JAX
+    decode.py:_decode_streams): (B, A, 4) f32 LTRB distances and (B, A, nc)
+    f32 scores, the sigmoid taken in the logits' dtype, as JAX's."""
     dists, scores = [], []
     for b, c in feats:
         dists.append(dfl_decode(b.flatten(2).transpose(1, 2), reg_max))
-        scores.append(torch.sigmoid(c.flatten(2).transpose(1, 2)).float())  # in the logits' dtype, as JAX
-    boxes = dist2bbox(torch.cat(dists, 1), anchors[None], xywh=True) * stride_t[None]
-    return torch.cat([boxes, torch.cat(scores, 1)], -1)
+        scores.append(torch.sigmoid(c.flatten(2).transpose(1, 2)).float())
+    return torch.cat(dists, 1), torch.cat(scores, 1)
 
 
 def decode_kpts(kpt_raw: torch.Tensor, kpt_shape: Tuple[int, int], shapes: Sequence[Tuple[int, int]],
@@ -74,3 +94,15 @@ def decode_kpts(kpt_raw: torch.Tensor, kpt_shape: Tuple[int, int], shapes: Seque
     if nd == 3:
         return torch.cat([xy, torch.sigmoid(y[..., 2:3])], -1)
     return xy
+
+
+def decode_obb(feats: List[Tuple[torch.Tensor, torch.Tensor]], angle_raw: torch.Tensor, nc: int,
+               strides: Sequence[float], reg_max: int = 16) -> torch.Tensor:
+    """The OBB head's outputs -> (B, A, 5 + nc) f32: cx, cy, w, h in input
+    pixels, the angle (sigmoid(raw) - 0.25) * pi in radians, and the sigmoid
+    class scores (JAX decode.py:132)."""
+    anchors, stride_t = make_anchors([tuple(b.shape[-2:]) for b, _ in feats], strides, feats[0][0].device)
+    angle = (torch.sigmoid(angle_raw.float()) - 0.25) * math.pi
+    dist, scores = _decode_streams(feats, reg_max)
+    rbox = dist2rbox(dist, angle, anchors[None]) * stride_t[None]
+    return torch.cat([rbox, angle, scores], -1)

@@ -1,7 +1,9 @@
 """IoU (torch). Counterpart of spectrogram_yolov11_tpu/ops/iou.py: box_iou (:17)
 and bbox_iou (:27), whose CIoU drives both the TAL assigner's metric and the
-box loss, mask_iou (:118), the segment validator's mask matching, and
-kpt_iou (:125), the pose validator's OKS."""
+box loss, mask_iou (:118), the segment validator's mask matching,
+kpt_iou (:125), the pose validator's OKS, and the OBB task's probiou (:87,
+with _rbox_covariance :78) and batch_probiou (:113): the assigner's metric,
+the box loss, rotated NMS and the validator's matching."""
 
 from __future__ import annotations
 
@@ -78,3 +80,40 @@ def kpt_iou(kpt1: torch.Tensor, kpt2: torch.Tensor, area: torch.Tensor, sigma, e
     e = d / ((2 * sigma) ** 2) / (area[:, None, None] + eps) / 2
     oks = torch.exp(-e) * kpt_mask[:, None]
     return oks.sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
+
+
+def _rbox_covariance(boxes: torch.Tensor):
+    """(a, b, c) covariance terms of rotated boxes (..., 5) cx cy w h angle (JAX iou.py:78)."""
+    a, b, c = boxes[..., 2] ** 2 / 12, boxes[..., 3] ** 2 / 12, boxes[..., 4]
+    cos, sin = torch.cos(c), torch.sin(c)
+    cos2, sin2 = cos**2, sin**2
+    return a * cos2 + b * sin2, a * sin2 + b * cos2, (a - b) * cos * sin
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, CIoU: bool = False, eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise probabilistic IoU (1 - Hellinger distance of the boxes'
+    Gaussians) of broadcastable rotated boxes (..., 5) -> (...) (JAX iou.py:87),
+    term for term; with CIoU the aspect term v * alpha, alpha without gradient."""
+    x1, y1 = obb1[..., 0], obb1[..., 1]
+    x2, y2 = obb2[..., 0], obb2[..., 1]
+    a1, b1, c1 = _rbox_covariance(obb1)
+    a2, b2, c2 = _rbox_covariance(obb2)
+    den = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / (den + eps) * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / (den + eps) * 0.5
+    t3 = torch.log(den / (4 * torch.sqrt((a1 * b1 - c1**2).clamp(min=0) * (a2 * b2 - c2**2).clamp(min=0)) + eps)
+                   + eps) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    iou = 1 - torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    if CIoU:
+        w1, h1, w2, h2 = obb1[..., 2], obb1[..., 3], obb2[..., 2], obb2[..., 3]
+        v = (4 / math.pi**2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+        with torch.no_grad():
+            alpha = v / (v - iou + (1 + eps))
+        return iou - v * alpha
+    return iou
+
+
+def batch_probiou(obb1: torch.Tensor, obb2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise probiou: (..., N, 5) x (..., M, 5) -> (..., N, M) (JAX iou.py:113)."""
+    return probiou(obb1[..., :, None, :], obb2[..., None, :, :], eps=eps)

@@ -1,9 +1,9 @@
-"""The detect, segment and pose training losses over padded batches.
+"""The detect, segment, pose and OBB training losses over padded batches.
 
 Counterpart of spectrogram_yolov11_tpu/ops/losses.py:43-175 (_bce_logits,
 df_loss, bbox_loss, preprocess_targets, detection_loss), :223
-segmentation_loss, :285 keypoint_loss_terms and :304 pose_loss, with the
-same reductions:
+segmentation_loss, :285 keypoint_loss_terms, :304 pose_loss and :377
+obb_loss, with the same reductions:
 
   cls   = BCE(logits, target scores).sum() / max(target_scores.sum(), 1)
   box   = sum((1 - CIoU) * w) / target_scores_sum, w = target_scores.sum(-1) on fg anchors
@@ -12,6 +12,8 @@ same reductions:
   segment: the same terms and seg, the mask BCE below; items = (box, seg * hyp_box, cls, dfl)
   pose: the same terms, the OKS location loss and the visibility BCE;
         items = (box, pose * hyp_pose, kobj * hyp_kobj, cls, dfl)
+  obb:  the rotated assignment (probiou), box = sum((1 - probiou) * w) /
+        target_scores_sum, DFL on the target's unrotated extent; items (box, cls, dfl)
 
 Boxes are masked, not indexed, so every shape is fixed and nothing syncs
 with the host. The assigner sees sigmoid(scores) and the decoded boxes
@@ -21,13 +23,14 @@ NCHW (box, cls) pairs and are flattened in the JAX anchor order (level, h, w).
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .decode import bbox2dist, dist2bbox, make_anchors
-from .iou import bbox_iou
+from .decode import bbox2dist, dist2bbox, dist2rbox, make_anchors
+from .iou import bbox_iou, probiou
 from .masks import crop_mask
 from .metrics import OKS_SIGMA
 from .tal import task_aligned_assign
@@ -70,20 +73,26 @@ def preprocess_targets(cls: torch.Tensor, bboxes: torch.Tensor, mask_gt: torch.T
     return cls[..., None], gt_xyxy, mask_gt[..., None]
 
 
+def _head_logits(feats: List[Tuple[torch.Tensor, torch.Tensor]], reg_max: int, strides: Sequence[float]):
+    """The head's per-level (box, cls) logits flattened in the anchor order:
+    (anchor points (A, 2) and strides (A, 1) of make_anchors, DFL logits (b,
+    A, 4, reg_max) f32, class logits (b, A, nc) f32, the DFL integral (b, A,
+    4) LTRB distances in grid units)."""
+    b, dev = feats[0][0].shape[0], feats[0][0].device
+    anchor_points, stride_t = make_anchors([tuple(bx.shape[-2:]) for bx, _ in feats], strides, dev)
+    box_flat = torch.cat([bx.flatten(2) for bx, _ in feats], 2).transpose(1, 2).float()  # (b, A, 4*reg_max)
+    pred_dist_logits = box_flat.reshape(b, -1, 4, reg_max)
+    pred_scores = torch.cat([c.flatten(2) for _, c in feats], 2).transpose(1, 2).float()  # (b, A, nc)
+    pd = F.softmax(pred_dist_logits, -1) @ torch.arange(reg_max, dtype=torch.float32, device=dev)
+    return anchor_points, stride_t, pred_dist_logits, pred_scores, pd
+
+
 def _detect_terms(feats: List[Tuple[torch.Tensor, torch.Tensor]], cls: torch.Tensor, bboxes: torch.Tensor,
                   mask_gt: torch.Tensor, nc: int, reg_max: int, imgsz: int, strides: Sequence[float], tal_topk: int):
     """The detect loss's terms and the assignment: (assign, loss_iou,
     loss_cls, loss_dfl), unweighted (JAX _assign_for_feats and the head of
     detection_loss)."""
-    b = feats[0][0].shape[0]
-    dev = feats[0][0].device
-    anchor_points, stride_t = make_anchors([tuple(bx.shape[-2:]) for bx, _ in feats], strides, dev)
-    box_flat = torch.cat([bx.flatten(2) for bx, _ in feats], 2).transpose(1, 2).float()  # (b, A, 4*reg_max)
-    pred_dist_logits = box_flat.reshape(b, -1, 4, reg_max)
-    pred_scores = torch.cat([c.flatten(2) for _, c in feats], 2).transpose(1, 2).float()  # (b, A, nc)
-
-    bins = torch.arange(reg_max, dtype=torch.float32, device=dev)
-    pd = F.softmax(pred_dist_logits, -1) @ bins
+    anchor_points, stride_t, pred_dist_logits, pred_scores, pd = _head_logits(feats, reg_max, strides)
     pred_bboxes = dist2bbox(pd, anchor_points[None], xywh=False)  # (b, A, 4) grid units
 
     gt_labels, gt_xyxy, mask_gt3 = preprocess_targets(cls, bboxes, mask_gt, float(imgsz))
@@ -217,3 +226,41 @@ def pose_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], pred_kpts_raw: tor
     items = torch.stack([hyp_box * loss_iou, hyp_pose * loss_kpt, hyp_kobj * loss_kobj, hyp_cls * loss_cls,
                          hyp_dfl * loss_dfl])
     return items.sum() * b, items.detach()
+
+
+def obb_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], pred_angle: torch.Tensor, cls: torch.Tensor,
+             bboxes: torch.Tensor, mask_gt: torch.Tensor, nc: int, reg_max: int = 16, imgsz: int = 640,
+             strides: Sequence[float] = (8.0, 16.0, 32.0), hyp_box: float = 7.5, hyp_cls: float = 0.5,
+             hyp_dfl: float = 1.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v8OBBLoss as JAX's obb_loss (losses.py:377) on the head's per-level
+    (box, cls) logits, its raw angles (b, A, 1) and the padded GT: cls (b, g)
+    int, bboxes (b, g, 5) normalised cx cy w h and the angle in radians,
+    mask_gt (b, g) bool. The predicted rotated boxes (DFL distances turned by
+    the angle (sigmoid(raw) - 0.25) * pi) go to the rotated assigner in
+    pixels; the box loss is (1 - clip(probiou, 0)) weighted by the target
+    scores, in grid units; the DFL is taken on the target's unrotated extent
+    (its centre -+ w/2, h/2 as xyxy). Returns (total, items (box, cls, dfl)
+    without gradient)."""
+    anchor_points, stride_t, pred_dist_logits, pred_scores, pd = _head_logits(feats, reg_max, strides)
+    angle = (torch.sigmoid(pred_angle.float()) - 0.25) * math.pi  # (b, A, 1)
+    pred_rbox = dist2rbox(pd, angle, anchor_points[None])  # grid units, cx cy w h
+
+    gt_rbox = torch.cat([bboxes[..., :4] * imgsz, bboxes[..., 4:5]], -1) * mask_gt[..., None]
+    with torch.no_grad():
+        assign = task_aligned_assign(torch.sigmoid(pred_scores), torch.cat([pred_rbox * stride_t[None], angle], -1),
+                                     anchor_points * stride_t, cls[..., None], gt_rbox, mask_gt[..., None],
+                                     num_classes=nc, rotated=True)
+    target_scores_sum = assign.target_scores.sum().clamp(min=1.0)
+    loss_cls = bce_logits(pred_scores, assign.target_scores).sum() / target_scores_sum
+
+    tb = assign.target_bboxes  # (b, A, 5) pixels
+    tb_grid = torch.cat([tb[..., :4] / stride_t[None], tb[..., 4:5]], -1)
+    weight = assign.target_scores.sum(-1) * assign.fg_mask
+    iou = probiou(torch.cat([pred_rbox, angle], -1), tb_grid).clamp(min=0)
+    loss_iou = ((1.0 - iou) * weight).sum() / target_scores_sum
+    half = tb_grid[..., 2:4] / 2
+    txyxy = torch.cat([tb_grid[..., :2] - half, tb_grid[..., :2] + half], -1)
+    ldfl = df_loss(pred_dist_logits, bbox2dist(anchor_points, txyxy, reg_max - 1), reg_max)[..., 0]
+    loss_dfl = (ldfl * weight).sum() / target_scores_sum
+    items = torch.stack([hyp_box * loss_iou, hyp_cls * loss_cls, hyp_dfl * loss_dfl])
+    return items.sum() * feats[0][0].shape[0], items.detach()

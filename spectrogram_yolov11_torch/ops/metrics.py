@@ -2,10 +2,10 @@
 the 101-point interpolated AP per class, the F1-max operating point, the
 metric containers and the confusion matrix.
 
-A copy of the detect, segment and pose parts of
+A copy of the detect, segment, pose and OBB parts of
 spectrogram_yolov11_tpu/ops/metrics.py (OKS_SIGMA :23, box_iou_np :29,
 match_predictions :41, smooth :68, compute_ap :76, ap_per_class :86, Metric
-:138, DetMetrics :202, SegmentMetrics :243, PoseMetrics :270,
+:138, DetMetrics :202, SegmentMetrics :243, PoseMetrics :270, OBBMetrics :297,
 ConfusionMatrix :328), which
 reproduces the reference's mAP machinery; the port keeps its own copy because
 it imports nothing of the JAX package. Accumulating stats over a dataset is
@@ -297,6 +297,14 @@ class PoseMetrics(DetMetrics):
     @property
     def fitness(self):
         return self.box.fitness() + self.pose.fitness()
+
+
+class OBBMetrics(DetMetrics):
+    """Rotated-box metrics (JAX metrics.py:297): DetMetrics' keys and
+    fitness over the TP matrix the OBB validator matches by probiou. An
+    instance's `task` reads "detect" (DetMetrics sets it), as JAX's does."""
+
+    task = "obb"
 
 
 class ConfusionMatrix:

@@ -1,7 +1,9 @@
 """Batched fixed-shape NMS (torch). Counterparts of
 spectrogram_yolov11_tpu/ops/nms.py:64 non_max_suppression and :124
 non_max_suppression_extras (extra per-anchor columns, the segment head's
-mask coefficients, carried through the selection).
+mask coefficients, carried through the selection), and :169 nms_rotated,
+the OBB task's Fast-NMS over probiou (plain torch: JAX computes it in XLA,
+outside any Pallas kernel, and the greedy keep kernel does not run on it).
 
     decoded preds (B, A, 4+nc)
       -> top-k candidates (best class, or every (anchor, class) pair with multi_label)
@@ -21,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from .boxes import xywh2xyxy
+from .iou import batch_probiou
 from .nms_kernel import greedy_keep
 
 
@@ -130,3 +133,27 @@ def non_max_suppression_extras(
     keep = greedy_keep(offset_boxes, valid, iou_thres)
     return _first_kept(torch.cat([boxes, top_scores[..., None], cls[..., None], extra], -1), top_scores, keep,
                        conf_thres, max_det)
+
+
+def nms_rotated(preds: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45, nc: int = 80,
+                max_det: int = 300, pre_nms_topk: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """preds (B, A, 5 + nc) cx cy w h angle + scores -> (out (B, max_det, 7)
+    [cx, cy, w, h, angle, conf, cls], n_valid (B,)), zero past n_valid (JAX
+    nms.py:169): each anchor's best class, the k = min(pre_nms_topk, A) best
+    by score (ties to the lower index), then Fast-NMS, one-shot and not
+    greedy: a candidate goes when any valid candidate ranked above it
+    overlaps it by probiou >= iou_thres, whether or not that one was kept;
+    the first max_det kept in score order. Class-agnostic, as JAX's."""
+    b, a, _ = preds.shape
+    k = min(pre_nms_topk, a)
+    scores = preds[..., 5 : 5 + nc]
+    best_cls = scores.argmax(-1)
+    top_scores, anchor = _top(scores.gather(-1, best_cls[..., None])[..., 0], k)
+    cls = best_cls.gather(1, anchor).float()
+    valid = top_scores > conf_thres
+    boxes = preds[..., :5].gather(1, anchor[..., None].expand(b, k, 5))
+    ious = batch_probiou(boxes, boxes)  # (B, k, k)
+    upper = (ious >= iou_thres) & torch.ones(k, k, dtype=torch.bool, device=preds.device).triu(1) & valid[..., None]
+    keep = valid & ~upper.any(1)
+    return _first_kept(torch.cat([boxes, top_scores[..., None], cls[..., None]], -1), top_scores, keep, conf_thres,
+                       max_det)

@@ -1,9 +1,12 @@
-"""Task-aligned assignment (TAL) of the detect loss, on fixed-shape padded GT.
+"""Task-aligned assignment (TAL) of the detect and OBB losses, on fixed-shape padded GT.
 
-Counterpart of spectrogram_yolov11_tpu/ops/tal.py:32-154 (the axis-aligned
-boxes): select_candidates_in_gts (:32), select_topk_candidates (:43),
-select_highest_overlaps (:71) and task_aligned_assign (:85), with the same
-masks in place of boolean indexing, so it runs on the card with no host sync.
+Counterpart of spectrogram_yolov11_tpu/ops/tal.py: select_candidates_in_gts
+(:32), select_topk_candidates (:43), select_highest_overlaps (:71) and
+task_aligned_assign (:85) with its rotated branch (:106-110: the OBB loss's,
+overlaps clip(probiou, 0) and anchors inside a rotated box by
+_select_candidates_in_rotated_gts :156 over rbox2corners :173), with the
+same masks in place of boolean indexing, so it runs on the card with no host
+sync.
 
 Ties decide which anchors a GT gets, and they are common: every anchor of a
 real GT inside its box is a top-k candidate, metric 0 included (JAX :47-53).
@@ -22,7 +25,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .iou import bbox_iou
+from .boxes import xywhr2xyxyxyxy
+from .iou import bbox_iou, probiou
 
 
 class AssignResult(NamedTuple):
@@ -66,25 +70,32 @@ def select_highest_overlaps(mask_pos: torch.Tensor, overlaps: torch.Tensor, n_ma
 def task_aligned_assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.Tensor,
                         gt_labels: torch.Tensor, gt_bboxes: torch.Tensor, mask_gt: torch.Tensor, topk: int = 10,
                         num_classes: int = 80, alpha: float = 0.5, beta: float = 6.0,
-                        eps: float = 1e-9) -> AssignResult:
+                        rotated: bool = False, eps: float = 1e-9) -> AssignResult:
     """The assignment: align = score^alpha * CIoU^beta over the anchors inside
     each GT, the top k per GT, conflicts to the highest IoU, target scores
     normalised by align * max IoU / max align per GT.
 
     pd_scores (b, A, nc) sigmoid scores and pd_bboxes (b, A, 4) xyxy pixels,
     both without gradient; anc_points (A, 2) pixels; gt_labels (b, g, 1),
-    gt_bboxes (b, g, 4) xyxy pixels, mask_gt (b, g, 1) the real GT rows."""
+    gt_bboxes (b, g, 4) xyxy pixels, mask_gt (b, g, 1) the real GT rows.
+    rotated=True (the OBB loss): pd_bboxes and gt_bboxes are (b, A, 5) and
+    (b, g, 5) cx cy w h angle in pixels and radians, the overlap is
+    clip(probiou, 0) and an anchor is inside a GT by the rotated test."""
     b, a, nc = pd_scores.shape
     n_max = gt_bboxes.shape[1]
     mask_gt_b = mask_gt[..., 0].bool()
-    in_gts = select_candidates_in_gts(anc_points, gt_bboxes, eps)
+    if rotated:
+        in_gts = select_candidates_in_rotated_gts(anc_points, gt_bboxes)
+        ov = probiou(gt_bboxes[:, :, None], pd_bboxes[:, None])
+    else:
+        in_gts = select_candidates_in_gts(anc_points, gt_bboxes, eps)
+        ov = bbox_iou(gt_bboxes[:, :, None], pd_bboxes[:, None], xywh=False, CIoU=True)
     gt_cls = gt_labels[..., 0].long().clamp(0, nc - 1)  # (b, g)
     scores_at_gt = pd_scores.gather(2, gt_cls[:, None, :].expand(b, a, n_max)).transpose(1, 2)  # (b, g, A)
 
     mask_valid = in_gts & mask_gt_b[..., None]
     zero = pd_scores.new_zeros(())
-    overlaps = torch.where(mask_valid, bbox_iou(gt_bboxes[:, :, None], pd_bboxes[:, None], xywh=False, CIoU=True)
-                           .clamp(min=0), zero)
+    overlaps = torch.where(mask_valid, ov.clamp(min=0), zero)
     align_metric = torch.where(mask_valid, scores_at_gt**alpha * overlaps**beta, zero)
 
     mask_pos = select_topk_candidates(align_metric, topk, mask_gt_b) & mask_valid
@@ -99,3 +110,21 @@ def task_aligned_assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_po
     pos_overlap = (overlaps * mask_pos).amax(-1, keepdim=True)
     norm = (align_metric * pos_overlap / (pos_align + eps)).amax(-2)  # (b, A)
     return AssignResult(target_labels, target_bboxes, target_scores * norm[..., None], fg_mask, target_gt_idx)
+
+
+def rbox2corners(rbox: torch.Tensor) -> torch.Tensor:
+    """(..., 5) cx cy w h angle -> (..., 4, 2) corners (JAX tal.py:173)."""
+    return xywhr2xyxyxyxy(rbox)
+
+
+def select_candidates_in_rotated_gts(xy_centers: torch.Tensor, gt_bboxes: torch.Tensor) -> torch.Tensor:
+    """Anchor centers (A, 2) inside rotated GT boxes (b, g, 5) -> (b, g, A)
+    bool (JAX tal.py:156): the projections of corner a -> point onto the
+    sides ab and ad lie in [0, |ab|^2] and [0, |ad|^2], ends included."""
+    corners = rbox2corners(gt_bboxes)  # (b, g, 4, 2)
+    a, b, d = corners[..., 0, :], corners[..., 1, :], corners[..., 3, :]
+    ab, ad = b - a, d - a
+    ap = xy_centers[None, None] - a[:, :, None]  # (b, g, A, 2)
+    norm_ab, norm_ad = (ab * ab).sum(-1)[..., None], (ad * ad).sum(-1)[..., None]
+    ap_ab, ap_ad = (ap * ab[:, :, None]).sum(-1), (ap * ad[:, :, None]).sum(-1)
+    return (ap_ab >= 0) & (ap_ab <= norm_ab) & (ap_ad >= 0) & (ap_ad <= norm_ad)

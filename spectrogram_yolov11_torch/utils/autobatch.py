@@ -63,10 +63,11 @@ def check_train_batch_size(model, imgsz: int = 640, nc: int = 80, fraction: floa
     """autobatch over the train step of `model` on its device: a copy of it
     in training mode computing in f32, the forward, the task's loss (the
     detection loss, a segment model's segmentation loss over empty
-    instance masks, or a pose model's pose loss over empty keypoints) and
+    instance masks, a pose model's pose loss over empty keypoints, or an obb
+    model's OBB loss over empty rotated boxes) and
     the backward to every parameter, on (b, 3, imgsz,
     imgsz) zeros with 128 empty label slots per image, as JAX's probe (:63)."""
-    from ..ops.losses import detection_loss, pose_loss, segmentation_loss
+    from ..ops.losses import detection_loss, obb_loss, pose_loss, segmentation_loss
 
     dev = next(model.parameters()).device
     m = copy.deepcopy(model).train()
@@ -82,7 +83,10 @@ def check_train_batch_size(model, imgsz: int = 640, nc: int = 80, fraction: floa
         mask = torch.zeros(b, 128, dtype=torch.bool, device=dev)
         with full_f32():
             out = m(x)
-            if isinstance(out, tuple) and len(out) == 2:  # a pose model's (feats, raw keypoints)
+            if m.task == "obb":  # (feats, raw angles)
+                rboxes = torch.zeros(b, 128, 5, device=dev)
+                loss, _ = obb_loss(*out, cls, rboxes, mask, nc=nc, imgsz=imgsz, strides=strides)
+            elif isinstance(out, tuple) and len(out) == 2:  # a pose model's (feats, raw keypoints)
                 kpts = torch.zeros(b, 128, m.kpt_shape[0], 3, device=dev)
                 loss, _ = pose_loss(*out, cls, boxes, mask, kpts, nc=nc, kpt_shape=m.kpt_shape, imgsz=imgsz,
                                     strides=strides)

@@ -37,9 +37,24 @@ the box cv2.getTextSize reports at the same origin, padded by the thickness
 plus 1 px, and paints only the label's colour. `text_size` gives the port's
 own box of a label: ((width, height above the baseline), depth below it).
 
+`polylines(img, pts, is_closed, color, thickness)` is cv2.polylines at
+LINE_8 and shift 0, pixel for pixel, as OpenCV's PolyLine draws it: at
+thickness 1 each segment by Line (connectivity 8, clipped to the image);
+thicker, each segment is first clipped (clipLine, integer ends) to the
+image grown by the thickness on every side, then drawn as ThickLine's quad,
+its ends moved by cvRound(thickness * 2^15 / length) of the normal in
+XY_SHIFT fixed point (half a pixel more at an odd thickness), filled by
+FillConvexPoly, with a filled circle of radius (thickness + 1) // 2 at the
+segment's unclipped end (a closed polyline's every vertex; an open one's
+first point as well), all clipped to the image. Results.plot of rotated
+boxes draws with it (JAX engine/results.py:275-278), and so do the
+train-batch mosaics of rotated boxes (JAX utils/plotting.py:132-134).
+
 `plot_images` is JAX's train-batch mosaic byte for byte: the same tiles,
-`rectangle` for cv2.rectangle, data/augment.py:resize_linear_u8 for
-cv2.resize and the port's JPEG encoder for cv2.imwrite.
+`rectangle` for cv2.rectangle (a rotated box: ops/boxes.py:box_points and
+`polylines` for cv2.boxPoints and cv2.polylines),
+data/augment.py:resize_linear_u8 for cv2.resize and the port's JPEG encoder
+for cv2.imwrite.
 
 The charts (`plot_pr_curve`, `plot_mc_curve`, `plot_confusion_matrix`,
 `plot_val_curves`, `plot_results`) are the port's own drawing in numpy, at
@@ -62,7 +77,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import LOGGER, not_ported
+from . import LOGGER
 
 # character -> (advance, strokes): x to the right and y up from the origin, in
 # px at font_scale 0.5; each stroke a polyline "x,y x,y ...", strokes split by ";"
@@ -363,6 +378,47 @@ def ellipse_filled(img: np.ndarray, center: Sequence[int], axes: Sequence[int], 
     return img
 
 
+def _thick_line(img: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], col: np.ndarray, thickness: int,
+                flags: int) -> None:
+    """OpenCV's ThickLine at LINE_8 for integer ends (shift 0); flags bit 1:
+    a joint at p0, bit 2: a joint at p1."""
+    if thickness <= 1:
+        _line8(img, p0[0], p0[1], p1[0], p1[1], col)
+        return
+    t = thickness << (XY_SHIFT - 1)
+    h, w = img.shape[:2]  # the segment first clipped to the image grown by the thickness on every side
+    m = thickness
+    inside, x0, y0, x1, y1 = _clip_line(w + 2 * m, h + 2 * m, p0[0] + m, p0[1] + m, p1[0] + m, p1[1] + m)
+    f0 = ((x0 - m) << XY_SHIFT, (y0 - m) << XY_SHIFT)
+    f1 = ((x1 - m) << XY_SHIFT, (y1 - m) << XY_SHIFT)
+    dx, dy = (f0[0] - f1[0]) / XY_ONE, (f1[1] - f0[1]) / XY_ONE
+    r = dx * dx + dy * dy
+    if inside and r > np.finfo(float).eps:
+        r = (t + (thickness & 1) * XY_ONE * 0.5) / math.sqrt(r)
+        ox, oy = _cv_round(dy * r), _cv_round(dx * r)
+        _fill_convex_poly(img, [(f0[0] + ox, f0[1] + oy), (f0[0] - ox, f0[1] - oy), (f1[0] - ox, f1[1] - oy),
+                                (f1[0] + ox, f1[1] + oy)], col)
+    for k, (cx, cy) in enumerate((p0, p1)):
+        if flags & (k + 1):
+            _circle(img, cx, cy, (t + (XY_ONE >> 1)) >> XY_SHIFT, col)
+
+
+def polylines(img: np.ndarray, pts, is_closed: bool, color, thickness: int = 1) -> np.ndarray:
+    """cv2.polylines(img, [pts], is_closed, color, thickness) at LINE_8, in
+    place on a uint8 (H, W) or (H, W, C) image, for integer vertices (n, 2)
+    anywhere; returns img."""
+    v = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
+    if not v:
+        return img
+    col = _color(img, color)
+    flags = 2 + (not is_closed)
+    p0 = v[-1] if is_closed else v[0]
+    for p in v[(not is_closed):]:
+        _thick_line(img, p0, p, col, int(thickness), flags)
+        p0, flags = p, 2
+    return img
+
+
 class _Edge:
     __slots__ = ("y0", "y1", "x", "dx", "next")
 
@@ -557,8 +613,9 @@ def _host(a) -> np.ndarray:
 def images_mosaic(batch: Dict, max_imgs: int = 16, imgsz_grid: int = 1920) -> np.ndarray:
     """The BGR canvas of JAX's plot_images (:117): the first max_imgs RGB
     images of the batch in a ceil(sqrt(n)) grid on white, each tile in BGR
-    with its boxes (normalised xywh, int() corners) drawn 2 px wide in the
-    palette's colour of the class, the canvas resized (cv2's INTER_LINEAR)
+    with its boxes (normalised xywh, int() corners; a rotated box, normalised
+    xywh and the angle in radians, by its box_points corners truncated to
+    int32) drawn 2 px wide in the palette's colour of the class, the canvas resized (cv2's INTER_LINEAR)
     to imgsz_grid on its long side when it is larger."""
     imgs = _host(batch["img"])[:max_imgs]
     if imgs.dtype != np.uint8:
@@ -574,8 +631,12 @@ def images_mosaic(batch: Dict, max_imgs: int = 16, imgsz_grid: int = 1920) -> np
         tile = np.ascontiguousarray(im[..., ::-1])
         m = mask[i]
         for b, k in zip(bboxes[i][m], cls_all[i][m]):
-            if b.shape[-1] == 5:
-                raise not_ported("plot_images of rotated boxes (cv2.boxPoints, cv2.polylines)", "item 10 (other heads)")
+            if b.shape[-1] == 5:  # a rotated box: its corners from cv2.boxPoints, drawn by cv2.polylines
+                from ..ops.boxes import box_points
+
+                pts = box_points(((b[0] * w, b[1] * h), (b[2] * w, b[3] * h), float(np.degrees(b[4]))))
+                polylines(tile, pts.astype(np.int32), True, colors(int(k), True), 2)
+                continue
             x1 = int((b[0] - b[2] / 2) * w)
             y1 = int((b[1] - b[3] / 2) * h)
             x2 = int((b[0] + b[2] / 2) * w)

@@ -111,11 +111,18 @@ def test_plot_images_bytes_equal_jax(case, data, tmp_path):
     assert ours.read_bytes() == theirs.read_bytes() == imencode(".jpg", canvas)
 
 
-def test_plot_images_obb_raises():
-    batch = _seeded_batch(1, 32, 3)
-    batch["bboxes"] = np.concatenate([batch["bboxes"], np.zeros((1, 6, 1), np.float32)], -1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_plotting.images_mosaic(batch)
+def test_plot_images_obb_raises(tmp_path):
+    """Rotated boxes (the obb task's mosaics) no longer raise: their corners (box_points) drawn by polylines,
+    byte-equal to JAX's cv2.boxPoints and cv2.polylines (tests/test_torch_obb_engine.py holds polylines)."""
+    batch = _seeded_batch(5, 96, 3)
+    angles = np.random.default_rng(4).uniform(-np.pi / 2, np.pi / 2, (5, 6, 1)).astype(np.float32)
+    batch["bboxes"] = np.concatenate([batch["bboxes"], angles], -1)
+    ours = port_plotting.plot_images(batch, NAMES, tmp_path / "port" / "b.jpg")
+    theirs = jax_plot_images(batch, NAMES, tmp_path / "jax" / "b.jpg")
+    canvas = port_plotting.images_mosaic(batch)
+    assert ours.read_bytes() == theirs.read_bytes() == imencode(".jpg", canvas)
+    plain = port_plotting.images_mosaic(dict(batch, mask_gt=np.zeros_like(batch["mask_gt"])))
+    assert (canvas != plain).any()
 
 
 # -- COCO ------------------------------------------------------------------------

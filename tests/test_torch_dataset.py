@@ -102,9 +102,10 @@ def test_check_det_dataset_equals_jax(tmp_path):
     assert yaml_load(PORT_YAMLS / "spectrogram_synth.yaml")["path"] == "../../../datasets/torch/spectrogram_synth"
     with pytest.raises(FileNotFoundError):
         check_det_dataset({"path": str(tmp_path), "val": "missing", "names": ["a"]})
-    # `shapes`, `shapes-seg` and `shapes-pose` are generated
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-        check_det_dataset({"path": str(tmp_path), "val": "images/val", "names": ["a"], "synthetic": "shapes-obb"})
+    # `shapes`, `shapes-seg`, `shapes-pose` and `shapes-obb` are generated; another kind raises KeyError, as JAX's
+    for check in (check_det_dataset, jax_check_det_dataset):
+        with pytest.raises(KeyError, match="shapes-cls"):
+            check({"path": str(tmp_path), "val": "images/val", "names": ["a"], "synthetic": "shapes-cls"})
 
 
 # (source (h, w, c), destination (h, w)): exact 2x (cv2's area average), r = 0.64 with a half-pixel pad, r = 0.5

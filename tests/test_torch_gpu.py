@@ -36,7 +36,11 @@ kernels at the segment validator's inputs against their plain versions;
 yolo11n-pose's forward (feats, raw keypoints) at (17, 3) and (5, 3) against
 the CPU's (1e-3 abs/rel) and its predict's boxes and keypoints (1e-2 px),
 both kernels at the pose validator's inputs, and the port's circles equal
-to cv2's committed digests (tests/torch_data/pose/). The tests leave
+to cv2's committed digests (tests/torch_data/pose/); yolo11n-obb's forward
+(feats, raw angles) against the CPU's (1e-3 abs/rel) and its predict's
+rotated boxes (1e-2 px, 1e-4 rad), the bottleneck at the obb validator's
+inputs with no keep launch, and the port's polylines equal to cv2's
+committed digests (tests/torch_data/obb/). The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -1493,3 +1497,113 @@ def test_kernels_at_pose_val_inputs():
         img = np.random.default_rng(c["seed"]).integers(0, 256, (c["size"], c["size"], 3), dtype=np.uint8)
         drawn = circle(img, tuple(c["center"]), c["radius"], tuple(c["color"]))
         assert hashlib.sha256(np.ascontiguousarray(drawn).tobytes()).hexdigest() == blob["sha256"][c["name"]]
+
+
+def _obb_model():
+    """yolo11n-obb at scale n (nc 15), init(0), BN statistics seeded as _seg_model's, the class branches' last
+    biases 0."""
+    from spectrogram_yolov11_torch.nn.tasks import build_model
+
+    model = build_model("yolo11n-obb.yaml").init(0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.05)
+                m.running_var.copy_(torch.empty(m.running_var.shape).uniform_(0.15, 0.25, generator=g))
+        for branch in model.model[-1].detect.cv3:
+            branch[-1].bias.zero_()
+    return model.eval()
+
+
+@pytest.mark.gpu
+def test_obb_forward_and_predict_on_card_match_cpu():
+    """yolo11n-obb: the card's f32 forward (feats and raw angles) against the
+    CPU's (1e-3 abs/rel), 6 bottleneck launches; its predict on 3 arrays at
+    conf 0.01, max_det 30 (OBBPredictor: 6 bottleneck launches per batch and
+    no keep kernel, the NMS being Fast-NMS over probiou) against the CPU's:
+    counts and classes equal, xywhr within 1e-2 px and 1e-4 rad."""
+    dev = _card()
+    from spectrogram_yolov11_torch.engine.predictor import OBBPredictor
+
+    model = _obb_model()
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, 3, 256, 256)).astype(np.float32))
+    model_g = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+    with torch.inference_mode():
+        n0 = fused_bottleneck.launches
+        got = model_g(x.to(dev).contiguous(memory_format=torch.channels_last))
+        torch.cuda.synchronize()
+        assert fused_bottleneck.launches - n0 == 6
+        ref = model(x)
+    assert got[1].shape == (2, 1344, 1)
+    for g, r in zip([t for p in got[0] for t in p] + [got[1]], [t for p in ref[0] for t in p] + [ref[1]]):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-3, rtol=1e-3)
+    rng = np.random.default_rng(4)
+    arrays = [rng.integers(0, 256, s, dtype=np.uint8) for s in ((360, 640, 3), (500, 333, 3), (640, 640, 3))]
+    kw = dict(conf=0.01, max_det=30, save=False)
+    n0, k0 = fused_bottleneck.launches, greedy_keep.launches
+    card = OBBPredictor(model, overrides=dict(kw, device="cuda"))(arrays, batch_size=3)
+    assert (fused_bottleneck.launches - n0, greedy_keep.launches - k0) == (6, 0)
+    cpu = OBBPredictor(model, overrides=dict(kw, device="cpu"))(arrays, batch_size=3)
+    for a, b in zip(card, cpu):
+        assert len(a) == len(b) > 0 and np.array_equal(a.obb.cls, b.obb.cls)
+        np.testing.assert_allclose(a.obb.xywhr[:, :4], b.obb.xywhr[:, :4], atol=1e-2, rtol=0)
+        np.testing.assert_allclose(a.obb.xywhr[:, 4], b.obb.xywhr[:, 4], atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_kernels_at_obb_val_inputs():
+    """The obb validator's device function on the card (yolo11n-obb, B = 4 at
+    640 px): 6 bottleneck launches and no keep launch; each bottleneck input it
+    hands the kernel against the plain version (1e-4 abs/rel); its rotated
+    NMS (4, 300) on the card equal in counts and classes to the same function
+    on the CPU from the card's decoded predictions. The polylines of
+    tests/test_torch_obb_engine.py's committed cases and box_points of seeded
+    boxes, drawn on this machine (no cv2 here), equal cv2's digests."""
+    import hashlib
+    import json
+
+    dev = _card()
+    from spectrogram_yolov11_torch.engine.pipeline import build_obb_fn
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+    from spectrogram_yolov11_torch.ops.decode import decode_obb
+    from spectrogram_yolov11_torch.ops.boxes import box_points
+    from spectrogram_yolov11_torch.ops.nms import nms_rotated
+    from spectrogram_yolov11_torch.utils.plotting import polylines
+
+    model = _obb_model().to(dev, memory_format=torch.channels_last)
+    fn = build_obb_fn(model, conf=0.001, iou=0.7, pre_nms_topk=2048)
+    cap, heads = {}, []
+
+    def keep(mod, args):  # returns None: the input stays as it is
+        cap.setdefault(mod, args[0].permute(0, 2, 3, 1).contiguous())
+
+    hooks = [m.register_forward_pre_hook(keep) for m in model.modules() if isinstance(m, Bottleneck) and m.fusable]
+    hooks.append(model.model[-1].register_forward_hook(lambda m, a, o: heads.append(o)))
+    frames = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (4, 640, 640, 3), dtype=np.uint8)).to(dev)
+    n0, k0 = fused_bottleneck.launches, greedy_keep.launches
+    out, nv = fn(frames)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    assert (fused_bottleneck.launches - n0, greedy_keep.launches - k0) == (6, 0) and len(cap) == 6
+    assert out.shape == (4, 300, 7) and int(nv.min()) > 0
+    with torch.inference_mode():
+        for mod, x in cap.items():
+            c = x.shape[-1]
+            got = fused_bottleneck(x, mod.w1.view(2, 9, c, c), mod.b1, mod.w2.view(2, 9, c, c), mod.b2)
+            torch.testing.assert_close(got, bottleneck_reference(x, *_unpacked(mod, c, False)), atol=1e-4, rtol=1e-4)
+        preds = decode_obb(*heads[0], model.nc, model.stride)
+        ref, rn = nms_rotated(preds.cpu(), 0.001, 0.7, model.nc, 300, 2048)
+    assert torch.equal(nv.cpu(), rn) and torch.equal(out[..., 6].cpu(), ref[..., 6])
+    blob = json.loads((Path(__file__).resolve().parent / "torch_data" / "obb" / "polylines_digests.json").read_text())
+    for c in blob["cases"]:
+        img = np.random.default_rng(c["seed"]).integers(0, 256, (*c["size"], 3), dtype=np.uint8)
+        drawn = polylines(img, np.asarray(c["pts"], np.int32), c["closed"], tuple(c["color"]), c["thickness"])
+        assert hashlib.sha256(np.ascontiguousarray(drawn).tobytes()).hexdigest() == blob["sha256"][c["name"]]
+    rng, bp = np.random.default_rng(blob["box_points"]["seed"]), blob["box_points"]
+    n = bp["n"]
+    pts = np.stack([box_points(((c[0], c[1]), (wh[0], wh[1]), a)) for c, wh, a in
+                    zip(rng.uniform(-50, 700, (n, 2)), rng.uniform(0, 300, (n, 2)), rng.uniform(-360, 360, n))])
+    for arr, key in ((pts, "sha256_f32"), (pts.astype(np.int32), "sha256_i32")):
+        assert hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest() == bp[key]

@@ -13,8 +13,8 @@ and the command line,
 cfg/__init__.py and __main__.py, among them); with no card, the entry points (the pipeline,
 predict, predict with augment=True and visualize=True, a weight ensemble's
 predict, val, the trainer and YOLO.train, a model built from YAML and
-trained, a pose model's predict, val and train and the `pose` command
-line, YOLO.embed and YOLO.profile, the command line, the server and
+trained, a pose or obb model's predict, val and train and the `pose` and
+`obb` command lines, YOLO.embed and YOLO.profile, the command line, the server and
 AutoBackend on a checkpoint or a YAML) raise for the default device instead
 of running on the CPU.
 """
@@ -102,6 +102,12 @@ def test_default_device_raises_without_card(monkeypatch):
     for run in (lambda: pose.predict(frame), lambda: pose.val(data=pose_data),
                 lambda: pose.train(data=pose_data, amp=False),
                 lambda: entrypoint("yolo pose predict source=tests/torch_data/jpeg imgsz=32")):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            run()
+    obb = YOLO("yolo11n-obb.yaml")
+    obb_data = {"path": str(ROOT), "val": "tests", "names": ["box", "bar"]}
+    for run in (lambda: obb.predict(frame), lambda: obb.val(data=obb_data), lambda: obb.train(data=obb_data, amp=False),
+                lambda: entrypoint("yolo obb predict source=tests/torch_data/jpeg imgsz=32")):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             run()
     with pytest.raises(RuntimeError, match="no CUDA card"):
