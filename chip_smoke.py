@@ -383,6 +383,44 @@ Phases, each printing one JSON line, each fatal when it fails:
                turns; at conf 0.001 and max_det 30 the card against the CPU
                in f32: counts and classes equal, xywh within 1e-2 px and the
                angle within 1e-4 rad
+  24. classify  the classify task: the 3-class stand-in of imagenette160 (32
+               train + 8 val 160 px JPEGs per class, written by the port into
+               a temporary directory). YOLO("yolo11n-cls.yaml").train 3 epochs
+               at its defaults (224 px, batch 16, f32 steps; the YAML's nc
+               1000 kept, as JAX's facade keeps it), counted (4 bottleneck
+               launches per batch of each epoch's EMA val: 8 per epoch, no
+               keep kernel), seconds per epoch, ms per step with the loader's
+               wait, peak memory; YOLO.save, then val (top-1, top-5) of the
+               saved model at 224 px, batch 16, counted (8), equal to the
+               CPU's; every bottleneck input of that val (16x14x14x32,
+               16x7x7x64) against the plain version, and the kernel's time
+               at each map beside the cuDNN chain, its plain version and its
+               bound; predict on the 24 val images one per call, f32 and
+               half=True, counted (4 per image; bf16 with half, its inputs
+               against the plain version), ms per image, the f32 probs within
+               1e-5 of the CPU's and the top-5 equal; the first f32 step's
+               loss on the card against the CPU's on the same batch (1e-5
+               relative); one epoch of yolo11-cls-resnet18.yaml (no kernel)
+  25. serve_tasks  one server on the card holding the segment, pose and OBB
+               phases' best.ckpt and the classify phase's saved model (each
+               seeded from its YAML when its phase did not run); per task
+               YOLO(url) (the metadata's task, kpt_shape for pose) predicts 8
+               640 px shapes frames (224 px for the classifier) at batch 8,
+               conf 0 (a seeded model's scores start near 1e-5), max_det 30, counted (6 bottleneck launches in the
+               server per dispatch, 4 for the classifier; the client's keep
+               kernel once for segment and pose, none for OBB and classify),
+               against YOLO(ckpt).predict on the card (boxes, rotated boxes
+               and keypoints within 1e-3 px, at most 1e-3 of the mask pixels
+               unequal, probs within 1e-5 and the top-5 equal; the served
+               probs within 1e-5 of the CPU's); each bottleneck input the
+               server's forward took against the plain version and the keep
+               kernel at the client's candidates; YOLO(url).val on the frames'
+               labels, scored as JAX's BackendValidator scores a served model
+               (its first output's columns past the boxes read as classes,
+               ROADMAP §3.45), counted (the class-count probe and one batch:
+               12 + 1), the client on the card against the client on the CPU
+               (within 1e-4 per key); a served classifier's val raises
+               ValueError; predict ms per image and one request's ms
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -474,8 +512,18 @@ OBB_EPOCHS, OBB_BATCH = 3, 16  # phase obb: YOLO("yolo11n-obb.yaml").train at it
 OBB_STEP_RTOL = 1e-4  # phase obb: the first f32 step's loss items on the card against the CPU's, relative
 OBB_PX_TOL, OBB_RAD_TOL = 1e-2, 1e-4  # phase obb: the card's f32 predict against the CPU's, xywh in px, angle
 OBB_DIGESTS = ROOT / "tests" / "torch_data" / "obb" / "polylines_digests.json"  # cv2's polylines and boxPoints
+CLS_EPOCHS, CLS_BATCH = 3, 16  # phase classify: YOLO("yolo11n-cls.yaml").train at its defaults (batch 16)
+CLS_VAL_IMAGES = 24  # the stand-in's val split: 8 per class
+CLS_BOTTLENECKS = 4  # fused bottleneck launches per yolo11n-cls forward: layers 6 (C = 32) and 8 (C = 64), 2 each
+CLS_PROB_TOL = 1e-5  # phase classify and serve_tasks: probs on the card against the CPU's (and served against local)
+CLS_STEP_RTOL = 1e-5  # phase classify: the first f32 step's loss on the card against the CPU's, relative
+SERVE_TASK_FRAMES = 8  # phase serve_tasks: the frames of each predict and val, one batch
+SERVE_TASK_CONF = 0.0  # phase serve_tasks: every candidate, the top 30 kept (a model seeded from its YAML scores ~1e-5)
+SERVE_TASK_PX_TOL = 1e-3  # phase serve_tasks: served boxes, rotated boxes and keypoints against local, px
+SERVE_TASK_MASK_SHARE = 1e-3  # phase serve_tasks: unequal mask pixels, served against local, a share
+TASK_CKPTS: dict = {}  # phases segment, pose, obb and classify: their trained checkpoints, for phase serve_tasks
 SECOND_CKPT: list = []  # phase train_loop's best.ckpt, kept for the ensemble of phase predict_extras
-KEEP_DIR: list = []  # a directory for SECOND_CKPT, removed when the script ends
+KEEP_DIR: list = []  # a directory for SECOND_CKPT and TASK_CKPTS, removed when the script ends
 
 
 def emit(phase: str, **kw) -> None:
@@ -3712,8 +3760,8 @@ def run_files(save_dir, epochs: int) -> dict:
             "last_row": rows[-1], "tensorboard_installed": tensorboard, "event_files": len(events)}
 
 
-def keep_checkpoint(path) -> None:
-    """A copy of a checkpoint in KEEP_DIR, its path in SECOND_CKPT."""
+def _keep_dir() -> Path:
+    """KEEP_DIR's directory, made at first use and removed when the script ends."""
     import atexit
     import shutil
     import tempfile
@@ -3721,7 +3769,21 @@ def keep_checkpoint(path) -> None:
     if not KEEP_DIR:
         KEEP_DIR.append(tempfile.mkdtemp(prefix="chip_smoke_"))
         atexit.register(shutil.rmtree, KEEP_DIR[0], True)
-    SECOND_CKPT[:] = [shutil.copy(path, Path(KEEP_DIR[0]) / "second.ckpt")]
+    return Path(KEEP_DIR[0])
+
+
+def keep_checkpoint(path) -> None:
+    """A copy of a checkpoint in KEEP_DIR, its path in SECOND_CKPT."""
+    import shutil
+
+    SECOND_CKPT[:] = [shutil.copy(path, _keep_dir() / "second.ckpt")]
+
+
+def keep_task_checkpoint(task: str, path) -> None:
+    """A copy of a task phase's trained checkpoint in KEEP_DIR, its path in TASK_CKPTS[task]."""
+    import shutil
+
+    TASK_CKPTS[task] = shutil.copy(path, _keep_dir() / f"{task}.ckpt")
 
 
 def bottleneck_inputs(dtype):
@@ -3991,6 +4053,7 @@ def phase_segment():
                   for e in tr.epoch_log]
         best = Path(tmp) / "best.ckpt"
         best.write_bytes(tr.best.read_bytes())
+        keep_task_checkpoint("segment", best)
 
         # one f32 epoch in host mode with copy_paste
         host = YOLO("yolo11n-seg.yaml")
@@ -4165,6 +4228,7 @@ def phase_pose():
                   for e in tr.epoch_log]
         best = Path(tmp) / "best.ckpt"
         best.write_bytes(tr.best.read_bytes())
+        keep_task_checkpoint("pose", best)
 
         # one f32 epoch in host mode
         host = YOLO("yolo11n-pose.yaml")
@@ -4396,6 +4460,7 @@ def phase_obb():
                   for e in tr.epoch_log]
         best = Path(tmp) / "best.ckpt"
         best.write_bytes(tr.best.read_bytes())
+        keep_task_checkpoint("obb", best)
 
         # one f32 epoch in host mode
         host = YOLO("yolo11n-obb.yaml")
@@ -4528,6 +4593,281 @@ def phase_obb():
     return launches, checks
 
 
+def phase_classify():
+    """The classify task on the card (see the module docstring, 24)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.build import DataLoader
+    from spectrogram_yolov11_torch.data.dataset import check_cls_dataset
+    from spectrogram_yolov11_torch.data.imageio import imread
+    from spectrogram_yolov11_torch.engine.classify import ClassificationTrainer
+    from spectrogram_yolov11_torch.nn.tasks import build_model
+
+    t_phase = time.perf_counter()
+    none = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": 0}
+    per_val = CLS_BOTTLENECKS * -(-CLS_VAL_IMAGES // CLS_BATCH)  # 4 bottlenecks per val batch, 2 batches
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "imagenette160"
+        t0 = time.perf_counter()
+        info = check_cls_dataset(str(root))
+        gen_s = time.perf_counter() - t0
+        val_files = sorted(Path(info["val"]).rglob("*.jpg"))
+        require(info["nc"] == 3 and len(list(Path(info["train"]).rglob("*.jpg"))) == 96
+                and len(val_files) == CLS_VAL_IMAGES, f"the classify stand-in at {root}: {info}")
+
+        # YOLO("yolo11n-cls.yaml").train at its defaults: 224 px, batch 16, f32 steps, an EMA val per epoch
+        yolo = YOLO("yolo11n-cls.yaml")
+        require(yolo.model.bottlenecks() == {"fused": [(6, 32), (6, 32), (8, 64), (8, 64)], "gated": []},
+                f"yolo11n-cls bottlenecks {yolo.model.bottlenecks()}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, launches["train"] = run_counted(lambda: yolo.train(data=str(root), epochs=CLS_EPOCHS),
+                                                 dict(none, fused_bottleneck=per_val * CLS_EPOCHS),
+                                                 "YOLO('yolo11n-cls.yaml').train")
+        train_s, peak_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+        tr = yolo.trainer
+        require(tr.imgsz == 224 and tr.batch_size == CLS_BATCH and len(tr.epoch_log) == CLS_EPOCHS
+                and list(metrics) == ["metrics/accuracy_top1", "metrics/accuracy_top5", "fitness"]
+                and yolo.model.nc == 1000, f"classify trainer {tr.imgsz}, {tr.batch_size}, {metrics}")
+        epochs = [dict(e, ms_per_step_with_wait=(e["seconds"] - e["val_s"]) / e["steps"] * 1e3) for e in tr.epoch_log]
+        ckpt = Path(tmp) / "yolo11n-cls.ckpt"
+        yolo.save(ckpt)
+        keep_task_checkpoint("classify", ckpt)
+
+        # val (top-1, top-5) counted, the kernel at its inputs (16x14x14x32, 16x7x7x64), against the CPU
+        card, cpu = YOLO(str(ckpt)), YOLO(str(ckpt), device="cpu")
+        kw = dict(data=str(root), imgsz=224, batch=CLS_BATCH)
+        cap, stop = capture_val_inputs(torch.float32)
+        try:
+            t0 = time.perf_counter()
+            v_card, launches["val"] = run_counted(lambda: card.val(**kw), dict(none, fused_bottleneck=per_val),
+                                                  "classify val")
+            val_s = time.perf_counter() - t0
+        finally:
+            stop()
+        v_cpu = cpu.val(**kw)
+        require(v_card == v_cpu, f"classify val card {v_card} vs CPU {v_cpu}")
+        checks, times = {}, {}
+        with torch.inference_mode():
+            for i, m in enumerate(k for k in cap if k != "feats"):
+                d = bottleneck_check(f"classify val {i}", layer_case(m, cap[m]))
+                c = d["shape"][-1]
+                if f"C{c}" not in times:  # the map of layer 6 (C = 32) and of layer 8 (C = 64), 2 launches each
+                    times[f"C{c}"] = dict(bottleneck_times("layer6" if c == 32 else "layer8", d),
+                                          launches_per_forward=2)
+                checks[f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
+        shapes = sorted(d["shape"] for d in checks.values())
+        require(shapes == [[CLS_BATCH, 7, 7, 64]] * 2 + [[CLS_BATCH, 14, 14, 32]] * 2, f"classify val inputs {shapes}")
+
+        # predict on the 24 val images, one per call as JAX's, f32 and half=True; the card against the CPU
+        imgs = [imread(f) for f in val_files]
+        out, times_pred, half_checks = {}, {}, {}
+        for half in (False, True):
+            tag, kernel = ("bf16", "fused_bottleneck_bf16") if half else ("f32", "fused_bottleneck")
+            cap, stop = capture_val_inputs(torch.bfloat16) if half else ({}, lambda: None)
+            try:
+                out[tag], launches[f"predict_{tag}"] = run_counted(
+                    lambda: card.predict(imgs, imgsz=224, half=half),
+                    dict(none, **{kernel: CLS_BOTTLENECKS * len(imgs)}), f"classify predict {tag}")
+            finally:
+                stop()
+            if half:
+                with torch.inference_mode():
+                    for i, m in enumerate(k for k in cap if k != "feats"):
+                        d = bottleneck_check(f"classify predict bf16 {i}", layer_case(m, cap[m]))
+                        half_checks[f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
+            for _ in range(2):
+                t0 = time.perf_counter()
+                card.predict(imgs, imgsz=224, half=half)
+                times_pred.setdefault(tag, []).append((time.perf_counter() - t0) / len(imgs) * 1e3)
+        ref = cpu.predict(imgs, imgsz=224)
+        prob_err = max(float(np.abs(a.probs.data - b.probs.data).max()) for a, b in zip(out["f32"], ref))
+        top5_equal = all(a.probs.top5 == b.probs.top5 for a, b in zip(out["f32"], ref))
+        require(prob_err <= CLS_PROB_TOL and top5_equal, f"classify predict probs {prob_err}, top-5 equal {top5_equal}")
+        half_err = max(float(np.abs(a.probs.data - b.probs.data).max()) for a, b in zip(out["bf16"], out["f32"]))
+        require(len(half_checks) == 4 and np.isfinite(half_err), f"classify bf16 predict: {len(half_checks)} inputs")
+
+        # the first f32 step's loss on the card against the CPU's, same batch of 16
+        items = {}
+        batch = None
+        for dev in ("cuda", "cpu"):
+            t = ClassificationTrainer(build_model("yolo11n-cls.yaml", nc=3).init(0), dict(data=str(root), device=dev))
+            ds = t.setup_data()
+            t.setup_model()
+            t.setup_optimizer(96 // CLS_BATCH)
+            if batch is None:
+                batch = next(iter(DataLoader(ds, CLS_BATCH, workers=2, shuffle=True, seed=0, drop_last=True)))
+            items[dev] = t.train_step(batch, 0, True)[1].float().cpu().numpy()
+        step_rel = float(np.abs(items["cuda"] - items["cpu"]).max() / np.abs(items["cpu"]).max())
+        require(step_rel <= CLS_STEP_RTOL, f"classify step loss card {items['cuda']} vs CPU {items['cpu']}")
+
+        # one epoch of yolo11-cls-resnet18 (the TorchVision stand-in: cuDNN, no fused bottleneck)
+        resnet = YOLO("yolo11-cls-resnet18.yaml")
+        t0 = time.perf_counter()
+        resnet_metrics, launches["resnet18_train"] = run_counted(lambda: resnet.train(data=str(root), epochs=1), none,
+                                                                 "YOLO('yolo11-cls-resnet18.yaml').train")
+        resnet_s = time.perf_counter() - t0
+        require(all(np.isfinite(list(resnet_metrics.values()))), f"resnet18 metrics {resnet_metrics}")
+    emit("classify", seconds=time.perf_counter() - t_phase, dataset_gen_s=gen_s, train_s=train_s,
+         train_epochs=epochs, peak_gb=peak_gb, train_metrics=metrics, val=v_card, val_s=val_s,
+         val_ms_per_image=val_s / CLS_VAL_IMAGES * 1e3, bottleneck=checks, bottleneck_times=times,
+         predict_ms_per_image={k: sorted(v) for k, v in times_pred.items()},
+         predict_card_vs_cpu={"max_prob_err": prob_err, "top5_equal": top5_equal},
+         predict_bf16_vs_f32_max_prob_err=half_err, predict_bf16_bottleneck=half_checks,
+         first_step_loss={"card": items["cuda"].tolist(), "cpu": items["cpu"].tolist(), "rel": step_rel},
+         resnet18={"train_s": resnet_s, "metrics": resnet_metrics}, launches=launches)
+    return launches, checks, half_checks, times
+
+
+def phase_serve_tasks():
+    """Serving the segment, pose, OBB and classify models (see the module docstring, 25)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset
+    from spectrogram_yolov11_torch.data.imageio import imread
+    from spectrogram_yolov11_torch.ops.decode import decode_detections
+    from spectrogram_yolov11_torch.ops.nms import nms_candidates
+    from spectrogram_yolov11_torch.serve import InferenceServer, RemoteModel
+
+    t_phase = time.perf_counter()
+    none = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": 0}
+    yamls = {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml", "obb": "yolo11n-obb.yaml",
+             "classify": "yolo11n-cls.yaml"}
+    launches, checks, nms, rows = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts, sources = {}, {}
+        for task, yaml in yamls.items():  # the phases' trained checkpoints, else seeded models from their YAMLs
+            if task in TASK_CKPTS:
+                ckpts[task], sources[task] = str(TASK_CKPTS[task]), f"phase {task}"
+            else:
+                ckpts[task], sources[task] = str(Path(tmp) / f"{task}.ckpt"), f"{yaml}, seed 0"
+                YOLO(yaml).save(ckpts[task])
+        data = check_det_dataset({"path": str(Path(tmp) / "shapes"), "train": "images/train", "val": "images/val",
+                                  "synthetic": "shapes", "n_train": 1, "n_val": SERVE_TASK_FRAMES, "gen_imgsz": 640,
+                                  "names": {0: "rectangle", 1: "ellipse", 2: "triangle"}})
+        frames = [imread(f) for f in sorted(Path(data["val"]).glob("*.jpg"))]
+        require(len(frames) == SERVE_TASK_FRAMES, f"{len(frames)} frames at {data['val']}")
+        t0 = time.perf_counter()
+        srv = InferenceServer(ckpts, port=0).start()
+        start_s = time.perf_counter() - t0
+        try:
+            for task in yamls:
+                url = f"http://127.0.0.1:{srv.port}/{task}"
+                t0 = time.perf_counter()
+                remote, local = YOLO(url), YOLO(ckpts[task])  # the metadata's probe forward runs here
+                attach_s = time.perf_counter() - t0
+                md = remote.backend._remote.metadata
+                require(remote.task == md["task"] == task and ("kpt_shape" in md) == (task == "pose"),
+                        f"served {task} metadata {md}")
+                n_b = CLS_BOTTLENECKS if task == "classify" else 6
+                keep = int(task in ("segment", "pose"))
+                kw = dict(save=False, batch=SERVE_TASK_FRAMES, **({"imgsz": 224} if task == "classify" else
+                                                                  {"conf": SERVE_TASK_CONF, "max_det": 30}))
+                want = dict(none, fused_bottleneck=n_b, greedy_keep=keep)
+                cap, stop = capture_val_inputs(torch.float32)
+                try:
+                    got, launches[f"{task}_remote_predict"] = run_counted(lambda: remote.predict(frames, **kw), want,
+                                                                          f"YOLO(url).predict, {task}")
+                finally:
+                    stop()
+                ref, launches[f"{task}_local_predict"] = run_counted(lambda: local.predict(frames, **kw), want,
+                                                                     f"YOLO(ckpt).predict, {task}")
+                with torch.inference_mode():
+                    checks[task] = {}
+                    for i, m in enumerate(k for k in cap if k != "feats"):
+                        d = bottleneck_check(f"served {task} {i}", layer_case(m, cap[m]))
+                        checks[task][f"bottleneck{i}"] = {k: v for k, v in d.items() if "args" not in k}
+                    require(len(checks[task]) == n_b, f"served {task}: {len(checks[task])} bottleneck inputs")
+                    if keep:  # the client's candidates: each anchor's best class, predict's k = 1024
+                        nc = remote.predictor.nc
+                        preds = decode_detections(cap["feats"], nc, remote.stride)
+                        _, _, _, valid, boxes = nms_candidates(preds, SERVE_TASK_CONF, nc, multi_label=False,
+                                                               pre_nms_topk=1024)
+                        nms[task] = nms_check(boxes, valid)
+                err = {"max_box_err_px": 0.0, "detections": 0}
+                for a, b in zip(got, ref):
+                    if task == "classify":
+                        require(a.probs.top5 == b.probs.top5, f"served classify top-5 {a.probs.top5} vs {b.probs.top5}")
+                        err["max_prob_err"] = max(err.get("max_prob_err", 0.0),
+                                                  float(np.abs(a.probs.data - b.probs.data).max()))
+                        continue
+                    da, db = (x.obb.data if task == "obb" else x.boxes.data for x in (a, b))
+                    require(da.shape == db.shape, f"served {task}: {da.shape} vs local {db.shape}")
+                    err["detections"] += len(da)
+                    if len(da):
+                        err["max_box_err_px"] = max(err["max_box_err_px"], float(np.abs(da - db).max()))
+                    if task == "segment" and len(da):
+                        err["unequal_mask_pixels"] = err.get("unequal_mask_pixels", 0) + int(
+                            (a.masks.data != b.masks.data).sum())
+                        err["mask_pixels"] = err.get("mask_pixels", 0) + a.masks.data.size
+                    if task == "pose" and len(da):
+                        err["max_kpt_err_px"] = max(err.get("max_kpt_err_px", 0.0),
+                                                    float(np.abs(a.keypoints.data - b.keypoints.data).max()))
+                if task == "classify":
+                    cpu = YOLO(ckpts[task], device="cpu").predict(frames, **kw)
+                    err["card_vs_cpu_max_prob_err"] = max(float(np.abs(a.probs.data - b.probs.data).max())
+                                                          for a, b in zip(got, cpu))
+                    require(err["max_prob_err"] <= CLS_PROB_TOL and err["card_vs_cpu_max_prob_err"] <= CLS_PROB_TOL
+                            and all(a.probs.top5 == b.probs.top5 for a, b in zip(got, cpu)),
+                            f"served classify probs {err}")
+                else:
+                    share = err.get("unequal_mask_pixels", 0) / max(err.get("mask_pixels", 1), 1)
+                    require(err["detections"] > 0 and err["max_box_err_px"] <= SERVE_TASK_PX_TOL
+                            and err.get("max_kpt_err_px", 0.0) <= SERVE_TASK_PX_TOL and share <= SERVE_TASK_MASK_SHARE,
+                            f"served {task} against local: {err}")
+                # YOLO(url).val: JAX's BackendValidator reading (ROADMAP §3.45), the client on the card and on the CPU
+                if task == "classify":
+                    try:
+                        remote.val(data=data, batch=SERVE_TASK_FRAMES, plots=False)
+                        raise RuntimeError("YOLO(url).val of a served classifier ran")
+                    except ValueError as e:
+                        val = {"raises": str(e)[:80]}
+                else:
+                    vkw = dict(data=data, batch=SERVE_TASK_FRAMES, plots=False)
+                    v_card, launches[f"{task}_remote_val"] = run_counted(
+                        lambda: remote.val(**vkw), dict(none, fused_bottleneck=12, greedy_keep=1),
+                        f"YOLO(url).val, {task}")  # the class-count probe (6) and one batch (6), the client's NMS
+                    v_cpu = YOLO(url, device="cpu").val(**vkw)
+                    diff = max(abs(v_card[k] - v_cpu[k]) for k in v_card)
+                    require(list(v_card) == list(v_cpu) and diff <= VAL_TOL, f"served {task} val {v_card} vs {v_cpu}")
+                    val = {"card": v_card, "max_abs_diff_to_cpu_client": diff,
+                           "classes_read": remote.validator.nc}
+                # times: the predict call per image, and one 640 px (224 px) frame's request
+                t_pred = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    remote.predict(frames, **kw)
+                    t_pred.append((time.perf_counter() - t0) / len(frames) * 1e3)
+                cli, s = RemoteModel(url), 224 if task == "classify" else 640
+                x = np.zeros((1, s, s, 3), np.uint8)
+                t_req = []
+                for _ in range(11):
+                    t0 = time.perf_counter()
+                    cli(x)
+                    t_req.append((time.perf_counter() - t0) * 1e3)
+                rows[task] = dict(source=sources[task], attach_s=attach_s, remote_vs_local=err, val=val,
+                                  predict_ms_per_image=sorted(t_pred), request_ms_p50=float(np.median(t_req[1:])),
+                                  request_ms_max=max(t_req[1:]))
+        finally:
+            srv.shutdown()
+    emit("serve_tasks", seconds=time.perf_counter() - t_phase, server_start_s=start_s, tasks=rows,
+         bottleneck={t: {"max_abs_err": max(d["max_abs_err"] for d in c.values()),
+                         "shapes": sorted(d["shape"] for d in c.values())} for t, c in checks.items()},
+         nms_client={t: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean",
+                                           "mismatches")} for t, d in nms.items()},
+         launches=launches)
+    return launches, checks, nms
+
+
 def main() -> int:
     import torch
 
@@ -4573,6 +4913,8 @@ def main() -> int:
     seg_launches, seg_checks, nms_seg = phase_segment()
     pose_launches, pose_checks, nms_pose = phase_pose()
     obb_launches, obb_checks = phase_obb()
+    cls_launches, cls_checks, cls_half_checks, cls_times = phase_classify()
+    st_launches, st_checks, st_nms = phase_serve_tasks()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -4605,6 +4947,12 @@ def main() -> int:
 
     def obb_paths(kernel: str) -> dict:
         return {f"obb_{path}": got[kernel] for path, got in obb_launches.items()}
+
+    def cls_paths(kernel: str) -> dict:
+        return {**{f"classify_{path}": got[kernel] for path, got in cls_launches.items()},
+                **{f"serve_tasks_{path}": got[kernel] for path, got in st_launches.items()}}
+
+    st_f32 = [d for c in st_checks.values() for d in c.values()]
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
         dict(name="fused_bottleneck", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
@@ -4625,6 +4973,7 @@ def main() -> int:
                                "host_augment": sum(v["fused_bottleneck"] for v in host_launches.values()),
                                **extras_paths("fused_bottleneck"), **seg_paths("fused_bottleneck"),
                                **pose_paths("fused_bottleneck"), **obb_paths("fused_bottleneck"),
+                               **cls_paths("fused_bottleneck"),
                                **serve_paths("fused_bottleneck", serve_launches["remote_val"]["fused_bottleneck"])},
              max_abs_err=max(d["max_abs_err"] for d in (*bottleneck.values(), *b1_bottleneck.values(),
                                                          *images_checks["fused_bottleneck"].values(),
@@ -4634,12 +4983,18 @@ def main() -> int:
                                                          *save_checks["arrays_f32"].values(),
                                                          *art_checks["val_f32"].values(), *fork_f32,
                                                          *extras_f32, *seg_checks.values(),
-                                                         *pose_checks["val"].values(), *obb_checks["val"].values())),
+                                                         *pose_checks["val"].values(), *obb_checks["val"].values(),
+                                                         *cls_checks.values(), *st_f32)),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_f32),
              predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_f32),
              segment_val_max_abs_err=max(d["max_abs_err"] for d in seg_checks.values()),
              pose_val_max_abs_err=max(d["max_abs_err"] for d in pose_checks["val"].values()),
              obb_val_max_abs_err=max(d["max_abs_err"] for d in obb_checks["val"].values()),
+             classify_val_max_abs_err=max(d["max_abs_err"] for d in cls_checks.values()),
+             serve_tasks_max_abs_err=max(d["max_abs_err"] for d in st_f32),
+             classify_val_maps={k: {f: d[f] for f in ("shape", "launches_per_forward", "ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms", "share_of_bound")}
+                                for k, d in cls_times.items()},
              ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
              bound_by="operations" if fb_ops_bound else "bytes", library_ms=per_forward("library_ms"),
              bound_f32_cuda_cores_ms=per_forward("bound_f32_cuda_cores_ms"),
@@ -4661,6 +5016,7 @@ def main() -> int:
                                "host_augment": sum(v["fused_bottleneck_bf16"] for v in host_launches.values()),
                                **extras_paths("fused_bottleneck_bf16"), **seg_paths("fused_bottleneck_bf16"),
                                **pose_paths("fused_bottleneck_bf16"), **obb_paths("fused_bottleneck_bf16"),
+                               **cls_paths("fused_bottleneck_bf16"),
                                **serve_paths("fused_bottleneck_bf16",
                                              serve_launches["remote_val_half"]["fused_bottleneck_bf16"])},
              max_abs_err=max(d["max_abs_err"] for d in (*half_checks.values(), *b1_half.values(),
@@ -4669,7 +5025,8 @@ def main() -> int:
                                                          *serve_checks["fused_bottleneck_bf16"].values(),
                                                          *save_checks["arrays_bf16"].values(),
                                                          *art_checks["val_bf16"].values(), *fork_bf16,
-                                                         *host_bf16, *extras_bf16, *pose_bf16, *obb_bf16)),
+                                                         *host_bf16, *extras_bf16, *pose_bf16, *obb_bf16,
+                                                         *cls_half_checks.values())),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_bf16),
              host_augment_max_abs_err=max(d["max_abs_err"] for d in host_bf16),
              predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_bf16),
@@ -4689,7 +5046,7 @@ def main() -> int:
                                                                  *save_checks["arrays_bf16"].values(),
                                                                  *art_checks["val_bf16"].values(), *fork_bf16,
                                                                  *host_bf16, *extras_bf16, *pose_bf16,
-                                                                 *obb_bf16)),
+                                                                 *obb_bf16, *cls_half_checks.values())),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -4719,7 +5076,7 @@ def main() -> int:
                                "fork": fork_paths("greedy_keep"),
                                "host_augment": sum(v["greedy_keep"] for v in host_launches.values()),
                                **extras_paths("greedy_keep"), **seg_paths("greedy_keep"), **pose_paths("greedy_keep"),
-                               **obb_paths("greedy_keep"),
+                               **obb_paths("greedy_keep"), **cls_paths("greedy_keep"),
                                **serve_paths("greedy_keep", serve_launches["remote_val"]["greedy_keep"]
                                              + serve_launches["remote_val_half"]["greedy_keep"])},
              max_abs_err=0.0,
@@ -4759,6 +5116,8 @@ def main() -> int:
                                                         "scan_steps_mean", "mismatches")},
              pose_k2048={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean",
                                                "mismatches")} for p, d in nms_pose.items()},
+             serve_tasks_client_k1024={t: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                             "scan_steps_mean", "mismatches")} for t, d in st_nms.items()},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

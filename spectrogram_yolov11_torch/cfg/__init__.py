@@ -29,7 +29,7 @@ rest (every one is accepted at its default, and `get_cfg` handles it so):
 | `pretrained`, `deterministic`, `freeze`, `bgr`, `dropout`, `save_hybrid`, `dnn` | read nowhere | inert |
 | `overlap_mask`, `mask_ratio` | the segment task's loss (overlap), its instance masks and validator (mask_ratio) | read as JAX does by the segment task (engine/trainer.py:SegmentationTrainer; overlap_mask=False raises JAX's ValueError); inert for detect |
 | `pose`, `kobj` | the pose task's loss gains | read as JAX does by the pose task (engine/trainer.py:PoseTrainer); inert for detect, segment and obb |
-| `retina_masks`, `copy_paste_mode`, `auto_augment`, `erasing`, `crop_fraction` | read by the classify path only, or nowhere | inert (JAX's segment, pose and obb paths read none of them) |
+| `retina_masks`, `copy_paste_mode`, `auto_augment`, `erasing`, `crop_fraction` | read by the classify path only, or nowhere | inert (JAX's segment, pose, obb and classify paths read none of them: its classify augmentations are fixed) |
 | `augment`, `visualize` | TTA and feature maps in predict; read by no other mode | honoured in predict (engine/predictor.py: TTA's device function, the feature-map PNGs); read by no other mode, as in JAX |
 | `line_width`, `show_conf`, `show_labels` | predict's saved plots | honoured (Results.plot) |
 | `show_boxes` | read nowhere | inert |
@@ -40,8 +40,8 @@ rest (every one is accepted at its default, and `get_cfg` handles it so):
 | `tracker` | YOLO.track | the same: item 12 |
 
 `entrypoint` is the `yolo` command's parser (JAX :232) for the verbs
-`train`, `val` and `predict` (the task word `detect`, `segment`, `pose` or `obb`
-optional), with `k=v`
+`train`, `val` and `predict` (the task word `detect`, `segment`, `pose`, `obb`
+or `classify` optional), with `k=v`
 and `cfg=<yaml>` overrides, and `serve` (JAX :307-321), which also takes
 device=; the other modes and verbs raise with their ROADMAP.md items. It
 defaults as JAX's: mode train, model yolo11n.yaml, data (train and val
@@ -49,7 +49,10 @@ without it, and no checkpoint data) shapes128.yaml, the port's copy of JAX's
 (64 + 16 synthetic shapes at 640 px, written as JAX writes them at first
 use, data/synth.py); for `segment`, yolo11n-seg.yaml and shapes128-seg.yaml;
 for `pose`, yolo11n-pose.yaml and shapes128-pose.yaml; for `obb`,
-yolo11n-obb.yaml and shapes128-obb.yaml. `python -m
+yolo11n-obb.yaml and shapes128-obb.yaml; for `classify`, yolo11n-cls.yaml
+and imagenette160 (a folder under the repo's datasets/, synthesised by the
+trainer at first use; val and predict read `data` and `source` as paths, as
+JAX's). `python -m
 spectrogram_yolov11_torch ...` runs it; the
 port installs no console script: `yolo` stays the JAX package's.
 """
@@ -291,15 +294,15 @@ def parse_key_value_pairs(pairs: list) -> dict:
 
 TASKS = {"detect", "segment", "classify", "pose", "obb"}
 MODES = {"train", "val", "predict", "export", "track", "benchmark"}
-TASK2DATA = {"detect": "shapes128.yaml", "segment": "shapes128-seg.yaml",
+TASK2DATA = {"detect": "shapes128.yaml", "segment": "shapes128-seg.yaml", "classify": "imagenette160",
              "pose": "shapes128-pose.yaml", "obb": "shapes128-obb.yaml"}  # JAX's (cfg/__init__.py:32-45)
-TASK2MODEL = {"detect": "yolo11n.yaml", "segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml",
-              "obb": "yolo11n-obb.yaml"}
+TASK2MODEL = {"detect": "yolo11n.yaml", "segment": "yolo11n-seg.yaml", "classify": "yolo11n-cls.yaml",
+              "pose": "yolo11n-pose.yaml", "obb": "yolo11n-obb.yaml"}
 
 CLI_HELP_MSG = """
     Usage: python -m spectrogram_yolov11_torch [TASK] MODE [ARGS]
 
-        TASK (optional): detect, segment, pose or obb
+        TASK (optional): detect, segment, pose, obb or classify
         MODE (required): one of {train, val, predict}, or serve
         ARGS (optional): 'key=value' overrides, e.g. imgsz=640 data=spectrogram_synth.yaml, and cfg=<yaml>
 
@@ -310,6 +313,7 @@ CLI_HELP_MSG = """
         python -m spectrogram_yolov11_torch segment train data=shapes128-seg.yaml epochs=3
         python -m spectrogram_yolov11_torch pose train data=shapes128-pose.yaml epochs=3
         python -m spectrogram_yolov11_torch obb train data=shapes128-obb.yaml epochs=3
+        python -m spectrogram_yolov11_torch classify train data=imagenette160 epochs=3
         python -m spectrogram_yolov11_torch serve model=runs/detect/train/weights/best.ckpt port=8000
 """
 
@@ -329,7 +333,7 @@ def _serve(argv: list) -> Any:
 
 
 def entrypoint(debug: str = "") -> Any:
-    """The `yolo` command line (JAX :232): `[detect|segment|pose|obb] train|val|predict k=v ...
+    """The `yolo` command line (JAX :232): `[detect|segment|pose|obb|classify] train|val|predict k=v ...
     [cfg=<yaml>]` builds YOLO(model, task=task) and calls the mode with the
     overrides (the card unless device=cpu); `serve model=best.ckpt [port=8000
     host=127.0.0.1 half=False device=cuda block=True data_parallel=False

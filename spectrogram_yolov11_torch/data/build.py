@@ -31,6 +31,12 @@ import numpy as np
 import torch
 
 
+def _tensor(a) -> torch.Tensor:
+    """A sample's field as a CPU tensor of its own shape (a scalar stays 0-d, as np.stack keeps it)."""
+    a = np.asarray(a)
+    return torch.from_numpy(a if a.flags["C_CONTIGUOUS"] else np.ascontiguousarray(a))
+
+
 def collate(samples: list, pin_memory: bool = False, stack_img: bool = False) -> Dict:
     """Stack the samples' fields into one batch; `img` stays a list unless
     stack_img (the train batch's equal-sized images). With pin_memory the
@@ -40,10 +46,10 @@ def collate(samples: list, pin_memory: bool = False, stack_img: bool = False) ->
         if k == "img" and not stack_img:
             out[k] = [s[k] for s in samples]
         elif pin_memory:
-            first = torch.from_numpy(np.ascontiguousarray(samples[0][k]))
+            first = _tensor(samples[0][k])
             t = torch.empty((len(samples), *first.shape), dtype=first.dtype, pin_memory=True)
             for j, s in enumerate(samples):
-                t[j].copy_(torch.from_numpy(np.ascontiguousarray(s[k])))
+                t[j].copy_(_tensor(s[k]))
             out[k] = t
         else:
             out[k] = np.stack([s[k] for s in samples])

@@ -1,4 +1,5 @@
-"""Detect, segment, pose and OBB datasets: YOLO-format images and label txts, for validation and training.
+"""Detect, segment, pose and OBB datasets: YOLO-format images and label txts, for validation and training;
+and the classify task's folder-per-class datasets.
 
 Counterpart of spectrogram_yolov11_tpu/data/dataset.py for the detect,
 segment, pose and obb tasks: IMG_FORMATS (:27), img2label_path (:30),
@@ -34,6 +35,21 @@ assembled from on the card or its image augmented on the host
 (TrainTransform, in the mode data/augment.py:resolve_device_augment picks
 from the train args).
 
+The classify task (JAX :80 check_cls_dataset, :569 ClassificationDataset):
+check_cls_dataset resolves a folder-per-class dataset (an absolute path, a
+name under the repo's datasets/, or a dataset YAML such as ImageNet.yaml,
+whose `names` fix the class folders) and synthesises the missing ones as
+JAX's does (data/synth.py:gen_cls_shapes: 32 + 8 images per class of the
+3-shape schema for a folder, n_per_class and half that from a YAML).
+ClassificationDataset(root, imgsz, augment) reads root/<class>/<image>:
+its train samples (augment=True) are JAX's draws from the sample's
+Generator (RandomResizedCrop over the area [0.08, 1] and aspect [3/4, 4/3]
+in up to 10 tries, the INTER_LINEAR resize to imgsz x imgsz by
+data/augment.py:resize_linear_u8, a left-right flip at 0.5, augment_hsv
+at 0.015, 0.4, 0.4, random erasing at 0.4), its val samples the short side
+resized to imgsz and the centre crop; each {img (S, S, 3) uint8 RGB, cls
+int32}, byte-equal to JAX's.
+
 Dataset YAMLs given by name resolve among the port's own copies under
 cfg/datasets/. The synthetic ones point at datasets/torch/..., so the two
 packages never read or overwrite each other's stand-ins; Spectrogram.yaml
@@ -51,8 +67,8 @@ import numpy as np
 
 import torch
 
-from ..utils import LOGGER, yaml_load
-from .augment import TrainTransform, ValTransform, resize_linear_u8
+from ..utils import LOGGER, REPO_ROOT, yaml_load
+from .augment import TrainTransform, ValTransform, augment_hsv, resize_linear_u8
 from .imageio import imread
 
 IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
@@ -357,3 +373,98 @@ class YOLODataset:
     def close_mosaic(self) -> None:
         if self.augment:
             self.transform.close_mosaic()
+
+
+def check_cls_dataset(data: str | Path) -> dict:
+    """{train, val, nc, names} of a folder-per-class dataset (JAX :80): a
+    dataset YAML (path or packaged name) whose train folder is missing is
+    synthesised with its `names` (n_per_class per class at gen_imgsz into
+    train, max(1, n_per_class // 2) with seed 10000 into val) and read from
+    its `path`; a relative name that does not exist is read under the repo's
+    datasets/; a folder without train/ gets the 3-shape stand-in (32 train
+    and 8 val images per class). val is val/, else test/, else None; the
+    classes are train/'s sub-folders, sorted."""
+    from .synth import gen_cls_shapes
+
+    if str(data).endswith((".yaml", ".yml")):
+        spec = yaml_load(find_dataset_yaml(data), append_filename=True)
+        root = Path(spec.get("path") or ".")
+        if not root.is_absolute():
+            root = (Path(spec["yaml_file"]).parent / root).resolve()
+        if not (root / str(spec.get("train", "train"))).exists():
+            names = spec.get("names")
+            names = [names[k] for k in sorted(names)] if isinstance(names, dict) else list(names)
+            npc, imgsz = int(spec.get("n_per_class", 2)), int(spec.get("gen_imgsz", 160))
+            LOGGER.info(f"Generating synthetic classification stand-in at {root} ({len(names)} classes)...")
+            gen_cls_shapes(root, str(spec.get("train", "train")), npc, imgsz, names=names)
+            gen_cls_shapes(root, str(spec.get("val", "val")), max(1, npc // 2), imgsz, seed=10_000, names=names)
+        data = root
+    root = Path(data)
+    if not root.is_absolute() and not root.exists():
+        root = REPO_ROOT / "datasets" / root
+    if not (root / "train").exists():
+        LOGGER.info(f"Generating synthetic classification dataset at {root}...")
+        gen_cls_shapes(root, "train", 32)
+        gen_cls_shapes(root, "val", 8, seed=10_000)
+    val = root / "val" if (root / "val").exists() else (root / "test" if (root / "test").exists() else None)
+    names = sorted(d.name for d in (root / "train").iterdir() if d.is_dir())
+    if not names:
+        raise FileNotFoundError(f"no class folders under {root / 'train'}")
+    return {"train": str(root / "train"), "val": str(val) if val else None,
+            "nc": len(names), "names": dict(enumerate(names))}
+
+
+class ClassificationDataset:
+    """root/<class name>/<image> (JAX :569): `samples` (path, class index) in
+    JAX's order (the class folders as the directory lists them, each one's
+    images sorted), `names` {index: class}; get_item(i, rng) the sample as
+    the module docstring says (rng only with augment)."""
+
+    def __init__(self, root: str | Path, imgsz: int = 224, augment: bool = False):
+        self.root = Path(root)
+        classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples = [(str(f), self.class_to_idx[d.name]) for d in self.root.iterdir() if d.is_dir()
+                        for f in sorted(d.rglob("*")) if f.suffix[1:].lower() in IMG_FORMATS]
+        self.imgsz = imgsz
+        self.augment = augment
+        self.names = {i: c for c, i in self.class_to_idx.items()}
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def get_item(self, i: int, rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:
+        path, label = self.samples[i]
+        img = imread(path)
+        h, w = img.shape[:2]
+        s = self.imgsz
+        if self.augment:
+            for _ in range(10):  # RandomResizedCrop
+                area = h * w * rng.uniform(0.08, 1.0)
+                ar = np.exp(rng.uniform(np.log(3 / 4), np.log(4 / 3)))
+                cw, ch = int(round(np.sqrt(area * ar))), int(round(np.sqrt(area / ar)))
+                if 0 < cw <= w and 0 < ch <= h:
+                    x0, y0 = int(rng.integers(0, w - cw + 1)), int(rng.integers(0, h - ch + 1))
+                    img = img[y0 : y0 + ch, x0 : x0 + cw]
+                    break
+            img = _resize(img, s, s)
+            if rng.random() < 0.5:
+                img = np.ascontiguousarray(np.fliplr(img))
+            augment_hsv(img, 0.015, 0.4, 0.4, rng)
+            if rng.random() < 0.4:  # random erasing
+                ew, eh = (rng.uniform(0.05, 0.25, 2) * s).astype(int)
+                ex, ey = int(rng.integers(0, s - ew)), int(rng.integers(0, s - eh))
+                img[ey : ey + eh, ex : ex + ew] = rng.integers(0, 255, (eh, ew, 3), dtype=np.uint8)
+        else:
+            r = s / min(h, w)
+            img = _resize(img, max(s, int(round(h * r))), max(s, int(round(w * r))))
+            hh, ww = img.shape[:2]
+            y0, x0 = (hh - s) // 2, (ww - s) // 2
+            img = img[y0 : y0 + s, x0 : x0 + s]
+        return {"img": np.ascontiguousarray(img[..., ::-1]), "cls": np.int32(label)}
+
+
+def _resize(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """cv2.resize(img, (nw, nh), INTER_LINEAR) of a uint8 HWC image, as a new C-contiguous array."""
+    out = resize_linear_u8(torch.from_numpy(np.ascontiguousarray(img))[None], nh, nw)[0].numpy()
+    return np.array(out)  # a copy: the same size comes back as the input itself

@@ -37,6 +37,12 @@ and the segment kind:
   corners with 6 decimals.
 
 Any other kind raises KeyError, as JAX's table lookup does.
+
+`gen_cls_shapes` (JAX :263) writes the classify task's folder-per-class
+stand-in (data/dataset.py:check_cls_dataset, the `cls-shapes` kind of
+ImageNet.yaml) byte for byte as JAX's: per image the same noise, then one
+filled glyph of the class's shape (class index % 3: rectangle, circle,
+triangle) in a colour from [120, 255), JPEG at quality 95.
 """
 
 from __future__ import annotations
@@ -284,3 +290,26 @@ def _gen_spectrogram(root: Path, split: str, n: int, imgsz: int, seed: int) -> N
         img, events = synth_frame(rng, imgsz, imgsz)
         _write_sample(root, split, i, img, [(c, (t0 + t1) / 2, (f0 + f1) / 2, t1 - t0, f1 - f0)
                                             for c, t0, t1, f0, f1 in events], ".png")
+
+
+def gen_cls_shapes(root: Path, split: str, n_per_class: int, imgsz: int = 160, seed: int = 0, names=None) -> None:
+    """n_per_class JPEGs of imgsz x imgsz per class under root/split/<name>/
+    (JAX :263, the same draws): `names` the class folders ("/" written as
+    "-"), by default the 3-shape schema rectangle, circle, triangle."""
+    rng = np.random.default_rng(seed)
+    for ci, name in enumerate(names if names is not None else ("rectangle", "circle", "triangle")):
+        d = Path(root) / split / str(name).replace("/", "-")
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(n_per_class):
+            base = rng.integers(40, 160, (imgsz // 8, imgsz // 8, 3), dtype=np.uint8)
+            img = resize_linear_u8(torch.from_numpy(base)[None], imgsz, imgsz)[0].numpy().copy()
+            color = tuple(int(c) for c in rng.integers(120, 255, 3))
+            cx, cy = (int(v) for v in (rng.uniform(0.3, 0.7, 2) * imgsz).astype(int))
+            r = int(rng.uniform(0.15, 0.3) * imgsz)
+            if ci % 3 == 0:
+                rectangle(img, (cx - r, cy - r), (cx + r, cy + r), color, -1)
+            elif ci % 3 == 1:
+                circle(img, (cx, cy), r, color)
+            else:
+                fill_poly(img, [(cx, cy - r), (cx - r, cy + r), (cx + r, cy + r)], color)
+            imwrite(d / f"{i:05d}.jpg", img)

@@ -1,6 +1,6 @@
 """The `YOLO` facade for the port. Counterpart of
 spectrogram_yolov11_tpu/engine/model.py:40 YOLO for the detect, segment,
-pose and obb tasks on model YAMLs and the JAX package's `.ckpt` checkpoints:
+pose, obb and classify tasks on model YAMLs and the JAX package's `.ckpt` checkpoints:
 
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").predict("capture.npy")
     YOLO("runs_artifacts/spectrogram_yolo11n.ckpt").val(data="spectrogram_synth.yaml", batch=32)
@@ -12,6 +12,7 @@ pose and obb tasks on model YAMLs and the JAX package's `.ckpt` checkpoints:
     YOLO("yolo11n-seg.yaml").train(data="shapes128-seg.yaml", epochs=3)   # the segment task
     YOLO("yolo11n-pose.yaml").train(data="shapes128-pose.yaml", epochs=3)   # the pose task
     YOLO("yolo11n-obb.yaml").train(data="shapes128-obb.yaml", epochs=3)   # the obb task
+    YOLO("yolo11n-cls.yaml").train(data="imagenette160", epochs=3)   # the classify task
 
 The task is the model's (its head: Segment -> "segment", Pose -> "pose",
 OBB -> "obb", JAX's guess_model_task), and picks the predictor, validator
@@ -20,11 +21,13 @@ and trainer as JAX's task maps do (:289, :300-320): SegmentationPredictor
 SegmentationTrainer for "segment"; PosePredictor (Results with keypoints),
 PoseValidator (box and OKS keypoint mAP) and PoseTrainer for "pose";
 OBBPredictor (Results with rotated boxes), OBBValidator (rotated-box mAP by
-probiou) and OBBTrainer for "obb". As JAX's facade, a model YAML puts its
-task in the overrides, so its training runs under runs/<task>/, while
-predict and val drop it (their run directories stay runs/detect/*).
-Classify raises (item 10), and so do a segment, pose or obb model's serving
-and ensembles (JAX's assert).
+probiou) and OBBTrainer for "obb"; ClassificationPredictor (Results with
+probs), ClassificationValidator (top-1 and top-5) and ClassificationTrainer
+(engine/classify.py) for "classify" (JAX :250-253, :292, :320). As JAX's
+facade, a model YAML puts its task in the overrides, so its training runs
+under runs/<task>/, while predict and val drop it (their run directories
+stay runs/detect/*). Ensembles of another task than detect raise (JAX's
+assert).
 
 A model YAML (a path, a packaged name such as `yolo11n.yaml`, or the bare
 name `yolo11n`, read as `yolo11n.yaml`) builds the network with fresh weights
@@ -50,11 +53,12 @@ even at half=False, as the JAX facade keeps the model whose dtype its
 trainer's setup_model changed in place; a later train(amp=False) sets it
 back to f32.
 A KServe-v2 URL (http:// or https://) makes an inference-only facade over the
-served model, as JAX's _load_remote (:130): predict runs
-serve.py:RemotePredictor and val validator.py:BackendValidator, each with its
-NMS on the client's device (the card unless device="cpu"); train, load,
-save and the other weight methods raise ValueError; names and stride come
-from the server's metadata.
+served model of any task, as JAX's _load_remote (:130): its task, names,
+stride and kpt_shape come from the server's metadata; predict runs
+serve.py:RemotePredictor (the task's predictor, its NMS on the client's
+device, the card unless device="cpu") and val validator.py:BackendValidator
+(scored as detect, as JAX's; a served classifier's val raises ValueError);
+train, load, save and the other weight methods raise ValueError.
 `embed` gives each image's feature vector (JAX :405-423) and `profile` the
 per-layer params, GFLOPs and ms (JAX :399; nn/tasks.py:DetectionModel.profile),
 both on the facade's device, the card unless device="cpu".
@@ -92,14 +96,18 @@ from ..utils.callbacks import default_callbacks
 from ..utils.jax_compat import state_dict_to_variables, variables_to_state_dict
 from .checkpoint import load_checkpoint, save_checkpoint
 from .pipeline import load_model
-from .predictor import BasePredictor, EnsemblePredictor, OBBPredictor, PosePredictor, SegmentationPredictor
+from .classify import ClassificationTrainer
+from .predictor import (BasePredictor, ClassificationPredictor, EnsemblePredictor, OBBPredictor, PosePredictor,
+                        SegmentationPredictor)
 from .trainer import TASK2TRAINER
-from .validator import BackendValidator, DetectionValidator, OBBValidator, PoseValidator, SegmentationValidator
+from .validator import (BackendValidator, ClassificationValidator, DetectionValidator, OBBValidator, PoseValidator,
+                        SegmentationValidator)
 
 TASK2PREDICTOR = {"detect": BasePredictor, "segment": SegmentationPredictor, "pose": PosePredictor,
-                  "obb": OBBPredictor}
+                  "obb": OBBPredictor, "classify": ClassificationPredictor}
 TASK2VALIDATOR = {"detect": DetectionValidator, "segment": SegmentationValidator, "pose": PoseValidator,
-                  "obb": OBBValidator}
+                  "obb": OBBValidator, "classify": ClassificationValidator}
+TASK2TRAINER = {**TASK2TRAINER, "classify": ClassificationTrainer}
 
 
 class YOLO:
@@ -132,16 +140,14 @@ class YOLO:
         self.ckpt_data = None  # the dataset the checkpoint was trained on, val's default
         self.model = None
         self.backend = None  # the AutoBackend of a served model
-        if task not in (None, "detect", "segment", "pose", "obb"):
-            raise _not_ported(f"task {task!r}", "item 10 (other heads)")
+        if task not in (None, "detect", "segment", "pose", "obb", "classify"):
+            raise _not_ported(f"task {task!r}", "item 11 (other model families)")
         self.task = task or "detect"
         if self.model_path.startswith(("http://", "https://", "grpc://")):
             from ..nn.autobackend import AutoBackend
 
             self.backend = AutoBackend(self.model_path)
-            if self.backend.task != "detect":
-                raise _not_ported(f"task {self.backend.task!r} of {self.model_path}",
-                                  "item 10 (other heads: serving segment, pose and obb models)")
+            self.task = task or self.backend.task
             return
         suffix = Path(self.model_path).suffix
         if suffix in {".yaml", ".yml"}:
@@ -157,7 +163,7 @@ class YOLO:
 
     def _new(self, cfg_path: str) -> None:
         """The model of a YAML, with fresh weights from seed 0 (JAX :83-87 and
-        _ensure_variables' PRNGKey(0)), on the host; another task's raises (item 10)."""
+        _ensure_variables' PRNGKey(0)), on the host."""
         self.model = build_model(cfg_path).init(0)
         self.task = self.model.task
         self.overrides["model"] = cfg_path

@@ -60,6 +60,18 @@ keep kernel) and, per image on the host, the rotated boxes un-letterboxed
 as JAX's: (cx - pad) / gain, (cy - pad) / gain, (w, h) / gain, the pads
 Python's round(pad - 0.1), unclipped, for Results.obb. augment is not read,
 as in JAX; visualize is BasePredictor's.
+
+ClassificationPredictor is JAX's (:463-496) for the classify task: each
+frame squashed to imgsz x imgsz as cv2.resize(INTER_LINEAR) does
+(data/augment.py:resize_linear_u8, on the predictor's device), / 255,
+forwarded (C3k's bottlenecks on the fused kernel) and softmaxed on the
+device in the network's dtype (bf16 with half=True), for Results.probs. JAX's
+preprocess flips the frame to RGB and its device function flips it again
+(_norm_on_device), so its network sees BGR: the port feeds BGR too
+(ROADMAP.md §3.44). JAX runs one image per device call; the port runs
+`batch_size` frames per call (1 by default, as JAX). As JAX's classify
+predictor, it saves nothing (its stream_inference has no save step) and
+reads neither augment nor visualize.
 """
 
 from __future__ import annotations
@@ -73,11 +85,11 @@ import numpy as np
 import torch
 
 from ..cfg import DEFAULT_CFG_DICT, get_cfg, get_save_dir
-from ..data.augment import letterbox_batch
+from ..data.augment import letterbox_batch, resize_linear_u8
 from ..data.loaders import load_inference_source
 from ..nn.tasks import DetectionModel
 from ..ops.boxes import scale_boxes
-from ..utils import LOGGER, resolve_device
+from ..utils import LOGGER, full_f32, resolve_device
 from ..utils.callbacks import run_callbacks
 from ..ops.masks import resize_linear_f32
 from ..utils.plotting import feature_visualization
@@ -142,7 +154,7 @@ class BasePredictor:
         self._visualized = True
         save_dir = get_save_dir(self.args) / "features"
         try:
-            if self.model is None:
+            if not isinstance(self.model, DetectionModel):
                 raise ValueError("the predictor holds no network (a served model)")
             outs, hooks = {}, []
             for _, name, mod in feature_stages(self.model):
@@ -385,3 +397,64 @@ class OBBPredictor(BasePredictor):
                 det[:, 2:4] /= gain
             results.append(Results(img0, path, self.names, speed=speed, obb=det))
         return results
+
+
+class ClassificationPredictor(BasePredictor):
+    """The classify predictor (the module docstring): Results with probs."""
+
+    def _build_device_fn(self):
+        model = self.model
+
+        @torch.inference_mode()
+        @full_f32()
+        def fn(frames: torch.Tensor) -> torch.Tensor:
+            return torch.softmax(model(nchw(frames.float() / 255.0)), -1)
+
+        return fn
+
+    def preprocess(self, imgs: list, gray_state: Optional[list] = None) -> torch.Tensor:
+        """Each frame squashed to (imgsz, imgsz) on the device, gray broadcast to 3 channels: (B, S, S, 3) uint8 BGR."""
+        s = self.imgsz
+        out = []
+        for im in imgs:
+            t = (im if torch.is_tensor(im) else torch.from_numpy(np.ascontiguousarray(im))).to(self.device)
+            t = t[..., None] if t.ndim == 2 else t
+            out.append(resize_linear_u8(t[None], s, s)[0].expand(-1, -1, 3))
+        return torch.stack(out)
+
+    def stream_inference(self, source, batch_size: int = 1) -> Iterator[Results]:
+        if self.source is not None and self.source.training:
+            self.model, self._device_fn = eval_network(self.source, bool(self.args.half), self.device), None
+        if self._device_fn is None:
+            self._device_fn = self._build_device_fn()
+        run_callbacks(self.callbacks, "on_predict_start", self)
+        buf: list = []
+
+        def flush():
+            run_callbacks(self.callbacks, "on_predict_batch_start", self)
+            t0 = time.perf_counter()
+            frames = self.preprocess([img for _, img in buf])
+            self._sync()
+            t1 = time.perf_counter()
+            probs = self._device_fn(frames).float().cpu().numpy()
+            t2 = time.perf_counter()
+            speed = {"preprocess": (t1 - t0) / len(buf) * 1e3, "inference": (t2 - t1) / len(buf) * 1e3,
+                     "postprocess": 0.0}
+            self.results = [Results(_host_frame(img), path, self.names, speed=speed, probs=p)
+                            for (path, img), p in zip(buf, probs)]
+            run_callbacks(self.callbacks, "on_predict_postprocess_end", self)
+            buf.clear()
+            yield from self.results
+            run_callbacks(self.callbacks, "on_predict_batch_end", self)
+
+        for path, img, _ in load_inference_source(source, device=self.device):
+            buf.append((path, img))
+            if len(buf) == batch_size:
+                yield from flush()
+        if buf:
+            yield from flush()
+        run_callbacks(self.callbacks, "on_predict_end", self)
+
+    def __call__(self, source, stream: bool = False, batch_size: int = 1):
+        gen = self.stream_inference(source, batch_size=batch_size)
+        return gen if stream else list(gen)

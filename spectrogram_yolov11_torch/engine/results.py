@@ -1,7 +1,7 @@
-"""Detection, segmentation, pose and OBB results on the host (numpy).
+"""Detection, segmentation, pose, OBB and classification results on the host (numpy).
 Counterpart of spectrogram_yolov11_tpu/engine/results.py: Boxes (:46),
-Masks (:90), Keypoints (:110), OBBoxes (:154) and Results (:203) for the
-detect, segment, pose and obb tasks.
+Masks (:90), Keypoints (:110), Probs (:131), OBBoxes (:154) and Results
+(:203) for the detect, segment, pose, obb and classify tasks.
 The predictor builds them after the fixed-shape NMS output has left the
 card, so device movement is the identity here too.
 
@@ -22,7 +22,12 @@ w, h, angle, conf, cls), plot draws each box's corners, truncated to int32,
 as a closed polyline in its class colour at the line width
 (utils/plotting.py:polylines, equal to cv2.polylines; JAX :275-278), and
 save_txt writes the class and the 8 corners normalised by the image's size
-(JAX :327-332); the tables and save_crop carry no rotated boxes, as JAX's.
+(JAX :327-332); the tables and save_crop carry no rotated boxes, as JAX's. With class probabilities
+(`probs`, (nc,), the classify task's), save_txt writes the one line
+"<top-1 conf> <name>" (JAX :334-335), the tables one row of the top-1 class
+and its confidence (:351-353), verbose the top-5 classes with their
+probabilities (:433-434), and plot draws nothing for them: JAX's plot has no
+probs branch, so a classify result plots as its image (ROADMAP.md §3.46).
 
 plot, save and save_crop are JAX's (:248-304) for boxes: the same line width,
 colours, corners, labels and crops, drawn by utils/plotting.py (rectangles
@@ -156,6 +161,30 @@ class Keypoints(_TensorCompat, SimpleClass):
         return self.data[..., 2] if self.data.shape[-1] == 3 else None
 
 
+class Probs(_TensorCompat, SimpleClass):
+    """Classification probabilities (nc,) float32 (JAX :131): top1, top5 (by
+    numpy's argsort, descending), top1conf, top5conf."""
+
+    def __init__(self, data: np.ndarray):
+        self.data = np.asarray(data, np.float32)
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self) -> list:
+        return self.data.argsort()[::-1][:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data.max())
+
+    @property
+    def top5conf(self) -> np.ndarray:
+        return self.data[self.top5]
+
+
 class OBBoxes(_TensorCompat, SimpleClass):
     """(n, 7) [cx, cy, w, h, angle, conf, cls] rotated boxes in
     original-image pixels, the angle in radians (JAX :154): xywhr, conf, cls,
@@ -209,12 +238,13 @@ def add_weighted(img: np.ndarray, alpha: float, overlay: np.ndarray, beta: float
 class Results(_TensorCompat, SimpleClass):
     """One image's detections: orig_img (host uint8 HWC BGR), path, names,
     boxes, masks (the segment task's, (n, H, W) bool), keypoints (the pose
-    task's, (n, K, 2|3)), obb (the obb task's rotated boxes, (n, 7)) and the
-    per-image speed dict in ms."""
+    task's, (n, K, 2|3)), obb (the obb task's rotated boxes, (n, 7)), probs
+    (the classify task's probabilities, (nc,)) and the per-image speed dict in ms."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: Dict[int, str],
                  boxes: Optional[np.ndarray] = None, speed: Optional[dict] = None, masks: Optional[np.ndarray] = None,
-                 keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None):
+                 keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None,
+                 probs: Optional[np.ndarray] = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -223,6 +253,7 @@ class Results(_TensorCompat, SimpleClass):
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.obb = OBBoxes(obb, self.orig_shape) if obb is not None else None
+        self.probs = Probs(probs) if probs is not None else None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
@@ -239,7 +270,7 @@ class Results(_TensorCompat, SimpleClass):
             else None
         obb = self.obb.data[i].reshape(-1, 7) if self.obb is not None else None
         return Results(self.orig_img, self.path, self.names, boxes=boxes, speed=self.speed, masks=masks,
-                       keypoints=kpts, obb=obb)
+                       keypoints=kpts, obb=obb, probs=self.probs.data if self.probs is not None else None)
 
     def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5, show_conf: bool = True,
              show_labels: bool = True, img: Optional[np.ndarray] = None) -> np.ndarray:
@@ -304,8 +335,8 @@ class Results(_TensorCompat, SimpleClass):
     def save_txt(self, txt_file: str | Path, save_conf: bool = False) -> None:
         """YOLO-format label rows: class, normalised xywh[, each keypoint's
         normalised x, y (and visibility)][, conf]; after them a rotated box's
-        class and its 8 normalised corners[, conf]. A mask
-        result's rows are polygons from the masks' contours (JAX :305-316),
+        class and its 8 normalised corners[, conf]; a probs result writes
+        "<top-1 conf> <name>" alone. A mask result's rows are polygons from the masks' contours (JAX :305-316),
         which raise (item 10)."""
         if self.masks is not None and len(self.masks):
             raise not_ported("save_txt of a mask result (contours by cv2.findContours)",
@@ -327,6 +358,8 @@ class Results(_TensorCompat, SimpleClass):
                 xy = (np.asarray(corners, np.float32) / np.asarray([w, h], np.float32)).reshape(-1)
                 line = (int(c), *(float(v) for v in xy)) + ((float(conf),) if save_conf else ())
                 lines.append(" ".join(f"{v:.6g}" if isinstance(v, float) else str(v) for v in line))
+        if self.probs is not None:
+            lines = [f"{self.probs.top1conf:.2f} {self.names.get(self.probs.top1, self.probs.top1)}"]
         Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
         Path(txt_file).write_text("\n".join(lines) + ("\n" if lines else ""))
 
@@ -340,6 +373,9 @@ class Results(_TensorCompat, SimpleClass):
                     "confidence": round(float(b[4]), 5),
                     "box": {"x1": float(b[0]), "y1": float(b[1]), "x2": float(b[2]), "y2": float(b[3])},
                 })
+        if self.probs is not None:
+            out.append({"name": self.names.get(self.probs.top1, str(self.probs.top1)), "class": self.probs.top1,
+                        "confidence": round(self.probs.top1conf, 5)})
         return json.dumps(out, indent=2)
 
     def to_df(self):
@@ -389,9 +425,10 @@ class Results(_TensorCompat, SimpleClass):
         return Results(self.orig_img, self.path, self.names, speed=self.speed)
 
     def update(self, boxes: Optional[np.ndarray] = None, masks: Optional[np.ndarray] = None,
-               keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None) -> None:
+               keypoints: Optional[np.ndarray] = None, obb: Optional[np.ndarray] = None,
+               probs: Optional[np.ndarray] = None) -> None:
         """Replace the boxes (a 7th column, when present, becomes the track
-        ids), the masks, the keypoints and the rotated boxes in place (JAX :414)."""
+        ids), the masks, the keypoints, the rotated boxes and the probs in place (JAX :414)."""
         if boxes is not None:
             boxes = np.asarray(boxes)
             self.boxes = Boxes(boxes[:, :6], self.orig_shape, ids=boxes[:, 6] if boxes.shape[1] > 6 else None)
@@ -401,10 +438,15 @@ class Results(_TensorCompat, SimpleClass):
             self.keypoints = Keypoints(keypoints, self.orig_shape)
         if obb is not None:
             self.obb = OBBoxes(obb, self.orig_shape)
+        if probs is not None:
+            self.probs = Probs(probs)
 
     def verbose(self) -> str:
-        """Log-line summary such as '2 LTEs, 1 RF, ': of the rotated boxes
+        """Log-line summary such as '2 LTEs, 1 RF, ': the top-5 classes and
+        their probabilities for a probs result, else of the rotated boxes
         when there are any, else of the boxes."""
+        if self.probs is not None:
+            return ", ".join(f"{self.names.get(i, i)} {self.probs.data[i]:.2f}" for i in self.probs.top5) + ", "
         det = self.obb if self.obb is not None else self.boxes
         if det is None or len(det) == 0:
             return "(no detections), "

@@ -78,6 +78,16 @@ wh / ratio, unclipped) and the TP matrix matches them by probiou
 confusion matrix stays empty and save_json writes nothing: JAX's
 update_stats keeps no COCO rows for rotated boxes, so predictions.json,
 annotations.json and the coco keys are not written (ROADMAP.md §3.38).
+
+ClassificationValidator is JAX's (:719-760) for the classify task: top-1
+and top-5 accuracy (k = min(5, nc)) over the data's val/ folder (the folder
+itself when it has none; `data` is the dataset's root), the val samples'
+short-side resize and centre crop (data/dataset.py:ClassificationDataset),
+each batch uploaded as uint8 RGB, / 255, forwarded in eval (C3k's
+bottlenecks on the fused kernel) and its top-k indices taken on the device;
+the padded tail trimmed by n_valid. As JAX's, it reads no `half` (the model
+runs at its own dtype), its imgsz is the args' (640 unless given: the
+trainer passes its 224), and it writes no plots or JSON.
 """
 
 from __future__ import annotations
@@ -93,16 +103,16 @@ import torch
 from ..cfg import DEFAULT_CFG_DICT, get_cfg, get_save_dir
 from ..data.augment import letterbox_batch
 from ..data.build import DataLoader
-from ..data.dataset import YOLODataset, check_det_dataset
+from ..data.dataset import ClassificationDataset, YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel
 from ..ops.iou import batch_probiou, kpt_iou, mask_iou
 from ..ops.masks import resize_linear_f32
-from ..ops.metrics import (OKS_SIGMA, ConfusionMatrix, DetMetrics, OBBMetrics, PoseMetrics, SegmentMetrics,
-                           box_iou_np, match_predictions)
+from ..ops.metrics import (OKS_SIGMA, ClassifyMetrics, ConfusionMatrix, DetMetrics, OBBMetrics, PoseMetrics,
+                           SegmentMetrics, box_iou_np, match_predictions)
 from ..ops.nms import non_max_suppression
-from ..utils import LOGGER, resolve_device
+from ..utils import LOGGER, full_f32, resolve_device
 from ..utils.callbacks import run_callbacks
-from .pipeline import build_device_fn, build_obb_fn, build_pose_fn, build_segment_fn, eval_network
+from .pipeline import build_device_fn, build_obb_fn, build_pose_fn, build_segment_fn, eval_network, nchw
 
 VAL_PRE_NMS_TOPK = 2048
 
@@ -165,7 +175,7 @@ class DetectionValidator:
 
     def init_metrics(self) -> None:
         self.stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
-        nc = self.model.nc if self.model is not None else len(self.names)  # a backend's: the data's classes
+        nc = self.model.nc if self.model is not None else self.nc  # a backend's: its class count
         self.confusion_matrix = ConfusionMatrix(nc=nc, conf=self.args.conf)
         self.jdict: list = []  # COCO rows of the detections, with save_json
         self.gt_jdict: list = []  # and of the ground truth
@@ -330,21 +340,41 @@ class BackendValidator(DetectionValidator):
     pre_nms_topk 2048 unless set). The validator's frames are BGR (the
     predictor's device function flips them, engine/pipeline.py) and the
     serving graph takes RGB, so they are flipped before the backend's
-    forward; the JAX val batch is RGB already and goes as it is."""
+    forward; the JAX val batch is RGB already and goes as it is.
+
+    The class count is JAX's (:371-381): the backend's nc (a checkpoint's),
+    else its first output's last dimension less 4, from one forward of a
+    zero frame at imgsz; a served detect model's names give that width
+    without the forward. A served segment, pose or OBB model is scored as
+    JAX's scores it, as detect: its first output's columns past the boxes
+    are all read as classes (the mask coefficients, the keypoints, the
+    angle), against the data's boxes (ROADMAP.md §3.45). A served
+    classifier raises ValueError: JAX's reads its probabilities as boxes
+    and fails (§3.45)."""
 
     def __init__(self, backend, overrides: Optional[dict] = None):
         self.backend = backend
         super().__init__(None, overrides=overrides)
+        if getattr(backend, "task", "detect") == "classify":
+            raise ValueError(f"val of a served classifier ({backend.weights}): its probabilities have no boxes to "
+                             "score (JAX's BackendValidator fails on them, ROADMAP.md §3.45); validate the "
+                             "checkpoint with YOLO(ckpt).val")
+        detect_nc = len(backend.names) if getattr(backend, "task", "detect") == "detect" else 0
+        self.nc = getattr(backend, "nc", None) or detect_nc or self._probe_nc()
+
+    def _probe_nc(self) -> int:
+        """The class count JAX's BackendValidator reads off a backend without one: the last dimension of its
+        first output for a zero frame at imgsz, less 4."""
+        out = self.backend.forward(np.zeros((1, self.imgsz, self.imgsz, 3), np.uint8))
+        out = out[0] if isinstance(out, (tuple, list)) else out
+        return int(out.shape[-1]) - 4
 
     def set_model(self, model) -> None:
         """The backend holds the network: there is no model to score here."""
         self.source, self.model, self._device_fn = None, None, None
 
     def _build_device_fn(self):
-        a, backend, dev = self.args, self.backend, self.device
-        nc = getattr(backend, "nc", None) or len(backend.names)
-        if not nc:
-            raise ValueError(f"the backend {backend.weights!r} names no classes")
+        a, backend, dev, nc = self.args, self.backend, self.device, self.nc
 
         def fn(frames: torch.Tensor):
             out = backend.forward(frames.flip(-1))  # BGR -> RGB
@@ -605,3 +635,60 @@ class OBBValidator(DetectionValidator):
             metrics.process(np.concatenate(self.stats["tp"]), np.concatenate(self.stats["conf"]),
                             np.concatenate(self.stats["pred_cls"]), np.concatenate(self.stats["target_cls"]))
         return metrics
+
+
+class ClassificationValidator:
+    """validator(data) -> results_dict of metrics/accuracy_top1,
+    metrics/accuracy_top5 and fitness (the module docstring); `metrics` keeps
+    the ClassifyMetrics."""
+
+    task = "classify"
+
+    def __init__(self, model: DetectionModel, overrides: Optional[dict] = None):
+        self.args = get_cfg(DEFAULT_CFG_DICT, {"mode": "val", **(overrides or {})})
+        self.device = resolve_device(self.args.device or "cuda")
+        self.imgsz = int(self.args.imgsz if isinstance(self.args.imgsz, int) else self.args.imgsz[0])
+        self.speed = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
+        self.callbacks: dict = {}
+        self.set_model(model)
+
+    def set_model(self, model: DetectionModel) -> None:
+        """Score `model` (at its own dtype, in eval mode, on the validator's device) from the next call on."""
+        self.source, self.model = model, eval_network(model, False, self.device)
+
+    def _topk(self, frames: torch.Tensor, k: int) -> torch.Tensor:
+        """The top-k class indices (B, k) of uint8 (B, S, S, 3) RGB frames on the device."""
+        with torch.inference_mode(), full_f32():
+            return torch.topk(self.model(nchw(frames.float() / 255.0)), k, -1).indices
+
+    def __call__(self, data=None) -> Dict[str, float]:
+        run_callbacks(self.callbacks, "on_val_start", self)
+        if self.source.training:  # trained since this validator was built
+            self.set_model(self.source)
+        root = Path(data or self.args.data)
+        ds = ClassificationDataset(root / "val" if (root / "val").exists() else root, imgsz=self.imgsz)
+        self.dataloader = DataLoader(ds, batch_size=int(self.args.batch), workers=self.args.workers)
+        k = min(5, int(self.model.nc))  # top-5 caps at nc, as JAX's
+        targets, top5, n_img = [], [], 0
+        t = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
+        for batch in self.dataloader:
+            run_callbacks(self.callbacks, "on_val_batch_start", self)
+            t0 = time.perf_counter()
+            frames = torch.from_numpy(np.stack(batch["img"])).to(self.device)
+            t1 = time.perf_counter()
+            nv = int(batch["n_valid"])
+            top5.append(self._topk(frames, k)[:nv].cpu().numpy())
+            targets.append(batch["cls"][:nv])
+            t2 = time.perf_counter()
+            n_img += nv
+            for key, dt in zip(t, (t1 - t0, t2 - t1, 0.0)):
+                t[key] += dt
+            run_callbacks(self.callbacks, "on_val_batch_end", self)
+        self.speed = {key: v / max(n_img, 1) * 1e3 for key, v in t.items()}
+        m = ClassifyMetrics()
+        m.process(np.concatenate(targets), np.concatenate(top5))
+        m.speed.update(self.speed)
+        self.metrics = m
+        LOGGER.info(f"val[classify]: top1 {m.top1:.3f} top5 {m.top5:.3f}")
+        run_callbacks(self.callbacks, "on_val_end", self)
+        return m.results_dict

@@ -11,11 +11,16 @@ Counterpart of spectrogram_yolov11_tpu/nn/autobackend.py for three kinds:
                  checkpoint is
   http(s)://     a KServe-v2 server (serve.py:RemoteModel), ours or any other
 
-forward(uint8 (B, H, W, 3) RGB frames, numpy or tensor) -> the decoded
-predictions (B, A, 4 + nc) f32: a tensor on `device` for a checkpoint, a
-numpy array for a server. Reference .pt files and exported artifacts raise
-NotImplementedError naming the ROADMAP.md item that ports them; grpc://
-raises as the JAX client does.
+A checkpoint or YAML of any of the five tasks (detect, segment, pose, obb,
+classify) is taken; `task` is its model's, `kpt_shape` a pose model's; a
+server's come from its metadata.
+
+forward(uint8 (B, H, W, 3) RGB frames, numpy or tensor) -> the task's
+outputs of engine/exporter.py:build_inference_fn at nms=False (the detect
+task's decoded predictions (B, A, 4 + nc) f32; a segment model's pair):
+tensors on `device` for a checkpoint, numpy arrays for a server. Reference
+.pt files and exported artifacts raise NotImplementedError naming the
+ROADMAP.md item that ports them; grpc:// raises as the JAX client does.
 
 SYT_WIRE_ENCODE=jpg[:q] or png sends each frame to a server as JPEG (at
 quality q, 90 unless given, as JAX's client) or PNG bytes (the BYTES ingest,
@@ -78,14 +83,14 @@ class AutoBackend:
                 model, meta = load_model(self.weights)
             else:
                 model, meta = build_model(self.weights).init(0), {}
-            if model.task != "detect":  # serving and exporting a segment, pose or obb model: JAX serve.py:641-715
-                raise not_ported(f"an AutoBackend (served or exported model) of the {model.task} task "
-                                 f"({self.weights})", "item 10 (other heads: serving segment, pose and obb models)")
             names = meta.get("names") or {i: f"{i}" for i in range(model.nc)}
             self.names = {int(k): str(v) for k, v in names.items()}
             self.model = eval_network(model, half, self.device)
             self.stride = np.asarray(model.stride, np.float32)
             self.nc = model.nc
+            self.task = model.task
+            if model.task == "pose":
+                self.kpt_shape = tuple(model.kpt_shape)
             self._fn = build_inference_fn(self.model, nms=False)
         elif self.kind == "remote":
             from ..serve import RemoteModel
@@ -120,7 +125,7 @@ class AutoBackend:
         return outs[0] if len(outs) == 1 else tuple(outs)
 
     def forward(self, imgs_u8):
-        """Decoded predictions of uint8 RGB frames (numpy or tensor)."""
+        """The serving graph's outputs for uint8 RGB frames (numpy or tensor)."""
         if self.kind == "remote":
             return self._remote_forward(imgs_u8)
         x = torch.as_tensor(np.ascontiguousarray(imgs_u8)) if not torch.is_tensor(imgs_u8) else imgs_u8

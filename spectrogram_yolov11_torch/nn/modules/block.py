@@ -4,8 +4,10 @@ attention stack and the DFL decode.
 Counterparts of spectrogram_yolov11_tpu/nn/modules/block.py: dfl_decode (:35),
 Bottleneck (:69), C2f (:126), C3 (:151), C3k (:173), _c2f_forward (:195) as
 C2f.forward, C3k2 (:204), SPPF (:246), Attention / PSABlock / C2PSA
-(:264-357), Proto (:522, the segment head's mask prototypes) and the fork's
-C3x (:788).
+(:264-357), Proto (:522, the segment head's mask prototypes), the fork's
+C3x (:788), and _ResNetBasicBlock (:812) and TorchVision (:836), JAX's
+from-scratch ResNet-18/34 stand-in for the torchvision backbone of
+yolo11-cls-resnet18.yaml.
 
 The inner bottlenecks of C3k (and C2f) are same-width 3x3 -> 3x3 residual
 blocks. In the inference forward they run as one fused CUDA kernel
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.fused_conv import CHANNELS, fused_bottleneck, pack_bottleneck_weights, pack_bottleneck_weights_bf16
-from .conv import Conv, ConvTranspose2d
+from .conv import BatchNorm2d, Conv, Conv2d, ConvTranspose2d
 
 
 @functools.lru_cache(maxsize=8)
@@ -293,3 +295,69 @@ class Proto(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+def _bn(bn: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """A bare BN as the JAX package's batch_norm: in training in f32 on the
+    conv output upcast, rounded back to its dtype; in eval in its dtype."""
+    return bn(y) if not bn.training else bn(y.float()).to(y.dtype)
+
+
+class _ResNetBasicBlock(nn.Module):
+    """ResNet's BasicBlock (JAX block.py:812): relu(bn2(conv2(relu(bn1(conv1(x)))))
+    + identity), the identity a 1x1 conv and BN (`downsample`) where the
+    stride or the width changes. Its ReLU after the add is not the fused
+    kernel's silu(...) + x form, so it runs cuDNN's convolutions."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm2d(cout)
+        self.conv2 = Conv2d(cout, cout, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(cout)
+        self.downsample = (nn.Sequential(Conv2d(cin, cout, 1, stride, 0, bias=False), BatchNorm2d(cout))
+                           if stride != 1 or cin != cout else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(_bn(self.bn1, self.conv1(x)))
+        y = _bn(self.bn2, self.conv2(y))
+        idn = x if self.downsample is None else _bn(self.downsample[1], self.downsample[0](x))
+        return F.relu(y + idn)
+
+
+class TorchVision(nn.Module):
+    """JAX's stand-in for the torchvision backbone (block.py:836): a ResNet-18
+    or -34 built from scratch with random weights (nothing is downloaded):
+    conv 7x7/2 (64), BN, ReLU, a 3x3/2 max-pool over a -inf pad of 1, four
+    stages of basic blocks (64, 128, 256, 512 wide; the first block of
+    stages 2-4 strides 2). With unwrap and truncate >= 2 (the YAML's) it
+    returns the last stage's map (B, 512, H / 32, W / 32); otherwise its
+    mean over H and W (B, 512). `weights` and `split` are read and ignored,
+    as in JAX; resnet50 and resnet101 raise NotImplementedError, as JAX's.
+    `c1` is the input's width (the parser passes it)."""
+
+    def __init__(self, model: str = "resnet18", weights: str = "DEFAULT", unwrap: bool = True, truncate: int = 2,
+                 split: bool = False, c1: int = 3):
+        super().__init__()
+        blocks = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}.get(str(model))
+        if blocks is None:
+            raise NotImplementedError(f"TorchVision native stand-in supports resnet18/34, got {model}")
+        self.pool = bool(not unwrap or truncate < 2)
+        self.conv1 = Conv2d(c1, 64, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm2d(64)
+        cin = 64
+        for si, (n, cout) in enumerate(zip(blocks, (64, 128, 256, 512))):
+            stage = []
+            for bi in range(n):
+                stage.append(_ResNetBasicBlock(cin, cout, stride=2 if (bi == 0 and si > 0) else 1))
+                cin = cout
+            setattr(self, f"layer{si + 1}", nn.ModuleList(stage))
+        self.n_stages = len(blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(_bn(self.bn1, self.conv1(x)))
+        y = F.max_pool2d(y, 3, 2, 1)
+        for si in range(self.n_stages):
+            for block in getattr(self, f"layer{si + 1}"):
+                y = block(y)
+        return y.mean((2, 3)) if self.pool else y

@@ -1,8 +1,8 @@
-"""Detection, segmentation, pose and OBB heads (NCHW) of the port.
+"""Detection, segmentation, pose, OBB and classification heads (NCHW) of the port.
 
 Counterparts of spectrogram_yolov11_tpu/nn/modules/head.py:29 Detect in its
 non-legacy form (the YOLO11 head: a depthwise-separable class branch), :86
-Segment, :114 Pose and :141 OBB. As in
+Segment, :114 Pose, :141 OBB and :168 Classify. As in
 the JAX head, each level returns a (box, cls) pair of raw logits; decode and
 NMS live in ops/. Each branch's last conv (with bias) computes in its input's
 dtype, as the JAX head's conv2d at the model's dtype.
@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from .block import Proto
-from .conv import Conv, Conv2d, DWConv
+from .conv import Conv, Conv2d, DWConv, Linear
 
 
 class Detect(nn.Module):
@@ -117,3 +117,21 @@ class OBB(nn.Module):
     def forward(self, xs: List[torch.Tensor]):
         a = torch.cat([self.cv4[i](x).flatten(2) for i, x in enumerate(xs)], 2).transpose(1, 2)
         return self.detect(xs), a
+
+
+class Classify(nn.Module):
+    """The classification head (JAX head.py:168): Conv(c1 -> 1280, k, s, p,
+    g) -> the mean over H and W -> Linear(1280 -> c2), flax's Dense with its
+    default init. forward(x, or a list of maps concatenated on channels) ->
+    logits (B, c2): the softmax is the predictor's, the cross-entropy the
+    trainer's."""
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1):
+        super().__init__()
+        self.conv = Conv(c1, 1280, k, s, p, g)
+        self.linear = Linear(1280, c2)
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(x, 1)
+        return self.linear(self.conv(x).mean((2, 3)))

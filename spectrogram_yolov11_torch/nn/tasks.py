@@ -15,8 +15,7 @@ make_divisible(min(c, max_channels) * width, 8), repeats max(round(n *
 depth), 1), and the Segment head's prototype width npr as
 make_divisible(min(npr, max_channels) * width, 8) (JAX :355); the string
 `kpt_shape` among a layer's arguments is the dict's (JAX :243, :261). Any
-other module name raises KeyError; DyHead and TorchVision raise with their
-ROADMAP.md item.
+other module name raises KeyError; DyHead raises with its ROADMAP.md item.
 
 A model is built from a dict (a checkpoint's `model_yaml`) or from a model
 YAML: a path, or a name that find_model_yaml (JAX cfg/__init__.py:349)
@@ -24,8 +23,16 @@ resolves under the port's cfg/models/ (yolo11.yaml, spectrogram_yolo11.yaml,
 fork/*.yaml; `yolo11n.yaml` and the bare `yolo11n` are yolo11.yaml at scale
 n, `yolo11n-seg.yaml` is yolo11-seg.yaml at n, `yolo11n-pose.yaml`
 yolo11-pose.yaml at n, `yolo11n-obb.yaml` yolo11-obb.yaml at n,
-`yolo11n_HCA.yaml` is fork/yolo11_HCA.yaml at n), read by utils.yaml_load.
-The classify head raises with its ROADMAP.md item.
+`yolo11n_HCA.yaml` is fork/yolo11_HCA.yaml at n, `yolo11n-cls.yaml`
+yolo11-cls.yaml at n), read by utils.yaml_load.
+
+The classify task: ClassificationModel (JAX :702) for a model whose head is
+Classify (yolo11-cls.yaml, fork/yolo11-cls-resnet18.yaml with JAX's
+TorchVision ResNet stand-in, nn/modules/block.py): logits (B, nc), stride
+(1.0,) as JAX's _calibrate_stride; C3k's same-width bottlenecks take the
+fused kernel in eval as in DetectionModel. Classify is a base module, its
+width the unscaled nc (JAX :176); TorchVision's first argument is its
+output width and the rest its own (JAX :322), with the input's width added.
 """
 
 from __future__ import annotations
@@ -60,11 +67,13 @@ FORK_MODULES = (
 MODULE_REGISTRY: Dict[str, type] = {
     **{name: getattr(M, name) for name in (
         "Conv", "DWConv", "GhostConv", "CBAM", "ChannelAttention", "SpatialAttention", "Concat", "Bottleneck",
-        "C2f", "C3", "C3k", "C3k2", "C2PSA", "SPPF", "C3x", "Detect", "Segment", "Pose", "OBB", *FORK_MODULES)},
+        "C2f", "C3", "C3k", "C3k2", "C2PSA", "SPPF", "C3x", "Detect", "Segment", "Pose", "OBB", "Classify",
+        "TorchVision", *FORK_MODULES)},
     "nn.Upsample": M.Upsample,
 }
 BASE_MODULES = {
     M.Conv, M.GhostConv, M.Bottleneck, M.SPPF, M.C2PSA, M.DWConv, M.C2f, M.C3k2, M.C3, M.C3k, M.CBAM, M.C3x,
+    M.Classify,
     # the fork's base modules (JAX nn/tasks.py:179-181)
     M.RecycleConv, M.GhostConvHCA, M.LDConv, M.Cross_AKConv, M.Mix_SPPF, M.SELayer, M.SaELayer,
     M.SAPF, M.DDWConv, M.ConvOMN, M.MaxConv, M.GhostMaxConv, M.ConvHCA, M.GhostConvMax,
@@ -76,16 +85,13 @@ SCALE_SENSITIVE = {M.C3k2, M.C3k2GC, M.C3MSCk2, M.XCBAM2C2f}  # args[3] flips on
 # modules of JAX's registry whose family the port refuses, with the ROADMAP.md item that queues it
 NOT_PORTED_MODULES = {
     "DyHeadBlock": ("the DyHead block (yolo11_DYHEAD.yaml)", "item 11 (other model families: dyhead)"),
-    "TorchVision": ("the TorchVision backbone (yolo11-cls-resnet18.yaml)",
-                    "items 10 (other heads: classify) and 11 (other model families)"),
 }
 
 
 def find_model_yaml(name: str | Path) -> Path:
     """A model YAML by path or by name under the port's cfg/models/ (JAX
     cfg/__init__.py:349): the name as given, then without its scale letter
-    (yolo11n -> yolo11, yolo11n-seg -> yolo11-seg). The other tasks' YAMLs
-    of the JAX package (-cls) raise with their ROADMAP.md item."""
+    (yolo11n -> yolo11, yolo11n-seg -> yolo11-seg, yolo11n-cls -> yolo11-cls)."""
     p = Path(name)
     if p.exists():
         return p
@@ -95,8 +101,6 @@ def find_model_yaml(name: str | Path) -> Path:
         hits = sorted(MODELS_DIR.rglob(f"{cand}.yaml"))
         if hits:
             return hits[0]
-    if re.search(r"-cls\b", stem):
-        raise not_ported(f"the {stem} model (another task's head)", "item 10 (other heads)")
     raise FileNotFoundError(f"Model yaml '{name}' not found under {MODELS_DIR}")
 
 
@@ -201,6 +205,8 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
             c2, args, kwargs["c1"] = ch_list[f[0]], [inc, "ESChannel"], ch_list[f[0]]
         elif cls is M.SelectChannel:
             c2, args = ch_list[f[0]], [ch_list[f[0]]]
+        elif cls is M.TorchVision:  # args[0] is the output width (JAX :322)
+            c2, args, kwargs["c1"] = args[0], args[1:], ch_list[f]
         elif cls in (M.Detect, M.Segment, M.Pose, M.OBB):
             args.append(tuple(ch_list[x] for x in f))
             if cls is M.Segment:  # the prototype width npr scales as a width (JAX :355)
@@ -293,11 +299,15 @@ class DetectionModel(nn.Module):
         layers, self.routes, self.save, self.specs = parse_model(self.yaml, ch)
         self.model = nn.ModuleList(layers)
         self.eval()
-        s = 256  # dummy forward for the strides, as the JAX BaseModel does
+        self.stride = self._calibrate_stride()
+
+    def _calibrate_stride(self) -> Tuple[float, ...]:
+        """Each level's stride from a dummy forward at 256 px, as the JAX BaseModel's (:529)."""
+        s = 256
         with torch.no_grad():
-            out = self.forward(torch.zeros(1, ch, s, s))
+            out = self.forward(torch.zeros(1, self.ch, s, s))
         feats = out[0] if isinstance(out, tuple) else out  # a Segment, Pose or OBB head's pairs come first
-        self.stride = tuple(s / box.shape[-2] for box, _ in feats)
+        return tuple(s / box.shape[-2] for box, _ in feats)
 
     @full_f32()
     def forward(self, x: torch.Tensor, embed: Optional[Sequence[int]] = None):
@@ -521,14 +531,26 @@ class OBBModel(DetectionModel):
     task = "obb"
 
 
+class ClassificationModel(DetectionModel):
+    """The classify task's model (JAX nn/tasks.py:702): a DetectionModel whose
+    head is Classify, forward(x) -> logits (B, nc), stride (1.0,) as JAX's
+    _calibrate_stride. The softmax is the predictor's and the cross-entropy
+    the trainer's."""
+
+    task = "classify"
+
+    def _calibrate_stride(self) -> Tuple[float, ...]:
+        return (1.0,)
+
+
 TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel,
-              "obb": OBBModel}  # JAX's task map (:839)
+              "obb": OBBModel, "classify": ClassificationModel}  # JAX's task map (:839)
 
 
 def build_model(cfg: Union[str, Path, dict], nc: Optional[int] = None,
                 variables: Optional[dict] = None) -> DetectionModel:
-    """The task's model (DetectionModel, SegmentationModel, PoseModel or OBBModel, by
-    guess_model_task) from a model dict or a model YAML (yaml_model_load); with
+    """The task's model (DetectionModel, SegmentationModel, PoseModel, OBBModel or
+    ClassificationModel, by guess_model_task) from a model dict or a model YAML (yaml_model_load); with
     `variables` (flax {params, batch_stats} numpy trees) the weights are
     carried across by the bridge and loaded with strict=True, else the model
     holds torch's default init until `init(seed)` draws JAX's."""
@@ -538,7 +560,7 @@ def build_model(cfg: Union[str, Path, dict], nc: Optional[int] = None,
             raise not_ported(*NOT_PORTED_MODULES[m])
     task = guess_model_task(d) if d.get("head") else "detect"  # a headless dict fails in parse_model
     if task not in TASK2MODEL:
-        raise not_ported(f"a {task} model ({d.get('yaml_name') or d['head'][-1][2]})", "item 10 (other heads)")
+        raise not_ported(f"a {task} model ({d.get('yaml_name') or d['head'][-1][2]})", "item 11 (other model families)")
     model = TASK2MODEL[task](d, nc=nc)
     if variables is not None:
         model.load_state_dict(variables_to_state_dict(variables), strict=True)

@@ -1,9 +1,9 @@
-"""The detect, segment, pose and OBB training losses over padded batches.
+"""The detect, segment, pose, OBB and classify training losses over padded batches.
 
 Counterpart of spectrogram_yolov11_tpu/ops/losses.py:43-175 (_bce_logits,
-df_loss, bbox_loss, preprocess_targets, detection_loss), :223
-segmentation_loss, :285 keypoint_loss_terms, :304 pose_loss and :377
-obb_loss, with the same reductions:
+df_loss, bbox_loss, preprocess_targets, detection_loss), :177
+classification_loss, :223 segmentation_loss, :285 keypoint_loss_terms, :304
+pose_loss and :377 obb_loss, with the same reductions:
 
   cls   = BCE(logits, target scores).sum() / max(target_scores.sum(), 1)
   box   = sum((1 - CIoU) * w) / target_scores_sum, w = target_scores.sum(-1) on fg anchors
@@ -14,6 +14,7 @@ obb_loss, with the same reductions:
         items = (box, pose * hyp_pose, kobj * hyp_kobj, cls, dfl)
   obb:  the rotated assignment (probiou), box = sum((1 - probiou) * w) /
         target_scores_sum, DFL on the target's unrotated extent; items (box, cls, dfl)
+  classify: the mean softmax cross-entropy of the logits; items = (nll,), total = nll
 
 Boxes are masked, not indexed, so every shape is fixed and nothing syncs
 with the host. The assigner sees sigmoid(scores) and the decoded boxes
@@ -264,3 +265,11 @@ def obb_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], pred_angle: torch.T
     loss_dfl = (ldfl * weight).sum() / target_scores_sum
     items = torch.stack([hyp_box * loss_iou, hyp_cls * loss_cls, hyp_dfl * loss_dfl])
     return items.sum() * feats[0][0].shape[0], items.detach()
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(total, items (nll,)): the mean softmax cross-entropy of logits (B, nc)
+    against integer labels (B,), in f32 (JAX :177)."""
+    logp = torch.log_softmax(logits.float(), -1)
+    nll = -logp.gather(-1, labels.long()[:, None]).mean()
+    return nll, nll.detach()[None]

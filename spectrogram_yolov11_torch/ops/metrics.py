@@ -1,12 +1,12 @@
-"""Detection metrics on the host (numpy): TP matching at 10 IoU thresholds,
-the 101-point interpolated AP per class, the F1-max operating point, the
-metric containers and the confusion matrix.
+"""Detection and classification metrics on the host (numpy): TP matching at
+10 IoU thresholds, the 101-point interpolated AP per class, the F1-max
+operating point, the metric containers, the confusion matrix and top-1/top-5.
 
-A copy of the detect, segment, pose and OBB parts of
+A copy of the detect, segment, pose, OBB and classify parts of
 spectrogram_yolov11_tpu/ops/metrics.py (OKS_SIGMA :23, box_iou_np :29,
 match_predictions :41, smooth :68, compute_ap :76, ap_per_class :86, Metric
 :138, DetMetrics :202, SegmentMetrics :243, PoseMetrics :270, OBBMetrics :297,
-ConfusionMatrix :328), which
+ClassifyMetrics :301, ConfusionMatrix :328), which
 reproduces the reference's mAP machinery; the port keeps its own copy because
 it imports nothing of the JAX package. Accumulating stats over a dataset is
 ragged host work, so it stays numpy here, and the results equal the JAX
@@ -305,6 +305,35 @@ class OBBMetrics(DetMetrics):
     instance's `task` reads "detect" (DetMetrics sets it), as JAX's does."""
 
     task = "obb"
+
+
+class ClassifyMetrics:
+    """Top-1 and top-5 accuracy (JAX :301): process(targets (N,), pred_top5
+    (N, k)) with k = min(5, nc), the validator's top-k indices; fitness their
+    mean."""
+
+    def __init__(self):
+        self.top1 = 0.0
+        self.top5 = 0.0
+        self.speed = {"preprocess": 0.0, "inference": 0.0, "loss": 0.0, "postprocess": 0.0}
+        self.task = "classify"
+
+    def process(self, targets: np.ndarray, pred_top5: np.ndarray) -> None:
+        correct = pred_top5 == targets[:, None]
+        self.top1 = float(correct[:, 0].mean())
+        self.top5 = float(correct.any(1).mean())
+
+    @property
+    def fitness(self) -> float:
+        return (self.top1 + self.top5) / 2
+
+    @property
+    def keys(self) -> list:
+        return ["metrics/accuracy_top1", "metrics/accuracy_top5"]
+
+    @property
+    def results_dict(self) -> Dict[str, float]:
+        return dict(zip(self.keys + ["fitness"], [self.top1, self.top5, self.fitness]))
 
 
 class ConfusionMatrix:

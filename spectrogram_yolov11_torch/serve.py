@@ -1,11 +1,24 @@
 """KServe-v2 HTTP inference serving on the card: the model server and the remote-model client.
 
 Counterpart of spectrogram_yolov11_tpu/serve.py. The server runs the serving
-graph of engine/exporter.py:build_inference_fn (uint8 RGB frames -> decoded
-predictions, no NMS) behind the KServe v2 predict protocol (JSON tensors and
-the binary-tensor extension) on a stdlib ThreadingHTTPServer, and
-`YOLO("http://host:8000/name")` predicts and validates through it
-(nn/autobackend.py, kind "remote"; the NMS runs on the client's device).
+graph of engine/exporter.py:build_inference_fn (uint8 RGB frames -> the
+task's outputs at nms=False: decoded predictions, a segment model's
+predictions and prototypes, a pose model's with keypoints, an OBB model's
+rotated boxes, a classifier's probabilities) behind the KServe v2 predict
+protocol (JSON tensors and the binary-tensor extension) on a stdlib
+ThreadingHTTPServer, and `YOLO("http://host:8000/name")` predicts and
+validates through it (nn/autobackend.py, kind "remote"; the NMS runs on the
+client's device). The model metadata carries the task, names, stride, nc
+and, for a pose model, kpt_shape (JAX :185-205).
+
+RemotePredictor is JAX's (:601-715) for every task: the task's predictor
+(engine/predictor.py) with its device function replaced by a remote forward
+and the task's NMS on the client's device: non_max_suppression for detect,
+non_max_suppression_extras for segment (then the masks: sigmoid of the
+coefficients times the prototypes, cropped to the boxes) and pose (both on
+the greedy keep kernel), nms_rotated for OBB, none for classify (the server
+gives the probabilities). Each one's postprocess (masks to the image,
+keypoints and rotated boxes un-letterboxed) is the local predictor's.
 
     serve("runs_artifacts/spectrogram_yolo11n.ckpt", port=8000)    # on the card
     serve({"spec": ckpt}, port=0, block=False, device="cpu", half=False)
@@ -54,9 +67,11 @@ import numpy as np
 import torch
 
 from .data.imageio import imdecode, imencode
-from .engine.predictor import BasePredictor
+from .engine.predictor import (BasePredictor, ClassificationPredictor, OBBPredictor, PosePredictor,
+                               SegmentationPredictor)
 from .nn.autobackend import AutoBackend
-from .ops.nms import non_max_suppression
+from .ops.masks import crop_masks_device
+from .ops.nms import nms_rotated, non_max_suppression, non_max_suppression_extras
 from .utils import not_ported
 
 LOGGER = logging.getLogger(__name__)
@@ -166,6 +181,8 @@ class _ModelRunner:
             "stride": [float(s) for s in np.asarray(b.stride).tolist()],
             "nc": len(b.names) or None,
         }
+        if getattr(b, "kpt_shape", None):  # pose clients split the keypoint tail by it (JAX :202-205)
+            meta["kpt_shape"] = [int(x) for x in b.kpt_shape]
         return {
             "name": self.name,
             "versions": ["1"],
@@ -556,34 +573,127 @@ def _remote_forward(backend):
     return fwd
 
 
+class _RemoteNet:
+    """What a task predictor's postprocess reads of its model, for a served
+    one: task, nc, stride, kpt_shape (the metadata's; (17, 3) unless given)
+    and the dtype (f32: the server answers FP32)."""
+
+    def __init__(self, backend: AutoBackend, nc: int):
+        self.task, self.nc, self.dtype = backend.task, nc, torch.float32
+        self.stride = tuple(float(s) for s in np.asarray(backend.stride).tolist())
+        self.kpt_shape = tuple(getattr(backend, "kpt_shape", None) or (17, 3))
+
+
 class RemotePredictor(BasePredictor):
-    """Detect predictions through a served model: the predictor's letterbox
-    on the client's device, the frames flipped to RGB on the host and sent,
-    the server's decoded predictions back, then the port's NMS on the
-    client's device at predict's settings (best class per anchor,
-    pre_nms_topk 1024 unless set). Other tasks raise."""
+    """Predictions through a served model, for the task the server names
+    (JAX :601-715): RemotePredictor(backend, overrides) is the task's class
+    (_RemoteSegment, _RemotePose, _RemoteOBB, _RemoteClassify, or this one
+    for detect), each the task's predictor whose device function sends the
+    frames (flipped to RGB on the host) and runs the task's NMS on the
+    client's device at predict's settings (module docstring). A task JAX's
+    client lacks raises NotImplementedError, as JAX's."""
+
+    def __new__(cls, backend: AutoBackend, overrides: Optional[dict] = None):
+        if cls is RemotePredictor:
+            cls = _REMOTE_TASKS.get(backend.task)
+            if cls is None:
+                raise NotImplementedError(f"remote predict: task {backend.task!r} not supported; use RemoteModel "
+                                          "directly for raw outputs, or val via YOLO(url).val")
+        return super().__new__(cls)
 
     def __init__(self, backend: AutoBackend, overrides: Optional[dict] = None):
-        if backend.task != "detect":
-            raise not_ported(f"remote predict for the {backend.task} task", "item 10 (other heads)")
         self.backend = backend
         names = dict(backend.names) or {i: f"{i}" for i in range(80)}
         super().__init__(None, overrides=overrides, names=names)
         self.nc = len(names)
+        self.model = _RemoteNet(backend, self.nc)
+
+    def _preds(self, frames: torch.Tensor):
+        """The served graph's outputs for BGR frames, on the client's device."""
+        out = _remote_forward(self.backend)(frames)
+        outs = out if isinstance(out, tuple) else (out,)
+        return tuple(torch.tensor(o, device=self.device) for o in outs)
 
     def _build_device_fn(self):
-        a, fwd, dev, nc = self.args, _remote_forward(self.backend), self.device, self.nc
+        a = self.args
         classes = None if a.classes is None else [a.classes] if isinstance(a.classes, int) else list(a.classes)
 
         def fn(frames: torch.Tensor):
-            out = fwd(frames)
-            preds = torch.tensor(out[0] if isinstance(out, tuple) else out, device=dev)
+            preds = self._preds(frames)[0]
             with torch.inference_mode():
-                return non_max_suppression(preds, conf_thres=float(a.conf), iou_thres=float(a.iou), nc=nc,
+                return non_max_suppression(preds, conf_thres=float(a.conf), iou_thres=float(a.iou), nc=self.nc,
                                            multi_label=False, agnostic=bool(a.agnostic_nms), max_det=int(a.max_det),
                                            pre_nms_topk=int(a.pre_nms_topk or 0) or 1024, classes=classes)
 
         return fn
+
+
+class _RemoteSegment(RemotePredictor, SegmentationPredictor):
+    """A served segment model: its predictions and prototypes, then NMS with
+    the coefficients carried and the masks cropped to the boxes, as JAX's
+    _Segment (:641-664)."""
+
+    def _build_device_fn(self):
+        a = self.args
+
+        def fn(frames: torch.Tensor):
+            preds, proto = self._preds(frames)
+            with torch.inference_mode():
+                out, nv = non_max_suppression_extras(preds, conf_thres=float(a.conf), iou_thres=float(a.iou),
+                                                     nc=self.nc, max_det=int(a.max_det))
+                masks = torch.sigmoid(torch.einsum("bdk,bhwk->bdhw", out[..., 6:], proto))
+                return out[..., :6], nv, crop_masks_device(masks, out[..., :4], frames.shape[1:3])
+
+        return fn
+
+
+class _RemotePose(RemotePredictor, PosePredictor):
+    """A served pose model: its predictions with the decoded keypoints, then
+    NMS with them carried, as JAX's _Pose (:666-678)."""
+
+    def _build_device_fn(self):
+        a = self.args
+
+        def fn(frames: torch.Tensor):
+            preds = self._preds(frames)[0]
+            with torch.inference_mode():
+                return non_max_suppression_extras(preds, conf_thres=float(a.conf), iou_thres=float(a.iou),
+                                                  nc=self.nc, max_det=int(a.max_det))
+
+        return fn
+
+
+class _RemoteOBB(RemotePredictor, OBBPredictor):
+    """A served OBB model: its rotated boxes, then nms_rotated, as JAX's _OBB (:680-692)."""
+
+    def _build_device_fn(self):
+        a = self.args
+
+        def fn(frames: torch.Tensor):
+            preds = self._preds(frames)[0]
+            with torch.inference_mode():
+                return nms_rotated(preds, conf_thres=float(a.conf), iou_thres=float(a.iou), nc=self.nc,
+                                   max_det=int(a.max_det))
+
+        return fn
+
+
+class _RemoteClassify(RemotePredictor, ClassificationPredictor):
+    """A served classifier: the server's probabilities, as JAX's _Classify
+    (:694-700). The squashed frames go as the classify predictor makes them,
+    BGR: JAX's preprocess flips them to RGB and its remote forward flips them
+    back, so its server sees BGR, as the local classify network does."""
+
+    def _build_device_fn(self):
+        def fn(frames: torch.Tensor):
+            out = self.backend.forward(np.ascontiguousarray(frames.cpu().numpy()))
+            return torch.tensor(out[0] if isinstance(out, tuple) else out, device=self.device)
+
+        return fn
+
+
+_REMOTE_TASKS = {"detect": RemotePredictor, "segment": _RemoteSegment, "pose": _RemotePose, "obb": _RemoteOBB,
+                 "classify": _RemoteClassify}
 
 
 def serve(models, host: str = "127.0.0.1", port: int = 8000, block: bool = True, data_parallel: bool = False,

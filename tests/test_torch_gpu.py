@@ -40,7 +40,13 @@ to cv2's committed digests (tests/torch_data/pose/); yolo11n-obb's forward
 (feats, raw angles) against the CPU's (1e-3 abs/rel) and its predict's
 rotated boxes (1e-2 px, 1e-4 rad), the bottleneck at the obb validator's
 inputs with no keep launch, and the port's polylines equal to cv2's
-committed digests (tests/torch_data/obb/). The tests leave
+committed digests (tests/torch_data/obb/); yolo11n-cls's logits against the
+CPU's (1e-3 abs/rel) with its 4 launches, its predict's probs (1e-5, the
+top-5 equal, f32 and bf16 launches), the bottleneck at the classify
+validator's 14 x 14 and 7 x 7 inputs and its top-1/top-5 equal to the CPU's;
+a server on the card holding a segment, pose, OBB and classify model,
+YOLO(url).predict of each against local predict on the card (boxes and
+keypoints 1e-3 px, masks at most 1e-3 unequal, probs 1e-5), counted. The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -1607,3 +1613,144 @@ def test_kernels_at_obb_val_inputs():
                     zip(rng.uniform(-50, 700, (n, 2)), rng.uniform(0, 300, (n, 2)), rng.uniform(-360, 360, n))])
     for arr, key in ((pts, "sha256_f32"), (pts.astype(np.int32), "sha256_i32")):
         assert hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest() == bp[key]
+
+
+# -- classify and serving every task ------------------------------------------------------------------------
+
+
+def _cls_model():
+    """yolo11n-cls at scale n (nc 3), init(0), BN statistics seeded as _seg_model's."""
+    from spectrogram_yolov11_torch.nn.tasks import build_model
+
+    model = build_model("yolo11n-cls.yaml", nc=3).init(0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.05)
+                m.running_var.copy_(torch.empty(m.running_var.shape).uniform_(0.15, 0.25, generator=g))
+    return model.eval()
+
+
+@pytest.mark.gpu
+def test_classify_forward_and_predict_on_card_match_cpu():
+    """yolo11n-cls: its 4 fused bottlenecks (layers 6 and 8, C = 32 and 64) by
+    bottlenecks(); the card's f32 logits at 224 px against the CPU's (1e-3
+    abs/rel) with 4 launches; ClassificationPredictor on 3 arrays, one per
+    call (4 launches each, no keep kernel): probs within 1e-5 of the CPU's and
+    the top-5 equal; with half=True 4 bf16 launches per image."""
+    dev = _card()
+    from spectrogram_yolov11_torch.engine.predictor import ClassificationPredictor
+
+    model = _cls_model()
+    assert model.bottlenecks() == {"fused": [(6, 32), (6, 32), (8, 64), (8, 64)], "gated": []}
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, 3, 224, 224)).astype(np.float32))
+    model_g = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+    with torch.inference_mode():
+        before = _counts()
+        got = model_g(x.to(dev).contiguous(memory_format=torch.channels_last))
+        assert _moved(before) == (4, 0, 0)
+        torch.testing.assert_close(got.cpu(), model(x), atol=1e-3, rtol=1e-3)
+    rng = np.random.default_rng(4)
+    arrays = [rng.integers(0, 256, s, dtype=np.uint8) for s in ((360, 640, 3), (500, 333, 3), (224, 224, 3))]
+    kw = dict(imgsz=224, save=False)
+    before = _counts()
+    card = ClassificationPredictor(model, overrides=dict(kw, device="cuda"))(arrays)
+    assert _moved(before) == (12, 0, 0)
+    cpu = ClassificationPredictor(model, overrides=dict(kw, device="cpu"))(arrays)
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a.probs.data, b.probs.data, atol=1e-5, rtol=0)
+        assert a.probs.top5 == b.probs.top5
+    before = _counts()
+    half = ClassificationPredictor(model, overrides=dict(kw, device="cuda", half=True))(arrays)
+    assert _moved(before) == (0, 12, 0) and all(abs(float(r.probs.data.sum()) - 1) < 2e-2 for r in half)
+
+
+@pytest.mark.gpu
+def test_kernels_at_classify_val_inputs(tmp_path):
+    """ClassificationValidator on the card over 6 val images at 224 px, batch 4
+    (2 batches: 8 bottleneck launches, no keep launch) equal to the CPU's
+    top-1 and top-5; each bottleneck input it hands the kernel (4 x 14 x 14 x
+    32 and 4 x 7 x 7 x 64) against the plain version (1e-4 abs/rel)."""
+    _card()
+    from spectrogram_yolov11_torch.data.synth import gen_cls_shapes
+    from spectrogram_yolov11_torch.engine.validator import ClassificationValidator
+    from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
+
+    gen_cls_shapes(tmp_path, "val", 2, 160, seed=10_000)
+    model = _cls_model()
+    cap = {}
+
+    def keep(mod, args):  # returns None: the input stays as it is
+        if isinstance(mod, Bottleneck) and mod.fusable and not mod.training and args[0].is_cuda:
+            cap.setdefault(mod, args[0].permute(0, 2, 3, 1).contiguous())
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(keep)
+    try:
+        before = _counts()
+        got = ClassificationValidator(model, overrides=dict(imgsz=224, batch=4, device="cuda"))(data=str(tmp_path))
+        assert _moved(before) == (8, 0, 0)
+    finally:
+        hook.remove()
+    assert sorted(tuple(x.shape) for x in cap.values()) == [(4, 7, 7, 64)] * 2 + [(4, 14, 14, 32)] * 2
+    with torch.inference_mode():
+        for mod, x in cap.items():
+            c = x.shape[-1]
+            out = fused_bottleneck(x, mod.w1.view(2, 9, c, c), mod.b1, mod.w2.view(2, 9, c, c), mod.b2)
+            torch.testing.assert_close(out, bottleneck_reference(x, *_unpacked(mod, c, False)), atol=1e-4, rtol=1e-4)
+    # the validator moves the model it scores: the CPU's scores a copy
+    ref = ClassificationValidator(copy.deepcopy(model), overrides=dict(imgsz=224, batch=4, device="cpu"))(
+        data=str(tmp_path))
+    assert got == ref
+
+
+@pytest.mark.gpu
+def test_served_tasks_on_card_match_local_on_card(tmp_path):
+    """A server on the card with a segment, a pose (5, 3), an OBB and a classify
+    model (seeded, saved as YOLO.save writes them): YOLO(url).predict of each
+    on 2 frames at 320 px and conf 0.01 against YOLO(ckpt).predict on the card:
+    the server's 6 bottleneck launches per dispatch (4 for the classifier), the
+    client's keep kernel once per batch for segment and pose (none for OBB and
+    the classifier); boxes and rotated boxes within 1e-3 px, keypoints within
+    1e-3 px, masks at most 1e-3 of their pixels unequal, probs within 1e-5 and
+    the top-5 equal. The pose metadata carries kpt_shape."""
+    _card()
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.engine.checkpoint import save_checkpoint
+    from spectrogram_yolov11_torch.serve import InferenceServer
+    from spectrogram_yolov11_torch.utils.jax_compat import state_dict_to_variables
+
+    ckpts = {}
+    for task, model in (("segment", _seg_model()), ("pose", _pose_model((5, 3))), ("obb", _obb_model()),
+                        ("classify", _cls_model())):
+        ckpts[task] = tmp_path / f"{task}.ckpt"
+        save_checkpoint(ckpts[task], variables=state_dict_to_variables(model.state_dict()), ema_variables=None,
+                        opt_state=None, epoch=-1, best_fitness=0.0, updates=0,
+                        model_yaml={k: v for k, v in model.yaml.items() if k != "yaml_file"}, names=model.names,
+                        nc=model.nc)
+    srv = InferenceServer({k: str(v) for k, v in ckpts.items()}, port=0).start()
+    try:
+        rng = np.random.default_rng(6)
+        frames = [rng.integers(0, 256, (320, 320, 3), dtype=np.uint8), rng.integers(0, 256, (200, 300, 3), np.uint8)]
+        for task, want in (("segment", (6, 0, 1)), ("pose", (6, 0, 1)), ("obb", (6, 0, 0)), ("classify", (8, 0, 0))):
+            remote = YOLO(f"http://127.0.0.1:{srv.port}/{task}")
+            assert remote.task == task and (task != "pose" or remote.backend.kpt_shape == (5, 3))
+            kw = dict(imgsz=320, save=False) if task == "classify" else dict(imgsz=320, save=False, batch=2, conf=0.01)
+            before = _counts()
+            got = remote.predict(frames, **kw)
+            assert _moved(before) == want, task
+            ref = YOLO(ckpts[task]).predict(frames, **kw)
+            for g, r in zip(got, ref):
+                if task == "classify":
+                    np.testing.assert_allclose(g.probs.data, r.probs.data, atol=1e-5, rtol=0)
+                    assert g.probs.top5 == r.probs.top5
+                    continue
+                dg, dr = (x.obb.data if task == "obb" else x.boxes.data for x in (g, r))
+                assert dg.shape == dr.shape and len(dr) > 0, task
+                np.testing.assert_allclose(dg, dr, atol=1e-3, rtol=0)
+                if task == "segment":
+                    assert (g.masks.data != r.masks.data).mean() <= 1e-3
+                if task == "pose":
+                    np.testing.assert_allclose(g.keypoints.data, r.keypoints.data, atol=1e-3, rtol=0)
+    finally:
+        srv.shutdown()

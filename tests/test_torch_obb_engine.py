@@ -386,13 +386,15 @@ def test_facade_and_cli_run_the_obb_task(setup, tmp_path):
     assert len(pred) == 4 and all(r.obb is not None and r.boxes is None for r in pred)
     probes = {}
     assert check_train_batch_size(YOLO(ckpt, device="cpu").model, imgsz=32, nc=2, probes=probes) >= 16 and probes[16]
+    # the classify task builds since its slice (tests/test_torch_classify*.py); a checkpoint's own head names its
+    # task; the AutoBackend of an obb checkpoint runs the obb serving graph (held to JAX's in
+    # tests/test_torch_serve_tasks.py)
     for model in ("yolo11n-cls.yaml", "yolo11s-cls.yaml"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            YOLO(model)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        YOLO(str(ckpt), task="classify")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        AutoBackend(str(ckpt), device="cpu")
+        cls_model = YOLO(model)
+        assert cls_model.task == "classify" and cls_model.model.nc == 1000
+    assert YOLO(str(ckpt), task="classify").task == "obb"
+    backend = AutoBackend(str(ckpt), device="cpu")
+    assert backend.task == "obb" and backend.forward(np.zeros((1, IMGSZ, IMGSZ, 3), np.uint8)).shape == (1, 189, 7)
     with pytest.raises(AssertionError, match="detect task"):
         YOLO([str(ckpt), str(ckpt)])
 

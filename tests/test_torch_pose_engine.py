@@ -451,11 +451,12 @@ def test_facade_and_cli_run_the_pose_task(setup, tmp_path):
     assert jopt.flat_opt_state(jopt.OptState(**tree["opt_state"]), spec).mu.shape == (spec.n,)
     probes = {}
     assert check_train_batch_size(YOLO(ckpt, device="cpu").model, imgsz=32, nc=1, probes=probes) >= 16 and probes[16]
-    for model in ("yolo11n-cls.yaml",):  # obb runs since tests/test_torch_obb_engine.py
-        with pytest.raises(NotImplementedError, match="item 10"):
-            YOLO(model)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        AutoBackend(str(ckpt), device="cpu")
+    # the classify task builds since its slice (tests/test_torch_classify*.py); the AutoBackend of a pose
+    # checkpoint runs the pose serving graph and carries its kpt_shape (tests/test_torch_serve_tasks.py)
+    assert YOLO("yolo11n-cls.yaml").task == "classify"
+    backend = AutoBackend(str(ckpt), device="cpu")
+    out = backend.forward(np.zeros((1, IMGSZ, IMGSZ, 3), np.uint8))
+    assert backend.task == "pose" and backend.kpt_shape == KPT and out.shape == (1, 189, 4 + backend.nc + 15)
     with pytest.raises(AssertionError, match="detect task"):
         YOLO([str(ckpt), str(ckpt)])
 

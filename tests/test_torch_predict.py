@@ -228,8 +228,10 @@ def test_predict_refuses_what_the_port_does_not_do(models, tmp_path):
     with pytest.raises(SyntaxError, match="not a valid argument"):
         port.predict(frame, imgsz=IMGSZ, confidence=0.3)
     # model YAMLs build now (tests/test_torch_scratch.py, segment: tests/test_torch_segment.py, pose:
-    # tests/test_torch_pose.py, obb: tests/test_torch_obb.py); classify's YAML raises, naming item 10
-    for model in ("yolo11n-cls.yaml", "yolo11n.pt", "best.onnx"):
+    # tests/test_torch_pose.py, obb: tests/test_torch_obb.py, classify: tests/test_torch_classify.py);
+    # reference .pt files and exported artifacts raise, naming their ROADMAP items
+    assert YOLO("yolo11n-cls.yaml").task == "classify"
+    for model in ("yolo11n.pt", "best.onnx"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             YOLO(model)
     # an http(s):// URL is a served model now (tests/test_torch_serve.py); grpc:// raises before any connection,

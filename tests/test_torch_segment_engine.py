@@ -312,16 +312,16 @@ def test_facade_trains_vals_and_refuses_as_tabled(data, tmp_path, predictions):
     out = entrypoint(f"yolo segment val model={ckpt} data={data['path']}/d.yaml imgsz={IMGSZ} batch=2 device=cpu "
                      f"plots=False project={tmp_path / 'cli'}") if _write_yaml(data) else None
     assert list(out) == list(res)
-    for model, item in (("yolo11n-cls.yaml", "item 10"),):  # pose and obb: test_torch_pose*, test_torch_obb*
-        with pytest.raises(NotImplementedError, match=item):
-            YOLO(model)
+    assert YOLO("yolo11n-cls.yaml").task == "classify"  # since the classify slice (tests/test_torch_classify*.py)
     got, _ = predictions
     with pytest.raises(NotImplementedError, match="item 10"):
         got[0].masks.xy
     with pytest.raises(NotImplementedError, match="item 10"):
         got[0].save_txt(tmp_path / "x.txt")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        AutoBackend("yolo11n-seg.yaml", device="cpu")
+    # a segment model serves since the serving slice (tests/test_torch_serve_tasks.py): predictions with the
+    # mask coefficients, and the prototypes NHWC
+    preds, proto = AutoBackend("yolo11n-seg.yaml", device="cpu").forward(np.zeros((1, 64, 64, 3), np.uint8))
+    assert preds.shape == (1, 84, 4 + 80 + 32) and proto.shape == (1, 16, 16, 32)
     with pytest.raises(AssertionError, match="detect task"):
         YOLO([str(ckpt), str(ckpt)])
 

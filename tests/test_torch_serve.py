@@ -447,6 +447,10 @@ def test_inference_fn_with_nms_is_the_port_nms_of_its_predictions():
 @pytest.mark.parametrize("source,item", [("yolo11n-seg.yaml", "item 10"), ("best.pt", "item 11"), ("best.onnx", "item 9"),
                                          ("best.tflite", "item 9"), ("best.stablehlo", "item 9")])
 def test_sources_not_ported_raise(source, item):
+    if source == "yolo11n-seg.yaml":  # item 10's serving of the other tasks is done: the segment graph is served
+        backend = AutoBackend(source, device="cpu")
+        assert backend.task == "segment" and len(backend.forward(np.zeros((1, S, S, 3), np.uint8))) == 2
+        return
     with pytest.raises(NotImplementedError, match=item):
         AutoBackend(source, device="cpu")
 

@@ -334,9 +334,11 @@ def test_unported_options_raise(setup, kw, what, item, tmp_path):
 
 def test_other_nc_and_yaml_models_raise(setup, tmp_path):
     """Another nc and model YAMLs train now (held to JAX in tests/test_torch_scratch.py): the trainer rebuilds
-    the head for the data's nc, grafting the rest. A YAML whose head is Classify (the segment, pose and obb
-    tasks train since tests/test_torch_segment_engine.py, tests/test_torch_pose_engine.py and
-    tests/test_torch_obb_engine.py) raises, naming item 10."""
+    the head for the data's nc, grafting the rest. A YAML whose head is Classify builds a classifier since the
+    classify task (tests/test_torch_classify.py; the segment, pose and obb tasks train since
+    tests/test_torch_segment_engine.py, tests/test_torch_pose_engine.py and tests/test_torch_obb_engine.py);
+    routed from a list of layers into Classify, it raises JAX's TypeError (parse_model indexes the widths by
+    the route)."""
     root, data, ckpt = setup
     trainer = DetectionTrainer(YOLO(ckpt, device="cpu").model, {**TRAIN, "data": dict(data, names={0: "a", 1: "b", 2: "c"}),
                                                                 "device": "cpu", "project": str(root / "nc")})
@@ -344,6 +346,9 @@ def test_other_nc_and_yaml_models_raise(setup, tmp_path):
     assert trainer.model.nc == 3 and trainer.rebuilt["nc"] == (2, 3) and trainer.rebuilt["grafted"] > 400
     seg = tmp_path / "seg.yaml"
     seg.write_text("nc: 2\nbackbone:\n  - [-1, 1, Conv, [16, 3, 2]]\nhead:\n  - [[0], 1, Classify, [nc]]\n")
+    with pytest.raises(TypeError, match="list indices"):
+        YOLO(str(seg))
+    seg.write_text("nc: 2\nbackbone:\n  - [-1, 1, Conv, [16, 3, 2]]\nhead:\n  - [-1, 1, Classify, [nc]]\n")
     for model in (str(seg), "yolo11n-cls.yaml"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-            YOLO(model)
+        cls = YOLO(model)
+        assert cls.task == "classify" and cls.model.stride == (1.0,)
