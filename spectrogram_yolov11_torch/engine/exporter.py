@@ -15,14 +15,16 @@ Its outputs are JAX's table (:58-66), in JAX's layouts:
               prototypes (B, H/4, W/4, nm) NHWC      masks (B, max_det, H/4, W/4)
     pose      preds + keypoints (B, A, 4+nc+nk*nd)   det + keypoints (B, max_det, 6+nk*nd), n_valid
     obb       rboxes (B, A, 5 + nc)                  det (B, max_det, 7), n_valid
+    v10/e2e   det (B, max_det, 6), n_valid           the same (the NMS-free head)
 
 The segment masks are sigmoid(coefficients @ prototypes) cropped to their
 boxes (ops/masks.py:crop_masks_device), the pose keypoints decode_kpts'
 (input pixels), the NMS of detect, segment and pose the greedy keep kernel's
 (ops/nms.py), OBB's Fast-NMS over probiou (nms_rotated, no keep kernel).
-The v10/end-to-end and world branches (:76-83) are other model families
-(ROADMAP.md §1 item 11); the Exporter class (the artifact formats) is not
-ported (item 9).
+An end2end (v10) model gives its NMS-free rows with either setting, n_valid
+the rows above conf (JAX :78-83: engine/pipeline.py:e2e_detections, no keep
+kernel). The world branch is another model family (ROADMAP.md §1 item 11);
+the Exporter class (the artifact formats) is not ported (item 9).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..ops.decode import decode_detections, decode_kpts, decode_obb
 from ..ops.masks import crop_masks_device
 from ..ops.nms import nms_rotated, non_max_suppression, non_max_suppression_extras
 from ..utils import full_f32
-from .pipeline import forward_decode, nchw
+from .pipeline import e2e_detections, forward_decode, nchw
 
 
 def build_inference_fn(model: DetectionModel, *, nms: bool = False, conf: float = 0.25, iou: float = 0.7,
@@ -50,6 +52,9 @@ def build_inference_fn(model: DetectionModel, *, nms: bool = False, conf: float 
     @torch.inference_mode()
     @full_f32()
     def fn(imgs: torch.Tensor):
+        if model.end2end:
+            det = e2e_detections(model, imgs, max_det)
+            return det, (det[..., 4] > conf).sum(-1).int()
         if task == "detect":
             preds = forward_decode(model, imgs)
             if nms:

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import math
 from pathlib import Path
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from ..data.augment import letterbox_geometry
 from ..nn.tasks import DetectionModel, build_model
-from ..ops.decode import decode_detections, decode_kpts, decode_obb
+from ..ops.decode import decode_detections, decode_e2e, decode_kpts, decode_obb, nms_free_postprocess
 from ..ops.masks import crop_masks_device
 from ..ops.nms import nms_rotated, non_max_suppression, non_max_suppression_extras
 from ..utils import full_f32, resolve_device
@@ -85,6 +85,15 @@ def forward_decode(model: DetectionModel, rgb: torch.Tensor) -> torch.Tensor:
     return decode_detections(feats, model.nc, model.stride)
 
 
+def e2e_detections(model: DetectionModel, rgb: torch.Tensor, max_det: int) -> torch.Tensor:
+    """uint8 (B, S, S, 3) RGB frames -> an end2end (v10) model's rows (B,
+    min(max_det, A), 6) [x1, y1, x2, y2, conf, cls], sorted by confidence:
+    its one2one branch decoded with the boxes kept xyxy, then the NMS-free
+    top-k (ops/decode.py:nms_free_postprocess). No NMS and no keep kernel."""
+    out = model((rgb.float() / 255.0).permute(0, 3, 1, 2))
+    return nms_free_postprocess(decode_e2e(out["one2one"], model.nc, model.stride), max_det, model.nc)
+
+
 def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float = IOU_THRES, max_det: int = MAX_DET,
                     classes: Optional[Sequence[int]] = None, agnostic: bool = False,
                     pre_nms_topk: int = PRE_NMS_TOPK, half: bool = False, multi_label: bool = False,
@@ -98,9 +107,16 @@ def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float 
     tta_predictions' three passes. The network in bf16 with `half` (an f32
     model is converted by set_dtype, which leaves it as it is) and in f32
     otherwise, everything else in full f32 (utils.full_f32: the DFL decode
-    is a matmul)."""
+    is a matmul). An end2end (v10) model runs JAX's NMS-free branch
+    (engine/predictor.py:111-128, engine/validator.py:95-108) whatever the
+    other settings: e2e_detections, n the rows above `conf`, and with
+    `classes` the rows of other classes dropped too, the kept rows moved
+    first in confidence order (a stable sort); iou, agnostic, pre_nms_topk,
+    multi_label and augment are not read."""
     classes = None if classes is None else [classes] if isinstance(classes, int) else list(classes)
     model = model.set_dtype(torch.bfloat16 if half else torch.float32)
+    if model.end2end:
+        return _e2e_device_fn(model, conf, max_det, classes)
 
     @torch.inference_mode()
     @full_f32()
@@ -111,6 +127,21 @@ def build_device_fn(model: DetectionModel, conf: float = CONF_THRES, iou: float 
             preds = forward_decode(model, frames.expand(-1, -1, -1, 3).flip(-1))  # gray broadcast, BGR -> RGB
         return non_max_suppression(preds, conf_thres=conf, iou_thres=iou, nc=model.nc, multi_label=multi_label,
                                    agnostic=agnostic, max_det=max_det, pre_nms_topk=pre_nms_topk, classes=classes)
+
+    return fn
+
+
+def _e2e_device_fn(model: DetectionModel, conf: float, max_det: int, classes: Optional[List[int]]) -> Callable:
+    @torch.inference_mode()
+    @full_f32()
+    def fn(frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        det = e2e_detections(model, frames.expand(-1, -1, -1, 3).flip(-1), max_det)
+        keep = det[..., 4] > conf
+        if classes is not None:
+            keep &= torch.isin(det[..., 5], torch.tensor(classes, dtype=det.dtype, device=det.device))
+            order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices
+            det = det.gather(1, order[..., None].expand(-1, -1, det.shape[-1]))
+        return det, keep.sum(-1).int()
 
     return fn
 

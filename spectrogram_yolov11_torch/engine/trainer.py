@@ -119,7 +119,7 @@ from ..data.build import DataLoader
 from ..data.dataset import YOLODataset, check_det_dataset
 from ..nn.tasks import DetectionModel, build_model, intersect_state_dicts, yaml_model_load
 from ..ops.device_augment import augment_batch
-from ..ops.losses import detection_loss, obb_loss, pose_loss, segmentation_loss
+from ..ops.losses import detection_loss, e2e_detection_loss, obb_loss, pose_loss, segmentation_loss
 from ..utils import LOGGER, RUNS_DIR, full_f32, get_latest_run, plotting, resolve_device
 from ..utils.callbacks import default_callbacks, run_callbacks
 from ..utils.jax_compat import (opt_state_from_flax, opt_state_to_flax, state_dict_to_variables,
@@ -310,11 +310,13 @@ class DetectionTrainer:
         return self.model(images)
 
     def compute_loss(self, feats, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(total, items (box, cls, dfl)) of the detect loss at the batch's image size."""
+        """(total, items (box, cls, dfl)) of the detect loss at the batch's image size: the
+        dual-assignment loss where the head returns a dict (v10's end2end head; JAX :260-263)."""
         a = self.args
-        return detection_loss(feats, batch["cls"], batch["bboxes"], batch["mask_gt"], nc=self.data["nc"],
-                              imgsz=batch_imgsz(batch), strides=tuple(float(s) for s in self.model.stride),
-                              hyp_box=float(a.box), hyp_cls=float(a.cls), hyp_dfl=float(a.dfl))
+        loss = e2e_detection_loss if isinstance(feats, dict) else detection_loss
+        return loss(feats, batch["cls"], batch["bboxes"], batch["mask_gt"], nc=self.data["nc"],
+                    imgsz=batch_imgsz(batch), strides=tuple(float(s) for s in self.model.stride),
+                    hyp_box=float(a.box), hyp_cls=float(a.cls), hyp_dfl=float(a.dfl))
 
     def accumulate_grads(self, loss: torch.Tensor) -> None:
         """Add the loss's gradient to the grad buffer."""

@@ -350,7 +350,8 @@ class BackendValidator(DetectionValidator):
     are all read as classes (the mask coefficients, the keypoints, the
     angle), against the data's boxes (ROADMAP.md §3.45). A served
     classifier raises ValueError: JAX's reads its probabilities as boxes
-    and fails (§3.45)."""
+    and fails (§3.45). A served v10 model's NMS-free rows are read as
+    decoded predictions too, as JAX's (end2end False, :386; §3.49)."""
 
     def __init__(self, backend, overrides: Optional[dict] = None):
         self.backend = backend

@@ -7,7 +7,13 @@ C2f.forward, C3k2 (:204), SPPF (:246), Attention / PSABlock / C2PSA
 (:264-357), Proto (:522, the segment head's mask prototypes), the fork's
 C3x (:788), and _ResNetBasicBlock (:812) and TorchVision (:836), JAX's
 from-scratch ResNet-18/34 stand-in for the torchvision backbone of
-yolo11-cls-resnet18.yaml.
+yolo11-cls-resnet18.yaml. The YOLOv8 and YOLOv10 families' blocks: C2
+(:105, the p6 configs), GhostBottleneck (:449) and C3Ghost (:872, the ghost
+configs), ResNetBlock (:916) and ResNetLayer (:938, yolov8-cls-resnet50 and
+-101), and v10's SCDown (:377), PSA (:318), RepVGGDW (:392, its two
+depthwise branches kept apart, not re-parameterised), CIB (:405) and C2fCIB
+(:429). C2's inner bottlenecks are same-width 3x3 blocks and take the fused
+kernel as C2f's do.
 
 The inner bottlenecks of C3k (and C2f) are same-width 3x3 -> 3x3 residual
 blocks. In the inference forward they run as one fused CUDA kernel
@@ -43,7 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.fused_conv import CHANNELS, fused_bottleneck, pack_bottleneck_weights, pack_bottleneck_weights_bf16
-from .conv import BatchNorm2d, Conv, Conv2d, ConvTranspose2d
+from .conv import BatchNorm2d, Conv, Conv2d, ConvTranspose2d, DWConv, GhostConv
 
 
 @functools.lru_cache(maxsize=8)
@@ -151,6 +157,22 @@ class C2f(nn.Module):
         return self.cv2(torch.cat(ys, 1))
 
 
+class C2(nn.Module):
+    """CSP block with 2 convs (JAX block.py:105): cv1 split in two, `n`
+    same-width 3x3 bottlenecks (e=1.0) on the first half, cv2 merging both."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        self.cv2 = Conv(2 * c, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c, c, shortcut, g, k=((3, 3), (3, 3)), e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).chunk(2, 1)
+        return self.cv2(torch.cat((self.m(a), b), 1))
+
+
 class C3(nn.Module):
     """CSP block with 3 convs: `n` inner bottlenecks (e=1.0, kernels `k`) on
     cv1's half, cv2's half beside them, cv3 merging. Subclasses replace `m`."""
@@ -184,6 +206,40 @@ class C3x(C3):
 
         super().__init__(c1, c2, 0, shortcut, g, e)
         self.m = MSCSpatialAttention(int(c2 * e))
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck (JAX block.py:449) on the fork's GhostConv: conv.0
+    GhostConv 1x1 to c2 / 2, conv.1 a k x k depthwise conv at stride 2 (no
+    activation; the identity at stride 1), conv.2 GhostConv 1x1 to c2 (no
+    activation), plus the shortcut: at stride 2 a depthwise conv and a 1x1
+    Conv (no activations), at stride 1 x itself, which needs c1 == c2 (JAX
+    raises ValueError otherwise)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(GhostConv(c1, c_, 1, 1),
+                                  DWConv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+                                  GhostConv(c_, c2, 1, 1, act=False))
+        if s == 2:
+            self.shortcut = nn.Sequential(DWConv(c1, c1, k, s, act=False), Conv(c1, c2, 1, 1, act=False))
+        elif c1 == c2:
+            self.shortcut = nn.Identity()
+        else:
+            raise ValueError("GhostBottleneck s=1 requires c1 == c2")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x) + self.shortcut(x)
+
+
+class C3Ghost(C3):
+    """C3 whose `n` inner blocks are GhostBottleneck(c_, c_) (JAX block.py:872)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, 0, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))
 
 
 class C3k2(C2f):
@@ -261,6 +317,84 @@ class PSABlock(nn.Module):
         x = x + a if self.add else a
         f = self.ffn(x)
         return x + f if self.add else f
+
+
+class PSA(nn.Module):
+    """v10's position-sensitive attention block (JAX block.py:318): cv1 split
+    in two, the second half through Attention (c // 64 heads, attn_ratio 0.5)
+    and a 2-layer FFN, both residual, cv2 merging. c1 must equal c2; where c
+    < 64 the head count is 0 and Attention raises ZeroDivisionError, as
+    JAX's does at init."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError(f"PSA needs c1 == c2, got {c1} and {c2}")
+        self.c = c = int(c1 * e)
+        self.cv1 = Conv(c1, 2 * c, 1, 1)
+        self.cv2 = Conv(2 * c, c1, 1)
+        self.attn = Attention(c, attn_ratio=0.5, num_heads=c // 64)
+        self.ffn = nn.Sequential(Conv(c, c * 2, 1), Conv(c * 2, c, 1, act=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).chunk(2, 1)
+        b = b + self.attn(b)
+        b = b + self.ffn(b)
+        return self.cv2(torch.cat((a, b), 1))
+
+
+class SCDown(nn.Module):
+    """v10's separable downsample (JAX block.py:377): a 1x1 Conv to c2, then
+    a k x k depthwise Conv at stride s with no activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """silu(7x7 depthwise Conv + 3x3 depthwise Conv), both without
+    activation (JAX block.py:392). The two branches stay apart, as JAX's:
+    nothing is re-parameterised into one 7x7 kernel."""
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = Conv(ed, ed, 7, 1, 3, g=ed, act=False)
+        self.conv1 = Conv(ed, ed, 3, 1, 1, g=ed, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """v10's conditional identity block (JAX block.py:405): cv1 is 3x3
+    depthwise, 1x1 to 2 c_, 3x3 depthwise (RepVGGDW with `lk`), 1x1 to c2,
+    3x3 depthwise; residual where shortcut and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(Conv(c1, c1, 3, g=c1), Conv(c1, 2 * c_, 1),
+                                 RepVGGDW(2 * c_) if lk else Conv(2 * c_, 2 * c_, 3, g=2 * c_),
+                                 Conv(2 * c_, c2, 1), Conv(c2, c2, 3, g=c2))
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f whose inner blocks are CIB(c, c, shortcut, e=1.0, lk) (JAX block.py:429)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False, g: int = 1,
+                 e: float = 0.5):
+        nn.Module.__init__(self)
+        self._csp(c1, c2, n, e, lambda c: CIB(c, c, shortcut, e=1.0, lk=lk))
 
 
 class C2PSA(nn.Module):
@@ -361,3 +495,42 @@ class TorchVision(nn.Module):
             for block in getattr(self, f"layer{si + 1}"):
                 y = block(y)
         return y.mean((2, 3)) if self.pool else y
+
+
+class ResNetBlock(nn.Module):
+    """ResNet's bottleneck block of expansion e (JAX block.py:916):
+    relu(cv3(cv2(cv1(x))) + shortcut), cv1 1x1 to c2, cv2 3x3 at stride s,
+    cv3 1x1 to e * c2 without activation; the shortcut a 1x1 Conv at stride
+    s without activation where the stride or the width changes, else x."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: int = 4):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, 3, s, p=1)
+        self.cv3 = Conv(c2, c3, 1, act=False)
+        self.shortcut = nn.Sequential(Conv(c1, c3, 1, s, act=False)) if s != 1 or c1 != c3 else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.cv3(self.cv2(self.cv1(x))) + self.shortcut(x))
+
+
+class ResNetLayer(nn.Module):
+    """A stage of ResNet blocks (JAX block.py:938): with is_first the stem, a
+    7x7 stride-2 Conv then a 3x3 stride-2 max pool over a -inf pad of 1;
+    otherwise n ResNetBlocks, the first at stride s, the rest at width e * c2
+    and stride 1. Its output width is c2 for the stem, e * c2 otherwise (the
+    parser's rule, JAX nn/tasks.py:341-344)."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, is_first: bool = False, n: int = 1, e: int = 4):
+        super().__init__()
+        self.is_first = is_first
+        if is_first:
+            self.layer = nn.Sequential(Conv(c1, c2, 7, 2, p=3))
+        else:
+            self.layer = nn.Sequential(ResNetBlock(c1, c2, s, e=e), *(ResNetBlock(e * c2, c2, 1, e=e)
+                                                                      for _ in range(1, n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.layer(x)
+        return F.max_pool2d(y, 3, 2, 1) if self.is_first else y

@@ -1,7 +1,8 @@
 """Detection, segmentation, pose, OBB and classification heads (NCHW) of the port.
 
-Counterparts of spectrogram_yolov11_tpu/nn/modules/head.py:29 Detect in its
-non-legacy form (the YOLO11 head: a depthwise-separable class branch), :86
+Counterparts of spectrogram_yolov11_tpu/nn/modules/head.py:29 Detect (the
+YOLO11 head's depthwise-separable class branch, the legacy v8 one, and the
+end2end form of v10Detect with its one2one branches), :86
 Segment, :114 Pose, :141 OBB and :168 Classify. As in
 the JAX head, each level returns a (box, cls) pair of raw logits; decode and
 NMS live in ops/. Each branch's last conv (with bias) computes in its input's
@@ -11,7 +12,7 @@ dtype, as the JAX head's conv2d at the model's dtype.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Sequence
 
 import torch
 from torch import nn
@@ -21,21 +22,38 @@ from .conv import Conv, Conv2d, DWConv, Linear
 
 
 class Detect(nn.Module):
-    """Anchor-free decoupled head over P3/P4/P5.
+    """Anchor-free decoupled head over the levels of `ch` (3, or 4 for the p2
+    and p6 configs).
 
-    Level i returns (box (B, 4*reg_max, Hi, Wi), cls (B, nc, Hi, Wi))."""
+    Level i returns (box (B, 4*reg_max, Hi, Wi), cls (B, nc, Hi, Wi)). Its box
+    branch cv2[i] is Conv 3x3 to c2, Conv 3x3, conv 1x1 with bias; its class
+    branch cv3[i] the YOLO11 form (DWConv 3x3, Conv 1x1, twice, then conv 1x1
+    with bias) or, with `legacy` (the v3/v5/v8/v9 heads, JAX head.py:61-64),
+    Conv 3x3 to c3, Conv 3x3, conv 1x1 with bias. With `end2end` (v10Detect,
+    JAX head.py:78-82) a second pair of branches, one2one_cv2 and
+    one2one_cv3, runs on the inputs detached (JAX's stop_gradient), and the
+    head returns {"one2many": the pairs of cv2 / cv3, "one2one": those of the
+    second pair}."""
 
-    def __init__(self, nc: int = 80, ch: Sequence[int] = (), legacy: bool = False, reg_max: int = 16):
+    def __init__(self, nc: int = 80, ch: Sequence[int] = (), legacy: bool = False, reg_max: int = 16,
+                 end2end: bool = False):
         super().__init__()
-        if legacy:
-            raise NotImplementedError("only the non-legacy (YOLO11) Detect head is ported")
-        self.nc, self.reg_max = nc, reg_max
-        c2 = max(16, ch[0] // 4, reg_max * 4)
-        c3 = max(ch[0], min(nc, 100))
-        self.cv2 = nn.ModuleList(
-            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), Conv2d(c2, 4 * reg_max, 1)) for x in ch
-        )
-        self.cv3 = nn.ModuleList(
+        self.nc, self.reg_max, self.legacy, self.end2end = nc, reg_max, legacy, end2end
+        self.c2, self.c3 = max(16, ch[0] // 4, reg_max * 4), max(ch[0], min(nc, 100))
+        self.cv2, self.cv3 = self._box_branches(ch), self._cls_branches(ch)
+        if end2end:
+            self.one2one_cv2, self.one2one_cv3 = self._box_branches(ch), self._cls_branches(ch)
+
+    def _box_branches(self, ch: Sequence[int]) -> nn.ModuleList:
+        c2 = self.c2
+        return nn.ModuleList(nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), Conv2d(c2, 4 * self.reg_max, 1))
+                             for x in ch)
+
+    def _cls_branches(self, ch: Sequence[int]) -> nn.ModuleList:
+        c3, nc = self.c3, self.nc
+        if self.legacy:
+            return nn.ModuleList(nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), Conv2d(c3, nc, 1)) for x in ch)
+        return nn.ModuleList(
             nn.Sequential(
                 nn.Sequential(DWConv(x, x, 3), Conv(x, c3, 1)),
                 nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)),
@@ -47,13 +65,24 @@ class Detect(nn.Module):
     @torch.no_grad()
     def bias_init(self, strides: Sequence[float]) -> None:
         """JAX's detect_bias_init (nn/modules/head.py:192): each level's box
-        branch ends in bias 1.0, its class branch in log(5 / nc / (640 / s)^2)."""
-        for box, cls, s in zip(self.cv2, self.cv3, strides):
-            box[-1].bias.fill_(1.0)
-            cls[-1].bias.fill_(math.log(5 / self.nc / (640 / float(s)) ** 2))
+        branch ends in bias 1.0, its class branch in log(5 / nc / (640 / s)^2),
+        in both pairs of branches of an end2end head (head.py:199)."""
+        pairs = [(self.cv2, self.cv3)] + ([(self.one2one_cv2, self.one2one_cv3)] if self.end2end else [])
+        for cv2, cv3 in pairs:
+            for box, cls, s in zip(cv2, cv3, strides):
+                box[-1].bias.fill_(1.0)
+                cls[-1].bias.fill_(math.log(5 / self.nc / (640 / float(s)) ** 2))
 
-    def forward(self, xs: List[torch.Tensor]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        return [(self.cv2[i](x), self.cv3[i](x)) for i, x in enumerate(xs)]
+    @staticmethod
+    def _branches(xs: List[torch.Tensor], cv2: nn.ModuleList, cv3: nn.ModuleList):
+        return [(cv2[i](x), cv3[i](x)) for i, x in enumerate(xs)]
+
+    def forward(self, xs: List[torch.Tensor]):
+        one2many = self._branches(xs, self.cv2, self.cv3)
+        if not self.end2end:
+            return one2many
+        return {"one2many": one2many,
+                "one2one": self._branches([x.detach() for x in xs], self.one2one_cv2, self.one2one_cv3)}
 
 
 class Segment(nn.Module):

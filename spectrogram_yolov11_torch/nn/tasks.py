@@ -14,14 +14,23 @@ cfg/models/11/fork/). Scaling matches the JAX parse_model: channels
 make_divisible(min(c, max_channels) * width, 8), repeats max(round(n *
 depth), 1), and the Segment head's prototype width npr as
 make_divisible(min(npr, max_channels) * width, 8) (JAX :355); the string
-`kpt_shape` among a layer's arguments is the dict's (JAX :243, :261). Any
-other module name raises KeyError; DyHead raises with its ROADMAP.md item.
+`kpt_shape` among a layer's arguments is the dict's (JAX :243, :261). The
+YOLOv8 and YOLOv10 families' modules (C2, GhostBottleneck, C3Ghost,
+ResNetLayer, SCDown, PSA, RepVGGDW, C2fCIB, v10Detect) are registered as
+JAX's; `legacy` starts true and turns false at the first scale-sensitive
+module, every Detect-family head receives it, and v10Detect (the Detect
+class) is set end2end and not legacy (JAX :240, :292, :358-361); a model
+whose head is end2end reports it (`end2end`, JAX :513). A module of JAX's
+registry the port lacks raises NotImplementedError naming its ROADMAP.md
+item (NOT_PORTED_MODULES); any other unknown name raises KeyError.
 
 A model is built from a dict (a checkpoint's `model_yaml`) or from a model
 YAML: a path, or a name that find_model_yaml (JAX cfg/__init__.py:349)
-resolves under the port's cfg/models/ (yolo11.yaml, spectrogram_yolo11.yaml,
-fork/*.yaml; `yolo11n.yaml` and the bare `yolo11n` are yolo11.yaml at scale
-n, `yolo11n-seg.yaml` is yolo11-seg.yaml at n, `yolo11n-pose.yaml`
+resolves under any folder of the port's cfg/models/ (11/, 11/fork/, v8/,
+v10/, v10/fork/; the first hit in sorted order: yolo11.yaml,
+spectrogram_yolo11.yaml, fork/*.yaml, yolov8.yaml, yolov10n.yaml;
+`yolov8n.yaml` is yolov8.yaml at n; `yolo11n.yaml` and the bare `yolo11n`
+are yolo11.yaml at scale n, `yolo11n-seg.yaml` is yolo11-seg.yaml at n, `yolo11n-pose.yaml`
 yolo11-pose.yaml at n, `yolo11n-obb.yaml` yolo11-obb.yaml at n,
 `yolo11n_HCA.yaml` is fork/yolo11_HCA.yaml at n, `yolo11n-cls.yaml`
 yolo11-cls.yaml at n), read by utils.yaml_load.
@@ -68,23 +77,42 @@ MODULE_REGISTRY: Dict[str, type] = {
     **{name: getattr(M, name) for name in (
         "Conv", "DWConv", "GhostConv", "CBAM", "ChannelAttention", "SpatialAttention", "Concat", "Bottleneck",
         "C2f", "C3", "C3k", "C3k2", "C2PSA", "SPPF", "C3x", "Detect", "Segment", "Pose", "OBB", "Classify",
-        "TorchVision", *FORK_MODULES)},
+        "TorchVision", "C2", "GhostBottleneck", "C3Ghost", "ResNetLayer", "SCDown", "PSA", "RepVGGDW", "C2fCIB",
+        *FORK_MODULES)},
     "nn.Upsample": M.Upsample,
+    "v10Detect": M.Detect,  # JAX's: the Detect class, set end2end (and not legacy) by parse_model
 }
 BASE_MODULES = {
     M.Conv, M.GhostConv, M.Bottleneck, M.SPPF, M.C2PSA, M.DWConv, M.C2f, M.C3k2, M.C3, M.C3k, M.CBAM, M.C3x,
-    M.Classify,
+    M.Classify, M.C2, M.GhostBottleneck, M.C3Ghost, M.SCDown, M.PSA, M.C2fCIB,
     # the fork's base modules (JAX nn/tasks.py:179-181)
     M.RecycleConv, M.GhostConvHCA, M.LDConv, M.Cross_AKConv, M.Mix_SPPF, M.SELayer, M.SaELayer,
     M.SAPF, M.DDWConv, M.ConvOMN, M.MaxConv, M.GhostMaxConv, M.ConvHCA, M.GhostConvMax,
     M.FilterMaxConv, M.MaxConvHCA, M.C3k2GC, M.C3MSCk2, M.XCBAM2C2f, M.CoordAtt, M.HCoordAtt,
     M.MaxHCoordAtt, M.AKCBAM, M.C3GC,
 }
-REPEAT_MODULES = {M.C2f, M.C3k2, M.C3, M.C3x, M.C2PSA, M.C3k, M.C3k2GC, M.C3MSCk2, M.XCBAM2C2f, M.C3GC}
+REPEAT_MODULES = {M.C2f, M.C3k2, M.C3, M.C3x, M.C2PSA, M.C3k, M.C3k2GC, M.C3MSCk2, M.XCBAM2C2f, M.C3GC, M.C2,
+                  M.C3Ghost, M.C2fCIB}
 SCALE_SENSITIVE = {M.C3k2, M.C3k2GC, M.C3MSCk2, M.XCBAM2C2f}  # args[3] flips on m/l/x scales
-# modules of JAX's registry whose family the port refuses, with the ROADMAP.md item that queues it
+# modules of JAX's registry (nn/tasks.py:41-170) that the port lacks, each with what it is and the
+# ROADMAP.md item that queues it: a YAML naming one raises NotImplementedError, not KeyError
+_ITEM11 = "item 11 (other model families: {})"
 NOT_PORTED_MODULES = {
-    "DyHeadBlock": ("the DyHead block (yolo11_DYHEAD.yaml)", "item 11 (other model families: dyhead)"),
+    **{m: (f"the YOLOv9 module {m}", _ITEM11.format("v9")) for m in (
+        "RepNCSPELAN4", "ELAN1", "AConv", "ADown", "SPPELAN", "CBLinear", "CBFuse", "RepCSP", "nn.Identity")},
+    **{m: (f"the YOLOv3/v5/v6 module {m}", _ITEM11.format("v3, v5, v6")) for m in (
+        "SPP", "nn.MaxPool2d", "nn.ZeroPad2d", "nn.ConvTranspose2d", "Focus", "C1", "BottleneckCSP", "C3TR")},
+    "DyHeadBlock": ("the DyHead block (yolo11_DYHEAD.yaml)", _ITEM11.format("dyhead")),
+    "Index": ("the Index layer (yolo11_DYHEAD.yaml)", _ITEM11.format("dyhead")),
+    **{m: (f"the YOLO-World module {m}", _ITEM11.format("World")) for m in (
+        "C2fAttn", "ImagePoolingAttn", "WorldDetect")},
+    **{m: (f"the RT-DETR module {m}", _ITEM11.format("RT-DETR")) for m in (
+        "HGStem", "HGBlock", "RepC3", "RepConv", "AIFI", "TransformerEncoderLayer", "RTDETRDecoder")},
+    **{m: (f"the YOLO-NAS module {m}", _ITEM11.format("NAS")) for m in (
+        "QARepVGG", "NASStage", "NASCSP", "NASReduce", "NASDown", "NASUpsample")},
+    **{m: (f"the module {m}", _ITEM11.format("the rest")) for m in (
+        "AGLU", "Conv2", "ConvE", "ConvGN", "LightConv", "ConvTranspose", "DWConvTranspose2d", "C2fPSA",
+        "PSABlock", "C3f", "TransformerBlock", "Proto")},
 }
 
 
@@ -164,6 +192,8 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
     save: List[int] = []
     specs: List[dict] = []
     for i, (f, n, m, args) in enumerate(d["backbone"] + d["head"]):
+        if m in NOT_PORTED_MODULES:
+            raise not_ported(*NOT_PORTED_MODULES[m])
         if m not in MODULE_REGISTRY:
             raise KeyError(f"Unknown module '{m}' in model dict (layer {i}). Known: {sorted(MODULE_REGISTRY)}")
         cls = MODULE_REGISTRY[m]
@@ -207,11 +237,15 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
             c2, args = ch_list[f[0]], [ch_list[f[0]]]
         elif cls is M.TorchVision:  # args[0] is the output width (JAX :322)
             c2, args, kwargs["c1"] = args[0], args[1:], ch_list[f]
+        elif cls is M.ResNetLayer:  # the YAML holds (c1, c2, s, is_first, n); the stem keeps c2 (JAX :341-344)
+            c2 = args[1] if args[3] else args[1] * 4
         elif cls in (M.Detect, M.Segment, M.Pose, M.OBB):
             args.append(tuple(ch_list[x] for x in f))
             if cls is M.Segment:  # the prototype width npr scales as a width (JAX :355)
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             kwargs["legacy"] = legacy
+            if m == "v10Detect":  # the light class branch and the dual assignments (JAX :358-361)
+                kwargs["legacy"], kwargs["end2end"] = False, True
             c2 = None
         else:  # Upsample and the fork's other modules keep the width of their input
             c2 = ch_list[f]
@@ -297,6 +331,7 @@ class DetectionModel(nn.Module):
         self.dtype = torch.float32  # the activations' dtype; parameters too, except BN's, which stay f32
         self.compute_dtype = torch.float32  # the activations' dtype in training; parameters stay f32
         layers, self.routes, self.save, self.specs = parse_model(self.yaml, ch)
+        self.end2end = bool(self.specs[-1]["kwargs"].get("end2end", False))  # a v10Detect head (JAX :513)
         self.model = nn.ModuleList(layers)
         self.eval()
         self.stride = self._calibrate_stride()
@@ -307,6 +342,7 @@ class DetectionModel(nn.Module):
         with torch.no_grad():
             out = self.forward(torch.zeros(1, self.ch, s, s))
         feats = out[0] if isinstance(out, tuple) else out  # a Segment, Pose or OBB head's pairs come first
+        feats = feats["one2many"] if isinstance(feats, dict) else feats  # an end2end head's
         return tuple(s / box.shape[-2] for box, _ in feats)
 
     @full_f32()

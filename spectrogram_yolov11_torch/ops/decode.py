@@ -3,7 +3,8 @@
 Counterpart of spectrogram_yolov11_tpu/ops/decode.py: make_anchors (:21),
 dist2bbox (:37), bbox2dist (:49, the loss's DFL targets), decode_detections
 (:99), decode_kpts (:150, the pose head's keypoints), and the OBB head's
-dist2rbox (:57) and decode_obb (:132). DFL and sigmoid run per level, then
+dist2rbox (:57) and decode_obb (:132), and v10's NMS-free end: decode_e2e
+(:168) and nms_free_postprocess (:177). DFL and sigmoid run per level, then
 the small results are concatenated, as in the JAX form.
 """
 
@@ -106,3 +107,38 @@ def decode_obb(feats: List[Tuple[torch.Tensor, torch.Tensor]], angle_raw: torch.
     dist, scores = _decode_streams(feats, reg_max)
     rbox = dist2rbox(dist, angle, anchors[None]) * stride_t[None]
     return torch.cat([rbox, angle, scores], -1)
+
+
+def decode_e2e(feats: List[Tuple[torch.Tensor, torch.Tensor]], nc: int, strides: Sequence[float],
+               reg_max: int = 16) -> torch.Tensor:
+    """An end2end (v10) head's one2one pairs -> (B, A, 4 + nc) f32 as
+    decode_detections, but with the boxes kept xyxy (JAX decode.py:168)."""
+    anchors, stride_t = make_anchors([tuple(b.shape[-2:]) for b, _ in feats], strides, feats[0][0].device)
+    dist, scores = _decode_streams(feats, reg_max)
+    boxes = dist2bbox(dist, anchors[None], xywh=False) * stride_t[None]
+    return torch.cat([boxes, scores], -1)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values of x's last dimension and their indices, equal
+    values in index order: jax.lax.top_k's order, which torch.topk does not
+    promise (a stable descending sort cut at k)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def nms_free_postprocess(preds: torch.Tensor, max_det: int, nc: int) -> torch.Tensor:
+    """v10's NMS-free selection (JAX decode.py:177): preds (B, A, 4 + nc)
+    with xyxy boxes -> (B, k, 6) [x1, y1, x2, y2, conf, cls], k = min(max_det,
+    A), sorted by confidence: the k anchors of the highest best-class score,
+    then the k highest scores over those anchors x classes, ties in index
+    order as jax.lax.top_k's."""
+    b, a = preds.shape[:2]
+    k = min(max_det, a)
+    boxes, scores = preds[..., :4], preds[..., 4:]
+    _, idx = _top_k(scores.amax(-1), k)
+    boxes = boxes.gather(1, idx[..., None].expand(-1, -1, 4))
+    scores = scores.gather(1, idx[..., None].expand(-1, -1, nc))
+    conf, fidx = _top_k(scores.reshape(b, -1), k)
+    sel = boxes.gather(1, (fidx // nc)[..., None].expand(-1, -1, 4))
+    return torch.cat([sel, conf[..., None], (fidx % nc).float()[..., None]], -1)

@@ -3,7 +3,8 @@
 Counterpart of spectrogram_yolov11_tpu/ops/losses.py:43-175 (_bce_logits,
 df_loss, bbox_loss, preprocess_targets, detection_loss), :177
 classification_loss, :223 segmentation_loss, :285 keypoint_loss_terms, :304
-pose_loss and :377 obb_loss, with the same reductions:
+pose_loss, :377 obb_loss and :435 e2e_detection_loss (v10's dual
+assignment), with the same reductions:
 
   cls   = BCE(logits, target scores).sum() / max(target_scores.sum(), 1)
   box   = sum((1 - CIoU) * w) / target_scores_sum, w = target_scores.sum(-1) on fg anchors
@@ -122,6 +123,20 @@ def detection_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], cls: torch.Te
                                                     tal_topk)
     items = torch.stack([hyp_box * loss_iou, hyp_cls * loss_cls, hyp_dfl * loss_dfl])
     return items.sum() * feats[0][0].shape[0], items.detach()
+
+
+def e2e_detection_loss(out: dict, cls: torch.Tensor, bboxes: torch.Tensor, mask_gt: torch.Tensor, nc: int,
+                       reg_max: int = 16, imgsz: int = 640, strides: Sequence[float] = (8.0, 16.0, 32.0),
+                       hyp_box: float = 7.5, hyp_cls: float = 0.5,
+                       hyp_dfl: float = 1.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v10's dual-assignment loss (JAX losses.py:435): detection_loss of the
+    one2many branch with TAL topk 10 plus that of the one2one branch with
+    topk 1; the totals and the items summed."""
+    kw = dict(nc=nc, reg_max=reg_max, imgsz=imgsz, strides=strides, hyp_box=hyp_box, hyp_cls=hyp_cls,
+              hyp_dfl=hyp_dfl)
+    t1, i1 = detection_loss(out["one2many"], cls, bboxes, mask_gt, tal_topk=10, **kw)
+    t2, i2 = detection_loss(out["one2one"], cls, bboxes, mask_gt, tal_topk=1, **kw)
+    return t1 + t2, i1 + i2
 
 
 def segmentation_loss(feats: List[Tuple[torch.Tensor, torch.Tensor]], mask_coeffs: torch.Tensor, proto: torch.Tensor,

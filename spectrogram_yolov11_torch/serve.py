@@ -591,7 +591,10 @@ class RemotePredictor(BasePredictor):
     for detect), each the task's predictor whose device function sends the
     frames (flipped to RGB on the host) and runs the task's NMS on the
     client's device at predict's settings (module docstring). A task JAX's
-    client lacks raises NotImplementedError, as JAX's."""
+    client lacks raises NotImplementedError, as JAX's. A served v10 model's
+    NMS-free rows go through the detect client's NMS as decoded
+    predictions, as JAX's client (meta.end2end False, :713) reads them
+    (ROADMAP.md §3.49)."""
 
     def __new__(cls, backend: AutoBackend, overrides: Optional[dict] = None):
         if cls is RemotePredictor:

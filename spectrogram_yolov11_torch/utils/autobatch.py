@@ -63,11 +63,13 @@ def check_train_batch_size(model, imgsz: int = 640, nc: int = 80, fraction: floa
     """autobatch over the train step of `model` on its device: a copy of it
     in training mode computing in f32, the forward, the task's loss (the
     detection loss, a segment model's segmentation loss over empty
-    instance masks, a pose model's pose loss over empty keypoints, or an obb
-    model's OBB loss over empty rotated boxes) and
+    instance masks, a pose model's pose loss over empty keypoints, an obb
+    model's OBB loss over empty rotated boxes, or an end2end (v10) model's
+    dual-assignment loss; JAX's hands that head's dict to detection_loss,
+    whose probe fails, and keeps its start batch 16: ROADMAP.md §3.48) and
     the backward to every parameter, on (b, 3, imgsz,
     imgsz) zeros with 128 empty label slots per image, as JAX's probe (:63)."""
-    from ..ops.losses import detection_loss, obb_loss, pose_loss, segmentation_loss
+    from ..ops.losses import detection_loss, e2e_detection_loss, obb_loss, pose_loss, segmentation_loss
 
     dev = next(model.parameters()).device
     m = copy.deepcopy(model).train()
@@ -94,7 +96,8 @@ def check_train_batch_size(model, imgsz: int = 640, nc: int = 80, fraction: floa
                 gt = torch.zeros(b, *out[2].shape[-2:], dtype=torch.int32, device=dev)
                 loss, _ = segmentation_loss(*out, cls, boxes, mask, gt, nc=nc, imgsz=imgsz, strides=strides)
             else:
-                loss, _ = detection_loss(out, cls, boxes, mask, nc=nc, imgsz=imgsz, strides=strides)
+                loss_fn = e2e_detection_loss if isinstance(out, dict) else detection_loss
+                loss, _ = loss_fn(out, cls, boxes, mask, nc=nc, imgsz=imgsz, strides=strides)
             torch.autograd.grad(loss, params)
 
     def probe_card(b: int) -> Optional[int]:

@@ -46,7 +46,11 @@ top-5 equal, f32 and bf16 launches), the bottleneck at the classify
 validator's 14 x 14 and 7 x 7 inputs and its top-1/top-5 equal to the CPU's;
 a server on the card holding a segment, pose, OBB and classify model,
 YOLO(url).predict of each against local predict on the card (boxes and
-keypoints 1e-3 px, masks at most 1e-3 unequal, probs 1e-5), counted. The tests leave
+keypoints 1e-3 px, masks at most 1e-3 unequal, probs 1e-5), counted; yolov8n's
+and yolov10n's forward (a legacy head; a v10 head's both branches) against
+the CPU's (1e-3 abs/rel) with 5 bottleneck launches, and v10's NMS-free
+top-k on the card giving the CPU's rows exactly on scores with many ties
+(a stable sort on both). The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -1754,3 +1758,45 @@ def test_served_tasks_on_card_match_local_on_card(tmp_path):
                     np.testing.assert_allclose(g.keypoints.data, r.keypoints.data, atol=1e-3, rtol=0)
     finally:
         srv.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["yolov8n.yaml", "yolov10n.yaml"])
+def test_v8_v10_forward_on_card_match_cpu(name):
+    """yolov8n (the legacy Detect head) and yolov10n (both branches of
+    v10Detect) from their YAMLs with init(0): the card's f32 forward against
+    the CPU's (1e-3 abs/rel), 5 bottleneck launches (layer 2's C = 16 gated)."""
+    dev = _card()
+    from spectrogram_yolov11_torch.nn.tasks import build_model, yaml_model_load
+
+    model = build_model(yaml_model_load(name)).init(0)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, 3, 256, 256)).astype(np.float32))
+    model_g = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+    with torch.inference_mode():
+        n0 = fused_bottleneck.launches
+        got = model_g(x.to(dev).contiguous(memory_format=torch.channels_last))
+        torch.cuda.synchronize()
+        assert fused_bottleneck.launches - n0 == 5
+        ref = model(x)
+    pairs = (lambda o: [t for branch in ("one2many", "one2one") for p in o[branch] for t in p]) if model.end2end \
+        else (lambda o: [t for p in o for t in p])
+    assert len(pairs(got)) == (12 if model.end2end else 6)
+    for g, r in zip(pairs(got), pairs(ref)):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_nms_free_postprocess_on_card_equals_cpu_on_ties():
+    """ops/decode.py:nms_free_postprocess on scores drawn from four levels (most
+    anchors tie) at A = 8400, nc = 2: the card's rows equal the CPU's exactly,
+    ties kept in index order by the stable sort on both."""
+    dev = _card()
+    from spectrogram_yolov11_torch.ops.decode import nms_free_postprocess
+
+    rng = np.random.default_rng(6)
+    boxes = rng.uniform(0, 640, (4, 8400, 4)).astype(np.float32)
+    scores = rng.choice(np.float32([0.0, 0.25, 0.5, 0.75]), (4, 8400, 2)).astype(np.float32)
+    preds = torch.from_numpy(np.concatenate([boxes, scores], -1))
+    for max_det in (300, 8400):
+        got = nms_free_postprocess(preds.to(dev), max_det, 2).cpu()
+        assert torch.equal(got, nms_free_postprocess(preds, max_det, 2))

@@ -80,8 +80,13 @@ def test_stock_yolo11n_random_init_matches_jax():
 
 
 def test_unknown_module_raises():
-    cfg = {"nc": 2, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "RepC3", [16]]], "head": []}
-    with pytest.raises(KeyError, match="RepC3"):
+    """A name no registry knows raises KeyError; a module of JAX's registry the
+    port lacks (RT-DETR's RepC3) raises NotImplementedError naming its ROADMAP item."""
+    cfg = {"nc": 2, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "NoSuchModule", [16]]], "head": []}
+    with pytest.raises(KeyError, match="NoSuchModule"):
+        build_model(cfg)
+    cfg["backbone"][1][2] = "RepC3"
+    with pytest.raises(NotImplementedError, match="RepC3 is not ported yet: queued in ROADMAP.md §1 item 11"):
         build_model(cfg)
 
 
