@@ -192,10 +192,10 @@ Phases, each printing one JSON line, each fatal when it fails:
                kernels at its inputs), save -> YOLO(saved).val equal again;
                `python -m spectrogram_yolov11_torch detect val` in a
                subprocess printing the same metrics, and `detect train` for
-               one epoch on a 16-image 320 px split exiting 0; info() of both
-               YAML models on the card. Readings: seconds per epoch, ms per
-               step with the loader's wait, val seconds, the subprocesses'
-               seconds
+               one epoch on a 16-image 320 px split exiting 0 (the two
+               processes at once); info() of both YAML models on the card.
+               Readings: seconds per epoch, ms per step with the loader's
+               wait, val seconds, the subprocesses' seconds from their start
   16. save     predict's saved output: the host JPEG encoder's bytes of frames
                decoded from tests/torch_data/jpeg/ held to cv2's committed
                encodes and their SHA-256 (tests/torch_data/jpeg_encode/);
@@ -442,6 +442,33 @@ Phases, each printing one JSON line, each fatal when it fails:
                the first image against the CPU's, the bottleneck inputs
                against the plain version, ms per call at B = 32. Every time is
                printed beside the card's name and power limit
+  27. export    the Exporter and its artifacts (engine/exporter.py,
+               nn/autobackend.py). The trained checkpoint exported by the
+               command line (`python -m spectrogram_yolov11_torch export
+               format=stablehlo`, YOLO(ckpt).export) at 640 px in f32 and
+               with half=True, each with nms=False and nms=True, and the
+               two seeded heads below from checkpoints written by the ckpt
+               row: six processes at once (seconds from the start to each
+               one's exit); each .pt2 loaded by AutoBackend and run at B =
+               1 and 32 with the counts set to 0 just before and read just
+               after (6 bottleneck launches, bf16 with half, and with nms 1
+               keep launch per call), the inputs each operator call took
+               kept by a dispatch mode (capture_op_inputs: the program holds
+               no modules for a hook) and held against the plain versions;
+               the outputs against build_inference_fn on the same card (f32:
+               boxes 1e-2 px, the rest 1e-4; bf16: 0.5 px and 2^-7; with nms
+               n_valid and the kept rows' classes equal), the f32 programs
+               also with TF32 on for the process; ms per forward at B = 32,
+               program and direct graph in turns. YOLO(.pt2).val on the
+               32-image synth split equal to YOLO(ckpt).val (1e-6 per key)
+               and its predict on 8 frames equal to YOLO(ckpt)'s (1e-3 px),
+               counted (6 + 1); a server of the .pt2 answering 2 frames
+               equal to the local program (its probe and the request: 12
+               launches, the server holding YOLO(.pt2)'s program).
+               yolo11n-seg (nms=True, masks) and yolov10n (NMS-free, 5
+               launches) from their YAMLs on seeded weights, exported at
+               conf 1e-6 and max_det 30, reloaded and held against their
+               direct graphs the same way. Every time beside the card's name and power limit
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -2843,17 +2870,25 @@ def phase_scratch():
                                   "seed": 1, "names": {0: "LTE", 1: "RF"}})
         tiny_yaml = Path(tmp) / "tiny.yaml"
         tiny_yaml.write_text(f"path: {tiny['path']}\ntrain: images/train\nval: images/val\nnames:\n  0: LTE\n  1: RF\n")
-        cli = {}
-        for verb, args in (("val", [f"model={CKPT}", f"data={yaml_path}", f"batch={VAL_BATCH}", "plots=False"]),
-                           ("train", ["model=spectrogram_yolo11.yaml", f"data={tiny_yaml}", "epochs=1", "batch=8",
-                                      "imgsz=320", "workers=4", f"project={tmp}", "name=cli", "exist_ok=True",
-                                      "plots=False"])):
-            t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", "spectrogram_yolov11_torch", "detect", verb, *args], cwd=ROOT,
-                               capture_output=True, text=True, timeout=300)
-            cli[verb] = {"rc": r.returncode, "seconds": time.perf_counter() - t0,
-                         "last_line": (r.stdout.strip().splitlines() or [""])[-1]}
-            require(r.returncode == 0, f"detect {verb} exited {r.returncode}: {r.stderr[-2000:]}")
+        cli, procs, t0 = {}, {}, time.perf_counter()
+        try:  # the two commands at once: each is mostly a process's start-up on the host
+            for verb, args in (("val", [f"model={CKPT}", f"data={yaml_path}", f"batch={VAL_BATCH}", "plots=False"]),
+                               ("train", ["model=spectrogram_yolo11.yaml", f"data={tiny_yaml}", "epochs=1", "batch=8",
+                                          "imgsz=320", "workers=4", f"project={tmp}", "name=cli", "exist_ok=True",
+                                          "plots=False"])):
+                procs[verb] = subprocess.Popen([sys.executable, "-m", "spectrogram_yolov11_torch", "detect", verb,
+                                                *args], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                               text=True)
+            for verb, p in procs.items():
+                out, err = p.communicate(timeout=300)
+                cli[verb] = {"rc": p.returncode, "seconds": time.perf_counter() - t0,
+                             "last_line": (out.strip().splitlines() or [""])[-1]}
+                require(p.returncode == 0, f"detect {verb} exited {p.returncode}: {err[-2000:]}")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
         cli_val = json.loads(cli["val"]["last_line"])
         require(cli_val == ref, f"detect val printed {cli_val}, YOLO(ckpt).val gives {ref}")
         require((Path(tmp) / "cli" / "weights" / "last.ckpt").exists(), "detect train wrote no last.ckpt")
@@ -5181,6 +5216,239 @@ def phase_families(smi: str):
     return {**launches, **fork_launches}, flat, nms
 
 
+EXPORT_BATCHES = (1, 32)  # phase export: the batches each program runs at
+EXPORT_PX_TOL, EXPORT_SCORE_TOL = 1e-2, 1e-4  # f32 program against the direct graph: the serve phase's tolerance
+EXPORT_HALF_PX_TOL, EXPORT_HALF_SCORE_TOL = 0.5, 2.0**-7  # bf16 program against the direct bf16 graph
+EXPORT_FUSED = {"spectrogram_yolo11n": 6, "yolo11n-seg": 6, "yolov10n": FAMILY_FUSED}
+
+
+def capture_op_inputs():
+    """A dispatch mode that keeps the inputs of every call of the port's
+    operators (syt::fused_bottleneck_f32, syt::fused_bottleneck_bf16,
+    syt::greedy_keep) while it is on, in call order: the inputs an exported
+    program, which holds no modules for a hook, hands its kernels. It
+    launches nothing itself. Returns (the mode, its list of (op name, args))."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = []
+
+    class Capture(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "syt":
+                calls.append((func._opname, tuple(a.clone() if torch.is_tensor(a) else a for a in args)))
+            return func(*args, **(kwargs or {}))
+
+    return Capture(), calls
+
+
+def op_checks(calls: list, what: str) -> dict:
+    """Each captured operator call (capture_op_inputs) against its plain
+    version: the bottleneck by bottleneck_check, the keep mask by nms_check
+    (0 mismatches)."""
+    import torch
+
+    checks = {}
+    with torch.inference_mode():
+        for i, (op, args) in enumerate(calls):
+            if op == "greedy_keep":
+                boxes, valid, iou = args
+                require(iou == 0.7, f"{what}: keep at iou {iou}")
+                d = nms_check(boxes, valid)
+            else:
+                d = bottleneck_check(f"{what} {i}", args)
+            checks[f"{op}{i}"] = {k: v for k, v in d.items() if "args" not in k}
+    return checks
+
+
+def _out_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def compare_outputs(got, ref, what: str, px_tol: float, score_tol: float, nms: bool) -> dict:
+    """An exported program's outputs against the direct graph's: every output
+    of the same shape and dtype; with nms, n_valid equal and the kept rows'
+    classes equal, their boxes within px_tol and confidences within
+    score_tol; without, boxes within px_tol and the rest within score_tol;
+    a mask output within score_tol."""
+    import torch
+
+    got, ref = _out_tuple(got), _out_tuple(ref)
+    require(len(got) == len(ref), f"{what}: {len(got)} outputs, expected {len(ref)}")
+    errs = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        require(g.shape == r.shape and g.dtype == r.dtype, f"{what}: output {i} {g.dtype} {tuple(g.shape)}, expected "
+                                                           f"{r.dtype} {tuple(r.shape)}")
+        require(bool(torch.isfinite(g.float()).all()), f"{what}: output {i} not finite")
+        errs.append(float((g.float() - r.float()).abs().max()) if g.numel() else 0.0)
+    if nms:
+        det_g, n_g, det_r, n_r = got[0], got[1], ref[0], ref[1]
+        require(torch.equal(n_g, n_r), f"{what}: kept rows {n_g.tolist()} against {n_r.tolist()}")
+        keep = torch.arange(det_r.shape[1], device=det_r.device)[None] < n_r[:, None]
+        g, r = det_g[keep], det_r[keep]
+        require(torch.equal(g[:, 5], r[:, 5]), f"{what}: kept classes differ")
+        box, conf = float((g[:, :4] - r[:, :4]).abs().max()) if len(g) else 0.0, \
+            float((g[:, 4] - r[:, 4]).abs().max()) if len(g) else 0.0
+        require(box <= px_tol and conf <= score_tol, f"{what}: kept rows off by {box} px, {conf} in confidence")
+        extra = {"kept": int(n_r.sum()), "box_px": box, "conf": conf}
+        if len(got) == 3:  # a segment program's masks
+            require(errs[2] <= score_tol, f"{what}: masks off by {errs[2]}")
+    else:
+        preds_g, preds_r = got[0], ref[0]
+        box = float((preds_g[..., :4] - preds_r[..., :4]).abs().max())
+        rest = float((preds_g[..., 4:] - preds_r[..., 4:]).abs().max()) if preds_r.shape[-1] > 4 else 0.0
+        require(box <= px_tol and rest <= score_tol, f"{what}: predictions off by {box} px, {rest} elsewhere")
+        extra = {"box_px": box, "rest": rest}
+        for i in range(1, len(got)):
+            require(errs[i] <= score_tol, f"{what}: output {i} off by {errs[i]}")
+    return {"max_abs_err_by_output": errs, **extra}
+
+
+def phase_export(smi: str):
+    """The Exporter and its artifacts on the card (see the module docstring, 27)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.data.synth import synth_frames
+    from spectrogram_yolov11_torch.engine.exporter import Exporter, build_inference_fn
+    from spectrogram_yolov11_torch.engine.pipeline import eval_network, load_model
+    from spectrogram_yolov11_torch.nn.autobackend import AutoBackend
+    from spectrogram_yolov11_torch.nn.tasks import build_model
+    from spectrogram_yolov11_torch.serve import RemoteModel, serve
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    t_phase, dev = time.perf_counter(), torch.device("cuda")
+    launches, checks, results, export_s, times = {}, {}, {}, {}, {}
+    frames = torch.from_numpy(np.full((max(EXPORT_BATCHES), 640, 640, 3), 114, np.uint8)).to(dev)
+    synth = torch.from_numpy(np.repeat(synth_frames(max(EXPORT_BATCHES), 360, 640, seed=3), 3, -1)).to(dev)
+    frames[:, 140:500] = synth.flip(-1)  # letterboxed RGB frames
+
+    def expect(fused: int, dtype, keep: int) -> dict:
+        e = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": keep}
+        e["fused_bottleneck_bf16" if dtype == torch.bfloat16 else "fused_bottleneck"] = fused
+        return e
+
+    def program_vs_direct(key: str, path: str, model, half: bool, nms: bool, fused: int, keep: int, timed: bool,
+                          conf: float = 0.25, max_det: int = 300):
+        """Load the .pt2 at `path`, run it at each batch counted from 0 with its kernels' inputs kept, hold its
+        outputs against the direct graph on the same card, and the kept inputs against the plain versions."""
+        backend = AutoBackend(path, half=half, device="cuda")
+        require(backend.nms == nms and backend.half == half, f"{key}: backend nms {backend.nms} half {backend.half}")
+        direct = build_inference_fn(eval_network(model, half, dev), nms=nms, conf=conf, max_det=max_det)
+        px, sc = (EXPORT_HALF_PX_TOL, EXPORT_HALF_SCORE_TOL) if half else (EXPORT_PX_TOL, EXPORT_SCORE_TOL)
+        dtype = torch.bfloat16 if half else torch.float32
+        results[key], checks[key] = {}, {}
+        for bs in EXPORT_BATCHES:
+            x = frames[:bs]
+            mode, calls = capture_op_inputs()
+            with mode:
+                out, launches[f"{key}_b{bs}"] = run_counted(lambda: backend(x), expect(fused, dtype, keep),
+                                                            f"{key} program at B={bs}")
+            require(len(calls) == fused + keep, f"{key}: {len(calls)} operator calls")
+            checks[key][f"b{bs}"] = op_checks(calls, f"{key} b{bs}")
+            results[key][f"b{bs}"] = compare_outputs(out, direct(x), f"{key} B={bs}", px, sc, nms)
+        if not half:  # TF32 on for the process: the program still runs its convs in full f32
+            saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                results[key]["tf32_on_b32"] = compare_outputs(backend(frames), direct(frames), f"{key} TF32 on",
+                                                              px, sc, nms)
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        if timed:
+            turns = [cuda_ms(lambda f=f: f(frames), iters=10) for f in (backend, direct, direct, backend)]
+            times[key] = {"program_ms_b32": (turns[0] + turns[3]) / 2, "direct_ms_b32": (turns[1] + turns[2]) / 2,
+                          "turns_program_direct_direct_program": turns}
+        return backend
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # two other heads on seeded weights, written as checkpoints by the ckpt row: yolo11n-seg (nms=True,
+        # masks) and yolov10n (NMS-free)
+        seeded, seeded_ckpt = {}, {}
+        for name in ("yolo11n-seg", "yolov10n"):
+            seeded[name] = build_model(f"{name}.yaml").init(0)
+            scaled_bn(seeded[name], 0)
+            seeded_ckpt[name] = Exporter(seeded[name], {"format": "ckpt", "project": f"{tmp}/{name}_ckpt"})()
+        # every artifact by the command line (`yolo export`, YOLO(model).export), six processes at once: an
+        # export is seconds of tracing on the host. conf 1e-6 and 30 rows for the seeded heads: a model seeded
+        # from its YAML scores ~1e-5, so its rows are all kept
+        jobs = {f"{'bf16' if half else 'f32'}_{'nms' if nms else 'preds'}": (str(CKPT), half, nms, [])
+                for half in (False, True) for nms in (False, True)}
+        jobs.update({"yolo11n-seg": (seeded_ckpt["yolo11n-seg"], False, True, ["conf=1e-6", "max_det=30"]),
+                     "yolov10n": (seeded_ckpt["yolov10n"], False, False, ["conf=1e-6", "max_det=30"])})
+        t0, procs = time.perf_counter(), {}
+        try:
+            for key, (src, half, nms, extra) in jobs.items():
+                procs[key] = subprocess.Popen(
+                    [sys.executable, "-m", "spectrogram_yolov11_torch", "export", f"model={src}", "format=stablehlo",
+                     "imgsz=640", f"half={half}", f"nms={nms}", f"project={tmp}/{key}", *extra],
+                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for key, p in procs.items():
+                log, _ = p.communicate(timeout=900)
+                export_s[key] = time.perf_counter() - t0
+                require(p.returncode == 0, f"`export` of {key} failed (exit {p.returncode}):\n{log[-3000:]}")
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        export_s["all_six_wall"] = time.perf_counter() - t0
+        paths = {key: f"{tmp}/{key}/export/model.pt2" for key in jobs}
+        for key, path in paths.items():
+            require(all(Path(path).with_suffix(s).exists() for s in (".pt2", ".ckpt", ".weights.bin", ".weights.json")),
+                    f"{key}: the artifact or a sidecar is missing at {path}")
+
+        # the spectrogram detector, f32 and bf16, without and with the graph's NMS; each direct graph from a
+        # model loaded on the host, as the command line's Exporter loads it: BN folded and (bf16) the copy
+        # rounded there, so both sides run the same weights
+        for key in ("f32_preds", "f32_nms", "bf16_preds", "bf16_nms"):
+            program_vs_direct(key, paths[key], load_model(CKPT)[0], key.startswith("bf16"), key.endswith("nms"), 6,
+                              int(key.endswith("nms")), timed=True)
+        for name, nms, keep in (("yolo11n-seg", True, 1), ("yolov10n", False, 0)):
+            program_vs_direct(name, paths[name], seeded[name], False, nms, EXPORT_FUSED[name], keep, timed=False,
+                              conf=1e-6, max_det=30)
+
+        # through the facade: val and predict of the f32 program against the .ckpt's, and a server of it
+        data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp, n_train=0))
+        art, yolo = YOLO(paths["f32_preds"]), YOLO(CKPT)
+        require(art.backend is not None and art.backend.kind == "pt2", "YOLO(.pt2) has no program backend")
+        val_art, launches["facade_val"] = run_counted(lambda: art.val(data=data, batch=VAL_BATCH, plots=False),
+                                                      expect(6, torch.float32, 1), "YOLO(.pt2).val")
+        val_ckpt = yolo.val(data=data, batch=VAL_BATCH, plots=False)
+        require(all(abs(val_art[k] - val_ckpt[k]) <= SERVE_VAL_TOL for k in val_ckpt),
+                f"YOLO(.pt2).val {val_art} against YOLO(ckpt).val {val_ckpt}")
+        arrays = [a[..., ::-1].copy() for a in frames.cpu().numpy()[:8]]  # BGR arrays, as the predictor takes them
+        pred_art, launches["facade_predict"] = run_counted(
+            lambda: art.predict(arrays, batch=8, save=False, conf=0.001, max_det=30), expect(6, torch.float32, 1),
+            "YOLO(.pt2).predict")
+        pred_ckpt = yolo.predict(arrays, batch=8, save=False, conf=0.001, max_det=30)
+        for a, c in zip(pred_art, pred_ckpt):
+            da, dc = a.boxes.data, c.boxes.data
+            require(da.shape == dc.shape and np.array_equal(da[:, 5], dc[:, 5])
+                    and float(np.abs(da[:, :4] - dc[:, :4]).max(initial=0)) <= 1e-3,
+                    "YOLO(.pt2).predict against YOLO(ckpt).predict")
+        srv = serve({"exported": art.backend}, port=0, block=False, device="cuda")  # the .pt2's program, loaded once
+        try:
+            x2 = frames[:2].cpu().numpy()
+            served, launches["serve"] = run_counted(lambda: RemoteModel(srv.url)(x2),
+                                                    expect(12, torch.float32, 0), "served .pt2 (probe + request)")
+            local = art.backend(x2)
+            require(np.array_equal(served[0], local.cpu().numpy()), "the served .pt2 differs from the local program")
+        finally:
+            srv.shutdown()
+    emit("export", gpu=smi, export_s=export_s, launches=launches, results=results, times=times,
+         kernel_checks=checks, seconds=time.perf_counter() - t_phase,
+         method="each .pt2 loaded by AutoBackend and run at B = 1 and 32 with the launch counts set to 0 just before "
+                "and read just after and the operators' inputs kept by a dispatch mode; outputs against "
+                "build_inference_fn on the same card; ms per forward at B = 32 from CUDA events, program and direct "
+                "graph in turns")
+    return launches, checks
+
+
 def main() -> int:
     import torch
 
@@ -5229,6 +5497,7 @@ def main() -> int:
     cls_launches, cls_checks, cls_half_checks, cls_times = phase_classify()
     st_launches, st_checks, st_nms = phase_serve_tasks()
     fam_launches, fam_checks, fam_nms = phase_families(smi)
+    exp_launches, exp_checks = phase_export(smi)
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -5269,7 +5538,13 @@ def main() -> int:
     st_f32 = [d for c in st_checks.values() for d in c.values()]
 
     def fam_paths(kernel: str) -> dict:
-        return {"families": sum(got[kernel] for got in fam_launches.values())}
+        return {"families": sum(got[kernel] for got in fam_launches.values()),
+                "export": sum(got[kernel] for got in exp_launches.values())}
+
+    exp_ops = [d for c in exp_checks.values() for calls in c.values() for d in calls.values()]
+    exp_f32 = [d for d in exp_ops if "unequal_share" not in d and "mismatches" not in d]
+    exp_bf16 = [d for d in exp_ops if "unequal_share" in d]
+    exp_keep = [d for d in exp_ops if "mismatches" in d]
     fb_ops_bound = TF32_PASSES * per_forward("flops") / PEAK_TF32_FLOPS >= per_forward("bytes") / PEAK_HBM_BYTES
     kernels_line = [
         dict(name="fused_bottleneck", route="cuda", source="spectrogram_yolov11_torch/csrc/fused_bottleneck.cu",
@@ -5301,8 +5576,10 @@ def main() -> int:
                                                          *art_checks["val_f32"].values(), *fork_f32,
                                                          *extras_f32, *seg_checks.values(),
                                                          *pose_checks["val"].values(), *obb_checks["val"].values(),
-                                                         *cls_checks.values(), *st_f32, *fam_checks["f32"])),
+                                                         *cls_checks.values(), *st_f32, *fam_checks["f32"],
+                                                         *exp_f32)),
              families_max_abs_err=max(d["max_abs_err"] for d in fam_checks["f32"]),
+             export_max_abs_err=max(d["max_abs_err"] for d in exp_f32),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_f32),
              predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_f32),
              segment_val_max_abs_err=max(d["max_abs_err"] for d in seg_checks.values()),
@@ -5344,8 +5621,10 @@ def main() -> int:
                                                          *save_checks["arrays_bf16"].values(),
                                                          *art_checks["val_bf16"].values(), *fork_bf16,
                                                          *host_bf16, *extras_bf16, *pose_bf16, *obb_bf16,
-                                                         *cls_half_checks.values(), *fam_checks["bf16"])),
+                                                         *cls_half_checks.values(), *fam_checks["bf16"],
+                                                         *exp_bf16)),
              families_max_abs_err=max(d["max_abs_err"] for d in fam_checks["bf16"]),
+             export_max_abs_err=max(d["max_abs_err"] for d in exp_bf16),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_bf16),
              host_augment_max_abs_err=max(d["max_abs_err"] for d in host_bf16),
              predict_extras_max_abs_err=max(d["max_abs_err"] for d in extras_bf16),
@@ -5366,7 +5645,7 @@ def main() -> int:
                                                                  *art_checks["val_bf16"].values(), *fork_bf16,
                                                                  *host_bf16, *extras_bf16, *pose_bf16,
                                                                  *obb_bf16, *cls_half_checks.values(),
-                                                                 *fam_checks["bf16"])),
+                                                                 *fam_checks["bf16"], *exp_bf16)),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -5440,6 +5719,9 @@ def main() -> int:
                                                              "scan_steps_mean", "mismatches")} for t, d in st_nms.items()},
              families_k2048={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                    "scan_steps_mean", "mismatches")} for p, d in fam_nms.items()},
+             export_programs={"calls_checked": len(exp_keep), "mismatches": sum(d["mismatches"] for d in exp_keep),
+                              "shapes": sorted({tuple(d["shape"]) for d in exp_keep}),
+                              "ms_b32": [d["ms"] for d in exp_keep if d["shape"][0] == 32]},
              note="one launch per pipeline, predict or val batch; times at B=32, k=512 on the trained model's "
                   "candidates (predict_k1024: predict's k on the 32 IQ captures' candidates; val_k2048: the "
                   "validator's multi-label k on the val split's first batch)"),

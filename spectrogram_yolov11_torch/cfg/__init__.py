@@ -36,11 +36,12 @@ rest (every one is accepted at its default, and `get_cfg` handles it so):
 | `show` | a window in predict | another value than the default raises: item 5 (no display on the card's machine) |
 | `save_frames`, `vid_stride`, `stream_buffer` | video and stream sources | another value than the default raises: item 5 (video and streams) |
 | `embed` | read by no mode (YOLO.embed takes its layers as an argument) | inert; YOLO.embed(embed=...) honours its argument |
-| `format`, `keras`, `int8`, `opset`, `simplify`, `dynamic`, `optimize`, `workspace`, `nms` | the Exporter | the same: item 9 |
+| `format`, `int8`, `opset`, `nms` | the Exporter (`int8` and `opset` in its TensorFlow rows only) | read by the Exporter as JAX's (engine/exporter.py); `int8` and `opset` reach only the TensorFlow rows, which raise without tensorflow |
+| `keras`, `simplify`, `dynamic`, `optimize`, `workspace` | read nowhere | inert (a .pt2 program is dynamic in batch, height and width whatever `dynamic` says) |
 | `tracker` | YOLO.track | the same: item 12 |
 
 `entrypoint` is the `yolo` command's parser (JAX :232) for the verbs
-`train`, `val` and `predict` (the task word `detect`, `segment`, `pose`, `obb`
+`train`, `val`, `predict` and `export` (the task word `detect`, `segment`, `pose`, `obb`
 or `classify` optional), with `k=v`
 and `cfg=<yaml>` overrides, and `serve` (JAX :307-321), which also takes
 device=; the other modes and verbs raise with their ROADMAP.md items. It
@@ -187,8 +188,6 @@ _VIDEO = "item 5 (video and streams)"
 NOT_PORTED_KEYS = {
     "show": "item 5 (show: a window)",
     "save_frames": _VIDEO, "vid_stride": _VIDEO, "stream_buffer": _VIDEO,
-    **dict.fromkeys(("format", "keras", "int8", "opset", "simplify", "dynamic", "optimize", "workspace", "nms"),
-                    "item 9 (the Exporter and the artifact kinds)"),
     "tracker": "item 12 (host-side remainder: trackers)",
 }
 
@@ -303,7 +302,7 @@ CLI_HELP_MSG = """
     Usage: python -m spectrogram_yolov11_torch [TASK] MODE [ARGS]
 
         TASK (optional): detect, segment, pose, obb or classify
-        MODE (required): one of {train, val, predict}, or serve
+        MODE (required): one of {train, val, predict, export}, or serve
         ARGS (optional): 'key=value' overrides, e.g. imgsz=640 data=spectrogram_synth.yaml, and cfg=<yaml>
 
     Examples:
@@ -314,6 +313,7 @@ CLI_HELP_MSG = """
         python -m spectrogram_yolov11_torch pose train data=shapes128-pose.yaml epochs=3
         python -m spectrogram_yolov11_torch obb train data=shapes128-obb.yaml epochs=3
         python -m spectrogram_yolov11_torch classify train data=imagenette160 epochs=3
+        python -m spectrogram_yolov11_torch export model=runs/detect/train/weights/best.ckpt format=stablehlo imgsz=640
         python -m spectrogram_yolov11_torch serve model=runs/detect/train/weights/best.ckpt port=8000
 """
 
@@ -333,7 +333,7 @@ def _serve(argv: list) -> Any:
 
 
 def entrypoint(debug: str = "") -> Any:
-    """The `yolo` command line (JAX :232): `[detect|segment|pose|obb|classify] train|val|predict k=v ...
+    """The `yolo` command line (JAX :232): `[detect|segment|pose|obb|classify] train|val|predict|export k=v ...
     [cfg=<yaml>]` builds YOLO(model, task=task) and calls the mode with the
     overrides (the card unless device=cpu); `serve model=best.ckpt [port=8000
     host=127.0.0.1 half=False device=cuda block=True data_parallel=False
@@ -373,4 +373,4 @@ def entrypoint(debug: str = "") -> Any:
     if mode in {"train", "val"} and "data" not in overrides and not getattr(m, "ckpt_data", None):
         overrides["data"] = TASK2DATA.get(m.task or "detect")
         LOGGER.warning(f"'data' argument missing, using default {overrides['data']}")
-    return getattr(m, mode)(**overrides)  # export, track and benchmark raise with their items
+    return getattr(m, mode)(**overrides)  # track and benchmark raise with their items

@@ -73,8 +73,15 @@ the lead's model, as JAX's use its model and variables; load and
 reset_weights change a copy of the lead held by the facade, not the
 members, as JAX's replace the facade's variables only. A served model cannot
 be a member (ValueError).
-Other model sources and modes (reference .pt files, exported artifacts)
-raise NotImplementedError naming the ROADMAP.md item that ports them;
+An exported artifact (`YOLO("model.pt2")`, the port's graph program;
+`YOLO("model.stablehlo")`, JAX's, read through its sidecar .ckpt; the
+TensorFlow and ONNX kinds where their runtimes are installed) makes an
+inference-only facade as a served model does, through nn/autobackend.py on
+the facade's device; a .pt2 exported with nms=True gives final rows, and
+predict and val, which run their own NMS, raise ValueError for it. `export`
+writes the artifacts (engine/exporter.py:Exporter; JAX :354-360).
+Reference .pt files and tracking raise NotImplementedError naming the
+ROADMAP.md item that ports them;
 augment=True and visualize=True in predict run TTA and write feature maps
 (engine/predictor.py); show=True and video sources raise (ROADMAP.md §1
 item 5).
@@ -156,10 +163,20 @@ class YOLO:
             self._load_ckpt(self.model_path)
         elif suffix == ".pt":
             raise _not_ported(f"reference .pt import ({self.model_path})", "item 11 (other model families)")
-        elif suffix in {".stablehlo", ".tflite", ".onnx"} or (Path(self.model_path) / "saved_model.pb").exists():
-            raise _not_ported(f"exported model {self.model_path!r}", "item 9 (the Exporter and the artifact kinds)")
+        elif suffix in {".pt2", ".stablehlo", ".tflite", ".onnx"} or self.model_path.endswith("_saved_model") or \
+                (Path(self.model_path) / "saved_model.pb").exists():
+            self._load_backend(self.model_path, task)
         else:  # a bare name such as 'yolo11n', which the JAX facade reads as 'yolo11n.yaml'
             self._new(self.model_path + ".yaml")
+
+    def _load_backend(self, path: str, task: Optional[str]) -> None:
+        """An exported artifact through AutoBackend on the facade's device (JAX
+        :140-148): predict and val run through the backend, as for a served
+        model; a .pt2 runs in the dtype it was exported in."""
+        from ..nn.autobackend import AutoBackend
+
+        self.backend = AutoBackend(path, half=None, device=self.overrides.get("device") or "cuda")
+        self.task = task or self.backend.task
 
     def _new(self, cfg_path: str) -> None:
         """The model of a YAML, with fresh weights from seed 0 (JAX :83-87 and
@@ -179,7 +196,14 @@ class YOLO:
 
     def _local(self, what: str) -> None:
         if self.backend is not None:
-            raise ValueError(f"remote (served) models are inference-only: {what} needs a local model")
+            raise ValueError(f"remote (served) models and exported artifacts are inference-only: {what} needs a "
+                             "local model")
+
+    def _backend_rows(self, mode: str) -> None:
+        """predict and val read a backend's nms=False outputs; a .pt2 exported with nms=True gives rows."""
+        if getattr(self.backend, "nms", False):
+            raise ValueError(f"{mode} runs its own NMS on the graph's predictions, but {self.model_path} was exported "
+                             "with nms=True (final rows); export with nms=False for predict and val")
 
     def _weights_changed(self) -> None:
         self.predictor, self._predictor_key = None, None  # the next predict rebuilds
@@ -333,6 +357,7 @@ class YOLO:
         key = tuple(sorted((k, repr(v)) for k, v in overrides.items()))
         if self.predictor is None or self._predictor_key != key:
             if self.backend is not None:
+                self._backend_rows("predict")
                 from ..serve import RemotePredictor
 
                 self.predictor = RemotePredictor(self.backend, overrides=overrides)
@@ -361,7 +386,7 @@ class YOLO:
         if self._ensemble is not None:
             raise ValueError("weight ensembles are inference-only; train the members individually")
         if self.backend is not None:
-            raise ValueError("remote (served) models are inference-only; train locally and re-serve")
+            raise ValueError("remote (served) models and exported artifacts are inference-only; train locally")
         overrides = {k: v for k, v in {**self.overrides, **kwargs}.items() if k != "mode"}
         overrides.setdefault("model", self.model_path)
         trainer = TASK2TRAINER[self.task](self.model, overrides)
@@ -382,6 +407,7 @@ class YOLO:
         if data is None:
             raise TypeError("val() needs data=: a dataset YAML or dict (the checkpoint names none)")
         if self.backend is not None:  # scored through the served graph, the val NMS here
+            self._backend_rows("val")
             validator = BackendValidator(self.backend, overrides=overrides)
         else:
             validator = TASK2VALIDATOR[self.task](self.model, overrides=overrides)
@@ -392,8 +418,17 @@ class YOLO:
     def track(self, *args, **kwargs):
         raise _not_ported("tracking", "item 12 (host-side remainder: trackers)")
 
-    def export(self, **kwargs):
-        raise _not_ported("export", "item 9 (the Exporter and the artifact kinds)")
+    def export(self, **kwargs) -> str:
+        """The model as an artifact (JAX :354-360; engine/exporter.py:Exporter):
+        export(format="stablehlo") -> the .pt2 path (the graph as a torch.export
+        program, with its .ckpt and weights pack), format="ckpt" -> the .ckpt
+        path; on the facade's device, the card unless device="cpu". A served
+        model or an artifact raises ValueError, as JAX's."""
+        from .exporter import Exporter
+
+        if self.backend is not None:
+            raise ValueError("remote (served) models cannot be exported; export from the local checkpoint")
+        return Exporter(self.model, overrides={**self.overrides, **kwargs})()
 
     def benchmark(self, **kwargs):
         raise _not_ported("benchmark", "item 12 (host-side remainder: benchmark)")

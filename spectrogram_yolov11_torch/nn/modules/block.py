@@ -71,7 +71,9 @@ def dfl_decode(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     bf16 exps in f32 is what JAX's bf16 matmul with an f32 result gives; the
     distances are f32 either way."""
     z = torch.exp(box_logits.clamp(-80.0, 80.0))
-    s = z.float() @ _dfl_proj(reg_max, z.device)
+    # a trace makes the projection in its graph: a cached tensor made under it would be a fake one
+    proj = (_dfl_proj.__wrapped__ if torch.compiler.is_exporting() else _dfl_proj)(reg_max, z.device)
+    s = z.float() @ proj
     return s[..., :4] / s[..., 4:]
 
 

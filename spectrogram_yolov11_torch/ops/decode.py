@@ -134,7 +134,7 @@ def nms_free_postprocess(preds: torch.Tensor, max_det: int, nc: int) -> torch.Te
     then the k highest scores over those anchors x classes, ties in index
     order as jax.lax.top_k's."""
     b, a = preds.shape[:2]
-    k = min(max_det, a)
+    k = torch.sym_min(max_det, a)
     boxes, scores = preds[..., :4], preds[..., 4:]
     _, idx = _top_k(scores.amax(-1), k)
     boxes = boxes.gather(1, idx[..., None].expand(-1, -1, 4))

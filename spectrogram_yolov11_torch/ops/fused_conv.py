@@ -128,48 +128,81 @@ def _is_hwio(w: torch.Tensor) -> bool:
     return w.dim() == 4 and w.shape[:2] == (3, 3)
 
 
-def _device_ok(x: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises for any other device."""
+def _check_device(x: torch.Tensor, name: str) -> None:
+    """Raise unless x is on the CPU (the plain version) or a CUDA card (the kernel)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    return x.device.type == "cuda"
 
 
 def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """The fused bottleneck in x's dtype: bf16 goes to `fused_bottleneck_bf16`;
-    f32 runs here, with w1, w2 HWIO (3, 3, C, C) or their packs (2, 9, C, C).
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (C in CHANNELS, contiguous 16-byte aligned NHWC), packing HWIO weights
-    first, or raises. Any other dtype raises."""
+    f32 runs the operator `syt::fused_bottleneck_f32`, with w1, w2 HWIO (3, 3,
+    C, C) or their packs (2, 9, C, C). A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (C in CHANNELS, contiguous 16-byte aligned
+    NHWC), packing HWIO weights first, or raises. Any other dtype raises."""
     if x.dtype == torch.bfloat16:
         return fused_bottleneck_bf16(x, w1, b1, w2, b2)
     if x.dtype != torch.float32:
         raise ValueError(f"fused_bottleneck: x must be float32 or bfloat16, got {x.dtype}")
-    if not _device_ok(x, "fused_bottleneck"):
-        w1, w2 = (w if _is_hwio(w) else unpack_bottleneck_weights(w) for w in (w1, w2))
-        return bottleneck_reference(x, w1, b1, w2, b2)
+    _check_device(x, "fused_bottleneck")
+    return torch.ops.syt.fused_bottleneck_f32(x, w1, b1, w2, b2)
+
+
+def fused_bottleneck_bf16(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The bf16 form, the operator `syt::fused_bottleneck_bf16`: x bf16 NHWC;
+    w1, w2 HWIO (3, 3, C, C), rounded to bf16, or their bf16 packs (9, C, C);
+    b1, b2 f32. A CPU tensor takes `bottleneck_reference_bf16`; a CUDA tensor
+    launches the bf16 kernel (C in CHANNELS, contiguous 16-byte aligned NHWC),
+    packing HWIO weights first, or raises."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"fused_bottleneck_bf16: x must be bfloat16, got {x.dtype}")
+    _check_device(x, "fused_bottleneck_bf16")
+    return torch.ops.syt.fused_bottleneck_bf16(x, w1, b1, w2, b2)
+
+
+def _bottleneck_f32_cpu(x, w1, b1, w2, b2):
+    w1, w2 = (w if _is_hwio(w) else unpack_bottleneck_weights(w) for w in (w1, w2))
+    return bottleneck_reference(x, w1, b1, w2, b2)
+
+
+def _bottleneck_f32_cuda(x, w1, b1, w2, b2):
     w1, w2 = (pack_bottleneck_weights(w) if _is_hwio(w) else w for w in (w1, w2))
     out = _run_kernel("fused_bottleneck_f32", x, w1, b1, w2, b2, (2, 9, "C", "C"))
     kernels.count(fused_bottleneck)
     return out
 
 
-def fused_bottleneck_bf16(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """The bf16 form: x bf16 NHWC; w1, w2 HWIO (3, 3, C, C), rounded to bf16,
-    or their bf16 packs (9, C, C); b1, b2 f32. A CPU tensor takes
-    `bottleneck_reference_bf16`; a CUDA tensor launches the bf16 kernel (C in
-    CHANNELS, contiguous 16-byte aligned NHWC), packing HWIO weights first, or
-    raises."""
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"fused_bottleneck_bf16: x must be bfloat16, got {x.dtype}")
-    if not _device_ok(x, "fused_bottleneck_bf16"):
-        w1, w2 = (w if _is_hwio(w) else unpack_bottleneck_weights_bf16(w) for w in (w1, w2))
-        return bottleneck_reference_bf16(x, w1, b1, w2, b2)
+def _bottleneck_bf16_cpu(x, w1, b1, w2, b2):
+    w1, w2 = (w if _is_hwio(w) else unpack_bottleneck_weights_bf16(w) for w in (w1, w2))
+    return bottleneck_reference_bf16(x, w1, b1, w2, b2)
+
+
+def _bottleneck_bf16_cuda(x, w1, b1, w2, b2):
     w1, w2 = (pack_bottleneck_weights_bf16(w) if _is_hwio(w) else w for w in (w1, w2))
     out = _run_kernel("fused_bottleneck_bf16", x, w1, b1, w2, b2, (9, "C", "C"))
     kernels.count(fused_bottleneck_bf16)
     return out
 
+
+def _bottleneck_fake(x, w1, b1, w2, b2):
+    return x.new_empty(x.shape)
+
+
+# The operators the wrappers above call, so that an eager forward and a
+# torch.export program of it (engine/exporter.py) run the same code: the plain
+# version for a CPU tensor, the kernel for a CUDA one, and for the fake
+# tensors of a trace an output of x's shape and dtype. They are registered
+# with the dispatcher directly (torch.library.Library), which calls each
+# implementation with no Python layer between: torch.library.custom_op's
+# took 20-60 us more of host time per call on an H100's host, enough to
+# leave the card idle between bf16 launches (tools/op_dispatch_cost.py).
+_LIB = torch.library.Library("syt", "FRAGMENT")
+for _name, _cpu, _cuda in (("fused_bottleneck_f32", _bottleneck_f32_cpu, _bottleneck_f32_cuda),
+                           ("fused_bottleneck_bf16", _bottleneck_bf16_cpu, _bottleneck_bf16_cuda)):
+    _LIB.define(f"{_name}(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor")
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"syt::{_name}", _bottleneck_fake, lib=_LIB)
 
 fused_bottleneck.launches = 0
 fused_bottleneck_bf16.launches = 0

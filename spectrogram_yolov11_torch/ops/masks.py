@@ -23,7 +23,7 @@ def crop_masks_device(masks: torch.Tensor, boxes: torch.Tensor, in_hw: Sequence[
     outside each box scaled to mask pixels: a pixel (x, y) is inside when
     x1 <= x < x2 and y1 <= y < y2 (JAX masks.py:20)."""
     mh, mw = masks.shape[-2:]
-    sy, sx = mh / float(in_hw[0]), mw / float(in_hw[1])
+    sy, sx = mh / torch.sym_float(in_hw[0]), mw / torch.sym_float(in_hw[1])  # symbolic in a trace at a dynamic size
     x = torch.arange(mw, dtype=torch.float32, device=masks.device)[None, None, None, :]
     y = torch.arange(mh, dtype=torch.float32, device=masks.device)[None, None, :, None]
     x1, y1, x2, y2 = ((boxes[..., i] * s)[..., None, None] for i, s in enumerate((sx, sy, sx, sy)))

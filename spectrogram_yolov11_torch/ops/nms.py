@@ -61,7 +61,7 @@ def _candidates(preds, conf_thres, nc, multi_label=False, agnostic=False, pre_nm
         allowed = torch.zeros(nc, dtype=torch.bool, device=preds.device)
         allowed[torch.as_tensor(classes, dtype=torch.long, device=preds.device)] = True
         scores = torch.where(allowed, scores, torch.zeros((), dtype=scores.dtype, device=scores.device))
-    k = min(pre_nms_topk, a * nc if multi_label else a)
+    k = torch.sym_min(pre_nms_topk, a * nc if multi_label else a)  # symbolic in a trace at a dynamic size
     if multi_label:
         top_scores, top_idx = _top(scores.reshape(b, -1), k)
         anchor = top_idx // nc
@@ -102,15 +102,15 @@ def _first_kept(rows: torch.Tensor, top_scores: torch.Tensor, keep: torch.Tensor
                 max_det: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The first max_det kept rows (B, k, D) in score order, zero past the
     valid ones and padded to max_det, and their count (B,)."""
-    k = rows.shape[1]
+    n = torch.sym_min(max_det, rows.shape[1])
     rank = torch.where(keep, top_scores, torch.full_like(top_scores, -1.0))
-    sel_scores, sel = _top(rank, min(max_det, k))
+    sel_scores, sel = _top(rank, n)
     sel_valid = sel_scores > conf_thres
     out = rows.gather(1, sel[..., None].expand(-1, -1, rows.shape[-1]))
     out = torch.where(sel_valid[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
-    if max_det > k:
-        out = torch.nn.functional.pad(out, (0, 0, 0, max_det - k))
-        sel_valid = torch.nn.functional.pad(sel_valid, (0, max_det - k))
+    # padded to max_det rows (no rows when k >= max_det: a trace at a dynamic size cannot branch on k)
+    out = torch.nn.functional.pad(out, (0, 0, 0, max_det - n))
+    sel_valid = torch.nn.functional.pad(sel_valid, (0, max_det - n))
     return out, sel_valid.sum(1, dtype=torch.int32)
 
 
@@ -145,7 +145,7 @@ def nms_rotated(preds: torch.Tensor, conf_thres: float = 0.25, iou_thres: float 
     overlaps it by probiou >= iou_thres, whether or not that one was kept;
     the first max_det kept in score order. Class-agnostic, as JAX's."""
     b, a, _ = preds.shape
-    k = min(pre_nms_topk, a)
+    k = torch.sym_min(pre_nms_topk, a)
     scores = preds[..., 5 : 5 + nc]
     best_cls = scores.argmax(-1)
     top_scores, anchor = _top(scores.gather(-1, best_cls[..., None])[..., 0], k)

@@ -44,7 +44,7 @@ def greedy_keep_reference(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: f
     k = boxes.shape[1]
     iou = box_iou(boxes, boxes)
     sup = (iou > iou_thres) & torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
-    keep = valid
+    keep = valid.clone()  # a new tensor: the operator's output may not alias its input
     for _ in range(k):
         new_keep = valid & ~(sup & keep[:, :, None]).any(1)
         if torch.equal(new_keep, keep):
@@ -54,12 +54,20 @@ def greedy_keep_reference(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: f
 
 
 def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
-    """Exact greedy NMS keep mask (b, k) bool. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (k <= 2048) or raises."""
-    if boxes.device.type == "cpu":
-        return greedy_keep_reference(boxes, valid, iou_thres)
-    if boxes.device.type != "cuda":
+    """Exact greedy NMS keep mask (b, k) bool, by the operator
+    `syt::greedy_keep`. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (k <= 2048) or raises."""
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy_keep: unsupported device {boxes.device}")
+    return torch.ops.syt.greedy_keep(boxes, valid, float(iou_thres))
+
+
+# The operator greedy_keep calls, so that an eager NMS and a torch.export
+# program of it (engine/exporter.py) run the same code: the plain version for
+# a CPU tensor, the kernel for a CUDA one, and for the fake tensors of a
+# trace a (b, k) bool output. The plain version's loop reads the mask on the
+# host (torch.equal), which a trace cannot hold: the operator keeps it out.
+def _greedy_keep_cuda(boxes, valid, iou_thres):
     b, k, four = boxes.shape
     if four != 4 or boxes.dtype != torch.float32 or not boxes.is_contiguous() or boxes.data_ptr() % 16:
         raise ValueError(f"greedy_keep: boxes must be contiguous 16-byte aligned float32 (b, k, 4), "
@@ -81,6 +89,17 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> t
     kernels.check(err, "greedy_nms_keep")
     kernels.count(greedy_keep)
     return keep
+
+
+def _greedy_keep_fake(boxes, valid, iou_thres):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
+_LIB = torch.library.Library("syt", "FRAGMENT")  # registered as ops/fused_conv.py registers its operators
+_LIB.define("greedy_keep(Tensor boxes, Tensor valid, float iou_thres) -> Tensor")
+_LIB.impl("greedy_keep", greedy_keep_reference, "CPU")
+_LIB.impl("greedy_keep", _greedy_keep_cuda, "CUDA")
+torch.library.register_fake("syt::greedy_keep", _greedy_keep_fake, lib=_LIB)
 
 
 greedy_keep.launches = 0

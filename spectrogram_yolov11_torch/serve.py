@@ -4,7 +4,11 @@ Counterpart of spectrogram_yolov11_tpu/serve.py. The server runs the serving
 graph of engine/exporter.py:build_inference_fn (uint8 RGB frames -> the
 task's outputs at nms=False: decoded predictions, a segment model's
 predictions and prototypes, a pose model's with keypoints, an OBB model's
-rotated boxes, a classifier's probabilities) behind the KServe v2 predict
+rotated boxes, a classifier's probabilities) of a checkpoint, a model YAML
+or JAX's .stablehlo artifact (its sidecar .ckpt), or the program of the
+port's .pt2 artifact exported with nms=False (the dispatcher's batch
+buckets all run on its one dynamic-batch program; one exported with nms=True
+raises ValueError, ROADMAP.md §3), behind the KServe v2 predict
 protocol (JSON tensors and the binary-tensor extension) on a stdlib
 ThreadingHTTPServer, and `YOLO("http://host:8000/name")` predicts and
 validates through it (nn/autobackend.py, kind "remote"; the NMS runs on the
@@ -141,9 +145,12 @@ class _ModelRunner:
                  model_parallel: int = 1, dynamic_batch: bool = True, max_batch: int = 256,
                  device: str | torch.device = "cuda"):
         self.backend = source if isinstance(source, AutoBackend) else AutoBackend(str(source), half=half, device=device)
-        if self.backend.kind not in ("ckpt", "yaml"):
+        if self.backend.kind not in ("ckpt", "yaml", "stablehlo", "pt2"):
             raise not_ported(f"serving the {self.backend.kind} source {self.backend.weights!r}",
-                             "item 9 (the Exporter and the artifact kinds)")
+                             "item 9 (a served model or a TensorFlow or ONNX artifact as the server's source)")
+        if self.backend.nms:  # its rows are not the decoded predictions a client runs its NMS on
+            raise ValueError(f"{self.backend.weights} was exported with nms=True; a server answers with the graph at "
+                             "nms=False: serve a program exported with nms=False, or its sidecar .ckpt")
         self.device = self.backend.device
         if data_parallel or model_parallel > 1:
             n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
@@ -563,10 +570,13 @@ class RemoteModel:
 def _remote_forward(backend):
     """The predictor hands BGR frames (on its device); the serving graph takes
     RGB with no flip on the server (engine/exporter.py), so the client flips on
-    the host. A gray (1-channel) batch passes as it is (the flip is the
-    identity) and the server broadcasts it to 3."""
+    the host, and a local artifact's backend (a .pt2 or a .stablehlo's
+    sidecar, YOLO(path)) on the device. A gray (1-channel) batch passes as it
+    is (the flip is the identity) and the server broadcasts it to 3."""
 
     def fwd(imgs_u8):
+        if backend.device is not None and torch.is_tensor(imgs_u8):  # a local artifact: flipped on the device
+            return backend.forward(imgs_u8.flip(-1))
         arr = imgs_u8.cpu().numpy() if torch.is_tensor(imgs_u8) else np.asarray(imgs_u8)
         return backend.forward(np.ascontiguousarray(arr[..., ::-1]))
 
@@ -615,7 +625,7 @@ class RemotePredictor(BasePredictor):
         """The served graph's outputs for BGR frames, on the client's device."""
         out = _remote_forward(self.backend)(frames)
         outs = out if isinstance(out, tuple) else (out,)
-        return tuple(torch.tensor(o, device=self.device) for o in outs)
+        return tuple(o.to(self.device) if torch.is_tensor(o) else torch.tensor(o, device=self.device) for o in outs)
 
     def _build_device_fn(self):
         a = self.args

@@ -39,8 +39,9 @@ PORT_DEFAULTS = {"mode": "predict"}  # the port's documented difference
 # the 41 keys of JAX's default.yaml the port's cfg rejected before, each with its handling
 INERT = ("pretrained", "deterministic", "freeze", "bgr", "dropout", "save_hybrid", "dnn", "pose", "kobj",
          "overlap_mask", "mask_ratio", "retina_masks", "copy_paste_mode", "auto_augment", "erasing", "crop_fraction",
-         "source", "cfg", "show_boxes", "embed")
-HONOURED = ("model", "line_width", "show_conf", "show_labels", "augment", "visualize")
+         "source", "cfg", "show_boxes", "embed", "keras", "simplify", "dynamic", "optimize", "workspace")
+# the Exporter's keys read as JAX's reads them (tests/test_torch_export.py)
+HONOURED = ("model", "line_width", "show_conf", "show_labels", "augment", "visualize", "format", "int8", "opset", "nms")
 NEW_KEYS = (*INERT, *HONOURED, "rect", *NOT_PORTED_KEYS)
 # a non-default value of each key that raises, and the ROADMAP.md item it names
 NON_DEFAULT = {"augment": True, "visualize": True, "show": True, "show_labels": False, "show_conf": False,
@@ -48,13 +49,13 @@ NON_DEFAULT = {"augment": True, "visualize": True, "show": True, "show_labels": 
                "format": "onnx", "keras": True, "int8": True, "opset": 17, "simplify": False,
                "dynamic": True, "optimize": True, "workspace": 4.0, "nms": True, "tracker": "bytetrack.yaml"}
 ITEM = {**dict.fromkeys(("augment", "visualize", "show", "save_frames", "vid_stride", "stream_buffer"), "item 5"),
-        **dict.fromkeys(("format", "keras", "int8", "opset", "simplify", "dynamic", "optimize", "workspace", "nms"),
-                        "item 9"), "tracker": "item 12"}
+        "tracker": "item 12"}
 # a non-default value of each inert key, of the type check_cfg holds it to
 INERT_VALUE = {"pretrained": False, "deterministic": False, "freeze": [0, 1], "bgr": 0.5, "dropout": 0.1,
                "save_hybrid": True, "dnn": True, "pose": 6.0, "kobj": 2.0, "overlap_mask": False, "mask_ratio": 2,
                "retina_masks": True, "copy_paste_mode": "mixup", "auto_augment": "augmix", "erasing": 0.0,
-               "crop_fraction": 0.5, "source": "frames/", "cfg": "custom.yaml", "show_boxes": False, "embed": [10]}
+               "crop_fraction": 0.5, "source": "frames/", "cfg": "custom.yaml", "show_boxes": False, "embed": [10],
+               "keras": True, "simplify": False, "dynamic": True, "optimize": True, "workspace": 4.0}
 
 
 def test_every_jax_key_is_accepted_at_its_default():
@@ -82,8 +83,9 @@ def test_each_new_key_is_handled_as_tabled(key, caplog):
         assert getattr(get_cfg(DEFAULT_CFG_DICT, {key: INERT_VALUE[key]}), key) == INERT_VALUE[key]
     elif key == "model":  # carried to the trainer, which builds it when it has no model (test_torch_scratch.py)
         assert get_cfg(DEFAULT_CFG_DICT, {"model": "yolo11n.yaml"}).model == "yolo11n.yaml"
-    else:  # predict's drawing keys, carried to Results.plot (test_torch_plot.py, test_torch_predict.py), and
-        # augment and visualize, taken by predict (test_torch_predict_extras.py) and read by no other mode
+    else:  # predict's drawing keys, carried to Results.plot (test_torch_plot.py, test_torch_predict.py),
+        # augment and visualize, taken by predict (test_torch_predict_extras.py) and read by no other mode, and the
+        # Exporter's keys (test_torch_export.py)
         assert getattr(get_cfg(DEFAULT_CFG_DICT, {key: NON_DEFAULT[key]}), key) == NON_DEFAULT[key]
 
 

@@ -50,7 +50,11 @@ keypoints 1e-3 px, masks at most 1e-3 unequal, probs 1e-5), counted; yolov8n's
 and yolov10n's forward (a legacy head; a v10 head's both branches) against
 the CPU's (1e-3 abs/rel) with 5 bottleneck launches, and v10's NMS-free
 top-k on the card giving the CPU's rows exactly on scores with many ties
-(a stable sort on both). The tests leave
+(a stable sort on both); a tiny model exported on the card (the .pt2
+program, f32 and bf16, with and without the graph's NMS) and reloaded,
+its outputs against the direct graph's on the card (the forward tolerance;
+bf16 0.5 px and 2^-7) with the direct graph's launches, and moved to the
+CPU by AutoBackend(device="cpu"). The tests leave
 torch's TF32 settings as torch sets them (on for cuDNN): the port's forward and
 plain bottleneck hold TF32 off themselves (utils.full_f32), and one test turns
 TF32 on for cuDNN and matmul before it runs predict, and one before val.
@@ -1800,3 +1804,50 @@ def test_nms_free_postprocess_on_card_equals_cpu_on_ties():
     for max_det in (300, 8400):
         got = nms_free_postprocess(preds.to(dev), max_det, 2).cpu()
         assert torch.equal(got, nms_free_postprocess(preds, max_det, 2))
+
+
+TINY_EXPORT = {"nc": 3, "scale": "n",
+               "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "Conv", [32, 3, 2]], [-1, 1, "C3k2", [128, True]],
+                            [-1, 1, "Conv", [64, 3, 2]]],
+               "head": [[[3], 1, "Detect", ["nc"]]]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("nms", [False, True], ids=["preds", "nms"])
+def test_exported_program_on_card_matches_direct_graph(tmp_path, half, nms):
+    """A tiny model exported on the card (engine/exporter.py, format="stablehlo"), reloaded by AutoBackend:
+    at B = 1 and 3, 64 and 96 x 128 px its outputs equal the direct graph's on the card within the forward
+    tolerance (f32: boxes 1e-2 px, the rest 1e-4; bf16: 0.5 px and 2^-7), n_valid equal with nms, and it
+    launches the kernels the direct graph launches: 2 bottlenecks (bf16 with half) and, with nms, 1 keep.
+    The program loaded with device="cpu" is moved there and runs the plain versions."""
+    dev = _card()
+    from spectrogram_yolov11_torch.engine.exporter import Exporter, build_inference_fn
+    from spectrogram_yolov11_torch.engine.pipeline import eval_network
+    from spectrogram_yolov11_torch.nn.autobackend import AutoBackend
+    from spectrogram_yolov11_torch.nn.tasks import build_model
+
+    model = build_model(copy.deepcopy(TINY_EXPORT)).init(0)
+    path = Exporter(model, {"format": "stablehlo", "imgsz": 64, "nms": nms, "half": half, "conf": 1e-5,
+                            "max_det": 20, "project": str(tmp_path)})()
+    backend = AutoBackend(path, half=half, device="cuda")
+    direct = build_inference_fn(eval_network(model, half, dev), nms=nms, conf=1e-5, max_det=20)
+    px, rest = (0.5, 2.0**-7) if half else (1e-2, 1e-4)
+    kernel = fused_bottleneck_bf16 if half else fused_bottleneck
+    for shape in ((1, 64, 64, 3), (3, 96, 128, 3)):
+        x = torch.from_numpy(np.random.default_rng(8).integers(0, 255, shape, np.uint8)).to(dev)
+        n0, k0 = kernel.launches, greedy_keep.launches
+        got = backend(x)
+        torch.cuda.synchronize()
+        assert (kernel.launches - n0, greedy_keep.launches - k0) == (2, int(nms))
+        ref = direct(x)
+        got, ref = (o if isinstance(o, tuple) else (o,) for o in (got, ref))
+        if nms:
+            assert torch.equal(got[1], ref[1])
+        torch.testing.assert_close(got[0][..., :4], ref[0][..., :4], atol=px, rtol=0)
+        torch.testing.assert_close(got[0][..., 4:], ref[0][..., 4:], atol=rest, rtol=0)
+    cpu = AutoBackend(path, half=half, device="cpu")
+    assert all(t.device.type == "cpu" for t in cpu.program.state_dict.values())
+    x = np.random.default_rng(9).integers(0, 255, (2, 64, 64, 3), np.uint8)
+    out = cpu(x)
+    assert (out[0] if isinstance(out, tuple) else out).device.type == "cpu"

@@ -229,18 +229,21 @@ def test_predict_refuses_what_the_port_does_not_do(models, tmp_path):
         port.predict(frame, imgsz=IMGSZ, confidence=0.3)
     # model YAMLs build now (tests/test_torch_scratch.py, segment: tests/test_torch_segment.py, pose:
     # tests/test_torch_pose.py, obb: tests/test_torch_obb.py, classify: tests/test_torch_classify.py);
-    # reference .pt files and exported artifacts raise, naming their ROADMAP items
+    # reference .pt files raise, naming their ROADMAP item; exported artifacts load through AutoBackend
+    # (tests/test_torch_export.py); a missing one raises FileNotFoundError
     assert YOLO("yolo11n-cls.yaml").task == "classify"
-    for model in ("yolo11n.pt", "best.onnx"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            YOLO(model)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        YOLO("yolo11n.pt")
+    with pytest.raises(FileNotFoundError, match="best.onnx"):
+        YOLO("best.onnx")
     # an http(s):// URL is a served model now (tests/test_torch_serve.py); grpc:// raises before any connection,
     # as the JAX client does
     with pytest.raises(NotImplementedError, match="grpc"):
         YOLO("grpc://127.0.0.1:8001/model")
-    for mode in (port.track, port.export):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mode()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.track()
+    with pytest.raises(ValueError, match="unknown export format"):  # export runs now (tests/test_torch_export.py)
+        port.export(format="not_a_format")
     # train runs now, at the default amp=True too (tests/test_torch_train_amp.py); without data it raises a
     # TypeError, as the JAX facade's dict(None) does
     with pytest.raises(TypeError, match="data="):
