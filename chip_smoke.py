@@ -469,6 +469,34 @@ Phases, each printing one JSON line, each fatal when it fails:
                launches) from their YAMLs on seeded weights, exported at
                conf 1e-6 and max_det 30, reloaded and held against their
                direct graphs the same way. Every time beside the card's name and power limit
+  28. v9_families  the YOLOv9, v3, v5 and v6 families. yolov9c from its
+               YAML (16 fused bottlenecks per forward: its RepBottlenecks,
+               RepConv folded, at C = 32, 64 and 128) trained one epoch at
+               YOLO.train's defaults (amp, B = 16) on the 128 + 32 synth split
+               at 640 px, counted (16 bf16 launches and 1 keep per EMA val
+               batch), and one f32 epoch (amp=False; 16 f32 launches per EMA
+               val batch); best.ckpt's f32 and half=True val at batch 32 and f32
+               and half=True predict of 16 frames, counted (16 + 1 per batch);
+               2 frames against the CPU (f32: counts and classes equal, boxes
+               within 1e-2 px); the kernel at yolov9c's four map shapes beside
+               cuDNN, its plain version and its bound (bottleneck_times on the
+               f32 val's inputs); ms per forward at B = 32 in f32 and bf16; one
+               served request of 2 frames against the local serving graph; the
+               command line's f32 .pt2 export of yolov9c at nc = 2 on seeded
+               weights (V9Export: started by main() before phase families, as
+               its symbolic tracing takes about two minutes of the host, or by
+               the phase when it runs alone), reloaded and called once,
+               counted (16 operator calls held against the plain version), its
+               outputs against the direct graph and its convolutions those of
+               the folded eval graph (fewer than RepConv's branches run). yolov9e (nn.Identity,
+               CBLinear, CBFuse; 44 fused, 4 gated at C = 256) on seeded weights:
+               forward and decode at B = 1 and 32 in f32 and bf16, counted, ms
+               at B = 32. yolov9c-seg one amp epoch on shapes128-seg (its EMA
+               val counted: 16 bf16 + 1 keep). yolov9c-seg, yolov5n, yolov3-tiny
+               and yolov6n (ReLU)
+               from their YAMLs: one predict of 2 frames each, counted (16 or 0
+               bottleneck launches, 1 keep). Every bottleneck input and keep
+               call of those runs against its plain version
 Then the total time, the `kernels` line and, last, {"ok": true, "device":
 {...}}. It exits non-zero, with no result line, when there is no card or the
 port is missing.
@@ -477,6 +505,7 @@ port is missing.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2725,9 +2754,11 @@ def phase_train_amp(f32_loop_final: dict):
 
 def capture_val_inputs(dtype):
     """Global module hooks that keep what the eval-mode forwards at `dtype`
-    hand the fused bottlenecks (NHWC) and what the Detect head gives, the
-    first of each; they launch nothing. Returns (captured, stop), stop()
-    removing the hooks."""
+    on the card hand the fused bottlenecks (NHWC) and what the Detect head
+    gives, the first of each; they launch nothing. A forward on the host (a
+    model built there calibrates its strides there, as the trainer's nc
+    rebuild does) is not kept. Returns (captured, stop), stop() removing the
+    hooks."""
     import torch
 
     from spectrogram_yolov11_torch.nn.modules.block import Bottleneck
@@ -2736,11 +2767,13 @@ def capture_val_inputs(dtype):
     cap = {}
 
     def pre(mod, args):  # returns None: the input stays as it is
-        if isinstance(mod, Bottleneck) and mod.fusable and not mod.training and args[0].dtype == dtype:
+        if isinstance(mod, Bottleneck) and mod.fusable and not mod.training and args[0].dtype == dtype \
+                and args[0].is_cuda:
             cap.setdefault(mod, args[0].permute(0, 2, 3, 1).contiguous())
 
     def post(mod, args, out):  # returns None: the output stays as it is; an end2end head's dict is not kept
-        if isinstance(mod, Detect) and not mod.training and not isinstance(out, dict) and out[0][0].dtype == dtype:
+        if isinstance(mod, Detect) and not mod.training and not isinstance(out, dict) and out[0][0].dtype == dtype \
+                and out[0][0].is_cuda:
             cap.setdefault("feats", out)
 
     hooks = [torch.nn.modules.module.register_module_forward_pre_hook(pre),
@@ -2925,7 +2958,6 @@ def phase_save():
     Readings: predict ms per image with save=True beside save=False, plot
     and encode ms per frame, serially and in 8 threads, bytes per frame."""
     import hashlib
-    import os
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5449,6 +5481,319 @@ def phase_export(smi: str):
     return launches, checks
 
 
+V9_USER = "yolov9c.yaml"  # phase v9_families: trained one epoch, val, predict, served, exported
+V9_FUSED = 16  # fused bottlenecks per yolov9c forward: C = 32 x 2 (160 x 160 at 640 px), 64 x 4, 128 x 10
+V9E_FUSED = 44  # per yolov9e forward (its 4 at C = 256 gated)
+V9_PREDICTED = ("yolov5n.yaml", "yolov3-tiny.yaml", "yolov6n.yaml")  # phase v9_families: one predict each
+V9_FRAMES = 16  # phase v9_families: the frames of each predict, one batch
+
+
+class V9Export:
+    """The command line's f32 .pt2 export of yolov9c (nc = 2; seeded weights
+    with scaled_bn, written as a checkpoint first) in a process of its own:
+    torch.export's symbolic tracing of yolov9c takes about two minutes on
+    the card's host, so main() starts it ahead of phases families and export
+    and phase v9_families collects it. The process runs at the lowest CPU
+    priority (nice 19), so the phases' own timed work takes a core first;
+    tools/export_overlap.py measures those phases with and without it.
+    stop() ends the process and removes its directory."""
+
+    def __init__(self):
+        import shutil
+        import tempfile
+
+        from spectrogram_yolov11_torch.engine.exporter import Exporter
+        from spectrogram_yolov11_torch.nn.tasks import build_model, yaml_model_load
+
+        self._rmtree = shutil.rmtree
+        self.tmp = tempfile.mkdtemp(prefix="v9c_export_")
+        self.seeded = build_model(yaml_model_load(V9_USER), nc=2).init(0)
+        scaled_bn(self.seeded, 0)
+        self.ckpt = Exporter(self.seeded, {"format": "ckpt", "project": f"{self.tmp}/seeded"})()
+        self.path = f"{self.tmp}/program/export/model.pt2"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "spectrogram_yolov11_torch", "export", f"model={self.ckpt}",
+                                      "format=stablehlo", "imgsz=640", f"project={self.tmp}/program"],
+                                     cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                     preexec_fn=lambda: os.nice(19))
+
+    def wait(self) -> float:
+        """Seconds from the start to the process's exit; fails unless it exported."""
+        log, _ = self.proc.communicate(timeout=900)
+        require(self.proc.returncode == 0, f"`export` of yolov9c failed (exit {self.proc.returncode}):\n{log[-3000:]}")
+        return time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._rmtree(self.tmp, ignore_errors=True)
+
+
+def conv_calls(fn) -> int:
+    """How many convolutions fn() runs (a dispatch mode counting aten.convolution and aten.conv2d)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    n = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            n[0] += func._overloadpacket.__name__ in ("convolution", "conv2d")  # conv2d as inference mode sees it
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return n[0]
+
+
+def phase_v9_families(smi: str, export: "V9Export | None" = None):
+    """The YOLOv9, v3, v5 and v6 families on the card (see the module docstring,
+    28). `export` is the yolov9c export main() started ahead; alone, the phase
+    starts its own."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spectrogram_yolov11_torch import YOLO
+    from spectrogram_yolov11_torch.data.dataset import check_det_dataset, find_dataset_yaml
+    from spectrogram_yolov11_torch.engine.exporter import build_inference_fn
+    from spectrogram_yolov11_torch.engine.pipeline import eval_network, load_model
+    from spectrogram_yolov11_torch.nn.autobackend import AutoBackend
+    from spectrogram_yolov11_torch.nn.tasks import build_model, yaml_model_load
+    from spectrogram_yolov11_torch.serve import RemoteModel, serve
+    from spectrogram_yolov11_torch.utils import yaml_load
+
+    t_phase, dev = time.perf_counter(), torch.device("cuda")
+    bf16, nb = torch.bfloat16, TRAIN_BATCH
+    launches, checks, nms, out, seconds = {}, {"f32": {}, "bf16": {}}, {}, {}, {}
+    kernel_times = {}
+
+    def expect(fused: int, dtype, keep: int) -> dict:
+        e = {"fused_bottleneck": 0, "fused_bottleneck_bf16": 0, "greedy_keep": keep}
+        e["fused_bottleneck_bf16" if dtype == torch.bfloat16 else "fused_bottleneck"] = fused
+        return e
+
+    def counted(key: str, fn, dtype, fused: int, keep: int, seen: int, nc: int = 2, stride=None):
+        """fn() counted from 0 and timed, each fused bottleneck's first input at `dtype` (`seen` of them) and the
+        keep kernel's candidates kept and held against the plain versions."""
+        cap, stop = capture_val_inputs(dtype)
+        t0 = time.perf_counter()
+        try:
+            res, launches[key] = run_counted(fn, expect(fused, dtype, keep), key)
+        finally:
+            stop()
+        seconds[key] = time.perf_counter() - t0
+        kept = [k for k in cap if k != "feats"]
+        require(len(kept) == seen, f"{key}: {len(kept)} bottleneck inputs kept on the card, {seen} fused")
+        if seen:
+            checks["f32" if dtype == torch.float32 else "bf16"][key] = fork_bottleneck_checks(cap, key)
+        if keep and "feats" in cap:
+            nms[key] = fork_nms_at(cap, nc, stride)
+        return res, cap
+
+    own = export is None
+    export = export or V9Export()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = check_det_dataset(dict(yaml_load(find_dataset_yaml("spectrogram_synth.yaml")), path=tmp))
+            n_val = len(list(Path(data["val"]).iterdir()))
+            pred_dir = Path(tmp) / "predict16"
+            pred_dir.mkdir()
+            for f in sorted(Path(data["val"]).iterdir())[:V9_FRAMES]:
+                (pred_dir / f.name).write_bytes(f.read_bytes())
+
+            # yolov9c from its YAML: one amp epoch (the nc 80 -> 2 rebuild), its EMA val in bf16
+            yolo = YOLO(V9_USER)
+            b = yolo.model.bottlenecks()
+            require(len(b["fused"]) == V9_FUSED and not b["gated"] and yolo.model.nc == 80,
+                    f"{V9_USER}: fused {b['fused']}, gated {b['gated']}")
+            metrics, _ = counted("v9c_train", lambda: yolo.train(plots=False, data=data, project=tmp, name="v9c",
+                                                               epochs=1, batch=nb, imgsz=640, workers=8,
+                                                               exist_ok=True),
+                                 bf16, V9_FUSED * (n_val // nb), n_val // nb, V9_FUSED, stride=yolo.model.stride)
+            tr = yolo.trainer
+            require(tr.rebuilt is not None and tr.rebuilt["nc"] == (80, 2) and tr.args.amp is True
+                    and all(np.isfinite(list(metrics.values()))), f"{V9_USER} train: rebuilt {tr.rebuilt}, {metrics}")
+            log = tr.epoch_log
+            out["train"] = {"metrics": metrics, "rebuilt": tr.rebuilt,
+                            "ms_per_step_with_wait": [(e["seconds"] - e["val_s"]) / e["steps"] * 1e3 for e in log],
+                            "loader_wait_ms_per_step": [e["loader_wait_s"] / e["steps"] * 1e3 for e in log],
+                            "ema_val_s": [e["val_s"] for e in log]}
+            best = Path(tmp) / "v9c_best.ckpt"
+            best.write_bytes(tr.best.read_bytes())
+            # and one f32 epoch (amp=False): its EMA val in f32
+            yolo32 = YOLO(V9_USER)
+            metrics32, _ = counted("v9c_train_f32", lambda: yolo32.train(
+                plots=False, data=data, project=tmp, name="v9c_f32", epochs=1, batch=nb, imgsz=640, workers=8,
+                exist_ok=True, amp=False), torch.float32, V9_FUSED * (n_val // nb), n_val // nb, V9_FUSED,
+                stride=yolo32.model.stride)
+            require(yolo32.trainer.args.amp is False and all(np.isfinite(list(metrics32.values()))),
+                    f"{V9_USER} f32 train: {metrics32}")
+            out["train_f32"] = {"metrics": metrics32, "ema_val_s": [e["val_s"] for e in yolo32.trainer.epoch_log],
+                                "ms_per_step_with_wait": [(e["seconds"] - e["val_s"]) / e["steps"] * 1e3
+                                                          for e in yolo32.trainer.epoch_log]}
+            del yolo32
+            card = YOLO(str(best))
+            stride = card.model.stride
+            v32, cap = counted("v9c_val", lambda: card.val(plots=False, data=data, batch=VAL_BATCH), torch.float32,
+                               V9_FUSED * (n_val // VAL_BATCH), n_val // VAL_BATCH, V9_FUSED, stride=stride)
+            by_shape = {}  # the kernel at each of yolov9c's four map shapes, beside cuDNN, its plain version, its bound
+            for m in (k for k in cap if k != "feats"):
+                by_shape.setdefault(tuple(cap[m].shape), []).append(m)
+            with torch.inference_mode():
+                for shape, mods in by_shape.items():
+                    d = bottleneck_check(f"v9c {shape}", layer_case(mods[0], cap[mods[0]]))
+                    kernel_times["x".join(map(str, shape))] = bottleneck_times(f"v9c {shape}", d, len(mods))
+            require(len(by_shape) == 4, f"yolov9c's bottleneck shapes {sorted(by_shape)}")
+            v16, _ = counted("v9c_val_half", lambda: card.val(plots=False, data=data, batch=VAL_BATCH, half=True),
+                             bf16, V9_FUSED * (n_val // VAL_BATCH), n_val // VAL_BATCH, V9_FUSED, stride=stride)
+            kw = dict(batch=V9_FRAMES, conf=FAMILY_CONF, max_det=FAMILY_MAX_DET, save=False)
+            p32, _ = counted("v9c_predict", lambda: card.predict(str(pred_dir), **kw), torch.float32, V9_FUSED, 1,
+                             V9_FUSED, stride=stride)
+            p16, _ = counted("v9c_predict_half", lambda: card.predict(str(pred_dir), half=True, **kw), bf16, V9_FUSED,
+                             1, V9_FUSED, stride=stride)
+            require(sum(len(r) for r in p32) > 0 and sum(len(r) for r in p16) > 0, "yolov9c predict kept no rows")
+            # two frames on the card against the CPU, f32: counts and classes equal, boxes within 1e-2 px
+            two = Path(tmp) / "predict2"
+            two.mkdir()
+            for f in sorted(pred_dir.iterdir())[:2]:
+                (two / f.name).write_bytes(f.read_bytes())
+            got = card.predict(str(two), **dict(kw, batch=2))
+            t0 = time.perf_counter()
+            ref = YOLO(str(best), device="cpu").predict(str(two), **dict(kw, batch=2))
+            seconds["cpu_predict_2"] = time.perf_counter() - t0
+            box_err = max(rows_match(g.boxes.data, r.boxes.data, f"{V9_USER} predict {Path(g.path).name}")
+                          for g, r in zip(got, ref))
+            # ms per forward at B = 32, f32 and bf16 (the eval networks the validator runs)
+            x32 = torch.rand(32, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+            x32 = x32.contiguous(memory_format=torch.channels_last)
+            fwd_ms = {}
+            with torch.inference_mode():
+                for tag, half in (("f32", False), ("bf16", True)):
+                    net = eval_network(card.model, half, dev)
+                    fwd_ms[tag] = cuda_ms(lambda net=net: net(x32.to(net.dtype)), iters=10, warmup=2)
+                    del net
+            # one served request of 2 frames against the local serving graph on the card
+            frames = np.random.default_rng(3).integers(0, 255, (2, 640, 640, 3), np.uint8)
+            srv = serve({"v9c": str(best)}, port=0, block=False)
+            try:
+                remote = RemoteModel(f"http://127.0.0.1:{srv.port}/v9c")
+                remote(frames[:1])  # the warm-up dispatch
+                served, _ = counted("v9c_served", lambda: remote(frames), torch.float32, V9_FUSED, 0, V9_FUSED)
+            finally:
+                srv.shutdown()
+            direct_fn = build_inference_fn(eval_network(card.model, False, dev))
+            local = direct_fn(torch.from_numpy(frames).to(dev))
+            served_err = float(np.abs(np.asarray(served[0], np.float64) - local.cpu().numpy()).max())
+            require(served_err <= 1e-4 * (1 + float(local.abs().max())), f"yolov9c served {served_err} off")
+            out["yolov9c"] = {"val_f32": v32, "val_bf16": v16, "predict_rows": sum(len(r) for r in p32),
+                              "predict_half_rows": sum(len(r) for r in p16), "cpu_vs_card_max_box_err_px": box_err,
+                              "ms_per_forward_b32": fwd_ms, "served_max_abs_err": served_err}
+            del card, yolo
+            torch.cuda.empty_cache()
+
+            # yolov9e (CBLinear / CBFuse, nn.Identity) forward at B = 1 and 32, f32 and bf16, counted
+            model = build_model(yaml_model_load("yolov9e.yaml")).init(0)
+            scaled_bn(model, 0)
+            b = model.bottlenecks()
+            require(len(b["fused"]) == V9E_FUSED and {c for _, c in b["gated"]} == {256}, f"yolov9e bottlenecks {b}")
+            net32 = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+            x = torch.rand(32, 3, 640, 640, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+            x = x.contiguous(memory_format=torch.channels_last)
+            v9e = {}
+            for tag, net in (("f32", net32), ("bf16", net32.set_dtype(bf16))):
+                dt = net.dtype
+                for bs in (1, 32):
+                    with torch.inference_mode():
+                        y, _ = counted(f"v9e_{tag}_b{bs}", lambda net=net, bs=bs: family_forward_decode(net, x[:bs].to(dt)),
+                                       dt, V9E_FUSED, 0, V9E_FUSED)
+                    require(bool(torch.isfinite(y).all()), f"yolov9e {tag} B={bs}: non-finite predictions")
+                    v9e[f"{tag}_b{bs}"] = y[:1].float()
+                with torch.inference_mode():
+                    v9e[f"{tag}_ms_b32"] = cuda_ms(lambda net=net: family_forward_decode(net, x.to(dt)), iters=5, warmup=2)
+            b1_vs_b32 = float((v9e["f32_b1"] - v9e["f32_b32"]).abs().max())
+            bf16_vs_f32 = float((v9e["bf16_b1"] - v9e["f32_b1"]).abs().max())
+            require(b1_vs_b32 <= FORK_TOL * (1 + float(v9e["f32_b1"].abs().max())), f"yolov9e B=1 vs B=32: {b1_vs_b32}")
+            out["yolov9e"] = {"fused": len(b["fused"]), "gated": [list(t) for t in b["gated"]],
+                              "f32_b1_vs_b32_max_abs": b1_vs_b32, "bf16_vs_f32_max_abs": bf16_vs_f32,
+                              "ms_per_forward_decode_b32": {t: v9e[f"{t}_ms_b32"] for t in ("f32", "bf16")}}
+            del model, net32, net, x
+            torch.cuda.empty_cache()
+
+            # yolov9c-seg: one amp epoch on shapes128-seg (64 + 16 JPEGs), its EMA val counted
+            seg_data = check_det_dataset(dict(yaml_load(find_dataset_yaml("shapes128-seg.yaml")),
+                                              path=str(Path(tmp) / "shapes128-seg")))
+            n_seg = len(list(Path(seg_data["val"]).glob("*.jpg")))
+            seg = YOLO("yolov9c-seg.yaml")
+            seg_metrics, _ = counted("v9c_seg_train", lambda: seg.train(
+                data=seg_data, epochs=1, batch=nb, imgsz=640, plots=False, project=tmp, name="v9c_seg", workers=8,
+                exist_ok=True), bf16, V9_FUSED * (n_seg // nb), n_seg // nb, V9_FUSED, nc=len(seg_data["names"]),
+                stride=seg.model.stride)
+            require(seg.model.task == "segment" and all(np.isfinite(list(seg_metrics.values()))),
+                    f"yolov9c-seg train: {seg_metrics}")
+            out["seg_train"] = {"metrics": seg_metrics, "rebuilt": seg.trainer.rebuilt,
+                                "seconds": seconds["v9c_seg_train"]}
+            del seg
+
+            # yolov9c-seg and the v3 / v5 / v6 users: one predict each from their YAMLs, counted
+            arrays = [f[..., ::-1].copy() for f in frames]  # BGR arrays
+            kw = dict(conf=1e-6, max_det=30, save=False, batch=2)
+            for name, fused in (("yolov9c-seg.yaml", V9_FUSED), *((n, 0) for n in V9_PREDICTED)):
+                m = YOLO(name)
+                require(m.model.default_act == ("relu" if "v6" in name else "silu"), f"{name}: {m.model.default_act}")
+                res, _ = counted(f"{Path(name).stem}_predict", lambda m=m: m.predict(arrays, **kw), torch.float32, fused,
+                                 1, fused, nc=80, stride=m.model.stride)
+                rows = sum(len(r) for r in res)
+                require(rows > 0 and all(np.isfinite(r.boxes.data).all() for r in res), f"{name}: predict rows {rows}")
+                out[Path(name).stem] = {"rows": rows, "seconds": seconds[f"{Path(name).stem}_predict"],
+                                        "masks": None if getattr(res[0], "masks", None) is None
+                                        else list(res[0].masks.data.shape)}
+
+            # the yolov9c program, exported meanwhile: reloaded, called once, counted, its convolutions those of
+            # the folded eval graph
+            seconds["export_wall"] = export.wait()
+            backend = AutoBackend(export.path, device="cuda")
+            direct_fn = build_inference_fn(eval_network(load_model(export.ckpt)[0], False, dev))
+            xs = torch.from_numpy(frames).to(dev)
+            mode, calls = capture_op_inputs()
+            with mode:
+                prog, launches["v9c_program"] = run_counted(lambda: backend(xs), expect(V9_FUSED, torch.float32, 0),
+                                                            "yolov9c .pt2 program")
+            require(len(calls) == V9_FUSED, f"yolov9c program: {len(calls)} operator calls")
+            checks["f32"]["v9c_program"] = op_checks(calls, "v9c program")
+            program_convs = sum(n.op == "call_function" and any(k in str(n.target) for k in ("convolution", "conv2d"))
+                                for n in backend.program.graph.nodes)
+            eval_net = eval_network(export.seeded, False, dev)
+            with torch.inference_mode():
+                direct_convs = conv_calls(lambda: direct_fn(xs))
+            with torch.no_grad():
+                train_convs = conv_calls(lambda: copy.deepcopy(eval_net).train()(xs.permute(0, 3, 1, 2).float() / 255))
+            require(program_convs == direct_convs < train_convs,
+                    f"yolov9c program: {program_convs} convolutions, eval graph {direct_convs}, branches {train_convs}")
+            out["program"] = dict(compare_outputs(_out_tuple(prog), _out_tuple(direct_fn(xs)), "yolov9c program",
+                                                  EXPORT_PX_TOL, EXPORT_SCORE_TOL, False),
+                                  convolutions={"program": program_convs, "eval_graph": direct_convs,
+                                                "train_branches": train_convs})
+    finally:
+        if own:
+            export.stop()
+    emit("v9_families", card=smi, seconds=time.perf_counter() - t_phase, results=out, stage_seconds=seconds,
+         launches=launches, bottleneck_checks=checks,
+         bottleneck_times={k: {f: t[f] for f in ("shape", "launches_per_forward", "ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "bound_by", "share_of_bound")}
+                           for k, t in kernel_times.items()},
+         nms={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "scan_steps_mean", "mismatches")}
+              for p, d in nms.items()},
+         method="each run counted from 0 around the call; every fused bottleneck input and the keep kernel's "
+                "candidates of it kept by global module hooks (the program's by a dispatch mode) and held against "
+                "the plain versions; times by CUDA events")
+    flat = {t: [d for c in checks[t].values() for d in c.values()] for t in ("f32", "bf16")}
+    return launches, flat, nms, kernel_times
+
+
 def main() -> int:
     import torch
 
@@ -5496,8 +5841,13 @@ def main() -> int:
     obb_launches, obb_checks = phase_obb()
     cls_launches, cls_checks, cls_half_checks, cls_times = phase_classify()
     st_launches, st_checks, st_nms = phase_serve_tasks()
-    fam_launches, fam_checks, fam_nms = phase_families(smi)
-    exp_launches, exp_checks = phase_export(smi)
+    v9_export = V9Export()  # its tracing runs on the host through phases families and export
+    try:
+        fam_launches, fam_checks, fam_nms = phase_families(smi)
+        exp_launches, exp_checks = phase_export(smi)
+        v9_launches, v9_checks, v9_nms, v9_times = phase_v9_families(smi, v9_export)
+    finally:
+        v9_export.stop()
 
     def per_forward(key, shapes=shapes):
         return sum(shapes[n][key] * shapes[n]["launches_per_forward"] for n in ("layer6", "layer8"))
@@ -5539,7 +5889,8 @@ def main() -> int:
 
     def fam_paths(kernel: str) -> dict:
         return {"families": sum(got[kernel] for got in fam_launches.values()),
-                "export": sum(got[kernel] for got in exp_launches.values())}
+                "export": sum(got[kernel] for got in exp_launches.values()),
+                "v9_families": sum(got[kernel] for got in v9_launches.values())}
 
     exp_ops = [d for c in exp_checks.values() for calls in c.values() for d in calls.values()]
     exp_f32 = [d for d in exp_ops if "unequal_share" not in d and "mismatches" not in d]
@@ -5577,7 +5928,11 @@ def main() -> int:
                                                          *extras_f32, *seg_checks.values(),
                                                          *pose_checks["val"].values(), *obb_checks["val"].values(),
                                                          *cls_checks.values(), *st_f32, *fam_checks["f32"],
-                                                         *exp_f32)),
+                                                         *exp_f32, *v9_checks["f32"])),
+             v9_families_max_abs_err=max(d["max_abs_err"] for d in v9_checks["f32"]),
+             v9_families_maps={k: {f: d[f] for f in ("shape", "launches_per_forward", "ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms", "share_of_bound")}
+                               for k, d in v9_times.items()},
              families_max_abs_err=max(d["max_abs_err"] for d in fam_checks["f32"]),
              export_max_abs_err=max(d["max_abs_err"] for d in exp_f32),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_f32),
@@ -5622,7 +5977,8 @@ def main() -> int:
                                                          *art_checks["val_bf16"].values(), *fork_bf16,
                                                          *host_bf16, *extras_bf16, *pose_bf16, *obb_bf16,
                                                          *cls_half_checks.values(), *fam_checks["bf16"],
-                                                         *exp_bf16)),
+                                                         *exp_bf16, *v9_checks["bf16"])),
+             v9_families_max_abs_err=max(d["max_abs_err"] for d in v9_checks["bf16"]),
              families_max_abs_err=max(d["max_abs_err"] for d in fam_checks["bf16"]),
              export_max_abs_err=max(d["max_abs_err"] for d in exp_bf16),
              fork_max_abs_err=max(d["max_abs_err"] for d in fork_bf16),
@@ -5645,7 +6001,7 @@ def main() -> int:
                                                                  *art_checks["val_bf16"].values(), *fork_bf16,
                                                                  *host_bf16, *extras_bf16, *pose_bf16,
                                                                  *obb_bf16, *cls_half_checks.values(),
-                                                                 *fam_checks["bf16"], *exp_bf16)),
+                                                                 *fam_checks["bf16"], *exp_bf16, *v9_checks["bf16"])),
              train_amp_ema_val={"shapes": sorted(d["shape"] for d in amp_bottleneck.values()),
                                 "max_abs_err": max(d["max_abs_err"] for d in amp_bottleneck.values()),
                                 "tolerance_min": min(d["tolerance"] for d in amp_bottleneck.values())},
@@ -5719,6 +6075,8 @@ def main() -> int:
                                                              "scan_steps_mean", "mismatches")} for t, d in st_nms.items()},
              families_k2048={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                                    "scan_steps_mean", "mismatches")} for p, d in fam_nms.items()},
+             v9_families={p: {k: d[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                "scan_steps_mean", "mismatches")} for p, d in v9_nms.items()},
              export_programs={"calls_checked": len(exp_keep), "mismatches": sum(d["mismatches"] for d in exp_keep),
                               "shapes": sorted({tuple(d["shape"]) for d in exp_keep}),
                               "ms_b32": [d["ms"] for d in exp_keep if d["shape"][0] == 32]},

@@ -104,9 +104,13 @@ def feature_stages(model: DetectionModel) -> List[tuple]:
     the j-th of a layer repeated n > 1 times (the port's nn.Sequential), and
     the root's own output is the intermediate "__call__"; JAX's
     _visualize_features enumerates sorted(intermediates), so a layer's stage
-    is its name's rank in lexicographic order, "__call__" at 0."""
+    is its name's rank in lexicographic order, "__call__" at 0. An
+    nn.Identity layer (yolov9e's layer 0) is no module in JAX's graph, so it
+    has no stage."""
     mods = {}
     for i, layer in enumerate(model.model):
+        if type(layer) is torch.nn.Identity:
+            continue
         if isinstance(layer, torch.nn.Sequential):
             mods.update({f"model_{i}_{j}": m for j, m in enumerate(layer)})
         else:
@@ -148,9 +152,10 @@ class BasePredictor:
     def _visualize_features(self, batch: torch.Tensor) -> None:
         """visualize=True: the first frame of `batch` (letterboxed uint8 on the
         device) normalised and forwarded through the predictor's network, each
-        top-level layer's output kept by a forward hook; every 4-D one (the
-        first element of a tuple output) written as its channel grid, permuted
-        to JAX's NHWC. A failure is logged and predict goes on, as JAX's."""
+        top-level layer's output kept by a forward hook; every 4-D tensor one
+        written as its channel grid, permuted to JAX's NHWC (a list output,
+        such as CBLinear's pieces or a head's, is left out, as JAX's). A
+        failure is logged and predict goes on, as JAX's."""
         self._visualized = True
         save_dir = get_save_dir(self.args) / "features"
         try:
@@ -167,9 +172,8 @@ class BasePredictor:
                     h.remove()
             for stage, name, _ in feature_stages(self.model):
                 out = outs.get(name)
-                arr = out[0] if isinstance(out, (tuple, list)) else out
-                if torch.is_tensor(arr) and arr.ndim == 4:
-                    feature_visualization(arr.permute(0, 2, 3, 1).float().cpu().numpy(), name, stage,
+                if torch.is_tensor(out) and out.ndim == 4:
+                    feature_visualization(out.permute(0, 2, 3, 1).float().cpu().numpy(), name, stage,
                                           save_dir=save_dir)
             LOGGER.info(f"feature maps saved to {save_dir}")
         except Exception as e:  # visualization must never fail inference

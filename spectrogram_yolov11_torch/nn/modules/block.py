@@ -13,7 +13,13 @@ configs), ResNetBlock (:916) and ResNetLayer (:938, yolov8-cls-resnet50 and
 -101), and v10's SCDown (:377), PSA (:318), RepVGGDW (:392, its two
 depthwise branches kept apart, not re-parameterised), CIB (:405) and C2fCIB
 (:429). C2's inner bottlenecks are same-width 3x3 blocks and take the fused
-kernel as C2f's do.
+kernel as C2f's do. The YOLOv3/v5 SPP (:230) and the YOLOv9 blocks:
+RepBottleneck (:590) and RepCSP (:611), RepNCSPELAN4 (:632), ELAN1 (:657),
+AConv (:677), ADown (:692), SPPELAN (:712), CBLinear (:729) and CBFuse
+(:746). A RepBottleneck is a Bottleneck whose cv1 is a RepConv: once the
+RepConv is folded it computes silu(conv3x3(silu(conv3x3(x) + b1)) + b2) + x,
+the fused kernel's block, and RepCSP's (e=1.0) take the kernel at its
+widths.
 
 The inner bottlenecks of C3k (and C2f) are same-width 3x3 -> 3x3 residual
 blocks. In the inference forward they run as one fused CUDA kernel
@@ -49,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.fused_conv import CHANNELS, fused_bottleneck, pack_bottleneck_weights, pack_bottleneck_weights_bf16
-from .conv import BatchNorm2d, Conv, Conv2d, ConvTranspose2d, DWConv, GhostConv
+from .conv import BatchNorm2d, Conv, Conv2d, ConvTranspose2d, DWConv, GhostConv, RepConv, autopad
 
 
 @functools.lru_cache(maxsize=8)
@@ -83,22 +89,28 @@ def _is_3x3(k) -> bool:
 
 class Bottleneck(nn.Module):
     """cv1 -> cv2 (+ residual); k holds each conv's kernel, an int or a pair.
-    Same-width 3x3 residual instances whose width the kernel takes are
-    `fusable`: in eval they run the fused kernel on BN-folded weights set by
-    `fold()`, in training their two Convs. Those of another width are
-    `gated` and run their two Convs in both modes."""
+    Same-width 3x3 residual instances whose width the kernel takes and whose
+    activations are SiLU (the kernel's) are `fusable`: in eval they run the
+    fused kernel on BN-folded weights set by `fold()`, in training their two
+    convs. Those of another width or activation (a ReLU model's) are `gated`
+    and run their two convs in both modes."""
 
     def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k=(3, 3), e: float = 0.5):
         super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv1 = self._first(c1, c_, k[0])
         self.cv2 = Conv(c_, c2, k[1], 1, g=g)
         self.add = shortcut and c1 == c2
         same_width_3x3 = self.add and c_ == c2 and _is_3x3(k[0]) and _is_3x3(k[1]) and g == 1
-        self.fusable = same_width_3x3 and c2 in CHANNELS
+        silu = all(isinstance(m.act, nn.SiLU) for m in (self.cv1, self.cv2))
+        self.fusable = same_width_3x3 and silu and c2 in CHANNELS
         self.gated = same_width_3x3 and not self.fusable
         for name in ("w1", "b1", "w2", "b2"):
             self.register_buffer(name, None, persistent=False)
+
+    def _first(self, c1: int, c2: int, k) -> nn.Module:
+        """The first conv, cv1."""
+        return Conv(c1, c2, k, 1)
 
     @torch.no_grad()
     def fold(self, dtype: torch.dtype = torch.float32) -> None:
@@ -250,6 +262,23 @@ class C3k2(C2f):
     def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5, g: int = 1, shortcut: bool = True):
         nn.Module.__init__(self)
         self._csp(c1, c2, n, e, lambda c: C3k(c, c, 2, shortcut, g) if c3k else Bottleneck(c, c, shortcut, g, k=(3, 3), e=0.5))
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling (JAX block.py:230): cv1 to c1 / 2, beside it a
+    stride-1 max pool of each size in k over a -inf pad of k // 2, cv2
+    merging them."""
+
+    def __init__(self, c1: int, c2: int, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.cv1(x)
+        return self.cv2(torch.cat([x] + [F.max_pool2d(x, k, 1, k // 2) for k in self.k], 1))
 
 
 class SPPF(nn.Module):
@@ -536,3 +565,145 @@ class ResNetLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.layer(x)
         return F.max_pool2d(y, 3, 2, 1) if self.is_first else y
+
+
+class RepBottleneck(Bottleneck):
+    """Bottleneck whose cv1 is a RepConv (JAX block.py:590). Inside RepCSP
+    (e=1.0, same width, SiLU) it is the fused kernel's block once the
+    RepConv's branches are folded: `fold()` folds them, then cv2's BN, and
+    packs both for the kernel."""
+
+    def _first(self, c1: int, c2: int, k) -> nn.Module:
+        return RepConv(c1, c2, k[0] if isinstance(k, (tuple, list)) else k, 1)
+
+
+class RepCSP(C3):
+    """C3 whose `n` inner blocks are RepBottleneck(c_, c_, e=1.0) (JAX block.py:611)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, 0, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(RepBottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+
+
+class RepNCSPELAN4(nn.Module):
+    """v9's CSP-ELAN (JAX block.py:632): cv1 to c3 split in two, the second
+    half through cv2 (RepCSP to c4, then a 3x3 Conv), that through cv3 (the
+    same at c4), cv4 merging the four pieces."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1):
+        super().__init__()
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2 = nn.Sequential(RepCSP(c3 // 2, c4, n), Conv(c4, c4, 3, 1))
+        self.cv3 = nn.Sequential(RepCSP(c4, c4, n), Conv(c4, c4, 3, 1))
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = list(self.cv1(x).chunk(2, 1))
+        ys.append(self.cv2(ys[-1]))
+        ys.append(self.cv3(ys[-1]))
+        return self.cv4(torch.cat(ys, 1))
+
+
+class ELAN1(RepNCSPELAN4):
+    """v9's ELAN with plain convs (JAX block.py:657): RepNCSPELAN4's layout
+    with a 3x3 Conv in place of each RepCSP + Conv pair."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int):
+        nn.Module.__init__(self)
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2 = Conv(c3 // 2, c4, 3, 1)
+        self.cv3 = Conv(c4, c4, 3, 1)
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1, 1)
+
+
+class AConv(nn.Module):
+    """v9's downsample (JAX block.py:677): a 2x2 stride-1 average pool, then
+    a 3x3 stride-2 Conv."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 3, 2, p=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv1(F.avg_pool2d(x, 2, 1, 0))
+
+
+class ADown(nn.Module):
+    """v9's two-branch downsample (JAX block.py:692): a 2x2 stride-1 average
+    pool split in two; the first half through a 3x3 stride-2 Conv, the
+    second through a 3x3 stride-2 max pool (pad 1) and a 1x1 Conv; each to
+    c2 / 2, concatenated."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        c = c2 // 2
+        self.cv1 = Conv(c1 // 2, c, 3, 2, p=1)
+        self.cv2 = Conv(c1 // 2, c, 1, 1, p=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = F.avg_pool2d(x, 2, 1, 0).chunk(2, 1)
+        return torch.cat((self.cv1(x1), self.cv2(F.max_pool2d(x2, 3, 2, 1))), 1)
+
+
+class SPPELAN(nn.Module):
+    """v9's SPP-ELAN (JAX block.py:712): cv1 to c3, three stacked k x k
+    stride-1 max pools, cv5 merging the four."""
+
+    def __init__(self, c1: int, c2: int, c3: int, k: int = 5):
+        super().__init__()
+        self.k = k
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv5 = Conv(4 * c3, c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(F.max_pool2d(ys[-1], self.k, 1, self.k // 2))
+        return self.cv5(torch.cat(ys, 1))
+
+
+class CBLinear(nn.Module):
+    """v9's multi-branch projection (JAX block.py:729): one conv with bias to
+    sum(c2s) channels, returned split into pieces of widths c2s (a tuple:
+    the layer's output is a list, which CBFuse reads)."""
+
+    def __init__(self, c1: int, c2s, k: int = 1, s: int = 1, g: int = 1):
+        super().__init__()
+        self.c2s = [int(c) for c in c2s]
+        self.conv = Conv2d(c1, sum(self.c2s), k, s, autopad(k), groups=g, bias=True)
+
+    def forward(self, x: torch.Tensor):
+        return tuple(self.conv(x).split(self.c2s, 1))
+
+
+def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """x (B, C, H, W) resized to (h, w) by jax.image.resize's nearest rule:
+    output row i reads input row floor((i + 0.5) * H / h), in float32, and
+    columns likewise. F.interpolate's "nearest" reads floor(i * H / h)
+    instead, which differs wherever the ratio is not an integer upscale."""
+    def index(n_in: int, n_out: int) -> torch.Tensor:
+        pos = (torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5) * n_in / n_out
+        return pos.floor().long().clamp_(max=n_in - 1)
+
+    return x.index_select(2, index(x.shape[2], h)).index_select(3, index(x.shape[3], w))
+
+
+class CBFuse(nn.Module):
+    """v9's cross-branch fusion (JAX block.py:746): from each input but the
+    last (a CBLinear's list), its piece idx[i], resized to the last input's
+    size where it differs (resize_nearest); their sum plus the last input."""
+
+    def __init__(self, idx=()):
+        super().__init__()
+        self.idx = [int(i) for i in idx]
+
+    def forward(self, xs):
+        h, w = xs[-1].shape[-2:]
+        out = None
+        for i, x in enumerate(xs[:-1]):
+            t = x[self.idx[i]]
+            if tuple(t.shape[-2:]) != (h, w):
+                t = resize_nearest(t, h, w)
+            out = t if out is None else out + t
+        return xs[-1] if out is None else out + xs[-1]

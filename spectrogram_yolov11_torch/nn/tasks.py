@@ -20,16 +20,24 @@ ResNetLayer, SCDown, PSA, RepVGGDW, C2fCIB, v10Detect) are registered as
 JAX's; `legacy` starts true and turns false at the first scale-sensitive
 module, every Detect-family head receives it, and v10Detect (the Detect
 class) is set end2end and not legacy (JAX :240, :292, :358-361); a model
-whose head is end2end reports it (`end2end`, JAX :513). A module of JAX's
-registry the port lacks raises NotImplementedError naming its ROADMAP.md
-item (NOT_PORTED_MODULES); any other unknown name raises KeyError.
+whose head is end2end reports it (`end2end`, JAX :513). The YOLOv9, v3,
+v5 and v6 families' modules (RepConv, RepCSP, RepNCSPELAN4, ELAN1, AConv,
+ADown, SPPELAN, CBLinear, CBFuse, SPP, nn.MaxPool2d, nn.ZeroPad2d,
+nn.ConvTranspose2d, nn.Identity) are registered as JAX's (:79, :100-102):
+CBLinear's width is the list of its pieces' and CBFuse's its last input's
+(JAX :316-320), and the graph carries a list output to the CBFuse that
+reads it. The dict's `activation:` key is what every act=True builds (JAX
+:242-256; ROADMAP.md §3.56). A module of JAX's registry the port lacks
+raises NotImplementedError naming its ROADMAP.md item
+(NOT_PORTED_MODULES); any other unknown name raises KeyError.
 
 A model is built from a dict (a checkpoint's `model_yaml`) or from a model
 YAML: a path, or a name that find_model_yaml (JAX cfg/__init__.py:349)
-resolves under any folder of the port's cfg/models/ (11/, 11/fork/, v8/,
-v10/, v10/fork/; the first hit in sorted order: yolo11.yaml,
-spectrogram_yolo11.yaml, fork/*.yaml, yolov8.yaml, yolov10n.yaml;
-`yolov8n.yaml` is yolov8.yaml at n; `yolo11n.yaml` and the bare `yolo11n`
+resolves under any folder of the port's cfg/models/ (11/, 11/fork/, v3/,
+v5/, v6/, v8/, v9/, v10/, v10/fork/; the first hit in sorted order:
+yolo11.yaml, spectrogram_yolo11.yaml, fork/*.yaml, yolov8.yaml,
+yolov9c.yaml, yolov10n.yaml; `yolov8n.yaml` is yolov8.yaml at n,
+`yolov5n.yaml` yolov5.yaml at n; `yolo11n.yaml` and the bare `yolo11n`
 are yolo11.yaml at scale n, `yolo11n-seg.yaml` is yolo11-seg.yaml at n, `yolo11n-pose.yaml`
 yolo11-pose.yaml at n, `yolo11n-obb.yaml` yolo11-obb.yaml at n,
 `yolo11n_HCA.yaml` is fork/yolo11_HCA.yaml at n, `yolo11n-cls.yaml`
@@ -62,6 +70,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..utils import LOGGER, full_f32, make_divisible, not_ported, yaml_load
 from ..utils.jax_compat import variables_to_state_dict
 from . import modules as M
+from .modules.conv import default_act, resolve_act_name
 
 MODELS_DIR = Path(__file__).resolve().parents[1] / "cfg" / "models"
 
@@ -78,13 +87,19 @@ MODULE_REGISTRY: Dict[str, type] = {
         "Conv", "DWConv", "GhostConv", "CBAM", "ChannelAttention", "SpatialAttention", "Concat", "Bottleneck",
         "C2f", "C3", "C3k", "C3k2", "C2PSA", "SPPF", "C3x", "Detect", "Segment", "Pose", "OBB", "Classify",
         "TorchVision", "C2", "GhostBottleneck", "C3Ghost", "ResNetLayer", "SCDown", "PSA", "RepVGGDW", "C2fCIB",
+        "RepConv", "RepCSP", "RepNCSPELAN4", "ELAN1", "AConv", "ADown", "SPPELAN", "CBLinear", "CBFuse", "SPP",
         *FORK_MODULES)},
     "nn.Upsample": M.Upsample,
+    "nn.MaxPool2d": nn.MaxPool2d,  # JAX's MaxPool2d and ZeroPad2d take torch's arguments
+    "nn.ZeroPad2d": nn.ZeroPad2d,
+    "nn.ConvTranspose2d": M.TorchConvTranspose2d,
+    "nn.Identity": nn.Identity,  # JAX's None: the layer passes its input on
     "v10Detect": M.Detect,  # JAX's: the Detect class, set end2end (and not legacy) by parse_model
 }
 BASE_MODULES = {
     M.Conv, M.GhostConv, M.Bottleneck, M.SPPF, M.C2PSA, M.DWConv, M.C2f, M.C3k2, M.C3, M.C3k, M.CBAM, M.C3x,
-    M.Classify, M.C2, M.GhostBottleneck, M.C3Ghost, M.SCDown, M.PSA, M.C2fCIB,
+    M.Classify, M.C2, M.GhostBottleneck, M.C3Ghost, M.SCDown, M.PSA, M.C2fCIB, M.SPP, M.RepConv,
+    M.RepNCSPELAN4, M.ELAN1, M.AConv, M.ADown, M.SPPELAN, M.TorchConvTranspose2d,
     # the fork's base modules (JAX nn/tasks.py:179-181)
     M.RecycleConv, M.GhostConvHCA, M.LDConv, M.Cross_AKConv, M.Mix_SPPF, M.SELayer, M.SaELayer,
     M.SAPF, M.DDWConv, M.ConvOMN, M.MaxConv, M.GhostMaxConv, M.ConvHCA, M.GhostConvMax,
@@ -98,16 +113,14 @@ SCALE_SENSITIVE = {M.C3k2, M.C3k2GC, M.C3MSCk2, M.XCBAM2C2f}  # args[3] flips on
 # ROADMAP.md item that queues it: a YAML naming one raises NotImplementedError, not KeyError
 _ITEM11 = "item 11 (other model families: {})"
 NOT_PORTED_MODULES = {
-    **{m: (f"the YOLOv9 module {m}", _ITEM11.format("v9")) for m in (
-        "RepNCSPELAN4", "ELAN1", "AConv", "ADown", "SPPELAN", "CBLinear", "CBFuse", "RepCSP", "nn.Identity")},
-    **{m: (f"the YOLOv3/v5/v6 module {m}", _ITEM11.format("v3, v5, v6")) for m in (
-        "SPP", "nn.MaxPool2d", "nn.ZeroPad2d", "nn.ConvTranspose2d", "Focus", "C1", "BottleneckCSP", "C3TR")},
+    **{m: (f"the YOLOv5-era module {m} (used by no shipped YAML)", _ITEM11.format("the rest")) for m in (
+        "Focus", "C1", "BottleneckCSP", "C3TR")},
     "DyHeadBlock": ("the DyHead block (yolo11_DYHEAD.yaml)", _ITEM11.format("dyhead")),
     "Index": ("the Index layer (yolo11_DYHEAD.yaml)", _ITEM11.format("dyhead")),
     **{m: (f"the YOLO-World module {m}", _ITEM11.format("World")) for m in (
         "C2fAttn", "ImagePoolingAttn", "WorldDetect")},
     **{m: (f"the RT-DETR module {m}", _ITEM11.format("RT-DETR")) for m in (
-        "HGStem", "HGBlock", "RepC3", "RepConv", "AIFI", "TransformerEncoderLayer", "RTDETRDecoder")},
+        "HGStem", "HGBlock", "RepC3", "AIFI", "TransformerEncoderLayer", "RTDETRDecoder")},
     **{m: (f"the YOLO-NAS module {m}", _ITEM11.format("NAS")) for m in (
         "QARepVGG", "NASStage", "NASCSP", "NASReduce", "NASDown", "NASUpsample")},
     **{m: (f"the module {m}", _ITEM11.format("the rest")) for m in (
@@ -171,12 +184,23 @@ def intersect_state_dicts(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Ten
     return out, n
 
 
-def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int], List[dict]]:
+def model_act(d: dict) -> str:
+    """The activation a model dict's `activation:` key names (yolov6's
+    `nn.ReLU()`), as a key of ACTS; SiLU when the key is absent, and, with a
+    warning, when it names an activation JAX does not know (JAX :242-256)."""
+    act = d.get("activation")
+    name = resolve_act_name(act)
+    if act and name is None:
+        LOGGER.warning(f"unknown activation '{act}' in model yaml; keeping default")
+    return name or "silu"
+
+
+def parse_model(d: dict, ch: int, act: str = "silu") -> Tuple[List[nn.Module], List[Any], List[int], List[dict]]:
     """Returns (layers, their `from` routes, sorted save list, specs): each
     spec the layer's {type, n, args, kwargs, c2} as JAX's LayerSpec holds
     them (n the repeats after scaling, args the scaled arguments, c2 its
-    output width)."""
-    legacy = True
+    output width). `act` (a key of ACTS, model_act's) is the activation of
+    every `act=True` built here."""
     max_channels = float("inf")
     nc, scales = d.get("nc"), d.get("scales")
     depth, width = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0)
@@ -185,6 +209,12 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
         scale = scale or tuple(scales.keys())[0]
         depth, width, max_channels = scales[scale]
 
+    with default_act(act):  # what Conv(act=True) builds
+        return _parse_layers(d, ch, nc, scale, depth, width, max_channels)
+
+
+def _parse_layers(d: dict, ch: int, nc, scale, depth: float, width: float, max_channels: float):
+    legacy = True
     eval_ctx = {"nc": nc, "kpt_shape": d.get("kpt_shape", 1.0)}  # JAX's default for an absent kpt_shape
     ch_list = [ch]
     layers: List[nn.Module] = []
@@ -235,6 +265,10 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
             c2, args, kwargs["c1"] = ch_list[f[0]], [inc, "ESChannel"], ch_list[f[0]]
         elif cls is M.SelectChannel:
             c2, args = ch_list[f[0]], [ch_list[f[0]]]
+        elif cls is M.CBLinear:  # its width is the list of its pieces' (JAX :316-317)
+            c2, args = list(args[0]), [ch_list[f], list(args[0]), *args[1:]]
+        elif cls is M.CBFuse:  # the last input's width (JAX :318-320)
+            c2, args = ch_list[f[-1]], [list(args[0])] if args else [[]]
         elif cls is M.TorchVision:  # args[0] is the output width (JAX :322)
             c2, args, kwargs["c1"] = args[0], args[1:], ch_list[f]
         elif cls is M.ResNetLayer:  # the YAML holds (c1, c2, s, is_first, n); the stem keeps c2 (JAX :341-344)
@@ -247,7 +281,7 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
             if m == "v10Detect":  # the light class branch and the dual assignments (JAX :358-361)
                 kwargs["legacy"], kwargs["end2end"] = False, True
             c2 = None
-        else:  # Upsample and the fork's other modules keep the width of their input
+        else:  # Upsample, the pools, pads, nn.Identity and the fork's other modules keep the width of their input
             c2 = ch_list[f]
 
         layer = nn.Sequential(*(cls(*args, **kwargs) for _ in range(n))) if n > 1 else cls(*args, **kwargs)
@@ -259,6 +293,27 @@ def parse_model(d: dict, ch: int) -> Tuple[List[nn.Module], List[Any], List[int]
             ch_list = []
         ch_list.append(c2)
     return layers, routes, sorted(set(save)), specs
+
+
+def _meta_like(x, nb: int):
+    """x (a tensor, or lists and tuples of them: CBFuse's input) as empty
+    tensors on the meta device at batch nb."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_meta_like(t, nb) for t in x)
+    return torch.empty(nb, *x.shape[1:], device="meta")
+
+
+def fold_modules(root: nn.Module, dtype: torch.dtype = torch.float32) -> None:
+    """Fold BN into the weights of every fused bottleneck under `root`, packed
+    for the kernel of `dtype`, and the branches of every other RepConv into
+    its one conv in `dtype` (a fused RepBottleneck's RepConv is in its pack)."""
+    fused = [m for m in root.modules() if isinstance(m, M.Bottleneck) and m.fusable]
+    for m in fused:
+        m.fold(dtype)
+    inside = {id(m.cv1) for m in fused}
+    for m in root.modules():
+        if isinstance(m, M.RepConv) and id(m) not in inside:
+            m.fold(dtype)
 
 
 @torch.no_grad()
@@ -330,7 +385,8 @@ class DetectionModel(nn.Module):
         self.names = {i: f"{i}" for i in range(self.nc)}  # the data's or a checkpoint's names replace these
         self.dtype = torch.float32  # the activations' dtype; parameters too, except BN's, which stay f32
         self.compute_dtype = torch.float32  # the activations' dtype in training; parameters stay f32
-        layers, self.routes, self.save, self.specs = parse_model(self.yaml, ch)
+        self.default_act = model_act(self.yaml)  # what act=True built (JAX :497)
+        layers, self.routes, self.save, self.specs = parse_model(self.yaml, ch, self.default_act)
         self.end2end = bool(self.specs[-1]["kwargs"].get("end2end", False))  # a v10Detect head (JAX :513)
         self.model = nn.ModuleList(layers)
         self.eval()
@@ -356,8 +412,8 @@ class DetectionModel(nn.Module):
                 x = y[f] if isinstance(f, int) else [x if j == -1 else y[j] for j in f]
             x = m(x)
             y.append(x if i in self.save else None)
-            if embed and i in embed:
-                embeddings.append(x.mean((2, 3)) if x.ndim == 4 else x)
+            if embed and i in embed:  # a list output (CBLinear's) gives each piece's
+                embeddings.extend(t.mean((2, 3)) if t.ndim == 4 else t for t in (x if isinstance(x, tuple) else (x,)))
         if embed:
             return torch.cat(embeddings, -1)
         return x
@@ -372,11 +428,8 @@ class DetectionModel(nn.Module):
         return self
 
     def fold(self) -> None:
-        """Fold BN into the weights of every fused bottleneck, packed for the
-        kernel of the model's dtype."""
-        for m in self.modules():
-            if isinstance(m, M.Bottleneck) and m.fusable:
-                m.fold(self.dtype)
+        """fold_modules(self, self.dtype)."""
+        fold_modules(self, self.dtype)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "DetectionModel":
         """This f32 model, set to train at activation dtype `dtype` (float32 or
@@ -478,9 +531,8 @@ class DetectionModel(nn.Module):
             # counted at a batch of 2 or more (training-mode BN needs 2 values at 1 x 1), scaled to `batch`
             nb = max(batch, 2)
             meta = copy.deepcopy(m).to("meta").float().train()
-            shaped = [torch.empty(nb, *t.shape[1:], device="meta") for t in (xin if isinstance(xin, list) else [xin])]
             with FlopCounterMode(display=False) as counter:
-                meta(shaped if isinstance(xin, list) else shaped[0])
+                meta(_meta_like(xin, nb))
             t_ms = 0.0
             with full_f32():
                 if timed:

@@ -20,7 +20,14 @@ Leaves:
   `fusion_weight`; the BiFPN concats' `w`: BARE_PARAMS) -> a parameter of
   the same name and shape
 Every BN (every batch_stats `mean`) also gets torch's `num_batches_tracked`
-bookkeeping buffer (0), so the result loads with `strict=True`. The reverse
+bookkeeping buffer (0), so the result loads with `strict=True`. A RepConv in
+JAX's deploy form (`{"reparam": {kernel, bias}}`, written by nn/tasks.py:880
+fuse_model into the `.ckpt` beside a `.stablehlo` export) is read as the
+branches the port's RepConv holds, whose fold is that conv exactly: conv1
+the kernel with an identity BN (scale 1, variance 1 - eps, so the fold
+divides by sqrt(1.0)) and the bias as its shift, conv2 a zero 1x1 kernel
+with an identity BN. A RepConv with its identity-BN branch (bn=True) has no
+such reading. The reverse
 bridge tells a conv's weight from a dense layer's and a norm's by its rank (4,
 2, 1), and keeps every other name as a bare leaf.
 
@@ -70,9 +77,38 @@ def _dotted(key: str, leaf: str) -> str:
     return f"{key}.{leaf}" if key else leaf
 
 
+_BN_EPS = 1e-3  # the BN eps of the JAX package and the port
+
+
+def _unfold_reparam(params: dict, stats: dict) -> Tuple[dict, dict]:
+    """(params, batch_stats) with each deploy-form RepConv subtree
+    {"reparam": {kernel (3, 3, cin, cout), bias}} as its train-form branches."""
+    if "reparam" in params:
+        k = np.asarray(params["reparam"]["kernel"], np.float32)
+        b = np.asarray(params["reparam"]["bias"], np.float32)
+        cout = k.shape[-1]
+        ones, zeros = np.ones(cout, np.float32), np.zeros(cout, np.float32)
+        ident = {"mean": zeros, "var": np.full(cout, 1 - _BN_EPS, np.float32)}
+        return ({"conv1": {"conv": {"kernel": k}, "bn": {"scale": ones, "bias": b}},
+                 "conv2": {"conv": {"kernel": np.zeros((1, 1, *k.shape[2:]), np.float32)},
+                           "bn": {"scale": ones, "bias": zeros}}},
+                {"conv1": {"bn": ident}, "conv2": {"bn": dict(ident)}})
+    new_p, new_s = {}, dict(stats)
+    for key, v in params.items():
+        if isinstance(v, dict):
+            new_p[key], sub = _unfold_reparam(v, stats.get(key, {}))
+            if sub:
+                new_s[key] = sub
+        else:
+            new_p[key] = v
+    return new_p, new_s
+
+
 def variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
     """flax variables {params, batch_stats} -> state dict of the port's model."""
     out: Dict[str, torch.Tensor] = {}
+    params, stats = _unfold_reparam(variables.get("params", {}), variables.get("batch_stats", {}))
+    variables = {"params": params, "batch_stats": stats}
     for path, leaf in _leaves(variables.get("params", {})):
         key = ".".join(_torch_name(t) for t in path[:-1])
         arr = np.asarray(leaf, np.float32)

@@ -50,7 +50,11 @@ keypoints 1e-3 px, masks at most 1e-3 unequal, probs 1e-5), counted; yolov8n's
 and yolov10n's forward (a legacy head; a v10 head's both branches) against
 the CPU's (1e-3 abs/rel) with 5 bottleneck launches, and v10's NMS-free
 top-k on the card giving the CPU's rows exactly on scores with many ties
-(a stable sort on both); a tiny model exported on the card (the .pt2
+(a stable sort on both); yolov9c, yolov9e, yolov5n, yolov3-tiny and yolov6n's forward
+against the CPU's (1e-3 abs/rel) with one launch per fused bottleneck
+(yolov9c: 16, also in bf16 within twice the CPU's bf16-to-f32 distance), and
+a fusable RepBottleneck at C = 32, 64, 128 against the CPU's plain version
+of its fold (1e-4); a tiny model exported on the card (the .pt2
 program, f32 and bf16, with and without the graph's NMS) and reloaded,
 its outputs against the direct graph's on the card (the forward tolerance;
 bf16 0.5 px and 2^-7) with the direct graph's launches, and moved to the
@@ -1804,6 +1808,78 @@ def test_nms_free_postprocess_on_card_equals_cpu_on_ties():
     for max_det in (300, 8400):
         got = nms_free_postprocess(preds.to(dev), max_det, 2).cpu()
         assert torch.equal(got, nms_free_postprocess(preds, max_det, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, fused", [("yolov9c.yaml", 16), ("yolov9e.yaml", 44), ("yolov5n.yaml", 0),
+                                         ("yolov3-tiny.yaml", 0), ("yolov6n.yaml", 0)])
+def test_v9_v3_v5_v6_forward_on_card_match_cpu(name, fused):
+    """The YOLOv9, v3, v5 and v6 families from their YAMLs with init(0) (the
+    legacy Detect head; yolov9c's RepBottlenecks folded into the kernel,
+    yolov9e's CBLinear / CBFuse, yolov6n's ReLU): the card's f32 forward
+    against the CPU's (1e-3 abs/rel), one launch per fused bottleneck; for
+    yolov9c also the bf16 copy, within twice the CPU's own bf16-to-f32
+    distance, with its bf16 launches."""
+    dev = _card()
+    from spectrogram_yolov11_torch.nn.tasks import build_model, yaml_model_load
+
+    model = build_model(yaml_model_load(name)).init(0)
+    assert len(model.bottlenecks()["fused"]) == fused
+    x = torch.from_numpy(np.random.default_rng(7).uniform(0, 1, (2, 3, 256, 256)).astype(np.float32))
+    model_g = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+    xg = x.to(dev).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        n0 = fused_bottleneck.launches
+        got = model_g(xg)
+        torch.cuda.synchronize()
+        assert fused_bottleneck.launches - n0 == fused
+        ref = model(x)
+    assert len(got) == len(ref) == (2 if "tiny" in name else 3)
+    for g, r in zip((t for p in got for t in p), (t for p in ref for t in p)):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-3, rtol=1e-3)
+    if name != "yolov9c.yaml":
+        return
+    half, half_g = model.set_dtype(torch.bfloat16), model_g.set_dtype(torch.bfloat16)
+    with torch.inference_mode():
+        n0 = fused_bottleneck_bf16.launches
+        got16 = half_g(xg)
+        torch.cuda.synchronize()
+        assert fused_bottleneck_bf16.launches - n0 == fused
+        ref16 = half(x)
+    for g, r16, r in zip((t for p in got16 for t in p), (t for p in ref16 for t in p), (t for p in ref for t in p)):
+        d_cpu = float((r16.float() - r).abs().max())
+        assert float((g.float().cpu() - r16.float()).abs().max()) <= 2 * d_cpu
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [32, 64, 128])
+def test_repbottleneck_on_card_matches_cpu(c):
+    """A fusable RepBottleneck (a RepConv without the identity BN, then
+    cv2), seeded BN statistics, folded: the card's kernel against the CPU's
+    plain version of the same fold (1e-4 abs/rel), one launch."""
+    dev = _card()
+    from spectrogram_yolov11_torch.nn.modules import RepBottleneck
+    from spectrogram_yolov11_torch.nn.tasks import fold_modules, init_weights
+
+    mod = RepBottleneck(c, c, e=1.0)
+    g = torch.Generator().manual_seed(c)
+    init_weights(mod, g)
+    with torch.no_grad():
+        for bn in (m for m in mod.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+            bn.running_mean.copy_(torch.randn(c, generator=g) * 0.05)
+            bn.running_var.uniform_(0.5, 1.5, generator=g)
+    mod.eval()
+    fold_modules(mod)
+    assert mod.fusable and mod.w1 is not None
+    x = torch.randn(4, c, 40, 40, generator=g)
+    mod_g = copy.deepcopy(mod).to(dev)
+    with torch.inference_mode():
+        n0 = fused_bottleneck.launches
+        got = mod_g(x.to(dev).contiguous(memory_format=torch.channels_last))
+        torch.cuda.synchronize()
+        assert fused_bottleneck.launches - n0 == 1
+        ref = mod(x)
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
 
 
 TINY_EXPORT = {"nc": 3, "scale": "n",

@@ -14,7 +14,8 @@ cfg/__init__.py and __main__.py, among them); with no card, the entry points (th
 predict, predict with augment=True and visualize=True, a weight ensemble's
 predict, val, the trainer and YOLO.train, a model built from YAML and
 trained, a pose or obb model's predict, val and train and the `pose` and
-`obb` command lines, YOLO.embed and YOLO.profile, the command line, the server and
+`obb` command lines, a yolov9c model's predict, val, train and export,
+YOLO.embed and YOLO.profile, the command line, the server and
 AutoBackend on a checkpoint or a YAML) raise for the default device instead
 of running on the CPU.
 """
@@ -108,6 +109,12 @@ def test_default_device_raises_without_card(monkeypatch):
     obb_data = {"path": str(ROOT), "val": "tests", "names": ["box", "bar"]}
     for run in (lambda: obb.predict(frame), lambda: obb.val(data=obb_data), lambda: obb.train(data=obb_data, amp=False),
                 lambda: entrypoint("yolo obb predict source=tests/torch_data/jpeg imgsz=32")):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            run()
+    v9 = YOLO("yolov9c.yaml")
+    for run in (lambda: v9.predict(frame), lambda: v9.val(data={"path": str(ROOT), "val": "tests", "names": ["a"]}),
+                lambda: v9.train(data={"path": str(ROOT), "val": "tests", "names": ["a"]}, amp=False),
+                lambda: v9.export(format="stablehlo", imgsz=64)):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             run()
     with pytest.raises(RuntimeError, match="no CUDA card"):
